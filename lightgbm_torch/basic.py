@@ -1,0 +1,459 @@
+"""Dataset and Booster — the user-facing objects of the port.
+
+The port's counterpart of ``lightgbm_tpu/basic.py`` (reference:
+python-package/lightgbm/basic.py, Dataset :1692, Booster :3495), trimmed to
+batch prediction: a Dataset over a numpy array, and a Booster that holds a
+model and predicts.  ``Booster.predict`` on at least
+``_DEVICE_PREDICT_MIN_ROWS`` rows of a Booster built on a training Dataset
+bins the rows with the training mappers and walks every tree on the device
+(``kernels/predict.py``); smaller batches and Boosters loaded from a model
+file alone take the host float64 walk, as in the reference.
+
+Device rule: a Dataset is constructed on ``device_type`` (default
+``"cuda"``), and with no GPU that raises; ``device_type="cpu"`` runs the
+device path's plain PyTorch version on the CPU.
+"""
+from __future__ import annotations
+
+import os
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from .binning import (BinnedData, construct_binned, find_bin_mappers,
+                      find_feature_groups, load_forced_bins)
+from .config import Config, resolve_aliases
+from .device_data import (DeviceData, build_routing_np, resolve_device,
+                          to_device)
+from .kernels.layout import pack_bins_T
+from .kernels.predict import (build_predict_tables, predict_stream,
+                              tables_to_device)
+from .objectives import create_objective
+from .utils.log import LightGBMError, log_warning, set_verbosity
+
+
+def _to_2d_float(data) -> np.ndarray:
+    arr = np.asarray(data, dtype=np.float64)
+    if arr.ndim == 1:
+        arr = arr.reshape(-1, 1)
+    if arr.ndim != 2:
+        raise LightGBMError(f"data must be 2-D, got shape {arr.shape}")
+    return arr
+
+
+class Dataset:
+    """Training dataset with lazy binning (reference: basic.py:1692)."""
+
+    def __init__(self, data, label=None, weight=None, init_score=None,
+                 feature_name: Union[str, List[str]] = "auto",
+                 categorical_feature: Union[str, List] = "auto",
+                 params: Optional[Dict[str, Any]] = None):
+        self.params = dict(params or {})
+        self._feature_name_arg = feature_name
+        self._categorical_feature_arg = categorical_feature
+        self.pandas_categorical = None   # numpy input carries no categories
+        self.raw_data = _to_2d_float(data)
+        self.num_data_, self.num_feature_ = self.raw_data.shape
+        self.label = (None if label is None
+                      else np.asarray(label, np.float64).reshape(-1))
+        self.weight = (None if weight is None
+                       else np.asarray(weight, np.float64).reshape(-1))
+        self.init_score = (None if init_score is None
+                           else np.asarray(init_score, np.float64))
+        self.binned: Optional[BinnedData] = None
+        self.device: Optional[torch.device] = None
+        self._device_data: Optional[DeviceData] = None
+
+    def _resolve_categorical(self) -> List[int]:
+        arg = self._categorical_feature_arg
+        if arg == "auto" or arg is None or arg == "":
+            return []
+        names = self.feature_name()
+        cats = []
+        for c in (arg if isinstance(arg, (list, tuple)) else [arg]):
+            if isinstance(c, str):
+                if c in names:
+                    cats.append(names.index(c))
+                else:
+                    log_warning(f"categorical_feature {c!r} not found in "
+                                "features")
+            else:
+                cats.append(int(c))
+        return sorted(set(cats))
+
+    def feature_name(self) -> List[str]:
+        if isinstance(self._feature_name_arg, list):
+            return [str(x) for x in self._feature_name_arg]
+        return [f"Column_{i}" for i in range(self.num_feature_)]
+
+    def construct(self) -> "Dataset":
+        """Resolve the device, then bin on the host (reference: the dense
+        in-memory path of basic.Dataset.construct)."""
+        if self.binned is not None:
+            return self
+        cfg = Config.from_params(self.params)
+        self.device = resolve_device(cfg.device_type)
+        if self.num_data_ == 0:
+            raise LightGBMError("Cannot construct Dataset: it has no rows")
+        cats = self._resolve_categorical()
+        mappers = find_bin_mappers(
+            self.raw_data, max_bin=cfg.max_bin,
+            min_data_in_bin=cfg.min_data_in_bin, categorical_features=cats,
+            use_missing=cfg.use_missing, zero_as_missing=cfg.zero_as_missing,
+            sample_cnt=cfg.bin_construct_sample_cnt,
+            seed=cfg.data_random_seed,
+            max_bin_by_feature=cfg.max_bin_by_feature,
+            forced_bins=load_forced_bins(cfg.forcedbins_filename,
+                                         self.num_feature_, cats))
+        groups = None
+        if cfg.enable_bundle:
+            sample_n = min(self.num_data_, cfg.bin_construct_sample_cnt)
+            rng = np.random.RandomState(cfg.data_random_seed)
+            idx = (np.arange(self.num_data_)
+                   if self.num_data_ <= sample_n else
+                   np.sort(rng.choice(self.num_data_, sample_n,
+                                      replace=False)))
+            sample_bins = [mappers[f].transform(self.raw_data[idx, f])
+                           for f in range(self.num_feature_)]
+            groups = find_feature_groups(sample_bins, mappers,
+                                         enable_bundle=True)
+            del sample_bins
+        self.binned = construct_binned(self.raw_data, mappers, groups)
+        return self
+
+    def device_data(self) -> DeviceData:
+        if self._device_data is None:
+            self.construct()
+            self._device_data = to_device(self.binned, self.device)
+        return self._device_data
+
+    def bin_mappers(self):
+        self.construct()
+        return self.binned.bin_mappers
+
+    def num_data(self) -> int:
+        return self.num_data_
+
+    def num_feature(self) -> int:
+        return self.num_feature_
+
+    def get_label(self) -> Optional[np.ndarray]:
+        return self.label
+
+    def get_weight(self) -> Optional[np.ndarray]:
+        return self.weight
+
+    def get_init_score_padded(self, n: int, k: int) -> Optional[np.ndarray]:
+        if self.init_score is None:
+            return None
+        s = self.init_score
+        if k == 1:
+            out = np.zeros(n, np.float32)
+            out[:len(s)] = s.reshape(-1)
+        else:
+            s2 = s.reshape(self.num_data_, k) if s.ndim == 1 and s.size == self.num_data_ * k \
+                else s.reshape(-1, k) if s.ndim == 2 else np.tile(s.reshape(-1, 1), (1, k))
+            out = np.zeros((n, k), np.float32)
+            out[:s2.shape[0]] = s2
+        return out
+
+
+class DevicePredictInputs:
+    """What one device batch prediction launches: the (G, N) bins and, per
+    class, the tables on the device and the depths of its trees."""
+
+    def __init__(self, n: int, bins_T: torch.Tensor, classes, es_freq: int,
+                 es_margin: float):
+        self.n = n
+        self.bins_T = bins_T
+        self.classes = classes   # [(nodes, leaf_value, cat_words, depths)]
+        self.es_freq = es_freq
+        self.es_margin = es_margin
+
+
+class Booster:
+    """Booster (reference: basic.py:3495). Wraps the boosting engine."""
+
+    _DEVICE_PREDICT_MIN_ROWS = 20_000
+
+    def __init__(self, params: Optional[Dict[str, Any]] = None,
+                 train_set: Optional[Dataset] = None,
+                 model_file: Optional[Union[str, Path]] = None,
+                 model_str: Optional[str] = None):
+        params = dict(params or {})
+        self.best_iteration = -1
+        self._engine = None
+        self._loaded_trees = None
+        if train_set is not None:
+            if not isinstance(train_set, Dataset):
+                raise TypeError("train_set must be a lightgbm_torch.Dataset")
+            self.params = resolve_aliases(params)
+            cfg = Config.from_params(params)
+            set_verbosity(cfg.verbosity)
+            # merge dataset params (dataset params win for binning keys)
+            train_set.params = {**params, **train_set.params}
+            train_set.construct()
+            objective = create_objective(cfg)
+            if objective is not None:
+                if train_set.get_label() is None:
+                    raise LightGBMError("training requires labels")
+                objective.init(train_set.get_label(), train_set.get_weight(),
+                               n=train_set.num_data())
+            from .models.gbdt import create_boosting
+            self._engine = create_boosting(cfg, train_set, objective)
+            self.config = cfg
+            self.train_set = train_set
+        elif model_file is not None or model_str is not None:
+            # a model alone predicts on the host, as in the reference: the
+            # device path needs a training Dataset's bin mappers
+            from .model_io import load_model_string
+            if model_file is not None:
+                model_str = Path(model_file).read_text()
+            self._loaded_trees = load_model_string(model_str)
+            self.params = params
+            self.config = Config.from_params(params)
+        else:
+            raise LightGBMError("need train_set or model_file/model_str")
+
+    @property
+    def engine(self):
+        if self._engine is None:
+            raise LightGBMError("Booster was loaded from a model file; "
+                                "training operations unavailable")
+        return self._engine
+
+    def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
+        return self.engine.train_one_iter()
+
+    def num_trees(self) -> int:
+        return len(self._all_trees())
+
+    def num_model_per_iteration(self) -> int:
+        if self._engine is not None:
+            return self.engine.num_tree_per_iteration
+        return self._loaded_trees.num_tree_per_iteration
+
+    def _all_trees(self):
+        if self._engine is not None:
+            return self.engine.models
+        return self._loaded_trees.trees
+
+    def predict(self, data, start_iteration: int = 0,
+                num_iteration: Optional[int] = None, raw_score: bool = False,
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                **kwargs) -> np.ndarray:
+        """Predict (reference: Booster.predict, basic.py:4625)."""
+        if isinstance(data, Dataset):
+            raise LightGBMError("predict() takes raw data, not a Dataset")
+        if pred_leaf or pred_contrib:
+            raise LightGBMError("pred_leaf and pred_contrib are not yet "
+                                "ported to lightgbm_torch")
+        X = _to_2d_float(data)
+        expected = self.num_feature()
+        if expected and X.shape[1] != expected:
+            raise LightGBMError(
+                f"The number of features in data ({X.shape[1]}) is not the same "
+                f"as it was in training data ({expected})")
+        use, k, _, _ = self._resolve_tree_slice(start_iteration, num_iteration)
+        n = X.shape[0]
+        early_stop = bool(kwargs.get("pred_early_stop", False))
+        # freq < 1 would never fire (and 0 would crash the modulo); clamp
+        es_freq = max(int(kwargs.get("pred_early_stop_freq", 10)), 1)
+        es_margin = float(kwargs.get("pred_early_stop_margin", 10.0))
+        # init scores are folded into tree 0 at training time (AddBias), so a
+        # plain sum over trees is the complete raw score
+        es = (es_freq, es_margin) if early_stop else None
+        score = self._try_device_predict(X, use, k, es=es)
+        if score is None:
+            score = _host_predict(X, use, k, early_stop, es_freq, es_margin)
+        if self._average_output() and len(use):
+            score = score / max(len(use) // max(k, 1), 1)
+        if raw_score:
+            return score
+        return np.asarray(self._convert_output_fn()(score))
+
+    def _resolve_tree_slice(self, start_iteration: int,
+                            num_iteration: Optional[int]):
+        """Iteration-window resolution (best_iteration fallback + end clamp);
+        returns (trees, k, start, end)."""
+        trees = self._all_trees()
+        k = self.num_model_per_iteration()
+        n_total = len(trees) // max(k, 1)
+        if num_iteration is None or num_iteration <= 0:
+            num_iteration = (self.best_iteration
+                             if self.best_iteration
+                             and self.best_iteration > 0 else n_total)
+        end = min(start_iteration + num_iteration, n_total)
+        return trees[start_iteration * k:end * k], k, start_iteration, end
+
+    def _device_predict_inputs(self, X, use, k, es=None, times=None):
+        """Bin the raw matrix with the training mappers and build the device
+        tensors of a batch walk, or None when the device path does not apply
+        (small batch, no engine, linear trees, early stop with k > 1,
+        bundled or near-full categorical features, bins wider than uint8).
+        The reference's VMEM-size gates (basic.py:1569-1576, :1633) do not
+        apply: on the GPU the tables sit in device memory and L2.  A dict
+        passed as ``times`` receives the seconds of its host stages:
+        ``binning`` (with the categorical sentinel re-bin), ``tables`` and
+        ``upload`` (bins and tables copied to the device)."""
+        if (self._engine is None or not use
+                or X.shape[0] < self._DEVICE_PREDICT_MIN_ROWS):
+            return None
+        if es is not None and k != 1:
+            return None
+        L = max(max(t.num_leaves for t in use), 2)
+        cat_feats = set()
+        for t in use:
+            if t.is_linear:
+                return None    # linear leaves: the host walk only
+            ni = max(t.num_leaves - 1, 0)
+            if ni:
+                dt = np.asarray(t.decision_type[:ni]).astype(np.int64)
+                for f in np.asarray(t.split_feature[:ni])[(dt & 1) > 0]:
+                    cat_feats.add(int(f))
+        eng = self.engine
+        tb = eng.train_data.binned
+        routing_np, _ = build_routing_np(tb)
+        for f in sorted(cat_feats):
+            # the NaN/unseen sentinel re-bin below needs the cat feature
+            # alone in its group, and the sentinel bin num_bins must fit
+            # the uint8 storage — bundled or near-full ladders stay host
+            if routing_np["bundled"][f] or tb.bin_mappers[f].num_bins >= 255:
+                return None
+        t0 = time.perf_counter()
+        binned = construct_binned(X, tb.bin_mappers, tb.group_features)
+        bins = binned.bins
+        if bins.dtype != np.uint8:
+            return None    # bundles wider than 256 bins: the host walk
+        if cat_feats:
+            # the host walk routes NaN / unseen / negative categories RIGHT
+            # (bit absent from the bitset); the mapper bins them to bin 0
+            # (the most frequent category) — re-bin those rows to the
+            # sentinel bin one past the span, whose bitset bit is always
+            # zero by construction (build_predict_tables)
+            for f in sorted(cat_feats):
+                m = tb.bin_mappers[f]
+                v = X[:, f]
+                ivc = np.where(np.isnan(v), -1.0, v)
+                ivc = np.clip(ivc, -1.0, float(2 ** 62)).astype(np.int64)
+                ok = (ivc >= 0) & np.isin(ivc, m.categories.astype(np.int64))
+                bins[~ok, int(routing_np["feat_group"][f])] = m.num_bins
+        t1 = time.perf_counter()
+        host_tables = [build_predict_tables(use[c::k], routing_np, L,
+                                            tb.bin_mappers) for c in range(k)]
+        t2 = time.perf_counter()
+        dev = eng.device
+        classes = [(*tables_to_device(t, dev), t.depths) for t in host_tables]
+        bins_T = pack_bins_T(bins, dev)
+        if times is not None:
+            times.update(binning=t1 - t0, tables=t2 - t1,
+                         upload=time.perf_counter() - t2)
+        es_freq, es_margin = (int(es[0]), float(es[1])) if es else (0, 0.0)
+        return DevicePredictInputs(X.shape[0], bins_T, classes, es_freq,
+                                   es_margin)
+
+    def _try_device_predict(self, X, use, k, es=None):
+        """Batched device prediction (kernels/predict.py): one launch per
+        class over all rows.  Returns float64 raw scores, or None when the
+        device path does not apply (see _device_predict_inputs)."""
+        inp = self._device_predict_inputs(X, use, k, es)
+        if inp is None:
+            return None
+        outs = [predict_stream(inp.bins_T, nodes, lv, words, depths,
+                               inp.es_freq, inp.es_margin)
+                for nodes, lv, words, depths in inp.classes]
+        host = [o.cpu().numpy() for o in outs]
+        if k == 1:
+            return host[0].astype(np.float64)
+        return np.stack(host, axis=1).astype(np.float64)
+
+    def _average_output(self) -> bool:
+        if self._engine is not None:
+            return self.engine._average_output
+        return self._loaded_trees.average_output
+
+    def _convert_output_fn(self):
+        if self._engine is not None and self.engine.objective is not None:
+            return self.engine.objective.convert_output
+        if self._loaded_trees is not None:
+            return self._loaded_trees.convert_output
+        return lambda x: x
+
+    def save_model(self, filename: Union[str, Path],
+                   num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> "Booster":
+        """Write the model text; tmp + os.replace, so a reader never sees a
+        torn file."""
+        text = self.model_to_string(num_iteration, start_iteration,
+                                    importance_type)
+        tmp = f"{filename}.tmp.{os.getpid()}"
+        with open(tmp, "w") as fh:
+            fh.write(text)
+        os.replace(tmp, str(filename))
+        return self
+
+    def model_to_string(self, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0,
+                        importance_type: str = "split") -> str:
+        from .model_io import save_model_string
+        return save_model_string(self, num_iteration, start_iteration,
+                                 importance_type)
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        trees = self._all_trees()
+        if iteration is not None and iteration > 0:
+            trees = trees[:iteration * self.num_model_per_iteration()]
+        imp = np.zeros(self.num_feature(), np.float64)
+        for t in trees:
+            for i in range(t.num_leaves - 1):
+                f = int(t.split_feature[i])
+                if importance_type == "split":
+                    imp[f] += 1.0
+                else:
+                    imp[f] += float(t.split_gain[i])
+        if importance_type == "split":
+            return imp.astype(np.int32)
+        return imp
+
+    def num_feature(self) -> int:
+        if self._engine is not None:
+            return self.train_set.num_feature()
+        return self._loaded_trees.max_feature_idx + 1
+
+    def feature_name(self) -> List[str]:
+        if self._engine is not None:
+            return self.train_set.feature_name()
+        return self._loaded_trees.feature_names
+
+
+def _host_predict(X, use, k, early_stop, es_freq, es_margin) -> np.ndarray:
+    """The float64 host walk, tree by tree (reference: basic.py:1447-1481,
+    prediction_early_stop.cpp CreateBinary / CreateMulticlass)."""
+    n = X.shape[0]
+    score = np.zeros(n, np.float64) if k == 1 else np.zeros((n, k), np.float64)
+    active = np.ones(n, bool)
+    all_active = True
+    for i, t in enumerate(use):
+        col = (slice(None),) if k == 1 else (slice(None), i % k)
+        if early_stop and not all_active:
+            score[(active,) + col[1:]] += t.predict_raw(X[active])
+        else:
+            score[col] += t.predict_raw(X)
+        if early_stop and (i + 1) % (es_freq * k) == 0:
+            if k == 1:
+                # rows whose margin 2|score| clears the threshold stop
+                # accumulating further trees
+                active &= ~(2.0 * np.abs(score) > es_margin)
+            else:
+                # top-1 minus top-2 margin
+                part = np.partition(score, -2, axis=1)
+                active &= ~(part[:, -1] - part[:, -2] > es_margin)
+            all_active = bool(active.all())
+            if not active.any():
+                break
+    return score

@@ -1,0 +1,121 @@
+"""Host BinnedData -> device tensors + the routing layout.
+
+The port's counterpart of ``lightgbm_tpu/device_data.py:30-183``: the binned
+matrix lives in device memory, and the per-feature routing layout maps a
+stored group bin back to the feature-local bin a split compares against.
+The split-finding ``FeatureLayout`` comes with training.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .binning import BIN_CATEGORICAL, MISSING_NAN, MISSING_ZERO, BinnedData
+from .utils.log import LightGBMError
+
+ROUTING_FIELDS = ("feat_group", "span_start", "default_bin", "bundled",
+                  "nan_bin", "num_bins", "mzero_bin")
+
+
+class RoutingLayout(NamedTuple):
+    """Per-feature routing, indexed by original feature id (reference:
+    ops/grow.py RoutingLayout)."""
+    feat_group: torch.Tensor     # (F,) i32 group column holding the feature
+    span_start: torch.Tensor     # (F,) i32 first stored bin of a bundled span
+    default_bin: torch.Tensor    # (F,) i32
+    bundled: torch.Tensor        # (F,) bool
+    nan_bin: torch.Tensor        # (F,) i32 NaN bin, -1 = none
+    num_bins: torch.Tensor       # (F,) i32
+    mzero_bin: torch.Tensor      # (F,) i32 zero-as-missing bin, -1 = none
+
+
+class DeviceData(NamedTuple):
+    bins: torch.Tensor           # (N_pad, G) uint8/int16 on ``device``
+    routing: RoutingLayout
+    num_data: int
+    num_features: int
+    num_groups: int
+    max_bins: int                # Bmax
+    device: torch.device
+
+
+def resolve_device(device_type: str) -> torch.device:
+    """The device an entry point runs on.  ``cuda`` (the default) needs a
+    GPU and never falls back to the CPU; ``cpu`` must be asked for."""
+    kind = str(device_type).strip().lower()
+    if kind == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise LightGBMError(
+            f"device_type={device_type!r} needs a CUDA GPU, and torch finds "
+            "none; pass device_type='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def build_routing_np(binned: BinnedData):
+    """Routing arrays (numpy) + Bmax (reference: device_data.build_layouts,
+    routing half)."""
+    F = binned.num_features
+    G = binned.num_groups
+    Bmax = int(max(int(binned.group_bin_counts.max()) if G else 1,
+                   int(binned.feature_num_bins.max()) if F else 1))
+    r = {
+        "feat_group": np.zeros(F, np.int32),
+        "span_start": np.zeros(F, np.int32),
+        "default_bin": np.zeros(F, np.int32),
+        "bundled": np.zeros(F, bool),
+        "nan_bin": np.full(F, -1, np.int32),
+        "num_bins": np.asarray(binned.feature_num_bins, np.int32).copy(),
+        "mzero_bin": np.full(F, -1, np.int32),
+    }
+    for gi, feats in enumerate(binned.group_features):
+        bundled = len(feats) > 1
+        in_group = 1
+        for f in feats:
+            m = binned.bin_mappers[f]
+            r["feat_group"][f] = gi
+            r["default_bin"][f] = m.default_bin
+            if bundled:
+                r["span_start"][f] = in_group
+                r["bundled"][f] = True
+                in_group += m.num_bins - 1
+            if m.bin_type == BIN_CATEGORICAL:
+                continue
+            if m.missing_type == MISSING_NAN:
+                r["nan_bin"][f] = m.num_bins - 1
+            elif m.missing_type == MISSING_ZERO:
+                # zeros are the missing value (zero_as_missing): they live
+                # in the default bin and follow the split's default
+                # direction (reference: MissingType::Zero, bin.h:28)
+                r["mzero_bin"][f] = m.default_bin
+    return r, Bmax
+
+
+def build_layouts(binned: BinnedData, device: torch.device):
+    """RoutingLayout as int32/bool tensors on ``device`` + Bmax."""
+    r, Bmax = build_routing_np(binned)
+    routing = RoutingLayout(**{k: torch.as_tensor(v, device=device)
+                               for k, v in r.items()})
+    return routing, Bmax
+
+
+def to_device(binned: BinnedData, device: torch.device,
+              pad_rows_to: int = 256) -> DeviceData:
+    """(N_pad, G) bins on ``device``, rows padded with zeros to a multiple
+    of ``pad_rows_to`` as in the reference."""
+    routing, Bmax = build_layouts(binned, device)
+    bins = np.ascontiguousarray(binned.bins)
+    n = bins.shape[0]
+    n_pad = -(-n // pad_rows_to) * pad_rows_to
+    if n_pad != n:
+        bins = np.pad(bins, ((0, n_pad - n), (0, 0)))
+    if bins.dtype == np.uint16:
+        # torch has no uint16 arithmetic; group bins stay < 2**15
+        bins = bins.astype(np.int16)
+    return DeviceData(bins=torch.as_tensor(bins, device=device),
+                      routing=routing, num_data=n,
+                      num_features=binned.num_features,
+                      num_groups=binned.num_groups, max_bins=Bmax,
+                      device=device)

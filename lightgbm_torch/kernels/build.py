@@ -1,0 +1,109 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface (no PyTorch headers, so a build takes
+seconds).  Libraries go to ``lightgbm_torch/_build/`` (listed in
+``.gitignore``), named by a hash of the source and the flags, so an edited
+source builds anew.  Nothing builds when the package is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+from ..utils.log import LightGBMError
+
+_HERE = Path(__file__).resolve().parent
+BUILD_DIR = _HERE.parent / "_build"
+
+# kernel name -> source, relative to this directory
+SOURCES: Dict[str, str] = {
+    "predict_stream": "csrc/predict_stream.cu",
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_c_ptr, _c_int, _c_i64, _c_f32 = (ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_int64, ctypes.c_float)
+# C signature of each library's entry point: (symbol, argtypes)
+SIGNATURES = {
+    "predict_stream": ("lgbt_predict_stream",
+                       [_c_ptr, _c_i64, _c_ptr, _c_ptr, _c_ptr, _c_int,
+                        _c_int, _c_int, _c_int, _c_f32, _c_ptr, _c_ptr]),
+}
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "",
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise LightGBMError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                        "of lightgbm_torch are built from source at first use")
+
+
+def library_path(name: str) -> Path:
+    src = (_HERE / SOURCES[name]).read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every named kernel not built yet, all nvcc processes started
+    together.  Returns seconds per kernel built (the compiler's ``-Xptxas
+    -v`` report goes to ``_build/<name>.log``).  Raises on a failed build."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in names if not library_path(n).exists()]
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        out = library_path(n)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_HERE / SOURCES[n])]
+        log = open(BUILD_DIR / f"{n}.log", "wb")
+        procs[n] = (subprocess.Popen(cmd, stdout=log,
+                                     stderr=subprocess.STDOUT), tmp, out, log)
+    seconds = {}
+    failed = []
+    for n, (proc, tmp, out, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        seconds[n] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append(n)
+            continue
+        os.replace(tmp, out)
+    if failed:
+        logs = "\n".join((BUILD_DIR / f"{n}.log").read_text(errors="replace")
+                         for n in failed)
+        raise LightGBMError(f"nvcc failed for {failed}:\n{logs}")
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's library, built first if needed, with its entry point's
+    argtypes and restype set."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LOADED[name] = lib
+    return lib

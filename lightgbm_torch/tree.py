@@ -1,0 +1,155 @@
+"""Tree model structure (host side).
+
+The port's copy of ``lightgbm_tpu/tree.py``'s host ``Tree`` (reference:
+include/LightGBM/tree.h:27 — flat-array binary tree: split feature, bin + real
+thresholds, child pointers with ~leaf encoding, leaf values/counts,
+categorical bitsets; src/io/tree.cpp serialization).  ``predict_raw`` is the
+float64 host walk that the device kernels are held against.  The grower's
+``TreeArrays`` and ``finalize_tree`` come with training.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+
+# bin-space direction flags of a split (reference: lightgbm_tpu ops/split.py
+# DIR_*), used by the bin-space tree arrays of models/gbdt._tree_to_device
+DIR_DEFAULT_LEFT = 1   # missing values go left
+DIR_CATEGORICAL = 2    # categorical split
+
+
+@dataclass
+class Tree:
+    """Host-side tree with real-valued thresholds (model IO + raw prediction).
+
+    ``shrinkage`` records the cumulative learning-rate factor applied to leaf values
+    (reference: Tree::Shrinkage, tree.h)."""
+
+    num_leaves: int
+    split_feature: np.ndarray        # (num_leaves-1,) int32
+    threshold_bin: np.ndarray        # (num_leaves-1,) int32
+    threshold: np.ndarray            # (num_leaves-1,) float64 — real split value
+    decision_type: np.ndarray        # (num_leaves-1,) uint8 — LightGBM-compatible bits
+    left_child: np.ndarray
+    right_child: np.ndarray
+    split_gain: np.ndarray
+    internal_value: np.ndarray
+    internal_weight: np.ndarray
+    internal_count: np.ndarray
+    leaf_value: np.ndarray           # (num_leaves,) float64
+    leaf_weight: np.ndarray
+    leaf_count: np.ndarray
+    cat_boundaries: np.ndarray = field(default_factory=lambda: np.zeros(1, np.int32))
+    cat_threshold: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint32))
+    shrinkage: float = 1.0
+    is_linear: bool = False
+    # linear-tree fields (reference: tree.h leaf_const_/leaf_coeff_/leaf_features_)
+    leaf_const: Optional[np.ndarray] = None        # (num_leaves,) float64
+    leaf_features: Optional[List[List[int]]] = None
+    leaf_coeff: Optional[List[List[float]]] = None
+
+    # LightGBM decision_type bit layout (reference: tree.h kCategoricalMask etc.)
+    _CAT_MASK = 1
+    _DEFAULT_LEFT_MASK = 2
+    # missing type in bits 2-3: 0 none, 1 zero, 2 nan
+    @staticmethod
+    def make_decision_type(is_cat: bool, default_left: bool, missing_type: int) -> int:
+        d = 0
+        if is_cat:
+            d |= Tree._CAT_MASK
+        if default_left:
+            d |= Tree._DEFAULT_LEFT_MASK
+        d |= (missing_type & 3) << 2
+        return d
+
+    @property
+    def num_cat(self) -> int:
+        return int(len(self.cat_boundaries) - 1) if len(self.cat_threshold) else 0
+
+    # ------------------------------------------------------------------
+    def predict_raw(self, X: np.ndarray) -> np.ndarray:
+        """Vectorised raw-feature prediction (reference: Tree::Predict / tree.h:135
+        NumericalDecision: missing handling + `value <= threshold` goes left)."""
+        n = X.shape[0]
+        if self.num_leaves <= 1:
+            return np.full(n, self.leaf_value[0] if len(self.leaf_value) else 0.0)
+        node = np.zeros(n, dtype=np.int64)
+        out_leaf = np.full(n, -1, dtype=np.int64)
+        active = node >= 0
+        # max path length bounded by number of internal nodes
+        for _ in range(self.num_leaves - 1):
+            if not active.any():
+                break
+            idx = node[active]
+            f = self.split_feature[idx]
+            v = X[active, f]
+            dt = self.decision_type[idx]
+            is_cat = (dt & self._CAT_MASK) != 0
+            default_left = (dt & self._DEFAULT_LEFT_MASK) != 0
+            missing_type = (dt >> 2) & 3
+            nan_mask = np.isnan(v)
+            zero_missing = missing_type == 1
+            miss = np.where(zero_missing, nan_mask | (np.abs(v) < 1e-35), nan_mask)
+            go_left = v <= self.threshold[idx]
+            # categorical: membership in bitset
+            if is_cat.any():
+                ci = idx[is_cat]
+                vi = v[is_cat]
+                iv = np.where(np.isnan(vi), -1, vi).astype(np.int64)
+                gl = np.zeros(len(ci), dtype=bool)
+                for j, (node_i, cat_v) in enumerate(zip(ci, iv)):
+                    k = self._cat_index_of_node(node_i)
+                    if k >= 0 and cat_v >= 0:
+                        s, e = self.cat_boundaries[k], self.cat_boundaries[k + 1]
+                        word = cat_v // 32
+                        if word < e - s:
+                            gl[j] = bool((self.cat_threshold[s + word] >> (cat_v % 32)) & 1)
+                go_left[is_cat] = gl
+                miss = miss & ~is_cat
+            go_left = np.where(miss, default_left, go_left)
+            nxt = np.where(go_left, self.left_child[idx], self.right_child[idx])
+            leaf_hit = nxt < 0
+            sel = np.where(active)[0]
+            out_leaf[sel[leaf_hit]] = ~nxt[leaf_hit]
+            node[sel] = nxt
+            active = node >= 0
+        out_leaf = np.where(out_leaf < 0, 0, out_leaf)
+        if self.is_linear and self.leaf_const is not None:
+            return self._linear_output(X, out_leaf)
+        return self.leaf_value[out_leaf]
+
+    def _linear_output(self, X: np.ndarray, leaf: np.ndarray) -> np.ndarray:
+        """Linear-leaf prediction: const + coeff . x; rows with NaN in any
+        used feature fall back to the regular constant leaf output
+        (reference: Tree::Predict linear branch, tree.h)."""
+        out = self.leaf_const[leaf].astype(np.float64).copy()
+        for ln in range(self.num_leaves):
+            feats = self.leaf_features[ln] if self.leaf_features else []
+            rows = np.where(leaf == ln)[0]
+            if len(rows) == 0 or not feats:
+                continue
+            sub = X[np.ix_(rows, feats)]
+            nan_rows = np.isnan(sub).any(axis=1)
+            lin = sub @ np.asarray(self.leaf_coeff[ln], np.float64)
+            out[rows] = np.where(nan_rows, self.leaf_value[ln],
+                                 out[rows] + lin)
+        return out
+
+    def predict_leaf_raw(self, X: np.ndarray) -> np.ndarray:
+        """Leaf index per row (pred_leaf path)."""
+        n = X.shape[0]
+        if self.num_leaves <= 1:
+            return np.zeros(n, dtype=np.int32)
+        saved = self.leaf_value
+        try:
+            self.leaf_value = np.arange(self.num_leaves, dtype=np.float64)
+            return self.predict_raw(X).astype(np.int32)
+        finally:
+            self.leaf_value = saved
+
+    def _cat_index_of_node(self, node_i: int) -> int:
+        """Index into cat_boundaries for a categorical node: the threshold_bin field of a
+        categorical node stores its categorical-split ordinal."""
+        return int(self.threshold_bin[node_i])

@@ -2,6 +2,7 @@
 """Smoke run of lightgbm_torch on one NVIDIA GPU: build, check, time.
 
     python3 chip_smoke.py [--seed 0] [--rows 1000000] [--trees 500]
+                          [--train-iters 20]
 
 Phases, each printing one JSON line:
 
@@ -11,11 +12,20 @@ Phases, each printing one JSON line:
 2. small: seeded models over data with NaN, zero-as-missing, categorical
    and EFB-bundled features (binary and 3-class, with and without
    prediction early stop) served through ``train(..., 0, init_model=...)``
-   and ``Booster.predict``.  The CUDA kernel must equal its plain PyTorch
-   version bit for bit (both add the same float32 leaf values in the same
-   tree order), and ``predict`` must match the float64 host walk within
+   and ``Booster.predict``.  The prediction kernel (K1) must equal its plain
+   PyTorch version bit for bit (both add the same float32 leaf values in the
+   same tree order), and ``predict`` must match the float64 host walk within
    rtol 1e-4 / atol 1e-5.
-3. full: the repo's north-star shape, HIGGS-like data (28 numeric features,
+3. train_small: 20 000 rows of numeric features with NaN, a zero-heavy
+   column and an EFB-bundled pair, 127 leaves at a split budget of 64 (so
+   every tree ends in the route-only sprint round), 5 iterations on the CPU
+   (plain versions) and on the card (kernels).  Dyadic custom gradients
+   must give byte-identical model text; the binary objective the same first
+   tree and raw scores within atol 2e-4; and every K2 and K4 launch of the
+   card's binary run, and of a run at the default max_bin 255 (more slots
+   than one block holds), replayed through the plain version on the card,
+   must be bit-equal.
+4. full: the repo's north-star shape, HIGGS-like data (28 numeric features,
    max_bin 63) and a seeded synthetic 500-tree x 255-leaf binary model
    written as LightGBM model text: ``Dataset`` over 1M rows, ``train(params,
    ds, 0, init_model=path)``, ``predict`` on 1M more rows.  The kernel's
@@ -23,12 +33,21 @@ Phases, each printing one JSON line:
    is held bit for bit against its plain version on all rows, the scores
    against the host walk on a 20 000-row subsample, and the kernel, the
    plain version, the host walk and ``predict`` are timed.
+5. train: the full phase's Dataset trained through ``lightgbm_torch.train``
+   (binary, 255 leaves, learning rate 0.1, split budget 64) for
+   ``--train-iters`` iterations with the kernel counts read around that
+   call; the model predicts the held-out rows through K1 (AUC > 0.80); the
+   first 3 trees are trained again and must repeat byte for byte; every K2
+   and K4 launch of one tree is replayed through its plain version on the
+   card (bit-equal) and then timed one by one beside its plain version and
+   bound; one more iteration is timed phase by phase.
 
-Then a ``kernels`` line (each ported kernel's launches on the main path,
-error against its plain version, time, plain time and bound), the card's
-name and power limit as nvidia-smi prints them, and as the last line
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
-without a CUDA device the script exits 2 and prints no result.
+Then a ``kernels`` line (each ported kernel's launches on its main path,
+largest error against its plain version, time, plain time, bound and
+library time), the card's name and power limit as nvidia-smi prints them,
+and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
+and exits non-zero; without a CUDA device the script exits 2 and prints no
+result.
 """
 from __future__ import annotations
 
@@ -51,8 +70,14 @@ HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 
 RTOL, ATOL = 1e-4, 1e-5
-KERNEL_SOURCES = {"predict_stream": "lightgbm_torch/kernels/csrc/predict_stream.cu"}
-KERNEL_REPLACES = {"predict_stream": "lightgbm_tpu/pallas/predict_kernel.py:176"}
+KERNEL_SOURCES = {
+    "predict_stream": "lightgbm_torch/kernels/csrc/predict_stream.cu",
+    "route_and_hist": "lightgbm_torch/kernels/csrc/route_and_hist.cu",
+    "leaf_gather": "lightgbm_torch/kernels/csrc/leaf_gather.cu"}
+KERNEL_REPLACES = {
+    "predict_stream": "lightgbm_tpu/pallas/predict_kernel.py:176",
+    "route_and_hist": "lightgbm_tpu/pallas/stream_kernel.py:580",
+    "leaf_gather": "lightgbm_tpu/pallas/stream_kernel.py:742"}
 
 
 def emit(obj) -> None:
@@ -230,7 +255,8 @@ def path_sum(inp, use, node_weight, max_depth):
 # --------------------------------------------------------------------------
 
 def cuda_ms(fn, reps, warmup=1):
-    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events around
+    each call from an idle device: the host's enqueue is in the time."""
     import torch
 
     for _ in range(warmup):
@@ -245,6 +271,30 @@ def cuda_ms(fn, reps, warmup=1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=20, clock_hz=2e9):
+    """Device milliseconds of one call of ``fn``: ``reps`` calls queued
+    behind a spin kernel that outlasts their enqueue (twice the host time of
+    ``reps`` calls), with the events between the calls, so the time is the
+    device's alone and not the host's launch overhead."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * reps * host_s + 2e-3) * clock_hz))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # --------------------------------------------------------------------------
@@ -347,7 +397,7 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
 
     t0 = time.perf_counter()
     X, y = make_higgs_like(rows, 28, seed)
-    Xs, _ = make_higgs_like(rows, 28, seed + 1)
+    Xs, ys = make_higgs_like(rows, 28, seed + 1)
     params = {"objective": "binary", "num_leaves": num_leaves, "max_bin": 63,
               "verbosity": -1}
     ds = lt.Dataset(X, label=y, params=dict(params)).construct()
@@ -371,10 +421,8 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
     if pred.shape != (rows,) or not np.isfinite(pred).all():
         raise RuntimeError("predict returned a wrong shape or non-finite "
                            "scores")
-    for name, count in launches.items():
-        if count == 0:
-            raise RuntimeError(f"kernel {name} was not launched on the main "
-                               "path")
+    if launches["predict_stream"] == 0:
+        raise RuntimeError("predict_stream was not launched by predict")
 
     inp, (got,), err = check_kernel_against_plain(bst, Xs)
     if not np.array_equal(got.cpu().numpy().astype(np.float64), pred):
@@ -393,8 +441,8 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
                                times=breakdown)
     nodes, lv, words, depths = inp.classes[0]
     maxd = int(max(depths))
-    ms = cuda_ms(lambda: tpk.predict_stream_cuda(inp.bins_T, nodes, lv, words,
-                                                 maxd), reps=5)
+    ms = device_ms(lambda: tpk.predict_stream_cuda(inp.bins_T, nodes, lv,
+                                                   words, maxd), reps=5)
     plain_ms = cuda_ms(lambda: tpk.predict_stream_plain(inp.bins_T, nodes, lv,
                                                         words, depths),
                        reps=1, warmup=0)
@@ -430,7 +478,375 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
           "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
           "node_record_bytes": record_bytes,
           "node_record_gb_per_s": record_bytes / (ms / 1e3) / 1e9})
-    return kernel
+    return kernel, ds, Xs, ys
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def make_train_small(n, seed):
+    """The numeric columns of make_mixed (NaN, zero-heavy, the EFB-bundled
+    pair, dense noise) and a binary label with signal in several of them."""
+    X, _ = make_mixed(n, seed)
+    X = X[:, [0, 1, 3, 4, 5, 6]]
+    rs = np.random.RandomState(seed + 7)
+    logit = (np.nan_to_num(X[:, 0]) + 0.8 * X[:, 1] + 2.0 * X[:, 2]
+             - 1.5 * X[:, 3] + 0.7 * X[:, 4] * X[:, 5])
+    y = (rs.rand(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float64)
+    return X, y
+
+
+def dyadic_fobj(score, ds):
+    """Custom gradients on a 1/64 grid with unit hessians: every sum of them
+    is exact in float32, so any correct formulation grows the same trees."""
+    g = np.clip(np.round(64.0 * (score - ds.get_label())) / 64.0,
+                -127 / 64, 127 / 64)
+    return g.astype(np.float32), np.ones_like(g, dtype=np.float32)
+
+
+def model_trees_text(bst, **kw):
+    """The model text up to the end of its trees (the parameter block names
+    the device, the feature importances count all trees)."""
+    return bst.model_to_string(**kw).split("end of trees")[0]
+
+
+def tree_structure(t):
+    return (t.num_leaves, t.split_feature.tolist(), t.threshold.tolist(),
+            t.decision_type.tolist(), t.left_child.tolist(),
+            t.right_child.tolist())
+
+
+class Capture:
+    """Records every K2 and K4 call of the training loop (inputs and
+    outputs) while active, by wrapping the dispatchers that ops/grow.py and
+    models/gbdt.py call.  The calls still go through the kernels' wrappers
+    and are counted there."""
+
+    def __init__(self):
+        self.k2, self.k4 = [], []
+
+    def __enter__(self):
+        from lightgbm_torch.models import gbdt
+        from lightgbm_torch.ops import grow
+        self._orig = (grow.route_and_hist, gbdt.leaf_gather)
+        k2_call, k4_call = self._orig
+
+        def k2(bins_T, leaf_id, tabs, words, grad, hess, cnt, *args):
+            out = k2_call(bins_T, leaf_id, tabs, words, grad, hess, cnt,
+                          *args)
+            self.k2.append(((bins_T, leaf_id.clone(), tabs.clone(),
+                             words.clone(), grad, hess, cnt) + tuple(args),
+                            out))
+            return out
+
+        def k4(leaf_id, values):
+            out = k4_call(leaf_id, values)
+            self.k4.append(((leaf_id.clone(), values.clone()), out))
+            return out
+
+        grow.route_and_hist, gbdt.leaf_gather = k2, k4
+        return self
+
+    def __exit__(self, *exc):
+        from lightgbm_torch.models import gbdt
+        from lightgbm_torch.ops import grow
+        grow.route_and_hist, gbdt.leaf_gather = self._orig
+
+
+def max_abs_diff(a, b) -> float:
+    return float((a.double() - b.double()).abs().max().item()) \
+        if a.numel() else 0.0
+
+
+def replay_against_plain(cap):
+    """Every captured launch through the plain version on the card; raises
+    unless leaf ids, counts, histograms and gathers are equal bit for bit.
+    Returns the launches replayed and the largest difference of each
+    kernel's outputs from its plain version's."""
+    import torch
+    from lightgbm_torch.kernels import leaf_gather as lg, route_hist as rh
+
+    err = {"route_and_hist": 0.0, "leaf_gather": 0.0}
+    for args, (new_leaf, hist, counts) in cap.k2:
+        p_leaf, p_hist, p_counts = rh.route_and_hist_plain(*args)
+        diffs = [max_abs_diff(new_leaf, p_leaf), max_abs_diff(counts, p_counts)]
+        if hist is not None:
+            diffs.append(max_abs_diff(hist, p_hist))
+        err["route_and_hist"] = max(err["route_and_hist"], *diffs)
+        same = (torch.equal(new_leaf, p_leaf) and torch.equal(counts, p_counts)
+                and (hist is None or torch.equal(hist, p_hist)))
+        if not same:
+            raise RuntimeError(f"route_and_hist differs from its plain "
+                               f"version (max abs {max(diffs)})")
+    for (leaf_id, values), out in cap.k4:
+        want = lg.leaf_gather_plain(leaf_id, values)
+        diff = max_abs_diff(out, want)
+        err["leaf_gather"] = max(err["leaf_gather"], diff)
+        if not torch.equal(out, want):
+            raise RuntimeError(f"leaf_gather differs from its plain version "
+                               f"(max abs {diff})")
+    return {"route_and_hist": len(cap.k2), "leaf_gather": len(cap.k4)}, err
+
+
+def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
+    """Training on both devices: a dyadic custom-gradient run must give
+    byte-identical model text; a binary run must grow the same first tree
+    and scores within atol 2e-4; every K2 and K4 launch of the card's binary
+    run must equal its plain version on the card.  num_leaves 127 makes the
+    split budget 64, so the main loop ends in the route-only sprint round."""
+    import torch
+    import lightgbm_torch as lt
+
+    X, y = make_train_small(n, seed)
+    base = {"num_leaves": num_leaves, "max_splits_per_round": 64,
+            "max_bin": 63, "verbosity": -1}
+    texts, boosters = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = {**base, "objective": "none", "device_type": dev}
+        bst = lt.Booster(p, lt.Dataset(X, label=y, params=p))
+        for _ in range(iters):
+            bst.update(fobj=dyadic_fobj)
+        texts[dev] = model_trees_text(bst)
+    groups = bst.engine.train_data.binned.group_features
+    if not any(len(g) > 1 for g in groups):
+        raise RuntimeError("the training data must bundle features (EFB)")
+    if texts["cpu"] != texts["cuda"]:
+        raise RuntimeError("dyadic training differs between CPU and card")
+    nl = [t.num_leaves for t in bst.engine.models]
+    cap = Capture()
+    for dev in ("cpu", "cuda"):
+        p = {**base, "objective": "binary", "device_type": dev}
+        ds = lt.Dataset(X, label=y, params=p)
+        if dev == "cuda":
+            with cap:
+                boosters[dev] = lt.train(p, ds, iters)
+        else:
+            boosters[dev] = lt.train(p, ds, iters)
+    cpu_t, gpu_t = (boosters[d].engine.models for d in ("cpu", "cuda"))
+    if tree_structure(cpu_t[0]) != tree_structure(gpu_t[0]):
+        raise RuntimeError("binary: the first tree differs between devices")
+    differ = sum(tree_structure(a) != tree_structure(b)
+                 for a, b in zip(cpu_t, gpu_t))
+    s_cpu = boosters["cpu"].engine.score[:n].numpy()
+    s_gpu = boosters["cuda"].engine.score[:n].cpu().numpy()
+    gap = float(np.abs(s_cpu - s_gpu).max())
+    if not (gap <= 2e-4 and np.isfinite(s_gpu).all()):
+        raise RuntimeError(f"binary: raw scores differ by {gap}")
+    torch.cuda.synchronize()
+    replayed, err = replay_against_plain(cap)
+    # the default max_bin, 255: a group's 64 slots outgrow one block's
+    # shared memory, so K2 splits the slots over blocks (the EFB pair is
+    # left out: bundled at 255 bins it would need uint16 bins)
+    p = {**base, "max_bin": 255, "objective": "binary", "device_type": "cuda"}
+    Xw = X[:, [0, 1, 2, 4, 5]]
+    cap255 = Capture()
+    with cap255:
+        lt.train(p, lt.Dataset(Xw, label=y, params=p), 2)
+    replayed_255, err_255 = replay_against_plain(cap255)
+    err = {k: max(v, err_255[k]) for k, v in err.items()}
+    emit({"phase": "train_small", "rows": n, "iterations": iters,
+          "num_leaves": num_leaves, "dyadic_leaves_per_tree": nl,
+          "dyadic_text_identical": True, "binary_first_tree_identical": True,
+          "binary_trees_differing": differ, "binary_max_score_gap": gap,
+          "replayed_launches": replayed,
+          "replayed_launches_max_bin_255": replayed_255,
+          "replay_max_abs_err": err})
+    return err
+
+
+def k2_work(args, out):
+    """Bytes and operations one K2 launch needs on these inputs, counted
+    from what the rows need.  Bytes: every row's leaf id read and written;
+    a weighted row that lands in a histogram slot reads its count weight,
+    and when the launch builds histograms also its G bins and its grad and
+    hess; a routed row (its leaf splits) reads the bin of its split group
+    unless it reads all G bins already; the histograms and counts are
+    written once.  Operations: per row the leaf test (1); per routed row the
+    bin address, compare, child and slot selects (4), +3 to unbundle an EFB
+    bin, +1 per missing-value bin; per weighted row in a slot two
+    quantizations (2) and one add per group and channel (2G)."""
+    from lightgbm_torch.kernels import layout as tl
+
+    bins_T, leaf_id, tabs, _, _, _, cnt, num_slots, max_bins, _, with_hist \
+        = args[:11]
+    new_leaf, _, counts = out
+    G, n = bins_T.shape
+    lid = leaf_id.cpu().numpy()
+    rec = tabs.cpu().numpy()[lid]
+    chosen = rec[:, tl.R_CHOSEN] > 0
+    went_left = new_leaf.cpu().numpy() == lid
+    slot = np.where(chosen, np.where(went_left, rec[:, tl.R_SLOT_L],
+                                     rec[:, tl.R_SLOT_R]),
+                    rec[:, tl.R_SLOT_KEEP])
+    in_slot_rows = (slot >= 0) & (cnt.cpu().numpy() > 0)
+    in_slot = float(in_slot_rows.sum())
+    if in_slot != float(counts.sum().item()):
+        raise RuntimeError("k2_work: rows in slots disagree with the counts")
+    bin_read = chosen & ~in_slot_rows if with_hist else chosen
+    ops = (n + 4 * float(chosen.sum())
+           + 3 * float((chosen & (rec[:, tl.R_BUNDLED] > 0)).sum())
+           + float((chosen & (rec[:, tl.R_NANBIN] >= 0)).sum())
+           + float((chosen & (rec[:, tl.R_MZBIN] >= 0)).sum()))
+    n_bytes = 8.0 * n + float(bin_read.sum()) + 4 * in_slot + 4 * num_slots
+    if with_hist:
+        ops += in_slot * (2 + 2 * G)
+        n_bytes += in_slot * (G + 8) + num_slots * G * max_bins * 2 * 4
+    return n_bytes, ops
+
+
+def bound(n_bytes, n_ops):
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / CORE_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def auc(y, p):
+    """Area under the ROC curve (rank statistic, ties averaged)."""
+    order = np.argsort(p, kind="mergesort")
+    ranks = np.empty(len(p))
+    ranks[order] = np.arange(1, len(p) + 1)
+    _, inv, cnt = np.unique(p, return_inverse=True, return_counts=True)
+    sums = np.bincount(inv, weights=ranks)
+    ranks = (sums / cnt)[inv]
+    n_pos = y.sum()
+    n_neg = len(y) - n_pos
+    return float((ranks[y > 0].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * n_neg))
+
+
+def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
+    """The full phase's 1M-row Dataset trained for ``iters`` iterations
+    through ``lightgbm_torch.train`` at the north-star shape (binary, 255
+    leaves, max_bin 63, split budget 64); the model then predicts the
+    held-out rows through K1.  Returns the K2 and K4 entries of the kernels
+    line."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.kernels import leaf_gather as lg, route_hist as rh
+    from lightgbm_torch.models.gbdt import GBDT
+    from lightgbm_torch.utils.timer import PhaseTimer
+
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
+              "learning_rate": 0.1, "verbosity": -1}
+    tree_s, cap = [], Capture()
+    orig_iter = GBDT.train_one_iter
+
+    def timed_iter(self, *a, **kw):
+        t0 = time.perf_counter()
+        if len(tree_s) == timed_tree:
+            with cap:
+                out = orig_iter(self, *a, **kw)
+        else:
+            out = orig_iter(self, *a, **kw)
+        torch.cuda.synchronize()
+        tree_s.append(time.perf_counter() - t0)
+        return out
+
+    kernels.reset_launch_counts()
+    GBDT.train_one_iter = timed_iter
+    try:
+        t0 = time.perf_counter()
+        bst = lt.train(params, ds, iters)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        GBDT.train_one_iter = orig_iter
+    launches = kernels.launch_counts()
+    n_trees = bst.num_trees()
+    if n_trees != iters or launches["route_and_hist"] == 0 \
+            or launches["leaf_gather"] != iters:
+        raise RuntimeError(f"training made {n_trees} trees with launches "
+                           f"{launches}")
+    leaves = [t.num_leaves for t in bst.engine.models]
+
+    # held-out AUC through Booster.predict (K1)
+    t0 = time.perf_counter()
+    pred = bst.predict(Xs)
+    predict_s = time.perf_counter() - t0
+    held_auc = auc(ys, pred)
+    if not (np.isfinite(pred).all() and held_auc > 0.80):
+        raise RuntimeError(f"held-out AUC {held_auc}")
+
+    # determinism: the first 3 trees again, byte for byte
+    again = lt.train(params, ds, 3)
+    if model_trees_text(again) != model_trees_text(bst, num_iteration=3):
+        raise RuntimeError("training does not repeat bit for bit")
+
+    # K2 and K4 of one tree: each launch against its plain version, then
+    # timed launch by launch
+    replayed, err = replay_against_plain(cap)
+    full = [(a, o) for a, o in cap.k2 if a[10]]
+    route = [(a, o) for a, o in cap.k2 if not a[10]]
+
+    def k2_times(items):
+        ms = [device_ms(lambda a=a: rh.route_and_hist_cuda(*a))
+              for a, _ in items]
+        plain = [cuda_ms(lambda a=a: rh.route_and_hist_plain(*a), reps=1,
+                         warmup=0) for a, _ in items]
+        work = [k2_work(a, o) for a, o in items]
+        bnd = [bound(b, o) for b, o in work]
+        return ms, plain, work, bnd
+
+    f_ms, f_plain, f_work, f_bnd = k2_times(full)
+    r_ms, r_plain, _, r_bnd = k2_times(route)
+    (lid, vals), _ = cap.k4[0]
+    k4_ms = device_ms(lambda: lg.leaf_gather_cuda(lid, vals))
+    k4_plain = device_ms(lambda: lg.leaf_gather_plain(lid, vals))
+    k4_lib = device_ms(lambda: torch.index_select(vals, 0, lid))
+    k4_bnd = bound(8.0 * lid.numel() + 4.0 * vals.numel(), lid.numel())
+
+    # one more iteration, its phases timed (synchronised at every boundary)
+    timer = PhaseTimer(bst.engine.device)
+    bst.engine.timer = timer
+    t0 = time.perf_counter()
+    bst.update()
+    bst.engine._flush_models()
+    profiled_s = time.perf_counter() - t0
+    bst.engine.timer = None
+
+    mean = statistics.mean
+    after_first = tree_s[1:] or tree_s
+    emit({"phase": "train", "card": smi, "rows": int(ds.num_data()),
+          "features": int(ds.num_feature()), "iterations": iters,
+          "num_leaves": 255, "leaves_per_tree": leaves,
+          "train_s": train_s, "s_per_tree": statistics.median(after_first),
+          "first_tree_s": tree_s[0], "tree_s": tree_s,
+          "k2_launches_per_tree": launches["route_and_hist"] / iters,
+          "k2_full_hist_launches_timed_tree": len(full),
+          "k2_route_only_launches_timed_tree": len(route),
+          "replayed_launches_timed_tree": replayed,
+          "replay_max_abs_err": err,
+          "k2_full_hist_ms": f_ms, "k2_full_hist_mean_ms": mean(f_ms),
+          "k2_full_hist_plain_ms": f_plain,
+          "k2_full_hist_bound_ms": [b for b, _ in f_bnd],
+          "k2_full_hist_bytes_ops": f_work,
+          "k2_route_only_ms": r_ms, "k2_route_only_plain_ms": r_plain,
+          "k2_route_only_bound_ms": [b for b, _ in r_bnd],
+          "k4_ms": k4_ms, "k4_plain_ms": k4_plain, "k4_library_ms": k4_lib,
+          "predict_s": predict_s, "held_out_auc": held_auc,
+          "determinism_first_3_trees_identical": True,
+          "profiled_iteration_s": profiled_s,
+          "profiled_iteration_phases_s": dict(timer.seconds),
+          "profiled_iteration_host_reads": timer.host_reads})
+    k2 = {"name": "route_and_hist", "route": "cuda",
+          "source": KERNEL_SOURCES["route_and_hist"],
+          "replaces": KERNEL_REPLACES["route_and_hist"],
+          "launches": launches["route_and_hist"],
+          "max_abs_err": err["route_and_hist"],
+          "ms": mean(f_ms), "plain_ms": mean(f_plain),
+          "bound_ms": mean(b for b, _ in f_bnd),
+          "bound_by": f_bnd[0][1], "library_ms": None}
+    k4 = {"name": "leaf_gather", "route": "cuda",
+          "source": KERNEL_SOURCES["leaf_gather"],
+          "replaces": KERNEL_REPLACES["leaf_gather"],
+          "launches": launches["leaf_gather"],
+          "max_abs_err": err["leaf_gather"],
+          "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bnd[0],
+          "bound_by": k4_bnd[1], "library_ms": k4_lib}
+    return [k2, k4]
 
 
 def nvidia_smi_line() -> str:
@@ -446,6 +862,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--trees", type=int, default=500)
     ap.add_argument("--leaves", type=int, default=255)
+    ap.add_argument("--train-iters", type=int, default=20)
     args = ap.parse_args(argv)
 
     import torch
@@ -471,9 +888,13 @@ def main(argv=None) -> int:
                     for n in built}})
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         phase_small(args.seed, tmp)
-        kernel = phase_full(args.seed, args.rows, args.trees, args.leaves,
-                            tmp, smi)
-    emit({"kernels": [kernel]})
+        small_err = phase_train_small(args.seed)
+        k1, ds, Xs, ys = phase_full(args.seed, args.rows, args.trees,
+                                    args.leaves, tmp, smi)
+        kernel_lines = [k1] + phase_train(ds, Xs, ys, args.train_iters, smi)
+    for k in kernel_lines[1:]:
+        k["max_abs_err"] = max(k["max_abs_err"], small_err[k["name"]])
+    emit({"kernels": kernel_lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 The port's counterpart of ``lightgbm_tpu/basic.py`` (reference:
 python-package/lightgbm/basic.py, Dataset :1692, Booster :3495), trimmed to
-batch prediction: a Dataset over a numpy array, and a Booster that holds a
-model and predicts.  ``Booster.predict`` on at least
+training and batch prediction: a Dataset over a numpy array, and a Booster
+that trains (``update``, one boosting iteration), holds a model and
+predicts.  ``Booster.predict`` on at least
 ``_DEVICE_PREDICT_MIN_ROWS`` rows of a Booster built on a training Dataset
 bins the rows with the training mappers and walks every tree on the device
 (``kernels/predict.py``); smaller batches and Boosters loaded from a model
@@ -226,7 +227,25 @@ class Booster:
         return self._engine
 
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
-        return self.engine.train_one_iter()
+        """One boosting iteration; returns True when training cannot go on
+        (reference: Booster.update, basic.py:4005).  ``fobj(score,
+        train_set)`` gives custom gradients of the unpadded training score."""
+        if train_set is not None and train_set is not self.train_set:
+            raise LightGBMError("changing train_set after construction is "
+                                "not supported")
+        eng = self.engine
+        if fobj is not None:
+            score = eng.score[:eng.num_data].cpu().numpy()
+            grad, hess = fobj(score, self.train_set)
+            return eng.train_one_iter(np.asarray(grad, np.float32),
+                                      np.asarray(hess, np.float32))
+        return eng.train_one_iter()
+
+    def current_iteration(self) -> int:
+        if self._engine is not None:
+            return self.engine.iter_
+        lt = self._loaded_trees
+        return len(lt.trees) // max(lt.num_tree_per_iteration, 1)
 
     def num_trees(self) -> int:
         return len(self._all_trees())

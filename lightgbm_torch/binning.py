@@ -52,6 +52,11 @@ class BinMapper:
     def is_trivial(self) -> bool:
         return self.num_bins <= 1
 
+    def bin_to_threshold(self, bin_idx: int) -> float:
+        """Real threshold of a ``value <= threshold`` split at bin
+        ``bin_idx``: the bin's upper bound."""
+        return float(self.upper_bounds[min(bin_idx, len(self.upper_bounds) - 1)])
+
     # ------------------------------------------------------------------
     @staticmethod
     def find_numerical(sample: np.ndarray, max_bin: int, min_data_in_bin: int,

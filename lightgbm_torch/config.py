@@ -1,7 +1,8 @@
 """Parameter/config system of the port.
 
 A copy of ``lightgbm_tpu/config.py`` trimmed to the keys batch prediction
-reads.  The alias table is kept whole, so ``resolve_aliases`` maps every
+and single-device numeric training read, plus the training keys whose
+non-default values the port refuses.  The alias table is kept whole, so ``resolve_aliases`` maps every
 parameter name exactly as the reference does and the ``parameters:`` block
 of a saved model is the same text.  Keys the trimmed ``Config`` does not
 hold are kept in ``_unknown`` without a warning, as the reference keeps the
@@ -326,6 +327,48 @@ class Config:
     num_class: int = 1
     sigmoid: float = 1.0
     reg_sqrt: bool = False
+    boost_from_average: bool = True
+    is_unbalance: bool = False
+    scale_pos_weight: float = 1.0
+
+    # Learning control
+    num_iterations: int = 100
+    learning_rate: float = 0.1
+    max_depth: int = -1
+    min_data_in_leaf: int = 20
+    min_sum_hessian_in_leaf: float = 1e-3
+    lambda_l1: float = 0.0
+    lambda_l2: float = 0.0
+    min_gain_to_split: float = 0.0
+    max_delta_step: float = 0.0
+
+    # Histogram formulation of the growth loop (the reference's stream
+    # backend): auto | stream, auto | single | mixed, and the leaves split
+    # per round (0 = auto = 64)
+    hist_backend: str = "auto"
+    hist_precision: str = "auto"
+    max_splits_per_round: int = 0
+
+    # Training features that are not ported yet: a value other than the
+    # default raises (models/gbdt.GBDT._check_unsupported_params)
+    tree_learner: str = "serial"
+    data_sample_strategy: str = "bagging"
+    bagging_fraction: float = 1.0
+    pos_bagging_fraction: float = 1.0
+    neg_bagging_fraction: float = 1.0
+    bagging_freq: int = 0
+    feature_fraction: float = 1.0
+    feature_fraction_bynode: float = 1.0
+    extra_trees: bool = False
+    path_smooth: float = 0.0
+    monotone_constraints: Any = None
+    interaction_constraints: Any = None
+    forcedsplits_filename: str = ""
+    cegb_penalty_split: float = 0.0
+    cegb_penalty_feature_lazy: Any = None
+    cegb_penalty_feature_coupled: Any = None
+    linear_tree: bool = False
+    use_quantized_grad: bool = False
 
     def __post_init__(self) -> None:
         self._unknown: Dict[str, Any] = {}

@@ -1,10 +1,14 @@
-"""Carry a model's trees across from arrays, with no model file between.
+"""Carry a model's trees and grown tree arrays across, with no model file
+between.
 
 The JAX package's host ``tree.Tree`` holds numpy arrays; ``trees_from_arrays``
 takes those fields (as dicts, e.g. ``dataclasses.asdict`` of each tree) and
 builds the port's Trees, and ``booster_from_arrays`` builds a zero-round
 port Booster that holds them, as ``train(params, train_set, 0,
-init_model=...)`` does from model text.
+init_model=...)`` does from model text.  ``tree_arrays_from_numpy`` takes a
+grown ``TreeArrays`` of the JAX package, fetched as numpy, and builds the
+port's ``TreeArrays`` of torch tensors, so that two grown trees compare
+field by field.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import numpy as np
 
 from .basic import Booster, Dataset
 from .config import resolve_aliases
-from .tree import Tree
+from .tree import Tree, TreeArrays
 
 # dtype of each array field, as the model-text reader makes them
 _ARRAY_DTYPES = {
@@ -76,3 +80,25 @@ def booster_from_arrays(tree_dicts: Sequence[Mapping[str, Any]],
     booster.engine.load_init_model(trees_from_arrays(tree_dicts),
                                    num_tree_per_iteration)
     return booster
+
+
+# dtype of each TreeArrays field in the port
+_TREE_ARRAY_DTYPES = {"cat_bitset": np.bool_, "split_gain": np.float32,
+                      "internal_value": np.float32,
+                      "internal_weight": np.float32,
+                      "internal_count": np.float32, "leaf_value": np.float32,
+                      "leaf_weight": np.float32, "leaf_count": np.float32}
+
+
+def tree_arrays_from_numpy(d: Mapping[str, Any]) -> TreeArrays:
+    """The port's TreeArrays (CPU torch tensors) of a grown tree given as
+    numpy fields keyed by the field names of ``TreeArrays``.  Integer
+    fields become int32, value fields float32, ``num_leaves`` an int."""
+    import torch
+
+    fields = {"num_leaves": int(np.asarray(d["num_leaves"]))}
+    for name in TreeArrays._fields:
+        if name != "num_leaves":
+            dtype = _TREE_ARRAY_DTYPES.get(name, np.int32)
+            fields[name] = torch.as_tensor(np.asarray(d[name]).astype(dtype))
+    return TreeArrays(**fields)

@@ -1,9 +1,11 @@
 """Host BinnedData -> device tensors + the routing layout.
 
 The port's counterpart of ``lightgbm_tpu/device_data.py:30-183``: the binned
-matrix lives in device memory, and the per-feature routing layout maps a
-stored group bin back to the feature-local bin a split compares against.
-The split-finding ``FeatureLayout`` comes with training.
+matrix lives in device memory; the per-feature routing layout maps a stored
+group bin back to the feature-local bin a split compares against; and the
+split-finding ``FeatureLayout`` gathers each feature's bins out of the
+(G, Bmax) group histograms.  Both layouts are built from the same loop as
+the reference's ``build_layouts`` and are equal to it field by field.
 """
 from __future__ import annotations
 
@@ -31,9 +33,29 @@ class RoutingLayout(NamedTuple):
     mzero_bin: torch.Tensor      # (F,) i32 zero-as-missing bin, -1 = none
 
 
+LAYOUT_FIELDS = ("gather_idx", "valid_mask", "residual_pos", "nan_bin",
+                 "is_cat", "num_bins", "mzero_bin")
+
+
+class FeatureLayout(NamedTuple):
+    """Per-feature gather layout into the (G, Bmax) group histograms
+    (reference: ops/split.py FeatureLayout)."""
+    gather_idx: torch.Tensor     # (F, Bmax) i64 into the flat (G * Bmax)
+    valid_mask: torch.Tensor     # (F, Bmax) bool, bin b exists for f
+    residual_pos: torch.Tensor   # (F,) i64 EFB default bin to fill, -1 none
+    nan_bin: torch.Tensor        # (F,) i64 NaN bin, -1 none
+    is_cat: torch.Tensor         # (F,) bool
+    num_bins: torch.Tensor       # (F,) i64
+    mzero_bin: torch.Tensor      # (F,) i64 zero-as-missing bin, -1 none
+    # derived: the features with a residual bin, listed on the host once so
+    # that a split scan needs no device-to-host read to find them
+    residual_features: torch.Tensor  # (R,) i64
+
+
 class DeviceData(NamedTuple):
     bins: torch.Tensor           # (N_pad, G) uint8/int16 on ``device``
     routing: RoutingLayout
+    layout: FeatureLayout
     num_data: int
     num_features: int
     num_groups: int
@@ -54,13 +76,18 @@ def resolve_device(device_type: str) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def max_bins(binned: BinnedData) -> int:
+    """Bmax: the widest group or feature."""
+    F, G = binned.num_features, binned.num_groups
+    return int(max(int(binned.group_bin_counts.max()) if G else 1,
+                   int(binned.feature_num_bins.max()) if F else 1))
+
+
 def build_routing_np(binned: BinnedData):
     """Routing arrays (numpy) + Bmax (reference: device_data.build_layouts,
     routing half)."""
     F = binned.num_features
-    G = binned.num_groups
-    Bmax = int(max(int(binned.group_bin_counts.max()) if G else 1,
-                   int(binned.feature_num_bins.max()) if F else 1))
+    Bmax = max_bins(binned)
     r = {
         "feat_group": np.zeros(F, np.int32),
         "span_start": np.zeros(F, np.int32),
@@ -93,19 +120,66 @@ def build_routing_np(binned: BinnedData):
     return r, Bmax
 
 
+def build_layout_np(binned: BinnedData):
+    """Split-finding layout arrays (numpy), keyed by LAYOUT_FIELDS
+    (reference: device_data.build_layouts, split half).  A single-feature
+    group maps bin b to group bin b; in an EFB bundle the feature's
+    non-default bins sit at span_start + (b < default ? b : b - 1) and its
+    default bin is filled by residual (parent total less the rest)."""
+    F = binned.num_features
+    Bmax = max_bins(binned)
+    out = {"gather_idx": np.zeros((F, Bmax), np.int64),
+           "valid_mask": np.zeros((F, Bmax), bool),
+           "residual_pos": np.full(F, -1, np.int64),
+           "nan_bin": np.full(F, -1, np.int64),
+           "is_cat": np.zeros(F, bool),
+           "num_bins": np.asarray(binned.feature_num_bins, np.int64).copy(),
+           "mzero_bin": np.full(F, -1, np.int64)}
+    for gi, feats in enumerate(binned.group_features):
+        base = gi * Bmax
+        bundled = len(feats) > 1
+        in_group = 1
+        for f in feats:
+            m = binned.bin_mappers[f]
+            nb, d = m.num_bins, m.default_bin
+            if bundled:
+                for b in range(nb):
+                    if b != d:
+                        out["gather_idx"][f, b] = (base + in_group
+                                                   + (b if b < d else b - 1))
+                        out["valid_mask"][f, b] = True
+                out["residual_pos"][f] = d
+                in_group += nb - 1
+            else:
+                out["gather_idx"][f, :nb] = base + np.arange(nb)
+                out["valid_mask"][f, :nb] = True
+            if m.bin_type == BIN_CATEGORICAL:
+                out["is_cat"][f] = True
+            elif m.missing_type == MISSING_NAN:
+                out["nan_bin"][f] = nb - 1
+            elif m.missing_type == MISSING_ZERO:
+                out["mzero_bin"][f] = d
+    return out
+
+
 def build_layouts(binned: BinnedData, device: torch.device):
-    """RoutingLayout as int32/bool tensors on ``device`` + Bmax."""
+    """RoutingLayout (int32/bool) and FeatureLayout (int64/bool) tensors on
+    ``device`` + Bmax."""
     r, Bmax = build_routing_np(binned)
     routing = RoutingLayout(**{k: torch.as_tensor(v, device=device)
                                for k, v in r.items()})
-    return routing, Bmax
+    lay = build_layout_np(binned)
+    lay["residual_features"] = np.flatnonzero(lay["residual_pos"] >= 0)
+    layout = FeatureLayout(**{k: torch.as_tensor(v, device=device)
+                              for k, v in lay.items()})
+    return routing, layout, Bmax
 
 
 def to_device(binned: BinnedData, device: torch.device,
               pad_rows_to: int = 256) -> DeviceData:
     """(N_pad, G) bins on ``device``, rows padded with zeros to a multiple
     of ``pad_rows_to`` as in the reference."""
-    routing, Bmax = build_layouts(binned, device)
+    routing, layout, Bmax = build_layouts(binned, device)
     bins = np.ascontiguousarray(binned.bins)
     n = bins.shape[0]
     n_pad = -(-n // pad_rows_to) * pad_rows_to
@@ -115,7 +189,7 @@ def to_device(binned: BinnedData, device: torch.device,
         # torch has no uint16 arithmetic; group bins stay < 2**15
         bins = bins.astype(np.int16)
     return DeviceData(bins=torch.as_tensor(bins, device=device),
-                      routing=routing, num_data=n,
+                      routing=routing, layout=layout, num_data=n,
                       num_features=binned.num_features,
                       num_groups=binned.num_groups, max_bins=Bmax,
                       device=device)

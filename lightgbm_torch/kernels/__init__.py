@@ -3,6 +3,14 @@ version.  A wrapper launches its kernel for CUDA tensors and the plain
 version runs only for CPU tensors.  Importing this package builds nothing:
 ``build.py`` compiles a kernel at its first launch.
 
+- ``predict_stream`` (K1, predict.py): batch prediction, every row through
+  every tree.
+- ``route_and_hist`` (K2, route_hist.py): one growth round of training,
+  rows routed through the round's splits and the histograms of their new
+  slots built.
+- ``leaf_gather`` (K4, leaf_gather.py): the score update's
+  ``values[leaf_id]``.
+
 Each CUDA wrapper counts its launches in a plain integer attribute
 ``launches``; ``launch_counts`` reads them and ``reset_launch_counts`` sets
 them to zero, so a run can show that its path went through the kernels.
@@ -11,11 +19,13 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import predict
+from . import leaf_gather, predict, route_hist
 
 # kernel name -> its CUDA wrapper
 WRAPPERS = {
     "predict_stream": predict.predict_stream_cuda,
+    "route_and_hist": route_hist.route_and_hist_cuda,
+    "leaf_gather": leaf_gather.leaf_gather_cuda,
 }
 
 

@@ -25,6 +25,8 @@ BUILD_DIR = _HERE.parent / "_build"
 # kernel name -> source, relative to this directory
 SOURCES: Dict[str, str] = {
     "predict_stream": "csrc/predict_stream.cu",
+    "route_and_hist": "csrc/route_and_hist.cu",
+    "leaf_gather": "csrc/leaf_gather.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -37,6 +39,13 @@ SIGNATURES = {
     "predict_stream": ("lgbt_predict_stream",
                        [_c_ptr, _c_i64, _c_ptr, _c_ptr, _c_ptr, _c_int,
                         _c_int, _c_int, _c_int, _c_f32, _c_ptr, _c_ptr]),
+    "route_and_hist": ("lgbt_route_and_hist",
+                       [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_int,
+                        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int,
+                        _c_int, _c_int, _c_f32, _c_f32, _c_ptr, _c_ptr,
+                        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+    "leaf_gather": ("lgbt_leaf_gather",
+                    [_c_ptr, _c_i64, _c_ptr, _c_int, _c_ptr, _c_ptr]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

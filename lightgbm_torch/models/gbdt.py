@@ -1,12 +1,23 @@
-"""The boosting engine, minimal: holds a model and its training data.
+"""The boosting engine: training state, one boosting iteration, and the
+trees it grows.
 
 The port's counterpart of ``lightgbm_tpu/models/gbdt.py`` (reference:
-src/boosting/gbdt.h GBDT).  Batch prediction needs the engine for what it
-holds: the training Dataset (its bin mappers and routing layout), the
-objective, the trees and the output averaging.  ``load_init_model`` seeds it
-with an existing model and rebuilds the training score with the bin-space
-tree walk, as continued training does in the reference (gbdt.py:2542-2598).
-Growing trees comes with training: ``train_one_iter`` raises.
+src/boosting/gbdt.h GBDT), the unfused single-device iteration of the
+reference's ``hist_backend="stream"`` path (``_train_one_iter_impl``,
+gbdt.py:2089-2403, one tree per iteration).  An iteration computes the
+objective's gradients on the training score (or takes custom ones), grows a
+tree on the device (ops/grow.py, kernel K2), adds its shrunk leaf values to
+the score through K4 (kernels/leaf_gather.py) and keeps the grown arrays on
+the device; ``models`` turns every pending tree into a host ``Tree`` in one
+transfer.  The first tree carries the boost-from-average init score as a
+folded bias, and trailing single-leaf trees are trimmed as the reference
+trims them.  ``load_init_model`` seeds the engine with an existing model and
+rebuilds the training score with the bin-space tree walk (gbdt.py:2542).
+
+Training covers gbdt on numeric features with the binary and L2
+objectives (or custom gradients); every other training feature raises
+"not yet ported" (``_check_unsupported_params``) instead of training a
+different model.
 """
 from __future__ import annotations
 
@@ -15,13 +26,23 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..config import Config
+from ..binning import BIN_CATEGORICAL
+from ..config import Config, canonical_objective
 from ..device_data import DeviceData
+from ..kernels.leaf_gather import leaf_gather
 from ..kernels.predict import tree_max_depth
 from ..objectives import ObjectiveFunction
+from ..ops.grow import GrowParams, grow_tree
 from ..ops.predict import _walk_one_tree
-from ..tree import DIR_CATEGORICAL, DIR_DEFAULT_LEFT, Tree
+from ..tree import (DIR_CATEGORICAL, DIR_DEFAULT_LEFT, Tree, TreeArrays,
+                    finalize_tree)
 from ..utils.log import LightGBMError
+from ..utils.timer import phase
+
+
+def _not_ported(what: str) -> LightGBMError:
+    return LightGBMError(f"{what} is not yet ported to lightgbm_torch "
+                         "training")
 
 
 class GBDT:
@@ -35,7 +56,8 @@ class GBDT:
         self.config = config
         self.train_data = train_data          # basic.Dataset (constructed)
         self.objective = objective
-        self.models: List[Tree] = []          # host trees, iteration-major
+        self._models_list: List[Tree] = []    # host trees, iteration-major
+        self._lazy_trees: List[dict] = []     # grown, not yet on the host
         self.iter_ = 0
         self.num_class = config.num_class
         self.num_tree_per_iteration = (objective.num_model_per_iteration
@@ -47,14 +69,180 @@ class GBDT:
         k = self.num_tree_per_iteration
         n_pad = self.dd.bins.shape[0]
         self._score_shape = (n_pad,) if k == 1 else (n_pad, k)
+        self.init_scores = self._compute_init_score()
         self.score = torch.zeros(self._score_shape, dtype=torch.float32,
-                                 device=self.device)
-        self.init_scores = [0.0] * k
+                                 device=self.device) + torch.tensor(
+            self.init_scores if k > 1 else self.init_scores[0],
+            dtype=torch.float32, device=self.device)
+        base = train_data.get_init_score_padded(n_pad, k)
+        if base is not None:
+            self.score = self.score + torch.as_tensor(base, device=self.device)
+        # row-pad mask: padded rows add nothing to any histogram
+        self._pad_mask = (torch.arange(n_pad, device=self.device)
+                          < self.num_data).to(torch.float32)
+        self._bins_T: Optional[torch.Tensor] = None
+        self.grow_params: Optional[GrowParams] = None
+        # a utils.timer.PhaseTimer here times the phases of each iteration
+        self.timer = None
 
-    def train_one_iter(self, *args, **kwargs) -> bool:
-        raise LightGBMError("training is not yet ported to lightgbm_torch; "
-                            "train(..., num_boost_round=0, init_model=...) "
-                            "serves an existing model")
+    def _compute_init_score(self) -> List[float]:
+        k = self.num_tree_per_iteration
+        if self.objective is None or not self.config.boost_from_average:
+            return [0.0] * k
+        return [float(self.objective.boost_from_score())] * k
+
+    # ------------------------------------------------------------------
+    @property
+    def models(self) -> List[Tree]:
+        """Host trees; moves every pending grown tree to the host first."""
+        self._flush_models()
+        return self._models_list
+
+    @models.setter
+    def models(self, value) -> None:
+        self._lazy_trees = []
+        self._models_list = list(value)
+
+    def _flush_models(self) -> None:
+        """All pending trees to the host in one transfer, then finalized
+        (bin thresholds to real thresholds, shrinkage, the folded bias)."""
+        if not self._lazy_trees:
+            return
+        pending, self._lazy_trees = self._lazy_trees, []
+        with phase(self.timer, "finalize"):
+            host = _arrays_to_host([e["arrays"] for e in pending])
+            mappers = self.train_data.bin_mappers()
+            for e, arrays in zip(pending, host):
+                tree = finalize_tree(arrays, mappers, learning_rate=e["rate"])
+                if e["bias"]:
+                    tree.add_bias(e["bias"])
+                self._models_list.append(tree)
+
+    # ------------------------------------------------------------------
+    def _check_unsupported_params(self) -> None:
+        """Refuse what this slice does not train, instead of training a
+        different model (reference: gbdt.py:1141)."""
+        c = self.config
+        name = ("none" if self.objective is None
+                else canonical_objective(self.objective.name))
+        if name not in ("binary", "regression", "none"):
+            raise _not_ported(f"objective {name!r}")
+        if self.num_tree_per_iteration != 1:
+            raise _not_ported("multiclass training")
+        if any(m.bin_type == BIN_CATEGORICAL
+               for m in self.train_data.bin_mappers()):
+            raise _not_ported("a categorical feature")
+        if self.dd.bins.dtype != torch.uint8:
+            raise _not_ported("a feature bundle wider than 256 bins")
+        if c.hist_backend not in ("auto", "stream"):
+            raise _not_ported(f"hist_backend={c.hist_backend!r}")
+        if c.hist_precision not in ("auto", "single", "mixed", "double"):
+            raise LightGBMError(
+                f"hist_precision={c.hist_precision!r} is not one of 'auto', "
+                "'single', 'mixed', 'double'")
+        if c.hist_precision == "double":
+            raise LightGBMError(
+                "hist_precision=double requires hist_backend=segsum or "
+                "onehot, which are not ported to lightgbm_torch; its "
+                "histograms are exact fixed-point sums")
+        if c.tree_learner != "serial":
+            raise _not_ported(f"tree_learner={c.tree_learner!r}")
+        sampling = (c.bagging_freq > 0 and min(
+            c.bagging_fraction, c.pos_bagging_fraction,
+            c.neg_bagging_fraction) < 1.0)
+        if sampling or str(c.data_sample_strategy).lower() == "goss":
+            raise _not_ported("bagging / GOSS")
+        if c.feature_fraction < 1.0 or c.feature_fraction_bynode < 1.0:
+            raise _not_ported("feature_fraction < 1")
+
+        def nonzero(v):
+            if v is None or (isinstance(v, str) and not v.strip()):
+                return False
+            if isinstance(v, str):
+                v = [x for x in v.replace(" ", "").split(",") if x]
+            return bool(np.any(np.asarray(v, dtype=float) != 0))
+
+        for key in ("monotone_constraints", "cegb_penalty_feature_lazy",
+                    "cegb_penalty_feature_coupled"):
+            if nonzero(getattr(c, key)):
+                raise _not_ported(key)
+        if c.interaction_constraints:
+            raise _not_ported("interaction_constraints")
+        if c.cegb_penalty_split > 0.0:
+            raise _not_ported("cegb_penalty_split")
+        if c.forcedsplits_filename:
+            raise _not_ported("forced splits")
+        for key in ("linear_tree", "use_quantized_grad", "extra_trees"):
+            if getattr(c, key):
+                raise _not_ported(key)
+        if c.path_smooth > 0.0:
+            raise _not_ported("path_smooth")
+
+    def _make_grow_params(self) -> GrowParams:
+        c = self.config
+        return GrowParams(
+            num_leaves=max(c.num_leaves, 2), max_depth=c.max_depth,
+            # auto (0) is 64, as the reference resolves it for its stream
+            # backend on every device
+            max_splits_per_round=(c.max_splits_per_round
+                                  if c.max_splits_per_round > 0 else 64),
+            lambda_l1=c.lambda_l1, lambda_l2=c.lambda_l2,
+            min_data_in_leaf=c.min_data_in_leaf,
+            min_sum_hessian_in_leaf=c.min_sum_hessian_in_leaf,
+            min_gain_to_split=c.min_gain_to_split,
+            max_delta_step=c.max_delta_step)
+
+    def _ensure_training(self) -> None:
+        if self.grow_params is None:
+            self._check_unsupported_params()
+            self.grow_params = self._make_grow_params()
+            # K2 reads the (G, N) layout K1 reads
+            self._bins_T = self.dd.bins.t().contiguous()
+
+    def _pad(self, a: torch.Tensor) -> torch.Tensor:
+        n = self._score_shape[0]
+        if a.shape[0] == n:
+            return a
+        return torch.cat([a, torch.zeros(n - a.shape[0], dtype=a.dtype,
+                                         device=a.device)])
+
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        """One boosting iteration (reference: GBDT::TrainOneIter,
+        gbdt.cpp:353).  ``grad``/``hess`` are custom gradients of the
+        unpadded rows.  Returns True when the tree made no split: training
+        cannot go on, and the trailing no-op trees are dropped."""
+        self._ensure_training()
+        dev = self.device
+        with phase(self.timer, "gradients"):
+            if grad is None or hess is None:
+                if self.objective is None:
+                    raise LightGBMError("cannot boost without an objective "
+                                        "(use custom-gradient update)")
+                grad, hess = self.objective.get_gradients(
+                    self.score[:self.num_data])
+            else:
+                grad = torch.as_tensor(np.asarray(grad, np.float32)).to(dev)
+                hess = torch.as_tensor(np.asarray(hess, np.float32)).to(dev)
+            grad = self._pad(grad) * self._pad_mask
+            hess = self._pad(hess) * self._pad_mask
+        arrays, leaf_id = grow_tree(self._bins_T, grad, hess, self._pad_mask,
+                                    self.dd.layout, self.dd.routing,
+                                    self.grow_params, self.dd.max_bins,
+                                    timer=self.timer)
+        rate = self.config.learning_rate
+        with phase(self.timer, "k4"):
+            # score update (reference: ScoreUpdater::AddScore); a
+            # single-leaf tree has leaf value 0
+            delta = leaf_gather(leaf_id, arrays.leaf_value * rate)
+            self.score = self.score + delta
+        bias = self.init_scores[0] if self.iter_ == 0 else 0.0
+        self._lazy_trees.append({"arrays": arrays, "rate": rate,
+                                 "bias": bias})
+        self.iter_ += 1
+        if arrays.num_leaves <= 1:
+            self._trim_trailing_trivial()
+            return True
+        return False
 
     def load_init_model(self, trees: List[Tree],
                         num_tree_per_iteration: int) -> None:
@@ -116,13 +304,37 @@ class GBDT:
         zero output) (reference: gbdt.cpp:436-447 stops without keeping the
         splitless tree)."""
         k = self.num_tree_per_iteration
-        while self.iter_ > 0 and len(self.models) >= k:
-            tail = self.models[-k:]
+        models = self.models
+        while self.iter_ > 0 and len(models) >= k:
+            tail = models[-k:]
             if not all(t.num_leaves <= 1 and all(v == 0.0 for v in t.leaf_value)
                        for t in tail):
                 break
-            del self.models[-k:]
+            del models[-k:]
             self.iter_ -= 1
+
+
+def _arrays_to_host(arrays_list: List[TreeArrays]) -> List[TreeArrays]:
+    """Device TreeArrays -> numpy TreeArrays, every field of every tree in
+    one float64 transfer (int32, float32 and bool values are exact in
+    float64)."""
+    names = [n for n in TreeArrays._fields if n != "num_leaves"]
+    parts = [getattr(a, n).reshape(-1).to(torch.float64)
+             for a in arrays_list for n in names]
+    flat = torch.cat(parts).cpu().numpy()
+    out, pos = [], 0
+    for a in arrays_list:
+        fields = {}
+        for n in names:
+            t = getattr(a, n)
+            size = t.numel()
+            np_dtype = {torch.int32: np.int32, torch.float32: np.float32,
+                        torch.bool: np.bool_}[t.dtype]
+            fields[n] = flat[pos:pos + size].astype(np_dtype).reshape(
+                tuple(t.shape))
+            pos += size
+        out.append(TreeArrays(num_leaves=int(a.num_leaves), **fields))
+    return out
 
 
 def _tree_to_device(tree: Tree, num_leaves_budget: int, max_bins: int,

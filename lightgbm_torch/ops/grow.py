@@ -1,0 +1,301 @@
+"""Batched best-first (leaf-wise) tree growth on one device.
+
+The port's counterpart of ``lightgbm_tpu/ops/grow.py:348-1614``, the
+``hist_backend="stream"`` branch with plain growth (reference:
+src/treelearner/serial_tree_learner.cpp:183-249).  Each round splits the
+top-S leaves by cached gain together; one K2 pass (kernels/route_hist.py)
+routes every row to its new leaf and builds the histograms of the S smaller
+children, the larger siblings come by subtraction, and the 2S children are
+scanned for their own best splits.  The schedule is the reference's:
+
+- a root pass through K2 with every row kept in slot 0;
+- rounds of S = min(max_splits_per_round, L - 1) splits, the leaves taken
+  in a stable descending sort of their cached gains;
+- for S > 64, seven budget-64 rounds first;
+- for S >= 64 and no depth limit, the main loop stops once one route-only
+  round can make the remaining splits, and that last "sprint" round splits
+  up to S_f = min(2S, 255, L - 1) leaves through K2 without histograms.
+
+The loop is a Python loop over rounds.  Each round reads one integer on the
+host (the number of splittable leaves), and each tree one more (the largest
+weight, which fixes the histograms' fixed-point shift).  Not ported:
+forced splits, monotone and interaction constraints, CEGB, by-node feature
+sampling, extra trees, path smoothing, row compaction, route fusion (K3),
+meshes and quantized-gradient histograms.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..device_data import FeatureLayout, RoutingLayout
+from ..kernels.layout import build_route_tables
+from ..kernels.route_hist import route_and_hist
+from ..tree import TreeArrays
+from ..utils.timer import host_int, phase
+from .histogram import hist_shift, hist_subtract
+from .split import NEG_INF, find_best_splits, leaf_output
+
+
+class GrowParams(NamedTuple):
+    """Hyper-parameters of one tree build (the reference's GrowParams, the
+    fields plain stream growth reads)."""
+    num_leaves: int
+    max_depth: int
+    max_splits_per_round: int
+    lambda_l1: float
+    lambda_l2: float
+    min_data_in_leaf: int
+    min_sum_hessian_in_leaf: float
+    min_gain_to_split: float
+    max_delta_step: float
+
+
+class _Grower:
+    """The state of one tree while it grows: per-leaf sums, cached best
+    splits and histograms, node arrays, and every row's leaf."""
+
+    def __init__(self, bins_T, grad, hess, cnt, layout: FeatureLayout,
+                 routing: RoutingLayout, params: GrowParams, max_bins: int,
+                 timer=None):
+        self.bins_T, self.grad, self.hess, self.cnt = bins_T, grad, hess, cnt
+        self.layout, self.routing, self.p = layout, routing, params
+        self.Bmax = max_bins
+        self.timer = timer
+        dev = bins_T.device
+        self.dev = dev
+        L = self.L = params.num_leaves
+        G, n = bins_T.shape
+        f32, i64 = torch.float32, torch.int64
+
+        def z(dtype, fill=0):
+            return torch.full((L,), fill, dtype=dtype, device=dev)
+
+        self.split_feature, self.threshold_bin = z(i64), z(i64)
+        self.dir_flags, self.left_child, self.right_child = \
+            z(i64), z(i64), z(i64)
+        self.split_gain, self.internal_value = z(f32), z(f32)
+        self.internal_weight, self.internal_count = z(f32), z(f32)
+        self.sum_g, self.sum_h, self.cnt_leaf = z(f32), z(f32), z(f32)
+        self.depth, self.leaf_parent = z(i64), z(i64, -1)
+        self.best_gain = z(f32, NEG_INF)
+        self.best_feat, self.best_thr, self.best_dir = z(i64), z(i64), z(i64)
+        self.best_left_g, self.best_left_h, self.best_left_c = \
+            z(f32), z(f32), z(f32)
+        self.hist = torch.zeros((L, G, max_bins, 2), dtype=f32, device=dev)
+        self.cat_words = torch.zeros((L, max(-(-max_bins // 32), 1)),
+                                     dtype=torch.int32, device=dev)
+        self.leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.cur = 1
+        self.progressed = True
+        self.npos = 0
+        # one fixed-point scale per tree: the weights do not change
+        m = torch.maximum(grad.abs().max(), hess.abs().max())
+        self.shift = hist_shift(float(m.item()), n)
+        if timer is not None:
+            timer.host_reads += 1
+
+    def find_splits(self, hist, g, h, c):
+        p = self.p
+        with phase(self.timer, "split_scan"):
+            return find_best_splits(
+                hist, g, h, c, self.layout, p.lambda_l1, p.lambda_l2,
+                max(p.min_data_in_leaf, 1), p.min_sum_hessian_in_leaf,
+                p.min_gain_to_split, p.max_delta_step)
+
+    def k2(self, tabs, num_slots, with_hist):
+        with phase(self.timer, "k2"):
+            return route_and_hist(self.bins_T, self.leaf_id, tabs,
+                                  self.cat_words, self.grad, self.hess,
+                                  self.cnt, num_slots, self.Bmax, self.shift,
+                                  with_hist)
+
+    def count_splittable(self):
+        p = self.p
+        cand = self.best_gain > 0
+        if p.max_depth > 0:
+            cand = cand & (self.depth < p.max_depth)
+        with phase(self.timer, "host_sync"):
+            self.npos = host_int(cand.sum(), self.timer)
+
+    def root(self):
+        p, L, dev = self.p, self.L, self.dev
+        zL = torch.zeros(L, dtype=torch.int64, device=dev)
+        keep = torch.full((L,), -1, dtype=torch.int64, device=dev)
+        keep[0] = 0
+        tabs0 = build_route_tables(zL, zL, zL, zL, zL, keep, keep, keep,
+                                   self.routing)
+        _, root_hist, _ = self.k2(tabs0, 1, True)
+        # root totals in float64, rounded once: the same on every device
+        g = self.grad.double().sum().float()
+        h = self.hess.double().sum().float()
+        c = self.cnt.double().sum().float()
+        res = self.find_splits(root_hist, g[None], h[None], c[None])
+        self.hist[0] = root_hist[0]
+        self.sum_g[0], self.sum_h[0], self.cnt_leaf[0] = g, h, c
+        self._store_best(torch.zeros(1, dtype=torch.int64, device=dev), res)
+        self.count_splittable()
+
+    def _store_best(self, ids, res):
+        self.best_gain[ids] = res.gain
+        self.best_feat[ids] = res.feature
+        self.best_thr[ids] = res.threshold
+        self.best_dir[ids] = res.dir_flags
+        self.best_left_g[ids] = res.left_sum_g
+        self.best_left_h[ids] = res.left_sum_h
+        self.best_left_c[ids] = res.left_count
+
+    def round(self, budget: int, with_hist: bool = True):
+        """One round splitting up to ``budget`` leaves (reference: the body
+        of make_body, stream branch)."""
+        p, L, dev = self.p, self.L, self.dev
+        k = min(L - self.cur, budget, self.npos)
+        if k <= 0:
+            self.progressed = False
+            return
+        with phase(self.timer, "other"):
+            cand = torch.where(self.best_gain > 0, self.best_gain, NEG_INF)
+            if p.max_depth > 0:
+                cand = torch.where(self.depth < p.max_depth, cand, NEG_INF)
+            order = torch.argsort(-cand, stable=True)
+            ar = torch.arange(k, dtype=torch.int64, device=dev)
+            old = order[:k]
+            new = self.cur + ar
+            node = self.cur - 1 + ar
+            feat, thr = self.best_feat[old], self.best_thr[old]
+            dirf, gain = self.best_dir[old], self.best_gain[old]
+            pg, ph, pc = self.sum_g[old], self.sum_h[old], self.cnt_leaf[old]
+            lg, lh = self.best_left_g[old], self.best_left_h[old]
+            lc = self.best_left_c[old]
+            rg, rh, rc = pg - lg, ph - lh, pc - lc
+            parent_hist = self.hist[old] if with_hist else None
+
+            # node arrays, then the link from the split leaf's parent node
+            self.split_feature[node] = feat
+            self.threshold_bin[node] = thr
+            self.dir_flags[node] = dirf
+            self.split_gain[node] = gain
+            self.internal_value[node] = leaf_output(
+                pg, ph, p.lambda_l1, p.lambda_l2, p.max_delta_step)
+            self.internal_weight[node] = ph
+            self.internal_count[node] = pc
+            self.left_child[node] = ~old
+            self.right_child[node] = ~new
+            parent = self.leaf_parent[old]
+            has_p = parent >= 0
+            pidx = torch.clamp(parent, min=0)
+            was_left = (self.left_child[pidx] == ~old) & has_p
+            # rows without a parent write to a spare slot past the end
+            dump = torch.full_like(parent, L)
+            lc_ext = torch.cat([self.left_child, self.left_child[:1]])
+            rc_ext = torch.cat([self.right_child, self.right_child[:1]])
+            lc_ext[torch.where(was_left, parent, dump)] = node
+            rc_ext[torch.where(has_p & ~was_left, parent, dump)] = node
+            self.left_child, self.right_child = lc_ext[:L], rc_ext[:L]
+            self.leaf_parent[old] = node
+            self.leaf_parent[new] = node
+
+            # route tables: the smaller child of split i fills slot i
+            smaller_is_left = lc <= rc
+            zi = torch.zeros(L, dtype=torch.int64, device=dev)
+            chosen, new_id, lfeat, lthr, ldir = (zi.clone() for _ in range(5))
+            slot_l = torch.full((L,), -1, dtype=torch.int64, device=dev)
+            slot_r, slot_keep = slot_l.clone(), slot_l.clone()
+            chosen[old] = 1
+            new_id[old] = new
+            lfeat[old] = feat
+            lthr[old] = thr
+            ldir[old] = dirf
+            slot_l[old] = torch.where(smaller_is_left, ar, -1)
+            slot_r[old] = torch.where(smaller_is_left, -1, ar)
+            tabs = build_route_tables(chosen, new_id, lfeat, lthr, ldir,
+                                      slot_l, slot_r, slot_keep, self.routing)
+        new_leaf, hist_small, slot_cnt = self.k2(tabs, k, with_hist)
+        with phase(self.timer, "other"):
+            # exact child counts from the routed rows (reference:
+            # serial_tree_learner.cpp:798)
+            lc_x = torch.where(smaller_is_left, slot_cnt, pc - slot_cnt)
+            rc_x = pc - lc_x
+            self.leaf_id = new_leaf
+            self.sum_g[old], self.sum_g[new] = lg, rg
+            self.sum_h[old], self.sum_h[new] = lh, rh
+            self.cnt_leaf[old], self.cnt_leaf[new] = lc_x, rc_x
+            d = self.depth[old] + 1
+            self.depth[new] = d
+            self.depth[old] = d
+            self.cur += k
+        if not with_hist:
+            return
+        with phase(self.timer, "other"):
+            smaller = torch.where(smaller_is_left, old, new)
+            larger = torch.where(smaller_is_left, new, old)
+            self.hist[smaller] = hist_small
+            self.hist[larger] = hist_subtract(parent_hist, hist_small)
+            ids2 = torch.cat([old, new])
+        res = self.find_splits(self.hist[ids2], self.sum_g[ids2],
+                               self.sum_h[ids2], self.cnt_leaf[ids2])
+        with phase(self.timer, "other"):
+            self._store_best(ids2, res)
+        self.count_splittable()
+
+    def can_continue(self) -> bool:
+        return self.progressed and self.cur < self.L
+
+    def arrays(self) -> TreeArrays:
+        p = self.p
+        nl = self.cur
+        with phase(self.timer, "other"):
+            lv = leaf_output(self.sum_g, self.sum_h, p.lambda_l1,
+                             p.lambda_l2, p.max_delta_step)
+            if nl <= 1:
+                lv = torch.zeros_like(lv)    # a single-leaf tree adds nothing
+            i32 = torch.int32
+            return TreeArrays(
+                split_feature=self.split_feature.to(i32),
+                threshold_bin=self.threshold_bin.to(i32),
+                dir_flags=self.dir_flags.to(i32),
+                left_child=self.left_child.to(i32),
+                right_child=self.right_child.to(i32),
+                split_gain=self.split_gain,
+                internal_value=self.internal_value,
+                internal_weight=self.internal_weight,
+                internal_count=self.internal_count,
+                cat_bitset=torch.zeros((self.L, self.Bmax), dtype=torch.bool,
+                                       device=self.dev),
+                leaf_value=lv, leaf_weight=self.sum_h,
+                leaf_count=self.cnt_leaf,
+                leaf_parent=self.leaf_parent.to(i32),
+                num_leaves=nl, leaf_depth=self.depth.to(i32))
+
+
+def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+              cnt: torch.Tensor, layout: FeatureLayout,
+              routing: RoutingLayout, params: GrowParams, max_bins: int,
+              timer=None) -> Tuple[TreeArrays, torch.Tensor]:
+    """Grow one tree.  bins_T: (G, N) uint8; grad, hess, cnt: (N,) float32,
+    zero on pad rows.  Returns (TreeArrays, leaf_id (N,) int32)."""
+    L = params.num_leaves
+    S = min(params.max_splits_per_round, max(L - 1, 1))
+    gr = _Grower(bins_T, grad, hess, cnt, layout, routing, params, max_bins,
+                 timer)
+    gr.root()
+    if S > 64:
+        # round r splits at most 2**r leaves: seven budget-64 rounds cover
+        # growth to 128 leaves before the full budget
+        for _ in range(7):
+            if gr.can_continue():
+                gr.round(64)
+    if S >= 64 and params.max_depth <= 0:
+        S_f = min(2 * S, 255, max(L - 1, 1))
+        while gr.progressed and L - gr.cur > 0:
+            remaining = L - gr.cur
+            if remaining <= S_f and remaining <= gr.npos:
+                break                 # one route-only round can finish
+            gr.round(S)
+        if gr.can_continue():
+            gr.round(S_f, with_hist=False)
+    else:
+        while gr.can_continue():
+            gr.round(S)
+    return gr.arrays(), gr.leaf_id

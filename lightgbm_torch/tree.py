@@ -5,12 +5,13 @@ include/LightGBM/tree.h:27 — flat-array binary tree: split feature, bin + real
 thresholds, child pointers with ~leaf encoding, leaf values/counts,
 categorical bitsets; src/io/tree.cpp serialization).  ``predict_raw`` is the
 float64 host walk that the device kernels are held against.  The grower's
-``TreeArrays`` and ``finalize_tree`` come with training.
+``TreeArrays`` and ``finalize_tree`` (reference: tree.py:205) turn a grown
+tree into a host ``Tree``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -18,6 +19,30 @@ import numpy as np
 # DIR_*), used by the bin-space tree arrays of models/gbdt._tree_to_device
 DIR_DEFAULT_LEFT = 1   # missing values go left
 DIR_CATEGORICAL = 2    # categorical split
+
+
+class TreeArrays(NamedTuple):
+    """A grown tree in bin space, node and leaf arrays padded to the
+    num_leaves budget L (reference: tree.py TreeArrays).  Child pointers: a
+    value >= 0 is an internal node, a value < 0 encodes leaf ~value.  The
+    arrays are torch tensors while the tree lives on the device and numpy
+    arrays after the transfer; ``num_leaves`` is a Python int."""
+    split_feature: Any      # (L,) i32
+    threshold_bin: Any      # (L,) i32 feature-local bin, left = bin <= t
+    dir_flags: Any          # (L,) i32 DIR_* bits
+    left_child: Any         # (L,) i32
+    right_child: Any        # (L,) i32
+    split_gain: Any         # (L,) f32
+    internal_value: Any     # (L,) f32 node output if it were a leaf
+    internal_weight: Any    # (L,) f32 sum of hessians
+    internal_count: Any     # (L,) f32
+    cat_bitset: Any         # (L, Bmax) bool left-side bins
+    leaf_value: Any         # (L,) f32
+    leaf_weight: Any        # (L,) f32
+    leaf_count: Any         # (L,) f32
+    leaf_parent: Any        # (L,) i32 node index, -1 for the root
+    num_leaves: int
+    leaf_depth: Any         # (L,) i32
 
 
 @dataclass
@@ -63,6 +88,18 @@ class Tree:
             d |= Tree._DEFAULT_LEFT_MASK
         d |= (missing_type & 3) << 2
         return d
+
+    def shrink(self, rate: float) -> None:
+        """Scale the outputs by the learning rate (reference: Tree::Shrinkage)."""
+        self.leaf_value = self.leaf_value * rate
+        self.internal_value = self.internal_value * rate
+        self.shrinkage *= rate
+
+    def add_bias(self, bias: float) -> None:
+        """Fold a constant into the tree (reference: Tree::AddBias, used by
+        boost_from_average so saved models are self-contained)."""
+        self.leaf_value = self.leaf_value + bias
+        self.internal_value = self.internal_value + bias
 
     @property
     def num_cat(self) -> int:
@@ -153,3 +190,66 @@ class Tree:
         """Index into cat_boundaries for a categorical node: the threshold_bin field of a
         categorical node stores its categorical-split ordinal."""
         return int(self.threshold_bin[node_i])
+
+
+def finalize_tree(arrays: TreeArrays, bin_mappers,
+                  learning_rate: float = 1.0) -> Tree:
+    """Host Tree of numpy TreeArrays: bin thresholds become real thresholds
+    (the bin's upper bound), bin bitsets become category-value bitsets, the
+    padding is trimmed, and the leaf values are shrunk by the learning rate
+    (reference: tree.py finalize_tree)."""
+    nl = int(arrays.num_leaves)
+    ni = max(nl - 1, 0)
+    split_feature = np.asarray(arrays.split_feature[:ni], np.int32)
+    thr_bin = np.asarray(arrays.threshold_bin[:ni], np.int32)
+    dirf = np.asarray(arrays.dir_flags[:ni], np.int32)
+    cat_bits = (np.asarray(arrays.cat_bitset[:ni]) if ni
+                else np.zeros((0, 1), bool))
+    threshold = np.zeros(ni, np.float64)
+    decision_type = np.zeros(ni, np.uint8)
+    cat_boundaries = [0]
+    cat_words: List[np.ndarray] = []
+    thr_out = thr_bin.copy()
+    n_cat = 0
+    for i in range(ni):
+        m = bin_mappers[int(split_feature[i])]
+        if dirf[i] & DIR_CATEGORICAL:
+            left_bins = np.where(cat_bits[i])[0]
+            cats = m.categories[left_bins[left_bins < len(m.categories)]]
+            words = np.zeros(int(cats.max()) // 32 + 1 if len(cats) else 1,
+                             np.uint32)
+            for c in cats:
+                words[int(c) // 32] |= np.uint32(1 << (int(c) % 32))
+            cat_words.append(words)
+            cat_boundaries.append(cat_boundaries[-1] + len(words))
+            thr_out[i] = n_cat
+            threshold[i] = float(n_cat)
+            n_cat += 1
+            decision_type[i] = Tree.make_decision_type(True, False, 0)
+        else:
+            threshold[i] = m.bin_to_threshold(int(thr_bin[i]))
+            decision_type[i] = Tree.make_decision_type(
+                False, bool(dirf[i] & DIR_DEFAULT_LEFT), int(m.missing_type))
+
+    def f64(a, size):
+        return np.asarray(a[:size], np.float64)
+
+    tree = Tree(
+        num_leaves=max(nl, 1), split_feature=split_feature,
+        threshold_bin=thr_out, threshold=threshold,
+        decision_type=decision_type,
+        left_child=np.asarray(arrays.left_child[:ni], np.int32),
+        right_child=np.asarray(arrays.right_child[:ni], np.int32),
+        split_gain=f64(arrays.split_gain, ni),
+        internal_value=f64(arrays.internal_value, ni),
+        internal_weight=f64(arrays.internal_weight, ni),
+        internal_count=f64(arrays.internal_count, ni),
+        leaf_value=f64(arrays.leaf_value, max(nl, 1)),
+        leaf_weight=f64(arrays.leaf_weight, max(nl, 1)),
+        leaf_count=f64(arrays.leaf_count, max(nl, 1)),
+        cat_boundaries=np.asarray(cat_boundaries, np.int32),
+        cat_threshold=(np.concatenate(cat_words) if cat_words
+                       else np.zeros(0, np.uint32)))
+    if learning_rate != 1.0:
+        tree.shrink(learning_rate)
+    return tree

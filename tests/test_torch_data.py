@@ -176,10 +176,13 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 def test_training_rounds_raise_not_ported():
+    """Training rounds run for numeric features; a categorical feature in
+    training is not ported yet and raises."""
     X, y = make_mixed(n=200)
     with pytest.raises(lt.LightGBMError, match="not yet ported"):
         lt.train({"objective": "regression", **CPU},
-                 lt.Dataset(X, label=y), num_boost_round=5)
+                 lt.Dataset(X, label=y, categorical_feature=[2]),
+                 num_boost_round=5)
 
 
 def test_unported_objective_raises():

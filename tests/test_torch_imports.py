@@ -51,4 +51,5 @@ def test_import_loads_no_jax_and_builds_nothing():
                          check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"mods": [], "loaded": [],
-                   "counts": {"predict_stream": 0}}
+                   "counts": {"predict_stream": 0, "route_and_hist": 0,
+                              "leaf_gather": 0}}

@@ -2,7 +2,7 @@
 """Smoke run of lightgbm_torch on one NVIDIA GPU: build, check, time.
 
     python3 chip_smoke.py [--seed 0] [--rows 1000000] [--trees 500]
-                          [--train-iters 20]
+                          [--train-iters 20] [--sampled-iters 40]
 
 Phases, each printing one JSON line:
 
@@ -25,7 +25,14 @@ Phases, each printing one JSON line:
    card's binary run, and of a run at the default max_bin 255 (more slots
    than one block holds), replayed through the plain version on the card,
    must be bit-equal.
-4. full: the repo's north-star shape, HIGGS-like data (28 numeric features,
+4. train_sampled_small: the train_small data on dyadic custom gradients
+   with bagging (half the rows every iteration) and with GOSS (rates 0.5 /
+   0.25, learning rate 0.5): byte-identical model text on the CPU and the
+   card, with route fusion on and off and, for GOSS, row compaction pad and
+   off; every K2, K3 and K4 launch of the card's fused runs replayed
+   bit-equal through its plain version, and each K3 launch against the
+   chain of route-only K2 launches it fuses.
+5. full: the repo's north-star shape, HIGGS-like data (28 numeric features,
    max_bin 63) and a seeded synthetic 500-tree x 255-leaf binary model
    written as LightGBM model text: ``Dataset`` over 1M rows, ``train(params,
    ds, 0, init_model=path)``, ``predict`` on 1M more rows.  The kernel's
@@ -33,7 +40,7 @@ Phases, each printing one JSON line:
    is held bit for bit against its plain version on all rows, the scores
    against the host walk on a 20 000-row subsample, and the kernel, the
    plain version, the host walk and ``predict`` are timed.
-5. train: the full phase's Dataset trained through ``lightgbm_torch.train``
+6. train: the full phase's Dataset trained through ``lightgbm_torch.train``
    (binary, 255 leaves, learning rate 0.1, split budget 64) for
    ``--train-iters`` iterations with the kernel counts read around that
    call; the model predicts the held-out rows through K1 (AUC > 0.80); the
@@ -41,6 +48,15 @@ Phases, each printing one JSON line:
    and K4 launch of one tree is replayed through its plain version on the
    card (bit-equal) and then timed one by one beside its plain version and
    bound; one more iteration is timed phase by phase.
+7. train_sampled: the same Dataset with GOSS at the default rates (0.2 /
+   0.1), feature_fraction 0.8, learning rate 0.1, ``--sampled-iters``
+   iterations (10 of warmup) and 250 000 held-out rows as a validation set
+   with AUC and early stopping, the kernel counts read around that call
+   (valid AUC > 0.80, one K3 launch per sampled tree); the same trees with
+   route fusion off; A/B arms in turns (fused, unfused, no compaction)
+   growing the same trees; three sampled trees again, byte for byte; one
+   sampled tree's K2, K3 and K4 launches replayed bit-equal, then timed; a
+   sampled and an uncompacted iteration timed phase by phase.
 
 Then a ``kernels`` line (each ported kernel's launches on its main path,
 largest error against its plain version, time, plain time, bound and
@@ -52,6 +68,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -73,10 +90,12 @@ RTOL, ATOL = 1e-4, 1e-5
 KERNEL_SOURCES = {
     "predict_stream": "lightgbm_torch/kernels/csrc/predict_stream.cu",
     "route_and_hist": "lightgbm_torch/kernels/csrc/route_and_hist.cu",
+    "route_replay": "lightgbm_torch/kernels/csrc/route_replay.cu",
     "leaf_gather": "lightgbm_torch/kernels/csrc/leaf_gather.cu"}
 KERNEL_REPLACES = {
     "predict_stream": "lightgbm_tpu/pallas/predict_kernel.py:176",
     "route_and_hist": "lightgbm_tpu/pallas/stream_kernel.py:580",
+    "route_replay": "lightgbm_tpu/pallas/stream_kernel.py:694",
     "leaf_gather": "lightgbm_tpu/pallas/stream_kernel.py:742"}
 
 
@@ -295,6 +314,52 @@ def device_ms(fn, reps=20, clock_hz=2e9):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class TimedIters:
+    """Times every boosting iteration (``GBDT.train_one_iter``, the device
+    synchronised at its end) while active, and captures the K2, K3 and K4
+    launches of iteration ``capture_at`` into ``cap``."""
+
+    def __init__(self, capture_at=None):
+        self.seconds, self.cap, self.capture_at = [], Capture(), capture_at
+
+    def __enter__(self):
+        import torch
+        from lightgbm_torch.models.gbdt import GBDT
+        self._orig = orig = GBDT.train_one_iter
+
+        def timed(eng, *a, **kw):
+            t0 = time.perf_counter()
+            with (self.cap if len(self.seconds) == self.capture_at
+                  else contextlib.nullcontext()):
+                out = orig(eng, *a, **kw)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        GBDT.train_one_iter = timed
+        return self
+
+    def __exit__(self, *exc):
+        from lightgbm_torch.models.gbdt import GBDT
+        GBDT.train_one_iter = self._orig
+
+
+def profiled_iteration(bst):
+    """One more iteration of ``bst``, its phases timed (the device
+    synchronised at every phase boundary): (seconds, phase seconds, host
+    reads)."""
+    from lightgbm_torch.utils.timer import PhaseTimer
+
+    timer = PhaseTimer(bst.engine.device)
+    bst.engine.timer = timer
+    t0 = time.perf_counter()
+    bst.update()
+    bst.engine._flush_models()
+    seconds = time.perf_counter() - t0
+    bst.engine.timer = None
+    return seconds, dict(timer.seconds), timer.host_reads
 
 
 # --------------------------------------------------------------------------
@@ -518,19 +583,20 @@ def tree_structure(t):
 
 
 class Capture:
-    """Records every K2 and K4 call of the training loop (inputs and
+    """Records every K2, K3 and K4 call of the training loop (inputs and
     outputs) while active, by wrapping the dispatchers that ops/grow.py and
     models/gbdt.py call.  The calls still go through the kernels' wrappers
     and are counted there."""
 
     def __init__(self):
-        self.k2, self.k4 = [], []
+        self.k2, self.k3, self.k4 = [], [], []
 
     def __enter__(self):
         from lightgbm_torch.models import gbdt
         from lightgbm_torch.ops import grow
-        self._orig = (grow.route_and_hist, gbdt.leaf_gather)
-        k2_call, k4_call = self._orig
+        self._orig = (grow.route_and_hist, grow.route_replay,
+                      gbdt.leaf_gather)
+        k2_call, k3_call, k4_call = self._orig
 
         def k2(bins_T, leaf_id, tabs, words, grad, hess, cnt, *args):
             out = k2_call(bins_T, leaf_id, tabs, words, grad, hess, cnt,
@@ -540,18 +606,24 @@ class Capture:
                             out))
             return out
 
+        def k3(bins_T, tabs):
+            out = k3_call(bins_T, tabs)
+            self.k3.append(((bins_T, tabs.clone()), out))
+            return out
+
         def k4(leaf_id, values):
             out = k4_call(leaf_id, values)
             self.k4.append(((leaf_id.clone(), values.clone()), out))
             return out
 
-        grow.route_and_hist, gbdt.leaf_gather = k2, k4
+        grow.route_and_hist, grow.route_replay, gbdt.leaf_gather = \
+            k2, k3, k4
         return self
 
     def __exit__(self, *exc):
         from lightgbm_torch.models import gbdt
         from lightgbm_torch.ops import grow
-        grow.route_and_hist, gbdt.leaf_gather = self._orig
+        grow.route_and_hist, grow.route_replay, gbdt.leaf_gather = self._orig
 
 
 def max_abs_diff(a, b) -> float:
@@ -559,15 +631,46 @@ def max_abs_diff(a, b) -> float:
         if a.numel() else 0.0
 
 
+def k2_route_chain(bins_T, tabs):
+    """Every row's leaf after the (R, L, 16) records, as the unfused path
+    gets it: one route-only K2 launch per round over all rows from leaf 0
+    (launched for the comparison, after the main path's counts were
+    read)."""
+    import torch
+    from lightgbm_torch.kernels import route_hist as rh
+
+    G, n = bins_T.shape
+    R, L = tabs.shape[0], tabs.shape[1]
+    dev = bins_T.device
+    zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+    words = torch.zeros((L, 8), dtype=torch.int32, device=dev)
+    lid = torch.zeros(n, dtype=torch.int32, device=dev)
+    for r in range(R):
+        lid, _, _ = rh.route_and_hist_cuda(bins_T, lid, tabs[r].contiguous(),
+                                           words, zeros, zeros, zeros, L,
+                                           256, 0, False)
+    return lid
+
+
 def replay_against_plain(cap):
-    """Every captured launch through the plain version on the card; raises
-    unless leaf ids, counts, histograms and gathers are equal bit for bit.
-    Returns the launches replayed and the largest difference of each
-    kernel's outputs from its plain version's."""
+    """Every captured launch through the plain version on the card, and
+    each K3 launch also against the chain of route-only K2 launches it
+    fuses; raises unless leaf ids, counts, histograms and gathers are equal
+    bit for bit.  Returns the launches replayed and the largest difference
+    of each kernel's outputs from its plain version's."""
     import torch
     from lightgbm_torch.kernels import leaf_gather as lg, route_hist as rh
+    from lightgbm_torch.kernels import route_replay as rr
 
-    err = {"route_and_hist": 0.0, "leaf_gather": 0.0}
+    err = {"route_and_hist": 0.0, "route_replay": 0.0, "leaf_gather": 0.0}
+    for (bins_T, tabs), out in cap.k3:
+        want = rr.route_replay_plain(bins_T, tabs)
+        chain = k2_route_chain(bins_T, tabs)
+        diff = max(max_abs_diff(out, want), max_abs_diff(out, chain))
+        err["route_replay"] = max(err["route_replay"], diff)
+        if not (torch.equal(out, want) and torch.equal(out, chain)):
+            raise RuntimeError(f"route_replay differs from its plain version "
+                               f"or the K2 route chain (max abs {diff})")
     for args, (new_leaf, hist, counts) in cap.k2:
         p_leaf, p_hist, p_counts = rh.route_and_hist_plain(*args)
         diffs = [max_abs_diff(new_leaf, p_leaf), max_abs_diff(counts, p_counts)]
@@ -586,7 +689,8 @@ def replay_against_plain(cap):
         if not torch.equal(out, want):
             raise RuntimeError(f"leaf_gather differs from its plain version "
                                f"(max abs {diff})")
-    return {"route_and_hist": len(cap.k2), "leaf_gather": len(cap.k4)}, err
+    return {"route_and_hist": len(cap.k2), "route_replay": len(cap.k3),
+            "leaf_gather": len(cap.k4)}, err
 
 
 def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
@@ -726,34 +830,16 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
     import lightgbm_torch as lt
     from lightgbm_torch import kernels
     from lightgbm_torch.kernels import leaf_gather as lg, route_hist as rh
-    from lightgbm_torch.models.gbdt import GBDT
-    from lightgbm_torch.utils.timer import PhaseTimer
 
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
               "learning_rate": 0.1, "verbosity": -1}
-    tree_s, cap = [], Capture()
-    orig_iter = GBDT.train_one_iter
-
-    def timed_iter(self, *a, **kw):
-        t0 = time.perf_counter()
-        if len(tree_s) == timed_tree:
-            with cap:
-                out = orig_iter(self, *a, **kw)
-        else:
-            out = orig_iter(self, *a, **kw)
-        torch.cuda.synchronize()
-        tree_s.append(time.perf_counter() - t0)
-        return out
-
     kernels.reset_launch_counts()
-    GBDT.train_one_iter = timed_iter
-    try:
+    with TimedIters(capture_at=timed_tree) as timed:
         t0 = time.perf_counter()
         bst = lt.train(params, ds, iters)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-    finally:
-        GBDT.train_one_iter = orig_iter
+    tree_s, cap = timed.seconds, timed.cap
     launches = kernels.launch_counts()
     n_trees = bst.num_trees()
     if n_trees != iters or launches["route_and_hist"] == 0 \
@@ -799,13 +885,7 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
     k4_bnd = bound(8.0 * lid.numel() + 4.0 * vals.numel(), lid.numel())
 
     # one more iteration, its phases timed (synchronised at every boundary)
-    timer = PhaseTimer(bst.engine.device)
-    bst.engine.timer = timer
-    t0 = time.perf_counter()
-    bst.update()
-    bst.engine._flush_models()
-    profiled_s = time.perf_counter() - t0
-    bst.engine.timer = None
+    profiled_s, phases_s, host_reads = profiled_iteration(bst)
 
     mean = statistics.mean
     after_first = tree_s[1:] or tree_s
@@ -829,8 +909,8 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
           "predict_s": predict_s, "held_out_auc": held_auc,
           "determinism_first_3_trees_identical": True,
           "profiled_iteration_s": profiled_s,
-          "profiled_iteration_phases_s": dict(timer.seconds),
-          "profiled_iteration_host_reads": timer.host_reads})
+          "profiled_iteration_phases_s": phases_s,
+          "profiled_iteration_host_reads": host_reads})
     k2 = {"name": "route_and_hist", "route": "cuda",
           "source": KERNEL_SOURCES["route_and_hist"],
           "replaces": KERNEL_REPLACES["route_and_hist"],
@@ -849,6 +929,246 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
     return [k2, k4]
 
 
+# --------------------------------------------------------------------------
+# sampled training
+# --------------------------------------------------------------------------
+
+def sampled_params(kind):
+    """Bagging at half the rows every iteration, or GOSS at rates whose
+    amplification (1 - 0.5) / 0.25 = 2 keeps dyadic gradients dyadic
+    (learning rate 0.5: two warmup iterations)."""
+    if kind == "bagging":
+        return {"bagging_fraction": 0.5, "bagging_freq": 1}
+    return {"data_sample_strategy": "goss", "top_rate": 0.5,
+            "other_rate": 0.25, "learning_rate": 0.5}
+
+
+def phase_train_sampled_small(seed, n=20_000, iters=5, num_leaves=127):
+    """Sampled training on both devices, dyadic custom gradients: bagging
+    and GOSS must give byte-identical model text on the CPU and the card,
+    with route fusion on and off, and GOSS also with row compaction pad and
+    off; every K2, K3 and K4 launch of the card's fused runs is replayed
+    bit-equal through its plain version, and each K3 launch against the
+    chain of route-only K2 launches it fuses."""
+    import torch
+    import lightgbm_torch as lt
+
+    X, y = make_train_small(n, seed)
+    base = {"objective": "none", "num_leaves": num_leaves,
+            "max_splits_per_round": 64, "max_bin": 63, "verbosity": -1}
+    cap = Capture()
+    out = {}
+    for kind in ("bagging", "goss"):
+        runs = [("cpu", {}), ("cuda", {}), ("cuda", {"route_fusion": "off"})]
+        if kind == "goss":
+            runs += [("cuda", {"row_compaction": "pad"}),
+                     ("cuda", {"row_compaction": "off"})]
+        texts, compact = [], []
+        for dev, extra in runs:
+            p = {**base, **sampled_params(kind), **extra, "device_type": dev}
+            bst = lt.Booster(p, lt.Dataset(X, label=y, params=p))
+            fused_card = dev == "cuda" and not extra
+            with (cap if fused_card else contextlib.nullcontext()):
+                for _ in range(iters):
+                    bst.update(fobj=dyadic_fobj)
+            texts.append(model_trees_text(bst))
+            compact.append(bst.engine.last_compact_rows)
+        if any(t != texts[0] for t in texts):
+            raise RuntimeError(f"{kind}: sampled training differs between "
+                               f"runs {[t == texts[0] for t in texts]}")
+        if not compact[1] > 0:
+            raise RuntimeError(f"{kind}: compaction did not engage")
+        out[kind] = {"runs": [f"{d} {e}" for d, e in runs],
+                     "text_identical": True, "compact_rows": compact,
+                     "leaves_per_tree": [t.num_leaves
+                                         for t in bst.engine.models]}
+    torch.cuda.synchronize()
+    if not cap.k3:
+        raise RuntimeError("the fused sampled runs launched no K3")
+    replayed, err = replay_against_plain(cap)
+    emit({"phase": "train_sampled_small", "rows": n, "iterations": iters,
+          "num_leaves": num_leaves, **out, "replayed_launches": replayed,
+          "replay_max_abs_err": err})
+    return err
+
+
+def k3_work(bins_T, tabs):
+    """Bytes and operations one K3 launch needs on these inputs, counted
+    from what the rows need: 4 B of leaf id written per row, one byte of
+    bins per distinct group on a row's path, the records read once;
+    operations per row and round the record select (1), per routed row the
+    bin address, compare, child select and leaf update (4), +3 to unbundle
+    an EFB bin, +1 per missing-value bin (the numeric part of k2_work's
+    count)."""
+    import torch
+    from lightgbm_torch.kernels import layout as tl
+    from lightgbm_torch.kernels.route_hist import numeric_go_left
+
+    G, n = bins_T.shape
+    rows = torch.arange(n, device=bins_T.device)
+    lid = torch.zeros(n, dtype=torch.int64, device=bins_T.device)
+    seen = torch.zeros((n, G), dtype=torch.bool, device=bins_T.device)
+    ops = 0.0
+    for r in range(tabs.shape[0]):
+        rec = tabs[r][lid]
+        chosen = rec[:, tl.R_CHOSEN] > 0
+        grp = rec[:, tl.R_GROUP].to(torch.int64)
+        seen[rows[chosen], grp[chosen]] = True
+        ops += float(n + 4 * chosen.sum()
+                     + 3 * (chosen & (rec[:, tl.R_BUNDLED] > 0)).sum()
+                     + (chosen & (rec[:, tl.R_NANBIN] >= 0)).sum()
+                     + (chosen & (rec[:, tl.R_MZBIN] >= 0)).sum())
+        go_left, _ = numeric_go_left(bins_T, rows, rec)
+        lid = torch.where(chosen & ~go_left, rec[:, tl.R_NEWID].long(), lid)
+    n_bytes = 4.0 * n + float(seen.sum()) + 4.0 * tabs.numel()
+    return n_bytes, ops
+
+
+def phase_train_sampled(ds, Xs, ys, smi, iters=40, valid_rows=250_000,
+                        timed_tree=12, patience=10, warmup=10):
+    """GOSS at LightGBM's default rates (0.2 / 0.1) with feature_fraction
+    0.8 on the full phase's 1M rows, 255 leaves, learning rate 0.1 (10
+    warmup iterations, then sampled trees), with held-out rows as a
+    validation set (AUC, early stopping): the main path of K3.  The same
+    run unfused must grow byte-identical trees, and so must its first
+    sampled trees in A/B arms run in turns (fused, unfused, without row
+    compaction; each with the validation set); three sampled trees are
+    trained again and must repeat byte for byte; every K2, K3 and K4 launch
+    of one sampled tree is replayed bit-equal and then timed; one more
+    iteration, and one without compaction, are timed phase by phase.  Returns the K3 entry of
+    the kernels line and the replays' largest differences."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.kernels import leaf_gather as lg
+    from lightgbm_torch.kernels import route_hist as rh, route_replay as rr
+
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
+              "learning_rate": 0.1, "data_sample_strategy": "goss",
+              "top_rate": 0.2, "other_rate": 0.1, "feature_fraction": 0.8,
+              "metric": "auc", "verbosity": -1}
+    t0 = time.perf_counter()
+    valid = lt.Dataset(Xs[:valid_rows], label=ys[:valid_rows],
+                       reference=ds).construct()
+    valid_s = time.perf_counter() - t0
+
+    def run(extra, n_iter, **kw):
+        return lt.train({**params, **extra}, ds, n_iter, **kw)
+
+    record = {}
+    kernels.reset_launch_counts()
+    with TimedIters(capture_at=timed_tree) as main:
+        t0 = time.perf_counter()
+        bst = run({}, iters, valid_sets=[valid],
+                  callbacks=[lt.early_stopping(patience, verbose=False),
+                             lt.record_evaluation(record)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    eng = bst.engine
+    n_trees = bst.num_trees()
+    n_sampled = n_trees - warmup
+    if (n_sampled < 20 or launches["route_replay"] != n_sampled
+            or launches["leaf_gather"] != n_trees
+            or launches["route_and_hist"] == 0):
+        raise RuntimeError(f"sampled training made {n_trees} trees with "
+                           f"launches {launches}")
+    aucs = record["valid_0"]["auc"]
+    best = bst.best_score["valid_0"]["auc"]
+    if not (np.isfinite(aucs).all() and best > 0.80
+            and bst.best_iteration >= 1):
+        raise RuntimeError(f"valid AUC {best} at {bst.best_iteration}")
+    text = model_trees_text(bst, num_iteration=n_trees)
+    sampled_rows, compact_rows = eng.last_sampled_rows, eng.last_compact_rows
+
+    # the same run unfused: one route-only K2 pass over all rows per round
+    kernels.reset_launch_counts()
+    unfused = run({"route_fusion": "off"}, n_trees)
+    launches_unfused = kernels.launch_counts()
+    if model_trees_text(unfused) != text:
+        raise RuntimeError("route fusion on and off grow different trees")
+    # A/B arms in turns, each the warmup and 8 sampled trees with the
+    # validation set: fused (the main path), unfused, and without row
+    # compaction (histogram passes over all 1M rows with the mask)
+    arms = {"fused": {}, "unfused": {"route_fusion": "off"},
+            "no_compaction": {"row_compaction": "off"}}
+    arm_s = {name: [] for name in arms}
+    arm_bst = {}
+    for name in ("fused", "unfused", "no_compaction", "no_compaction",
+                 "unfused", "fused") * 2:
+        with TimedIters() as arm_iters:
+            arm_bst[name] = run(arms[name], warmup + 8, valid_sets=[valid],
+                                callbacks=[lt.record_evaluation({})])
+        if model_trees_text(arm_bst[name]) != model_trees_text(
+                bst, num_iteration=warmup + 8):
+            raise RuntimeError(f"the {name} arm grows different trees")
+        arm_s[name].append(statistics.median(arm_iters.seconds[warmup:]))
+    # determinism: the warmup and three sampled trees again
+    again = run({}, warmup + 3)
+    if model_trees_text(again) != model_trees_text(
+            bst, num_iteration=warmup + 3):
+        raise RuntimeError("sampled training does not repeat bit for bit")
+
+    replayed, err = replay_against_plain(main.cap)
+    if len(main.cap.k3) != 1:
+        raise RuntimeError(f"the timed tree launched K3 "
+                           f"{len(main.cap.k3)} times")
+    (bins_T, tabs), _ = main.cap.k3[0]
+    k3_ms = device_ms(lambda: rr.route_replay_cuda(bins_T, tabs))
+    k3_plain = cuda_ms(lambda: rr.route_replay_plain(bins_T, tabs), reps=1,
+                       warmup=0)
+    k3_bytes, k3_ops = k3_work(bins_T, tabs)
+    k3_bnd = bound(k3_bytes, k3_ops)
+    k2_full = [(a, o) for a, o in main.cap.k2 if a[10]]
+    k2_ms = [device_ms(lambda a=a: rh.route_and_hist_cuda(*a))
+             for a, _ in k2_full]
+    (lid, vals), _ = main.cap.k4[0]
+    k4_ms = device_ms(lambda: lg.leaf_gather_cuda(lid, vals))
+    prof = profiled_iteration(bst)
+    prof_dense = profiled_iteration(arm_bst["no_compaction"])
+    emit({"phase": "train_sampled", "card": smi, "rows": int(ds.num_data()),
+          "valid_rows": valid.num_data(), "valid_binning_s": valid_s,
+          "iterations": iters, "trees": n_trees, "warmup_trees": warmup,
+          "num_leaves": 255,
+          "leaves_per_tree": [t.num_leaves for t in eng.models[:n_trees]],
+          "train_s": train_s,
+          "s_per_tree_warmup": statistics.median(main.seconds[1:warmup]),
+          "s_per_tree_sampled": statistics.median(main.seconds[warmup:]),
+          "ab_s_per_tree_sampled": arm_s,
+          "tree_s": main.seconds, "valid_auc": aucs,
+          "best_iteration": bst.best_iteration, "best_valid_auc": best,
+          "sampled_rows": sampled_rows, "compact_rows": compact_rows,
+          "k2_launches_per_sampled_tree": len(main.cap.k2),
+          "k3_launches": launches["route_replay"],
+          "route_only_passes_per_sampled_tree": {
+              "fused": launches["route_replay"] / n_sampled,
+              "unfused": (launches_unfused["route_and_hist"]
+                          - launches["route_and_hist"]) / n_sampled},
+          "launches": launches, "launches_unfused": launches_unfused,
+          "fusion_on_off_identical": True,
+          "compaction_on_off_identical": True,
+          "determinism_3_sampled_trees_identical": True,
+          "replayed_launches_timed_tree": replayed,
+          "replay_max_abs_err": err,
+          "k3_ms": k3_ms, "k3_plain_ms": k3_plain, "k3_bytes": k3_bytes,
+          "k3_ops": k3_ops, "k3_rounds": int(tabs.shape[0]),
+          "k2_full_hist_compacted_ms": k2_ms,
+          "k2_full_hist_compacted_mean_ms": statistics.mean(k2_ms),
+          "k4_ms": k4_ms,
+          "profiled_iteration_s": prof[0],
+          "profiled_iteration_phases_s": prof[1],
+          "profiled_iteration_host_reads": prof[2],
+          "profiled_iteration_no_compaction_s": prof_dense[0],
+          "profiled_iteration_no_compaction_phases_s": prof_dense[1]})
+    return {"name": "route_replay", "route": "cuda",
+            "source": KERNEL_SOURCES["route_replay"],
+            "replaces": KERNEL_REPLACES["route_replay"],
+            "launches": launches["route_replay"],
+            "max_abs_err": err["route_replay"],
+            "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bnd[0],
+            "bound_by": k3_bnd[1], "library_ms": None}, err
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -863,6 +1183,7 @@ def main(argv=None) -> int:
     ap.add_argument("--trees", type=int, default=500)
     ap.add_argument("--leaves", type=int, default=255)
     ap.add_argument("--train-iters", type=int, default=20)
+    ap.add_argument("--sampled-iters", type=int, default=40)
     args = ap.parse_args(argv)
 
     import torch
@@ -889,11 +1210,18 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         phase_small(args.seed, tmp)
         small_err = phase_train_small(args.seed)
+        sampled_small_err = phase_train_sampled_small(args.seed)
         k1, ds, Xs, ys = phase_full(args.seed, args.rows, args.trees,
                                     args.leaves, tmp, smi)
-        kernel_lines = [k1] + phase_train(ds, Xs, ys, args.train_iters, smi)
+        k2, k4 = phase_train(ds, Xs, ys, args.train_iters, smi)
+        k3, sampled_err = phase_train_sampled(ds, Xs, ys, smi,
+                                              args.sampled_iters)
+    kernel_lines = [k1, k2, k3, k4]
     for k in kernel_lines[1:]:
-        k["max_abs_err"] = max(k["max_abs_err"], small_err[k["name"]])
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               small_err.get(k["name"], 0.0),
+                               sampled_small_err[k["name"]],
+                               sampled_err[k["name"]])
     emit({"kernels": kernel_lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

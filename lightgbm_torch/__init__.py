@@ -1,21 +1,30 @@
 """lightgbm_torch — the PyTorch/CUDA port of lightgbm_tpu.
 
-Batch prediction runs on an NVIDIA Hopper GPU through hand-written CUDA
-kernels (``kernels/``); training is not ported yet.  Serve a saved model
-with zero boosting rounds on its training data:
+Training (gbdt on numeric features, binary and L2, with bagging, GOSS and
+feature sampling, validation sets and early stopping) and batch prediction
+run on an NVIDIA Hopper GPU through hand-written CUDA kernels
+(``kernels/``):
 
     import lightgbm_torch as lgb
-    bst = lgb.train(params, lgb.Dataset(X_train, label=y),
-                    num_boost_round=0, init_model="model.txt")
-    bst.predict(X)
+    train = lgb.Dataset(X, label=y)
+    valid = lgb.Dataset(Xv, label=yv, reference=train)
+    bst = lgb.train(params, train, 100, valid_sets=[valid],
+                    callbacks=[lgb.early_stopping(10)])
+    bst.predict(X_new)
 
+A saved model is served with zero boosting rounds on its training data:
+``lgb.train(params, lgb.Dataset(X, label=y), 0, init_model="model.txt")``.
 Entry points run on ``device_type="cuda"`` unless the caller passes
 ``device_type="cpu"``.  Importing the package builds no kernel.
 """
 from .basic import Booster, Dataset
-from .engine import train
+from .callback import (EarlyStopException, early_stopping, log_evaluation,
+                       record_evaluation)
+from .engine import cv, train
 from .utils.log import LightGBMError
 
 __version__ = "0.1.0"
 
-__all__ = ["Dataset", "Booster", "train", "LightGBMError"]
+__all__ = ["Dataset", "Booster", "train", "cv", "early_stopping",
+           "log_evaluation", "record_evaluation", "EarlyStopException",
+           "LightGBMError"]

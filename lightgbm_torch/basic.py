@@ -2,9 +2,10 @@
 
 The port's counterpart of ``lightgbm_tpu/basic.py`` (reference:
 python-package/lightgbm/basic.py, Dataset :1692, Booster :3495), trimmed to
-training and batch prediction: a Dataset over a numpy array, and a Booster
-that trains (``update``, one boosting iteration), holds a model and
-predicts.  ``Booster.predict`` on at least
+training, evaluation and batch prediction: a Dataset over a numpy array
+(validation data binned with its training Dataset's mappers through
+``reference=``), and a Booster that trains (``update``, one boosting
+iteration), evaluates its validation sets, holds a model and predicts.  ``Booster.predict`` on at least
 ``_DEVICE_PREDICT_MIN_ROWS`` rows of a Booster built on a training Dataset
 bins the rows with the training mappers and walks every tree on the device
 (``kernels/predict.py``); smaller batches and Boosters loaded from a model
@@ -32,6 +33,7 @@ from .device_data import (DeviceData, build_routing_np, resolve_device,
 from .kernels.layout import pack_bins_T
 from .kernels.predict import (build_predict_tables, predict_stream,
                               tables_to_device)
+from .metrics import create_metrics
 from .objectives import create_objective
 from .utils.log import LightGBMError, log_warning, set_verbosity
 
@@ -51,8 +53,12 @@ class Dataset:
     def __init__(self, data, label=None, weight=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None,
+                 reference: Optional["Dataset"] = None):
         self.params = dict(params or {})
+        # validation data is binned with its training Dataset's mappers
+        # and groups, on that Dataset's device
+        self.reference = reference
         self._feature_name_arg = feature_name
         self._categorical_feature_arg = categorical_feature
         self.pandas_categorical = None   # numpy input carries no categories
@@ -95,10 +101,22 @@ class Dataset:
         in-memory path of basic.Dataset.construct)."""
         if self.binned is not None:
             return self
-        cfg = Config.from_params(self.params)
-        self.device = resolve_device(cfg.device_type)
         if self.num_data_ == 0:
             raise LightGBMError("Cannot construct Dataset: it has no rows")
+        if self.reference is not None:
+            ref = self.reference.construct()
+            if ref.num_feature() != self.num_feature_:
+                raise LightGBMError(
+                    f"The number of features in data ({self.num_feature_}) "
+                    f"is not the same as in the reference Dataset "
+                    f"({ref.num_feature()})")
+            self.device = ref.device
+            self.binned = construct_binned(self.raw_data,
+                                           ref.binned.bin_mappers,
+                                           ref.binned.group_features)
+            return self
+        cfg = Config.from_params(self.params)
+        self.device = resolve_device(cfg.device_type)
         cats = self._resolve_categorical()
         mappers = find_bin_mappers(
             self.raw_data, max_bin=cfg.max_bin,
@@ -186,6 +204,7 @@ class Booster:
                  model_str: Optional[str] = None):
         params = dict(params or {})
         self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
         self._engine = None
         self._loaded_trees = None
         if train_set is not None:
@@ -203,8 +222,10 @@ class Booster:
                     raise LightGBMError("training requires labels")
                 objective.init(train_set.get_label(), train_set.get_weight(),
                                n=train_set.num_data())
+            metrics = self._init_metrics(cfg, objective, train_set)
             from .models.gbdt import create_boosting
-            self._engine = create_boosting(cfg, train_set, objective)
+            self._engine = create_boosting(cfg, train_set, objective,
+                                           metrics)
             self.config = cfg
             self.train_set = train_set
         elif model_file is not None or model_str is not None:
@@ -218,6 +239,15 @@ class Booster:
             self.config = Config.from_params(params)
         else:
             raise LightGBMError("need train_set or model_file/model_str")
+
+    @staticmethod
+    def _init_metrics(cfg, objective, data):
+        metrics = create_metrics(cfg, objective.name if objective else "none")
+        label = data.get_label()
+        for m in metrics:
+            m.init(label if label is not None else np.zeros(data.num_data()),
+                   data.get_weight())
+        return metrics
 
     @property
     def engine(self):
@@ -240,6 +270,56 @@ class Booster:
             return eng.train_one_iter(np.asarray(grad, np.float32),
                                       np.asarray(hess, np.float32))
         return eng.train_one_iter()
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Evaluate ``data`` after every iteration (reference:
+        Booster.add_valid, basic.py:3852).  A Dataset not binned yet is
+        binned with the training Dataset's mappers."""
+        if not isinstance(data, Dataset):
+            raise TypeError("Validation data should be a Dataset instance, "
+                            f"met {type(data).__name__}")
+        if data is not self.train_set:
+            if data.binned is None and data.reference is None:
+                data.reference = self.train_set
+            data.construct()
+            if not _mappers_compatible(data.binned.bin_mappers,
+                                       self.train_set.binned.bin_mappers):
+                raise LightGBMError(
+                    "cannot add validation data, since it has different bin "
+                    "mappers with training data (construct it with "
+                    "reference=train_set)")
+        self.engine.add_valid(data, name,
+                              self._init_metrics(self.config,
+                                                 self.engine.objective, data))
+        return self
+
+    def eval_train(self, feval=None) -> List:
+        """[(dataset name, metric, value, higher is better)] of the training
+        data."""
+        eng = self.engine
+        return eng.eval_train() + self._run_feval(
+            feval, "training", self.train_set, eng.score_to_host(
+                eng.score, eng.num_data))
+
+    def eval_valid(self, feval=None) -> List:
+        eng = self.engine
+        out = eng.eval_valid()
+        for vi, vset in enumerate(eng.valid_sets):
+            score = eng.score_to_host(eng.valid_scores[vi], vset.num_data())
+            out.extend(self._run_feval(feval, eng.valid_names[vi], vset,
+                                       score))
+        return out
+
+    @staticmethod
+    def _run_feval(feval, name, dset, raw_score) -> List:
+        if feval is None:
+            return []
+        out = []
+        for f in (feval if isinstance(feval, list) else [feval]):
+            res = f(raw_score, dset)
+            for mn, v, hb in ([res] if isinstance(res, tuple) else res):
+                out.append((name, mn, float(v), bool(hb)))
+        return out
 
     def current_iteration(self) -> int:
         if self._engine is not None:
@@ -448,6 +528,18 @@ class Booster:
         if self._engine is not None:
             return self.train_set.feature_name()
         return self._loaded_trees.feature_names
+
+
+def _mappers_compatible(a, b) -> bool:
+    """True when two bin-mapper lists bin alike (reference: the CheckAlign
+    of GBDT::AddValidDataset)."""
+    if a is b:
+        return True
+    return len(a) == len(b) and all(
+        ma.bin_type == mb.bin_type
+        and np.array_equal(np.asarray(ma.upper_bounds),
+                           np.asarray(mb.upper_bounds))
+        for ma, mb in zip(a, b))
 
 
 def _host_predict(X, use, k, early_stop, es_freq, es_margin) -> np.ndarray:

@@ -1,8 +1,8 @@
 """Parameter/config system of the port.
 
-A copy of ``lightgbm_tpu/config.py`` trimmed to the keys batch prediction
-and single-device numeric training read, plus the training keys whose
-non-default values the port refuses.  The alias table is kept whole, so ``resolve_aliases`` maps every
+A copy of ``lightgbm_tpu/config.py`` trimmed to the keys batch prediction,
+single-device numeric training, sampling and evaluation read, plus the
+training keys whose non-default values the port refuses.  The alias table is kept whole, so ``resolve_aliases`` maps every
 parameter name exactly as the reference does and the ``parameters:`` block
 of a saved model is the same text.  Keys the trimmed ``Config`` does not
 hold are kept in ``_unknown`` without a warning, as the reference keeps the
@@ -293,6 +293,44 @@ _OBJECTIVE_ALIASES = {
 }
 
 
+# Metric aliases (reference: src/metric/metric.cpp; the JAX package's table,
+# copied whole)
+_METRIC_ALIASES = {
+    "l1": "l1", "mean_absolute_error": "l1", "mae": "l1", "regression_l1": "l1",
+    "l2": "l2", "mean_squared_error": "l2", "mse": "l2", "regression_l2": "l2",
+    "regression": "l2",
+    "rmse": "rmse", "root_mean_squared_error": "rmse", "l2_root": "rmse",
+    "quantile": "quantile", "huber": "huber", "fair": "fair",
+    "poisson": "poisson",
+    "mape": "mape", "mean_absolute_percentage_error": "mape",
+    "gamma": "gamma", "gamma_deviance": "gamma_deviance",
+    "tweedie": "tweedie",
+    "ndcg": "ndcg", "lambdarank": "ndcg", "rank_xendcg": "ndcg", "xendcg": "ndcg",
+    "xe_ndcg": "ndcg", "xe_ndcg_mart": "ndcg", "xendcg_mart": "ndcg",
+    "map": "map", "mean_average_precision": "map",
+    "auc": "auc", "average_precision": "average_precision",
+    "binary_logloss": "binary_logloss", "binary": "binary_logloss",
+    "binary_error": "binary_error",
+    "auc_mu": "auc_mu",
+    "multi_logloss": "multi_logloss", "multiclass": "multi_logloss",
+    "softmax": "multi_logloss", "multiclassova": "multi_logloss",
+    "multiclass_ova": "multi_logloss", "ova": "multi_logloss", "ovr": "multi_logloss",
+    "multi_error": "multi_error",
+    "cross_entropy": "cross_entropy", "xentropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda", "xentlambda": "cross_entropy_lambda",
+    "kullback_leibler": "kldiv", "kldiv": "kldiv",
+    "r2": "r2",
+    "": "", "none": "none", "null": "none", "custom": "none", "na": "none",
+}
+
+
+def canonical_metric(name: str) -> str:
+    name = name.strip().lower()
+    if name not in _METRIC_ALIASES:
+        raise ValueError(f"Unknown metric: {name!r}")
+    return _METRIC_ALIASES[name]
+
+
 def canonical_objective(name: str) -> str:
     name = name.strip().lower()
     if name not in _OBJECTIVE_ALIASES:
@@ -349,15 +387,36 @@ class Config:
     hist_precision: str = "auto"
     max_splits_per_round: int = 0
 
-    # Training features that are not ported yet: a value other than the
-    # default raises (models/gbdt.GBDT._check_unsupported_params)
-    tree_learner: str = "serial"
+    # Row and feature sampling (models/sample_strategy.py): bagging
+    # (fraction or pos/neg, every bagging_freq iterations) or GOSS (keep the
+    # top_rate largest |grad * hess|, draw other_rate of the rest); the
+    # sampled rows are compacted (row_compaction auto | pad | off) and a
+    # compacted tree's per-round full-row routes fused into one replay
+    # (route_fusion auto | on | off)
     data_sample_strategy: str = "bagging"
     bagging_fraction: float = 1.0
     pos_bagging_fraction: float = 1.0
     neg_bagging_fraction: float = 1.0
     bagging_freq: int = 0
+    bagging_seed: int = 3
+    top_rate: float = 0.2
+    other_rate: float = 0.1
+    row_compaction: str = "auto"
+    route_fusion: str = "auto"
     feature_fraction: float = 1.0
+    feature_fraction_seed: int = 2
+
+    # Evaluation and early stopping (metrics.py, callback.py, engine.py)
+    metric: Any = ""
+    metric_freq: int = 1
+    early_stopping_round: int = 0
+    early_stopping_min_delta: float = 0.0
+    first_metric_only: bool = False
+
+    # Training features that are not ported yet: a value other than the
+    # default raises (models/gbdt.GBDT._check_unsupported_params)
+    tree_learner: str = "serial"
+    bagging_by_query: bool = False
     feature_fraction_bynode: float = 1.0
     extra_trees: bool = False
     path_smooth: float = 0.0
@@ -409,6 +468,34 @@ class Config:
             raise LightGBMError(
                 f"device_type={self.device_type!r} is not one of 'cuda' "
                 "('gpu' is an alias) or 'cpu'")
+        for key in ("row_compaction", "route_fusion"):
+            allowed = (("auto", "off", "pad") if key == "row_compaction"
+                       else ("auto", "on", "off"))
+            if str(getattr(self, key)).strip().lower() not in allowed:
+                raise LightGBMError(
+                    f"{key}={getattr(self, key)!r} is not one of "
+                    + ", ".join(repr(a) for a in allowed))
+        # GOSS conflicts (reference: Config::CheckParamConflict,
+        # src/io/config.cpp): the rates partition the data, and active
+        # bagging cannot be combined with GOSS
+        if (str(self.data_sample_strategy).strip().lower() == "goss"
+                or str(self.boosting).strip().lower() == "goss"):
+            if self.top_rate < 0.0 or self.other_rate < 0.0:
+                raise LightGBMError(
+                    f"GOSS rates must be non-negative, got top_rate="
+                    f"{self.top_rate}, other_rate={self.other_rate}")
+            if self.top_rate + self.other_rate > 1.0:
+                raise LightGBMError(
+                    f"top_rate + other_rate must be <= 1.0 for GOSS, got "
+                    f"{self.top_rate} + {self.other_rate} = "
+                    f"{self.top_rate + self.other_rate}")
+            bagging_on = min(self.bagging_fraction, self.pos_bagging_fraction,
+                             self.neg_bagging_fraction) < 1.0
+            if self.bagging_freq > 0 and bagging_on:
+                raise LightGBMError(
+                    "GOSS (data_sample_strategy=goss) cannot be combined "
+                    "with bagging; set bagging_freq=0 (reference: "
+                    "Config::CheckParamConflict)")
 
 
 def _coerce(current: Any, value: Any) -> Any:

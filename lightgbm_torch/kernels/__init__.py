@@ -8,6 +8,8 @@ version runs only for CPU tensors.  Importing this package builds nothing:
 - ``route_and_hist`` (K2, route_hist.py): one growth round of training,
   rows routed through the round's splits and the histograms of their new
   slots built.
+- ``route_replay`` (K3, route_replay.py): a sampled tree's rounds replayed
+  over all rows in one pass, every row's leaf.
 - ``leaf_gather`` (K4, leaf_gather.py): the score update's
   ``values[leaf_id]``.
 
@@ -19,12 +21,13 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import leaf_gather, predict, route_hist
+from . import leaf_gather, predict, route_hist, route_replay
 
 # kernel name -> its CUDA wrapper
 WRAPPERS = {
     "predict_stream": predict.predict_stream_cuda,
     "route_and_hist": route_hist.route_and_hist_cuda,
+    "route_replay": route_replay.route_replay_cuda,
     "leaf_gather": leaf_gather.leaf_gather_cuda,
 }
 

@@ -27,6 +27,7 @@ SOURCES: Dict[str, str] = {
     "predict_stream": "csrc/predict_stream.cu",
     "route_and_hist": "csrc/route_and_hist.cu",
     "leaf_gather": "csrc/leaf_gather.cu",
+    "route_replay": "csrc/route_replay.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,6 +47,9 @@ SIGNATURES = {
                         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
     "leaf_gather": ("lgbt_leaf_gather",
                     [_c_ptr, _c_i64, _c_ptr, _c_int, _c_ptr, _c_ptr]),
+    "route_replay": ("lgbt_route_replay",
+                     [_c_ptr, _c_i64, _c_ptr, _c_int, _c_int, _c_ptr,
+                      _c_ptr]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -49,13 +49,12 @@ def route_and_hist(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
                         f"{bins_T.device}")
 
 
-def route_plain(bins_T, leaf_id, tabs, cat_words):
-    """(new leaf (N,) int32, slot (N,) int32) of every row: the kernel's
-    route step written with tensor ops over all rows at once."""
-    n = bins_T.shape[1]
-    rows = torch.arange(n, device=bins_T.device)
-    lid = leaf_id.to(torch.int64)
-    rec = tabs[lid]                                           # (N, 16)
+def numeric_go_left(bins_T, rows, rec):
+    """(go_left (N,) bool, feature-local bin (N,) int32) of each row under
+    its (N, 16) route record, numeric decision: the split group's bin,
+    unbundled when the feature shares an EFB group; a NaN or zero-as-missing
+    bin (-1 = none) goes the default way, any other bin left when it is at
+    most the threshold."""
     gb = bins_T[rec[:, R_GROUP].to(torch.int64), rows].to(torch.int32)
     ls = gb - rec[:, R_SPAN]
     defbin = rec[:, R_DEFBIN]
@@ -64,6 +63,17 @@ def route_plain(bins_T, leaf_id, tabs, cat_words):
     fb = torch.where(rec[:, R_BUNDLED] > 0, fb_b, gb)
     missing = (fb == rec[:, R_NANBIN]) | (fb == rec[:, R_MZBIN])
     go_left = torch.where(missing, rec[:, R_DEFLEFT] > 0, fb <= rec[:, R_THR])
+    return go_left, fb
+
+
+def route_plain(bins_T, leaf_id, tabs, cat_words):
+    """(new leaf (N,) int32, slot (N,) int32) of every row: the kernel's
+    route step written with tensor ops over all rows at once."""
+    n = bins_T.shape[1]
+    rows = torch.arange(n, device=bins_T.device)
+    lid = leaf_id.to(torch.int64)
+    rec = tabs[lid]                                           # (N, 16)
+    go_left, fb = numeric_go_left(bins_T, rows, rec)
     # (rows of unsplit leaves read group 0 and are not routed; clamp their
     # word index into the table)
     wi = torch.clamp(fb >> 5, max=cat_words.shape[1] - 1).to(torch.int64)

@@ -1,0 +1,141 @@
+"""Row sampling strategies: bagging and GOSS.
+
+The port's counterpart of ``lightgbm_tpu/models/sample_strategy.py``
+(reference: src/boosting/sample_strategy.cpp, bagging.hpp:15, goss.hpp:19).
+A strategy returns each iteration a {0, 1} float32 in-bag mask over the
+padded rows and the gradients it scales; the engine multiplies the mask
+into the count channel and hands the grower a compaction capacity
+(models/gbdt.py, ops/compact.py).  The masks are drawn with
+``utils.random.uniform``, which equals the reference's ``jax.random.uniform``
+bit for bit, under the reference's keys, so both packages sample the same
+rows.  ``n`` is the row count padded to 256, as in the reference: GOSS's
+``k_top`` and the pos/neg labels are the padded ones (pad rows are
+negatives with zero gradients).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..utils.random import prng_key, uniform
+
+
+class SampleStrategy:
+    """Returns (mask, grad, hess) per iteration; mask == 1 means in-bag."""
+
+    def __init__(self, config: Config, num_data: int,
+                 label: Optional[np.ndarray] = None,
+                 device: torch.device = torch.device("cpu")):
+        self.config = config
+        self.num_data = num_data
+        self.label = label
+        self.device = device
+
+    def is_active(self) -> bool:
+        return False
+
+    def mask_key(self, iteration: int) -> int:
+        """Two iterations with the same key draw the same mask, so the
+        in-bag count the compaction capacity reads back is cached on it."""
+        return iteration
+
+    def sample(self, iteration: int, grad: torch.Tensor, hess: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        mask = torch.ones(grad.shape[0], dtype=torch.float32,
+                          device=grad.device)
+        return mask, grad, hess
+
+
+class BaggingSampleStrategy(SampleStrategy):
+    """Fraction bagging and pos/neg-balanced bagging (reference:
+    bagging.hpp); the mask is redrawn every ``bagging_freq`` iterations.
+    ``bagging_by_query`` is refused by the engine (it needs the query
+    boundaries of ranking)."""
+
+    def __init__(self, config: Config, num_data: int, label=None,
+                 device: torch.device = torch.device("cpu")):
+        super().__init__(config, num_data, label, device)
+        c = config
+        self.use_posneg = (c.pos_bagging_fraction < 1.0
+                           or c.neg_bagging_fraction < 1.0)
+        self.active = (c.bagging_freq > 0
+                       and (c.bagging_fraction < 1.0 or self.use_posneg))
+        if self.active and self.use_posneg and label is not None:
+            self._is_pos = torch.as_tensor(np.asarray(label) > 0,
+                                           device=device)
+        self._mask = None
+        self._mask_epoch = -1
+
+    def is_active(self) -> bool:
+        return self.active
+
+    def mask_key(self, iteration: int) -> int:
+        # the mask is a pure function of the bagging epoch
+        return iteration // max(self.config.bagging_freq, 1)
+
+    def sample(self, iteration: int, grad, hess):
+        if not self.active:
+            return super().sample(iteration, grad, hess)
+        c = self.config
+        epoch = self.mask_key(iteration)
+        if self._mask is None or epoch != self._mask_epoch:
+            key = prng_key(c.bagging_seed * 131071 + epoch)
+            u = uniform(key, self.num_data, self.device)
+            if self.use_posneg:
+                frac = torch.where(self._is_pos, c.pos_bagging_fraction,
+                                   c.neg_bagging_fraction)
+                self._mask = (u < frac).to(torch.float32)
+            else:
+                self._mask = (u < c.bagging_fraction).to(torch.float32)
+            self._mask_epoch = epoch
+        m = self._mask
+        return m, grad * m, hess * m
+
+
+class GOSSStrategy(SampleStrategy):
+    """Gradient-based one-side sampling (reference: goss.hpp:19): keep the
+    ``top_rate`` share of rows by |grad * hess|, draw ``other_rate`` of the
+    rest and amplify their gradients by (1 - top_rate) / other_rate."""
+
+    def is_active(self) -> bool:
+        return True
+
+    def _is_warmup(self, iteration: int) -> bool:
+        # no sampling for the first 1 / learning_rate iterations
+        return iteration < 1.0 / max(self.config.learning_rate, 1e-12)
+
+    def mask_key(self, iteration: int) -> int:
+        # every warmup iteration has the same all-ones mask
+        return -1 if self._is_warmup(iteration) else iteration
+
+    def sample(self, iteration: int, grad, hess):
+        if self._is_warmup(iteration):
+            return SampleStrategy.sample(self, iteration, grad, hess)
+        c = self.config
+        n = self.num_data
+        mag = torch.abs(grad * hess)
+        k_top = max(1, int(c.top_rate * n))
+        thresh = torch.sort(mag).values[n - k_top]
+        is_top = mag >= thresh
+        u = uniform(prng_key(c.bagging_seed * 524287 + iteration), n,
+                    grad.device)
+        keep_rest = ~is_top & (u < c.other_rate)
+        amp = (1.0 - c.top_rate) / max(c.other_rate, 1e-12)
+        mask = (is_top | keep_rest).to(torch.float32)
+        # amp rounds to float32 before it scales, as in the reference
+        scale = torch.where(keep_rest, amp, 1.0) * mask
+        return mask, grad * scale, hess * scale
+
+
+def create_sample_strategy(config: Config, num_data: int, label=None,
+                           device: torch.device = torch.device("cpu")
+                           ) -> SampleStrategy:
+    """reference: SampleStrategy::CreateSampleStrategy
+    (sample_strategy.h:30)."""
+    if (str(config.data_sample_strategy).strip().lower() == "goss"
+            or str(config.boosting).strip().lower() == "goss"):
+        return GOSSStrategy(config, num_data, label, device)
+    return BaggingSampleStrategy(config, num_data, label, device)

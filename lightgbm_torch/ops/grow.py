@@ -16,24 +16,39 @@ scanned for their own best splits.  The schedule is the reference's:
   round can make the remaining splits, and that last "sprint" round splits
   up to S_f = min(2S, 255, L - 1) leaves through K2 without histograms.
 
+A sampled tree (bagging or GOSS, ``compact_rows > 0``) grows on a compacted
+view: one stable partition per tree (ops/compact.py) puts the in-bag rows
+first, and every K2 pass with histograms (root, rounds, sprint) reads the
+(G, compact_rows) view and its own leaf ids.  Every row of the full set
+still needs its leaf for the score update.  Unfused, each round adds a
+route-only K2 pass over all N rows (reference: ops/grow.py:1023-1032).
+Fused (``route_fusion``, under the reference's gate :626-633: S >= 64, no
+depth limit, at most 256 leaves), each round's (L, 16) route records are
+kept, and after growth one K3 launch (kernels/route_replay.py) replays them
+over all rows from leaf 0 (:1562-1585).  The histograms are exact fixed
+point and the shift is chosen from the full row count, so compaction and
+fusion change no bit of the tree.
+
 The loop is a Python loop over rounds.  Each round reads one integer on the
 host (the number of splittable leaves), and each tree one more (the largest
 weight, which fixes the histograms' fixed-point shift).  Not ported:
 forced splits, monotone and interaction constraints, CEGB, by-node feature
-sampling, extra trees, path smoothing, row compaction, route fusion (K3),
-meshes and quantized-gradient histograms.
+sampling, extra trees, path smoothing, meshes and quantized-gradient
+histograms.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..device_data import FeatureLayout, RoutingLayout
 from ..kernels.layout import build_route_tables
 from ..kernels.route_hist import route_and_hist
+from ..kernels.route_replay import route_replay
 from ..tree import TreeArrays
 from ..utils.timer import host_int, phase
+from .compact import compact_transposed_view, plan_sample_rows
 from .histogram import hist_shift, hist_subtract
 from .split import NEG_INF, find_best_splits, leaf_output
 
@@ -50,19 +65,44 @@ class GrowParams(NamedTuple):
     min_sum_hessian_in_leaf: float
     min_gain_to_split: float
     max_delta_step: float
+    route_fusion: bool = False
+
+
+class GrowResult(NamedTuple):
+    arrays: TreeArrays
+    leaf_id: torch.Tensor     # (N,) int32 leaf of every row
+    rounds: int               # splitting rounds run: bounds the tree's depth
+
+
+def fusion_applies(params: GrowParams, compact_rows: int) -> bool:
+    """The reference's gate for route fusion (ops/grow.py:626-633): a
+    compacted tree grown in the sprint schedule (S >= 64, no depth limit)
+    with at most 256 leaves.  Categorical trees, forced splits and CEGB,
+    which the gate also excludes, do not train in the port."""
+    L = params.num_leaves
+    S = min(params.max_splits_per_round, max(L - 1, 1))
+    return (params.route_fusion and compact_rows > 0 and S >= 64
+            and params.max_depth <= 0 and L <= 256)
 
 
 class _Grower:
     """The state of one tree while it grows: per-leaf sums, cached best
-    splits and histograms, node arrays, and every row's leaf."""
+    splits and histograms, node arrays, and every row's leaf.  The ``*_h``
+    tensors are the rows the histogram passes read: the compacted view of
+    a sampled tree, else the full rows themselves."""
 
     def __init__(self, bins_T, grad, hess, cnt, layout: FeatureLayout,
                  routing: RoutingLayout, params: GrowParams, max_bins: int,
-                 timer=None):
+                 timer=None, col_mask=None, compact_rows: int = 0):
         self.bins_T, self.grad, self.hess, self.cnt = bins_T, grad, hess, cnt
         self.layout, self.routing, self.p = layout, routing, params
         self.Bmax = max_bins
         self.timer = timer
+        self.col_mask = col_mask
+        self.compact = compact_rows > 0
+        self.fuse = fusion_applies(params, compact_rows)
+        self.records = []          # the rounds' route tables, when fused
+        self.rounds = 0
         dev = bins_T.device
         self.dev = dev
         L = self.L = params.num_leaves
@@ -87,10 +127,23 @@ class _Grower:
         self.cat_words = torch.zeros((L, max(-(-max_bins // 32), 1)),
                                      dtype=torch.int32, device=dev)
         self.leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        if self.compact:
+            with phase(timer, "compact"):
+                perm = plan_sample_rows(cnt, compact_rows).perm
+                (self.bins_h, self.grad_h, self.hess_h,
+                 self.cnt_h) = compact_transposed_view(bins_T, perm, grad,
+                                                       hess, cnt)
+            self.leaf_id_h = torch.zeros(compact_rows, dtype=torch.int32,
+                                         device=dev)
+        else:
+            self.bins_h, self.grad_h, self.hess_h, self.cnt_h = \
+                bins_T, grad, hess, cnt
+            self.leaf_id_h = self.leaf_id
         self.cur = 1
         self.progressed = True
         self.npos = 0
-        # one fixed-point scale per tree: the weights do not change
+        # one fixed-point scale per tree, from all N rows, so that the
+        # compacted and the full passes quantize alike
         m = torch.maximum(grad.abs().max(), hess.abs().max())
         self.shift = hist_shift(float(m.item()), n)
         if timer is not None:
@@ -102,14 +155,38 @@ class _Grower:
             return find_best_splits(
                 hist, g, h, c, self.layout, p.lambda_l1, p.lambda_l2,
                 max(p.min_data_in_leaf, 1), p.min_sum_hessian_in_leaf,
-                p.min_gain_to_split, p.max_delta_step)
+                p.min_gain_to_split, p.max_delta_step, self.col_mask)
 
     def k2(self, tabs, num_slots, with_hist):
+        """The round's K2 pass over the histogram rows; for a compacted
+        tree also every row's route (a route-only pass, or the tables kept
+        for the replay).  Returns the pass's histograms and counts."""
         with phase(self.timer, "k2"):
-            return route_and_hist(self.bins_T, self.leaf_id, tabs,
-                                  self.cat_words, self.grad, self.hess,
-                                  self.cnt, num_slots, self.Bmax, self.shift,
-                                  with_hist)
+            new_leaf, hist, counts = route_and_hist(
+                self.bins_h, self.leaf_id_h, tabs, self.cat_words,
+                self.grad_h, self.hess_h, self.cnt_h, num_slots, self.Bmax,
+                self.shift, with_hist)
+        if not self.compact:
+            self.leaf_id = self.leaf_id_h = new_leaf
+        elif self.fuse:
+            self.records.append(tabs)
+            self.leaf_id_h = new_leaf
+        else:
+            with phase(self.timer, "k2"):
+                self.leaf_id, _, _ = route_and_hist(
+                    self.bins_T, self.leaf_id, tabs, self.cat_words,
+                    self.grad, self.hess, self.cnt, num_slots, self.Bmax,
+                    self.shift, False)
+            self.leaf_id_h = new_leaf
+        return hist, counts
+
+    def replay(self):
+        """Every row's leaf from the kept route tables (K3), once per fused
+        tree that made a split."""
+        if self.fuse and self.records:
+            with phase(self.timer, "k3"):
+                self.leaf_id = route_replay(self.bins_T,
+                                            torch.stack(self.records))
 
     def count_splittable(self):
         p = self.p
@@ -126,8 +203,13 @@ class _Grower:
         keep[0] = 0
         tabs0 = build_route_tables(zL, zL, zL, zL, zL, keep, keep, keep,
                                    self.routing)
-        _, root_hist, _ = self.k2(tabs0, 1, True)
-        # root totals in float64, rounded once: the same on every device
+        with phase(self.timer, "k2"):
+            _, root_hist, _ = route_and_hist(
+                self.bins_h, self.leaf_id_h, tabs0, self.cat_words,
+                self.grad_h, self.hess_h, self.cnt_h, 1, self.Bmax,
+                self.shift, True)
+        # root totals of all N rows in float64, rounded once: the same on
+        # every device and at every compaction capacity
         g = self.grad.double().sum().float()
         h = self.hess.double().sum().float()
         c = self.cnt.double().sum().float()
@@ -211,13 +293,13 @@ class _Grower:
             slot_r[old] = torch.where(smaller_is_left, -1, ar)
             tabs = build_route_tables(chosen, new_id, lfeat, lthr, ldir,
                                       slot_l, slot_r, slot_keep, self.routing)
-        new_leaf, hist_small, slot_cnt = self.k2(tabs, k, with_hist)
+        hist_small, slot_cnt = self.k2(tabs, k, with_hist)
+        self.rounds += 1
         with phase(self.timer, "other"):
             # exact child counts from the routed rows (reference:
             # serial_tree_learner.cpp:798)
             lc_x = torch.where(smaller_is_left, slot_cnt, pc - slot_cnt)
             rc_x = pc - lc_x
-            self.leaf_id = new_leaf
             self.sum_g[old], self.sum_g[new] = lg, rg
             self.sum_h[old], self.sum_h[new] = lh, rh
             self.cnt_leaf[old], self.cnt_leaf[new] = lc_x, rc_x
@@ -272,13 +354,17 @@ class _Grower:
 def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               cnt: torch.Tensor, layout: FeatureLayout,
               routing: RoutingLayout, params: GrowParams, max_bins: int,
-              timer=None) -> Tuple[TreeArrays, torch.Tensor]:
+              timer=None, col_mask: Optional[torch.Tensor] = None,
+              compact_rows: int = 0) -> GrowResult:
     """Grow one tree.  bins_T: (G, N) uint8; grad, hess, cnt: (N,) float32,
-    zero on pad rows.  Returns (TreeArrays, leaf_id (N,) int32)."""
+    zero on pad and out-of-bag rows (cnt is the in-bag mask); col_mask:
+    (F,) bool feature sample, or None; compact_rows: the row capacity of a
+    sampled tree's compacted view (covering every in-bag row), 0 for
+    none."""
     L = params.num_leaves
     S = min(params.max_splits_per_round, max(L - 1, 1))
     gr = _Grower(bins_T, grad, hess, cnt, layout, routing, params, max_bins,
-                 timer)
+                 timer, col_mask, compact_rows)
     gr.root()
     if S > 64:
         # round r splits at most 2**r leaves: seven budget-64 rounds cover
@@ -298,4 +384,5 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     else:
         while gr.can_continue():
             gr.round(S)
-    return gr.arrays(), gr.leaf_id
+    gr.replay()
+    return GrowResult(gr.arrays(), gr.leaf_id, gr.rounds)

@@ -20,7 +20,7 @@ bit-equal to the reference; elsewhere gains agree within float32 rounding.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -108,9 +108,11 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
                      lambda_l2: float, min_data_in_leaf: int,
                      min_sum_hessian_in_leaf: float,
                      min_gain_to_split: float,
-                     max_delta_step: float = 0.0) -> SplitResult:
+                     max_delta_step: float = 0.0,
+                     col_mask: Optional[torch.Tensor] = None) -> SplitResult:
     """Best numeric split of each of the S histogram slots (reference:
-    find_best_splits, numeric-only path)."""
+    find_best_splits, numeric-only path).  ``col_mask`` (F,) bool is the
+    tree's feature sample: a feature outside it never wins."""
     S = hist.shape[0]
     Bmax = hist.shape[2]
     dev = hist.device
@@ -210,6 +212,8 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
     use_rev = g_rev >= g_fwd
     best_t = torch.where(use_rev, t_rev, t_fwd)                # (S, F)
     best_gain_f = torch.where(use_rev, g_rev, g_fwd)
+    if col_mask is not None:
+        best_gain_f = torch.where(col_mask[None, :], best_gain_f, NEG_INF)
 
     best_f = torch.argmax(best_gain_f, dim=-1)                 # (S,)
     ar = torch.arange(S, device=dev)

@@ -1,0 +1,66 @@
+"""Counter-based uniform draws equal bit for bit to ``jax.random.uniform``.
+
+The sampling strategies of the reference draw their masks with
+``jax.random.uniform(jax.random.PRNGKey(seed), (n,))`` (lightgbm_tpu/models/
+sample_strategy.py:127, :200-202), so the port's trees match the reference's
+only when its masks do.  This module computes the same numbers with torch
+integer ops on any device:
+
+- the key: ``PRNGKey(seed)`` with JAX's 64-bit mode off (its default) keeps
+  the seed's low 32 bits as the key words ``(0, seed & 0xFFFFFFFF)``;
+- the bits of element i: the Threefry-2x32 hash (20 rounds) of the counter
+  pair ``(i >> 32, i & 0xFFFFFFFF)`` under that key, its two output words
+  xor-ed (JAX's partitionable mode, its default, in which element i does not
+  depend on the length drawn);
+- the float: the top 23 bits under the exponent of 1.0, ``((bits >> 9) |
+  0x3F800000)`` read as a float32, minus 1.0: a value in [0, 1).
+
+torch's uint32 covers few operations, so the words are int64 tensors held
+in [0, 2**32) by masking after every add and shift.
+"""
+from __future__ import annotations
+
+import torch
+
+_MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+
+
+def prng_key(seed: int):
+    """The two 32-bit words of ``jax.random.PRNGKey(seed)``."""
+    return 0, int(seed) & _MASK32
+
+
+def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) | (x >> (32 - d))) & _MASK32
+
+
+def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
+    """Threefry-2x32 of the counter words (x0, x1) under ``key``: two int64
+    tensors of 32-bit words."""
+    k0, k1 = key
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = (x0 + ks[0]) & _MASK32
+    x1 = (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK32
+    return x0, x1
+
+
+def random_bits(key, n: int, device=None) -> torch.Tensor:
+    """(n,) int64 32-bit words, ``jax.random.bits(key, (n,), uint32)``."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(key, i >> 32, i & _MASK32)
+    return b0 ^ b1
+
+
+def uniform(key, n: int, device=None) -> torch.Tensor:
+    """(n,) float32 in [0, 1), ``jax.random.uniform(key, (n,))``."""
+    bits = random_bits(key, n, device)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0

@@ -52,4 +52,4 @@ def test_import_loads_no_jax_and_builds_nothing():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"mods": [], "loaded": [],
                    "counts": {"predict_stream": 0, "route_and_hist": 0,
-                              "leaf_gather": 0}}
+                              "route_replay": 0, "leaf_gather": 0}}

@@ -634,9 +634,9 @@ def test_train_without_device_type_raises_without_gpu(monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     {"objective": "multiclass", "num_class": 3},
-    {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"data_sample_strategy": "goss"},
-    {"feature_fraction": 0.5},
+    {"bagging_by_query": True, "bagging_fraction": 0.5, "bagging_freq": 1},
+    {"hist_backend": "scatter"},
+    {"boosting": "rf"},
     {"feature_fraction_bynode": 0.5},
     {"monotone_constraints": [1, 0, 0, 0, 0]},
     {"interaction_constraints": [[0, 1]]},
@@ -661,10 +661,10 @@ def test_unported_training_params_raise(extra):
 def test_unported_inputs_raise():
     X, y = _reg_data(300)
     ds = lt.Dataset(X, label=y, params=CPU)
-    for kw in ({"valid_sets": [ds]}, {"feval": lambda *a: None},
-               {"callbacks": [lambda env: None]}, {"resume_from": "x"}):
-        with pytest.raises(lt.LightGBMError, match="not yet ported"):
-            lt.train(_REG, ds, 2, **kw)
+    with pytest.raises(lt.LightGBMError, match="not yet ported"):
+        lt.train(_REG, ds, 2, resume_from="x")
+    with pytest.raises(lt.LightGBMError, match="not yet ported"):
+        lt.cv(_REG, ds, 2)
     Xc = X.copy()
     Xc[:, 4] = np.random.RandomState(0).randint(0, 5, len(X))
     with pytest.raises(lt.LightGBMError, match="not yet ported"):

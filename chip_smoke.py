@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--rows 1000000] [--trees 500]
                           [--train-iters 20] [--sampled-iters 40]
+                          [--backend-iters 10]
 
 Phases, each printing one JSON line:
 
@@ -24,14 +25,18 @@ Phases, each printing one JSON line:
    tree and raw scores within atol 2e-4; and every K2 and K4 launch of the
    card's binary run, and of a run at the default max_bin 255 (more slots
    than one block holds), replayed through the plain version on the card,
-   must be bit-equal.
+   must be bit-equal.  Dyadic runs with ``hist_backend`` scatter and pallas
+   at max_bin 63 and 255 must give one text per max_bin on the CPU and the
+   card, every card launch of K5, K6 and K7 bit-equal to its plain version.
 4. train_sampled_small: the train_small data on dyadic custom gradients
    with bagging (half the rows every iteration) and with GOSS (rates 0.5 /
    0.25, learning rate 0.5): byte-identical model text on the CPU and the
    card, with route fusion on and off and, for GOSS, row compaction pad and
    off; every K2, K3 and K4 launch of the card's fused runs replayed
    bit-equal through its plain version, and each K3 launch against the
-   chain of route-only K2 launches it fuses.
+   chain of route-only K2 launches it fuses; the same under scatter
+   (compaction auto, pad, off) and pallas (uncompacted), CPU and card, one
+   text, their card launches replayed.
 5. full: the repo's north-star shape, HIGGS-like data (28 numeric features,
    max_bin 63) and a seeded synthetic 500-tree x 255-leaf binary model
    written as LightGBM model text: ``Dataset`` over 1M rows, ``train(params,
@@ -57,6 +62,16 @@ Phases, each printing one JSON line:
    growing the same trees; three sampled trees again, byte for byte; one
    sampled tree's K2, K3 and K4 launches replayed bit-equal, then timed; a
    sampled and an uncompacted iteration timed phase by phase.
+8. train_backends: the non-stream growth path at full width, the full
+   phase's rows at max_bin 63 and the same rows binned at 255, through
+   ``lightgbm_torch.train`` with ``hist_backend`` scatter (K5) and pallas
+   (K6 at 63, K7 at 255): binary, 255 leaves, learning rate 0.1, split
+   budget 64, ``--backend-iters`` iterations, the kernel counts read around
+   each call (its kernel launched, K2 never); scatter and pallas give
+   byte-identical text at each max_bin and a second run repeats it (one
+   more iteration of it timed phase by phase); held-out AUC > 0.80; one
+   tree's K5/K6/K7 launches replayed bit-equal, then timed beside their
+   bound and one ``index_add_`` call.
 
 Then a ``kernels`` line (each ported kernel's launches on its main path,
 largest error against its plain version, time, plain time, bound and
@@ -91,12 +106,20 @@ KERNEL_SOURCES = {
     "predict_stream": "lightgbm_torch/kernels/csrc/predict_stream.cu",
     "route_and_hist": "lightgbm_torch/kernels/csrc/route_and_hist.cu",
     "route_replay": "lightgbm_torch/kernels/csrc/route_replay.cu",
-    "leaf_gather": "lightgbm_torch/kernels/csrc/leaf_gather.cu"}
+    "leaf_gather": "lightgbm_torch/kernels/csrc/leaf_gather.cu",
+    "scatter_hist": "lightgbm_torch/kernels/csrc/scatter_hist.cu",
+    "hist_direct": "lightgbm_torch/kernels/csrc/hist_sorted.cu",
+    "hist_nibble": "lightgbm_torch/kernels/csrc/hist_sorted.cu"}
 KERNEL_REPLACES = {
     "predict_stream": "lightgbm_tpu/pallas/predict_kernel.py:176",
     "route_and_hist": "lightgbm_tpu/pallas/stream_kernel.py:580",
     "route_replay": "lightgbm_tpu/pallas/stream_kernel.py:694",
-    "leaf_gather": "lightgbm_tpu/pallas/stream_kernel.py:742"}
+    "leaf_gather": "lightgbm_tpu/pallas/stream_kernel.py:742",
+    "scatter_hist": "lightgbm_tpu/pallas/scatter_hist_kernel.py:103",
+    "hist_direct": "lightgbm_tpu/pallas/hist_kernel.py:158",
+    "hist_nibble": "lightgbm_tpu/pallas/hist_kernel.py:194"}
+# the histogram kernels of the non-stream backends
+HIST_KERNELS = ("scatter_hist", "hist_direct", "hist_nibble")
 
 
 def emit(obj) -> None:
@@ -583,20 +606,22 @@ def tree_structure(t):
 
 
 class Capture:
-    """Records every K2, K3 and K4 call of the training loop (inputs and
-    outputs) while active, by wrapping the dispatchers that ops/grow.py and
-    models/gbdt.py call.  The calls still go through the kernels' wrappers
-    and are counted there."""
+    """Records every K2, K3, K4, K5 and K6/K7 call of the training loop
+    (inputs and outputs) while active, by wrapping the dispatchers that
+    ops/grow.py, ops/histogram.py and models/gbdt.py call.  The calls still
+    go through the kernels' wrappers and are counted there."""
 
     def __init__(self):
-        self.k2, self.k3, self.k4 = [], [], []
+        self.k2, self.k3, self.k4, self.k5, self.k67 = [], [], [], [], []
 
     def __enter__(self):
+        from lightgbm_torch.kernels import hist_sorted, scatter_hist
         from lightgbm_torch.models import gbdt
         from lightgbm_torch.ops import grow
         self._orig = (grow.route_and_hist, grow.route_replay,
-                      gbdt.leaf_gather)
-        k2_call, k3_call, k4_call = self._orig
+                      gbdt.leaf_gather, scatter_hist.scatter_hist,
+                      hist_sorted.hist_sorted)
+        k2_call, k3_call, k4_call, k5_call, k67_call = self._orig
 
         def k2(bins_T, leaf_id, tabs, words, grad, hess, cnt, *args):
             out = k2_call(bins_T, leaf_id, tabs, words, grad, hess, cnt,
@@ -616,14 +641,28 @@ class Capture:
             self.k4.append(((leaf_id.clone(), values.clone()), out))
             return out
 
-        grow.route_and_hist, grow.route_replay, gbdt.leaf_gather = \
-            k2, k3, k4
+        def k5(bins_T, slot, *args):
+            out = k5_call(bins_T, slot, *args)
+            self.k5.append(((bins_T, slot.clone()) + args, out))
+            return out
+
+        def k67(bins, gather_idx, scalars, *args):
+            out = k67_call(bins, gather_idx, scalars, *args)
+            self.k67.append(((bins, gather_idx.clone(), scalars.clone())
+                             + args, out))
+            return out
+
+        (grow.route_and_hist, grow.route_replay, gbdt.leaf_gather,
+         scatter_hist.scatter_hist, hist_sorted.hist_sorted) = \
+            k2, k3, k4, k5, k67
         return self
 
     def __exit__(self, *exc):
+        from lightgbm_torch.kernels import hist_sorted, scatter_hist
         from lightgbm_torch.models import gbdt
         from lightgbm_torch.ops import grow
-        grow.route_and_hist, grow.route_replay, gbdt.leaf_gather = self._orig
+        (grow.route_and_hist, grow.route_replay, gbdt.leaf_gather,
+         scatter_hist.scatter_hist, hist_sorted.hist_sorted) = self._orig
 
 
 def max_abs_diff(a, b) -> float:
@@ -652,6 +691,12 @@ def k2_route_chain(bins_T, tabs):
     return lid
 
 
+def sorted_kernel(max_bins) -> str:
+    """The kernel ``hist_sorted`` launches at this Bmax: K6 or K7."""
+    from lightgbm_torch.kernels.hist_sorted import DIRECT_MAX_BINS
+    return "hist_direct" if max_bins <= DIRECT_MAX_BINS else "hist_nibble"
+
+
 def replay_against_plain(cap):
     """Every captured launch through the plain version on the card, and
     each K3 launch also against the chain of route-only K2 launches it
@@ -659,10 +704,26 @@ def replay_against_plain(cap):
     bit for bit.  Returns the launches replayed and the largest difference
     of each kernel's outputs from its plain version's."""
     import torch
+    from lightgbm_torch.kernels import hist_sorted as hs
     from lightgbm_torch.kernels import leaf_gather as lg, route_hist as rh
     from lightgbm_torch.kernels import route_replay as rr
+    from lightgbm_torch.kernels import scatter_hist as sh
 
-    err = {"route_and_hist": 0.0, "route_replay": 0.0, "leaf_gather": 0.0}
+    err = {"route_and_hist": 0.0, "route_replay": 0.0, "leaf_gather": 0.0,
+           "scatter_hist": 0.0, "hist_direct": 0.0, "hist_nibble": 0.0}
+    replayed = {k: 0 for k in err}
+    hist_calls = ([("scatter_hist", a, o, sh.scatter_hist_plain)
+                   for a, o in cap.k5]
+                  + [(sorted_kernel(a[7]), a, o, hs.hist_sorted_plain)
+                     for a, o in cap.k67])
+    for name, args, out, plain in hist_calls:
+        want = plain(*args)
+        diff = max_abs_diff(out, want)
+        err[name] = max(err[name], diff)
+        replayed[name] += 1
+        if not torch.equal(out, want):
+            raise RuntimeError(f"{name} differs from its plain version "
+                               f"(max abs {diff})")
     for (bins_T, tabs), out in cap.k3:
         want = rr.route_replay_plain(bins_T, tabs)
         chain = k2_route_chain(bins_T, tabs)
@@ -689,8 +750,9 @@ def replay_against_plain(cap):
         if not torch.equal(out, want):
             raise RuntimeError(f"leaf_gather differs from its plain version "
                                f"(max abs {diff})")
-    return {"route_and_hist": len(cap.k2), "route_replay": len(cap.k3),
-            "leaf_gather": len(cap.k4)}, err
+    replayed.update({"route_and_hist": len(cap.k2),
+                     "route_replay": len(cap.k3), "leaf_gather": len(cap.k4)})
+    return replayed, err
 
 
 def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
@@ -698,7 +760,10 @@ def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
     byte-identical model text; a binary run must grow the same first tree
     and scores within atol 2e-4; every K2 and K4 launch of the card's binary
     run must equal its plain version on the card.  num_leaves 127 makes the
-    split budget 64, so the main loop ends in the route-only sprint round."""
+    split budget 64, so the main loop ends in the route-only sprint round.
+    Dyadic runs under scatter and pallas at max_bin 63 and 255 must give one
+    text per max_bin on both devices, every card launch of K5, K6 and K7
+    equal to its plain version."""
     import torch
     import lightgbm_torch as lt
 
@@ -748,13 +813,41 @@ def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
     with cap255:
         lt.train(p, lt.Dataset(Xw, label=y, params=p), 2)
     replayed_255, err_255 = replay_against_plain(cap255)
-    err = {k: max(v, err_255[k]) for k, v in err.items()}
+    # the non-stream backends (K5, K6, K7): dyadic runs on both devices at
+    # max_bin 63 and 255, all four texts of a max_bin identical, every
+    # launch of the card's runs replayed
+    cap_nb = Capture()
+    nb_leaves = {}
+    for mb, data, n_iter in ((63, X, iters), (255, Xw, 2)):
+        nb_texts = set()
+        for hb in ("scatter", "pallas"):
+            for dev in ("cpu", "cuda"):
+                p = {**base, "max_bin": mb, "objective": "none",
+                     "hist_backend": hb, "device_type": dev}
+                bst = lt.Booster(p, lt.Dataset(data, label=y, params=p))
+                with (cap_nb if dev == "cuda"
+                      else contextlib.nullcontext()):
+                    for _ in range(n_iter):
+                        bst.update(fobj=dyadic_fobj)
+                nb_texts.add(model_trees_text(bst))
+        if len(nb_texts) != 1:
+            raise RuntimeError(f"max_bin {mb}: scatter and pallas training "
+                               f"differ between backends or devices")
+        nb_leaves[mb] = [t.num_leaves for t in bst.engine.models]
+    torch.cuda.synchronize()
+    replayed_nb, err_nb = replay_against_plain(cap_nb)
+    if not all(replayed_nb[k] for k in HIST_KERNELS):
+        raise RuntimeError(f"the backends' runs replayed {replayed_nb}")
+    err = {k: max(v, err_255[k], err_nb[k]) for k, v in err.items()}
     emit({"phase": "train_small", "rows": n, "iterations": iters,
           "num_leaves": num_leaves, "dyadic_leaves_per_tree": nl,
           "dyadic_text_identical": True, "binary_first_tree_identical": True,
           "binary_trees_differing": differ, "binary_max_score_gap": gap,
           "replayed_launches": replayed,
           "replayed_launches_max_bin_255": replayed_255,
+          "backends_text_identical": True,
+          "backends_leaves_per_tree": nb_leaves,
+          "replayed_launches_backends": replayed_nb,
           "replay_max_abs_err": err})
     return err
 
@@ -949,7 +1042,9 @@ def phase_train_sampled_small(seed, n=20_000, iters=5, num_leaves=127):
     with route fusion on and off, and GOSS also with row compaction pad and
     off; every K2, K3 and K4 launch of the card's fused runs is replayed
     bit-equal through its plain version, and each K3 launch against the
-    chain of route-only K2 launches it fuses."""
+    chain of route-only K2 launches it fuses.  The same under scatter
+    (compaction auto, pad and off) and pallas (uncompacted), CPU and card,
+    one text; their card launches of K5 and K6 replayed."""
     import torch
     import lightgbm_torch as lt
 
@@ -982,10 +1077,38 @@ def phase_train_sampled_small(seed, n=20_000, iters=5, num_leaves=127):
                      "text_identical": True, "compact_rows": compact,
                      "leaves_per_tree": [t.num_leaves
                                          for t in bst.engine.models]}
+        # scatter (compacted, pad and off) and pallas (never compacted) on
+        # both devices: one text; the card's default runs replayed
+        nb_runs = [("cpu", "scatter", {}), ("cuda", "scatter", {}),
+                   ("cuda", "scatter", {"row_compaction": "pad"}),
+                   ("cuda", "scatter", {"row_compaction": "off"}),
+                   ("cpu", "pallas", {}), ("cuda", "pallas", {})]
+        nb_texts, nb_compact = [], []
+        for dev, hb, extra in nb_runs:
+            p = {**base, **sampled_params(kind), **extra, "hist_backend": hb,
+                 "device_type": dev}
+            bst = lt.Booster(p, lt.Dataset(X, label=y, params=p))
+            with (cap if dev == "cuda" and not extra
+                  else contextlib.nullcontext()):
+                for _ in range(iters):
+                    bst.update(fobj=dyadic_fobj)
+            nb_texts.append(model_trees_text(bst))
+            nb_compact.append(bst.engine.last_compact_rows)
+        if any(t != nb_texts[0] for t in nb_texts):
+            raise RuntimeError(f"{kind}: scatter/pallas sampled training "
+                               f"differs {[t == nb_texts[0] for t in nb_texts]}")
+        if not (nb_compact[1] > 0 and nb_compact[5] == 0):
+            raise RuntimeError(f"{kind}: compaction {nb_compact}")
+        out[kind].update({"backend_runs": [f"{d} {hb} {e}"
+                                           for d, hb, e in nb_runs],
+                          "backends_text_identical": True,
+                          "backends_compact_rows": nb_compact})
     torch.cuda.synchronize()
     if not cap.k3:
         raise RuntimeError("the fused sampled runs launched no K3")
     replayed, err = replay_against_plain(cap)
+    if not (replayed["scatter_hist"] and replayed["hist_direct"]):
+        raise RuntimeError(f"the backends' sampled runs replayed {replayed}")
     emit({"phase": "train_sampled_small", "rows": n, "iterations": iters,
           "num_leaves": num_leaves, **out, "replayed_launches": replayed,
           "replay_max_abs_err": err})
@@ -1169,6 +1292,195 @@ def phase_train_sampled(ds, Xs, ys, smi, iters=40, valid_rows=250_000,
             "bound_by": k3_bnd[1], "library_ms": None}, err
 
 
+# --------------------------------------------------------------------------
+# the non-stream backends
+# --------------------------------------------------------------------------
+
+def hist_work(name, args, out):
+    """Bytes and operations one K5, K6 or K7 launch needs on these inputs,
+    counted from what the rows need.  Bytes: K5 reads every row's slot
+    (4 B), K6/K7 every plan position's gather index (4 B) and each block's
+    three scalars; a row that lands in a slot reads its G bins and three
+    weights (12 B); the (S, G, Bmax, 3) float32 histograms are written
+    once.  Operations: per row in a slot the three weight conversions (3)
+    and one add per group and channel (3G)."""
+    if name == "scatter_hist":
+        bins_T, slot = args[0], args[1]
+        G, n = bins_T.shape
+        in_slot = float((slot >= 0).sum().item())
+        n_bytes = 4.0 * n
+    else:
+        bins, gather_idx, scalars = args[0], args[1], args[2]
+        G = bins.shape[1]
+        in_slot = float((gather_idx < bins.shape[0]).sum().item())
+        n_bytes = 4.0 * gather_idx.numel() + 4.0 * scalars.numel()
+    n_bytes += in_slot * (G + 12) + 4.0 * out.numel()
+    return n_bytes, in_slot * (3 + 3 * G)
+
+
+def index_add_inputs(name, args):
+    """The flattened (slot, group, bin) cell of every (row, group) pair of
+    a K5, K6 or K7 launch and the (grad, hess, count) it adds, for the
+    library call ``index_add_`` (float32 sums, not exact), and its zeroed
+    (S * G * Bmax, 3) output."""
+    import torch
+    if name == "scatter_hist":
+        bins_T, slot, grad, hess, cnt, num_slots, max_bins = args[:7]
+        rows = torch.nonzero(slot >= 0).flatten()
+        s = slot[rows].long()
+        bins_rows = bins_T[:, rows].t()
+    else:
+        (bins, gather_idx, scalars, grad, hess, cnt, num_slots,
+         max_bins) = args[:8]
+        slot = scalars[:, 0].repeat_interleave(args[9]).long()
+        idx = gather_idx.long()
+        keep = (idx < bins.shape[0]) & (slot >= 0)
+        rows, s = idx[keep], slot[keep]
+        bins_rows = bins[rows]
+    G = bins_rows.shape[1]
+    g = torch.arange(G, device=s.device)
+    cell = ((s[:, None] * G + g[None, :]) * max_bins
+            + bins_rows.long()).reshape(-1)
+    w = torch.stack([grad[rows], hess[rows], cnt[rows]], dim=1)
+    vals = w[:, None, :].expand(-1, G, -1).reshape(-1, 3).contiguous()
+    out = torch.zeros((num_slots * G * max_bins, 3), dtype=torch.float32,
+                      device=s.device)
+    return out, cell, vals
+
+
+def time_hist_launches(name, items):
+    """Device time of each captured launch of one kernel (``device_ms``),
+    its plain version's (CUDA events, one call), its bound, and one
+    ``index_add_`` call over the same (row, group) pairs: means over the
+    launches."""
+    from lightgbm_torch.kernels import hist_sorted as hs
+    from lightgbm_torch.kernels import scatter_hist as sh
+    kernel = {"scatter_hist": sh.scatter_hist_cuda,
+              "hist_direct": hs.hist_direct_cuda,
+              "hist_nibble": hs.hist_nibble_cuda}[name]
+    plain = sh.scatter_hist_plain if name == "scatter_hist" \
+        else hs.hist_sorted_plain
+    ms, plain_ms, lib_ms, bnd = [], [], [], []
+    for args, out in items:
+        ms.append(device_ms(lambda a=args: kernel(*a)))
+        plain_ms.append(cuda_ms(lambda a=args: plain(*a), reps=1, warmup=0))
+        acc, cell, vals = index_add_inputs(name, args)
+        lib_ms.append(device_ms(lambda: acc.index_add_(0, cell, vals)))
+        del acc, cell, vals
+        bnd.append(bound(*hist_work(name, args, out)))
+    mean = statistics.mean
+    return {"launches_timed": len(items), "ms": ms, "mean_ms": mean(ms),
+            "plain_ms": plain_ms, "mean_plain_ms": mean(plain_ms),
+            "index_add_ms": lib_ms, "mean_index_add_ms": mean(lib_ms),
+            "bound_ms": [b for b, _ in bnd],
+            "mean_bound_ms": mean(b for b, _ in bnd),
+            "bound_by": bnd[0][1]}
+
+
+def phase_train_backends(seed, rows, ds63, Xs, ys, smi, iters=10,
+                         timed_tree=2):
+    """The non-stream growth path at full width: the full phase's 1M rows
+    (and the same rows binned at max_bin 255) trained through
+    ``lightgbm_torch.train`` with ``hist_backend`` scatter (K5) and pallas
+    (K6 at max_bin 63, K7 at 255): binary, 255 leaves, learning rate 0.1,
+    split budget 64, ``iters`` iterations.  The kernel counts are read
+    around each ``train`` call (its kernel launched, K2 never); scatter and
+    pallas must grow byte-identical text at each max_bin, and a second run
+    must repeat it, and then one more iteration of it is timed phase by
+    phase; held-out AUC > 0.80 through ``Booster.predict``; every K5/K6/K7
+    launch of one tree is replayed bit-equal through its plain version and
+    timed beside its bound and the ``index_add_`` call.
+    Returns the K5, K6 and K7 entries of the kernels line and the replays'
+    largest differences."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+
+    t0 = time.perf_counter()
+    X, y = make_higgs_like(rows, 28, seed)
+    ds255 = lt.Dataset(X, label=y, params={"max_bin": 255}).construct()
+    binning_s = time.perf_counter() - t0
+    del X
+    base = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+            "max_splits_per_round": 64, "verbosity": -1}
+    record, launches, caps, err = {}, {k: 0 for k in HIST_KERNELS}, {}, {}
+    for mb, ds in ((63, ds63), (255, ds255)):
+        texts = {}
+        for hb in ("scatter", "pallas"):
+            want = "scatter_hist" if hb == "scatter" else \
+                sorted_kernel(ds.device_data().max_bins)
+            params = {**base, "max_bin": mb, "hist_backend": hb}
+            kernels.reset_launch_counts()
+            with TimedIters(capture_at=timed_tree) as timed:
+                t0 = time.perf_counter()
+                bst = lt.train(params, ds, iters)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            if (bst.num_trees() != iters or counts[want] == 0
+                    or counts["route_and_hist"] != 0
+                    or counts["leaf_gather"] != iters):
+                raise RuntimeError(f"{hb} at max_bin {mb}: {bst.num_trees()} "
+                                   f"trees with launches {counts}")
+            launches[want] += counts[want]
+            caps[(mb, hb)] = (want, timed.cap)
+            texts[hb] = model_trees_text(bst)
+            again = lt.train(params, ds, iters)
+            if model_trees_text(again) != texts[hb]:
+                raise RuntimeError(f"{hb} at max_bin {mb} does not repeat "
+                                   f"bit for bit")
+            prof_s, prof_phases, prof_reads = profiled_iteration(again)
+            record[f"{hb}_{mb}"] = {
+                "profiled_iteration_s": prof_s,
+                "profiled_iteration_phases_s": prof_phases,
+                "profiled_iteration_host_reads": prof_reads,
+                "train_s": train_s, "tree_s": timed.seconds,
+                "s_per_tree": statistics.median(timed.seconds[1:]),
+                "launches": counts,
+                "hist_launches_per_tree": counts[want] / iters,
+                "leaves_per_tree": [t.num_leaves for t in bst.engine.models],
+                "max_bins": ds.device_data().max_bins}
+        if texts["scatter"] != texts["pallas"]:
+            raise RuntimeError(f"max_bin {mb}: scatter and pallas grow "
+                               f"different trees")
+        pred = bst.predict(Xs)
+        held_auc = auc(ys, pred)
+        if not (np.isfinite(pred).all() and held_auc > 0.80):
+            raise RuntimeError(f"max_bin {mb}: held-out AUC {held_auc}")
+        record[f"held_out_auc_{mb}"] = held_auc
+    del ds255
+    timing = {}
+    for (mb, hb), (name, cap) in caps.items():
+        replayed, e = replay_against_plain(cap)
+        if replayed[name] == 0 or replayed["route_and_hist"] != 0:
+            raise RuntimeError(f"{hb} at max_bin {mb}: replayed {replayed}")
+        err[name] = max(err.get(name, 0.0), e[name])
+        hist_calls = cap.k5 if hb == "scatter" else cap.k67
+        timing[f"{name}_{mb}"] = time_hist_launches(name, hist_calls)
+        timing[f"{name}_{mb}"]["replayed"] = replayed[name]
+        caps[(mb, hb)] = None
+    emit({"phase": "train_backends", "card": smi, "rows": rows,
+          "features": 28, "iterations": iters, "num_leaves": 255,
+          "binning_255_s": binning_s, "runs": record,
+          "text_identical_scatter_pallas": True,
+          "determinism_identical": True, "replay_max_abs_err": err,
+          "timed_tree": timed_tree, "kernel_times": timing})
+    lines = []
+    for name, key in (("scatter_hist", "scatter_hist_63"),
+                      ("hist_direct", "hist_direct_63"),
+                      ("hist_nibble", "hist_nibble_255")):
+        t = timing[key]
+        lines.append({"name": name, "route": "cuda",
+                      "source": KERNEL_SOURCES[name],
+                      "replaces": KERNEL_REPLACES[name],
+                      "launches": launches[name], "max_abs_err": err[name],
+                      "ms": t["mean_ms"], "plain_ms": t["mean_plain_ms"],
+                      "bound_ms": t["mean_bound_ms"],
+                      "bound_by": t["bound_by"],
+                      "library_ms": t["mean_index_add_ms"]})
+    return lines, err
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1184,6 +1496,7 @@ def main(argv=None) -> int:
     ap.add_argument("--leaves", type=int, default=255)
     ap.add_argument("--train-iters", type=int, default=20)
     ap.add_argument("--sampled-iters", type=int, default=40)
+    ap.add_argument("--backend-iters", type=int, default=10)
     args = ap.parse_args(argv)
 
     import torch
@@ -1216,12 +1529,15 @@ def main(argv=None) -> int:
         k2, k4 = phase_train(ds, Xs, ys, args.train_iters, smi)
         k3, sampled_err = phase_train_sampled(ds, Xs, ys, smi,
                                               args.sampled_iters)
-    kernel_lines = [k1, k2, k3, k4]
+        k567, backends_err = phase_train_backends(
+            args.seed, args.rows, ds, Xs, ys, smi, args.backend_iters)
+    kernel_lines = [k1, k2, k3, k4] + k567
     for k in kernel_lines[1:]:
         k["max_abs_err"] = max(k["max_abs_err"],
                                small_err.get(k["name"], 0.0),
                                sampled_small_err[k["name"]],
-                               sampled_err[k["name"]])
+                               sampled_err[k["name"]],
+                               backends_err.get(k["name"], 0.0))
     emit({"kernels": kernel_lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

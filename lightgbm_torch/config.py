@@ -380,9 +380,9 @@ class Config:
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
 
-    # Histogram formulation of the growth loop (the reference's stream
-    # backend): auto | stream, auto | single | mixed, and the leaves split
-    # per round (0 = auto = 64)
+    # Histogram formulation of the growth loop: auto (= stream) | stream |
+    # scatter | pallas, auto | single | mixed, and the leaves split per
+    # round (0 = auto = 64)
     hist_backend: str = "auto"
     hist_precision: str = "auto"
     max_splits_per_round: int = 0

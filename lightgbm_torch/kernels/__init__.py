@@ -12,6 +12,11 @@ version runs only for CPU tensors.  Importing this package builds nothing:
   over all rows in one pass, every row's leaf.
 - ``leaf_gather`` (K4, leaf_gather.py): the score update's
   ``values[leaf_id]``.
+- ``scatter_hist`` (K5, scatter_hist.py): slot histograms of rows in their
+  natural order (``hist_backend="scatter"``).
+- ``hist_direct`` and ``hist_nibble`` (K6 for Bmax <= 128, K7 above;
+  hist_sorted.py): slot histograms over slot-sorted row blocks
+  (``hist_backend="pallas"``).
 
 Each CUDA wrapper counts its launches in a plain integer attribute
 ``launches``; ``launch_counts`` reads them and ``reset_launch_counts`` sets
@@ -21,7 +26,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import leaf_gather, predict, route_hist, route_replay
+from . import (hist_sorted, leaf_gather, predict, route_hist,
+               route_replay, scatter_hist)
 
 # kernel name -> its CUDA wrapper
 WRAPPERS = {
@@ -29,6 +35,9 @@ WRAPPERS = {
     "route_and_hist": route_hist.route_and_hist_cuda,
     "route_replay": route_replay.route_replay_cuda,
     "leaf_gather": leaf_gather.leaf_gather_cuda,
+    "scatter_hist": scatter_hist.scatter_hist_cuda,
+    "hist_direct": hist_sorted.hist_direct_cuda,
+    "hist_nibble": hist_sorted.hist_nibble_cuda,
 }
 
 

@@ -28,6 +28,10 @@ SOURCES: Dict[str, str] = {
     "route_and_hist": "csrc/route_and_hist.cu",
     "leaf_gather": "csrc/leaf_gather.cu",
     "route_replay": "csrc/route_replay.cu",
+    "scatter_hist": "csrc/scatter_hist.cu",
+    # K6 and K7 are two entry points of one source, each its own library
+    "hist_direct": "csrc/hist_sorted.cu",
+    "hist_nibble": "csrc/hist_sorted.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -35,6 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _c_ptr, _c_int, _c_i64, _c_f32 = (ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_int64, ctypes.c_float)
+# the two entry points of csrc/hist_sorted.cu take the same arguments
+_SORTED_ARGS = [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_int, _c_int,
+                _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_f32, _c_f32,
+                _c_ptr, _c_ptr, _c_ptr]
 # C signature of each library's entry point: (symbol, argtypes)
 SIGNATURES = {
     "predict_stream": ("lgbt_predict_stream",
@@ -50,6 +58,12 @@ SIGNATURES = {
     "route_replay": ("lgbt_route_replay",
                      [_c_ptr, _c_i64, _c_ptr, _c_int, _c_int, _c_ptr,
                       _c_ptr]),
+    "scatter_hist": ("lgbt_scatter_hist",
+                     [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+                      _c_int, _c_int, _c_f32, _c_f32, _c_ptr, _c_ptr,
+                      _c_ptr]),
+    "hist_direct": ("lgbt_hist_direct", _SORTED_ARGS),
+    "hist_nibble": ("lgbt_hist_nibble", _SORTED_ARGS),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from ..ops.histogram import build_histograms, slot_counts
+from ..ops.histogram import build_histograms_gh, slot_counts
 from ..utils.log import LightGBMError
 from . import build
 from .layout import (R_BUNDLED, R_CHOSEN, R_DEFBIN, R_DEFLEFT, R_GROUP,
@@ -94,8 +94,8 @@ def route_and_hist_plain(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
     """Plain PyTorch version of the kernel's contract."""
     new_leaf, slot = route_plain(bins_T, leaf_id, tabs, cat_words)
     if with_hist:
-        hist, counts = build_histograms(bins_T, slot, grad, hess, cnt,
-                                        num_slots, max_bins, shift)
+        hist, counts = build_histograms_gh(bins_T, slot, grad, hess, cnt,
+                                           num_slots, max_bins, shift)
         return new_leaf, hist, counts
     return new_leaf, None, slot_counts(slot, cnt, num_slots)
 

@@ -1,0 +1,88 @@
+"""Slot histograms of rows in their natural order.  The CUDA kernel's
+wrapper and its plain PyTorch version.
+
+Counterpart of ``lightgbm_tpu/pallas/scatter_hist_kernel.py:122-132``
+(``build_histograms_scatter``, the ``_hist_scatter`` kernel, single class).
+Given the (G, N) uint8 bins, each row's (N,) int32 histogram slot (negative:
+the row adds nothing) and the (N,) float32 grad, hess and count weights, it
+returns the (S, G, Bmax, 3) float32 (grad, hess, count) histograms: grad and
+hess exact fixed point at ``shift``, counts exact (ops/histogram.py).  The
+TPU kernel's VMEM gate (Bmax <= 128, G <= 64) and one-hot fallback are not
+copied: the kernel takes any Bmax <= 256 and any G.  ``scatter_hist``
+launches the kernel for tensors on a CUDA device and runs
+``scatter_hist_plain`` only for tensors on the CPU; a kernel that fails to
+build or launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ops.histogram import hist3_plain
+from ..utils.log import LightGBMError
+from . import build
+
+
+def scatter_hist(bins_T, slot, grad, hess, cnt, num_slots: int,
+                 max_bins: int, shift: int) -> torch.Tensor:
+    """(S, G, Bmax, 3) float32 histograms of the rows' slots."""
+    if bins_T.device.type == "cuda":
+        return scatter_hist_cuda(bins_T, slot, grad, hess, cnt, num_slots,
+                                 max_bins, shift)
+    if bins_T.device.type == "cpu":
+        return scatter_hist_plain(bins_T, slot, grad, hess, cnt, num_slots,
+                                  max_bins, shift)
+    raise LightGBMError(f"scatter_hist has no kernel for device "
+                        f"{bins_T.device}")
+
+
+def scatter_hist_plain(bins_T, slot, grad, hess, cnt, num_slots: int,
+                       max_bins: int, shift: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's contract."""
+    return hist3_plain(bins_T, slot, grad, hess, cnt, num_slots, max_bins,
+                       shift)
+
+
+def check_operands(name: str, dev: torch.device, operands) -> None:
+    """Each (label, tensor, dtype) must be a contiguous tensor of that dtype
+    on the CUDA device ``dev``."""
+    if dev.type != "cuda":
+        raise LightGBMError(f"{name}: the CUDA kernel takes CUDA tensors, "
+                            f"got {dev}")
+    for label, x, dtype in operands:
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise LightGBMError(
+                f"{name}: {label} must be a contiguous {dtype} tensor on "
+                f"{dev}, got {x.dtype} on {x.device}")
+
+
+def scatter_hist_cuda(bins_T, slot, grad, hess, cnt, num_slots: int,
+                      max_bins: int, shift: int) -> torch.Tensor:
+    """Launch csrc/scatter_hist.cu on the current stream."""
+    dev = bins_T.device
+    check_operands("scatter_hist", dev, (
+        ("bins_T", bins_T, torch.uint8), ("slot", slot, torch.int32),
+        ("grad", grad, torch.float32), ("hess", hess, torch.float32),
+        ("cnt", cnt, torch.float32)))
+    G, n = bins_T.shape
+    if (any(tuple(x.shape) != (n,) for x in (slot, grad, hess, cnt))
+            or num_slots < 1 or not 0 < max_bins <= 256 or G < 1):
+        raise LightGBMError("scatter_hist: shapes do not agree")
+    hist = torch.empty((num_slots, G, max_bins, 3), dtype=torch.float32,
+                       device=dev)
+    acc = torch.empty(hist.shape, dtype=torch.int64, device=dev)
+    fn = build.load("scatter_hist").lgbt_scatter_hist
+    rc = fn(bins_T.data_ptr(), n, G, slot.data_ptr(), grad.data_ptr(),
+            hess.data_ptr(), cnt.data_ptr(), num_slots, max_bins,
+            float(2.0 ** shift), float(2.0 ** -shift), acc.data_ptr(),
+            hist.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise LightGBMError(f"scatter_hist kernel launch failed "
+                            f"(cudaError {rc})")
+    scatter_hist_cuda.launches += 1
+    return hist
+
+
+scatter_hist_cuda.launches = 0

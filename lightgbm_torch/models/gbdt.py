@@ -3,13 +3,14 @@ trees it grows.
 
 The port's counterpart of ``lightgbm_tpu/models/gbdt.py`` (reference:
 src/boosting/gbdt.h GBDT), the unfused single-device iteration of the
-reference's ``hist_backend="stream"`` path (``_train_one_iter_impl``,
-gbdt.py:2089-2403, one tree per iteration).  An iteration computes the
+reference (``_train_one_iter_impl``, gbdt.py:2089-2403, one tree per
+iteration) with ``hist_backend`` ``stream`` (the default), ``scatter`` or
+``pallas``.  An iteration computes the
 objective's gradients on the training score (or takes custom ones), samples
 rows (bagging or GOSS, models/sample_strategy.py) and features
 (``feature_fraction``), picks the compaction capacity of a sampled tree,
 grows a tree on the device (ops/grow.py: K2, and K3 for a fused sampled
-tree), adds its shrunk leaf values to the score through K4
+tree; K5, or K6/K7, for the other backends), adds its shrunk leaf values to the score through K4
 (kernels/leaf_gather.py), adds them to each validation set's score with the
 bin-space walk, and keeps the grown arrays on the device; ``models`` turns
 every pending tree into a host ``Tree`` in one transfer.  The first tree
@@ -48,6 +49,10 @@ from .sample_strategy import SampleStrategy, create_sample_strategy
 # row quantum of a compacted view: the port's kernels take any row count,
 # and 256 is the Dataset's own row padding
 _COMPACT_UNIT = 256
+
+# accepted hist_backend values (reference: gbdt.py:44); segsum and onehot
+# are not ported
+HIST_BACKENDS = ("auto", "segsum", "onehot", "pallas", "stream", "scatter")
 
 
 def _not_ported(what: str) -> LightGBMError:
@@ -148,6 +153,21 @@ class GBDT:
         """Refuse what this slice does not train, instead of training a
         different model (reference: gbdt.py:1141)."""
         c = self.config
+        # the reference's own validation first (gbdt.py:1150-1159)
+        if c.hist_precision not in ("auto", "single", "mixed", "double"):
+            raise LightGBMError(
+                f"hist_precision={c.hist_precision!r} is not one of "
+                "'auto', 'single', 'mixed', 'double'")
+        if c.hist_backend not in HIST_BACKENDS:
+            raise LightGBMError(
+                f"unknown hist_backend={c.hist_backend!r}; one of "
+                f"{HIST_BACKENDS}")
+        if c.hist_backend == "scatter" and c.tree_learner == "feature":
+            raise LightGBMError(
+                "hist_backend=scatter is not supported with "
+                "tree_learner=feature (the scatter tile is one unsharded "
+                "VMEM block; group sharding cannot slice it) — use "
+                "hist_backend=segsum or onehot")
         name = ("none" if self.objective is None
                 else canonical_objective(self.objective.name))
         if name not in ("binary", "regression", "none"):
@@ -159,17 +179,15 @@ class GBDT:
             raise _not_ported("a categorical feature")
         if self.dd.bins.dtype != torch.uint8:
             raise _not_ported("a feature bundle wider than 256 bins")
-        if c.hist_backend not in ("auto", "stream"):
+        if c.hist_backend in ("segsum", "onehot"):
             raise _not_ported(f"hist_backend={c.hist_backend!r}")
-        if c.hist_precision not in ("auto", "single", "mixed", "double"):
-            raise LightGBMError(
-                f"hist_precision={c.hist_precision!r} is not one of 'auto', "
-                "'single', 'mixed', 'double'")
         if c.hist_precision == "double":
+            # reference: gbdt.py:801-805; segsum and onehot, which take
+            # it there, are not ported
             raise LightGBMError(
                 "hist_precision=double requires hist_backend=segsum or "
-                "onehot, which are not ported to lightgbm_torch; its "
-                "histograms are exact fixed-point sums")
+                "onehot (the TPU stream/pallas/scatter kernels are "
+                "f32/int8)")
         if c.tree_learner != "serial":
             raise _not_ported(f"tree_learner={c.tree_learner!r}")
         if c.bagging_by_query:
@@ -201,6 +219,15 @@ class GBDT:
         if c.path_smooth > 0.0:
             raise _not_ported("path_smooth")
 
+    def _resolve_hist_backend(self) -> str:
+        """The histogram backend (the single-device part of reference
+        gbdt.py:740-785).  ``auto`` is ``stream``: the reference leaves
+        stream for ``pallas`` only where the stream kernel's histogram block
+        outgrows the TPU's VMEM (``_stream_fits``), a limit K2 on the card
+        does not have."""
+        b = self.config.hist_backend
+        return "stream" if b == "auto" else b
+
     def _make_grow_params(self) -> GrowParams:
         c = self.config
         return GrowParams(
@@ -217,13 +244,15 @@ class GBDT:
             # auto resolves on: the replay gives the same leaves as the
             # per-round route-only passes, and the grower applies the
             # reference's gate
-            route_fusion=str(c.route_fusion).lower() in ("auto", "on"))
+            route_fusion=str(c.route_fusion).lower() in ("auto", "on"),
+            hist_backend=self._resolve_hist_backend())
 
     def _ensure_training(self) -> None:
         if self.grow_params is None:
             self._check_unsupported_params()
             self.grow_params = self._make_grow_params()
-            # K2 reads the (G, N) layout K1 reads
+            # K2 and K5 read the (G, N) layout K1 reads, K6/K7 the (N, G)
+            # rows of DeviceData.bins
             self._bins_T = self.dd.bins.t().contiguous()
             n_pad = self._score_shape[0]
             label = self.train_data.get_label()
@@ -257,11 +286,13 @@ class GBDT:
         capacity is sticky while it still covers the count, as in the
         reference (whose jitted grower recompiles at each new capacity);
         out-of-bag rows in the view weigh zero, so the capacity never
-        changes the tree."""
+        changes the tree.  Only ``stream`` and ``scatter`` compact
+        (reference: gbdt.py:525-529): a sampled ``pallas`` tree grows on
+        masked weights over all rows."""
         if not self.sample_strategy.is_active():
             return 0
         mode = str(self.config.row_compaction).strip().lower()
-        if mode == "off":
+        if mode == "off" or self.grow_params.hist_backend == "pallas":
             return 0
         ck = self.sample_strategy.mask_key(self.iter_)
         if self._sample_count_cache is not None \
@@ -291,7 +322,9 @@ class GBDT:
         gbdt.py:705-728): none unless it was compacted; one replay when
         fused; else the reference's estimate of one per round."""
         gp = self.grow_params
-        if gp is None or self.last_compact_rows <= 0:
+        if (gp is None or self.last_compact_rows <= 0
+                or gp.hist_backend != "stream"):
+            # the other backends route every row with torch ops
             return 0
         if fusion_applies(gp, self.last_compact_rows):
             return 1
@@ -337,7 +370,7 @@ class GBDT:
         res = grow_tree(self._bins_T, grad, hess, mask, self.dd.layout,
                         self.dd.routing, self.grow_params, self.dd.max_bins,
                         timer=self.timer, col_mask=col_mask,
-                        compact_rows=compact)
+                        compact_rows=compact, bins=self.dd.bins)
         arrays = res.arrays
         rate = self.config.learning_rate
         with phase(self.timer, "k4"):

@@ -1,21 +1,31 @@
-"""Histogram construction, the hot op of training: the plain contract.
+"""Histogram construction, the hot op of training: the plain contracts and
+the backend dispatch.
 
-The port's counterpart of ``lightgbm_tpu/ops/histogram.py`` (``_hist_segsum``
-:84 and ``hist_subtract`` :261).  For S histogram slots, G groups and Bmax
-bins, ``hist[s, g, b] = (sum of grad, sum of hess)`` over the rows n with
-``slot[n] == s`` and ``bins_T[g, n] == b``; rows whose slot is negative add
-nothing.  Counts are exact per-slot sums of the 0/1 count weights.
+The port's counterpart of ``lightgbm_tpu/ops/histogram.py``
+(``build_histograms`` :35-81, ``_hist_segsum`` :84 and ``hist_subtract``
+:261).  For S histogram slots, G groups and Bmax bins, ``hist[s, g, b]`` is
+the sum of each channel over the rows n with ``slot[n] == s`` and
+``bins_T[g, n] == b``; rows whose slot is negative add nothing.  Two plain
+versions:
+
+- ``build_histograms_gh``: (S, G, Bmax, 2) grad/hess histograms and (S,)
+  exact counts, the contract of K2 (kernels/route_hist.py);
+- ``hist3_plain``: (S, G, Bmax, 3) histograms whose third channel is the
+  exact count, the contract of K5, K6 and K7 (kernels/scatter_hist.py,
+  kernels/hist_sorted.py), which ``build_histograms`` dispatches to for the
+  ``scatter`` and ``pallas`` backends.
 
 Sums are exact fixed-point: every weight is rounded once to an integer
 multiple of 2**-shift (``quantize``) and the integers are added in int64, so
-the order of the adds cannot change a bit and the CUDA kernel
-(kernels/csrc/route_and_hist.cu) equals this plain version on any inputs.
-``hist_shift`` picks the largest shift at which no int64 sum can overflow.
-Each cell is then one correctly rounded float32 of an exact sum: within
-half an ulp of the true sum of the quantized weights, which is closer to the
-exact float sum than a float32 running sum gets.  Weights that are dyadic
-(multiples of 2**-shift) are not changed by the rounding, so on such inputs
-the histogram equals every exact formulation bit for bit.
+the order of the adds cannot change a bit and the CUDA kernels equal these
+plain versions on any inputs.  Count weights are rounded to integers and
+summed exactly.  ``hist_shift`` picks the largest shift at which no int64
+sum can overflow.  Each cell is then one correctly rounded float32 of an
+exact sum: within half an ulp of the true sum of the quantized weights,
+which is closer to the exact float sum than a float32 running sum gets.
+Weights that are dyadic (multiples of 2**-shift) are not changed by the
+rounding, so on such inputs the histogram equals every exact formulation
+bit for bit.
 """
 from __future__ import annotations
 
@@ -50,10 +60,10 @@ def dequantize(acc: torch.Tensor, shift: int) -> torch.Tensor:
     return acc.to(torch.float32) * (2.0 ** -shift)
 
 
-def build_histograms(bins_T: torch.Tensor, slot: torch.Tensor,
-                     grad: torch.Tensor, hess: torch.Tensor,
-                     cnt: torch.Tensor, num_slots: int, max_bins: int,
-                     shift: int):
+def build_histograms_gh(bins_T: torch.Tensor, slot: torch.Tensor,
+                        grad: torch.Tensor, hess: torch.Tensor,
+                        cnt: torch.Tensor, num_slots: int, max_bins: int,
+                        shift: int):
     """(S, G, Bmax, 2) float32 grad/hess histograms and (S,) float32 exact
     counts of the rows' slots.  bins_T: (G, N) uint8; slot: (N,) int32;
     grad, hess, cnt: (N,) float32."""
@@ -71,6 +81,60 @@ def build_histograms(bins_T: torch.Tensor, slot: torch.Tensor,
         acc.index_add_(0, cell + 1, qh)
     hist = dequantize(acc, shift).reshape(num_slots, G, max_bins, 2)
     return hist, slot_counts(slot, cnt, num_slots)
+
+
+def hist3_plain(bins_T: torch.Tensor, slot: torch.Tensor,
+                grad: torch.Tensor, hess: torch.Tensor, cnt: torch.Tensor,
+                num_slots: int, max_bins: int, shift: int) -> torch.Tensor:
+    """(S, G, Bmax, 3) float32 (grad, hess, count) histograms of the rows'
+    slots.  bins_T: (G, N) uint8 (any strides); slot: (N,) int32; grad,
+    hess, cnt: (N,) float32."""
+    G = bins_T.shape[0]
+    dev = bins_T.device
+    keep = torch.nonzero(slot >= 0).flatten()
+    s = slot[keep].to(torch.int64)
+    q = torch.stack([quantize(grad[keep], shift), quantize(hess[keep], shift),
+                     torch.round(cnt[keep]).to(torch.int64)], dim=1)
+    acc = torch.zeros((num_slots * G * max_bins, 3), dtype=torch.int64,
+                      device=dev)
+    for g in range(G):
+        acc.index_add_(0, (s * G + g) * max_bins
+                       + bins_T[g, keep].to(torch.int64), q)
+    hist = acc.to(torch.float32)
+    hist[:, :2] *= 2.0 ** -shift
+    return hist.reshape(num_slots, G, max_bins, 3)
+
+
+# rows per block of the pallas backend's slot-sorted plan (the JAX
+# package's build_histograms_sorted default)
+SORTED_BLOCK_ROWS = 1024
+
+
+def build_histograms(bins: torch.Tensor, slot, grad: torch.Tensor,
+                     hess: torch.Tensor, cnt: torch.Tensor, num_slots: int,
+                     max_bins: int, shift: int, backend: str,
+                     block_rows: int = SORTED_BLOCK_ROWS) -> torch.Tensor:
+    """(S, G, Bmax, 3) float32 histograms through a backend's kernel.
+    ``scatter``: K5 over (G, N) bins in the rows' natural order.
+    ``pallas``: the slot-sorted block plan (ops/compact.py), then K6
+    (Bmax <= 128) or K7 over (N, G) row-major bins.  ``slot=None`` puts every
+    row in slot 0 (the root; ``pallas`` then plans without a sort)."""
+    if backend == "scatter":
+        from ..kernels import scatter_hist as ksh
+        if slot is None:
+            slot = torch.zeros(bins.shape[1], dtype=torch.int32,
+                               device=bins.device)
+        return ksh.scatter_hist(bins, slot, grad, hess, cnt, num_slots,
+                                max_bins, shift)
+    if backend == "pallas":
+        from ..kernels import hist_sorted as khs
+        from .compact import plan_blocks, plan_single_slot
+        plan = (plan_single_slot(bins.shape[0], block_rows, bins.device)
+                if slot is None else plan_blocks(slot, num_slots, block_rows))
+        return khs.hist_sorted(bins, plan.gather_idx, plan.scalars, grad,
+                               hess, cnt, num_slots, max_bins, shift,
+                               block_rows)
+    raise ValueError(f"unknown hist backend {backend!r}")
 
 
 def slot_counts(slot: torch.Tensor, cnt: torch.Tensor,

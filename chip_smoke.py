@@ -72,6 +72,26 @@ Phases, each printing one JSON line:
    more iteration of it timed phase by phase); held-out AUC > 0.80; one
    tree's K5/K6/K7 launches replayed bit-equal, then timed beside their
    bound and one ``index_add_`` call.
+9. train_multiclass_small: the train_small rows with a 3-class label, 127
+   leaves, split budget 64, 5 iterations (15 trees).  Dyadic multiclass
+   custom gradients under ``hist_backend`` stream (K2 over K > 1 classes),
+   scatter and pallas (K8) must give byte-identical text on the CPU and
+   the card; on the card, the lockstep and per-class paths must give
+   identical text on real softmax gradients under each backend; every
+   K2 and K8 launch of the card's lockstep runs is replayed bit-equal
+   through its plain version.
+10. train_multiclass: the multiclass cell at full width, bench.py's
+   ``make_multiclass_like`` (28 features, K = 10, seed 17) at
+   1 000 000 rows, the last 100 000 held out: 255 leaves, max_bin 63,
+   learning rate 0.1, split budget 64, 10 iterations through
+   ``lightgbm_torch.train`` under stream (K2 over K > 1 classes, the kernel
+   counts read around the call), then pallas and scatter (K8), which must
+   grow byte-identical text; a per-class arm (``multiclass_batched`` off,
+   5 iterations) byte-identical to the lockstep run's first 5 iterations;
+   a binary probe on ``y % 2`` with the same rows and leaf budget; held-out
+   top-1 accuracy through ``Booster.predict`` (> 0.5, chance 0.1); one
+   iteration's K2 and K8 launches replayed bit-equal, then timed beside
+   their bound and one ``index_add_`` call.
 
 Then a ``kernels`` line (each ported kernel's launches on its main path,
 largest error against its plain version, time, plain time, bound and
@@ -109,7 +129,8 @@ KERNEL_SOURCES = {
     "leaf_gather": "lightgbm_torch/kernels/csrc/leaf_gather.cu",
     "scatter_hist": "lightgbm_torch/kernels/csrc/scatter_hist.cu",
     "hist_direct": "lightgbm_torch/kernels/csrc/hist_sorted.cu",
-    "hist_nibble": "lightgbm_torch/kernels/csrc/hist_sorted.cu"}
+    "hist_nibble": "lightgbm_torch/kernels/csrc/hist_sorted.cu",
+    "hist_wide": "lightgbm_torch/kernels/csrc/hist_wide.cu"}
 KERNEL_REPLACES = {
     "predict_stream": "lightgbm_tpu/pallas/predict_kernel.py:176",
     "route_and_hist": "lightgbm_tpu/pallas/stream_kernel.py:580",
@@ -117,7 +138,8 @@ KERNEL_REPLACES = {
     "leaf_gather": "lightgbm_tpu/pallas/stream_kernel.py:742",
     "scatter_hist": "lightgbm_tpu/pallas/scatter_hist_kernel.py:103",
     "hist_direct": "lightgbm_tpu/pallas/hist_kernel.py:158",
-    "hist_nibble": "lightgbm_tpu/pallas/hist_kernel.py:194"}
+    "hist_nibble": "lightgbm_tpu/pallas/hist_kernel.py:194",
+    "hist_wide": "lightgbm_tpu/pallas/hist_kernel.py:305"}
 # the histogram kernels of the non-stream backends
 HIST_KERNELS = ("scatter_hist", "hist_direct", "hist_nibble")
 
@@ -606,22 +628,23 @@ def tree_structure(t):
 
 
 class Capture:
-    """Records every K2, K3, K4, K5 and K6/K7 call of the training loop
+    """Records every K2, K3, K4, K5, K6/K7 and K8 call of the training loop
     (inputs and outputs) while active, by wrapping the dispatchers that
     ops/grow.py, ops/histogram.py and models/gbdt.py call.  The calls still
     go through the kernels' wrappers and are counted there."""
 
     def __init__(self):
         self.k2, self.k3, self.k4, self.k5, self.k67 = [], [], [], [], []
+        self.k8 = []
 
     def __enter__(self):
-        from lightgbm_torch.kernels import hist_sorted, scatter_hist
+        from lightgbm_torch.kernels import hist_sorted, hist_wide, scatter_hist
         from lightgbm_torch.models import gbdt
         from lightgbm_torch.ops import grow
         self._orig = (grow.route_and_hist, grow.route_replay,
                       gbdt.leaf_gather, scatter_hist.scatter_hist,
-                      hist_sorted.hist_sorted)
-        k2_call, k3_call, k4_call, k5_call, k67_call = self._orig
+                      hist_sorted.hist_sorted, hist_wide.hist_wide)
+        k2_call, k3_call, k4_call, k5_call, k67_call, k8_call = self._orig
 
         def k2(bins_T, leaf_id, tabs, words, grad, hess, cnt, *args):
             out = k2_call(bins_T, leaf_id, tabs, words, grad, hess, cnt,
@@ -652,17 +675,23 @@ class Capture:
                              + args, out))
             return out
 
+        def k8(bins_T, slot, *args):
+            out = k8_call(bins_T, slot, *args)
+            self.k8.append(((bins_T, slot.clone()) + args, out))
+            return out
+
         (grow.route_and_hist, grow.route_replay, gbdt.leaf_gather,
-         scatter_hist.scatter_hist, hist_sorted.hist_sorted) = \
-            k2, k3, k4, k5, k67
+         scatter_hist.scatter_hist, hist_sorted.hist_sorted,
+         hist_wide.hist_wide) = k2, k3, k4, k5, k67, k8
         return self
 
     def __exit__(self, *exc):
-        from lightgbm_torch.kernels import hist_sorted, scatter_hist
+        from lightgbm_torch.kernels import hist_sorted, hist_wide, scatter_hist
         from lightgbm_torch.models import gbdt
         from lightgbm_torch.ops import grow
         (grow.route_and_hist, grow.route_replay, gbdt.leaf_gather,
-         scatter_hist.scatter_hist, hist_sorted.hist_sorted) = self._orig
+         scatter_hist.scatter_hist, hist_sorted.hist_sorted,
+         hist_wide.hist_wide) = self._orig
 
 
 def max_abs_diff(a, b) -> float:
@@ -681,14 +710,15 @@ def k2_route_chain(bins_T, tabs):
     G, n = bins_T.shape
     R, L = tabs.shape[0], tabs.shape[1]
     dev = bins_T.device
-    zeros = torch.zeros(n, dtype=torch.float32, device=dev)
-    words = torch.zeros((L, 8), dtype=torch.int32, device=dev)
-    lid = torch.zeros(n, dtype=torch.int32, device=dev)
+    zeros = torch.zeros((1, n), dtype=torch.float32, device=dev)
+    words = torch.zeros((1, L, 8), dtype=torch.int32, device=dev)
+    lid = torch.zeros((1, n), dtype=torch.int32, device=dev)
     for r in range(R):
-        lid, _, _ = rh.route_and_hist_cuda(bins_T, lid, tabs[r].contiguous(),
-                                           words, zeros, zeros, zeros, L,
-                                           256, 0, False)
-    return lid
+        lid, _, _ = rh.route_and_hist_cuda(bins_T, lid, tabs[r][None]
+                                           .contiguous(), words, zeros,
+                                           zeros, zeros[0], L, 256, (0,),
+                                           False)
+    return lid[0]
 
 
 def sorted_kernel(max_bins) -> str:
@@ -702,20 +732,24 @@ def replay_against_plain(cap):
     each K3 launch also against the chain of route-only K2 launches it
     fuses; raises unless leaf ids, counts, histograms and gathers are equal
     bit for bit.  Returns the launches replayed and the largest difference
-    of each kernel's outputs from its plain version's."""
+    of each kernel's outputs from its plain version's, K2's launches over
+    K > 1 classes (multiclass) apart as ``route_and_hist_k``."""
     import torch
-    from lightgbm_torch.kernels import hist_sorted as hs
+    from lightgbm_torch.kernels import hist_sorted as hs, hist_wide as hw
     from lightgbm_torch.kernels import leaf_gather as lg, route_hist as rh
     from lightgbm_torch.kernels import route_replay as rr
     from lightgbm_torch.kernels import scatter_hist as sh
 
-    err = {"route_and_hist": 0.0, "route_replay": 0.0, "leaf_gather": 0.0,
-           "scatter_hist": 0.0, "hist_direct": 0.0, "hist_nibble": 0.0}
+    err = {"route_and_hist": 0.0, "route_and_hist_k": 0.0,
+           "route_replay": 0.0, "leaf_gather": 0.0, "scatter_hist": 0.0,
+           "hist_direct": 0.0, "hist_nibble": 0.0, "hist_wide": 0.0}
     replayed = {k: 0 for k in err}
     hist_calls = ([("scatter_hist", a, o, sh.scatter_hist_plain)
                    for a, o in cap.k5]
                   + [(sorted_kernel(a[7]), a, o, hs.hist_sorted_plain)
-                     for a, o in cap.k67])
+                     for a, o in cap.k67]
+                  + [("hist_wide", a, o, hw.hist_wide_plain)
+                     for a, o in cap.k8])
     for name, args, out, plain in hist_calls:
         want = plain(*args)
         diff = max_abs_diff(out, want)
@@ -733,11 +767,14 @@ def replay_against_plain(cap):
             raise RuntimeError(f"route_replay differs from its plain version "
                                f"or the K2 route chain (max abs {diff})")
     for args, (new_leaf, hist, counts) in cap.k2:
+        name = "route_and_hist_k" if args[1].shape[0] > 1 \
+            else "route_and_hist"
+        replayed[name] += 1
         p_leaf, p_hist, p_counts = rh.route_and_hist_plain(*args)
         diffs = [max_abs_diff(new_leaf, p_leaf), max_abs_diff(counts, p_counts)]
         if hist is not None:
             diffs.append(max_abs_diff(hist, p_hist))
-        err["route_and_hist"] = max(err["route_and_hist"], *diffs)
+        err[name] = max(err[name], *diffs)
         same = (torch.equal(new_leaf, p_leaf) and torch.equal(counts, p_counts)
                 and (hist is None or torch.equal(hist, p_hist)))
         if not same:
@@ -750,8 +787,7 @@ def replay_against_plain(cap):
         if not torch.equal(out, want):
             raise RuntimeError(f"leaf_gather differs from its plain version "
                                f"(max abs {diff})")
-    replayed.update({"route_and_hist": len(cap.k2),
-                     "route_replay": len(cap.k3), "leaf_gather": len(cap.k4)})
+    replayed.update({"route_replay": len(cap.k3), "leaf_gather": len(cap.k4)})
     return replayed, err
 
 
@@ -854,13 +890,15 @@ def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
 
 def k2_work(args, out):
     """Bytes and operations one K2 launch needs on these inputs, counted
-    from what the rows need.  Bytes: every row's leaf id read and written;
-    a weighted row that lands in a histogram slot reads its count weight,
-    and when the launch builds histograms also its G bins and its grad and
-    hess; a routed row (its leaf splits) reads the bin of its split group
-    unless it reads all G bins already; the histograms and counts are
-    written once.  Operations: per row the leaf test (1); per routed row the
-    bin address, compare, child and slot selects (4), +3 to unbundle an EFB
+    from what the rows need, over every class of the launch.
+    Bytes: every row's leaf id read and written per class; a weighted row
+    that lands in a histogram slot of some class reads its count weight
+    once, and when the launch builds histograms also its G bins once and
+    its grad and hess for each class whose slot it lands in; a routed row
+    (its leaf splits) reads the bin of its split group unless it reads all
+    G bins already; the histograms and counts are written once.
+    Operations: per row and class the leaf test (1); per routed row the bin
+    address, compare, child and slot selects (4), +3 to unbundle an EFB
     bin, +1 per missing-value bin; per weighted row in a slot two
     quantizations (2) and one add per group and channel (2G)."""
     from lightgbm_torch.kernels import layout as tl
@@ -869,26 +907,35 @@ def k2_work(args, out):
         = args[:11]
     new_leaf, _, counts = out
     G, n = bins_T.shape
-    lid = leaf_id.cpu().numpy()
-    rec = tabs.cpu().numpy()[lid]
-    chosen = rec[:, tl.R_CHOSEN] > 0
-    went_left = new_leaf.cpu().numpy() == lid
-    slot = np.where(chosen, np.where(went_left, rec[:, tl.R_SLOT_L],
-                                     rec[:, tl.R_SLOT_R]),
-                    rec[:, tl.R_SLOT_KEEP])
-    in_slot_rows = (slot >= 0) & (cnt.cpu().numpy() > 0)
-    in_slot = float(in_slot_rows.sum())
-    if in_slot != float(counts.sum().item()):
-        raise RuntimeError("k2_work: rows in slots disagree with the counts")
-    bin_read = chosen & ~in_slot_rows if with_hist else chosen
-    ops = (n + 4 * float(chosen.sum())
-           + 3 * float((chosen & (rec[:, tl.R_BUNDLED] > 0)).sum())
-           + float((chosen & (rec[:, tl.R_NANBIN] >= 0)).sum())
-           + float((chosen & (rec[:, tl.R_MZBIN] >= 0)).sum()))
-    n_bytes = 8.0 * n + float(bin_read.sum()) + 4 * in_slot + 4 * num_slots
+    weighted = cnt.cpu().numpy() > 0
+    per_class, any_slot = [], np.zeros(n, bool)
+    for k in range(leaf_id.shape[0]):
+        lid = leaf_id[k].cpu().numpy()
+        rec = tabs[k].cpu().numpy()[lid]
+        chosen = rec[:, tl.R_CHOSEN] > 0
+        went_left = new_leaf[k].cpu().numpy() == lid
+        slot = np.where(chosen, np.where(went_left, rec[:, tl.R_SLOT_L],
+                                         rec[:, tl.R_SLOT_R]),
+                        rec[:, tl.R_SLOT_KEEP])
+        in_slot_rows = (slot >= 0) & weighted
+        if float(in_slot_rows.sum()) != float(counts[k].sum().item()):
+            raise RuntimeError("k2_work: rows in slots disagree with the "
+                               "counts")
+        any_slot |= in_slot_rows
+        per_class.append((rec, chosen, float(in_slot_rows.sum())))
+    ops, n_bytes = 0.0, 4.0 * float(any_slot.sum())
+    for rec, chosen, in_slot in per_class:
+        bin_read = chosen & ~any_slot if with_hist else chosen
+        ops += (n + 4 * float(chosen.sum())
+                + 3 * float((chosen & (rec[:, tl.R_BUNDLED] > 0)).sum())
+                + float((chosen & (rec[:, tl.R_NANBIN] >= 0)).sum())
+                + float((chosen & (rec[:, tl.R_MZBIN] >= 0)).sum()))
+        n_bytes += 8.0 * n + float(bin_read.sum()) + 4 * num_slots
+        if with_hist:
+            ops += in_slot * (2 + 2 * G)
+            n_bytes += in_slot * 8 + num_slots * G * max_bins * 2 * 4
     if with_hist:
-        ops += in_slot * (2 + 2 * G)
-        n_bytes += in_slot * (G + 8) + num_slots * G * max_bins * 2 * 4
+        n_bytes += float(any_slot.sum()) * G
     return n_bytes, ops
 
 
@@ -1297,38 +1344,46 @@ def phase_train_sampled(ds, Xs, ys, smi, iters=40, valid_rows=250_000,
 # --------------------------------------------------------------------------
 
 def hist_work(name, args, out):
-    """Bytes and operations one K5, K6 or K7 launch needs on these inputs,
-    counted from what the rows need.  Bytes: K5 reads every row's slot
-    (4 B), K6/K7 every plan position's gather index (4 B) and each block's
-    three scalars; a row that lands in a slot reads its G bins and three
-    weights (12 B); the (S, G, Bmax, 3) float32 histograms are written
-    once.  Operations: per row in a slot the three weight conversions (3)
-    and one add per group and channel (3G)."""
-    if name == "scatter_hist":
+    """Bytes and operations one K5, K6, K7 or K8 launch needs on these
+    inputs, counted from what the rows need.  Bytes: K5 reads every row's
+    slot (4 B), K8 every row's slot of each class, K6/K7 every plan
+    position's gather index (4 B) and each block's three scalars; a row
+    that lands in a slot (of any class) reads its G bins and count weight
+    once, and its grad and hess (8 B) for each class whose slot it lands
+    in; the (K, S, G, Bmax, 3) float32 histograms are written once.
+    Operations: per (row, class) in a slot the three weight conversions
+    (3) and one add per group and channel (3G)."""
+    if name in ("scatter_hist", "hist_wide"):
         bins_T, slot = args[0], args[1]
         G, n = bins_T.shape
-        in_slot = float((slot >= 0).sum().item())
-        n_bytes = 4.0 * n
+        slots = slot if slot.dim() == 2 else slot[None]
+        pairs = float((slots >= 0).sum().item())
+        rows = float((slots >= 0).any(dim=0).sum().item())
+        n_bytes = 4.0 * slots.numel()
     else:
         bins, gather_idx, scalars = args[0], args[1], args[2]
         G = bins.shape[1]
-        in_slot = float((gather_idx < bins.shape[0]).sum().item())
+        pairs = rows = float((gather_idx < bins.shape[0]).sum().item())
         n_bytes = 4.0 * gather_idx.numel() + 4.0 * scalars.numel()
-    n_bytes += in_slot * (G + 12) + 4.0 * out.numel()
-    return n_bytes, in_slot * (3 + 3 * G)
+    n_bytes += rows * (G + 4) + pairs * 8 + 4.0 * out.numel()
+    return n_bytes, pairs * (3 + 3 * G)
 
 
 def index_add_inputs(name, args):
-    """The flattened (slot, group, bin) cell of every (row, group) pair of
-    a K5, K6 or K7 launch and the (grad, hess, count) it adds, for the
-    library call ``index_add_`` (float32 sums, not exact), and its zeroed
-    (S * G * Bmax, 3) output."""
+    """The flattened (class, slot, group, bin) cell of every (row, class,
+    group) triple of a K5, K6, K7 or K8 launch and the (grad, hess, count)
+    it adds, for the library call ``index_add_`` (float32 sums, not exact),
+    and its zeroed (K * S * G * Bmax, 3) output."""
     import torch
-    if name == "scatter_hist":
+    if name in ("scatter_hist", "hist_wide"):
         bins_T, slot, grad, hess, cnt, num_slots, max_bins = args[:7]
-        rows = torch.nonzero(slot >= 0).flatten()
-        s = slot[rows].long()
+        if slot.dim() == 1:
+            slot, grad, hess = slot[None], grad[None], hess[None]
+        kk, rows = torch.nonzero(slot >= 0, as_tuple=True)
+        s = kk * num_slots + slot[kk, rows].long()
         bins_rows = bins_T[:, rows].t()
+        w = torch.stack([grad[kk, rows], hess[kk, rows], cnt[rows]], dim=1)
+        n_cells = slot.shape[0] * num_slots
     else:
         (bins, gather_idx, scalars, grad, hess, cnt, num_slots,
          max_bins) = args[:8]
@@ -1337,13 +1392,14 @@ def index_add_inputs(name, args):
         keep = (idx < bins.shape[0]) & (slot >= 0)
         rows, s = idx[keep], slot[keep]
         bins_rows = bins[rows]
+        w = torch.stack([grad[rows], hess[rows], cnt[rows]], dim=1)
+        n_cells = num_slots
     G = bins_rows.shape[1]
     g = torch.arange(G, device=s.device)
     cell = ((s[:, None] * G + g[None, :]) * max_bins
             + bins_rows.long()).reshape(-1)
-    w = torch.stack([grad[rows], hess[rows], cnt[rows]], dim=1)
     vals = w[:, None, :].expand(-1, G, -1).reshape(-1, 3).contiguous()
-    out = torch.zeros((num_slots * G * max_bins, 3), dtype=torch.float32,
+    out = torch.zeros((n_cells * G * max_bins, 3), dtype=torch.float32,
                       device=s.device)
     return out, cell, vals
 
@@ -1353,13 +1409,13 @@ def time_hist_launches(name, items):
     its plain version's (CUDA events, one call), its bound, and one
     ``index_add_`` call over the same (row, group) pairs: means over the
     launches."""
-    from lightgbm_torch.kernels import hist_sorted as hs
+    from lightgbm_torch.kernels import hist_sorted as hs, hist_wide as hw
     from lightgbm_torch.kernels import scatter_hist as sh
-    kernel = {"scatter_hist": sh.scatter_hist_cuda,
-              "hist_direct": hs.hist_direct_cuda,
-              "hist_nibble": hs.hist_nibble_cuda}[name]
-    plain = sh.scatter_hist_plain if name == "scatter_hist" \
-        else hs.hist_sorted_plain
+    kernel, plain = {
+        "scatter_hist": (sh.scatter_hist_cuda, sh.scatter_hist_plain),
+        "hist_direct": (hs.hist_direct_cuda, hs.hist_sorted_plain),
+        "hist_nibble": (hs.hist_nibble_cuda, hs.hist_sorted_plain),
+        "hist_wide": (hw.hist_wide_cuda, hw.hist_wide_plain)}[name]
     ms, plain_ms, lib_ms, bnd = [], [], [], []
     for args, out in items:
         ms.append(device_ms(lambda a=args: kernel(*a)))
@@ -1481,6 +1537,271 @@ def phase_train_backends(seed, rows, ds63, Xs, ys, smi, iters=10,
     return lines, err
 
 
+# --------------------------------------------------------------------------
+# multiclass training
+# --------------------------------------------------------------------------
+
+def make_multiclass_like(n, f, k=10, seed=17):
+    """Synthetic K-class softmax task: 28 continuous features, linear class
+    logits plus a shared nonlinear confusion term (the generator of
+    bench.py, copied)."""
+    rs = np.random.RandomState(seed)
+    X = rs.randn(n, f).astype(np.float32)
+    W = rs.randn(f, k).astype(np.float32) * 0.9
+    logits = X @ W
+    logits += (0.8 * np.sin(3 * X[:, :1]) + 0.6 * X[:, 1:2] * X[:, 2:3])
+    y = np.argmax(logits + rs.randn(n, k).astype(np.float32) * 0.8,
+                  axis=1).astype(np.float64)
+    return X, y
+
+
+def dyadic_mc_fobj(score, ds):
+    """(N, K) custom gradients on a 1/64 grid and hessians on a 1/32 grid
+    from the (N, K) score and the class labels: every sum of them is exact
+    in float32."""
+    oh = np.eye(score.shape[1], dtype=np.float32)[
+        ds.get_label().astype(np.int64)]
+    g = np.clip(np.round(64.0 * (score - oh)) / 64.0, -127 / 64, 127 / 64)
+    h = 0.5 + np.round(16.0 * np.abs(g)) / 32.0
+    return g.astype(np.float32), h.astype(np.float32)
+
+
+def phase_train_multiclass_small(seed, n=20_000, iters=5, num_leaves=127):
+    """Multiclass training (K = 3) on both devices: dyadic custom gradients
+    under stream, scatter and pallas must give byte-identical text on the
+    CPU and the card; on the card the lockstep and per-class paths must
+    give identical text on real softmax gradients under each backend; every
+    K2 (K > 1) and K8 launch of the card's lockstep runs is
+    replayed bit-equal through its plain version."""
+    import torch
+    import lightgbm_torch as lt
+
+    X, _ = make_train_small(n, seed)
+    rs = np.random.RandomState(seed + 11)
+    logits = np.stack([np.nan_to_num(X[:, 0]) + 0.8 * X[:, 1],
+                       2.0 * X[:, 2] - 1.5 * X[:, 3], X[:, 4] * X[:, 5]], 1)
+    y = np.argmax(logits + rs.randn(n, 3), axis=1).astype(np.float64)
+    base = {"objective": "multiclass", "num_class": 3,
+            "num_leaves": num_leaves, "max_splits_per_round": 64,
+            "max_bin": 63, "verbosity": -1}
+    out, cap = {}, Capture()
+    for hb in ("stream", "scatter", "pallas"):
+        texts = []
+        for dev in ("cpu", "cuda"):
+            p = {**base, "hist_backend": hb, "device_type": dev}
+            bst = lt.Booster(p, lt.Dataset(X, label=y, params=p))
+            for _ in range(iters):
+                bst.update(fobj=dyadic_mc_fobj)
+            texts.append(model_trees_text(bst))
+        if texts[0] != texts[1]:
+            raise RuntimeError(f"{hb}: dyadic multiclass training differs "
+                               f"between CPU and card")
+        real = []
+        for batched in (True, False):
+            p = {**base, "hist_backend": hb, "multiclass_batched": batched,
+                 "device_type": "cuda"}
+            with (cap if batched else contextlib.nullcontext()):
+                real.append(lt.train(p, lt.Dataset(X, label=y, params=p),
+                                     iters))
+        if model_trees_text(real[0]) != model_trees_text(real[1]):
+            raise RuntimeError(f"{hb}: lockstep and per-class multiclass "
+                               f"training differ on the card")
+        out[hb] = {"dyadic_leaves_per_tree": [t.num_leaves
+                                              for t in bst.engine.models],
+                   "real_leaves_per_tree": [t.num_leaves
+                                            for t in real[0].engine.models]}
+    torch.cuda.synchronize()
+    replayed, err = replay_against_plain(cap)
+    if not (replayed["route_and_hist_k"] and replayed["hist_wide"]):
+        raise RuntimeError(f"the multiclass runs replayed {replayed}")
+    emit({"phase": "train_multiclass_small", "rows": n, "classes": 3,
+          "iterations": iters, "num_leaves": num_leaves, "runs": out,
+          "dyadic_text_identical_cpu_card": True,
+          "lockstep_per_class_identical": True,
+          "replayed_launches": replayed, "replay_max_abs_err": err})
+    return err
+
+
+def k2k_index_add_inputs(args):
+    """The flattened (class, slot, group, bin) cell of every (row, class,
+    group) triple a K2 launch over K > 1 classes adds to a histogram, with its
+    (grad, hess), for the library call ``index_add_`` (float32, not exact),
+    and its zeroed (K * S * G * Bmax, 2) output.  The slots are the plain
+    route's (the routing has no library call)."""
+    import torch
+    from lightgbm_torch.kernels.route_hist import route_plain
+
+    bins_T, leaf_id, tabs, words, grad, hess, cnt, num_slots, max_bins = \
+        args[:9]
+    K = leaf_id.shape[0]
+    slot = torch.stack([route_plain(bins_T, leaf_id[k], tabs[k], words[k])[1]
+                        for k in range(K)])
+    slot = torch.where(cnt[None, :] > 0, slot, -1)
+    kk, rows = torch.nonzero(slot >= 0, as_tuple=True)
+    s = kk * num_slots + slot[kk, rows].long()
+    G = bins_T.shape[0]
+    g = torch.arange(G, device=s.device)
+    cell = ((s[:, None] * G + g[None, :]) * max_bins
+            + bins_T[:, rows].t().long()).reshape(-1)
+    w = torch.stack([grad[kk, rows], hess[kk, rows]], dim=1)
+    vals = w[:, None, :].expand(-1, G, -1).reshape(-1, 2).contiguous()
+    acc = torch.zeros((K * num_slots * G * max_bins, 2), dtype=torch.float32,
+                      device=s.device)
+    return acc, cell, vals
+
+
+def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
+                           held_out=100_000, per_class_iters=5,
+                           timed_iter=2):
+    """The multiclass cell at full width (bench.py's make_multiclass_like,
+    28 features, K = 10): 255 leaves, max_bin 63, learning rate 0.1, split
+    budget 64, ``iters`` iterations under stream (K2 over K > 1 classes),
+    then pallas and scatter (K8, byte-identical to each other); a
+    per-class arm and a binary probe on ``y % 2``; held-out top-1 accuracy
+    through ``Booster.predict``; one iteration's K2 and K8 launches
+    replayed bit-equal and timed.  Returns the K2 (K > 1) and K8
+    entries of the kernels line and the replays' largest differences."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.kernels import route_hist as rh
+
+    del seed                    # the cell's data has bench.py's own seed
+    K = 10
+    t0 = time.perf_counter()
+    X, y = make_multiclass_like(rows, 28, K, seed=17)
+    Xtr, ytr = X[:rows - held_out], y[:rows - held_out]
+    Xte, yte = X[rows - held_out:], y[rows - held_out:]
+    ds = lt.Dataset(Xtr, label=ytr, params={"max_bin": 63}).construct()
+    binning_s = time.perf_counter() - t0
+    base = {"objective": "multiclass", "num_class": K, "num_leaves": 255,
+            "max_bin": 63, "learning_rate": 0.1, "max_splits_per_round": 64,
+            "verbosity": -1}
+    runs, texts, caps = {}, {}, {}
+    for hb in ("stream", "pallas", "scatter"):
+        want = "route_and_hist" if hb == "stream" else "hist_wide"
+        other = "hist_wide" if hb == "stream" else "route_and_hist"
+        kernels.reset_launch_counts()
+        with TimedIters(capture_at=min(timed_iter, iters - 1)) as timed:
+            t0 = time.perf_counter()
+            bst = lt.train({**base, "hist_backend": hb}, ds, iters)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        if (bst.num_trees() != iters * K or counts[want] == 0
+                or counts[other] != 0 or counts["leaf_gather"] != iters):
+            raise RuntimeError(f"multiclass {hb}: {bst.num_trees()} trees "
+                               f"with launches {counts}")
+        texts[hb] = model_trees_text(bst)
+        caps[hb] = timed.cap
+        runs[hb] = {"train_s": train_s, "iter_s": timed.seconds,
+                    "s_per_iter": statistics.median(timed.seconds[1:]),
+                    "launches": counts,
+                    "hist_launches_per_iter": counts[want] / iters,
+                    "leaves_per_tree": [t.num_leaves
+                                        for t in bst.engine.models]}
+        if hb == "stream":
+            stream_bst, stream_counts = bst, counts
+    if texts["pallas"] != texts["scatter"]:
+        raise RuntimeError("multiclass: pallas and scatter grow different "
+                           "trees")
+    # held-out top-1 accuracy through Booster.predict (K1, one launch per
+    # class)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    prob = stream_bst.predict(Xte)
+    predict_s = time.perf_counter() - t0
+    k1_launches = kernels.launch_counts()["predict_stream"]
+    acc = float(np.mean(np.argmax(prob, axis=1) == yte))
+    if not (prob.shape == (held_out, K) and np.isfinite(prob).all()
+            and acc > 0.5 and k1_launches == K):
+        raise RuntimeError(f"multiclass held-out accuracy {acc}, "
+                           f"{k1_launches} K1 launches")
+    # the per-class arm: the lockstep run's first iterations, tree for tree
+    with TimedIters() as pc:
+        per_class = lt.train({**base, "multiclass_batched": False}, ds,
+                             per_class_iters)
+    if model_trees_text(per_class) != model_trees_text(
+            stream_bst, num_iteration=per_class_iters):
+        raise RuntimeError("lockstep and per-class multiclass training "
+                           "differ")
+    # the binary probe on the same rows and leaf budget
+    bin_ds = lt.Dataset(Xtr, label=(ytr % 2).astype(np.float64),
+                        params={"max_bin": 63})
+    with TimedIters() as probe:
+        lt.train({**base, "objective": "binary", "num_class": 1}, bin_ds,
+                 iters)
+    s_iter = runs["stream"]["s_per_iter"]
+    s_bin = statistics.median(probe.seconds[1:])
+    s_pc = statistics.median(pc.seconds[1:])
+    prof_s, prof_phases, prof_reads = profiled_iteration(stream_bst)
+
+    # one iteration's launches: replayed against the plain versions, then
+    # timed beside their bounds and one index_add_ call
+    err = {}
+    for hb, cap in caps.items():
+        replayed, e = replay_against_plain(cap)
+        name = "route_and_hist_k" if hb == "stream" else "hist_wide"
+        if replayed[name] == 0:
+            raise RuntimeError(f"multiclass {hb}: replayed {replayed}")
+        err[name] = max(err.get(name, 0.0), e[name])
+        runs[hb]["replayed_launches_timed_iter"] = replayed
+    full = [(a, o) for a, o in caps["stream"].k2 if a[10]]
+    k2_ms = [device_ms(lambda a=a: rh.route_and_hist_cuda(*a))
+             for a, _ in full]
+    k2_plain = [cuda_ms(lambda a=a: rh.route_and_hist_plain(*a), reps=1,
+                        warmup=0) for a, _ in full]
+    k2_bnd = [bound(*k2_work(a, o)) for a, o in full]
+    k2_lib = []
+    for a, _ in full:
+        acc_t, cell, vals = k2k_index_add_inputs(a)
+        k2_lib.append(device_ms(lambda: acc_t.index_add_(0, cell, vals)))
+        del acc_t, cell, vals
+    k8 = time_hist_launches("hist_wide", caps["scatter"].k8)
+    caps.clear()
+    mean = statistics.mean
+    emit({"phase": "train_multiclass", "card": smi, "rows": rows - held_out,
+          "held_out_rows": held_out, "features": 28, "classes": K,
+          "iterations": iters, "num_leaves": 255, "binning_s": binning_s,
+          "runs": runs, "text_identical_pallas_scatter": True,
+          "s_per_iter": s_iter, "s_per_iter_per_class": s_pc,
+          "per_class_iter_s": pc.seconds,
+          "binary_s_per_tree": s_bin, "binary_tree_s": probe.seconds,
+          "ratio_multiclass_to_binary": s_iter / s_bin,
+          "ratio_per_class_to_binary": s_pc / s_bin,
+          "lockstep_per_class_identical": True,
+          "held_out_top1_accuracy": acc, "predict_s": predict_s,
+          "k1_launches_predict": k1_launches,
+          "profiled_iteration_s": prof_s,
+          "profiled_iteration_phases_s": prof_phases,
+          "profiled_iteration_host_reads": prof_reads,
+          "replay_max_abs_err": err,
+          "k2k_full_hist_ms": k2_ms, "k2k_full_hist_mean_ms": mean(k2_ms),
+          "k2k_full_hist_plain_ms": k2_plain,
+          "k2k_full_hist_bound_ms": [b for b, _ in k2_bnd],
+          "k2k_index_add_ms": k2_lib, "k2k_mean_index_add_ms": mean(k2_lib),
+          "k8": k8})
+    lines = [
+        {"name": "route_and_hist_k", "route": "cuda",
+         "source": KERNEL_SOURCES["route_and_hist"],
+         "replaces": KERNEL_REPLACES["route_and_hist"],
+         "launches": stream_counts["route_and_hist"],
+         "max_abs_err": err["route_and_hist_k"],
+         "ms": mean(k2_ms), "plain_ms": mean(k2_plain),
+         "bound_ms": mean(b for b, _ in k2_bnd), "bound_by": k2_bnd[0][1],
+         "library_ms": None},
+        {"name": "hist_wide", "route": "cuda",
+         "source": KERNEL_SOURCES["hist_wide"],
+         "replaces": KERNEL_REPLACES["hist_wide"],
+         "launches": runs["scatter"]["launches"]["hist_wide"]
+         + runs["pallas"]["launches"]["hist_wide"],
+         "max_abs_err": err["hist_wide"],
+         "ms": k8["mean_ms"], "plain_ms": k8["mean_plain_ms"],
+         "bound_ms": k8["mean_bound_ms"], "bound_by": k8["bound_by"],
+         "library_ms": k8["mean_index_add_ms"]}]
+    return lines, err
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1531,13 +1852,15 @@ def main(argv=None) -> int:
                                               args.sampled_iters)
         k567, backends_err = phase_train_backends(
             args.seed, args.rows, ds, Xs, ys, smi, args.backend_iters)
-    kernel_lines = [k1, k2, k3, k4] + k567
+        del ds, Xs, ys
+        mc_small_err = phase_train_multiclass_small(args.seed)
+        k2k_k8, mc_err = phase_train_multiclass(args.seed, smi)
+    kernel_lines = [k1, k2, k3, k4] + k567 + k2k_k8
+    errs = (small_err, sampled_small_err, sampled_err, backends_err,
+            mc_small_err, mc_err)
     for k in kernel_lines[1:]:
-        k["max_abs_err"] = max(k["max_abs_err"],
-                               small_err.get(k["name"], 0.0),
-                               sampled_small_err[k["name"]],
-                               sampled_err[k["name"]],
-                               backends_err.get(k["name"], 0.0))
+        k["max_abs_err"] = max([k["max_abs_err"]]
+                               + [e.get(k["name"], 0.0) for e in errs])
     emit({"kernels": kernel_lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -259,7 +259,10 @@ class Booster:
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
         """One boosting iteration; returns True when training cannot go on
         (reference: Booster.update, basic.py:4005).  ``fobj(score,
-        train_set)`` gives custom gradients of the unpadded training score."""
+        train_set)`` gives custom gradients of the unpadded training score:
+        (N,) arrays, or for K trees per iteration (N, K) ones, the layout of
+        the (N, K) score it is handed, as the JAX package takes them
+        (lightgbm_tpu/basic.py:1279-1283)."""
         if train_set is not None and train_set is not self.train_set:
             raise LightGBMError("changing train_set after construction is "
                                 "not supported")

@@ -386,6 +386,10 @@ class Config:
     hist_backend: str = "auto"
     hist_precision: str = "auto"
     max_splits_per_round: int = 0
+    # multiclass: grow the K class trees of an iteration in lockstep, one
+    # histogram pass per round for all classes (ops/grow.py grow_tree_k),
+    # or one tree after another; the trees are the same either way
+    multiclass_batched: bool = True
 
     # Row and feature sampling (models/sample_strategy.py): bagging
     # (fraction or pos/neg, every bagging_freq iterations) or GOSS (keep the
@@ -412,6 +416,7 @@ class Config:
     early_stopping_round: int = 0
     early_stopping_min_delta: float = 0.0
     first_metric_only: bool = False
+    multi_error_top_k: int = 1
 
     # Training features that are not ported yet: a value other than the
     # default raises (models/gbdt.GBDT._check_unsupported_params)

@@ -17,6 +17,9 @@ version runs only for CPU tensors.  Importing this package builds nothing:
 - ``hist_direct`` and ``hist_nibble`` (K6 for Bmax <= 128, K7 above;
   hist_sorted.py): slot histograms over slot-sorted row blocks
   (``hist_backend="pallas"``).
+- ``hist_wide`` (K8, hist_wide.py): the K class trees' slot histograms of
+  batched multiclass in one pass over the rows (``scatter`` and
+  ``pallas``); K2 has a class axis of its own for ``stream``.
 
 Each CUDA wrapper counts its launches in a plain integer attribute
 ``launches``; ``launch_counts`` reads them and ``reset_launch_counts`` sets
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import (hist_sorted, leaf_gather, predict, route_hist,
+from . import (hist_sorted, hist_wide, leaf_gather, predict, route_hist,
                route_replay, scatter_hist)
 
 # kernel name -> its CUDA wrapper
@@ -38,6 +41,7 @@ WRAPPERS = {
     "scatter_hist": scatter_hist.scatter_hist_cuda,
     "hist_direct": hist_sorted.hist_direct_cuda,
     "hist_nibble": hist_sorted.hist_nibble_cuda,
+    "hist_wide": hist_wide.hist_wide_cuda,
 }
 
 

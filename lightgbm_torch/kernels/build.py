@@ -32,6 +32,7 @@ SOURCES: Dict[str, str] = {
     # K6 and K7 are two entry points of one source, each its own library
     "hist_direct": "csrc/hist_sorted.cu",
     "hist_nibble": "csrc/hist_sorted.cu",
+    "hist_wide": "csrc/hist_wide.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -49,9 +50,9 @@ SIGNATURES = {
                        [_c_ptr, _c_i64, _c_ptr, _c_ptr, _c_ptr, _c_int,
                         _c_int, _c_int, _c_int, _c_f32, _c_ptr, _c_ptr]),
     "route_and_hist": ("lgbt_route_and_hist",
-                       [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_int,
-                        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int,
-                        _c_int, _c_int, _c_f32, _c_f32, _c_ptr, _c_ptr,
+                       [_c_ptr, _c_i64, _c_int, _c_int, _c_ptr, _c_ptr,
+                        _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
+                        _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
                         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
     "leaf_gather": ("lgbt_leaf_gather",
                     [_c_ptr, _c_i64, _c_ptr, _c_int, _c_ptr, _c_ptr]),
@@ -64,6 +65,9 @@ SIGNATURES = {
                       _c_ptr]),
     "hist_direct": ("lgbt_hist_direct", _SORTED_ARGS),
     "hist_nibble": ("lgbt_hist_nibble", _SORTED_ARGS),
+    "hist_wide": ("lgbt_hist_wide",
+                  [_c_ptr, _c_i64, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
+                   _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -30,11 +30,25 @@
 //     weights to bf16 (single) or a bf16 hi+lo pair (mixed) to feed its
 //     matrix unit; neither is copied.
 //   * Shared memory: a block owns one group, a range of rows and a range
-//     of slots.  One slot of one group is Bmax x 2 int64 (1 KB at Bmax 64),
-//     so up to kSmemBytes / (Bmax * 16) slots share a block; more slots
-//     split over gridDim.z.  Blocks of one row range are adjacent in
-//     blockIdx.x (the group), so the slot, grad and hess reads of the G
-//     blocks of a range mostly hit L2.
+//     of (class, slot) pairs.  One slot of one group is Bmax x 2 int64
+//     (1 KB at Bmax 64), so up to kSmemBytes / (Bmax * 16) pairs share a
+//     block; more pairs split over gridDim.z.  Blocks of one row range are
+//     adjacent in blockIdx.x (the group), so the slot, grad and hess reads
+//     of the G blocks of a range mostly hit L2.
+//   * Classes (batched multiclass, lightgbm_tpu/ops/grow.py grow_tree_k):
+//     K class trees route and accumulate in one launch.  Each row has one
+//     leaf id, slot, grad and hess per class, and each class its own
+//     fixed-point scale (its own largest weight sets it, so a class's sums
+//     are the same as in a launch of its own).  Routing runs one thread per
+//     (row, class), the class on gridDim.y.  The histogram pairs are
+//     class-major (pair = class * S + slot), so a block's pairs cover a run
+//     of classes: it makes one pass over its rows for each of them, the
+//     single-class loop with that class's slots, weights and scale, and
+//     re-reads a row's bin byte from L1/L2 once per class.  One pass that
+//     read it once for all classes was 4 % slower at K = 1 and 3 % faster
+//     at K = 10 (PERF.md, PR 5); binary training runs K = 1.  The TPU
+//     kernel stacks the classes on the channel axis of one one-hot
+//     contraction instead.  K = 1 is the single-class launch.
 //   * What bounds it: the bytes a pass must move (bins, leaf ids in and
 //     out, grad, hess, counts: ~48 B/row at 28 groups) take ~14 us at
 //     1M rows and 3.35 TB/s; the adds are far fewer operations than the
@@ -44,7 +58,7 @@
 //     row's slot and weights, and by the global flush.  Its times are in
 //     PERF.md; making it fast is later work.
 //
-// Plain PyTorch version of the same contract:
+// Plain PyTorch version of the same contract (K > 1: K single-class calls):
 // lightgbm_torch/kernels/route_hist.py::route_and_hist_plain.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -71,6 +85,14 @@ route_kernel(const uint8_t* __restrict__ bins_T, int64_t n_rows,
   extern __shared__ unsigned long long s_cnt[];  // S counters
   for (int s = threadIdx.x; s < S; s += blockDim.x) s_cnt[s] = 0ull;
   __syncthreads();
+  // this block's class: its leaf ids, records, bitsets, outputs, counts
+  const int k = blockIdx.y;
+  leaf_id += static_cast<int64_t>(k) * n_rows;
+  new_leaf += static_cast<int64_t>(k) * n_rows;
+  slot_out += static_cast<int64_t>(k) * n_rows;
+  tabs += static_cast<int64_t>(k) * L * 4;
+  cat_words += static_cast<int64_t>(k) * L * W;
+  cnt_acc += static_cast<int64_t>(k) * S;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (row < n_rows) {
@@ -119,33 +141,49 @@ route_kernel(const uint8_t* __restrict__ bins_T, int64_t n_rows,
   }
 }
 
-// grid: x = group, y = row range, z = slot range
+// grid: x = group, y = row range, z = range of class-major (class, slot)
+// pairs; scales[k] is class k's 2**shift
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const uint8_t* __restrict__ bins_T, int64_t n_rows, int G,
             int Bmax, const int32_t* __restrict__ slot,
             const float* __restrict__ grad, const float* __restrict__ hess,
-            float scale, int64_t rows_per_block, int slots_per_block, int S,
+            const float* __restrict__ scales, int64_t rows_per_block,
+            int pairs_per_block, int S, int K,
             unsigned long long* __restrict__ hist_acc) {
-  extern __shared__ unsigned long long s_hist[];  // slots x Bmax x 2
+  extern __shared__ unsigned long long s_hist[];  // pairs x Bmax x 2
   const int g = blockIdx.x;
-  const int s0 = blockIdx.z * slots_per_block;
-  const int s1 = s0 + slots_per_block < S ? s0 + slots_per_block : S;
-  const int cells = (s1 - s0) * Bmax * 2;
+  const int P = K * S;
+  const int p0 = blockIdx.z * pairs_per_block;
+  const int p1 = p0 + pairs_per_block < P ? p0 + pairs_per_block : P;
+  const int k0 = p0 / S;
+  const int k1 = (p1 - 1) / S;
+  const int cells = (p1 - p0) * Bmax * 2;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) s_hist[i] = 0ull;
   __syncthreads();
   const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
   const int64_t r1 =
       r0 + rows_per_block < n_rows ? r0 + rows_per_block : n_rows;
   const uint8_t* col = bins_T + static_cast<int64_t>(g) * n_rows;
-  for (int64_t row = r0 + threadIdx.x; row < r1; row += blockDim.x) {
-    const int s = slot[row];
-    if (s < s0 || s >= s1) continue;
-    const int b = col[row];
-    const long long qg = __float2ll_rn(grad[row] * scale);
-    const long long qh = __float2ll_rn(hess[row] * scale);
-    unsigned long long* cell = s_hist + ((s - s0) * Bmax + b) * 2;
-    if (qg != 0) atomicAdd(cell, static_cast<unsigned long long>(qg));
-    if (qh != 0) atomicAdd(cell + 1, static_cast<unsigned long long>(qh));
+  // one pass over the rows for each class of the block, its slots s0..s1
+  for (int k = k0; k <= k1; ++k) {
+    const int s0 = p0 - k * S > 0 ? p0 - k * S : 0;
+    const int s1 = p1 - k * S < S ? p1 - k * S : S;
+    const int64_t off = static_cast<int64_t>(k) * n_rows;
+    const int32_t* slot_k = slot + off;
+    const float* grad_k = grad + off;
+    const float* hess_k = hess + off;
+    const float scale = scales[k];
+    unsigned long long* tile = s_hist + (k * S + s0 - p0) * Bmax * 2;
+    for (int64_t row = r0 + threadIdx.x; row < r1; row += blockDim.x) {
+      const int s = slot_k[row];
+      if (s < s0 || s >= s1) continue;
+      const int b = col[row];
+      const long long qg = __float2ll_rn(grad_k[row] * scale);
+      const long long qh = __float2ll_rn(hess_k[row] * scale);
+      unsigned long long* cell = tile + ((s - s0) * Bmax + b) * 2;
+      if (qg != 0) atomicAdd(cell, static_cast<unsigned long long>(qg));
+      if (qh != 0) atomicAdd(cell + 1, static_cast<unsigned long long>(qh));
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
@@ -153,20 +191,25 @@ hist_kernel(const uint8_t* __restrict__ bins_T, int64_t n_rows, int G,
     if (v == 0ull) continue;
     const int c = i & 1;
     const int b = (i >> 1) % Bmax;
-    const int s = s0 + (i >> 1) / Bmax;
-    atomicAdd(&hist_acc[((static_cast<int64_t>(s) * G + g) * Bmax + b) * 2 +
+    const int p = p0 + (i >> 1) / Bmax;
+    atomicAdd(&hist_acc[((static_cast<int64_t>(p) * G + g) * Bmax + b) * 2 +
                         c],
               v);
   }
 }
 
+// grid: x = range of values, y = class; class k's per_class values times
+// inv_scales[k] (null: times 1, the counts)
 __global__ void to_float_kernel(const unsigned long long* __restrict__ acc,
-                                int64_t n, float inv_scale,
+                                int64_t per_class,
+                                const float* __restrict__ inv_scales,
                                 float* __restrict__ out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
-  if (i < n) out[i] = __ll2float_rn(static_cast<long long>(acc[i])) *
-                      inv_scale;
+  if (i >= per_class) return;
+  const int64_t j = static_cast<int64_t>(blockIdx.y) * per_class + i;
+  const float v = __ll2float_rn(static_cast<long long>(acc[j]));
+  out[j] = inv_scales == nullptr ? v : v * inv_scales[blockIdx.y];
 }
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
@@ -174,60 +217,78 @@ int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 }  // namespace
 
 // C interface, loaded with ctypes.  Launches on `stream`, does not
-// synchronise, and returns the first CUDA error (0 = launched).
-// hist_acc (S*G*Bmax*2) and cnt_acc (S) are int64 scratch this call zeroes;
-// hist and slot are written only when with_hist != 0.
+// synchronise, and returns the first CUDA error (0 = launched).  Per-class
+// arrays are class-major: leaf_id, grad, hess, new_leaf and slot (K, N);
+// tabs (K, L, 16); cat_words (K, L, W); scales (2, K) on the device, row 0
+// each class's 2**shift and row 1 its 2**-shift.  hist_acc (K*S*G*Bmax*2)
+// and cnt_acc (K*S) are int64 scratch this call zeroes; hist (K, S, G,
+// Bmax, 2) and cnt_out (K, S) are the results, hist written only when
+// with_hist != 0.
 extern "C" int lgbt_route_and_hist(
-    const uint8_t* bins_T, int64_t n_rows, int G, const int32_t* leaf_id,
-    const int32_t* tabs, int L, const int32_t* cat_words, int W,
-    const float* grad, const float* hess, const float* cnt, int S, int Bmax,
-    int with_hist, float scale, float inv_scale, int32_t* new_leaf,
-    int32_t* slot, int64_t* hist_acc, int64_t* cnt_acc, float* hist,
-    float* cnt_out, cudaStream_t stream) {
+    const uint8_t* bins_T, int64_t n_rows, int G, int K,
+    const int32_t* leaf_id, const int32_t* tabs, int L,
+    const int32_t* cat_words, int W, const float* grad, const float* hess,
+    const float* cnt, int S, int Bmax, int with_hist, const float* scales,
+    int32_t* new_leaf, int32_t* slot, int64_t* hist_acc, int64_t* cnt_acc,
+    float* hist, float* cnt_out, cudaStream_t stream) {
   auto* h_acc = reinterpret_cast<unsigned long long*>(hist_acc);
   auto* c_acc = reinterpret_cast<unsigned long long*>(cnt_acc);
-  cudaError_t err = cudaMemsetAsync(c_acc, 0, sizeof(int64_t) * S, stream);
+  const int P = K * S;
+  cudaError_t err = cudaMemsetAsync(c_acc, 0, sizeof(int64_t) * P, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t row_blocks = ceil_div(n_rows, kThreads);
-  route_kernel<<<static_cast<unsigned>(row_blocks), kThreads,
-                 sizeof(unsigned long long) * S, stream>>>(
-      bins_T, n_rows, leaf_id, reinterpret_cast<const int4*>(tabs), L,
-      reinterpret_cast<const uint32_t*>(cat_words), W, cnt, S, new_leaf, slot,
-      c_acc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  to_float_kernel<<<static_cast<unsigned>(ceil_div(S, kThreads)), kThreads, 0,
-                    stream>>>(c_acc, S, 1.0f, cnt_out);
+  if (row_blocks > 0) {
+    const dim3 route_grid(static_cast<unsigned>(row_blocks),
+                          static_cast<unsigned>(K));
+    route_kernel<<<route_grid, kThreads, sizeof(unsigned long long) * S,
+                   stream>>>(
+        bins_T, n_rows, leaf_id, reinterpret_cast<const int4*>(tabs), L,
+        reinterpret_cast<const uint32_t*>(cat_words), W, cnt, S, new_leaf,
+        slot, c_acc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 cnt_grid(static_cast<unsigned>(ceil_div(S, kThreads)),
+                      static_cast<unsigned>(K));
+  to_float_kernel<<<cnt_grid, kThreads, 0, stream>>>(c_acc, S, nullptr,
+                                                     cnt_out);
   err = cudaGetLastError();
   if (err != cudaSuccess || !with_hist) return static_cast<int>(err);
 
-  const int64_t cells = static_cast<int64_t>(S) * G * Bmax * 2;
+  const int64_t per_class = static_cast<int64_t>(S) * G * Bmax * 2;
+  const int64_t cells = per_class * K;
   err = cudaMemsetAsync(h_acc, 0, sizeof(int64_t) * cells, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int per_slot = Bmax * 2 * static_cast<int>(sizeof(int64_t));
-  int slots_per_block = kSmemBytes / per_slot;
-  if (slots_per_block < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (slots_per_block > S) slots_per_block = S;
-  const int slot_blocks = static_cast<int>(ceil_div(S, slots_per_block));
-  int64_t row_ranges = kTargetBlocks / (static_cast<int64_t>(G) * slot_blocks);
-  if (row_ranges < 1) row_ranges = 1;
-  if (row_ranges > row_blocks) row_ranges = row_blocks;
-  if (row_ranges > 65535) row_ranges = 65535;
-  const int64_t rows_per_block = ceil_div(n_rows, row_ranges);
-  row_ranges = ceil_div(n_rows, rows_per_block);
-  const int smem = slots_per_block * per_slot;
-  err = cudaFuncSetAttribute(hist_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(G), static_cast<unsigned>(row_ranges),
-                  static_cast<unsigned>(slot_blocks));
-  hist_kernel<<<grid, kThreads, smem, stream>>>(
-      bins_T, n_rows, G, Bmax, slot, grad, hess, scale, rows_per_block,
-      slots_per_block, S, h_acc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  to_float_kernel<<<static_cast<unsigned>(ceil_div(cells, kThreads)),
-                    kThreads, 0, stream>>>(h_acc, cells, inv_scale, hist);
+  const int per_pair = Bmax * 2 * static_cast<int>(sizeof(int64_t));
+  int pairs_per_block = kSmemBytes / per_pair;
+  if (pairs_per_block < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (pairs_per_block > P) pairs_per_block = P;
+  const int pair_blocks = static_cast<int>(ceil_div(P, pairs_per_block));
+  if (row_blocks > 0) {
+    int64_t row_ranges =
+        kTargetBlocks / (static_cast<int64_t>(G) * pair_blocks);
+    if (row_ranges < 1) row_ranges = 1;
+    if (row_ranges > row_blocks) row_ranges = row_blocks;
+    if (row_ranges > 65535) row_ranges = 65535;
+    const int64_t rows_per_block = ceil_div(n_rows, row_ranges);
+    row_ranges = ceil_div(n_rows, rows_per_block);
+    const int smem = pairs_per_block * per_pair;
+    err = cudaFuncSetAttribute(hist_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>(G),
+                    static_cast<unsigned>(row_ranges),
+                    static_cast<unsigned>(pair_blocks));
+    hist_kernel<<<grid, kThreads, smem, stream>>>(
+        bins_T, n_rows, G, Bmax, slot, grad, hess, scales, rows_per_block,
+        pairs_per_block, S, K, h_acc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 hist_grid(static_cast<unsigned>(ceil_div(per_class, kThreads)),
+                       static_cast<unsigned>(K));
+  to_float_kernel<<<hist_grid, kThreads, 0, stream>>>(h_acc, per_class,
+                                                      scales + K, hist);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,10 @@ below 256; these are plain int32, read per row by index.  A leaf that is not
 split this round has ``chosen = 0`` and only its keep slot is read.  Missing
 bins use -1 for "none" (a feature-local bin is never negative).  Categorical
 splits read a per-leaf bitset of ceil(Bmax / 32) int32 words: bin b goes left
-when bit b is set.
+when bit b is set.  K class trees grown together (batched multiclass) take
+(K, L, 16) records and (K, L, W) words, class k's leaves a band of their
+own, as the reference stacks K * L records
+(``lightgbm_tpu/ops/grow.py:1858-1860``).
 """
 from __future__ import annotations
 
@@ -48,7 +51,15 @@ def build_route_tables(chosen, new_id, feat, threshold, dir_flags,
     leaf splits, the new (right) child's id, the split feature, its bin
     threshold and DIR_* flags (1 default-left, 2 categorical), and the
     histogram slots of the left child, the right child and an unsplit leaf
-    (-1 = no histogram).  ``routing`` is the RoutingLayout."""
+    (-1 = no histogram).  ``routing`` is the RoutingLayout.  (K, L)
+    per-leaf tensors give (K, L, 16) records."""
+    shape = tuple(chosen.shape)
+    if len(shape) > 1:
+        flat = (x.reshape(-1) for x in (chosen, new_id, feat, threshold,
+                                        dir_flags, slot_left, slot_right,
+                                        slot_keep))
+        return build_route_tables(*flat, routing).reshape(
+            shape + (len(ROUTE_FIELDS),))
     L = chosen.shape[0]
     f = feat.to(torch.int64)
     tab = torch.zeros((L, len(ROUTE_FIELDS)), dtype=torch.int32,

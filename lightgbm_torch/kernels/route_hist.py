@@ -3,16 +3,22 @@ histograms of their new slots.  The CUDA kernel's wrapper and its plain
 PyTorch version.
 
 Counterpart of ``lightgbm_tpu/pallas/stream_kernel.py:520-633``
-(``route_and_hist``; routing math ``_route_step`` :93-151 and the
-categorical overlay :228-242).  Given the (G, N) uint8 bins, each row's
-current leaf, the (N,) float32 grad / hess / count weights (zero on pad
-rows), the round's (L, 16) int32 route records and (L, W) int32 categorical
-bitsets (kernels/layout.py), it returns every row's new leaf id, the
-(S, G, Bmax, 2) float32 (grad, hess) histograms of the S slots and the (S,)
-float32 exact counts.  ``with_hist=False`` (a tree's last, route-only round)
-returns the leaf ids and counts alone.
+(``route_and_hist``; routing math ``_route_step`` :93-151, the categorical
+overlay :228-242, and the reference's ``num_class = K`` branches :174-205,
+:263-279, :349-396).  One launch routes K class trees (K = 1: one tree).
+Given the (G, N) uint8 bins, each class's (K, N) current leaf ids, (K, N)
+float32 grad and hess weights and the (N,) float32 count weights shared by
+the classes (zero on pad rows), the round's (K, L, 16) int32 route records
+and (K, L, W) int32 categorical bitsets (kernels/layout.py) and one
+fixed-point shift per class, it returns every row's new leaf ids (K, N), the
+(K, S, G, Bmax, 2) float32 (grad, hess) histograms of each class's S slots
+and the (K, S) float32 exact counts.  Each class's leaf ids and new ids stay
+within its own [0, L).  ``with_hist=False`` (a tree's last, route-only
+round) returns the leaf ids and counts alone.  The plain version is one
+single-class pass per class.
 
-The histogram sums are exact fixed point at ``shift`` (ops/histogram.py), so
+The histogram sums are exact fixed point at each class's shift
+(ops/histogram.py), so
 the kernel and the plain version agree bit for bit, on every run.
 ``route_and_hist`` launches the kernel for tensors on a CUDA device and runs
 ``route_and_hist_plain`` only for tensors on the CPU; a kernel that fails to
@@ -24,7 +30,7 @@ import ctypes
 
 import torch
 
-from ..ops.histogram import build_histograms_gh, slot_counts
+from ..ops.histogram import build_histograms_gh, scale_table, slot_counts
 from ..utils.log import LightGBMError
 from . import build
 from .layout import (R_BUNDLED, R_CHOSEN, R_DEFBIN, R_DEFLEFT, R_GROUP,
@@ -33,18 +39,20 @@ from .layout import (R_BUNDLED, R_CHOSEN, R_DEFBIN, R_DEFLEFT, R_GROUP,
 
 
 def route_and_hist(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
-                   num_slots: int, max_bins: int, shift: int,
-                   with_hist: bool = True):
-    """(new_leaf (N,) int32, hist (S, G, Bmax, 2) float32 or None, counts
-    (S,) float32) of one round."""
+                   num_slots: int, max_bins: int, shifts,
+                   with_hist: bool = True, scales=None):
+    """(new_leaf (K, N) int32, hist (K, S, G, Bmax, 2) float32 or None,
+    counts (K, S) float32) of one round; ``shifts`` holds K ints, and
+    ``scales`` their (2, K) device table (ops/histogram.scale_table), which
+    a caller that launches many rounds builds once (None: built here)."""
     if bins_T.device.type == "cuda":
         return route_and_hist_cuda(bins_T, leaf_id, tabs, cat_words, grad,
-                                   hess, cnt, num_slots, max_bins, shift,
-                                   with_hist)
+                                   hess, cnt, num_slots, max_bins, shifts,
+                                   with_hist, scales)
     if bins_T.device.type == "cpu":
         return route_and_hist_plain(bins_T, leaf_id, tabs, cat_words, grad,
-                                    hess, cnt, num_slots, max_bins, shift,
-                                    with_hist)
+                                    hess, cnt, num_slots, max_bins, shifts,
+                                    with_hist, scales)
     raise LightGBMError(f"route_and_hist has no kernel for device "
                         f"{bins_T.device}")
 
@@ -89,63 +97,78 @@ def route_plain(bins_T, leaf_id, tabs, cat_words):
 
 
 def route_and_hist_plain(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
-                         num_slots: int, max_bins: int, shift: int,
-                         with_hist: bool = True):
-    """Plain PyTorch version of the kernel's contract."""
-    new_leaf, slot = route_plain(bins_T, leaf_id, tabs, cat_words)
-    if with_hist:
-        hist, counts = build_histograms_gh(bins_T, slot, grad, hess, cnt,
-                                           num_slots, max_bins, shift)
-        return new_leaf, hist, counts
-    return new_leaf, None, slot_counts(slot, cnt, num_slots)
+                         num_slots: int, max_bins: int, shifts,
+                         with_hist: bool = True, scales=None):
+    """Plain PyTorch version of the kernel's contract, one class at a time
+    (``scales`` is the kernel's copy of ``shifts`` and is not read)."""
+    outs = []
+    for k in range(leaf_id.shape[0]):
+        new_leaf, slot = route_plain(bins_T, leaf_id[k], tabs[k],
+                                     cat_words[k])
+        if with_hist:
+            hist, counts = build_histograms_gh(bins_T, slot, grad[k],
+                                               hess[k], cnt, num_slots,
+                                               max_bins, shifts[k])
+        else:
+            hist, counts = None, slot_counts(slot, cnt, num_slots)
+        outs.append((new_leaf, hist, counts))
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]) if with_hist else None,
+            torch.stack([o[2] for o in outs]))
 
 
 def route_and_hist_cuda(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
-                        num_slots: int, max_bins: int, shift: int,
-                        with_hist: bool = True):
+                        num_slots: int, max_bins: int, shifts,
+                        with_hist: bool = True, scales=None):
     """Launch csrc/route_and_hist.cu on the current stream."""
     dev = bins_T.device
+    if scales is None:
+        scales = scale_table(shifts, dev)
     G, n = bins_T.shape
-    L = tabs.shape[0]
+    K, L = tabs.shape[0], tabs.shape[1]
     for name, x, dtype in (("bins_T", bins_T, torch.uint8),
                            ("leaf_id", leaf_id, torch.int32),
                            ("tabs", tabs, torch.int32),
                            ("cat_words", cat_words, torch.int32),
                            ("grad", grad, torch.float32),
                            ("hess", hess, torch.float32),
-                           ("cnt", cnt, torch.float32)):
+                           ("cnt", cnt, torch.float32),
+                           ("scales", scales, torch.float32)):
         if x.device != dev or x.dtype != dtype or not x.is_contiguous():
             raise LightGBMError(
                 f"route_and_hist: {name} must be a contiguous {dtype} tensor "
                 f"on {dev}, got {x.dtype} on {x.device}")
-    if (tuple(tabs.shape) != (L, len(ROUTE_FIELDS)) or cat_words.dim() != 2
-            or cat_words.shape[0] != L or cat_words.shape[1] * 32 < max_bins
-            or any(tuple(x.shape) != (n,) for x in (leaf_id, grad, hess, cnt))
+    if (tuple(tabs.shape) != (K, L, len(ROUTE_FIELDS))
+            or cat_words.dim() != 3 or tuple(cat_words.shape[:2]) != (K, L)
+            or cat_words.shape[2] * 32 < max_bins
+            or any(tuple(x.shape) != (K, n) for x in (leaf_id, grad, hess))
+            or tuple(cnt.shape) != (n,) or len(shifts) != K
+            or tuple(scales.shape) != (2, K)
             or num_slots < 1 or not 0 < max_bins <= 256):
         raise LightGBMError("route_and_hist: shapes do not agree")
-    new_leaf = torch.empty(n, dtype=torch.int32, device=dev)
-    slot = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.empty(num_slots, dtype=torch.float32, device=dev)
-    cnt_acc = torch.empty(num_slots, dtype=torch.int64, device=dev)
+    new_leaf = torch.empty((K, n), dtype=torch.int32, device=dev)
+    slot = torch.empty((K, n), dtype=torch.int32, device=dev)
+    counts = torch.empty((K, num_slots), dtype=torch.float32, device=dev)
+    cnt_acc = torch.empty((K, num_slots), dtype=torch.int64, device=dev)
     if with_hist:
-        hist = torch.empty((num_slots, G, max_bins, 2), dtype=torch.float32,
-                           device=dev)
+        hist = torch.empty((K, num_slots, G, max_bins, 2),
+                           dtype=torch.float32, device=dev)
         hist_acc = torch.empty(hist.shape, dtype=torch.int64, device=dev)
     else:
         hist = hist_acc = counts          # never written
     fn = build.load("route_and_hist").lgbt_route_and_hist
-    rc = fn(bins_T.data_ptr(), n, G, leaf_id.data_ptr(), tabs.data_ptr(), L,
-            cat_words.data_ptr(), cat_words.shape[1], grad.data_ptr(),
+    rc = fn(bins_T.data_ptr(), n, G, K, leaf_id.data_ptr(), tabs.data_ptr(),
+            L, cat_words.data_ptr(), cat_words.shape[2], grad.data_ptr(),
             hess.data_ptr(), cnt.data_ptr(), num_slots, max_bins,
-            int(with_hist), float(2.0 ** shift), float(2.0 ** -shift),
-            new_leaf.data_ptr(), slot.data_ptr(), hist_acc.data_ptr(),
-            cnt_acc.data_ptr(), hist.data_ptr(), counts.data_ptr(),
+            int(with_hist), scales.data_ptr(), new_leaf.data_ptr(),
+            slot.data_ptr(), hist_acc.data_ptr(), cnt_acc.data_ptr(),
+            hist.data_ptr(), counts.data_ptr(),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise LightGBMError(f"route_and_hist kernel launch failed "
                             f"(cudaError {rc})")
     route_and_hist_cuda.launches += 1
-    return new_leaf, (hist if with_hist else None), counts
+    return new_leaf, hist if with_hist else None, counts
 
 
 route_and_hist_cuda.launches = 0

@@ -1,12 +1,13 @@
 """Evaluation metrics of the ported objectives, on the host in numpy.
 
 The port's counterpart of ``lightgbm_tpu/metrics.py`` (reference:
-src/metric/regression_metric.hpp, binary_metric.hpp), trimmed to the
-metrics of the binary and L2 objectives: ``l1``, ``l2``, ``rmse``,
-``binary_logloss``, ``binary_error`` and ``auc``.  Metrics run off the
-training hot path: the scores come to the host once per evaluation, and
-each metric is the reference's float64 numpy arithmetic, so both packages
-give the same value on the same scores.  Other metric names raise "not yet
+src/metric/regression_metric.hpp, binary_metric.hpp,
+multiclass_metric.hpp), trimmed to the metrics of the ported objectives:
+``l1``, ``l2``, ``rmse``, ``binary_logloss``, ``binary_error``, ``auc``,
+``multi_logloss`` and ``multi_error`` (with ``multi_error_top_k``).
+Metrics run off the training hot path: the scores come to the host once
+per evaluation, and each metric is the reference's float64 numpy
+arithmetic, so both packages give the same value on the same scores.  Other metric names raise "not yet
 ported"; ``metric="None"`` evaluates nothing.
 """
 from __future__ import annotations
@@ -129,17 +130,46 @@ def _binary_auc(s, y, w):
     return float(correct / (tp * tn))
 
 
+class MultiLoglossMetric(Metric):
+    name = "multi_logloss"
+
+    def evaluate(self, score, convert):
+        p = np.asarray(convert(score), np.float64)   # (N, K)
+        il = self.label.astype(np.int64)
+        pl = np.clip(p[np.arange(len(il)), il], 1e-15, 1.0)
+        return [(self.name, self._avg(-np.log(pl)), False)]
+
+
+class MultiErrorMetric(Metric):
+    name = "multi_error"
+
+    def evaluate(self, score, convert):
+        p = np.asarray(convert(score), np.float64)
+        il = self.label.astype(np.int64)
+        k = self.config.multi_error_top_k
+        if k <= 1:
+            err = (np.argmax(p, axis=1) != il).astype(np.float64)
+            return [(self.name, self._avg(err), False)]
+        # top-k error (reference: multiclass_metric.hpp:139): wrong when k
+        # or more classes score strictly above the label's
+        pl = p[np.arange(len(il)), il]
+        err = (np.sum(p > pl[:, None], axis=1) >= k).astype(np.float64)
+        return [(f"multi_error@{k}", self._avg(err), False)]
+
+
 _METRIC_CLASSES = {
     "l1": L1Metric, "l2": L2Metric, "rmse": RMSEMetric,
     "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
-    "auc": AUCMetric,
+    "auc": AUCMetric, "multi_logloss": MultiLoglossMetric,
+    "multi_error": MultiErrorMetric,
 }
 
 
 def default_metric_for_objective(objective: str) -> str:
     """The metric of ``metric=""`` (reference: the objective's default)."""
-    return {"regression": "l2", "binary": "binary_logloss"}.get(objective,
-                                                                 "l2")
+    return {"regression": "l2", "binary": "binary_logloss",
+            "multiclass": "multi_logloss",
+            "multiclassova": "multi_logloss"}.get(objective, "l2")
 
 
 def create_metrics(config: Config, objective_name: str) -> List[Metric]:

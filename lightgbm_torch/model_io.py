@@ -40,7 +40,7 @@ def _objective_string(booster) -> str:
         c = booster.config
         if name == "binary":
             return f"binary sigmoid:{c.sigmoid:g}"
-        if name == "multiclass":
+        if name in ("multiclass", "multiclassova"):
             return f"{name} num_class:{c.num_class}"
         return name
     if booster._loaded_trees is not None:

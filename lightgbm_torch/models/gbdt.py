@@ -3,9 +3,9 @@ trees it grows.
 
 The port's counterpart of ``lightgbm_tpu/models/gbdt.py`` (reference:
 src/boosting/gbdt.h GBDT), the unfused single-device iteration of the
-reference (``_train_one_iter_impl``, gbdt.py:2089-2403, one tree per
-iteration) with ``hist_backend`` ``stream`` (the default), ``scatter`` or
-``pallas``.  An iteration computes the
+reference (``_train_one_iter_impl``, gbdt.py:2089-2403: one tree per
+iteration, or one per class) with ``hist_backend`` ``stream`` (the
+default), ``scatter`` or ``pallas``.  An iteration computes the
 objective's gradients on the training score (or takes custom ones), samples
 rows (bagging or GOSS, models/sample_strategy.py) and features
 (``feature_fraction``), picks the compaction capacity of a sampled tree,
@@ -19,7 +19,13 @@ single-leaf trees are trimmed as the reference trims them.
 ``load_init_model`` seeds the engine with an existing model and rebuilds the
 training score with the bin-space tree walk (gbdt.py:2542).
 
-Training covers gbdt on numeric features with the binary and L2
+A multiclass iteration (``multiclass`` and ``multiclassova``, K = num_class)
+grows K class trees from the (N, K) gradients: in lockstep through
+``grow_tree_k`` (``multiclass_batched``, the default) or one ``grow_tree``
+per class, the same trees either way, and adds all K to the (N, K) score
+with one K4 launch over the flattened (K * L) leaf values.
+
+Training covers gbdt on numeric features with the binary, L2 and multiclass
 objectives (or custom gradients); every other training feature raises
 "not yet ported" (``_check_unsupported_params``) instead of training a
 different model.
@@ -38,7 +44,7 @@ from ..kernels.leaf_gather import leaf_gather
 from ..kernels.predict import tree_max_depth
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction
-from ..ops.grow import GrowParams, fusion_applies, grow_tree
+from ..ops.grow import GrowParams, fusion_applies, grow_tree, grow_tree_k
 from ..ops.predict import _walk_one_tree
 from ..tree import (DIR_CATEGORICAL, DIR_DEFAULT_LEFT, Tree, TreeArrays,
                     finalize_tree)
@@ -170,10 +176,9 @@ class GBDT:
                 "hist_backend=segsum or onehot")
         name = ("none" if self.objective is None
                 else canonical_objective(self.objective.name))
-        if name not in ("binary", "regression", "none"):
+        if name not in ("binary", "regression", "multiclass",
+                        "multiclassova", "none"):
             raise _not_ported(f"objective {name!r}")
-        if self.num_tree_per_iteration != 1:
-            raise _not_ported("multiclass training")
         if any(m.bin_type == BIN_CATEGORICAL
                for m in self.train_data.bin_mappers()):
             raise _not_ported("a categorical feature")
@@ -250,18 +255,22 @@ class GBDT:
     def _ensure_training(self) -> None:
         if self.grow_params is None:
             self._check_unsupported_params()
-            self.grow_params = self._make_grow_params()
-            # K2 and K5 read the (G, N) layout K1 reads, K6/K7 the (N, G)
-            # rows of DeviceData.bins
-            self._bins_T = self.dd.bins.t().contiguous()
             n_pad = self._score_shape[0]
             label = self.train_data.get_label()
             label_pad = None
             if label is not None:
                 label_pad = np.zeros(n_pad, np.float64)
                 label_pad[:len(label)] = label
-            self.sample_strategy = create_sample_strategy(
-                self.config, n_pad, label_pad, self.device)
+            strategy = create_sample_strategy(self.config, n_pad, label_pad,
+                                              self.device)
+            if self.num_tree_per_iteration > 1 and strategy.is_active():
+                # a compacted K-class tree (grow_tree_k's compact_rows)
+                raise _not_ported("multiclass training with bagging or GOSS")
+            self.sample_strategy = strategy
+            self.grow_params = self._make_grow_params()
+            # K2, K5 and K8 read the (G, N) layout K1 reads, K6/K7 the
+            # (N, G) rows of DeviceData.bins
+            self._bins_T = self.dd.bins.t().contiguous()
 
     def _feature_mask(self) -> Optional[torch.Tensor]:
         """This tree's feature sample (reference: gbdt.py:1287-1296), one
@@ -336,16 +345,18 @@ class GBDT:
         n = self._score_shape[0]
         if a.shape[0] == n:
             return a
-        return torch.cat([a, torch.zeros(n - a.shape[0], dtype=a.dtype,
-                                         device=a.device)])
+        return torch.cat([a, torch.zeros((n - a.shape[0],) + a.shape[1:],
+                                         dtype=a.dtype, device=a.device)])
 
     def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting iteration (reference: GBDT::TrainOneIter,
         gbdt.cpp:353).  ``grad``/``hess`` are custom gradients of the
-        unpadded rows.  Returns True when the tree made no split: training
-        cannot go on, and the trailing no-op trees are dropped."""
+        unpadded rows, (N, K) for K trees per iteration.  Returns True when
+        no tree made a split: training cannot go on, and the trailing no-op
+        trees are dropped."""
         self._ensure_training()
         dev = self.device
+        k = self.num_tree_per_iteration
         with phase(self.timer, "gradients"):
             if grad is None or hess is None:
                 if self.objective is None:
@@ -356,43 +367,94 @@ class GBDT:
             else:
                 grad = torch.as_tensor(np.asarray(grad, np.float32)).to(dev)
                 hess = torch.as_tensor(np.asarray(hess, np.float32)).to(dev)
+                want = (self.num_data,) if k == 1 else (self.num_data, k)
+                if tuple(grad.shape) != want or tuple(hess.shape) != want:
+                    raise LightGBMError(
+                        f"custom gradients must have shape {want}, got "
+                        f"{tuple(grad.shape)} and {tuple(hess.shape)}")
         with phase(self.timer, "sample"):
             # reference order: sample the padded gradients, then mask the
             # pad rows (gbdt.py:2165-2177)
             mask, grad, hess = self.sample_strategy.sample(
                 self.iter_, self._pad(grad), self._pad(hess))
             mask = mask * self._pad_mask
-            grad = grad * self._pad_mask
-            hess = hess * self._pad_mask
+            rows = self._pad_mask if k == 1 else self._pad_mask[:, None]
+            grad = grad * rows
+            hess = hess * rows
             col_mask = self._feature_mask()
         compact = self._row_compaction_capacity(mask)
         self.last_compact_rows = compact
-        res = grow_tree(self._bins_T, grad, hess, mask, self.dd.layout,
-                        self.dd.routing, self.grow_params, self.dd.max_bins,
-                        timer=self.timer, col_mask=col_mask,
-                        compact_rows=compact, bins=self.dd.bins)
-        arrays = res.arrays
         rate = self.config.learning_rate
-        with phase(self.timer, "k4"):
-            # score update (reference: ScoreUpdater::AddScore); a
-            # single-leaf tree has leaf value 0
-            delta = leaf_gather(res.leaf_id, arrays.leaf_value * rate)
-            self.score = self.score + delta
+        if k == 1:
+            res = grow_tree(self._bins_T, grad, hess, mask, self.dd.layout,
+                            self.dd.routing, self.grow_params,
+                            self.dd.max_bins, timer=self.timer,
+                            col_mask=col_mask, compact_rows=compact,
+                            bins=self.dd.bins)
+            trees = [(res.arrays, res.rounds)]
+            with phase(self.timer, "k4"):
+                # score update (reference: ScoreUpdater::AddScore); a
+                # single-leaf tree has leaf value 0
+                delta = leaf_gather(res.leaf_id, res.arrays.leaf_value * rate)
+                self.score = self.score + delta
+        else:
+            trees, leaf_k, values = self._grow_classes(grad, hess, mask,
+                                                       col_mask)
+            with phase(self.timer, "k4"):
+                # every class's leaf values added to its score column in
+                # one launch (reference: score_add_k, gbdt.py:2218-2241)
+                L = values.shape[1]
+                off = torch.arange(k, dtype=torch.int32, device=dev) * L
+                delta = leaf_gather((leaf_k + off[:, None]).reshape(-1),
+                                    (values * rate).reshape(-1))
+                self.score = self.score + delta.view(k, -1).t()
         with phase(self.timer, "valid"):
             # the walk is stationary once a row reaches its leaf, and no
-            # leaf is deeper than the rounds that grew the tree
+            # leaf is deeper than the rounds that grew the tree; every
+            # class's column takes its tree's values in one add
             for vi, vset in enumerate(self.valid_sets):
-                self.valid_scores[vi] = self._add_tree_arrays_to_score(
-                    self.valid_scores[vi], arrays, vset.device_data(), rate,
-                    res.rounds)
-        bias = self.init_scores[0] if self.iter_ == 0 else 0.0
-        self._lazy_trees.append({"arrays": arrays, "rate": rate,
-                                 "bias": bias})
+                deltas = [self._tree_arrays_delta(arrays, vset.device_data(),
+                                                  rate, rounds)
+                          for arrays, rounds in trees]
+                self.valid_scores[vi] = self.valid_scores[vi] + (
+                    deltas[0] if k == 1 else torch.stack(deltas, dim=1))
+        for kk, (arrays, _) in enumerate(trees):
+            bias = self.init_scores[kk] if self.iter_ == 0 else 0.0
+            self._lazy_trees.append({"arrays": arrays, "rate": rate,
+                                     "bias": bias})
         self.iter_ += 1
-        if arrays.num_leaves <= 1:
+        if all(arrays.num_leaves <= 1 for arrays, _ in trees):
             self._trim_trailing_trivial()
             return True
         return False
+
+    def _grow_classes(self, grad, hess, mask, col_mask):
+        """The K class trees of an iteration from the (n_pad, K) gradients
+        (reference: ``_grow_classes``, gbdt.py:1538-1570): in lockstep
+        (``multiclass_batched``) or one ``grow_tree`` per class.  Returns
+        each class's (arrays, rounds), the (K, n_pad) leaf ids and the
+        (K, L) leaf values."""
+        k = self.num_tree_per_iteration
+        gT, hT = grad.t().contiguous(), hess.t().contiguous()
+        kw = dict(timer=self.timer, col_mask=col_mask)
+        if self.config.multiclass_batched:
+            res = grow_tree_k(self._bins_T, gT, hT, mask, self.dd.layout,
+                              self.dd.routing, self.grow_params,
+                              self.dd.max_bins, **kw)
+            a = res.arrays
+            trees = [(TreeArrays(num_leaves=a.num_leaves[kk],
+                                 **{f: getattr(a, f)[kk]
+                                    for f in TreeArrays._fields
+                                    if f != "num_leaves"}),
+                      res.rounds[kk]) for kk in range(k)]
+            return trees, res.leaf_id, a.leaf_value
+        results = [grow_tree(self._bins_T, gT[kk], hT[kk], mask,
+                             self.dd.layout, self.dd.routing,
+                             self.grow_params, self.dd.max_bins,
+                             bins=self.dd.bins, **kw) for kk in range(k)]
+        trees = [(r.arrays, r.rounds) for r in results]
+        return (trees, torch.stack([r.leaf_id for r in results]),
+                torch.stack([r.arrays.leaf_value for r in results]))
 
     def load_init_model(self, trees: List[Tree],
                         num_tree_per_iteration: int) -> None:
@@ -440,32 +502,33 @@ class GBDT:
         trees grown so far walked on its bins."""
         dd = valid_data.device_data()
         n = dd.bins.shape[0]
-        score = torch.zeros(n, dtype=torch.float32, device=self.device)
+        k = self.num_tree_per_iteration
+        score = torch.zeros((n,) if k == 1 else (n, k), dtype=torch.float32,
+                            device=self.device)
         if self.iter_ == 0:
             # once trees exist the init score is folded into tree 0
-            score = score + torch.tensor(self.init_scores[0],
-                                         dtype=torch.float32,
-                                         device=self.device)
-        base = valid_data.get_init_score_padded(n, 1)
+            score = score + torch.tensor(
+                self.init_scores if k > 1 else self.init_scores[0],
+                dtype=torch.float32, device=self.device)
+        base = valid_data.get_init_score_padded(n, k)
         if base is not None:
             score = score + torch.as_tensor(base, device=self.device)
-        for tree in self.models:
-            score = self._add_tree_to_score(score, tree, dd, 0)
+        for i, tree in enumerate(self.models):
+            score = self._add_tree_to_score(score, tree, dd, i % k)
         self.valid_sets.append(valid_data)
         self.valid_names.append(name)
         self.valid_metrics.append(list(metrics))
         self.valid_scores.append(score)
 
-    def _add_tree_arrays_to_score(self, score: torch.Tensor,
-                                  arrays: TreeArrays, dd: DeviceData,
-                                  rate: float, depth: int) -> torch.Tensor:
-        """``score`` plus the shrunk leaf values of a grown tree's device
-        arrays, walked on ``dd``'s bins (reference: gbdt.py:2616-2625)."""
+    def _tree_arrays_delta(self, arrays: TreeArrays, dd: DeviceData,
+                           rate: float, depth: int) -> torch.Tensor:
+        """(n,) shrunk leaf values of a grown tree's device arrays, walked
+        on ``dd``'s bins (reference: gbdt.py:2616-2625)."""
         fields = (arrays.split_feature, arrays.threshold_bin,
                   arrays.dir_flags, arrays.left_child, arrays.right_child,
                   arrays.cat_bitset)
         leaf = _walk_one_tree(fields, dd.bins, dd.routing, depth)
-        return score + arrays.leaf_value[leaf.long()] * rate
+        return arrays.leaf_value[leaf.long()] * rate
 
     def score_to_host(self, score: torch.Tensor, n: int) -> np.ndarray:
         return score[:n].cpu().numpy()

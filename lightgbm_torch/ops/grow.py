@@ -44,9 +44,22 @@ prefix and no sprint, so every round builds histograms.  A sampled
 gathered through the partition (``compact_row_views``); ``pallas`` does not
 compact, and a sampled tree runs on masked weights over all rows.
 
-The loop is a Python loop over rounds.  Each round reads one integer on the
-host (the number of splittable leaves), and each tree one more (the largest
-weight, which fixes the histograms' fixed-point shift).  Not ported:
+K class trees (multiclass, ``grow_tree_k``; reference: ops/grow.py:1650-2301)
+grow in lockstep: every per-leaf tensor has a leading class axis, each
+class splits its own top leaves in a round, and one histogram pass serves
+all classes (K2 over K > 1 classes under ``stream``, K8 under ``scatter``
+and ``pallas``), then subtraction and one split scan over every class's
+children.  Each class keeps its own fixed-point shift, from its own largest
+weight, so its sums are those of a tree grown alone.  A class whose own
+loop would have stopped takes no split in a round; in the sprint schedule a
+class ready for the route-only sprint waits, frozen, until every class has
+made its full rounds, and then all sprint together.  So each class tree is
+the tree ``grow_tree`` grows from that class's gradients, bit for bit.
+
+The loop is a Python loop over rounds.  Each round reads one (K,) vector on
+the host (each class's number of splittable leaves), and each iteration one
+more (each class's largest weight, which fixes its histograms' fixed-point
+shift).  Not ported:
 forced splits, monotone and interaction constraints, CEGB, by-node feature
 sampling, extra trees, path smoothing, meshes and quantized-gradient
 histograms.
@@ -62,10 +75,11 @@ from ..kernels.layout import build_route_tables
 from ..kernels.route_hist import route_and_hist
 from ..kernels.route_replay import route_replay
 from ..tree import DIR_DEFAULT_LEFT, TreeArrays
-from ..utils.timer import host_int, phase
+from ..utils.timer import host_list, phase
 from .compact import (check_compact_supported, compact_row_views,
                       compact_transposed_view, plan_sample_rows)
-from .histogram import build_histograms, hist_shift, hist_subtract
+from .histogram import (build_histograms, build_histograms_k, hist_shift,
+                        hist_subtract, scale_table)
 from .predict import feature_local_bin
 from .split import NEG_INF, find_best_splits, leaf_output
 
@@ -87,6 +101,8 @@ class GrowParams(NamedTuple):
 
 
 class GrowResult(NamedTuple):
+    """One tree; for K class trees (``grow_tree_k``) every array has a
+    leading K axis, ``arrays.num_leaves`` and ``rounds`` are K-tuples."""
     arrays: TreeArrays
     leaf_id: torch.Tensor     # (N,) int32 leaf of every row
     rounds: int               # splitting rounds run: bounds the tree's depth
@@ -105,26 +121,31 @@ def fusion_applies(params: GrowParams, compact_rows: int) -> bool:
 
 
 class _Grower:
-    """The state of one tree while it grows: per-leaf sums, cached best
-    splits and histograms, node arrays, and every row's leaf.  The ``*_h``
-    tensors are the rows the histogram passes read: the compacted view of
-    a sampled tree, else the full rows themselves (row-major bins for
-    ``pallas``)."""
+    """The state of K class trees while they grow (K = 1: one tree):
+    per-leaf sums, cached best splits and histograms, node arrays, and
+    every row's leaf, each with a leading class axis.  The ``*_h`` tensors
+    are the rows the histogram passes read: the compacted view of a sampled
+    tree, else the full rows themselves (row-major bins for a single-class
+    ``pallas`` tree).  K2 takes the class axis for any K; the non-stream
+    backends run the single-class K5 or K6/K7 for one class and K8 for
+    K."""
 
     def __init__(self, bins_T, grad, hess, cnt, layout: FeatureLayout,
                  routing: RoutingLayout, params: GrowParams, max_bins: int,
                  timer=None, col_mask=None, compact_rows: int = 0,
                  bins=None):
         self.bins_T, self.grad, self.hess, self.cnt = bins_T, grad, hess, cnt
+        K = self.K = grad.shape[0]
         self.stream = params.hist_backend == "stream"
         self.layout, self.routing, self.p = layout, routing, params
         self.Bmax = max_bins
         self.timer = timer
         self.col_mask = col_mask
         self.compact = compact_rows > 0
+        if self.compact and K > 1:
+            raise ValueError("a compacted view grows one class tree")
         self.fuse = fusion_applies(params, compact_rows)
         self.records = []          # the rounds' route tables, when fused
-        self.rounds = 0
         dev = bins_T.device
         self.dev = dev
         L = self.L = params.num_leaves
@@ -132,7 +153,7 @@ class _Grower:
         f32, i64 = torch.float32, torch.int64
 
         def z(dtype, fill=0):
-            return torch.full((L,), fill, dtype=dtype, device=dev)
+            return torch.full((K, L), fill, dtype=dtype, device=dev)
 
         self.split_feature, self.threshold_bin = z(i64), z(i64)
         self.dir_flags, self.left_child, self.right_child = \
@@ -145,43 +166,52 @@ class _Grower:
         self.best_feat, self.best_thr, self.best_dir = z(i64), z(i64), z(i64)
         self.best_left_g, self.best_left_h, self.best_left_c = \
             z(f32), z(f32), z(f32)
-        self.hist = torch.zeros((L, G, max_bins, 2), dtype=f32, device=dev)
-        self.cat_words = torch.zeros((L, max(-(-max_bins // 32), 1)),
+        self.hist = torch.zeros((K, L, G, max_bins, 2), dtype=f32, device=dev)
+        self.cat_words = torch.zeros((K, L, max(-(-max_bins // 32), 1)),
                                      dtype=torch.int32, device=dev)
-        self.leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.leaf_id = torch.zeros((K, n), dtype=torch.int32, device=dev)
+        # offset of class k's leaves in the flattened (K * L) leaf axis
+        self.class_base = torch.arange(K, device=dev)[:, None] * L
         if not self.stream:
             self.rows = torch.arange(n, device=dev)
             if self.compact:
                 check_compact_supported(params.hist_backend)
                 with phase(timer, "compact"):
-                    (self.bins_h, self.grad_h, self.hess_h, self.cnt_h,
-                     self.c_perm) = compact_row_views(bins_T, grad, hess, cnt,
+                    (self.bins_h, g, h, self.cnt_h,
+                     self.c_perm) = compact_row_views(bins_T, grad[0],
+                                                      hess[0], cnt,
                                                       compact_rows)
+                self.grad_h, self.hess_h = g[None], h[None]
             else:
-                self.bins_h = bins if params.hist_backend == "pallas" \
-                    else bins_T
+                # K6/K7 read the (N, G) rows; K5 and K8 the (G, N) layout
+                self.bins_h = (bins if params.hist_backend == "pallas"
+                               and K == 1 else bins_T)
                 self.grad_h, self.hess_h, self.cnt_h = grad, hess, cnt
         elif self.compact:
             with phase(timer, "compact"):
                 perm = plan_sample_rows(cnt, compact_rows).perm
-                (self.bins_h, self.grad_h, self.hess_h,
-                 self.cnt_h) = compact_transposed_view(bins_T, perm, grad,
-                                                       hess, cnt)
-            self.leaf_id_h = torch.zeros(compact_rows, dtype=torch.int32,
+                (self.bins_h, g, h,
+                 self.cnt_h) = compact_transposed_view(bins_T, perm, grad[0],
+                                                       hess[0], cnt)
+            self.grad_h, self.hess_h = g[None], h[None]
+            self.leaf_id_h = torch.zeros((1, compact_rows), dtype=torch.int32,
                                          device=dev)
         else:
             self.bins_h, self.grad_h, self.hess_h, self.cnt_h = \
                 bins_T, grad, hess, cnt
             self.leaf_id_h = self.leaf_id
-        self.cur = 1
-        self.progressed = True
-        self.npos = 0
-        # one fixed-point scale per tree, from all N rows, so that the
-        # compacted and the full passes quantize alike
-        m = torch.maximum(grad.abs().max(), hess.abs().max())
-        self.shift = hist_shift(float(m.item()), n)
-        if timer is not None:
-            timer.host_reads += 1
+        # per class on the host: leaves so far, whether the last round
+        # split, splittable leaves, rounds that split
+        self.cur = [1] * K
+        self.progressed = [True] * K
+        self.npos = [0] * K
+        self.rounds = [0] * K
+        # one fixed-point scale per class tree, from all N rows, so that the
+        # compacted and the full passes quantize alike: every class's
+        # largest weight in one read
+        m = torch.maximum(grad.abs().amax(dim=1), hess.abs().amax(dim=1))
+        self.shifts = tuple(hist_shift(v, n) for v in host_list(m, timer))
+        self.scales = scale_table(self.shifts, dev)
 
     def find_splits(self, hist, g, h, c):
         p = self.p
@@ -191,26 +221,32 @@ class _Grower:
                 max(p.min_data_in_leaf, 1), p.min_sum_hessian_in_leaf,
                 p.min_gain_to_split, p.max_delta_step, self.col_mask)
 
+    def _k2(self, bins_T, leaf_id, tabs, grad, hess, cnt, num_slots,
+            with_hist):
+        """K2 with the trees' bitsets, shifts and scale table."""
+        return route_and_hist(bins_T, leaf_id, tabs, self.cat_words, grad,
+                              hess, cnt, num_slots, self.Bmax, self.shifts,
+                              with_hist, self.scales)
+
     def k2(self, tabs, num_slots, with_hist):
         """The round's K2 pass over the histogram rows; for a compacted
         tree also every row's route (a route-only pass, or the tables kept
-        for the replay).  Returns the pass's histograms and counts."""
+        for the replay).  Returns the pass's (K, S, ...) histograms and
+        (K, S) counts."""
         with phase(self.timer, "k2"):
-            new_leaf, hist, counts = route_and_hist(
-                self.bins_h, self.leaf_id_h, tabs, self.cat_words,
-                self.grad_h, self.hess_h, self.cnt_h, num_slots, self.Bmax,
-                self.shift, with_hist)
+            new_leaf, hist, counts = self._k2(
+                self.bins_h, self.leaf_id_h, tabs, self.grad_h, self.hess_h,
+                self.cnt_h, num_slots, with_hist)
         if not self.compact:
             self.leaf_id = self.leaf_id_h = new_leaf
         elif self.fuse:
-            self.records.append(tabs)
+            self.records.append(tabs[0])
             self.leaf_id_h = new_leaf
         else:
             with phase(self.timer, "k2"):
-                self.leaf_id, _, _ = route_and_hist(
-                    self.bins_T, self.leaf_id, tabs, self.cat_words,
-                    self.grad, self.hess, self.cnt, num_slots, self.Bmax,
-                    self.shift, False)
+                self.leaf_id, _, _ = self._k2(
+                    self.bins_T, self.leaf_id, tabs, self.grad, self.hess,
+                    self.cnt, num_slots, False)
             self.leaf_id_h = new_leaf
         return hist, counts
 
@@ -220,7 +256,7 @@ class _Grower:
         if self.fuse and self.records:
             with phase(self.timer, "k3"):
                 self.leaf_id = route_replay(self.bins_T,
-                                            torch.stack(self.records))
+                                            torch.stack(self.records))[None]
 
     def count_splittable(self):
         p = self.p
@@ -228,172 +264,229 @@ class _Grower:
         if p.max_depth > 0:
             cand = cand & (self.depth < p.max_depth)
         with phase(self.timer, "host_sync"):
-            self.npos = host_int(cand.sum(), self.timer)
+            self.npos = host_list(cand.sum(dim=1), self.timer)
 
     def histograms(self, slot, num_slots: int):
-        """The non-stream backend's (S, G, Bmax, 3) histograms of the
-        histogram rows' slots (None: every row in slot 0)."""
+        """The non-stream backend's (K, S, G, Bmax, 3) histograms of the
+        histogram rows' (K, N) slots (None: every row in slot 0)."""
+        p = self.p
         with phase(self.timer, "hist"):
-            return build_histograms(self.bins_h, slot, self.grad_h,
-                                    self.hess_h, self.cnt_h, num_slots,
-                                    self.Bmax, self.shift,
-                                    self.p.hist_backend)
+            if self.K == 1:
+                # the single-class K5 or K6/K7
+                return build_histograms(
+                    self.bins_h, None if slot is None else slot[0],
+                    self.grad_h[0], self.hess_h[0], self.cnt_h, num_slots,
+                    self.Bmax, self.shifts[0], p.hist_backend)[None]
+            if slot is None:
+                slot = torch.zeros((self.K, self.bins_h.shape[1]),
+                                   dtype=torch.int32, device=self.dev)
+            return build_histograms_k(self.bins_h, slot, self.grad_h,
+                                      self.hess_h, self.cnt_h, self.K,
+                                      num_slots, self.Bmax, self.shifts,
+                                      p.hist_backend, self.scales)
 
     def root(self):
-        p, L, dev = self.p, self.L, self.dev
+        K, L, dev = self.K, self.L, self.dev
+        G = self.bins_T.shape[0]
         if self.stream:
-            zL = torch.zeros(L, dtype=torch.int64, device=dev)
-            keep = torch.full((L,), -1, dtype=torch.int64, device=dev)
-            keep[0] = 0
+            zL = torch.zeros((K, L), dtype=torch.int64, device=dev)
+            keep = torch.full((K, L), -1, dtype=torch.int64, device=dev)
+            keep[:, 0] = 0
             tabs0 = build_route_tables(zL, zL, zL, zL, zL, keep, keep, keep,
                                        self.routing)
             with phase(self.timer, "k2"):
-                _, root_hist, _ = route_and_hist(
-                    self.bins_h, self.leaf_id_h, tabs0, self.cat_words,
-                    self.grad_h, self.hess_h, self.cnt_h, 1, self.Bmax,
-                    self.shift, True)
+                _, root_hist, _ = self._k2(
+                    self.bins_h, self.leaf_id_h, tabs0, self.grad_h,
+                    self.hess_h, self.cnt_h, 1, True)
+            root_hist = root_hist[:, 0]
         else:
-            root_hist = self.histograms(None, 1)[..., :2]
+            root_hist = self.histograms(None, 1)[:, 0, ..., :2]
         # root totals of all N rows in float64, rounded once: the same on
-        # every device and at every compaction capacity
-        g = self.grad.double().sum().float()
-        h = self.hess.double().sum().float()
-        c = self.cnt.double().sum().float()
-        res = self.find_splits(root_hist, g[None], h[None], c[None])
-        self.hist[0] = root_hist[0]
-        self.sum_g[0], self.sum_h[0], self.cnt_leaf[0] = g, h, c
-        self._store_best(torch.zeros(1, dtype=torch.int64, device=dev), res)
+        # every device, at every compaction capacity, and for a class
+        # whether it grows alone or with the others
+        g = torch.stack([x.double().sum().float() for x in self.grad])
+        h = torch.stack([x.double().sum().float() for x in self.hess])
+        c = self.cnt.double().sum().float().expand(K)
+        res = self.find_splits(root_hist.reshape(K, G, self.Bmax, 2), g, h, c)
+        self.hist[:, 0] = root_hist
+        self.sum_g[:, 0], self.sum_h[:, 0], self.cnt_leaf[:, 0] = g, h, c
+        self._store_best(self.class_base[:, 0], res)
         self.count_splittable()
 
     def _store_best(self, ids, res):
-        self.best_gain[ids] = res.gain
-        self.best_feat[ids] = res.feature
-        self.best_thr[ids] = res.threshold
-        self.best_dir[ids] = res.dir_flags
-        self.best_left_g[ids] = res.left_sum_g
-        self.best_left_h[ids] = res.left_sum_h
-        self.best_left_c[ids] = res.left_count
+        """Best splits of the leaves at flat (K * L) positions ``ids``."""
+        for name, v in (("best_gain", res.gain), ("best_feat", res.feature),
+                        ("best_thr", res.threshold),
+                        ("best_dir", res.dir_flags),
+                        ("best_left_g", res.left_sum_g),
+                        ("best_left_h", res.left_sum_h),
+                        ("best_left_c", res.left_count)):
+            getattr(self, name).view(-1)[ids] = v
 
-    def round(self, budget: int, with_hist: bool = True):
-        """One round splitting up to ``budget`` leaves (reference: the body
-        of make_body, stream branch)."""
-        p, L, dev = self.p, self.L, self.dev
-        k = min(L - self.cur, budget, self.npos)
-        if k <= 0:
-            self.progressed = False
+    def _can_finish(self, c: int, sprint: int) -> bool:
+        """Class c can make its remaining splits in one route-only round of
+        ``sprint`` splits."""
+        remaining = self.L - self.cur[c]
+        return remaining <= sprint and remaining <= self.npos[c]
+
+    def round(self, budget: int, with_hist: bool = True,
+              freeze_sprint: Optional[int] = None):
+        """One round splitting up to ``budget`` leaves of each class
+        (reference: the body of make_body / make_body_k, stream branch).  A
+        class whose own loop would have stopped (no progress, its leaf
+        budget reached or, with ``freeze_sprint``, ready for a sprint of
+        that many splits) takes no split."""
+        p, L, dev, K = self.p, self.L, self.dev, self.K
+        ksp = []
+        for c in range(K):
+            active = self.progressed[c] and self.cur[c] < L and not (
+                freeze_sprint is not None
+                and self._can_finish(c, freeze_sprint))
+            k = min(L - self.cur[c], budget, self.npos[c]) if active else 0
+            if active and k <= 0:
+                self.progressed[c] = False
+            ksp.append(k)
+        P = sum(ksp)
+        if P == 0:
             return
+        G = self.bins_T.shape[0]
+        KL = K * L
         with phase(self.timer, "other"):
             cand = torch.where(self.best_gain > 0, self.best_gain, NEG_INF)
             if p.max_depth > 0:
                 cand = torch.where(self.depth < p.max_depth, cand, NEG_INF)
-            order = torch.argsort(-cand, stable=True)
-            ar = torch.arange(k, dtype=torch.int64, device=dev)
-            old = order[:k]
-            new = self.cur + ar
-            node = self.cur - 1 + ar
-            feat, thr = self.best_feat[old], self.best_thr[old]
-            dirf, gain = self.best_dir[old], self.best_gain[old]
-            pg, ph, pc = self.sum_g[old], self.sum_h[old], self.cnt_leaf[old]
-            lg, lh = self.best_left_g[old], self.best_left_h[old]
-            lc = self.best_left_c[old]
+            order = torch.argsort(-cand, dim=1, stable=True)
+            # split i of class c takes its rank-th leaf and makes leaf
+            # cur[c] + rank; pairs are class-major
+            cls, rank, new = _pair_index(ksp, self.cur, dev)
+            old = order[cls, rank]
+            base = cls * L
+            node = new - 1
+            fo, fn, fnode = base + old, base + new, base + node
+            (feat, thr, dirf, gain, pg, ph, pc, lg, lh, lc) = (
+                t.view(-1)[fo] for t in (
+                    self.best_feat, self.best_thr, self.best_dir,
+                    self.best_gain, self.sum_g, self.sum_h, self.cnt_leaf,
+                    self.best_left_g, self.best_left_h, self.best_left_c))
             rg, rh, rc = pg - lg, ph - lh, pc - lc
-            parent_hist = self.hist[old] if with_hist else None
+            parent_hist = (self.hist.view(KL, G, self.Bmax, 2)[fo]
+                           if with_hist else None)
 
             # node arrays, then the link from the split leaf's parent node
-            self.split_feature[node] = feat
-            self.threshold_bin[node] = thr
-            self.dir_flags[node] = dirf
-            self.split_gain[node] = gain
-            self.internal_value[node] = leaf_output(
+            self.split_feature.view(-1)[fnode] = feat
+            self.threshold_bin.view(-1)[fnode] = thr
+            self.dir_flags.view(-1)[fnode] = dirf
+            self.split_gain.view(-1)[fnode] = gain
+            self.internal_value.view(-1)[fnode] = leaf_output(
                 pg, ph, p.lambda_l1, p.lambda_l2, p.max_delta_step)
-            self.internal_weight[node] = ph
-            self.internal_count[node] = pc
-            self.left_child[node] = ~old
-            self.right_child[node] = ~new
-            parent = self.leaf_parent[old]
+            self.internal_weight.view(-1)[fnode] = ph
+            self.internal_count.view(-1)[fnode] = pc
+            self.left_child.view(-1)[fnode] = ~old
+            self.right_child.view(-1)[fnode] = ~new
+            parent = self.leaf_parent.view(-1)[fo]
             has_p = parent >= 0
-            pidx = torch.clamp(parent, min=0)
-            was_left = (self.left_child[pidx] == ~old) & has_p
+            pidx = base + torch.clamp(parent, min=0)
+            was_left = (self.left_child.view(-1)[pidx] == ~old) & has_p
             # rows without a parent write to a spare slot past the end
-            dump = torch.full_like(parent, L)
-            lc_ext = torch.cat([self.left_child, self.left_child[:1]])
-            rc_ext = torch.cat([self.right_child, self.right_child[:1]])
-            lc_ext[torch.where(was_left, parent, dump)] = node
-            rc_ext[torch.where(has_p & ~was_left, parent, dump)] = node
-            self.left_child, self.right_child = lc_ext[:L], rc_ext[:L]
-            self.leaf_parent[old] = node
-            self.leaf_parent[new] = node
+            dump = torch.full_like(parent, KL)
+            lc_ext = torch.cat([self.left_child.view(-1),
+                                self.left_child.view(-1)[:1]])
+            rc_ext = torch.cat([self.right_child.view(-1),
+                                self.right_child.view(-1)[:1]])
+            lc_ext[torch.where(was_left, pidx, dump)] = node
+            rc_ext[torch.where(has_p & ~was_left, pidx, dump)] = node
+            self.left_child = lc_ext[:KL].view(K, L)
+            self.right_child = rc_ext[:KL].view(K, L)
+            self.leaf_parent.view(-1)[fo] = node
+            self.leaf_parent.view(-1)[fn] = node
 
-            # the smaller child of split i fills histogram slot i
+            # the smaller child of split i fills histogram slot rank[i] of
+            # its class
             smaller_is_left = lc <= rc
-            zi = torch.zeros(L, dtype=torch.int64, device=dev)
+            zi = torch.zeros(KL, dtype=torch.int64, device=dev)
             chosen, new_id, lfeat, lthr, ldir = (zi.clone() for _ in range(5))
-            chosen[old] = 1
-            new_id[old] = new
-            lfeat[old] = feat
-            lthr[old] = thr
-            ldir[old] = dirf
+            chosen[fo] = 1
+            new_id[fo] = new
+            lfeat[fo] = feat
+            lthr[fo] = thr
+            ldir[fo] = dirf
             if self.stream:
-                slot_l = torch.full((L,), -1, dtype=torch.int64, device=dev)
+                slot_l = torch.full((KL,), -1, dtype=torch.int64, device=dev)
                 slot_r, slot_keep = slot_l.clone(), slot_l.clone()
-                slot_l[old] = torch.where(smaller_is_left, ar, -1)
-                slot_r[old] = torch.where(smaller_is_left, -1, ar)
-                tabs = build_route_tables(chosen, new_id, lfeat, lthr, ldir,
-                                          slot_l, slot_r, slot_keep,
-                                          self.routing)
+                slot_l[fo] = torch.where(smaller_is_left, rank, -1)
+                slot_r[fo] = torch.where(smaller_is_left, -1, rank)
+                tabs = build_route_tables(
+                    *(x.view(K, L) for x in (chosen, new_id, lfeat, lthr,
+                                             ldir, slot_l, slot_r,
+                                             slot_keep)),
+                    self.routing)
+        num_slots = max(ksp)
         if self.stream:
-            hist_small, slot_cnt = self.k2(tabs, k, with_hist)
+            hist_k, cnt_k = self.k2(tabs, num_slots, with_hist)
         else:
             self.route_rows(chosen, new_id, lfeat, lthr, ldir)
             with phase(self.timer, "other"):
-                slot_map = torch.full((L,), -1, dtype=torch.int32,
+                slot_map = torch.full((KL,), -1, dtype=torch.int32,
                                       device=dev)
-                slot_map[torch.where(smaller_is_left, old, new)] = \
-                    ar.to(torch.int32)
-                slot = slot_map[self.leaf_id.to(torch.int64)]
+                slot_map[torch.where(smaller_is_left, fo, fn)] = \
+                    rank.to(torch.int32)
+                slot = slot_map[self._flat_leaf()]
                 if self.compact:
-                    slot = slot[self.c_perm]
-            hist3 = self.histograms(slot, k)
-            hist_small = hist3[..., :2]
+                    slot = slot[:, self.c_perm]
+            hist3 = self.histograms(slot, num_slots)
+            hist_k = hist3[..., :2]
             # any one group's bins partition a slot's rows, so group 0's
             # count channel sums to the slot's exact row count
-            slot_cnt = hist3[:, 0, :, 2].sum(dim=-1)
-        self.rounds += 1
+            cnt_k = hist3[:, :, 0, :, 2].sum(dim=-1)
+        hist_small = None if hist_k is None else hist_k[cls, rank]
+        slot_cnt = cnt_k[cls, rank]
+        for c in range(K):
+            self.rounds[c] += ksp[c] > 0
+            self.cur[c] += ksp[c]
         with phase(self.timer, "other"):
             # exact child counts from the routed rows (reference:
             # serial_tree_learner.cpp:798)
             lc_x = torch.where(smaller_is_left, slot_cnt, pc - slot_cnt)
             rc_x = pc - lc_x
-            self.sum_g[old], self.sum_g[new] = lg, rg
-            self.sum_h[old], self.sum_h[new] = lh, rh
-            self.cnt_leaf[old], self.cnt_leaf[new] = lc_x, rc_x
-            d = self.depth[old] + 1
-            self.depth[new] = d
-            self.depth[old] = d
-            self.cur += k
+            self.sum_g.view(-1)[fo], self.sum_g.view(-1)[fn] = lg, rg
+            self.sum_h.view(-1)[fo], self.sum_h.view(-1)[fn] = lh, rh
+            self.cnt_leaf.view(-1)[fo] = lc_x
+            self.cnt_leaf.view(-1)[fn] = rc_x
+            d = self.depth.view(-1)[fo] + 1
+            self.depth.view(-1)[fn] = d
+            self.depth.view(-1)[fo] = d
         if not with_hist:
             return
         with phase(self.timer, "other"):
-            smaller = torch.where(smaller_is_left, old, new)
-            larger = torch.where(smaller_is_left, new, old)
-            self.hist[smaller] = hist_small
-            self.hist[larger] = hist_subtract(parent_hist, hist_small)
-            ids2 = torch.cat([old, new])
-        res = self.find_splits(self.hist[ids2], self.sum_g[ids2],
-                               self.sum_h[ids2], self.cnt_leaf[ids2])
+            smaller = torch.where(smaller_is_left, fo, fn)
+            larger = torch.where(smaller_is_left, fn, fo)
+            hf = self.hist.view(KL, G, self.Bmax, 2)
+            hf[smaller] = hist_small
+            hf[larger] = hist_subtract(parent_hist, hist_small)
+            ids2 = torch.cat([fo, fn])
+        res = self.find_splits(hf[ids2], self.sum_g.view(-1)[ids2],
+                               self.sum_h.view(-1)[ids2],
+                               self.cnt_leaf.view(-1)[ids2])
         with phase(self.timer, "other"):
             self._store_best(ids2, res)
         self.count_splittable()
 
+    def _flat_leaf(self):
+        """(K, N) int64 position of every row's leaf in the flattened
+        (K * L) leaf axis."""
+        return self.leaf_id.to(torch.int64) + self.class_base
+
     def route_rows(self, chosen, new_id, lfeat, lthr, ldir):
-        """Every row's new leaf after the round's splits, in torch ops
-        (reference: ops/grow.py:1037-1065; numeric decisions only, as the
-        port trains no categorical feature): the split feature's group
-        bin, unbundled from its EFB group; a NaN or zero-as-missing bin
-        goes the default way, any other bin left at most the threshold."""
+        """Every row's new leaf in each class after the round's splits, in
+        torch ops over the flattened (K * L) per-leaf tensors (reference:
+        ops/grow.py:1037-1065, and :2158-2185 for K classes; numeric
+        decisions only, as the port trains no categorical feature): the
+        split feature's group bin, unbundled from its EFB group; a NaN or
+        zero-as-missing bin goes the default way, any other bin left at
+        most the threshold."""
         rt = self.routing
         with phase(self.timer, "route"):
-            lid = self.leaf_id.to(torch.int64)
+            lid = self._flat_leaf()
             r_feat = lfeat[lid]
             gb = self.bins_T[rt.feat_group[r_feat].to(torch.int64),
                              self.rows]
@@ -404,21 +497,33 @@ class _Grower:
             default_left = (ldir[lid] & DIR_DEFAULT_LEFT) != 0
             go_left = torch.where(missing, default_left, fb <= lthr[lid])
             self.leaf_id = torch.where((chosen[lid] > 0) & ~go_left,
-                                       new_id[lid], lid).to(torch.int32)
+                                       new_id[lid], self.leaf_id.to(
+                                           torch.int64)).to(torch.int32)
 
     def can_continue(self) -> bool:
-        return self.progressed and self.cur < self.L
+        """Some class can still split."""
+        return any(pr and c < self.L
+                   for pr, c in zip(self.progressed, self.cur))
 
-    def arrays(self) -> TreeArrays:
+    def needs_full_round(self, sprint: int) -> bool:
+        """Some class can still split and cannot finish in one route-only
+        round of ``sprint`` splits."""
+        return any(self.progressed[c] and self.cur[c] < self.L
+                   and not self._can_finish(c, sprint)
+                   for c in range(self.K))
+
+    def result(self) -> GrowResult:
+        """The grown trees: one tree's (L,) arrays and (N,) leaf ids, or,
+        for K classes, arrays and leaf ids with a leading K axis."""
         p = self.p
-        nl = self.cur
         with phase(self.timer, "other"):
             lv = leaf_output(self.sum_g, self.sum_h, p.lambda_l1,
                              p.lambda_l2, p.max_delta_step)
-            if nl <= 1:
-                lv = torch.zeros_like(lv)    # a single-leaf tree adds nothing
+            for c, nl in enumerate(self.cur):
+                if nl <= 1:
+                    lv[c] = 0.0      # a single-leaf tree adds nothing
             i32 = torch.int32
-            return TreeArrays(
+            arrays = dict(
                 split_feature=self.split_feature.to(i32),
                 threshold_bin=self.threshold_bin.to(i32),
                 dir_flags=self.dir_flags.to(i32),
@@ -428,12 +533,63 @@ class _Grower:
                 internal_value=self.internal_value,
                 internal_weight=self.internal_weight,
                 internal_count=self.internal_count,
-                cat_bitset=torch.zeros((self.L, self.Bmax), dtype=torch.bool,
-                                       device=self.dev),
+                cat_bitset=torch.zeros((self.K, self.L, self.Bmax),
+                                       dtype=torch.bool, device=self.dev),
                 leaf_value=lv, leaf_weight=self.sum_h,
                 leaf_count=self.cnt_leaf,
                 leaf_parent=self.leaf_parent.to(i32),
-                num_leaves=nl, leaf_depth=self.depth.to(i32))
+                leaf_depth=self.depth.to(i32))
+        if self.K == 1:
+            return GrowResult(
+                TreeArrays(num_leaves=self.cur[0],
+                           **{k: v[0] for k, v in arrays.items()}),
+                self.leaf_id[0], self.rounds[0])
+        return GrowResult(TreeArrays(num_leaves=tuple(self.cur), **arrays),
+                          self.leaf_id, tuple(self.rounds))
+
+
+def _pair_index(ksp, cur, dev: torch.device):
+    """(class, rank, new leaf) of each split of a round, class-major: class
+    c's ksp[c] splits take its top-ranked leaves and make leaves cur[c],
+    cur[c] + 1, ...  Built on the host, which knows every count, and copied
+    once, without a sync, from pinned memory."""
+    cls = [c for c, k in enumerate(ksp) for _ in range(k)]
+    rank = [r for k in ksp for r in range(k)]
+    new = [cur[c] + r for c, k in enumerate(ksp) for r in range(k)]
+    t = torch.tensor([cls, rank, new], dtype=torch.int64)
+    if dev.type == "cuda":
+        t = t.pin_memory()
+    t = t.to(dev, non_blocking=True)
+    return t[0], t[1], t[2]
+
+
+def _grow(gr: _Grower, params: GrowParams) -> GrowResult:
+    """The round schedule, the same for one tree and for K in lockstep."""
+    L = params.num_leaves
+    S = min(params.max_splits_per_round, max(L - 1, 1))
+    gr.root()
+    # the budget-64 prefix and the sprint are the stream schedule's; the
+    # other backends run plain rounds of S, each with histograms
+    stream = params.hist_backend == "stream"
+    if stream and S > 64:
+        # round r splits at most 2**r leaves: seven budget-64 rounds cover
+        # growth to 128 leaves before the full budget
+        for _ in range(7):
+            if gr.can_continue():
+                gr.round(64)
+    if stream and S >= 64 and params.max_depth <= 0:
+        S_f = min(2 * S, 255, max(L - 1, 1))
+        # full rounds while a class still needs one; a class that one
+        # route-only round can finish waits for the others, frozen
+        while gr.needs_full_round(S_f):
+            gr.round(S, freeze_sprint=S_f)
+        if gr.can_continue():
+            gr.round(S_f, with_hist=False)
+    else:
+        while gr.can_continue():
+            gr.round(S)
+    gr.replay()
+    return gr.result()
 
 
 def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
@@ -448,31 +604,21 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     col_mask: (F,) bool feature sample, or None; compact_rows: the row
     capacity of a sampled tree's compacted view (covering every in-bag
     row), 0 for none."""
-    L = params.num_leaves
-    S = min(params.max_splits_per_round, max(L - 1, 1))
+    gr = _Grower(bins_T, grad[None], hess[None], cnt, layout, routing,
+                 params, max_bins, timer, col_mask, compact_rows, bins)
+    return _grow(gr, params)
+
+
+def grow_tree_k(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+                cnt: torch.Tensor, layout: FeatureLayout,
+                routing: RoutingLayout, params: GrowParams, max_bins: int,
+                timer=None,
+                col_mask: Optional[torch.Tensor] = None) -> GrowResult:
+    """Grow K class trees in lockstep (reference: ops/grow.py grow_tree_k).
+    grad, hess: (K, N) float32, class k's gradients in row k, zero on pad
+    rows; the other arguments as ``grow_tree``'s, the feature sample shared
+    by the classes.  Class k's tree is ``grow_tree``'s on grad[k], hess[k],
+    bit for bit."""
     gr = _Grower(bins_T, grad, hess, cnt, layout, routing, params, max_bins,
-                 timer, col_mask, compact_rows, bins)
-    gr.root()
-    # the budget-64 prefix and the sprint are the stream schedule's; the
-    # other backends run plain rounds of S, each with histograms
-    stream = params.hist_backend == "stream"
-    if stream and S > 64:
-        # round r splits at most 2**r leaves: seven budget-64 rounds cover
-        # growth to 128 leaves before the full budget
-        for _ in range(7):
-            if gr.can_continue():
-                gr.round(64)
-    if stream and S >= 64 and params.max_depth <= 0:
-        S_f = min(2 * S, 255, max(L - 1, 1))
-        while gr.progressed and L - gr.cur > 0:
-            remaining = L - gr.cur
-            if remaining <= S_f and remaining <= gr.npos:
-                break                 # one route-only round can finish
-            gr.round(S)
-        if gr.can_continue():
-            gr.round(S_f, with_hist=False)
-    else:
-        while gr.can_continue():
-            gr.round(S)
-    gr.replay()
-    return GrowResult(gr.arrays(), gr.leaf_id, gr.rounds)
+                 timer, col_mask)
+    return _grow(gr, params)

@@ -13,7 +13,10 @@ versions:
 - ``hist3_plain``: (S, G, Bmax, 3) histograms whose third channel is the
   exact count, the contract of K5, K6 and K7 (kernels/scatter_hist.py,
   kernels/hist_sorted.py), which ``build_histograms`` dispatches to for the
-  ``scatter`` and ``pallas`` backends.
+  ``scatter`` and ``pallas`` backends;
+- per class, ``hist3_plain`` is the contract of K8 (kernels/hist_wide.py),
+  which ``build_histograms_k`` dispatches to for K class trees grown
+  together: (K, S, G, Bmax, 3) histograms, one shift per class.
 
 Sums are exact fixed-point: every weight is rounded once to an integer
 multiple of 2**-shift (``quantize``) and the integers are added in int64, so
@@ -48,6 +51,17 @@ def hist_shift(max_abs: float, n_rows: int) -> int:
     _, k = math.frexp(max_abs)               # max_abs < 2**k
     e = 62 - max(int(n_rows), 1).bit_length() - k
     return max(-MAX_SHIFT, min(MAX_SHIFT, e))
+
+
+def scale_table(shifts, device: torch.device) -> torch.Tensor:
+    """(2, K) float32 on ``device``: row 0 each class's 2**shift, row 1 its
+    2**-shift, the scales K2 and K8 read (exact in float32 for |shift| <=
+    MAX_SHIFT).  Copied asynchronously from pinned memory."""
+    host = torch.tensor([[2.0 ** s for s in shifts],
+                         [2.0 ** -s for s in shifts]], dtype=torch.float32)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
 
 
 def quantize(w: torch.Tensor, shift: int) -> torch.Tensor:
@@ -135,6 +149,29 @@ def build_histograms(bins: torch.Tensor, slot, grad: torch.Tensor,
                                hess, cnt, num_slots, max_bins, shift,
                                block_rows)
     raise ValueError(f"unknown hist backend {backend!r}")
+
+
+def build_histograms_k(bins_T: torch.Tensor, slot: torch.Tensor,
+                       grad: torch.Tensor, hess: torch.Tensor,
+                       cnt: torch.Tensor, num_class: int, num_slots: int,
+                       max_bins: int, shifts, backend: str,
+                       scales=None) -> torch.Tensor:
+    """(K, S, G, Bmax, 3) float32 histograms of K class trees (reference:
+    ops/histogram.py ``build_histograms_k``).  bins_T: (G, N) uint8; slot,
+    grad, hess: (K, N), class k's slot and weights of every row; cnt: (N,)
+    shared; shifts: K ints, class k's fixed-point shift; scales: their
+    ``scale_table``, or None.  ``scatter`` and
+    ``pallas`` both run K8 over the rows in their natural order: their TPU
+    kernels compute this same function, and the VMEM gates that send the
+    reference to per-class kernels do not exist on the card."""
+    if backend not in ("scatter", "pallas"):
+        raise ValueError(f"unknown hist backend {backend!r}")
+    if slot.shape[0] != num_class or len(shifts) != num_class:
+        raise ValueError("build_histograms_k: one slot row and one shift "
+                         "per class")
+    from ..kernels import hist_wide as khw
+    return khw.hist_wide(bins_T, slot, grad, hess, cnt, num_slots, max_bins,
+                         shifts, scales)
 
 
 def slot_counts(slot: torch.Tensor, cnt: torch.Tensor,

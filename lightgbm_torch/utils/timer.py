@@ -45,3 +45,11 @@ def host_int(t: torch.Tensor, timer=None) -> int:
     if timer is not None:
         timer.host_reads += 1
     return int(t.item())
+
+
+def host_list(t: torch.Tensor, timer=None) -> list:
+    """Read a small device tensor on the host as a list (one device sync),
+    counted."""
+    if timer is not None:
+        timer.host_reads += 1
+    return t.tolist()

@@ -321,7 +321,7 @@ def test_every_non_stream_round_builds_histograms(backend, monkeypatch):
         return orig_build(bins, slot, *args)
 
     def counted_k2(*args):
-        k2_hist.append(args[-1])          # with_hist
+        k2_hist.append(args[10])          # with_hist
         return orig_k2(*args)
 
     def grow(*args, **kw):

@@ -247,13 +247,14 @@ def test_k3_plain_matches_jax_route_replay(zero_as_missing):
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(route_replay_plain(bins_T, tabs).numpy(),
                                   want)
-    lid = torch.zeros(N, dtype=torch.int32)
-    zeros = torch.zeros(N)
-    words = torch.zeros((L, 1), dtype=torch.int32)
+    lid = torch.zeros((1, N), dtype=torch.int32)
+    zeros = torch.zeros((1, N))
+    words = torch.zeros((1, L, 1), dtype=torch.int32)
     for r in range(R):
-        lid, _, _ = route_and_hist_plain(bins_T, lid, tabs[r], words, zeros,
-                                         zeros, zeros, L, 32, 0, False)
-    np.testing.assert_array_equal(got.numpy(), lid.numpy())
+        lid, _, _ = route_and_hist_plain(bins_T, lid, tabs[r][None], words,
+                                         zeros, zeros, zeros[0], L, 32, (0,),
+                                         False)
+    np.testing.assert_array_equal(got.numpy(), lid[0].numpy())
     assert len(np.unique(want)) > 15
 
 
@@ -277,7 +278,7 @@ def test_compacted_grower_leaf_ids_equal_full_rows(fusion, monkeypatch):
 
     def k2(bins_T, *args):
         out = route_and_hist_plain(bins_T, *args)
-        compacted.append((bins_T.shape[1], out[0]))
+        compacted.append((bins_T.shape[1], out[0][0]))
         return out
 
     monkeypatch.setattr(tgrow, "route_and_hist", k2)

@@ -176,13 +176,15 @@ def _port_k2(tds, c, with_hist=True, tabs=None, leaf=None, S=None):
     bins_T = tdd.bins[:N].t().contiguous()
     m = float(max(np.abs(c["grad"]).max(), np.abs(c["hess"]).max()))
     lid = c["leaf_id"] if leaf is None else leaf
+    # one class: K2's operands with a class axis of 1
     new_leaf, hist, cnt = route_and_hist(
-        bins_T, torch.as_tensor(lid), c["t_tabs"] if tabs is None else tabs,
-        c["t_words"], torch.as_tensor(c["grad"]), torch.as_tensor(c["hess"]),
+        bins_T, torch.as_tensor(lid)[None],
+        (c["t_tabs"] if tabs is None else tabs)[None], c["t_words"][None],
+        torch.as_tensor(c["grad"])[None], torch.as_tensor(c["hess"])[None],
         torch.as_tensor(c["cnt"]), c["S"] if S is None else S, c["Bmax"],
-        hist_shift(m, N), with_hist)
-    return (new_leaf.numpy(), None if hist is None else hist.numpy(),
-            cnt.numpy())
+        (hist_shift(m, N),), with_hist)
+    return (new_leaf[0].numpy(), None if hist is None else hist[0].numpy(),
+            cnt[0].numpy())
 
 
 def test_k2_plain_matches_jax_kernel_on_dyadic_weights():
@@ -633,7 +635,8 @@ def test_train_without_device_type_raises_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    {"objective": "multiclass", "num_class": 3},
+    {"objective": "multiclass", "num_class": 3, "bagging_fraction": 0.5,
+     "bagging_freq": 1},
     {"bagging_by_query": True, "bagging_fraction": 0.5, "bagging_freq": 1},
     {"hist_backend": "onehot"},
     {"boosting": "rf"},
@@ -650,6 +653,7 @@ def test_train_without_device_type_raises_without_gpu(monkeypatch):
     {"hist_backend": "segsum"},
     {"boosting": "dart"},
     {"objective": "huber"},
+    {"objective": "multiclass", "num_class": 3, "metric": "auc_mu"},
 ])
 def test_unported_training_params_raise(extra):
     X, y = _reg_data(300)

@@ -37,7 +37,15 @@ Phases, each printing one JSON line:
    chain of route-only K2 launches it fuses; the same under scatter
    (compaction auto, pad, off) and pallas (uncompacted), CPU and card, one
    text, their card launches replayed.
-5. full: the repo's north-star shape, HIGGS-like data (28 numeric features,
+5. train_quantized_small: the train_small rows with ``use_quantized_grad``
+   on custom gradients whose quantization scales are powers of two:
+   binary, K = 3 lockstep, GOSS and ``quant_train_renew_leaf`` give
+   byte-identical text on the CPU and the card, the card's runs through
+   K2's int form (never its float form), every int launch replayed
+   bit-equal through its plain version; then ``nan_guard`` on the card:
+   NaN init scores train as zeros would, and NaN gradients at the 2nd of
+   4 updates grow a no-op tree without ending training.
+6. full: the repo's north-star shape, HIGGS-like data (28 numeric features,
    max_bin 63) and a seeded synthetic 500-tree x 255-leaf binary model
    written as LightGBM model text: ``Dataset`` over 1M rows, ``train(params,
    ds, 0, init_model=path)``, ``predict`` on 1M more rows.  The kernel's
@@ -45,7 +53,7 @@ Phases, each printing one JSON line:
    is held bit for bit against its plain version on all rows, the scores
    against the host walk on a 20 000-row subsample, and the kernel, the
    plain version, the host walk and ``predict`` are timed.
-6. train: the full phase's Dataset trained through ``lightgbm_torch.train``
+7. train: the full phase's Dataset trained through ``lightgbm_torch.train``
    (binary, 255 leaves, learning rate 0.1, split budget 64) for
    ``--train-iters`` iterations with the kernel counts read around that
    call; the model predicts the held-out rows through K1 (AUC > 0.80); the
@@ -53,7 +61,7 @@ Phases, each printing one JSON line:
    and K4 launch of one tree is replayed through its plain version on the
    card (bit-equal) and then timed one by one beside its plain version and
    bound; one more iteration is timed phase by phase.
-7. train_sampled: the same Dataset with GOSS at the default rates (0.2 /
+8. train_sampled: the same Dataset with GOSS at the default rates (0.2 /
    0.1), feature_fraction 0.8, learning rate 0.1, ``--sampled-iters``
    iterations (10 of warmup) and 250 000 held-out rows as a validation set
    with AUC and early stopping, the kernel counts read around that call
@@ -62,7 +70,7 @@ Phases, each printing one JSON line:
    growing the same trees; three sampled trees again, byte for byte; one
    sampled tree's K2, K3 and K4 launches replayed bit-equal, then timed; a
    sampled and an uncompacted iteration timed phase by phase.
-8. train_backends: the non-stream growth path at full width, the full
+9. train_backends: the non-stream growth path at full width, the full
    phase's rows at max_bin 63 and the same rows binned at 255, through
    ``lightgbm_torch.train`` with ``hist_backend`` scatter (K5) and pallas
    (K6 at 63, K7 at 255): binary, 255 leaves, learning rate 0.1, split
@@ -72,7 +80,18 @@ Phases, each printing one JSON line:
    more iteration of it timed phase by phase); held-out AUC > 0.80; one
    tree's K5/K6/K7 launches replayed bit-equal, then timed beside their
    bound and one ``index_add_`` call.
-9. train_multiclass_small: the train_small rows with a 3-class label, 127
+10. train_quantized: the full phase's Dataset trained through
+   ``lightgbm_torch.train`` with ``use_quantized_grad`` at LightGBM's
+   defaults (4 levels, stochastic rounding): binary, 255 leaves, learning
+   rate 0.1, split budget 64, ``--train-iters`` iterations, the kernel
+   counts read around the call (K2's int form launched, its float form
+   never); held-out AUC > 0.80; the first 3 trees repeat byte for byte;
+   arms with renewed leaves, 16 levels rounded to nearest and
+   ``hist_backend="scatter"`` (K5 over the grid values); a bagged arm for
+   compacted launches; every K2 int launch of one tree replayed bit-equal,
+   then timed (full histogram, route-only, compacted) beside its bound and
+   one int32 ``index_add_`` call; one more iteration timed phase by phase.
+11. train_multiclass_small: the train_small rows with a 3-class label, 127
    leaves, split budget 64, 5 iterations (15 trees).  Dyadic multiclass
    custom gradients under ``hist_backend`` stream (K2 over K > 1 classes),
    scatter and pallas (K8) must give byte-identical text on the CPU and
@@ -80,7 +99,7 @@ Phases, each printing one JSON line:
    identical text on real softmax gradients under each backend; every
    K2 and K8 launch of the card's lockstep runs is replayed bit-equal
    through its plain version.
-10. train_multiclass: the multiclass cell at full width, bench.py's
+12. train_multiclass: the multiclass cell at full width, bench.py's
    ``make_multiclass_like`` (28 features, K = 10, seed 17) at
    1 000 000 rows, the last 100 000 held out: 255 leaves, max_bin 63,
    learning rate 0.1, split budget 64, 10 iterations through
@@ -91,7 +110,9 @@ Phases, each printing one JSON line:
    a binary probe on ``y % 2`` with the same rows and leaf budget; held-out
    top-1 accuracy through ``Booster.predict`` (> 0.5, chance 0.1); one
    iteration's K2 and K8 launches replayed bit-equal, then timed beside
-   their bound and one ``index_add_`` call.
+   their bound and one ``index_add_`` call; a quantized arm (5 lockstep
+   iterations through K2's int form over the 10 classes), one iteration's
+   int launches replayed and timed.
 
 Then a ``kernels`` line (each ported kernel's launches on its main path,
 largest error against its plain version, time, plain time, bound and
@@ -125,6 +146,7 @@ RTOL, ATOL = 1e-4, 1e-5
 KERNEL_SOURCES = {
     "predict_stream": "lightgbm_torch/kernels/csrc/predict_stream.cu",
     "route_and_hist": "lightgbm_torch/kernels/csrc/route_and_hist.cu",
+    "route_and_hist_int": "lightgbm_torch/kernels/csrc/route_and_hist.cu",
     "route_replay": "lightgbm_torch/kernels/csrc/route_replay.cu",
     "leaf_gather": "lightgbm_torch/kernels/csrc/leaf_gather.cu",
     "scatter_hist": "lightgbm_torch/kernels/csrc/scatter_hist.cu",
@@ -134,6 +156,8 @@ KERNEL_SOURCES = {
 KERNEL_REPLACES = {
     "predict_stream": "lightgbm_tpu/pallas/predict_kernel.py:176",
     "route_and_hist": "lightgbm_tpu/pallas/stream_kernel.py:580",
+    # the same pallas_call with int_weights=True (its branch :342-386)
+    "route_and_hist_int": "lightgbm_tpu/pallas/stream_kernel.py:580",
     "route_replay": "lightgbm_tpu/pallas/stream_kernel.py:694",
     "leaf_gather": "lightgbm_tpu/pallas/stream_kernel.py:742",
     "scatter_hist": "lightgbm_tpu/pallas/scatter_hist_kernel.py:103",
@@ -628,14 +652,15 @@ def tree_structure(t):
 
 
 class Capture:
-    """Records every K2, K3, K4, K5, K6/K7 and K8 call of the training loop
-    (inputs and outputs) while active, by wrapping the dispatchers that
-    ops/grow.py, ops/histogram.py and models/gbdt.py call.  The calls still
-    go through the kernels' wrappers and are counted there."""
+    """Records every K2 (both forms), K3, K4, K5, K6/K7 and K8 call of the
+    training loop (inputs and outputs) while active, by wrapping the
+    dispatchers that ops/grow.py, ops/histogram.py and models/gbdt.py call.
+    The calls still go through the kernels' wrappers and are counted
+    there."""
 
     def __init__(self):
         self.k2, self.k3, self.k4, self.k5, self.k67 = [], [], [], [], []
-        self.k8 = []
+        self.k8, self.k2i = [], []
 
     def __enter__(self):
         from lightgbm_torch.kernels import hist_sorted, hist_wide, scatter_hist
@@ -643,8 +668,10 @@ class Capture:
         from lightgbm_torch.ops import grow
         self._orig = (grow.route_and_hist, grow.route_replay,
                       gbdt.leaf_gather, scatter_hist.scatter_hist,
-                      hist_sorted.hist_sorted, hist_wide.hist_wide)
-        k2_call, k3_call, k4_call, k5_call, k67_call, k8_call = self._orig
+                      hist_sorted.hist_sorted, hist_wide.hist_wide,
+                      grow.route_and_hist_int)
+        (k2_call, k3_call, k4_call, k5_call, k67_call, k8_call,
+         k2i_call) = self._orig
 
         def k2(bins_T, leaf_id, tabs, words, grad, hess, cnt, *args):
             out = k2_call(bins_T, leaf_id, tabs, words, grad, hess, cnt,
@@ -652,6 +679,12 @@ class Capture:
             self.k2.append(((bins_T, leaf_id.clone(), tabs.clone(),
                              words.clone(), grad, hess, cnt) + tuple(args),
                             out))
+            return out
+
+        def k2i(bins_T, leaf_id, tabs, words, *args):
+            out = k2i_call(bins_T, leaf_id, tabs, words, *args)
+            self.k2i.append(((bins_T, leaf_id.clone(), tabs.clone(),
+                              words.clone()) + tuple(args), out))
             return out
 
         def k3(bins_T, tabs):
@@ -682,7 +715,8 @@ class Capture:
 
         (grow.route_and_hist, grow.route_replay, gbdt.leaf_gather,
          scatter_hist.scatter_hist, hist_sorted.hist_sorted,
-         hist_wide.hist_wide) = k2, k3, k4, k5, k67, k8
+         hist_wide.hist_wide, grow.route_and_hist_int) = (
+            k2, k3, k4, k5, k67, k8, k2i)
         return self
 
     def __exit__(self, *exc):
@@ -691,7 +725,7 @@ class Capture:
         from lightgbm_torch.ops import grow
         (grow.route_and_hist, grow.route_replay, gbdt.leaf_gather,
          scatter_hist.scatter_hist, hist_sorted.hist_sorted,
-         hist_wide.hist_wide) = self._orig
+         hist_wide.hist_wide, grow.route_and_hist_int) = self._orig
 
 
 def max_abs_diff(a, b) -> float:
@@ -733,7 +767,8 @@ def replay_against_plain(cap):
     fuses; raises unless leaf ids, counts, histograms and gathers are equal
     bit for bit.  Returns the launches replayed and the largest difference
     of each kernel's outputs from its plain version's, K2's launches over
-    K > 1 classes (multiclass) apart as ``route_and_hist_k``."""
+    K > 1 classes (multiclass) apart as ``route_and_hist_k``, its int form
+    as ``route_and_hist_int`` (over K > 1 classes ``route_and_hist_int_k``)."""
     import torch
     from lightgbm_torch.kernels import hist_sorted as hs, hist_wide as hw
     from lightgbm_torch.kernels import leaf_gather as lg, route_hist as rh
@@ -741,6 +776,7 @@ def replay_against_plain(cap):
     from lightgbm_torch.kernels import scatter_hist as sh
 
     err = {"route_and_hist": 0.0, "route_and_hist_k": 0.0,
+           "route_and_hist_int": 0.0, "route_and_hist_int_k": 0.0,
            "route_replay": 0.0, "leaf_gather": 0.0, "scatter_hist": 0.0,
            "hist_direct": 0.0, "hist_nibble": 0.0, "hist_wide": 0.0}
     replayed = {k: 0 for k in err}
@@ -779,6 +815,20 @@ def replay_against_plain(cap):
                 and (hist is None or torch.equal(hist, p_hist)))
         if not same:
             raise RuntimeError(f"route_and_hist differs from its plain "
+                               f"version (max abs {max(diffs)})")
+    for args, (new_leaf, hist, counts) in cap.k2i:
+        name = "route_and_hist_int_k" if args[1].shape[0] > 1 \
+            else "route_and_hist_int"
+        replayed[name] += 1
+        p_leaf, p_hist, p_counts = rh.route_and_hist_int_plain(*args)
+        diffs = [max_abs_diff(new_leaf, p_leaf), max_abs_diff(counts, p_counts)]
+        if hist is not None:
+            diffs.append(max_abs_diff(hist, p_hist))
+        err[name] = max(err[name], *diffs)
+        same = (torch.equal(new_leaf, p_leaf) and torch.equal(counts, p_counts)
+                and (hist is None or torch.equal(hist, p_hist)))
+        if not same:
+            raise RuntimeError(f"route_and_hist_int differs from its plain "
                                f"version (max abs {max(diffs)})")
     for (leaf_id, values), out in cap.k4:
         want = lg.leaf_gather_plain(leaf_id, values)
@@ -888,23 +938,27 @@ def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
     return err
 
 
-def k2_work(args, out):
+def k2_work(args, out, int_form=False):
     """Bytes and operations one K2 launch needs on these inputs, counted
-    from what the rows need, over every class of the launch.
+    from what the rows need, over every class of the launch (``int_form``:
+    the arguments and outputs of K2's int form).
     Bytes: every row's leaf id read and written per class; a weighted row
     that lands in a histogram slot of some class reads its count weight
     once, and when the launch builds histograms also its G bins once and
-    its grad and hess for each class whose slot it lands in; a routed row
-    (its leaf splits) reads the bin of its split group unless it reads all
-    G bins already; the histograms and counts are written once.
+    its grad and hess for each class whose slot it lands in (float32: 8 B,
+    int8: 2 B); a routed row (its leaf splits) reads the bin of its split
+    group unless it reads all G bins already; the histograms (4 B a cell)
+    and counts are written once.
     Operations: per row and class the leaf test (1); per routed row the bin
     address, compare, child and slot selects (4), +3 to unbundle an EFB
     bin, +1 per missing-value bin; per weighted row in a slot two
-    quantizations (2) and one add per group and channel (2G)."""
+    quantizations (2; none in the int form) and one add per group and
+    channel (2G)."""
     from lightgbm_torch.kernels import layout as tl
 
-    bins_T, leaf_id, tabs, _, _, _, cnt, num_slots, max_bins, _, with_hist \
-        = args[:11]
+    bins_T, leaf_id, tabs, _, _, _, cnt, num_slots, max_bins = args[:9]
+    with_hist = args[9] if int_form else args[10]
+    w_bytes, quant_ops = (2, 0) if int_form else (8, 2)
     new_leaf, _, counts = out
     G, n = bins_T.shape
     weighted = cnt.cpu().numpy() > 0
@@ -932,11 +986,38 @@ def k2_work(args, out):
                 + float((chosen & (rec[:, tl.R_MZBIN] >= 0)).sum()))
         n_bytes += 8.0 * n + float(bin_read.sum()) + 4 * num_slots
         if with_hist:
-            ops += in_slot * (2 + 2 * G)
-            n_bytes += in_slot * 8 + num_slots * G * max_bins * 2 * 4
+            ops += in_slot * (quant_ops + 2 * G)
+            n_bytes += in_slot * w_bytes + num_slots * G * max_bins * 2 * 4
     if with_hist:
         n_bytes += float(any_slot.sum()) * G
     return n_bytes, ops
+
+
+def time_k2_launches(items, int_form):
+    """Device time of each captured K2 launch (``device_ms``), its plain
+    version's (CUDA events, one call), its bound, and for launches with
+    histograms one ``index_add_`` call over the same (row, class, group)
+    triples (int32 for the int form): means over the launches."""
+    from lightgbm_torch.kernels import route_hist as rh
+    kernel, plain = ((rh.route_and_hist_int_cuda, rh.route_and_hist_int_plain)
+                     if int_form else
+                     (rh.route_and_hist_cuda, rh.route_and_hist_plain))
+    ms, plain_ms, lib_ms, bnd = [], [], [], []
+    for args, out in items:
+        ms.append(device_ms(lambda a=args: kernel(*a)))
+        plain_ms.append(cuda_ms(lambda a=args: plain(*a), reps=1, warmup=0))
+        bnd.append(bound(*k2_work(args, out, int_form)))
+        if out[1] is not None:
+            acc, cell, vals = k2k_index_add_inputs(args)
+            lib_ms.append(device_ms(lambda: acc.index_add_(0, cell, vals)))
+            del acc, cell, vals
+    mean = statistics.mean
+    return {"launches_timed": len(items), "ms": ms, "mean_ms": mean(ms),
+            "plain_ms": plain_ms, "mean_plain_ms": mean(plain_ms),
+            "bound_ms": [b for b, _ in bnd],
+            "mean_bound_ms": mean(b for b, _ in bnd), "bound_by": bnd[0][1],
+            "index_add_ms": lib_ms,
+            "mean_index_add_ms": mean(lib_ms) if lib_ms else None}
 
 
 def bound(n_bytes, n_ops):
@@ -969,7 +1050,7 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
     import torch
     import lightgbm_torch as lt
     from lightgbm_torch import kernels
-    from lightgbm_torch.kernels import leaf_gather as lg, route_hist as rh
+    from lightgbm_torch.kernels import leaf_gather as lg
 
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
               "learning_rate": 0.1, "verbosity": -1}
@@ -1004,20 +1085,8 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
     # K2 and K4 of one tree: each launch against its plain version, then
     # timed launch by launch
     replayed, err = replay_against_plain(cap)
-    full = [(a, o) for a, o in cap.k2 if a[10]]
-    route = [(a, o) for a, o in cap.k2 if not a[10]]
-
-    def k2_times(items):
-        ms = [device_ms(lambda a=a: rh.route_and_hist_cuda(*a))
-              for a, _ in items]
-        plain = [cuda_ms(lambda a=a: rh.route_and_hist_plain(*a), reps=1,
-                         warmup=0) for a, _ in items]
-        work = [k2_work(a, o) for a, o in items]
-        bnd = [bound(b, o) for b, o in work]
-        return ms, plain, work, bnd
-
-    f_ms, f_plain, f_work, f_bnd = k2_times(full)
-    r_ms, r_plain, _, r_bnd = k2_times(route)
+    full = time_k2_launches([(a, o) for a, o in cap.k2 if a[10]], False)
+    route = time_k2_launches([(a, o) for a, o in cap.k2 if not a[10]], False)
     (lid, vals), _ = cap.k4[0]
     k4_ms = device_ms(lambda: lg.leaf_gather_cuda(lid, vals))
     k4_plain = device_ms(lambda: lg.leaf_gather_plain(lid, vals))
@@ -1027,7 +1096,6 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
     # one more iteration, its phases timed (synchronised at every boundary)
     profiled_s, phases_s, host_reads = profiled_iteration(bst)
 
-    mean = statistics.mean
     after_first = tree_s[1:] or tree_s
     emit({"phase": "train", "card": smi, "rows": int(ds.num_data()),
           "features": int(ds.num_feature()), "iterations": iters,
@@ -1035,16 +1103,9 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
           "train_s": train_s, "s_per_tree": statistics.median(after_first),
           "first_tree_s": tree_s[0], "tree_s": tree_s,
           "k2_launches_per_tree": launches["route_and_hist"] / iters,
-          "k2_full_hist_launches_timed_tree": len(full),
-          "k2_route_only_launches_timed_tree": len(route),
           "replayed_launches_timed_tree": replayed,
-          "replay_max_abs_err": err,
-          "k2_full_hist_ms": f_ms, "k2_full_hist_mean_ms": mean(f_ms),
-          "k2_full_hist_plain_ms": f_plain,
-          "k2_full_hist_bound_ms": [b for b, _ in f_bnd],
-          "k2_full_hist_bytes_ops": f_work,
-          "k2_route_only_ms": r_ms, "k2_route_only_plain_ms": r_plain,
-          "k2_route_only_bound_ms": [b for b, _ in r_bnd],
+          "replay_max_abs_err": err, "k2_full_hist": full,
+          "k2_route_only": route,
           "k4_ms": k4_ms, "k4_plain_ms": k4_plain, "k4_library_ms": k4_lib,
           "predict_s": predict_s, "held_out_auc": held_auc,
           "determinism_first_3_trees_identical": True,
@@ -1056,9 +1117,9 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
           "replaces": KERNEL_REPLACES["route_and_hist"],
           "launches": launches["route_and_hist"],
           "max_abs_err": err["route_and_hist"],
-          "ms": mean(f_ms), "plain_ms": mean(f_plain),
-          "bound_ms": mean(b for b, _ in f_bnd),
-          "bound_by": f_bnd[0][1], "library_ms": None}
+          "ms": full["mean_ms"], "plain_ms": full["mean_plain_ms"],
+          "bound_ms": full["mean_bound_ms"], "bound_by": full["bound_by"],
+          "library_ms": None}
     k4 = {"name": "leaf_gather", "route": "cuda",
           "source": KERNEL_SOURCES["leaf_gather"],
           "replaces": KERNEL_REPLACES["leaf_gather"],
@@ -1624,10 +1685,10 @@ def phase_train_multiclass_small(seed, n=20_000, iters=5, num_leaves=127):
 
 def k2k_index_add_inputs(args):
     """The flattened (class, slot, group, bin) cell of every (row, class,
-    group) triple a K2 launch over K > 1 classes adds to a histogram, with its
-    (grad, hess), for the library call ``index_add_`` (float32, not exact),
-    and its zeroed (K * S * G * Bmax, 2) output.  The slots are the plain
-    route's (the routing has no library call)."""
+    group) triple a K2 launch adds to a histogram, with its (grad, hess),
+    for the library call ``index_add_`` (float32, not exact; for the int
+    form int32, exact), and its zeroed (K * S * G * Bmax, 2) output.  The
+    slots are the plain route's (the routing has no library call)."""
     import torch
     from lightgbm_torch.kernels.route_hist import route_plain
 
@@ -1643,28 +1704,32 @@ def k2k_index_add_inputs(args):
     g = torch.arange(G, device=s.device)
     cell = ((s[:, None] * G + g[None, :]) * max_bins
             + bins_T[:, rows].t().long()).reshape(-1)
+    # the int form's int8 grid values add as int32, its result type
     w = torch.stack([grad[kk, rows], hess[kk, rows]], dim=1)
+    w = w.to(torch.int32 if grad.dtype == torch.int8 else torch.float32)
     vals = w[:, None, :].expand(-1, G, -1).reshape(-1, 2).contiguous()
-    acc = torch.zeros((K * num_slots * G * max_bins, 2), dtype=torch.float32,
+    acc = torch.zeros((K * num_slots * G * max_bins, 2), dtype=w.dtype,
                       device=s.device)
     return acc, cell, vals
 
 
 def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
                            held_out=100_000, per_class_iters=5,
-                           timed_iter=2):
+                           timed_iter=2, quant_iters=5):
     """The multiclass cell at full width (bench.py's make_multiclass_like,
     28 features, K = 10): 255 leaves, max_bin 63, learning rate 0.1, split
     budget 64, ``iters`` iterations under stream (K2 over K > 1 classes),
     then pallas and scatter (K8, byte-identical to each other); a
     per-class arm and a binary probe on ``y % 2``; held-out top-1 accuracy
     through ``Booster.predict``; one iteration's K2 and K8 launches
-    replayed bit-equal and timed.  Returns the K2 (K > 1) and K8
-    entries of the kernels line and the replays' largest differences."""
+    replayed bit-equal and timed; a quantized arm (``use_quantized_grad``,
+    ``quant_iters`` lockstep iterations through K2's int form over the K
+    classes, held-out accuracy > 0.3, one iteration's launches replayed
+    and timed).  Returns the K2 (K > 1) and K8 entries of the kernels line
+    and the replays' largest differences."""
     import torch
     import lightgbm_torch as lt
     from lightgbm_torch import kernels
-    from lightgbm_torch.kernels import route_hist as rh
 
     del seed                    # the cell's data has bench.py's own seed
     K = 10
@@ -1746,20 +1811,34 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
             raise RuntimeError(f"multiclass {hb}: replayed {replayed}")
         err[name] = max(err.get(name, 0.0), e[name])
         runs[hb]["replayed_launches_timed_iter"] = replayed
-    full = [(a, o) for a, o in caps["stream"].k2 if a[10]]
-    k2_ms = [device_ms(lambda a=a: rh.route_and_hist_cuda(*a))
-             for a, _ in full]
-    k2_plain = [cuda_ms(lambda a=a: rh.route_and_hist_plain(*a), reps=1,
-                        warmup=0) for a, _ in full]
-    k2_bnd = [bound(*k2_work(a, o)) for a, o in full]
-    k2_lib = []
-    for a, _ in full:
-        acc_t, cell, vals = k2k_index_add_inputs(a)
-        k2_lib.append(device_ms(lambda: acc_t.index_add_(0, cell, vals)))
-        del acc_t, cell, vals
+    k2k = time_k2_launches([(a, o) for a, o in caps["stream"].k2 if a[10]],
+                           False)
     k8 = time_hist_launches("hist_wide", caps["scatter"].k8)
     caps.clear()
-    mean = statistics.mean
+    # the int form's class axis: the lockstep iteration with quantized
+    # gradients (4 levels, stochastic rounding)
+    kernels.reset_launch_counts()
+    with TimedIters(capture_at=min(timed_iter, quant_iters - 1)) as qt:
+        qbst = lt.train({**base, "use_quantized_grad": True}, ds,
+                        quant_iters)
+        torch.cuda.synchronize()
+    q_counts = kernels.launch_counts()
+    if (qbst.num_trees() != quant_iters * K
+            or q_counts["route_and_hist_int"] == 0
+            or q_counts["route_and_hist"] != 0):
+        raise RuntimeError(f"quantized multiclass: {qbst.num_trees()} trees "
+                           f"with launches {q_counts}")
+    q_prob = qbst.predict(Xte)
+    q_acc = float(np.mean(np.argmax(q_prob, axis=1) == yte))
+    if not (np.isfinite(q_prob).all() and q_acc > 0.3):
+        raise RuntimeError(f"quantized multiclass accuracy {q_acc}")
+    q_replayed, q_err = replay_against_plain(qt.cap)
+    if not q_replayed["route_and_hist_int_k"]:
+        raise RuntimeError(f"quantized multiclass replayed {q_replayed}")
+    err["route_and_hist_int_k"] = q_err["route_and_hist_int_k"]
+    q_full = time_k2_launches([(a, o) for a, o in qt.cap.k2i if a[9]], True)
+    qt_seconds = qt.seconds
+    del qt
     emit({"phase": "train_multiclass", "card": smi, "rows": rows - held_out,
           "held_out_rows": held_out, "features": 28, "classes": K,
           "iterations": iters, "num_leaves": 255, "binning_s": binning_s,
@@ -1776,19 +1855,23 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
           "profiled_iteration_phases_s": prof_phases,
           "profiled_iteration_host_reads": prof_reads,
           "replay_max_abs_err": err,
-          "k2k_full_hist_ms": k2_ms, "k2k_full_hist_mean_ms": mean(k2_ms),
-          "k2k_full_hist_plain_ms": k2_plain,
-          "k2k_full_hist_bound_ms": [b for b, _ in k2_bnd],
-          "k2k_index_add_ms": k2_lib, "k2k_mean_index_add_ms": mean(k2_lib),
-          "k8": k8})
+          "k2k_full_hist": k2k, "k8": k8,
+          "quantized": {"iterations": quant_iters, "iter_s": qt_seconds,
+                        "s_per_iter": statistics.median(qt_seconds[1:]),
+                        "launches": q_counts,
+                        "k2_int_launches_per_iter":
+                        q_counts["route_and_hist_int"] / quant_iters,
+                        "held_out_top1_accuracy": q_acc,
+                        "replayed_launches_timed_iter": q_replayed,
+                        "k2_int_k_full_hist": q_full}})
     lines = [
         {"name": "route_and_hist_k", "route": "cuda",
          "source": KERNEL_SOURCES["route_and_hist"],
          "replaces": KERNEL_REPLACES["route_and_hist"],
          "launches": stream_counts["route_and_hist"],
          "max_abs_err": err["route_and_hist_k"],
-         "ms": mean(k2_ms), "plain_ms": mean(k2_plain),
-         "bound_ms": mean(b for b, _ in k2_bnd), "bound_by": k2_bnd[0][1],
+         "ms": k2k["mean_ms"], "plain_ms": k2k["mean_plain_ms"],
+         "bound_ms": k2k["mean_bound_ms"], "bound_by": k2k["bound_by"],
          "library_ms": None},
         {"name": "hist_wide", "route": "cuda",
          "source": KERNEL_SOURCES["hist_wide"],
@@ -1800,6 +1883,235 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
          "bound_ms": k8["mean_bound_ms"], "bound_by": k8["bound_by"],
          "library_ms": k8["mean_index_add_ms"]}]
     return lines, err
+
+
+# --------------------------------------------------------------------------
+# quantized-gradient training
+# --------------------------------------------------------------------------
+
+def pow2_grid(r):
+    """Dyadic gradients whose quantization scales are powers of two: every
+    4th row |g| = 1 and h = 1 (the largest of each), the others |g| <= 1/2
+    on a 1/64 grid and h = 1/2; GOSS at top 0.5 / other 0.25 amplifies only
+    small rows, by 2.  Every grid value and every sum is then exact."""
+    big = (np.arange(len(r)) % 4 == 0).reshape((-1,) + (1,) * (r.ndim - 1))
+    g = np.where(big, np.where(r >= 0, 1.0, -1.0),
+                 np.clip(np.round(32.0 * r) / 64.0, -0.5, 0.5))
+    h = np.where(big, 1.0, 0.5) * np.ones_like(r)
+    return g.astype(np.float32), h.astype(np.float32)
+
+
+def pow2_fobj(score, ds):
+    return pow2_grid(score - ds.get_label())
+
+
+def pow2_mc_fobj(score, ds):
+    oh = np.eye(score.shape[1])[ds.get_label().astype(np.int64)]
+    return pow2_grid(score - oh)
+
+
+def nan_fobj(bad_call, rows=(3, 50, 700)):
+    """Logistic gradients with a constant hessian; the ``bad_call``-th call
+    puts NaN in three rows' gradients."""
+    calls = [0]
+
+    def fobj(score, ds):
+        calls[0] += 1
+        g = (1.0 / (1.0 + np.exp(-score)) - ds.get_label()).astype(np.float32)
+        h = np.full(len(g), 0.25, np.float32)
+        if calls[0] == bad_call:
+            g[list(rows)] = np.nan
+        return g, h
+    return fobj
+
+
+def phase_train_quantized_small(seed, n=20_000, iters=5, num_leaves=127):
+    """Quantized-gradient training on both devices: power-of-two dyadic
+    custom gradients must give byte-identical model text on the CPU and the
+    card for binary, K = 3 lockstep, GOSS and renewed leaves (every card
+    run through K2's int form, the float form never); the nan_guard cases
+    on the card (NaN init scores train as zeros; NaN gradients at the 2nd
+    of 4 updates make a no-op tree and do not stop training); every K2 int
+    launch of the card's runs replayed bit-equal through its plain
+    version."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+
+    X, y = make_train_small(n, seed)
+    rs = np.random.RandomState(seed + 11)
+    logits = np.stack([np.nan_to_num(X[:, 0]) + 0.8 * X[:, 1],
+                       2.0 * X[:, 2] - 1.5 * X[:, 3], X[:, 4] * X[:, 5]], 1)
+    y3 = np.argmax(logits + rs.randn(n, 3), axis=1).astype(np.float64)
+    base = {"objective": "none", "num_leaves": num_leaves,
+            "max_splits_per_round": 64, "max_bin": 63, "verbosity": -1,
+            "use_quantized_grad": True}
+    cases = {"binary": ({}, y, pow2_fobj),
+             "goss": (sampled_params("goss"), y, pow2_fobj),
+             "renew": ({"quant_train_renew_leaf": True}, y, pow2_fobj),
+             "multiclass": ({"objective": "multiclass", "num_class": 3}, y3,
+                            pow2_mc_fobj)}
+    cap, out = Capture(), {}
+    for name, (extra, label, fobj) in cases.items():
+        texts = []
+        for dev in ("cpu", "cuda"):
+            p = {**base, **extra, "device_type": dev}
+            bst = lt.Booster(p, lt.Dataset(X, label=label, params=p))
+            kernels.reset_launch_counts()
+            with (cap if dev == "cuda" else contextlib.nullcontext()):
+                for _ in range(iters):
+                    bst.update(fobj=fobj)
+            texts.append(model_trees_text(bst))
+        counts = kernels.launch_counts()
+        if not (bst.engine.grow_params.int_hist
+                and counts["route_and_hist_int"] > 0
+                and counts["route_and_hist"] == 0):
+            raise RuntimeError(f"quantized {name}: launches {counts}")
+        if texts[0] != texts[1]:
+            raise RuntimeError(f"quantized {name}: training differs between "
+                               f"CPU and card")
+        out[name] = {"leaves_per_tree": [t.num_leaves
+                                         for t in bst.engine.models],
+                     "k2_int_launches": counts["route_and_hist_int"]}
+    torch.cuda.synchronize()
+    replayed, err = replay_against_plain(cap)
+    if not (replayed["route_and_hist_int"]
+            and replayed["route_and_hist_int_k"]):
+        raise RuntimeError(f"the quantized runs replayed {replayed}")
+    # nan_guard on the card
+    p = {"objective": "binary", "num_leaves": 7, "max_bin": 63,
+         "verbosity": -1, "device_type": "cuda"}
+    init = np.zeros(n)
+    init[[3, 50, 700]] = np.nan
+    guarded = lt.train(p, lt.Dataset(X, label=y, init_score=init, params=p),
+                       5)
+    clean = lt.train(p, lt.Dataset(X, label=y, init_score=np.nan_to_num(init),
+                                   params=p), 5)
+    if not (guarded.num_trees() == 5
+            and model_trees_text(guarded) == model_trees_text(clean)):
+        raise RuntimeError("nan_guard: NaN init scores do not train as "
+                           "zeros")
+    bst = lt.Booster(p, lt.Dataset(X, label=y, params=p))
+    fobj = nan_fobj(2)
+    rets = [bst.update(fobj=fobj) for _ in range(4)]
+    leaves = [t.num_leaves for t in bst.engine.models]
+    if rets != [False] * 4 or len(leaves) != 4 or leaves[1] != 1 \
+            or min(leaves[:1] + leaves[2:]) < 2:
+        raise RuntimeError(f"nan_guard: NaN gradients gave {rets}, {leaves}")
+    emit({"phase": "train_quantized_small", "rows": n, "iterations": iters,
+          "num_leaves": num_leaves, "runs": out,
+          "text_identical_cpu_card": True, "replayed_launches": replayed,
+          "replay_max_abs_err": err, "nan_init_trees": guarded.num_trees(),
+          "nan_grad_update_returns": rets, "nan_grad_leaves": leaves})
+    return err
+
+
+def phase_train_quantized(ds, Xs, ys, smi, iters=20, timed_tree=2):
+    """Quantized-gradient training at full width: the full phase's 1M-row
+    Dataset (max_bin 63), binary, 255 leaves, learning rate 0.1, split
+    budget 64, ``use_quantized_grad`` at LightGBM's defaults (4 levels,
+    stochastic rounding), ``iters`` iterations through
+    ``lightgbm_torch.train`` with the kernel counts read around the call
+    (K2's int form launched, its float form never); held-out AUC > 0.80
+    through ``Booster.predict``; the first 3 trees repeat byte for byte;
+    arms with renewed leaves, with 16 levels rounded to nearest, and under
+    ``hist_backend="scatter"`` (the grid values through K5, no K2), each
+    AUC > 0.80; a bagged arm for the compacted launches; every K2 int
+    launch of one timed tree (and of one bagged tree) replayed bit-equal,
+    then timed beside its bound and one int32 ``index_add_`` call; one more
+    iteration timed phase by phase.  Returns the K2 int entry of the
+    kernels line and the replays' largest differences."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
+              "learning_rate": 0.1, "verbosity": -1,
+              "use_quantized_grad": True}
+    kernels.reset_launch_counts()
+    with TimedIters(capture_at=timed_tree) as timed:
+        t0 = time.perf_counter()
+        bst = lt.train(params, ds, iters)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if (bst.num_trees() != iters or launches["route_and_hist_int"] == 0
+            or launches["route_and_hist"] != 0
+            or launches["leaf_gather"] != iters):
+        raise RuntimeError(f"quantized training made {bst.num_trees()} "
+                           f"trees with launches {launches}")
+    pred = bst.predict(Xs)
+    held_auc = auc(ys, pred)
+    if not (np.isfinite(pred).all() and held_auc > 0.80):
+        raise RuntimeError(f"quantized: held-out AUC {held_auc}")
+    again = lt.train(params, ds, 3)
+    if model_trees_text(again) != model_trees_text(bst, num_iteration=3):
+        raise RuntimeError("quantized training does not repeat bit for bit")
+    arms = {}
+    for name, extra, want in (
+            ("renew", {"quant_train_renew_leaf": True}, "route_and_hist_int"),
+            ("bins16_nearest", {"num_grad_quant_bins": 16,
+                                "stochastic_rounding": False},
+             "route_and_hist_int"),
+            ("scatter", {"hist_backend": "scatter"}, "scatter_hist")):
+        kernels.reset_launch_counts()
+        with TimedIters() as arm_t:
+            arm = lt.train({**params, **extra}, ds, iters)
+        counts = kernels.launch_counts()
+        others = [k for k in ("route_and_hist", "route_and_hist_int")
+                  if k != want]
+        arm_auc = auc(ys, arm.predict(Xs))
+        if (arm.num_trees() != iters or counts[want] == 0
+                or any(counts[k] for k in others) or not arm_auc > 0.80):
+            raise RuntimeError(f"quantized {name}: {arm.num_trees()} trees, "
+                               f"launches {counts}, AUC {arm_auc}")
+        arms[name] = {"held_out_auc": arm_auc, "launches": counts,
+                      "s_per_tree": statistics.median(arm_t.seconds[1:])}
+    # a bagged tree: K2's int form over the compacted rows
+    with TimedIters(capture_at=2) as bag_t:
+        bag = lt.train({**params, "bagging_fraction": 0.5,
+                        "bagging_freq": 1}, ds, 3)
+    if not bag.engine.last_compact_rows > 0:
+        raise RuntimeError("quantized bagging did not compact")
+    replayed, err = replay_against_plain(timed.cap)
+    replayed_bag, err_bag = replay_against_plain(bag_t.cap)
+    if not (replayed["route_and_hist_int"]
+            and replayed_bag["route_and_hist_int"]):
+        raise RuntimeError(f"quantized: replayed {replayed}, {replayed_bag}")
+    err = {k: max(v, err_bag[k]) for k, v in err.items()}
+    k2i = timed.cap.k2i
+    full = time_k2_launches([(a, o) for a, o in k2i if a[9]], True)
+    route = time_k2_launches([(a, o) for a, o in k2i if not a[9]], True)
+    compacted = time_k2_launches([(a, o) for a, o in bag_t.cap.k2i
+                                  if a[9]], True)
+    profiled_s, phases_s, host_reads = profiled_iteration(bst)
+    tree_s = timed.seconds
+    emit({"phase": "train_quantized", "card": smi, "rows": int(ds.num_data()),
+          "iterations": iters, "num_leaves": 255, "num_grad_quant_bins": 4,
+          "stochastic_rounding": True,
+          "leaves_per_tree": [t.num_leaves for t in bst.engine.models],
+          "train_s": train_s, "s_per_tree": statistics.median(tree_s[1:]),
+          "tree_s": tree_s, "launches": launches,
+          "k2_int_launches_per_tree": launches["route_and_hist_int"] / iters,
+          "held_out_auc": held_auc, "determinism_first_3_trees_identical":
+          True, "arms": arms, "bagged_compact_rows":
+          bag.engine.last_compact_rows,
+          "replayed_launches_timed_tree": replayed,
+          "replayed_launches_bagged_tree": replayed_bag,
+          "replay_max_abs_err": err, "k2_int_full_hist": full,
+          "k2_int_route_only": route, "k2_int_compacted": compacted,
+          "profiled_iteration_s": profiled_s,
+          "profiled_iteration_phases_s": phases_s,
+          "profiled_iteration_host_reads": host_reads})
+    line = {"name": "route_and_hist_int", "route": "cuda",
+            "source": KERNEL_SOURCES["route_and_hist_int"],
+            "replaces": KERNEL_REPLACES["route_and_hist_int"],
+            "launches": launches["route_and_hist_int"],
+            "max_abs_err": err["route_and_hist_int"],
+            "ms": full["mean_ms"], "plain_ms": full["mean_plain_ms"],
+            "bound_ms": full["mean_bound_ms"], "bound_by": full["bound_by"],
+            "library_ms": full["mean_index_add_ms"]}
+    return line, err
 
 
 def nvidia_smi_line() -> str:
@@ -1845,6 +2157,7 @@ def main(argv=None) -> int:
         phase_small(args.seed, tmp)
         small_err = phase_train_small(args.seed)
         sampled_small_err = phase_train_sampled_small(args.seed)
+        quant_small_err = phase_train_quantized_small(args.seed)
         k1, ds, Xs, ys = phase_full(args.seed, args.rows, args.trees,
                                     args.leaves, tmp, smi)
         k2, k4 = phase_train(ds, Xs, ys, args.train_iters, smi)
@@ -1852,15 +2165,20 @@ def main(argv=None) -> int:
                                               args.sampled_iters)
         k567, backends_err = phase_train_backends(
             args.seed, args.rows, ds, Xs, ys, smi, args.backend_iters)
+        k2i, quant_err = phase_train_quantized(ds, Xs, ys, smi,
+                                               args.train_iters)
         del ds, Xs, ys
         mc_small_err = phase_train_multiclass_small(args.seed)
         k2k_k8, mc_err = phase_train_multiclass(args.seed, smi)
-    kernel_lines = [k1, k2, k3, k4] + k567 + k2k_k8
-    errs = (small_err, sampled_small_err, sampled_err, backends_err,
-            mc_small_err, mc_err)
+    kernel_lines = [k1, k2, k3, k4] + k567 + k2k_k8 + [k2i]
+    errs = (small_err, sampled_small_err, quant_small_err, sampled_err,
+            backends_err, quant_err, mc_small_err, mc_err)
     for k in kernel_lines[1:]:
+        # K2's int form has one row for both its class counts
+        names = ((k["name"], k["name"] + "_k")
+                 if k["name"] == "route_and_hist_int" else (k["name"],))
         k["max_abs_err"] = max([k["max_abs_err"]]
-                               + [e.get(k["name"], 0.0) for e in errs])
+                               + [e.get(n, 0.0) for e in errs for n in names])
     emit({"kernels": kernel_lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

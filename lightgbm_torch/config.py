@@ -18,6 +18,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
+from .robustness.guards import VALID_MODES
 from .utils.log import LightGBMError, log_warning
 
 # ---------------------------------------------------------------------------
@@ -432,7 +433,24 @@ class Config:
     cegb_penalty_feature_lazy: Any = None
     cegb_penalty_feature_coupled: Any = None
     linear_tree: bool = False
+
+    # Quantized-gradient training: gradients and hessians rounded onto a
+    # grid of num_grad_quant_bins levels (stochastically or to nearest);
+    # the stream backend sums their integer grid values into exact int32
+    # histograms (K2's int form), the others the grid-valued floats;
+    # quant_train_renew_leaf recomputes leaf values from the raw gradients
     use_quantized_grad: bool = False
+    num_grad_quant_bins: int = 4
+    quant_train_renew_leaf: bool = False
+    stochastic_rounding: bool = True
+    # bits per grad/hess field of the quantized histograms on a mesh wire
+    # (32, 16 or 8); one device has no wire, so every width trains the same
+    # model there
+    hist_packed_width: int = 32
+
+    # Non-finite gradient policy (robustness/guards.py): warn (log and skip
+    # the poisoned iteration), skip (skip silently), raise, none (guard off)
+    nan_guard: str = "warn"
 
     def __post_init__(self) -> None:
         self._unknown: Dict[str, Any] = {}
@@ -469,6 +487,10 @@ class Config:
         if obj not in ("multiclass", "multiclassova") and self.num_class != 1:
             if obj != "none":
                 raise ValueError("num_class must be 1 for non-multiclass objectives")
+        if str(self.nan_guard).strip().lower() not in VALID_MODES:
+            raise ValueError(
+                f"nan_guard={self.nan_guard!r} is not one of "
+                f"{', '.join(repr(m) for m in VALID_MODES)}")
         if str(self.device_type).strip().lower() not in ("cuda", "gpu", "cpu"):
             raise LightGBMError(
                 f"device_type={self.device_type!r} is not one of 'cuda' "

@@ -8,6 +8,8 @@ version runs only for CPU tensors.  Importing this package builds nothing:
 - ``route_and_hist`` (K2, route_hist.py): one growth round of training,
   rows routed through the round's splits and the histograms of their new
   slots built.
+- ``route_and_hist_int`` (K2's int form, route_hist.py): the same round of
+  quantized-gradient training, exact int32 histograms of int8 grid values.
 - ``route_replay`` (K3, route_replay.py): a sampled tree's rounds replayed
   over all rows in one pass, every row's leaf.
 - ``leaf_gather`` (K4, leaf_gather.py): the score update's
@@ -36,6 +38,7 @@ from . import (hist_sorted, hist_wide, leaf_gather, predict, route_hist,
 WRAPPERS = {
     "predict_stream": predict.predict_stream_cuda,
     "route_and_hist": route_hist.route_and_hist_cuda,
+    "route_and_hist_int": route_hist.route_and_hist_int_cuda,
     "route_replay": route_replay.route_replay_cuda,
     "leaf_gather": leaf_gather.leaf_gather_cuda,
     "scatter_hist": scatter_hist.scatter_hist_cuda,

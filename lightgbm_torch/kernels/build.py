@@ -26,6 +26,9 @@ BUILD_DIR = _HERE.parent / "_build"
 SOURCES: Dict[str, str] = {
     "predict_stream": "csrc/predict_stream.cu",
     "route_and_hist": "csrc/route_and_hist.cu",
+    # K2's int form (quantized gradients): another entry point of the
+    # same source, its own library
+    "route_and_hist_int": "csrc/route_and_hist.cu",
     "leaf_gather": "csrc/leaf_gather.cu",
     "route_replay": "csrc/route_replay.cu",
     "scatter_hist": "csrc/scatter_hist.cu",
@@ -54,6 +57,11 @@ SIGNATURES = {
                         _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
                         _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
                         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+    "route_and_hist_int": ("lgbt_route_and_hist_int",
+                           [_c_ptr, _c_i64, _c_int, _c_int, _c_ptr, _c_ptr,
+                            _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
+                            _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
+                            _c_ptr, _c_ptr, _c_ptr]),
     "leaf_gather": ("lgbt_leaf_gather",
                     [_c_ptr, _c_i64, _c_ptr, _c_int, _c_ptr, _c_ptr]),
     "route_replay": ("lgbt_route_replay",

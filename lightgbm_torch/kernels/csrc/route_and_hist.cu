@@ -58,8 +58,24 @@
 //     row's slot and weights, and by the global flush.  Its times are in
 //     PERF.md; making it fast is later work.
 //
+//   * The int form (quantized-gradient training; TPU kernel: the
+//     `int_weights=True` branch of `_route_hist_kernel`,
+//     stream_kernel.py:342-386, which contracts an int8 one-hot on the int8
+//     MXU into int32): the same routing kernel, then `hist_int_kernel`,
+//     which reads each row's int8 grad and hess grid values (|q| <= 127,
+//     hess >= 0) and adds them with 32-bit shared-memory atomics into an
+//     int32 tile per (class, slot, group), flushed with 32-bit global
+//     atomics into the int32 result.  Integer adds commute, so the sums are
+//     exact and the same on every run; the caller's gate (half * N < 2**31)
+//     keeps every sum inside int32, so no 64-bit atomic, no fixed-point
+//     shift and no conversion pass is needed.  Against the float form a row
+//     moves a quarter of the weight bytes, an atomic is half as wide and a
+//     block holds twice the pairs.  The grower unscales the int32 sums
+//     (ops/grow.py).
+//
 // Plain PyTorch version of the same contract (K > 1: K single-class calls):
-// lightgbm_torch/kernels/route_hist.py::route_and_hist_plain.
+// lightgbm_torch/kernels/route_hist.py::route_and_hist_plain, and for the
+// int form route_and_hist_int_plain.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -198,6 +214,60 @@ hist_kernel(const uint8_t* __restrict__ bins_T, int64_t n_rows, int G,
   }
 }
 
+// The int form's histograms: grid as hist_kernel's; qgrad, qhess (K, N)
+// int8 grid values; hist (K * S, G, Bmax, 2) int32, zeroed by the caller.
+__global__ void __launch_bounds__(kThreads)
+hist_int_kernel(const uint8_t* __restrict__ bins_T, int64_t n_rows, int G,
+                int Bmax, const int32_t* __restrict__ slot,
+                const int8_t* __restrict__ qgrad,
+                const int8_t* __restrict__ qhess, int64_t rows_per_block,
+                int pairs_per_block, int S, int K,
+                int* __restrict__ hist) {
+  extern __shared__ int s_ihist[];  // pairs x Bmax x 2
+  const int g = blockIdx.x;
+  const int P = K * S;
+  const int p0 = blockIdx.z * pairs_per_block;
+  const int p1 = p0 + pairs_per_block < P ? p0 + pairs_per_block : P;
+  const int k0 = p0 / S;
+  const int k1 = (p1 - 1) / S;
+  const int cells = (p1 - p0) * Bmax * 2;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) s_ihist[i] = 0;
+  __syncthreads();
+  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
+  const int64_t r1 =
+      r0 + rows_per_block < n_rows ? r0 + rows_per_block : n_rows;
+  const uint8_t* col = bins_T + static_cast<int64_t>(g) * n_rows;
+  for (int k = k0; k <= k1; ++k) {
+    const int s0 = p0 - k * S > 0 ? p0 - k * S : 0;
+    const int s1 = p1 - k * S < S ? p1 - k * S : S;
+    const int64_t off = static_cast<int64_t>(k) * n_rows;
+    const int32_t* slot_k = slot + off;
+    const int8_t* qgrad_k = qgrad + off;
+    const int8_t* qhess_k = qhess + off;
+    int* tile = s_ihist + (k * S + s0 - p0) * Bmax * 2;
+    for (int64_t row = r0 + threadIdx.x; row < r1; row += blockDim.x) {
+      const int s = slot_k[row];
+      if (s < s0 || s >= s1) continue;
+      const int qg = qgrad_k[row];
+      const int qh = qhess_k[row];
+      if ((qg | qh) == 0) continue;
+      int* cell = tile + ((s - s0) * Bmax + col[row]) * 2;
+      if (qg != 0) atomicAdd(cell, qg);
+      if (qh != 0) atomicAdd(cell + 1, qh);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int v = s_ihist[i];
+    if (v == 0) continue;
+    const int c = i & 1;
+    const int b = (i >> 1) % Bmax;
+    const int p = p0 + (i >> 1) / Bmax;
+    atomicAdd(&hist[((static_cast<int64_t>(p) * G + g) * Bmax + b) * 2 + c],
+              v);
+  }
+}
+
 // grid: x = range of values, y = class; class k's per_class values times
 // inv_scales[k] (null: times 1, the counts)
 __global__ void to_float_kernel(const unsigned long long* __restrict__ acc,
@@ -213,6 +283,60 @@ __global__ void to_float_kernel(const unsigned long long* __restrict__ acc,
 }
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// Zero the counts, route every (row, class) and convert the counts to
+// float32: the part of a round both forms share.
+cudaError_t launch_route(const uint8_t* bins_T, int64_t n_rows, int K,
+                         const int32_t* leaf_id, const int32_t* tabs, int L,
+                         const int32_t* cat_words, int W, const float* cnt,
+                         int S, int32_t* new_leaf, int32_t* slot,
+                         int64_t* cnt_acc, float* cnt_out,
+                         cudaStream_t stream) {
+  auto* c_acc = reinterpret_cast<unsigned long long*>(cnt_acc);
+  cudaError_t err =
+      cudaMemsetAsync(c_acc, 0, sizeof(int64_t) * K * S, stream);
+  if (err != cudaSuccess) return err;
+  const int64_t row_blocks = ceil_div(n_rows, kThreads);
+  if (row_blocks > 0) {
+    const dim3 route_grid(static_cast<unsigned>(row_blocks),
+                          static_cast<unsigned>(K));
+    route_kernel<<<route_grid, kThreads, sizeof(unsigned long long) * S,
+                   stream>>>(
+        bins_T, n_rows, leaf_id, reinterpret_cast<const int4*>(tabs), L,
+        reinterpret_cast<const uint32_t*>(cat_words), W, cnt, S, new_leaf,
+        slot, c_acc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 cnt_grid(static_cast<unsigned>(ceil_div(S, kThreads)),
+                      static_cast<unsigned>(K));
+  to_float_kernel<<<cnt_grid, kThreads, 0, stream>>>(c_acc, S, nullptr,
+                                                     cnt_out);
+  return cudaGetLastError();
+}
+
+// The histogram grid of a round: (group, row range, pair range), about
+// kTargetBlocks blocks, pairs_per_block (class, slot) pairs of per_pair
+// shared bytes each.  Returns false when one pair does not fit.
+bool hist_grid(int64_t n_rows, int G, int P, int per_pair, dim3* grid,
+               int64_t* rows_per_block, int* pairs_per_block) {
+  int ppb = kSmemBytes / per_pair;
+  if (ppb < 1) return false;
+  if (ppb > P) ppb = P;
+  const int pair_blocks = static_cast<int>(ceil_div(P, ppb));
+  const int64_t row_blocks = ceil_div(n_rows, kThreads);
+  int64_t row_ranges = kTargetBlocks / (static_cast<int64_t>(G) * pair_blocks);
+  if (row_ranges > row_blocks) row_ranges = row_blocks;
+  if (row_ranges > 65535) row_ranges = 65535;
+  if (row_ranges < 1) row_ranges = 1;
+  const int64_t rpb = ceil_div(n_rows, row_ranges);
+  if (rpb > 0) row_ranges = ceil_div(n_rows, rpb);
+  *grid = dim3(static_cast<unsigned>(G), static_cast<unsigned>(row_ranges),
+               static_cast<unsigned>(pair_blocks));
+  *rows_per_block = rpb;
+  *pairs_per_block = ppb;
+  return true;
+}
 
 }  // namespace
 
@@ -231,64 +355,77 @@ extern "C" int lgbt_route_and_hist(
     const float* cnt, int S, int Bmax, int with_hist, const float* scales,
     int32_t* new_leaf, int32_t* slot, int64_t* hist_acc, int64_t* cnt_acc,
     float* hist, float* cnt_out, cudaStream_t stream) {
-  auto* h_acc = reinterpret_cast<unsigned long long*>(hist_acc);
-  auto* c_acc = reinterpret_cast<unsigned long long*>(cnt_acc);
-  const int P = K * S;
-  cudaError_t err = cudaMemsetAsync(c_acc, 0, sizeof(int64_t) * P, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t row_blocks = ceil_div(n_rows, kThreads);
-  if (row_blocks > 0) {
-    const dim3 route_grid(static_cast<unsigned>(row_blocks),
-                          static_cast<unsigned>(K));
-    route_kernel<<<route_grid, kThreads, sizeof(unsigned long long) * S,
-                   stream>>>(
-        bins_T, n_rows, leaf_id, reinterpret_cast<const int4*>(tabs), L,
-        reinterpret_cast<const uint32_t*>(cat_words), W, cnt, S, new_leaf,
-        slot, c_acc);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 cnt_grid(static_cast<unsigned>(ceil_div(S, kThreads)),
-                      static_cast<unsigned>(K));
-  to_float_kernel<<<cnt_grid, kThreads, 0, stream>>>(c_acc, S, nullptr,
-                                                     cnt_out);
-  err = cudaGetLastError();
+  cudaError_t err = launch_route(bins_T, n_rows, K, leaf_id, tabs, L,
+                                 cat_words, W, cnt, S, new_leaf, slot,
+                                 cnt_acc, cnt_out, stream);
   if (err != cudaSuccess || !with_hist) return static_cast<int>(err);
 
+  auto* h_acc = reinterpret_cast<unsigned long long*>(hist_acc);
   const int64_t per_class = static_cast<int64_t>(S) * G * Bmax * 2;
-  const int64_t cells = per_class * K;
-  err = cudaMemsetAsync(h_acc, 0, sizeof(int64_t) * cells, stream);
+  err = cudaMemsetAsync(h_acc, 0, sizeof(int64_t) * per_class * K, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int per_pair = Bmax * 2 * static_cast<int>(sizeof(int64_t));
-  int pairs_per_block = kSmemBytes / per_pair;
-  if (pairs_per_block < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (pairs_per_block > P) pairs_per_block = P;
-  const int pair_blocks = static_cast<int>(ceil_div(P, pairs_per_block));
-  if (row_blocks > 0) {
-    int64_t row_ranges =
-        kTargetBlocks / (static_cast<int64_t>(G) * pair_blocks);
-    if (row_ranges < 1) row_ranges = 1;
-    if (row_ranges > row_blocks) row_ranges = row_blocks;
-    if (row_ranges > 65535) row_ranges = 65535;
-    const int64_t rows_per_block = ceil_div(n_rows, row_ranges);
-    row_ranges = ceil_div(n_rows, rows_per_block);
+  dim3 grid;
+  int64_t rows_per_block;
+  int pairs_per_block;
+  if (!hist_grid(n_rows, G, K * S, per_pair, &grid, &rows_per_block,
+                 &pairs_per_block))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows > 0) {
     const int smem = pairs_per_block * per_pair;
     err = cudaFuncSetAttribute(hist_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned>(G),
-                    static_cast<unsigned>(row_ranges),
-                    static_cast<unsigned>(pair_blocks));
     hist_kernel<<<grid, kThreads, smem, stream>>>(
         bins_T, n_rows, G, Bmax, slot, grad, hess, scales, rows_per_block,
         pairs_per_block, S, K, h_acc);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 hist_grid(static_cast<unsigned>(ceil_div(per_class, kThreads)),
-                       static_cast<unsigned>(K));
-  to_float_kernel<<<hist_grid, kThreads, 0, stream>>>(h_acc, per_class,
-                                                      scales + K, hist);
+  const dim3 conv_grid(static_cast<unsigned>(ceil_div(per_class, kThreads)),
+                         static_cast<unsigned>(K));
+  to_float_kernel<<<conv_grid, kThreads, 0, stream>>>(h_acc, per_class,
+                                                        scales + K, hist);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The int form, the same interface but for the weights: qgrad, qhess (K, N)
+// int8 grid values (null when with_hist == 0, which reads none), and hist
+// (K, S, G, Bmax, 2) int32, written only when with_hist != 0; no scales
+// and no int64 histogram scratch.
+extern "C" int lgbt_route_and_hist_int(
+    const uint8_t* bins_T, int64_t n_rows, int G, int K,
+    const int32_t* leaf_id, const int32_t* tabs, int L,
+    const int32_t* cat_words, int W, const int8_t* qgrad,
+    const int8_t* qhess, const float* cnt, int S, int Bmax, int with_hist,
+    int32_t* new_leaf, int32_t* slot, int64_t* cnt_acc, int32_t* hist,
+    float* cnt_out, cudaStream_t stream) {
+  cudaError_t err = launch_route(bins_T, n_rows, K, leaf_id, tabs, L,
+                                 cat_words, W, cnt, S, new_leaf, slot,
+                                 cnt_acc, cnt_out, stream);
+  if (err != cudaSuccess || !with_hist) return static_cast<int>(err);
+
+  const int64_t cells = static_cast<int64_t>(K) * S * G * Bmax * 2;
+  err = cudaMemsetAsync(hist, 0, sizeof(int32_t) * cells, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_pair = Bmax * 2 * static_cast<int>(sizeof(int32_t));
+  dim3 grid;
+  int64_t rows_per_block;
+  int pairs_per_block;
+  if (!hist_grid(n_rows, G, K * S, per_pair, &grid, &rows_per_block,
+                 &pairs_per_block))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows > 0) {
+    const int smem = pairs_per_block * per_pair;
+    err = cudaFuncSetAttribute(hist_int_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    hist_int_kernel<<<grid, kThreads, smem, stream>>>(
+        bins_T, n_rows, G, Bmax, slot, qgrad, qhess, rows_per_block,
+        pairs_per_block, S, K, hist);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }

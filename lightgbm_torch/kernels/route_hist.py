@@ -23,6 +23,14 @@ the kernel and the plain version agree bit for bit, on every run.
 ``route_and_hist`` launches the kernel for tensors on a CUDA device and runs
 ``route_and_hist_plain`` only for tensors on the CPU; a kernel that fails to
 build or launch raises.
+
+``route_and_hist_int`` is the reference's ``int_weights=True`` form
+(stream_kernel.py:342-386), which quantized-gradient training takes: the
+same routing, with (K, N) int8 grid values of the quantized grad and hess in
+place of the float weights, and (K, S, G, Bmax, 2) int32 histograms that sum
+them exactly (``ops/histogram.build_histograms_int``); the caller unscales
+them.  Its own CUDA entry point (``lgbt_route_and_hist_int``, the same
+source) and launch count.
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ import ctypes
 
 import torch
 
-from ..ops.histogram import build_histograms_gh, scale_table, slot_counts
+from ..ops.histogram import (build_histograms_gh, build_histograms_int,
+                             scale_table, slot_counts)
 from ..utils.log import LightGBMError
 from . import build
 from .layout import (R_BUNDLED, R_CHOSEN, R_DEFBIN, R_DEFLEFT, R_GROUP,
@@ -117,6 +126,33 @@ def route_and_hist_plain(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
             torch.stack([o[2] for o in outs]))
 
 
+def _check_operands(what, dev, operands, shapes_ok):
+    """Raise unless ``dev`` is a CUDA device, every (name, tensor, dtype)
+    operand is a contiguous tensor of its dtype on it and the shapes
+    agree."""
+    if dev.type != "cuda":
+        raise LightGBMError(f"{what}: the CUDA kernel takes CUDA tensors, "
+                            f"got {dev}")
+    for name, x, dtype in operands:
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise LightGBMError(
+                f"{what}: {name} must be a contiguous {dtype} tensor "
+                f"on {dev}, got {x.dtype} on {x.device}")
+    if not shapes_ok:
+        raise LightGBMError(f"{what}: shapes do not agree")
+
+
+def _route_shapes_ok(bins_T, leaf_id, tabs, cat_words, cnt, num_slots,
+                     max_bins):
+    G, n = bins_T.shape
+    K, L = tabs.shape[0], tabs.shape[1]
+    return (tuple(tabs.shape) == (K, L, len(ROUTE_FIELDS))
+            and cat_words.dim() == 3 and tuple(cat_words.shape[:2]) == (K, L)
+            and cat_words.shape[2] * 32 >= max_bins
+            and tuple(leaf_id.shape) == (K, n) and tuple(cnt.shape) == (n,)
+            and num_slots >= 1 and 0 < max_bins <= 256)
+
+
 def route_and_hist_cuda(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
                         num_slots: int, max_bins: int, shifts,
                         with_hist: bool = True, scales=None):
@@ -126,26 +162,16 @@ def route_and_hist_cuda(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
         scales = scale_table(shifts, dev)
     G, n = bins_T.shape
     K, L = tabs.shape[0], tabs.shape[1]
-    for name, x, dtype in (("bins_T", bins_T, torch.uint8),
-                           ("leaf_id", leaf_id, torch.int32),
-                           ("tabs", tabs, torch.int32),
-                           ("cat_words", cat_words, torch.int32),
-                           ("grad", grad, torch.float32),
-                           ("hess", hess, torch.float32),
-                           ("cnt", cnt, torch.float32),
-                           ("scales", scales, torch.float32)):
-        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-            raise LightGBMError(
-                f"route_and_hist: {name} must be a contiguous {dtype} tensor "
-                f"on {dev}, got {x.dtype} on {x.device}")
-    if (tuple(tabs.shape) != (K, L, len(ROUTE_FIELDS))
-            or cat_words.dim() != 3 or tuple(cat_words.shape[:2]) != (K, L)
-            or cat_words.shape[2] * 32 < max_bins
-            or any(tuple(x.shape) != (K, n) for x in (leaf_id, grad, hess))
-            or tuple(cnt.shape) != (n,) or len(shifts) != K
-            or tuple(scales.shape) != (2, K)
-            or num_slots < 1 or not 0 < max_bins <= 256):
-        raise LightGBMError("route_and_hist: shapes do not agree")
+    _check_operands(
+        "route_and_hist", dev,
+        (("bins_T", bins_T, torch.uint8), ("leaf_id", leaf_id, torch.int32),
+         ("tabs", tabs, torch.int32), ("cat_words", cat_words, torch.int32),
+         ("grad", grad, torch.float32), ("hess", hess, torch.float32),
+         ("cnt", cnt, torch.float32), ("scales", scales, torch.float32)),
+        _route_shapes_ok(bins_T, leaf_id, tabs, cat_words, cnt, num_slots,
+                         max_bins)
+        and tuple(grad.shape) == (K, n) and tuple(hess.shape) == (K, n)
+        and len(shifts) == K and tuple(scales.shape) == (2, K))
     new_leaf = torch.empty((K, n), dtype=torch.int32, device=dev)
     slot = torch.empty((K, n), dtype=torch.int32, device=dev)
     counts = torch.empty((K, num_slots), dtype=torch.float32, device=dev)
@@ -172,3 +198,80 @@ def route_and_hist_cuda(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
 
 
 route_and_hist_cuda.launches = 0
+
+
+def route_and_hist_int(bins_T, leaf_id, tabs, cat_words, qgrad, qhess, cnt,
+                       num_slots: int, max_bins: int, with_hist: bool = True):
+    """(new_leaf (K, N) int32, hist (K, S, G, Bmax, 2) int32 or None,
+    counts (K, S) float32) of one round of quantized-gradient training:
+    ``qgrad``, ``qhess`` are (K, N) int8 grid values (|q| <= 127; None
+    when ``with_hist`` is False, which reads no weights)."""
+    if bins_T.device.type == "cuda":
+        return route_and_hist_int_cuda(bins_T, leaf_id, tabs, cat_words,
+                                       qgrad, qhess, cnt, num_slots, max_bins,
+                                       with_hist)
+    if bins_T.device.type == "cpu":
+        return route_and_hist_int_plain(bins_T, leaf_id, tabs, cat_words,
+                                        qgrad, qhess, cnt, num_slots,
+                                        max_bins, with_hist)
+    raise LightGBMError(f"route_and_hist_int has no kernel for device "
+                        f"{bins_T.device}")
+
+
+def route_and_hist_int_plain(bins_T, leaf_id, tabs, cat_words, qgrad, qhess,
+                             cnt, num_slots: int, max_bins: int,
+                             with_hist: bool = True):
+    """Plain PyTorch version of the int form's contract."""
+    routed = [route_plain(bins_T, leaf_id[k], tabs[k], cat_words[k])
+              for k in range(leaf_id.shape[0])]
+    new_leaf = torch.stack([r[0] for r in routed])
+    slot = torch.stack([r[1] for r in routed])
+    counts = torch.stack([slot_counts(s, cnt, num_slots) for s in slot])
+    hist = (build_histograms_int(bins_T, slot, qgrad, qhess, num_slots,
+                                 max_bins) if with_hist else None)
+    return new_leaf, hist, counts
+
+
+def route_and_hist_int_cuda(bins_T, leaf_id, tabs, cat_words, qgrad, qhess,
+                            cnt, num_slots: int, max_bins: int,
+                            with_hist: bool = True):
+    """Launch the int form of csrc/route_and_hist.cu on the current
+    stream."""
+    dev = bins_T.device
+    G, n = bins_T.shape
+    K, L = tabs.shape[0], tabs.shape[1]
+    operands = [("bins_T", bins_T, torch.uint8),
+                ("leaf_id", leaf_id, torch.int32),
+                ("tabs", tabs, torch.int32),
+                ("cat_words", cat_words, torch.int32),
+                ("cnt", cnt, torch.float32)]
+    shapes_ok = _route_shapes_ok(bins_T, leaf_id, tabs, cat_words, cnt,
+                                 num_slots, max_bins)
+    if with_hist:
+        operands += [("qgrad", qgrad, torch.int8), ("qhess", qhess, torch.int8)]
+        shapes_ok = (shapes_ok and tuple(qgrad.shape) == (K, n)
+                     and tuple(qhess.shape) == (K, n))
+    _check_operands("route_and_hist_int", dev, operands, shapes_ok)
+    new_leaf = torch.empty((K, n), dtype=torch.int32, device=dev)
+    slot = torch.empty((K, n), dtype=torch.int32, device=dev)
+    counts = torch.empty((K, num_slots), dtype=torch.float32, device=dev)
+    cnt_acc = torch.empty((K, num_slots), dtype=torch.int64, device=dev)
+    hist = (torch.empty((K, num_slots, G, max_bins, 2), dtype=torch.int32,
+                        device=dev) if with_hist else None)
+    fn = build.load("route_and_hist_int").lgbt_route_and_hist_int
+    rc = fn(bins_T.data_ptr(), n, G, K, leaf_id.data_ptr(), tabs.data_ptr(),
+            L, cat_words.data_ptr(), cat_words.shape[2],
+            qgrad.data_ptr() if with_hist else None,
+            qhess.data_ptr() if with_hist else None, cnt.data_ptr(),
+            num_slots, max_bins, int(with_hist), new_leaf.data_ptr(),
+            slot.data_ptr(), cnt_acc.data_ptr(),
+            hist.data_ptr() if with_hist else None, counts.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise LightGBMError(f"route_and_hist_int kernel launch failed "
+                            f"(cudaError {rc})")
+    route_and_hist_int_cuda.launches += 1
+    return new_leaf, hist, counts
+
+
+route_and_hist_int_cuda.launches = 0

@@ -25,6 +25,20 @@ grows K class trees from the (N, K) gradients: in lockstep through
 per class, the same trees either way, and adds all K to the (N, K) score
 with one K4 launch over the flattened (K * L) leaf values.
 
+Quantized gradients (``use_quantized_grad``, reference: gbdt.py:56-77,
+:2192-2208, :2517-2540): after sampling and pad masking, ``quantize_gh``
+rounds each class's gradients and hessians onto a grid of
+``num_grad_quant_bins`` levels (stochastically, from the reference's
+``jax.random`` stream), and the tree grows on the grid values, under
+``stream`` through K2's int form when the ``int_hist`` gate holds.
+``quant_train_renew_leaf`` then sets each leaf's value from the raw
+gradients' sums (exact fixed point; K class trees grow one at a time).
+
+``nan_guard`` (robustness/guards.py): non-finite init scores are zeroed,
+an iteration with a non-finite gradient grows a no-op tree from zeroed
+gradients and does not end training, and a model with non-finite leaves
+does not seed one.
+
 Training covers gbdt on numeric features with the binary, L2 and multiclass
 objectives (or custom gradients); every other training feature raises
 "not yet ported" (``_check_unsupported_params``) instead of training a
@@ -45,11 +59,15 @@ from ..kernels.predict import tree_max_depth
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction
 from ..ops.grow import GrowParams, fusion_applies, grow_tree, grow_tree_k
+from ..ops.histogram import dequantize, hist_shift, quantize
 from ..ops.predict import _walk_one_tree
+from ..ops.split import leaf_output
+from ..robustness.guards import NanGuard, check_finite_init, check_model_trees
 from ..tree import (DIR_CATEGORICAL, DIR_DEFAULT_LEFT, Tree, TreeArrays,
                     finalize_tree)
 from ..utils.log import LightGBMError
-from ..utils.timer import host_int, phase
+from ..utils.random import prng_key, split, uniform
+from ..utils.timer import host_int, host_list, phase
 from .sample_strategy import SampleStrategy, create_sample_strategy
 
 # row quantum of a compacted view: the port's kernels take any row count,
@@ -64,6 +82,28 @@ HIST_BACKENDS = ("auto", "segsum", "onehot", "pallas", "stream", "scatter")
 def _not_ported(what: str) -> LightGBMError:
     return LightGBMError(f"{what} is not yet ported to lightgbm_torch "
                          "training")
+
+
+def quantize_gh(grad, hess, key, num_bins: int, stochastic: bool):
+    """Gradient and hessian discretization onto a symmetric integer grid of
+    ``num_bins`` levels (reference: lightgbm_tpu/models/gbdt.py:56-77,
+    src/treelearner/gradient_discretizer.cpp).  grad, hess: (N,) or (N, K)
+    float32; key: a ``utils.random`` key, split into the grad and hess
+    streams.  Returns the grid-valued grad and hess (``q * scale``, q an
+    integer in [-half, half], hessians in [0, half]) and the stacked (grad,
+    hess) scales, (2,) or (2, K)."""
+    half = max(num_bins, 2) / 2.0
+    kg, kh = split(key)
+
+    def q(x, maxv, kq, lo):
+        scale = torch.clamp(maxv, min=1e-10) / half
+        u = uniform(kq, tuple(x.shape), x.device) if stochastic else 0.5
+        qi = torch.clamp(torch.floor(x / scale + u), lo, half)
+        return qi * scale, scale
+
+    gq, gs = q(grad, grad.abs().amax(dim=0), kg, -half)
+    hq, hs = q(hess, hess.amax(dim=0), kh, 0.0)
+    return gq, hq, torch.stack([gs, hs])
 
 
 class GBDT:
@@ -103,6 +143,9 @@ class GBDT:
             dtype=torch.float32, device=self.device)
         base = train_data.get_init_score_padded(n_pad, k)
         if base is not None:
+            # one non-finite init score would poison every gradient of
+            # every iteration: the gradient guard's policy applies
+            base = check_finite_init(base, "init_score", config.nan_guard)
             self.score = self.score + torch.as_tensor(base, device=self.device)
         # row-pad mask: padded rows add nothing to any histogram
         self._pad_mask = (torch.arange(n_pad, device=self.device)
@@ -118,6 +161,10 @@ class GBDT:
         self._compact_cap = 0
         self.last_compact_rows = 0
         self.last_sampled_rows: Optional[int] = None
+        # non-finite gradient guard: a tripped check zeroes the
+        # iteration's gradients, so it grows an exact no-op tree
+        self._nan_guard = NanGuard(config.nan_guard,
+                                   objective.name if objective else "none")
         # a utils.timer.PhaseTimer here times the phases of each iteration
         self.timer = None
 
@@ -174,6 +221,22 @@ class GBDT:
                 "tree_learner=feature (the scatter tile is one unsharded "
                 "VMEM block; group sharding cannot slice it) — use "
                 "hist_backend=segsum or onehot")
+        if c.hist_packed_width not in (32, 16, 8):
+            raise LightGBMError(
+                f"hist_packed_width={c.hist_packed_width!r} is not one of "
+                "32, 16, 8")
+        if c.hist_packed_width != 32:
+            if not c.use_quantized_grad:
+                raise LightGBMError(
+                    "hist_packed_width=16/8 packs the QUANTIZED int32 "
+                    "grad/hess wire and needs use_quantized_grad=True "
+                    "(the f32 histograms have no integer wire to pack)")
+            if c.linear_tree:
+                raise LightGBMError(
+                    "hist_packed_width=16/8 is not supported with "
+                    "linear_tree (leaf regressions feed on exact "
+                    "histogram sums; the requantized wire is "
+                    "documented-ulp, not exact)")
         name = ("none" if self.objective is None
                 else canonical_objective(self.objective.name))
         if name not in ("binary", "regression", "multiclass",
@@ -218,7 +281,7 @@ class GBDT:
             raise _not_ported("cegb_penalty_split")
         if c.forcedsplits_filename:
             raise _not_ported("forced splits")
-        for key in ("linear_tree", "use_quantized_grad", "extra_trees"):
+        for key in ("linear_tree", "extra_trees"):
             if getattr(c, key):
                 raise _not_ported(key)
         if c.path_smooth > 0.0:
@@ -250,7 +313,19 @@ class GBDT:
             # per-round route-only passes, and the grower applies the
             # reference's gate
             route_fusion=str(c.route_fusion).lower() in ("auto", "on"),
-            hist_backend=self._resolve_hist_backend())
+            hist_backend=self._resolve_hist_backend(),
+            # the reference's gate, letter for letter (gbdt.py:950-955):
+            # int8 operands, exact int32 sums, and an even level count (an
+            # odd one clips to a non-integer +half grid value); N is the
+            # padded row count, a multiple of 256 (the reference pads to
+            # its own block size, so the two can differ above ~16.9M rows
+            # at 254 levels)
+            int_hist=(c.use_quantized_grad
+                      and self._resolve_hist_backend() == "stream"
+                      and c.num_grad_quant_bins <= 254
+                      and c.num_grad_quant_bins % 2 == 0
+                      and (c.num_grad_quant_bins / 2)
+                      * self.dd.bins.shape[0] < 2 ** 31))
 
     def _ensure_training(self) -> None:
         if self.grow_params is None:
@@ -382,6 +457,25 @@ class GBDT:
             grad = grad * rows
             hess = hess * rows
             col_mask = self._feature_mask()
+        c = self.config
+        ok, gh_scales = None, None
+        with phase(self.timer, "gradients"):
+            if self._nan_guard.enabled:
+                # one all-finite flag on the device; a tripped flag zeroes
+                # the iteration (reference: _guard_gh, gbdt.py:1308-1321)
+                ok = torch.isfinite(grad).all() & torch.isfinite(hess).all()
+                if self._nan_guard.mode == "raise" and not bool(ok):
+                    self._nan_guard.record(self.iter_)
+                grad = torch.where(ok, grad, 0.0)
+                hess = torch.where(ok, hess, 0.0)
+            grad_raw, hess_raw = grad, hess
+            if c.use_quantized_grad:
+                key = prng_key((c.data_random_seed + 11) * 131071
+                               + self.iter_)
+                grad, hess, gh_scales = quantize_gh(
+                    grad, hess, key, c.num_grad_quant_bins,
+                    c.stochastic_rounding)
+        renew = c.use_quantized_grad and c.quant_train_renew_leaf
         compact = self._row_compaction_capacity(mask)
         self.last_compact_rows = compact
         rate = self.config.learning_rate
@@ -390,7 +484,10 @@ class GBDT:
                             self.dd.routing, self.grow_params,
                             self.dd.max_bins, timer=self.timer,
                             col_mask=col_mask, compact_rows=compact,
-                            bins=self.dd.bins)
+                            bins=self.dd.bins, gh_scales=gh_scales)
+            if renew:
+                res = res._replace(arrays=self._renew_leaves_exact(
+                    res.arrays, res.leaf_id, grad_raw, hess_raw))
             trees = [(res.arrays, res.rounds)]
             with phase(self.timer, "k4"):
                 # score update (reference: ScoreUpdater::AddScore); a
@@ -398,8 +495,9 @@ class GBDT:
                 delta = leaf_gather(res.leaf_id, res.arrays.leaf_value * rate)
                 self.score = self.score + delta
         else:
-            trees, leaf_k, values = self._grow_classes(grad, hess, mask,
-                                                       col_mask)
+            trees, leaf_k, values = self._grow_classes(
+                grad, hess, mask, col_mask, gh_scales,
+                (grad_raw, hess_raw) if renew else None)
             with phase(self.timer, "k4"):
                 # every class's leaf values added to its score column in
                 # one launch (reference: score_add_k, gbdt.py:2218-2241)
@@ -422,25 +520,67 @@ class GBDT:
             bias = self.init_scores[kk] if self.iter_ == 0 else 0.0
             self._lazy_trees.append({"arrays": arrays, "rate": rate,
                                      "bias": bias})
+        # a trivial iteration ends training unless the guard tripped: a
+        # skipped iteration grows no-op trees by design (reference:
+        # gbdt.py:2383-2390); the flag is read only then
+        finished = all(arrays.num_leaves <= 1 for arrays, _ in trees)
+        if finished and ok is not None:
+            with phase(self.timer, "host_sync"):
+                finished = bool(host_int(ok, self.timer))
+            if not finished:
+                self._nan_guard.record(self.iter_)
         self.iter_ += 1
-        if all(arrays.num_leaves <= 1 for arrays, _ in trees):
+        if finished:
             self._trim_trailing_trivial()
-            return True
-        return False
+        return finished
 
-    def _grow_classes(self, grad, hess, mask, col_mask):
+    def _renew_leaves_exact(self, arrays: TreeArrays, leaf_id, grad_raw,
+                            hess_raw) -> TreeArrays:
+        """Leaf values from the raw (unquantized) gradients' per-leaf sums
+        (reference: ``_renew_leaves_exact``, gbdt.py:2523-2540;
+        RenewIntGradTreeOutput).  The reference adds float32 in
+        ``segment_sum``; here the sums are exact fixed point (one host read
+        of the largest weights), the same on every device and run, and
+        equal to the reference's wherever its float32 sums are exact."""
+        L = self.grow_params.num_leaves
+        if arrays.num_leaves <= 1:
+            return arrays
+        lid = torch.clamp(leaf_id.to(torch.int64), 0, L - 1)
+        with phase(self.timer, "host_sync"):
+            m = host_list(torch.stack([grad_raw.abs().amax(),
+                                       hess_raw.abs().amax()]), self.timer)
+        sums = []
+        for w, mx in zip((grad_raw, hess_raw), m):
+            shift = hist_shift(mx, lid.numel())
+            acc = torch.zeros(L, dtype=torch.int64, device=lid.device)
+            sums.append(dequantize(acc.index_add_(0, lid, quantize(w, shift)),
+                                   shift))
+        c = self.config
+        vals = leaf_output(sums[0], sums[1], c.lambda_l1, c.lambda_l2,
+                           c.max_delta_step)
+        keep = ((torch.arange(L, device=lid.device) < arrays.num_leaves)
+                & (arrays.leaf_count > 0))
+        return arrays._replace(
+            leaf_value=torch.where(keep, vals, arrays.leaf_value))
+
+    def _grow_classes(self, grad, hess, mask, col_mask, gh_scales=None,
+                      raw=None):
         """The K class trees of an iteration from the (n_pad, K) gradients
         (reference: ``_grow_classes``, gbdt.py:1538-1570): in lockstep
-        (``multiclass_batched``) or one ``grow_tree`` per class.  Returns
-        each class's (arrays, rounds), the (K, n_pad) leaf ids and the
-        (K, L) leaf values."""
+        (``multiclass_batched``) or one ``grow_tree`` per class.  gh_scales:
+        the (2, K) quantized scales, or None; raw: the (n_pad, K) raw
+        (grad, hess) when leaves are renewed, which grows one class at a
+        time as the reference does (gbdt.py:2204-2208).  Returns each
+        class's (arrays, rounds), the (K, n_pad) leaf ids and the (K, L)
+        leaf values."""
         k = self.num_tree_per_iteration
         gT, hT = grad.t().contiguous(), hess.t().contiguous()
+        scales = None if gh_scales is None else gh_scales.t().contiguous()
         kw = dict(timer=self.timer, col_mask=col_mask)
-        if self.config.multiclass_batched:
+        if self.config.multiclass_batched and raw is None:
             res = grow_tree_k(self._bins_T, gT, hT, mask, self.dd.layout,
                               self.dd.routing, self.grow_params,
-                              self.dd.max_bins, **kw)
+                              self.dd.max_bins, gh_scales=scales, **kw)
             a = res.arrays
             trees = [(TreeArrays(num_leaves=a.num_leaves[kk],
                                  **{f: getattr(a, f)[kk]
@@ -451,7 +591,13 @@ class GBDT:
         results = [grow_tree(self._bins_T, gT[kk], hT[kk], mask,
                              self.dd.layout, self.dd.routing,
                              self.grow_params, self.dd.max_bins,
-                             bins=self.dd.bins, **kw) for kk in range(k)]
+                             bins=self.dd.bins,
+                             gh_scales=None if scales is None else scales[kk],
+                             **kw) for kk in range(k)]
+        if raw is not None:
+            results = [r._replace(arrays=self._renew_leaves_exact(
+                r.arrays, r.leaf_id, raw[0][:, kk], raw[1][:, kk]))
+                for kk, r in enumerate(results)]
         trees = [(r.arrays, r.rounds) for r in results]
         return (trees, torch.stack([r.leaf_id for r in results]),
                 torch.stack([r.arrays.leaf_value for r in results]))
@@ -462,6 +608,9 @@ class GBDT:
         training score (reference: GBDT::ResetTrainingData +
         model-continuation init, src/boosting/gbdt.cpp:259-263)."""
         k = self.num_tree_per_iteration
+        if self._nan_guard.enabled:
+            # refuse to boost on top of a poisoned model
+            check_model_trees(trees, "init model")
         if num_tree_per_iteration != k:
             raise LightGBMError(
                 f"init_model has {num_tree_per_iteration} trees/iteration but "

@@ -56,13 +56,25 @@ class ready for the route-only sprint waits, frozen, until every class has
 made its full rounds, and then all sprint together.  So each class tree is
 the tree ``grow_tree`` grows from that class's gradients, bit for bit.
 
+Quantized gradients (``use_quantized_grad``; reference: ops/grow.py:587-596,
+:715-716, :1010-1011, and :1791-1796, :1867-1869, :2116-2118 for K
+classes): the grower gets grid-valued grad and hess (``q * scale``) and each
+class's (grad, hess) scales.  Under ``stream`` with ``int_hist`` (the
+reference's gate, models/gbdt.py) every K2 pass takes its int form
+(``route_and_hist_int``): the rows' integer grid values, ``round(w * (1 /
+scale))`` as int8, are summed into exact int32 histograms, and the grower
+unscales each pass's histograms at once, ``hist.to(float32) * scale`` per
+class and channel, before any subtraction (which stays float32, parent
+minus child).  No fixed-point shift is chosen then.  The other backends, and
+``stream`` outside the gate, sum the grid-valued floats as any float
+weights.
+
 The loop is a Python loop over rounds.  Each round reads one (K,) vector on
 the host (each class's number of splittable leaves), and each iteration one
 more (each class's largest weight, which fixes its histograms' fixed-point
-shift).  Not ported:
+shift; not under the int form).  Not ported:
 forced splits, monotone and interaction constraints, CEGB, by-node feature
-sampling, extra trees, path smoothing, meshes and quantized-gradient
-histograms.
+sampling, extra trees, path smoothing and meshes.
 """
 from __future__ import annotations
 
@@ -72,7 +84,7 @@ import torch
 
 from ..device_data import FeatureLayout, RoutingLayout
 from ..kernels.layout import build_route_tables
-from ..kernels.route_hist import route_and_hist
+from ..kernels.route_hist import route_and_hist, route_and_hist_int
 from ..kernels.route_replay import route_replay
 from ..tree import DIR_DEFAULT_LEFT, TreeArrays
 from ..utils.timer import host_list, phase
@@ -98,6 +110,8 @@ class GrowParams(NamedTuple):
     max_delta_step: float
     route_fusion: bool = False
     hist_backend: str = "stream"     # stream | scatter | pallas
+    # quantized gradients through K2's int form (models/gbdt.py gate)
+    int_hist: bool = False
 
 
 class GrowResult(NamedTuple):
@@ -128,12 +142,14 @@ class _Grower:
     tree, else the full rows themselves (row-major bins for a single-class
     ``pallas`` tree).  K2 takes the class axis for any K; the non-stream
     backends run the single-class K5 or K6/K7 for one class and K8 for
-    K."""
+    K.  ``gh_scales``: (K, 2) each class's quantized (grad, hess) scales,
+    or None; with ``params.int_hist`` the ``*_h`` weights are then the int8
+    grid values K2's int form reads."""
 
     def __init__(self, bins_T, grad, hess, cnt, layout: FeatureLayout,
                  routing: RoutingLayout, params: GrowParams, max_bins: int,
                  timer=None, col_mask=None, compact_rows: int = 0,
-                 bins=None):
+                 bins=None, gh_scales=None):
         self.bins_T, self.grad, self.hess, self.cnt = bins_T, grad, hess, cnt
         K = self.K = grad.shape[0]
         self.stream = params.hist_backend == "stream"
@@ -206,12 +222,27 @@ class _Grower:
         self.progressed = [True] * K
         self.npos = [0] * K
         self.rounds = [0] * K
-        # one fixed-point scale per class tree, from all N rows, so that the
-        # compacted and the full passes quantize alike: every class's
-        # largest weight in one read
-        m = torch.maximum(grad.abs().amax(dim=1), hess.abs().amax(dim=1))
-        self.shifts = tuple(hist_shift(v, n) for v in host_list(m, timer))
-        self.scales = scale_table(self.shifts, dev)
+        self.use_int = (self.stream and params.int_hist
+                        and gh_scales is not None)
+        if self.use_int:
+            # the rows' integer grid values for K2's int form (reference:
+            # ops/grow.py:592-594), exact: round(q * scale * (1 / scale))
+            # is q for every |q| <= 127
+            inv = 1.0 / torch.clamp(gh_scales, min=1e-30)
+            self.grad_h = torch.round(self.grad_h * inv[:, 0:1]).to(
+                torch.int8)
+            self.hess_h = torch.round(self.hess_h * inv[:, 1:2]).to(
+                torch.int8)
+            self.hscale = gh_scales[:, None, None, None, :]
+            self.shifts = self.scales = None
+        else:
+            # one fixed-point scale per class tree, from all N rows, so
+            # that the compacted and the full passes quantize alike: every
+            # class's largest weight in one read
+            m = torch.maximum(grad.abs().amax(dim=1), hess.abs().amax(dim=1))
+            self.shifts = tuple(hist_shift(v, n)
+                                for v in host_list(m, timer))
+            self.scales = scale_table(self.shifts, dev)
 
     def find_splits(self, hist, g, h, c):
         p = self.p
@@ -223,10 +254,19 @@ class _Grower:
 
     def _k2(self, bins_T, leaf_id, tabs, grad, hess, cnt, num_slots,
             with_hist):
-        """K2 with the trees' bitsets, shifts and scale table."""
-        return route_and_hist(bins_T, leaf_id, tabs, self.cat_words, grad,
-                              hess, cnt, num_slots, self.Bmax, self.shifts,
-                              with_hist, self.scales)
+        """K2 with the trees' bitsets, shifts and scale table; under the
+        int form its int32 histograms unscaled to float32 (reference:
+        ops/grow.py:1010-1011, :2116-2118)."""
+        if not self.use_int:
+            return route_and_hist(bins_T, leaf_id, tabs, self.cat_words,
+                                  grad, hess, cnt, num_slots, self.Bmax,
+                                  self.shifts, with_hist, self.scales)
+        new_leaf, hist, counts = route_and_hist_int(
+            bins_T, leaf_id, tabs, self.cat_words, grad, hess, cnt,
+            num_slots, self.Bmax, with_hist)
+        if hist is not None:
+            hist = hist.to(torch.float32) * self.hscale
+        return new_leaf, hist, counts
 
     def k2(self, tabs, num_slots, with_hist):
         """The round's K2 pass over the histogram rows; for a compacted
@@ -243,10 +283,12 @@ class _Grower:
             self.records.append(tabs[0])
             self.leaf_id_h = new_leaf
         else:
+            # a route-only pass reads no weights (the int form takes none)
+            w = (None, None) if self.use_int else (self.grad, self.hess)
             with phase(self.timer, "k2"):
                 self.leaf_id, _, _ = self._k2(
-                    self.bins_T, self.leaf_id, tabs, self.grad, self.hess,
-                    self.cnt, num_slots, False)
+                    self.bins_T, self.leaf_id, tabs, *w, self.cnt, num_slots,
+                    False)
             self.leaf_id_h = new_leaf
         return hist, counts
 
@@ -597,15 +639,18 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               routing: RoutingLayout, params: GrowParams, max_bins: int,
               timer=None, col_mask: Optional[torch.Tensor] = None,
               compact_rows: int = 0,
-              bins: Optional[torch.Tensor] = None) -> GrowResult:
+              bins: Optional[torch.Tensor] = None,
+              gh_scales: Optional[torch.Tensor] = None) -> GrowResult:
     """Grow one tree.  bins_T: (G, N) uint8; bins: the same (N, G)
     row-major, which ``hist_backend="pallas"`` reads; grad, hess, cnt: (N,)
     float32, zero on pad and out-of-bag rows (cnt is the in-bag mask);
     col_mask: (F,) bool feature sample, or None; compact_rows: the row
     capacity of a sampled tree's compacted view (covering every in-bag
-    row), 0 for none."""
+    row), 0 for none; gh_scales: the (2,) float32 (grad, hess) scales of
+    quantized gradients (grad and hess then hold grid values), or None."""
     gr = _Grower(bins_T, grad[None], hess[None], cnt, layout, routing,
-                 params, max_bins, timer, col_mask, compact_rows, bins)
+                 params, max_bins, timer, col_mask, compact_rows, bins,
+                 None if gh_scales is None else gh_scales[None])
     return _grow(gr, params)
 
 
@@ -613,12 +658,14 @@ def grow_tree_k(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                 cnt: torch.Tensor, layout: FeatureLayout,
                 routing: RoutingLayout, params: GrowParams, max_bins: int,
                 timer=None,
-                col_mask: Optional[torch.Tensor] = None) -> GrowResult:
+                col_mask: Optional[torch.Tensor] = None,
+                gh_scales: Optional[torch.Tensor] = None) -> GrowResult:
     """Grow K class trees in lockstep (reference: ops/grow.py grow_tree_k).
     grad, hess: (K, N) float32, class k's gradients in row k, zero on pad
-    rows; the other arguments as ``grow_tree``'s, the feature sample shared
+    rows; gh_scales: (K, 2) class k's quantized (grad, hess) scales, or
+    None; the other arguments as ``grow_tree``'s, the feature sample shared
     by the classes.  Class k's tree is ``grow_tree``'s on grad[k], hess[k],
     bit for bit."""
     gr = _Grower(bins_T, grad, hess, cnt, layout, routing, params, max_bins,
-                 timer, col_mask)
+                 timer, col_mask, gh_scales=gh_scales)
     return _grow(gr, params)

@@ -16,7 +16,10 @@ versions:
   ``scatter`` and ``pallas`` backends;
 - per class, ``hist3_plain`` is the contract of K8 (kernels/hist_wide.py),
   which ``build_histograms_k`` dispatches to for K class trees grown
-  together: (K, S, G, Bmax, 3) histograms, one shift per class.
+  together: (K, S, G, Bmax, 3) histograms, one shift per class;
+- ``build_histograms_int``: (K, S, G, Bmax, 2) int32 sums of quantized
+  gradients' integer grid values, the contract of K2's int form
+  (kernels/route_hist.py ``route_and_hist_int``).
 
 Sums are exact fixed-point: every weight is rounded once to an integer
 multiple of 2**-shift (``quantize``) and the integers are added in int64, so
@@ -95,6 +98,27 @@ def build_histograms_gh(bins_T: torch.Tensor, slot: torch.Tensor,
         acc.index_add_(0, cell + 1, qh)
     hist = dequantize(acc, shift).reshape(num_slots, G, max_bins, 2)
     return hist, slot_counts(slot, cnt, num_slots)
+
+
+def build_histograms_int(bins_T: torch.Tensor, slot: torch.Tensor,
+                         qgrad: torch.Tensor, qhess: torch.Tensor,
+                         num_slots: int, max_bins: int) -> torch.Tensor:
+    """(K, S, G, Bmax, 2) int32 (grad, hess) histograms of each class's
+    rows' slots: exact integer sums of the int8 grid values (reference:
+    stream_kernel.py ``int_weights`` branch :342-386).  bins_T: (G, N)
+    uint8; slot: (K, N) int32; qgrad, qhess: (K, N) int8.  The caller keeps
+    every sum inside int32 (the ``int_hist`` gate: half * N < 2**31)."""
+    G = bins_T.shape[0]
+    K = slot.shape[0]
+    kk, rows = torch.nonzero(slot >= 0, as_tuple=True)
+    s = kk * num_slots + slot[kk, rows].to(torch.int64)
+    q = torch.stack([qgrad[kk, rows], qhess[kk, rows]], dim=1).to(torch.int32)
+    acc = torch.zeros((K * num_slots * G * max_bins, 2), dtype=torch.int32,
+                      device=bins_T.device)
+    for g in range(G):
+        acc.index_add_(0, (s * G + g) * max_bins
+                       + bins_T[g, rows].to(torch.int64), q)
+    return acc.reshape(K, num_slots, G, max_bins, 2)
 
 
 def hist3_plain(bins_T: torch.Tensor, slot: torch.Tensor,

@@ -13,12 +13,19 @@ integer ops on any device:
   xor-ed (JAX's partitionable mode, its default, in which element i does not
   depend on the length drawn);
 - the float: the top 23 bits under the exponent of 1.0, ``((bits >> 9) |
-  0x3F800000)`` read as a float32, minus 1.0: a value in [0, 1).
+  0x3F800000)`` read as a float32, minus 1.0: a value in [0, 1);
+- a draw of shape (N, K) is the flat draw of N * K elements in row-major
+  order;
+- ``split(key, num)``: new key i is the two Threefry words of counter i,
+  ``jax.random.split`` under the partitionable Threefry (its
+  ``_threefry_split_foldlike``).
 
 torch's uint32 covers few operations, so the words are int64 tensors held
 in [0, 2**32) by masking after every add and shift.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -52,6 +59,13 @@ def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
+def split(key, num: int = 2):
+    """``num`` new keys, ``jax.random.split(key, num)``."""
+    i = torch.arange(num, dtype=torch.int64)
+    b0, b1 = threefry2x32(key, i >> 32, i & _MASK32)
+    return [(int(a), int(b)) for a, b in zip(b0.tolist(), b1.tolist())]
+
+
 def random_bits(key, n: int, device=None) -> torch.Tensor:
     """(n,) int64 32-bit words, ``jax.random.bits(key, (n,), uint32)``."""
     i = torch.arange(n, dtype=torch.int64, device=device)
@@ -59,8 +73,10 @@ def random_bits(key, n: int, device=None) -> torch.Tensor:
     return b0 ^ b1
 
 
-def uniform(key, n: int, device=None) -> torch.Tensor:
-    """(n,) float32 in [0, 1), ``jax.random.uniform(key, (n,))``."""
-    bits = random_bits(key, n, device)
+def uniform(key, shape, device=None) -> torch.Tensor:
+    """float32 in [0, 1) of ``shape`` (an int n or a tuple),
+    ``jax.random.uniform(key, shape)``."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    bits = random_bits(key, math.prod(shape), device)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return f - 1.0
+    return (f - 1.0).reshape(shape)

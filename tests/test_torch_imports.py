@@ -52,6 +52,7 @@ def test_import_loads_no_jax_and_builds_nothing():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"mods": [], "loaded": [],
                    "counts": {"predict_stream": 0, "route_and_hist": 0,
+                              "route_and_hist_int": 0,
                               "route_replay": 0, "leaf_gather": 0,
                               "scatter_hist": 0, "hist_direct": 0,
                               "hist_nibble": 0, "hist_wide": 0}}

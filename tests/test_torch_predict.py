@@ -276,6 +276,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 _CTYPE_OF = {"const uint8_t*": "c_void_p", "const int32_t*": "c_void_p",
+             "const int8_t*": "c_void_p",
              "const float*": "c_void_p", "float*": "c_void_p",
              "int32_t*": "c_void_p", "int64_t*": "c_void_p",
              "cudaStream_t": "c_void_p", "int64_t": "c_int64",

@@ -646,7 +646,8 @@ def test_train_without_device_type_raises_without_gpu(monkeypatch):
     {"cegb_penalty_split": 0.1},
     {"forcedsplits_filename": "splits.json"},
     {"linear_tree": True},
-    {"use_quantized_grad": True},
+    {"objective": "multiclass", "num_class": 3,
+     "data_sample_strategy": "goss"},
     {"extra_trees": True},
     {"path_smooth": 1.0},
     {"tree_learner": "data"},

@@ -113,13 +113,21 @@ Phases, each printing one JSON line:
    their bound and one ``index_add_`` call; a quantized arm (5 lockstep
    iterations through K2's int form over the 10 classes), one iteration's
    int launches replayed and timed.
+13. hist_adversarial: K5 and K8 launched on synthetic inputs made from
+   ``--seed`` (outside any main path's launch counts), each held bit-equal
+   to its plain version: every row in slot 0 and bin 0, weights at the
+   fixed-point shift's edge (sums near 2**61), S = 64 at Bmax 255, K = 10
+   x S = 64 at Bmax 63 and 255 (several pair tiles), G = 1, N = 1, N = 0,
+   no row in a slot, and a ragged row count with unaligned operands.  Last,
+   so that the cells before it run as they did before it existed.
 
 Then a ``kernels`` line (each ported kernel's launches on its main path,
 largest error against its plain version, time, plain time, bound and
-library time), the card's name and power limit as nvidia-smi prints them,
-and as the last line ``{"ok": true, "device": {...}}``.  Any failure raises
-and exits non-zero; without a CUDA device the script exits 2 and prints no
-result.
+library time; K5's entry also ``by_max_bin``, its replayed launches'
+times at max_bin 63 and 255), the card's name and power limit as
+nvidia-smi prints them, and as the last line ``{"ok": true, "device":
+{...}}``.  Any failure raises and exits non-zero; without a CUDA device
+the script exits 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -149,10 +157,11 @@ KERNEL_SOURCES = {
     "route_and_hist_int": "lightgbm_torch/kernels/csrc/route_and_hist.cu",
     "route_replay": "lightgbm_torch/kernels/csrc/route_replay.cu",
     "leaf_gather": "lightgbm_torch/kernels/csrc/leaf_gather.cu",
-    "scatter_hist": "lightgbm_torch/kernels/csrc/scatter_hist.cu",
+    # K5 and K8: two entry points of one source
+    "scatter_hist": "lightgbm_torch/kernels/csrc/hist_rows.cu",
     "hist_direct": "lightgbm_torch/kernels/csrc/hist_sorted.cu",
     "hist_nibble": "lightgbm_torch/kernels/csrc/hist_sorted.cu",
-    "hist_wide": "lightgbm_torch/kernels/csrc/hist_wide.cu"}
+    "hist_wide": "lightgbm_torch/kernels/csrc/hist_rows.cu"}
 KERNEL_REPLACES = {
     "predict_stream": "lightgbm_tpu/pallas/predict_kernel.py:176",
     "route_and_hist": "lightgbm_tpu/pallas/stream_kernel.py:580",
@@ -1595,7 +1604,129 @@ def phase_train_backends(seed, rows, ds63, Xs, ys, smi, iters=10,
                       "bound_ms": t["mean_bound_ms"],
                       "bound_by": t["bound_by"],
                       "library_ms": t["mean_index_add_ms"]})
+    # K5 runs at both max_bins; its entry's own numbers are max_bin 63's
+    lines[0]["by_max_bin"] = {
+        str(mb): {k: timing[f"scatter_hist_{mb}"][f"mean_{k}"]
+                  for k in ("ms", "plain_ms", "bound_ms")}
+        | {"library_ms": timing[f"scatter_hist_{mb}"]["mean_index_add_ms"],
+           "launches_timed": timing[f"scatter_hist_{mb}"]["launches_timed"]}
+        for mb in (63, 255)}
     return lines, err
+
+
+def hist_adversarial_inputs(seed, n, G, K, S, Bmax, kind="random",
+                            offset=0):
+    """Operands of one K5 (K = 0) or K8 launch on the card, made with numpy
+    from ``seed``: (G, N) bins, (K, N) slots (half the rows in a slot),
+    N(0, 1) grads, hesses in [0.01, 1), 0/1 counts.  ``kind``: "one_cell"
+    puts every row in slot 0 and bin 0; "edge" also makes every weight
+    +-1.5 or 1.5, so that at the shift hist_shift picks the sums reach
+    2**61; "negative" puts no row in any slot.  ``offset`` > 0 hands the
+    kernel views that start that many elements into their storage, so no
+    operand is 16-byte aligned (the kernel's scalar row path)."""
+    import torch
+    from lightgbm_torch.ops.histogram import hist_shift
+
+    rs = np.random.RandomState(seed)
+    kk = max(K, 1)
+    bins = rs.randint(0, Bmax, size=(G, n + offset)).astype(np.uint8)
+    slot = np.where(rs.rand(kk, n + offset) < 0.5,
+                    rs.randint(0, S, size=(kk, n + offset)), -1)
+    grad = rs.randn(kk, n + offset).astype(np.float32)
+    hess = rs.uniform(0.01, 1.0, size=(kk, n + offset)).astype(np.float32)
+    cnt = (rs.rand(n + offset) < 0.9).astype(np.float32)
+    if kind in ("one_cell", "edge"):
+        bins[:] = 0
+        slot[:] = 0
+    if kind == "edge":
+        grad = np.where(grad < 0, -1.5, 1.5).astype(np.float32)
+        hess[:] = 1.5
+        cnt[:] = 1.0
+    if kind == "negative":
+        slot = -1 - rs.randint(0, 4, size=slot.shape)
+    shifts = [hist_shift(float(max(np.abs(grad[k]).max(initial=0.0),
+                                   np.abs(hess[k]).max(initial=0.0))), n)
+              for k in range(kk)]
+    dev = torch.device("cuda")
+    # each operand a contiguous view ``offset`` elements into its storage
+    bins_t = torch.from_numpy(bins.reshape(-1)).to(dev)[
+        offset:offset + G * n].view(G, n)
+    flat = [torch.from_numpy(np.ascontiguousarray(x).reshape(-1)).to(dev)
+            [offset:offset + kk * n].view(kk, n)
+            for x in (slot.astype(np.int32), grad, hess)]
+    cnt_t = torch.from_numpy(cnt).to(dev)[offset:offset + n]
+    slot_t, grad_t, hess_t = flat
+    if K == 0:
+        return (bins_t, slot_t[0], grad_t[0], hess_t[0], cnt_t, S, Bmax,
+                shifts[0])
+    return (bins_t, slot_t, grad_t, hess_t, cnt_t, S, Bmax, shifts)
+
+
+# (label, kernel, n, G, K (0: K5's single-class call), S, Bmax, kind,
+# operand offset)
+HIST_ADVERSARIAL = (
+    ("k5_root_one_cell", "scatter_hist", 1_000_000, 28, 0, 1, 63,
+     "one_cell", 0),
+    ("k5_edge_weights", "scatter_hist", 1_000_000, 28, 0, 1, 255, "edge", 0),
+    ("k5_s64_b255", "scatter_hist", 1_000_000, 28, 0, 64, 255, "random", 0),
+    ("k5_s64_b63", "scatter_hist", 1_000_000, 28, 0, 64, 63, "random", 0),
+    ("k5_g1", "scatter_hist", 100_003, 1, 0, 7, 256, "random", 0),
+    ("k5_n1", "scatter_hist", 1, 28, 0, 3, 63, "random", 0),
+    ("k5_n0", "scatter_hist", 0, 28, 0, 3, 63, "random", 0),
+    ("k5_negative", "scatter_hist", 50_000, 28, 0, 16, 63, "negative", 0),
+    ("k5_unaligned_ragged", "scatter_hist", 250_001, 28, 0, 13, 255,
+     "random", 1),
+    ("k8_k10_s64_b63", "hist_wide", 900_000, 28, 10, 64, 63, "random", 0),
+    ("k8_k10_s64_b255", "hist_wide", 900_000, 28, 10, 64, 255, "random", 0),
+    ("k8_root_one_cell", "hist_wide", 900_000, 28, 10, 1, 63, "one_cell", 0),
+    ("k8_edge_weights", "hist_wide", 900_000, 28, 10, 1, 63, "edge", 0),
+    ("k8_g1", "hist_wide", 100_002, 1, 3, 33, 2, "random", 0),
+    ("k8_n1", "hist_wide", 1, 28, 10, 64, 255, "random", 0),
+    ("k8_n0", "hist_wide", 0, 28, 10, 64, 63, "random", 0),
+    ("k8_negative", "hist_wide", 50_000, 28, 10, 64, 63, "negative", 0),
+    ("k8_unaligned_ragged", "hist_wide", 250_001, 28, 3, 21, 200, "random",
+     3),
+)
+
+
+def phase_hist_adversarial(seed):
+    """K5 and K8 launched on synthetic inputs that stress the kernel's
+    plan and arithmetic (one cell taking every row, weights at the shift's
+    edge, S = 64 at Bmax 255, K = 10 x S = 64 over several pair tiles,
+    G = 1, N = 1, N = 0, no row in a slot, a ragged end and unaligned
+    operands), each held bit-equal to its plain version on the same
+    tensors.  Outside any main path's launch counts.  Returns the largest
+    differences by kernel."""
+    import torch
+    from lightgbm_torch.kernels import hist_wide as hw, scatter_hist as sh
+
+    fns = {"scatter_hist": (sh.scatter_hist_cuda, sh.scatter_hist_plain),
+           "hist_wide": (hw.hist_wide_cuda, hw.hist_wide_plain)}
+    err = {"scatter_hist": 0.0, "hist_wide": 0.0}
+    cases = {}
+    for i, (label, name, n, G, K, S, Bmax, kind, off) in \
+            enumerate(HIST_ADVERSARIAL):
+        args = hist_adversarial_inputs(seed + i, n, G, K, S, Bmax, kind, off)
+        kernel, plain = fns[name]
+        out = kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        diff = max_abs_diff(out, want)
+        err[name] = max(err[name], diff)
+        if not (torch.equal(out, want) and torch.isfinite(out).all()):
+            raise RuntimeError(f"{label}: {name} differs from its plain "
+                               f"version (max abs {diff})")
+        cases[label] = {"kernel": name, "rows": n, "groups": G,
+                        "classes": max(K, 1), "slots": S, "max_bins": Bmax,
+                        "kind": kind, "operand_offset": off,
+                        "plan": list(hw.hist_plan(n, G, max(K, 1), S,
+                                                  Bmax)),
+                        "max_abs_err": diff}
+        del args, out, want
+    torch.cuda.empty_cache()
+    emit({"phase": "hist_adversarial", "cases": cases,
+          "all_bit_equal": True, "max_abs_err": err})
+    return err
 
 
 # --------------------------------------------------------------------------
@@ -2170,9 +2301,10 @@ def main(argv=None) -> int:
         del ds, Xs, ys
         mc_small_err = phase_train_multiclass_small(args.seed)
         k2k_k8, mc_err = phase_train_multiclass(args.seed, smi)
+        adv_err = phase_hist_adversarial(args.seed)
     kernel_lines = [k1, k2, k3, k4] + k567 + k2k_k8 + [k2i]
     errs = (small_err, sampled_small_err, quant_small_err, sampled_err,
-            backends_err, quant_err, mc_small_err, mc_err)
+            backends_err, quant_err, mc_small_err, mc_err, adv_err)
     for k in kernel_lines[1:]:
         # K2's int form has one row for both its class counts
         names = ((k["name"], k["name"] + "_k")

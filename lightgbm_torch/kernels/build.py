@@ -31,11 +31,12 @@ SOURCES: Dict[str, str] = {
     "route_and_hist_int": "csrc/route_and_hist.cu",
     "leaf_gather": "csrc/leaf_gather.cu",
     "route_replay": "csrc/route_replay.cu",
-    "scatter_hist": "csrc/scatter_hist.cu",
+    # K5 and K8 are two entry points of one source, each its own library
+    "scatter_hist": "csrc/hist_rows.cu",
     # K6 and K7 are two entry points of one source, each its own library
     "hist_direct": "csrc/hist_sorted.cu",
     "hist_nibble": "csrc/hist_sorted.cu",
-    "hist_wide": "csrc/hist_wide.cu",
+    "hist_wide": "csrc/hist_rows.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -70,12 +71,13 @@ SIGNATURES = {
     "scatter_hist": ("lgbt_scatter_hist",
                      [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
                       _c_int, _c_int, _c_f32, _c_f32, _c_ptr, _c_ptr,
-                      _c_ptr]),
+                      _c_ptr, _c_ptr]),
     "hist_direct": ("lgbt_hist_direct", _SORTED_ARGS),
     "hist_nibble": ("lgbt_hist_nibble", _SORTED_ARGS),
     "hist_wide": ("lgbt_hist_wide",
                   [_c_ptr, _c_i64, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
-                   _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+                   _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+                   _c_ptr]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -146,3 +148,16 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
+
+
+def check_operands(name: str, dev, operands) -> None:
+    """Each (label, tensor, dtype) must be a contiguous tensor of that dtype
+    on the CUDA device ``dev``."""
+    if dev.type != "cuda":
+        raise LightGBMError(f"{name}: the CUDA kernel takes CUDA tensors, "
+                            f"got {dev}")
+    for label, x, dtype in operands:
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise LightGBMError(
+                f"{name}: {label} must be a contiguous {dtype} tensor on "
+                f"{dev}, got {x.dtype} on {x.device}")

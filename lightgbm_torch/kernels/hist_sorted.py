@@ -26,7 +26,6 @@ import torch
 from ..ops.histogram import hist3_plain
 from ..utils.log import LightGBMError
 from . import build
-from .scatter_hist import check_operands
 
 # the largest Bmax K6 takes; K7 takes the rest up to 256
 DIRECT_MAX_BINS = 128
@@ -64,7 +63,7 @@ def _launch(kernel: str, bins, gather_idx, scalars, grad, hess, cnt,
             num_slots: int, max_bins: int, shift: int,
             block_rows: int) -> torch.Tensor:
     dev = bins.device
-    check_operands(kernel, dev, (
+    build.check_operands(kernel, dev, (
         ("bins", bins, torch.uint8), ("gather_idx", gather_idx, torch.int32),
         ("scalars", scalars, torch.int32), ("grad", grad, torch.float32),
         ("hess", hess, torch.float32), ("cnt", cnt, torch.float32)))

@@ -1,5 +1,6 @@
 """K-class slot histograms of rows in their natural order (batched
-multiclass).  The CUDA kernel's wrapper and its plain PyTorch version.
+multiclass).  The CUDA kernel's wrapper, its plain PyTorch version, and the
+launch plan that K5 (scatter_hist.py) and K8 share.
 
 Counterpart of ``lightgbm_tpu/pallas/hist_kernel.py:305-354``
 (``build_histograms_wide``, the ``_hist_wide`` kernel) and of the K-class
@@ -15,17 +16,104 @@ Bmax <= 128 and a 12 MB block) and its per-class fallback are not copied:
 the kernel takes any Bmax <= 256 and any K * S.  ``hist_wide`` launches the
 kernel for tensors on a CUDA device and runs ``hist_wide_plain`` only for
 tensors on the CPU; a kernel that fails to build or launch raises.
+
+The kernel (``csrc/hist_rows.cu``, which also serves K5 at K = 1) adds rows
+into shared-memory tiles of one class's slots x as many groups as fit x
+bins; ``hist_plan`` picks that layout, and the row ranges, from the
+launch's shapes alone.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ..ops.histogram import hist3_plain, scale_table
 from ..utils.log import LightGBMError
 from . import build
-from .scatter_hist import check_operands
+
+# the H100 (sm_90) limits a plan keeps to
+SMS = 132                   # streaming multiprocessors
+SMEM_BLOCK = 232448         # a block's dynamic shared memory
+SMEM_SM = 233472            # an SM's shared memory, 1 KB of it per block
+THREADS = 1024              # threads a block, the most an SM holds at the
+                            # kernel's 64 registers
+CELL_BYTES = 20             # five 32-bit words per (pair, group, bin) cell
+
+
+class HistPlan(NamedTuple):
+    """One launch of csrc/hist_rows.cu, in the field order the C side reads.
+
+    A block holds a tile of ``pairs_per_tile`` class-major (class, slot)
+    pairs (pair = class * S + slot) x ``groups_per_tile`` groups x Bmax
+    bins in ``smem`` bytes of shared memory.  ``pair_tiles`` x
+    ``group_tiles`` tiles cover every pair and group, and each runs once
+    per range of ``rows_per_range`` rows (``row_ranges`` of them), in a
+    block of ``threads`` threads."""
+    pairs_per_tile: int
+    groups_per_tile: int
+    pair_tiles: int
+    group_tiles: int
+    row_ranges: int
+    rows_per_range: int
+    threads: int
+    smem: int
+
+
+PLAN_FIELDS = HistPlan._fields
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def hist_plan(n: int, G: int, K: int, S: int, Bmax: int) -> HistPlan:
+    """The launch plan of one K5 (K = 1) or K8 launch over ``n`` rows, G
+    groups, K classes, S slots and Bmax bins.
+
+    A block's tile holds the S pairs of one class and as many groups as
+    fit in a block's shared memory, so that the block reads one class's
+    slots and weights once for all its groups; or, where one group's S
+    pairs do not fit, an even share of them and one group.  Rows then split
+    into the fewest ranges that give a full wave of blocks over the card
+    and a last wave at least 85 % full, each thread at least 4 rows."""
+    return _plan(n, G, K, S, Bmax, SMEM_BLOCK, THREADS)
+
+
+def _plan(n: int, G: int, K: int, S: int, Bmax: int, smem_budget: int,
+          threads: int) -> HistPlan:
+    """``hist_plan`` with the block's shared memory and threads given, so
+    that tests can reach plans of many tiles and row ranges at small
+    shapes."""
+    cap = max(1, smem_budget // (Bmax * CELL_BYTES))
+    if S <= cap:
+        ppt, gpt = S, min(G, cap // S)
+    else:
+        ppt, gpt = _cdiv(S, _cdiv(S, cap)), 1
+    pair_tiles, group_tiles = _cdiv(K * S, ppt), _cdiv(G, gpt)
+    smem = ppt * gpt * Bmax * CELL_BYTES
+    per_sm = max(1, min(THREADS // threads, SMEM_SM // (smem + 1024)))
+    wave = SMS * per_sm
+    blocks = pair_tiles * group_tiles
+    r_max = min(_cdiv(max(n, 1), 4 * threads), 65535)
+    ranges, best = 1, 0.0
+    for r in range(1, r_max + 1):
+        fill = r * blocks / (_cdiv(r * blocks, wave) * wave)
+        if r * blocks >= wave and fill >= 0.85:
+            ranges = r
+            break
+        if fill > best + 1e-9:
+            ranges, best = r, fill
+    rows_per_range = 4 * _cdiv(_cdiv(max(n, 1), ranges), 4)
+    return HistPlan(ppt, gpt, pair_tiles, group_tiles,
+                    _cdiv(max(n, 1), rows_per_range), rows_per_range,
+                    threads, smem)
+
+
+def plan_arg(plan: HistPlan) -> ctypes.Array:
+    """The plan as the C side's int64 array."""
+    return (ctypes.c_int64 * len(PLAN_FIELDS))(*plan)
 
 
 def hist_wide(bins_T, slot, grad, hess, cnt, num_slots: int, max_bins: int,
@@ -55,11 +143,12 @@ def hist_wide_plain(bins_T, slot, grad, hess, cnt, num_slots: int,
 
 def hist_wide_cuda(bins_T, slot, grad, hess, cnt, num_slots: int,
                    max_bins: int, shifts, scales=None) -> torch.Tensor:
-    """Launch csrc/hist_wide.cu on the current stream."""
+    """Launch csrc/hist_rows.cu (``lgbt_hist_wide``) on the current stream,
+    under ``hist_plan`` of the shapes."""
     dev = bins_T.device
     if scales is None:
         scales = scale_table(shifts, dev)
-    check_operands("hist_wide", dev, (
+    build.check_operands("hist_wide", dev, (
         ("bins_T", bins_T, torch.uint8), ("slot", slot, torch.int32),
         ("grad", grad, torch.float32), ("hess", hess, torch.float32),
         ("cnt", cnt, torch.float32), ("scales", scales, torch.float32)))
@@ -70,6 +159,7 @@ def hist_wide_cuda(bins_T, slot, grad, hess, cnt, num_slots: int,
             or tuple(scales.shape) != (2, K)
             or num_slots < 1 or not 0 < max_bins <= 256 or G < 1):
         raise LightGBMError("hist_wide: shapes do not agree")
+    plan = hist_plan(n, G, K, num_slots, max_bins)
     hist = torch.empty((K, num_slots, G, max_bins, 3), dtype=torch.float32,
                        device=dev)
     acc = torch.empty(hist.shape, dtype=torch.int64, device=dev)
@@ -77,10 +167,11 @@ def hist_wide_cuda(bins_T, slot, grad, hess, cnt, num_slots: int,
     rc = fn(bins_T.data_ptr(), n, G, K, slot.data_ptr(), grad.data_ptr(),
             hess.data_ptr(), cnt.data_ptr(), num_slots, max_bins,
             scales.data_ptr(), acc.data_ptr(), hist.data_ptr(),
+            plan_arg(plan),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise LightGBMError(f"hist_wide kernel launch failed "
-                            f"(cudaError {rc})")
+                            f"(cudaError {rc}, plan {tuple(plan)})")
     hist_wide_cuda.launches += 1
     return hist
 

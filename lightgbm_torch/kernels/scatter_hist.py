@@ -8,10 +8,12 @@ the row adds nothing) and the (N,) float32 grad, hess and count weights, it
 returns the (S, G, Bmax, 3) float32 (grad, hess, count) histograms: grad and
 hess exact fixed point at ``shift``, counts exact (ops/histogram.py).  The
 TPU kernel's VMEM gate (Bmax <= 128, G <= 64) and one-hot fallback are not
-copied: the kernel takes any Bmax <= 256 and any G.  ``scatter_hist``
-launches the kernel for tensors on a CUDA device and runs
-``scatter_hist_plain`` only for tensors on the CPU; a kernel that fails to
-build or launch raises.
+copied: the kernel takes any Bmax <= 256 and any G.  It is K8's kernel
+(``csrc/hist_rows.cu``) at K = 1 with the scale passed by value, under
+K8's launch plan (``hist_wide.hist_plan``).  ``scatter_hist`` launches
+the kernel for tensors on a CUDA device and runs ``scatter_hist_plain``
+only for tensors on the CPU; a kernel that fails to build or launch
+raises.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from ..ops.histogram import hist3_plain
 from ..utils.log import LightGBMError
 from . import build
+from .hist_wide import hist_plan, plan_arg
 
 
 def scatter_hist(bins_T, slot, grad, hess, cnt, num_slots: int,
@@ -44,24 +47,13 @@ def scatter_hist_plain(bins_T, slot, grad, hess, cnt, num_slots: int,
                        shift)
 
 
-def check_operands(name: str, dev: torch.device, operands) -> None:
-    """Each (label, tensor, dtype) must be a contiguous tensor of that dtype
-    on the CUDA device ``dev``."""
-    if dev.type != "cuda":
-        raise LightGBMError(f"{name}: the CUDA kernel takes CUDA tensors, "
-                            f"got {dev}")
-    for label, x, dtype in operands:
-        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-            raise LightGBMError(
-                f"{name}: {label} must be a contiguous {dtype} tensor on "
-                f"{dev}, got {x.dtype} on {x.device}")
-
-
 def scatter_hist_cuda(bins_T, slot, grad, hess, cnt, num_slots: int,
                       max_bins: int, shift: int) -> torch.Tensor:
-    """Launch csrc/scatter_hist.cu on the current stream."""
+    """Launch csrc/hist_rows.cu (``lgbt_scatter_hist``, K8's kernel at
+    K = 1) on the current stream, under ``hist_wide.hist_plan`` of the
+    shapes."""
     dev = bins_T.device
-    check_operands("scatter_hist", dev, (
+    build.check_operands("scatter_hist", dev, (
         ("bins_T", bins_T, torch.uint8), ("slot", slot, torch.int32),
         ("grad", grad, torch.float32), ("hess", hess, torch.float32),
         ("cnt", cnt, torch.float32)))
@@ -69,6 +61,7 @@ def scatter_hist_cuda(bins_T, slot, grad, hess, cnt, num_slots: int,
     if (any(tuple(x.shape) != (n,) for x in (slot, grad, hess, cnt))
             or num_slots < 1 or not 0 < max_bins <= 256 or G < 1):
         raise LightGBMError("scatter_hist: shapes do not agree")
+    plan = hist_plan(n, G, 1, num_slots, max_bins)
     hist = torch.empty((num_slots, G, max_bins, 3), dtype=torch.float32,
                        device=dev)
     acc = torch.empty(hist.shape, dtype=torch.int64, device=dev)
@@ -76,11 +69,11 @@ def scatter_hist_cuda(bins_T, slot, grad, hess, cnt, num_slots: int,
     rc = fn(bins_T.data_ptr(), n, G, slot.data_ptr(), grad.data_ptr(),
             hess.data_ptr(), cnt.data_ptr(), num_slots, max_bins,
             float(2.0 ** shift), float(2.0 ** -shift), acc.data_ptr(),
-            hist.data_ptr(),
+            hist.data_ptr(), plan_arg(plan),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise LightGBMError(f"scatter_hist kernel launch failed "
-                            f"(cudaError {rc})")
+                            f"(cudaError {rc}, plan {tuple(plan)})")
     scatter_hist_cuda.launches += 1
     return hist
 

@@ -113,13 +113,16 @@ Phases, each printing one JSON line:
    their bound and one ``index_add_`` call; a quantized arm (5 lockstep
    iterations through K2's int form over the 10 classes), one iteration's
    int launches replayed and timed.
-13. hist_adversarial: K5 and K8 launched on synthetic inputs made from
-   ``--seed`` (outside any main path's launch counts), each held bit-equal
-   to its plain version: every row in slot 0 and bin 0, weights at the
-   fixed-point shift's edge (sums near 2**61), S = 64 at Bmax 255, K = 10
-   x S = 64 at Bmax 63 and 255 (several pair tiles), G = 1, N = 1, N = 0,
-   no row in a slot, and a ragged row count with unaligned operands.  Last,
-   so that the cells before it run as they did before it existed.
+13. hist_adversarial: K5, K8 and both forms of K2 launched on synthetic
+   inputs made from ``--seed`` (outside any main path's launch counts),
+   each held bit-equal to its plain version: every row in slot 0 and bin
+   0, weights at the fixed-point shift's edge (sums near 2**61) and, for
+   K2's int form, grid values of -127 and 127 at its int32 gate, S = 64 at
+   Bmax 255, K = 10 x S = 64 at Bmax 63 and 255 (several pair tiles), G =
+   1, N = 1, N = 0, no row in a slot, and a ragged row count with
+   unaligned operands; for K2 at K = 1 and K = 10, also EFB-bundled, NaN,
+   zero-as-missing and categorical route records.  Last, so that the cells
+   before it run as they did before it existed.
 
 Then a ``kernels`` line (each ported kernel's launches on its main path,
 largest error against its plain version, time, plain time, bound and
@@ -1128,7 +1131,7 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
           "max_abs_err": err["route_and_hist"],
           "ms": full["mean_ms"], "plain_ms": full["mean_plain_ms"],
           "bound_ms": full["mean_bound_ms"], "bound_by": full["bound_by"],
-          "library_ms": None}
+          "library_ms": full["mean_index_add_ms"]}
     k4 = {"name": "leaf_gather", "route": "cuda",
           "source": KERNEL_SOURCES["leaf_gather"],
           "replaces": KERNEL_REPLACES["leaf_gather"],
@@ -1689,20 +1692,158 @@ HIST_ADVERSARIAL = (
 )
 
 
-def phase_hist_adversarial(seed):
-    """K5 and K8 launched on synthetic inputs that stress the kernel's
-    plan and arithmetic (one cell taking every row, weights at the shift's
-    edge, S = 64 at Bmax 255, K = 10 x S = 64 over several pair tiles,
-    G = 1, N = 1, N = 0, no row in a slot, a ragged end and unaligned
-    operands), each held bit-equal to its plain version on the same
-    tensors.  Outside any main path's launch counts.  Returns the largest
-    differences by kernel."""
+def k2_adversarial_inputs(seed, n, G, K, S, Bmax, kind, int_form,
+                          offset=0):
+    """Arguments of one K2 launch with histograms on the card (the float
+    form's, or with ``int_form`` the int form's), made with numpy from
+    ``seed``.  Route records: leaves 0 .. S/2 - 1 split on a random group
+    at a random bin (rows to slots 2j and 2j + 1), a leaf that keeps slot
+    S - 1 when S is odd, and a leaf without a slot; leaf ids at random.
+    Weights: N(0, 1) grads and hesses in [0.01, 1) (int form: grid values
+    in [-127, 127] and [0, 127]), 0/1 counts.  ``kind``: "routes" gives the
+    split leaves EFB-bundled features, NaN and zero-as-missing bins with
+    either default direction, and categorical splits with random bitsets;
+    "one_cell" puts every row in one leaf that keeps slot 0, every bin 0;
+    "edge" also makes every weight the largest the form takes (float: +-1.5
+    and 1.5, so that at the shift hist_shift picks the sums reach 2**61;
+    int: -127 and 127); "negative" puts no row in any slot.  ``offset`` > 0
+    hands the kernel views that start that many elements into their
+    storage, so that no operand is 16-byte aligned."""
     import torch
-    from lightgbm_torch.kernels import hist_wide as hw, scatter_hist as sh
+    from lightgbm_torch.kernels import layout as tl
+    from lightgbm_torch.ops.histogram import hist_shift, scale_table
+
+    rs = np.random.RandomState(seed)
+    m = n + offset
+    W = (Bmax + 31) // 32
+    half = S // 2
+    keep_odd = S % 2 == 1
+    L = half + int(keep_odd) + 1
+    tabs = np.zeros((K, L, len(tl.ROUTE_FIELDS)), np.int32)
+    words = rs.randint(-2 ** 31, 2 ** 31, size=(K, L, W)).astype(np.int32)
+    tabs[:, :, tl.R_NANBIN] = -1
+    tabs[:, :, tl.R_MZBIN] = -1
+    tabs[:, :, tl.R_NBINS] = Bmax
+    j = np.arange(half)
+    tabs[:, :half, tl.R_CHOSEN] = 1
+    tabs[:, :half, tl.R_NEWID] = rs.randint(0, L, size=(K, half))
+    tabs[:, :half, tl.R_GROUP] = rs.randint(0, G, size=(K, half))
+    tabs[:, :half, tl.R_THR] = rs.randint(0, Bmax, size=(K, half))
+    tabs[:, :half, tl.R_SLOT_L] = 2 * j
+    tabs[:, :half, tl.R_SLOT_R] = 2 * j + 1
+    if keep_odd:
+        tabs[:, half, tl.R_SLOT_KEEP] = S - 1
+    tabs[:, L - 1, tl.R_SLOT_KEEP] = -1
+    if kind == "routes":
+        shape = (K, half)
+        nb = rs.randint(2, Bmax + 1, size=shape)
+        bundled = rs.rand(*shape) < 0.4
+        tabs[:, :half, tl.R_BUNDLED] = bundled
+        tabs[:, :half, tl.R_NBINS] = np.where(bundled, nb, Bmax)
+        tabs[:, :half, tl.R_SPAN] = np.where(
+            bundled, rs.randint(0, Bmax, size=shape), 0)
+        tabs[:, :half, tl.R_DEFBIN] = rs.randint(0, Bmax, size=shape) % nb
+        tabs[:, :half, tl.R_NANBIN] = np.where(
+            rs.rand(*shape) < 0.5, rs.randint(0, Bmax, size=shape), -1)
+        tabs[:, :half, tl.R_MZBIN] = np.where(
+            rs.rand(*shape) < 0.5, rs.randint(0, Bmax, size=shape), -1)
+        tabs[:, :half, tl.R_DEFLEFT] = rs.rand(*shape) < 0.5
+        tabs[:, :half, tl.R_ISCAT] = rs.rand(*shape) < 0.3
+    bins = rs.randint(0, Bmax, size=(G, m)).astype(np.uint8)
+    leaf = rs.randint(0, L, size=(K, m)).astype(np.int32)
+    if kind in ("one_cell", "edge"):
+        bins[:] = 0
+        leaf[:] = L - 1
+        tabs[:, L - 1, tl.R_SLOT_KEEP] = 0
+    if kind == "negative":
+        tabs[:, :, tl.R_SLOT_L] = -1
+        tabs[:, :, tl.R_SLOT_R] = -2
+        tabs[:, :, tl.R_SLOT_KEEP] = -1
+    cnt = (rs.rand(m) < 0.9).astype(np.float32)
+    if int_form:
+        grad = rs.randint(-127, 128, size=(K, m)).astype(np.int8)
+        hess = rs.randint(0, 128, size=(K, m)).astype(np.int8)
+        if kind == "edge":
+            grad[:] = -127
+            hess[:] = 127
+    else:
+        grad = rs.randn(K, m).astype(np.float32)
+        hess = rs.uniform(0.01, 1.0, size=(K, m)).astype(np.float32)
+        if kind == "edge":
+            grad = np.where(grad < 0, -1.5, 1.5).astype(np.float32)
+            hess[:] = 1.5
+    dev = torch.device("cuda")
+
+    def rows_view(x):
+        # a contiguous (K, n) or (G, n) view ``offset`` elements into its
+        # storage
+        t = torch.from_numpy(np.ascontiguousarray(x).reshape(-1)).to(dev)
+        return t[offset:offset + x.shape[0] * n].view(x.shape[0], n)
+
+    bins_t, leaf_t, grad_t, hess_t = (rows_view(x)
+                                      for x in (bins, leaf, grad, hess))
+    cnt_t = torch.from_numpy(cnt).to(dev)[offset:offset + n]
+    tabs_t = torch.from_numpy(tabs).to(dev)
+    words_t = torch.from_numpy(words).to(dev)
+    if int_form:
+        return (bins_t, leaf_t, tabs_t, words_t, grad_t, hess_t, cnt_t, S,
+                Bmax, True)
+    g, h = grad_t.float().cpu().numpy(), hess_t.float().cpu().numpy()
+    shifts = tuple(hist_shift(float(max(np.abs(g[k]).max(initial=0.0),
+                                        np.abs(h[k]).max(initial=0.0))), n)
+                   for k in range(K))
+    return (bins_t, leaf_t, tabs_t, words_t, grad_t, hess_t, cnt_t, S, Bmax,
+            shifts, True, scale_table(shifts, dev))
+
+
+# (label, n, G, K, S, Bmax, kind, operand offset), each run through both
+# forms of K2 (the int form's gate case alone through the int form)
+K2_ADVERSARIAL = (
+    ("k1_one_cell", 1_000_000, 28, 1, 1, 63, "one_cell", 0),
+    ("k10_one_cell", 900_000, 28, 10, 1, 63, "one_cell", 0),
+    ("k1_edge_weights", 1_000_000, 28, 1, 1, 255, "edge", 0),
+    ("k10_edge_weights", 900_000, 28, 10, 1, 63, "edge", 0),
+    ("k1_s64_b255", 1_000_000, 28, 1, 64, 255, "random", 0),
+    ("k10_s64_b255", 900_000, 28, 10, 64, 255, "random", 0),
+    ("k10_s64_b63", 900_000, 28, 10, 64, 63, "random", 0),
+    ("k1_routes", 200_000, 28, 1, 63, 256, "routes", 0),
+    ("k10_routes", 100_000, 28, 10, 33, 200, "routes", 0),
+    ("k1_g1", 100_003, 1, 1, 7, 256, "random", 0),
+    ("k3_g1", 100_002, 1, 3, 33, 2, "random", 0),
+    ("k1_n1", 1, 28, 1, 3, 63, "random", 0),
+    ("k10_n1", 1, 28, 10, 64, 255, "random", 0),
+    ("k1_n0", 0, 28, 1, 3, 63, "random", 0),
+    ("k10_n0", 0, 28, 10, 64, 63, "random", 0),
+    ("k1_negative", 50_000, 28, 1, 16, 63, "negative", 0),
+    ("k10_negative", 50_000, 28, 10, 64, 63, "negative", 0),
+    ("k1_unaligned_ragged", 250_001, 28, 1, 13, 255, "routes", 1),
+    ("k3_unaligned_ragged", 250_001, 28, 3, 21, 200, "routes", 3),
+)
+# the int form at its caller's gate (half * N < 2**31): 2**31 // 127 rows
+# of -127 and 127 in one cell
+K2_INT_GATE = ("k1_int32_gate", 2 ** 31 // 127, 1, 1, 1, 1, "edge", 0)
+
+
+def phase_hist_adversarial(seed):
+    """K5, K8 and both forms of K2 launched on synthetic inputs that stress
+    the tile pass's plan and arithmetic (one cell taking every row, weights
+    at the shift's edge and, for K2's int form, at the int32 gate's, S = 64
+    at Bmax 255, K = 10 x S = 64 over several pair tiles, G = 1, N = 1,
+    N = 0, no row in a slot, a ragged end and unaligned operands; for K2
+    also EFB, NaN, zero-as-missing and categorical route records), each
+    held bit-equal to its plain version on the same tensors.  Outside any
+    main path's launch counts.  Returns the largest differences by kernel
+    (K2 over K > 1 classes as ``route_and_hist_k`` and
+    ``route_and_hist_int_k``)."""
+    import torch
+    from lightgbm_torch.kernels import hist_wide as hw, route_hist as rh
+    from lightgbm_torch.kernels import scatter_hist as sh
 
     fns = {"scatter_hist": (sh.scatter_hist_cuda, sh.scatter_hist_plain),
            "hist_wide": (hw.hist_wide_cuda, hw.hist_wide_plain)}
-    err = {"scatter_hist": 0.0, "hist_wide": 0.0}
+    err = {"scatter_hist": 0.0, "hist_wide": 0.0, "route_and_hist": 0.0,
+           "route_and_hist_k": 0.0, "route_and_hist_int": 0.0,
+           "route_and_hist_int_k": 0.0}
     cases = {}
     for i, (label, name, n, G, K, S, Bmax, kind, off) in \
             enumerate(HIST_ADVERSARIAL):
@@ -1722,6 +1863,35 @@ def phase_hist_adversarial(seed):
                         "plan": list(hw.hist_plan(n, G, max(K, 1), S,
                                                   Bmax)),
                         "max_abs_err": diff}
+        del args, out, want
+    k2_cases = [(c, f) for c in K2_ADVERSARIAL for f in (False, True)]
+    k2_cases.append((K2_INT_GATE, True))
+    for i, ((label, n, G, K, S, Bmax, kind, off), int_form) in \
+            enumerate(k2_cases):
+        args = k2_adversarial_inputs(seed + 100 + i, n, G, K, S, Bmax, kind,
+                                     int_form, off)
+        name = "route_and_hist_int" if int_form else "route_and_hist"
+        kernel, plain = ((rh.route_and_hist_int_cuda,
+                          rh.route_and_hist_int_plain) if int_form else
+                         (rh.route_and_hist_cuda, rh.route_and_hist_plain))
+        out = kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        diff = max(max_abs_diff(x, y) for x, y in zip(out, want))
+        key = name + ("_k" if K > 1 else "")
+        err[key] = max(err[key], diff)
+        if not (all(torch.equal(x, y) for x, y in zip(out, want))
+                and torch.isfinite(out[1].float()).all()):
+            raise RuntimeError(f"{label}: {name} differs from its plain "
+                               f"version (max abs {diff})")
+        cell = rh.INT_CELL_BYTES if int_form else rh.CELL_BYTES
+        cases[f"{name}_{label}"] = {
+            "kernel": name, "rows": n, "groups": G, "classes": K,
+            "slots": S, "max_bins": Bmax, "kind": kind,
+            "operand_offset": off,
+            "plan": list(hw.hist_plan(n, G, K, S, Bmax, cell)),
+            "rows_in_a_slot": float(out[2].sum().item()),
+            "max_abs_err": diff}
         del args, out, want
     torch.cuda.empty_cache()
     emit({"phase": "hist_adversarial", "cases": cases,
@@ -1856,8 +2026,9 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
     replayed bit-equal and timed; a quantized arm (``use_quantized_grad``,
     ``quant_iters`` lockstep iterations through K2's int form over the K
     classes, held-out accuracy > 0.3, one iteration's launches replayed
-    and timed).  Returns the K2 (K > 1) and K8 entries of the kernels line
-    and the replays' largest differences."""
+    and timed, one more iteration timed phase by phase).  Returns the K2
+    (K > 1) and K8 entries of the kernels line and the replays' largest
+    differences."""
     import torch
     import lightgbm_torch as lt
     from lightgbm_torch import kernels
@@ -1970,6 +2141,7 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
     q_full = time_k2_launches([(a, o) for a, o in qt.cap.k2i if a[9]], True)
     qt_seconds = qt.seconds
     del qt
+    q_prof_s, q_prof_phases, q_prof_reads = profiled_iteration(qbst)
     emit({"phase": "train_multiclass", "card": smi, "rows": rows - held_out,
           "held_out_rows": held_out, "features": 28, "classes": K,
           "iterations": iters, "num_leaves": 255, "binning_s": binning_s,
@@ -1994,7 +2166,10 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
                         q_counts["route_and_hist_int"] / quant_iters,
                         "held_out_top1_accuracy": q_acc,
                         "replayed_launches_timed_iter": q_replayed,
-                        "k2_int_k_full_hist": q_full}})
+                        "k2_int_k_full_hist": q_full,
+                        "profiled_iteration_s": q_prof_s,
+                        "profiled_iteration_phases_s": q_prof_phases,
+                        "profiled_iteration_host_reads": q_prof_reads}})
     lines = [
         {"name": "route_and_hist_k", "route": "cuda",
          "source": KERNEL_SOURCES["route_and_hist"],
@@ -2003,7 +2178,7 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
          "max_abs_err": err["route_and_hist_k"],
          "ms": k2k["mean_ms"], "plain_ms": k2k["mean_plain_ms"],
          "bound_ms": k2k["mean_bound_ms"], "bound_by": k2k["bound_by"],
-         "library_ms": None},
+         "library_ms": k2k["mean_index_add_ms"]},
         {"name": "hist_wide", "route": "cuda",
          "source": KERNEL_SOURCES["hist_wide"],
          "replaces": KERNEL_REPLACES["hist_wide"],

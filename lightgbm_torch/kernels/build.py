@@ -3,8 +3,9 @@
 Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds).  Libraries go to ``lightgbm_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source builds anew.  Nothing builds when the package is imported.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header builds anew.
+Nothing builds when the package is imported.
 """
 from __future__ import annotations
 
@@ -57,12 +58,12 @@ SIGNATURES = {
                        [_c_ptr, _c_i64, _c_int, _c_int, _c_ptr, _c_ptr,
                         _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
                         _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
-                        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+                        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
     "route_and_hist_int": ("lgbt_route_and_hist_int",
                            [_c_ptr, _c_i64, _c_int, _c_int, _c_ptr, _c_ptr,
                             _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
                             _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
-                            _c_ptr, _c_ptr, _c_ptr]),
+                            _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
     "leaf_gather": ("lgbt_leaf_gather",
                     [_c_ptr, _c_i64, _c_ptr, _c_int, _c_ptr, _c_ptr]),
     "route_replay": ("lgbt_route_replay",
@@ -95,9 +96,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (_HERE / SOURCES[name]).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
+    """Where the kernel's library is built: named by a hash of its source,
+    every header under csrc/ and the flags."""
+    h = hashlib.sha256((_HERE / SOURCES[name]).read_bytes())
+    for header in sorted((_HERE / "csrc").glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

@@ -63,194 +63,19 @@
 //
 // The launch plan (tile shape, row ranges, threads, shared memory) is
 // chosen by kernels/hist_wide.py::hist_plan from (N, G, K, S, Bmax) and
-// checked here; a bad plan is refused.
-#include <climits>
+// checked here; a bad plan is refused.  The tile pass itself
+// (csrc/hist_tile.cuh, channel set GradHessCount) is shared with K2's
+// histogram pass.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hist_tile.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory, sm_90
+using namespace hist_tile;
+
 constexpr int kCellBytes = 20;    // five 32-bit words per (pair, group, bin)
-
-// plan fields, in the order of kernels/hist_wide.py::PLAN_FIELDS
-enum {
-  kPairsPerTile, kGroupsPerTile, kPairTiles, kGroupTiles, kRowRanges,
-  kRowsPerRange, kThreads, kSmem
-};
-
-struct Args {
-  const uint8_t* bins_T;   // (G, N)
-  const int32_t* slot;     // (K, N)
-  const float* grad;       // (K, N)
-  const float* hess;       // (K, N)
-  const float* cnt;        // (N,)
-  const float* scales;     // (2, K) device table, or null: scale0
-  unsigned long long* acc;  // (K * S * G * Bmax * 3) int64 sums
-  int64_t n;
-  int64_t rows_per_range;
-  int G, K, S, Bmax;
-  int pairs_per_tile, groups_per_tile;
-  float scale0;
-  int vec;                 // 16-byte row loads allowed
-};
-
-// The tile of one block: cells = pairs_per_tile x groups_per_tile x Bmax
-// of five u32 arrays (grad low, grad high, hess low, hess high, count), 20
-// bytes a cell.  An int64 add is two native 32-bit adds: the low word's
-// old value says whether it carried into the high word.
-__device__ __forceinline__ void add_cell(unsigned* w, int cells, int cell,
-                                         long long qg, long long qh, int c) {
-  const unsigned long long v[2] = {static_cast<unsigned long long>(qg),
-                                   static_cast<unsigned long long>(qh)};
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    unsigned* lo = w + 2 * j * cells + cell;
-    const unsigned l = static_cast<unsigned>(v[j]);
-    unsigned h = static_cast<unsigned>(v[j] >> 32);
-    if (l != 0u) {
-      const unsigned old = atomicAdd(lo, l);
-      h += (old + l < old) ? 1u : 0u;  // the low word carried
-    }
-    if (h != 0u) atomicAdd(lo + cells, h);
-  }
-  if (c != 0) atomicAdd(w + 4 * cells + cell, static_cast<unsigned>(c));
-}
-
-__device__ __forceinline__ void load4(const int32_t* p, int nr, bool full,
-                                      int out[4]) {
-  if (full) {
-    const int4 v = __ldg(reinterpret_cast<const int4*>(p));
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) out[i] = i < nr ? __ldg(p + i) : -1;
-  }
-}
-
-__device__ __forceinline__ void load4(const float* p, int nr, bool full,
-                                      float out[4]) {
-  if (full) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) out[i] = i < nr ? __ldg(p + i) : 0.0f;
-  }
-}
-
-__device__ __forceinline__ unsigned load_bins4(const uint8_t* p, int nr,
-                                               bool full) {
-  if (full) return __ldg(reinterpret_cast<const unsigned*>(p));
-  unsigned w = 0u;
-  for (int i = 0; i < nr; ++i)
-    w |= static_cast<unsigned>(__ldg(p + i)) << (8 * i);
-  return w;
-}
-
-// rows at or past r1 load as slot -1 (no slot), weights 0, bins 0
-__device__ __forceinline__ int rows_left(int64_t row, int64_t r1) {
-  return r1 - row >= 4 ? 4 : (r1 > row ? static_cast<int>(r1 - row) : 0);
-}
-
-// grid: x = pair tile, y = group tile, z = row range
-__global__ void __launch_bounds__(kMaxThreads)
-hist_rows_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned smem[];
-  const int P = a.K * a.S;
-  const int c0 = static_cast<int>(blockIdx.x) * a.pairs_per_tile;
-  const int c1 = min(c0 + a.pairs_per_tile, P);
-  const int gpt = a.groups_per_tile;
-  const int g0 = static_cast<int>(blockIdx.y) * gpt;
-  const int ng = min(g0 + gpt, a.G) - g0;
-  const int cells = a.pairs_per_tile * gpt * a.Bmax;
-  for (int i = threadIdx.x; i < 5 * cells; i += blockDim.x) smem[i] = 0u;
-  __syncthreads();
-
-  const int64_t r0 = static_cast<int64_t>(blockIdx.z) * a.rows_per_range;
-  const int64_t r1 =
-      r0 + a.rows_per_range < a.n ? r0 + a.rows_per_range : a.n;
-  const int k0 = c0 / a.S;
-  const int k1 = (c1 - 1) / a.S;
-  // each thread takes 4 rows at a time, the block's threads 4 * blockDim
-  for (int64_t row = r0 + 4LL * threadIdx.x; row < r1;
-       row += 4LL * blockDim.x) {
-    const int nr = rows_left(row, r1);
-    const bool full = a.vec && nr == 4;
-    float cw[4];
-    load4(a.cnt + row, nr, full, cw);
-    for (int k = k0; k <= k1; ++k) {
-      // class k's slots in the tile's pairs: [lo, lo + span)
-      const int lo = max(c0 - k * a.S, 0);
-      const int span = min(c1 - k * a.S, a.S) - lo;
-      const int64_t kr = static_cast<int64_t>(k) * a.n + row;
-      int s[4];
-      float gw[4], hw[4];
-      load4(a.slot + kr, nr, full, s);
-      load4(a.grad + kr, nr, full, gw);
-      load4(a.hess + kr, nr, full, hw);
-      // lp: the pair within the tile (-1: not in the tile)
-      int lp[4];
-      bool any = false;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool ok = static_cast<unsigned>(s[i] - lo) <
-                        static_cast<unsigned>(span);
-        lp[i] = ok ? k * a.S + s[i] - c0 : -1;
-        any |= ok;
-      }
-      if (!any) continue;
-      const float sc = a.scales != nullptr ? __ldg(a.scales + k) : a.scale0;
-      long long qg[4], qh[4];
-      int qc[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qg[i] = __float2ll_rn(gw[i] * sc);
-        qh[i] = __float2ll_rn(hw[i] * sc);
-        qc[i] = __float2int_rn(cw[i]);
-      }
-      const uint8_t* col = a.bins_T + static_cast<int64_t>(g0) * a.n + row;
-      unsigned word = load_bins4(col, nr, full);
-      for (int gl = 0; gl < ng; ++gl) {
-        // the next group's bin bytes, loaded before this group's adds
-        const unsigned next_word =
-            gl + 1 < ng ? load_bins4(col + (gl + 1) * a.n, nr, full) : 0u;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (lp[i] < 0) continue;
-          const int b = (word >> (8 * i)) & 0xff;
-          add_cell(smem, cells, (lp[i] * gpt + gl) * a.Bmax + b, qg[i],
-                   qh[i], qc[i]);
-        }
-        word = next_word;
-      }
-    }
-  }
-  __syncthreads();
-
-  // flush the tile once
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int b = i % a.Bmax;
-    const int t = i / a.Bmax;
-    const int g = g0 + t % gpt;
-    const int p = c0 + t / gpt;
-    if (p >= c1 || g >= g0 + ng) continue;
-    const unsigned long long vg =
-        (static_cast<unsigned long long>(smem[cells + i]) << 32) | smem[i];
-    const unsigned long long vh =
-        (static_cast<unsigned long long>(smem[3 * cells + i]) << 32) |
-        smem[2 * cells + i];
-    const int vc = static_cast<int>(smem[4 * cells + i]);
-    unsigned long long* out =
-        a.acc + ((static_cast<int64_t>(p) * a.G + g) * a.Bmax + b) * 3;
-    if (vg != 0ull) atomicAdd(out, vg);
-    if (vh != 0ull) atomicAdd(out + 1, vh);
-    if (vc != 0)
-      atomicAdd(out + 2, static_cast<unsigned long long>(
-                             static_cast<long long>(vc)));
-  }
-}
 
 // channels (grad, hess, count) of n values in K equal runs of per_class:
 // grad and hess of run k times inv_scales[k] (or inv0)
@@ -270,37 +95,13 @@ __global__ void to_float_kernel(const unsigned long long* __restrict__ acc,
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-bool aligned(const void* p, uintptr_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
-// the plan's limits; false: refuse it
-bool plan_ok(const int64_t* q, int64_t n, int G, int K, int S, int Bmax) {
-  const int64_t P = static_cast<int64_t>(K) * S;
-  return q[kPairsPerTile] >= 1 && q[kGroupsPerTile] >= 1 &&
-         q[kPairTiles] >= 1 && q[kGroupTiles] >= 1 &&
-         q[kPairTiles] * q[kPairsPerTile] >= P &&
-         (q[kPairTiles] - 1) * q[kPairsPerTile] < P &&
-         q[kGroupTiles] * q[kGroupsPerTile] >= G &&
-         (q[kGroupTiles] - 1) * q[kGroupsPerTile] < G &&
-         q[kPairTiles] <= INT_MAX && q[kGroupTiles] <= 65535 &&
-         q[kRowRanges] >= 1 && q[kRowRanges] <= 65535 &&
-         q[kRowsPerRange] >= 4 && q[kRowsPerRange] % 4 == 0 &&
-         q[kRowRanges] * q[kRowsPerRange] >= n &&
-         q[kThreads] >= 32 && q[kThreads] <= kMaxThreads &&
-         q[kThreads] % 32 == 0 &&
-         q[kSmem] == q[kPairsPerTile] * q[kGroupsPerTile] * Bmax *
-                         kCellBytes &&
-         q[kSmem] <= kMaxSmem;
-}
-
 int hist_rows(const uint8_t* bins_T, int64_t n, int G, int K,
               const int32_t* slot, const float* grad, const float* hess,
               const float* cnt, int S, int Bmax, const float* scales,
               float scale0, float inv0, const int64_t* plan, int64_t* acc,
               float* hist, cudaStream_t stream) {
   if (n < 0 || G < 1 || K < 1 || S < 1 || Bmax < 1 || Bmax > 256 ||
-      plan == nullptr || !plan_ok(plan, n, G, K, S, Bmax))
+      !plan_ok(plan, n, G, K, S, Bmax, kCellBytes))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* h_acc = reinterpret_cast<unsigned long long*>(acc);
   const int64_t per_class = static_cast<int64_t>(S) * G * Bmax * 3;
@@ -308,26 +109,14 @@ int hist_rows(const uint8_t* bins_T, int64_t n, int G, int K,
   cudaError_t err = cudaMemsetAsync(h_acc, 0, sizeof(int64_t) * cells, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    Args a;
+    Args a{};
     a.bins_T = bins_T; a.slot = slot; a.grad = grad; a.hess = hess;
-    a.cnt = cnt; a.scales = scales; a.acc = h_acc; a.n = n;
-    a.rows_per_range = plan[kRowsPerRange];
+    a.cnt = cnt; a.scales = scales; a.out = h_acc; a.n = n;
     a.G = G; a.K = K; a.S = S; a.Bmax = Bmax;
-    a.pairs_per_tile = static_cast<int>(plan[kPairsPerTile]);
-    a.groups_per_tile = static_cast<int>(plan[kGroupsPerTile]);
     a.scale0 = scale0;
     a.vec = n % 4 == 0 && aligned(slot, 16) && aligned(grad, 16) &&
             aligned(hess, 16) && aligned(cnt, 16) && aligned(bins_T, 4);
-    const int smem = static_cast<int>(plan[kSmem]);
-    err = cudaFuncSetAttribute(
-        hist_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned>(plan[kPairTiles]),
-                    static_cast<unsigned>(plan[kGroupTiles]),
-                    static_cast<unsigned>(plan[kRowRanges]));
-    hist_rows_kernel<<<grid, static_cast<unsigned>(plan[kThreads]), smem,
-                       stream>>>(a);
-    err = cudaGetLastError();
+    err = launch_tiles<GradHessCount>(a, plan, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   to_float_kernel<<<static_cast<unsigned>(ceil_div(cells, 256)), 256, 0,

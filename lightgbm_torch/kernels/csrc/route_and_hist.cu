@@ -1,77 +1,75 @@
 // One growth round of training: route every row through the round's
 // splits, then build the (grad, hess) histograms and exact counts of the
-// rows' new histogram slots.
+// rows' new histogram slots, for K class trees at once (K = 1: one tree).
 //
 // Replaces the TPU kernel lightgbm_tpu/pallas/stream_kernel.py
-// `route_and_hist` -> `_route_hist_kernel` / `_route_step` (reference
-// analog: src/treelearner/cuda/cuda_data_partition.cu +
-// cuda_histogram_constructor.cu, which also split routing and histograms
-// into separate kernels).
+// `route_and_hist` -> `_route_hist_kernel` / `_route_step` (its num_class = K
+// branches :174-205, :263-279, :349-396; reference analog:
+// src/treelearner/cuda/cuda_data_partition.cu + cuda_histogram_constructor.cu,
+// which also split routing and histograms into separate kernels).  The TPU
+// kernel gathers the route tables with a one-hot bf16 matmul over 7-bit
+// digits and contracts a bin one-hot on its matrix unit, bf16 weights (or a
+// bf16 hi+lo pair) into float32; neither is copied.
+//
+// The function.  Routing: each (row, class) reads its leaf's 64-byte int32
+// route record (lightgbm_torch/kernels/layout.py ROUTE_FIELDS), the bin of
+// the split's group in the (G, N) uint8 bins, unbundles an EFB bin, sends a
+// NaN / zero-as-missing bin the default way and reads a categorical split's
+// bitset; it writes the row's new leaf and histogram slot, and adds the
+// row's count weight to its slot's exact count.  Histograms: cell (k, s, g,
+// b) sums, over the rows n with slot[k, n] == s and bins_T[g, n] == b,
+// grad[k, n] and hess[k, n] rounded once to int64 multiples of 2**-shift_k
+// (__float2ll_rn of an exact float product), converted once to float32
+// (__ll2float_rn, then the exact 2**-shift_k).  Integer sums are exact in
+// any order, so the result is the same on every run and equals the plain
+// version bit for bit.  The caller picks each class's shift (from its own
+// largest weight, so a class's sums are those of a launch of its own) so
+// that no sum can overflow.
+//
+// The int form (quantized-gradient training; TPU kernel: the
+// `int_weights=True` branch of `_route_hist_kernel`, stream_kernel.py
+// :342-386, which contracts an int8 one-hot on the int8 MXU into int32):
+// the same routing, then (K, N) int8 grad and hess grid values (|q| <= 127,
+// hess >= 0) summed exactly as int32; the caller's gate (half * N < 2**31)
+// keeps every sum inside int32, so no fixed-point shift, no int64 scratch
+// and no conversion pass.  The grower unscales the int32 sums (ops/grow.py).
 //
 // Design (sm_90a):
-//   * Routing is one thread per row: the row's leaf selects a 64-byte int32
-//     route record (lightgbm_torch/kernels/layout.py ROUTE_FIELDS, four int4
-//     loads through the read-only cache), the row's bin is read from the
-//     split's group column of the (G, N) uint8 bins, EFB bundles are
-//     unbundled, NaN / zero-as-missing bins follow the default direction,
-//     categorical splits read a per-leaf bitset.  The TPU gathers the table
-//     values with a one-hot bf16 matmul over 7-bit digits; here it is a
-//     plain indexed load.  Per-slot counts are integer shared-memory
-//     atomics, flushed with one 64-bit global atomic per slot and block.
-//   * Histograms are exact fixed point, so the result is the same on every
-//     run and equals the plain version
-//     (lightgbm_torch/ops/histogram.py::build_histograms) bit for bit: each
-//     weight is rounded once to an int64 multiple of 2**-shift
-//     (__float2ll_rn of an exact float product), the integers are added
-//     with 64-bit shared-memory atomics (integer adds commute), flushed to
-//     an int64 global histogram with 64-bit atomics, and converted once to
-//     float32 (__ll2float_rn, then the exact 2**-shift).  The caller picks
-//     shift so that no sum can overflow.  The TPU kernel instead rounds the
-//     weights to bf16 (single) or a bf16 hi+lo pair (mixed) to feed its
-//     matrix unit; neither is copied.
-//   * Shared memory: a block owns one group, a range of rows and a range
-//     of (class, slot) pairs.  One slot of one group is Bmax x 2 int64
-//     (1 KB at Bmax 64), so up to kSmemBytes / (Bmax * 16) pairs share a
-//     block; more pairs split over gridDim.z.  Blocks of one row range are
-//     adjacent in blockIdx.x (the group), so the slot, grad and hess reads
-//     of the G blocks of a range mostly hit L2.
-//   * Classes (batched multiclass, lightgbm_tpu/ops/grow.py grow_tree_k):
-//     K class trees route and accumulate in one launch.  Each row has one
-//     leaf id, slot, grad and hess per class, and each class its own
-//     fixed-point scale (its own largest weight sets it, so a class's sums
-//     are the same as in a launch of its own).  Routing runs one thread per
-//     (row, class), the class on gridDim.y.  The histogram pairs are
-//     class-major (pair = class * S + slot), so a block's pairs cover a run
-//     of classes: it makes one pass over its rows for each of them, the
-//     single-class loop with that class's slots, weights and scale, and
-//     re-reads a row's bin byte from L1/L2 once per class.  One pass that
-//     read it once for all classes was 4 % slower at K = 1 and 3 % faster
-//     at K = 10 (PERF.md, PR 5); binary training runs K = 1.  The TPU
-//     kernel stacks the classes on the channel axis of one one-hot
-//     contraction instead.  K = 1 is the single-class launch.
-//   * What bounds it: the bytes a pass must move (bins, leaf ids in and
-//     out, grad, hess, counts: ~48 B/row at 28 groups) take ~14 us at
-//     1M rows and 3.35 TB/s; the adds are far fewer operations than the
-//     card's rate covers.  This first version is held back instead by
-//     shared-memory atomic conflicts (all rows of a pass land in few slots,
-//     and rows of a warp share bins), by each group's block re-reading the
-//     row's slot and weights, and by the global flush.  Its times are in
-//     PERF.md; making it fast is later work.
-//
-//   * The int form (quantized-gradient training; TPU kernel: the
-//     `int_weights=True` branch of `_route_hist_kernel`,
-//     stream_kernel.py:342-386, which contracts an int8 one-hot on the int8
-//     MXU into int32): the same routing kernel, then `hist_int_kernel`,
-//     which reads each row's int8 grad and hess grid values (|q| <= 127,
-//     hess >= 0) and adds them with 32-bit shared-memory atomics into an
-//     int32 tile per (class, slot, group), flushed with 32-bit global
-//     atomics into the int32 result.  Integer adds commute, so the sums are
-//     exact and the same on every run; the caller's gate (half * N < 2**31)
-//     keeps every sum inside int32, so no 64-bit atomic, no fixed-point
-//     shift and no conversion pass is needed.  Against the float form a row
-//     moves a quarter of the weight bytes, an atomic is half as wide and a
-//     block holds twice the pairs.  The grower unscales the int32 sums
-//     (ops/grow.py).
+//   * Routing is one thread per (row, class), the class on gridDim.y: four
+//     int4 record loads through the read-only cache, one bin byte, the
+//     bitset word for a categorical split.  Per-slot counts are shared-memory
+//     atomics, flushed with one 64-bit global atomic per slot and block, and
+//     converted by a small kernel.
+//   * The histogram pass is csrc/hist_tile.cuh, the tile pass K5 and K8 run
+//     (csrc/hist_rows.cu), over the slots routing wrote.  A block's
+//     shared-memory tile holds one class's S slots (an even share of them
+//     where one group's S slots do not fit) x as many groups as fit in 227
+//     KB x Bmax bins, so it reads one class's slots and weights once for all
+//     its groups; 1024 threads read 4 rows each at a time (int4 slots,
+//     float4 grad and hess or one 32-bit word each of int8 grid values, one
+//     32-bit word of 4 bin bytes per group; a scalar edge for a ragged end
+//     and for unaligned operands, as in a compacted launch whose N is not a
+//     multiple of 4); a row is placed with no division and one compare.
+//     Float form: each int64 sum is two 32-bit words added with native
+//     ATOMS.ADD, the low word first, the carry read from the old value it
+//     returns (16 bytes a cell); the tile is flushed with native 64-bit
+//     global adds into int64 scratch, then converted per class.  Int form:
+//     two int32 words (8 bytes a cell), flushed with 32-bit global adds
+//     straight into the int32 result.  kernels/hist_wide.py::hist_plan picks
+//     the tile and the row ranges from the shapes and the cell size; the
+//     plan is checked here and a bad one refused.
+//   * Why: a tile of one group makes each of G blocks re-read a class's
+//     slots and weights for a single group, and a 64-bit shared atomicAdd
+//     compiles to a compare-and-swap loop on sm_90a (ATOMS.CAST.SPIN.64);
+//     with both, K = 10 launches lost to one index_add_ of the same
+//     histogram (PERF.md).
+//   * What bounds it: the bytes a pass must move (bins, leaf ids in and out,
+//     grad and hess per class, counts, the histograms) take ~14 us at 1M
+//     rows and 3.35 TB/s (~40 us at K = 10); the adds are far fewer
+//     operations than the card's rate covers.  What holds it above that is
+//     each group tile's pass over its class's rows and, at the root, where
+//     every row lands in one slot, the shared-memory adds and the route
+//     kernel's 64-bit count add (still a compare-and-swap loop; PERF.md).
 //
 // Plain PyTorch version of the same contract (K > 1: K single-class calls):
 // lightgbm_torch/kernels/route_hist.py::route_and_hist_plain, and for the
@@ -79,11 +77,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hist_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSmemBytes = 96 * 1024;   // histogram tile of one block
-constexpr int kTargetBlocks = 4 * 132;  // ~4 blocks per SM on an H100
+constexpr int kThreads = 256;          // routing and conversion blocks
+constexpr int kCellBytes = 16;         // float form: four 32-bit words a cell
+constexpr int kIntCellBytes = 8;       // int form: two int32 words a cell
 
 // route record fields (kernels/layout.py ROUTE_FIELDS), as four int4:
 //   q0 = (chosen, new_id, group, span_start)
@@ -157,117 +157,6 @@ route_kernel(const uint8_t* __restrict__ bins_T, int64_t n_rows,
   }
 }
 
-// grid: x = group, y = row range, z = range of class-major (class, slot)
-// pairs; scales[k] is class k's 2**shift
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const uint8_t* __restrict__ bins_T, int64_t n_rows, int G,
-            int Bmax, const int32_t* __restrict__ slot,
-            const float* __restrict__ grad, const float* __restrict__ hess,
-            const float* __restrict__ scales, int64_t rows_per_block,
-            int pairs_per_block, int S, int K,
-            unsigned long long* __restrict__ hist_acc) {
-  extern __shared__ unsigned long long s_hist[];  // pairs x Bmax x 2
-  const int g = blockIdx.x;
-  const int P = K * S;
-  const int p0 = blockIdx.z * pairs_per_block;
-  const int p1 = p0 + pairs_per_block < P ? p0 + pairs_per_block : P;
-  const int k0 = p0 / S;
-  const int k1 = (p1 - 1) / S;
-  const int cells = (p1 - p0) * Bmax * 2;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) s_hist[i] = 0ull;
-  __syncthreads();
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
-  const int64_t r1 =
-      r0 + rows_per_block < n_rows ? r0 + rows_per_block : n_rows;
-  const uint8_t* col = bins_T + static_cast<int64_t>(g) * n_rows;
-  // one pass over the rows for each class of the block, its slots s0..s1
-  for (int k = k0; k <= k1; ++k) {
-    const int s0 = p0 - k * S > 0 ? p0 - k * S : 0;
-    const int s1 = p1 - k * S < S ? p1 - k * S : S;
-    const int64_t off = static_cast<int64_t>(k) * n_rows;
-    const int32_t* slot_k = slot + off;
-    const float* grad_k = grad + off;
-    const float* hess_k = hess + off;
-    const float scale = scales[k];
-    unsigned long long* tile = s_hist + (k * S + s0 - p0) * Bmax * 2;
-    for (int64_t row = r0 + threadIdx.x; row < r1; row += blockDim.x) {
-      const int s = slot_k[row];
-      if (s < s0 || s >= s1) continue;
-      const int b = col[row];
-      const long long qg = __float2ll_rn(grad_k[row] * scale);
-      const long long qh = __float2ll_rn(hess_k[row] * scale);
-      unsigned long long* cell = tile + ((s - s0) * Bmax + b) * 2;
-      if (qg != 0) atomicAdd(cell, static_cast<unsigned long long>(qg));
-      if (qh != 0) atomicAdd(cell + 1, static_cast<unsigned long long>(qh));
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const unsigned long long v = s_hist[i];
-    if (v == 0ull) continue;
-    const int c = i & 1;
-    const int b = (i >> 1) % Bmax;
-    const int p = p0 + (i >> 1) / Bmax;
-    atomicAdd(&hist_acc[((static_cast<int64_t>(p) * G + g) * Bmax + b) * 2 +
-                        c],
-              v);
-  }
-}
-
-// The int form's histograms: grid as hist_kernel's; qgrad, qhess (K, N)
-// int8 grid values; hist (K * S, G, Bmax, 2) int32, zeroed by the caller.
-__global__ void __launch_bounds__(kThreads)
-hist_int_kernel(const uint8_t* __restrict__ bins_T, int64_t n_rows, int G,
-                int Bmax, const int32_t* __restrict__ slot,
-                const int8_t* __restrict__ qgrad,
-                const int8_t* __restrict__ qhess, int64_t rows_per_block,
-                int pairs_per_block, int S, int K,
-                int* __restrict__ hist) {
-  extern __shared__ int s_ihist[];  // pairs x Bmax x 2
-  const int g = blockIdx.x;
-  const int P = K * S;
-  const int p0 = blockIdx.z * pairs_per_block;
-  const int p1 = p0 + pairs_per_block < P ? p0 + pairs_per_block : P;
-  const int k0 = p0 / S;
-  const int k1 = (p1 - 1) / S;
-  const int cells = (p1 - p0) * Bmax * 2;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) s_ihist[i] = 0;
-  __syncthreads();
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
-  const int64_t r1 =
-      r0 + rows_per_block < n_rows ? r0 + rows_per_block : n_rows;
-  const uint8_t* col = bins_T + static_cast<int64_t>(g) * n_rows;
-  for (int k = k0; k <= k1; ++k) {
-    const int s0 = p0 - k * S > 0 ? p0 - k * S : 0;
-    const int s1 = p1 - k * S < S ? p1 - k * S : S;
-    const int64_t off = static_cast<int64_t>(k) * n_rows;
-    const int32_t* slot_k = slot + off;
-    const int8_t* qgrad_k = qgrad + off;
-    const int8_t* qhess_k = qhess + off;
-    int* tile = s_ihist + (k * S + s0 - p0) * Bmax * 2;
-    for (int64_t row = r0 + threadIdx.x; row < r1; row += blockDim.x) {
-      const int s = slot_k[row];
-      if (s < s0 || s >= s1) continue;
-      const int qg = qgrad_k[row];
-      const int qh = qhess_k[row];
-      if ((qg | qh) == 0) continue;
-      int* cell = tile + ((s - s0) * Bmax + col[row]) * 2;
-      if (qg != 0) atomicAdd(cell, qg);
-      if (qh != 0) atomicAdd(cell + 1, qh);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int v = s_ihist[i];
-    if (v == 0) continue;
-    const int c = i & 1;
-    const int b = (i >> 1) % Bmax;
-    const int p = p0 + (i >> 1) / Bmax;
-    atomicAdd(&hist[((static_cast<int64_t>(p) * G + g) * Bmax + b) * 2 + c],
-              v);
-  }
-}
-
 // grid: x = range of values, y = class; class k's per_class values times
 // inv_scales[k] (null: times 1, the counts)
 __global__ void to_float_kernel(const unsigned long long* __restrict__ acc,
@@ -315,46 +204,49 @@ cudaError_t launch_route(const uint8_t* bins_T, int64_t n_rows, int K,
   return cudaGetLastError();
 }
 
-// The histogram grid of a round: (group, row range, pair range), about
-// kTargetBlocks blocks, pairs_per_block (class, slot) pairs of per_pair
-// shared bytes each.  Returns false when one pair does not fit.
-bool hist_grid(int64_t n_rows, int G, int P, int per_pair, dim3* grid,
-               int64_t* rows_per_block, int* pairs_per_block) {
-  int ppb = kSmemBytes / per_pair;
-  if (ppb < 1) return false;
-  if (ppb > P) ppb = P;
-  const int pair_blocks = static_cast<int>(ceil_div(P, ppb));
-  const int64_t row_blocks = ceil_div(n_rows, kThreads);
-  int64_t row_ranges = kTargetBlocks / (static_cast<int64_t>(G) * pair_blocks);
-  if (row_ranges > row_blocks) row_ranges = row_blocks;
-  if (row_ranges > 65535) row_ranges = 65535;
-  if (row_ranges < 1) row_ranges = 1;
-  const int64_t rpb = ceil_div(n_rows, row_ranges);
-  if (rpb > 0) row_ranges = ceil_div(n_rows, rpb);
-  *grid = dim3(static_cast<unsigned>(G), static_cast<unsigned>(row_ranges),
-               static_cast<unsigned>(pair_blocks));
-  *rows_per_block = rpb;
-  *pairs_per_block = ppb;
-  return true;
+// The histogram operands' limits and the plan; false: refuse the launch.
+bool hist_ok(int64_t n_rows, int G, int K, int S, int Bmax,
+             const int64_t* plan, int cell_bytes) {
+  return n_rows >= 0 && G >= 1 && K >= 1 && S >= 1 && Bmax >= 1 &&
+         Bmax <= 256 &&
+         hist_tile::plan_ok(plan, n_rows, G, K, S, Bmax, cell_bytes);
+}
+
+hist_tile::Args tile_args(const uint8_t* bins_T, int64_t n_rows, int G,
+                          int K, int S, int Bmax, const int32_t* slot,
+                          const void* grad, const void* hess,
+                          const float* scales, void* out, int vec) {
+  hist_tile::Args a{};
+  a.bins_T = bins_T; a.slot = slot; a.grad = grad; a.hess = hess;
+  a.scales = scales; a.out = out; a.n = n_rows;
+  a.G = G; a.K = K; a.S = S; a.Bmax = Bmax;
+  a.vec = n_rows % 4 == 0 && hist_tile::aligned(slot, 16) &&
+          hist_tile::aligned(bins_T, 4) && vec;
+  return a;
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  Launches on `stream`, does not
-// synchronise, and returns the first CUDA error (0 = launched).  Per-class
-// arrays are class-major: leaf_id, grad, hess, new_leaf and slot (K, N);
-// tabs (K, L, 16); cat_words (K, L, W); scales (2, K) on the device, row 0
-// each class's 2**shift and row 1 its 2**-shift.  hist_acc (K*S*G*Bmax*2)
-// and cnt_acc (K*S) are int64 scratch this call zeroes; hist (K, S, G,
-// Bmax, 2) and cnt_out (K, S) are the results, hist written only when
-// with_hist != 0.
+// synchronise, and returns the first CUDA error (0 = launched;
+// cudaErrorInvalidValue for a histogram plan outside its limits, before
+// anything is launched).  Per-class arrays are class-major: leaf_id, grad,
+// hess, new_leaf and slot (K, N); tabs (K, L, 16); cat_words (K, L, W);
+// scales (2, K) on the device, row 0 each class's 2**shift and row 1 its
+// 2**-shift.  hist_acc (K*S*G*Bmax*2) and cnt_acc (K*S) are int64 scratch
+// this call zeroes; hist (K, S, G, Bmax, 2) and cnt_out (K, S) are the
+// results, hist written only when with_hist != 0.  plan is the host array
+// of kernels/hist_wide.py::hist_plan for 16-byte cells (read only when
+// with_hist != 0).
 extern "C" int lgbt_route_and_hist(
     const uint8_t* bins_T, int64_t n_rows, int G, int K,
     const int32_t* leaf_id, const int32_t* tabs, int L,
     const int32_t* cat_words, int W, const float* grad, const float* hess,
     const float* cnt, int S, int Bmax, int with_hist, const float* scales,
     int32_t* new_leaf, int32_t* slot, int64_t* hist_acc, int64_t* cnt_acc,
-    float* hist, float* cnt_out, cudaStream_t stream) {
+    float* hist, float* cnt_out, const int64_t* plan, cudaStream_t stream) {
+  if (with_hist && !hist_ok(n_rows, G, K, S, Bmax, plan, kCellBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = launch_route(bins_T, n_rows, K, leaf_id, tabs, L,
                                  cat_words, W, cnt, S, new_leaf, slot,
                                  cnt_acc, cnt_out, stream);
@@ -364,43 +256,34 @@ extern "C" int lgbt_route_and_hist(
   const int64_t per_class = static_cast<int64_t>(S) * G * Bmax * 2;
   err = cudaMemsetAsync(h_acc, 0, sizeof(int64_t) * per_class * K, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int per_pair = Bmax * 2 * static_cast<int>(sizeof(int64_t));
-  dim3 grid;
-  int64_t rows_per_block;
-  int pairs_per_block;
-  if (!hist_grid(n_rows, G, K * S, per_pair, &grid, &rows_per_block,
-                 &pairs_per_block))
-    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0) {
-    const int smem = pairs_per_block * per_pair;
-    err = cudaFuncSetAttribute(hist_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    hist_kernel<<<grid, kThreads, smem, stream>>>(
-        bins_T, n_rows, G, Bmax, slot, grad, hess, scales, rows_per_block,
-        pairs_per_block, S, K, h_acc);
-    err = cudaGetLastError();
+    err = hist_tile::launch_tiles<hist_tile::GradHess>(
+        tile_args(bins_T, n_rows, G, K, S, Bmax, slot, grad, hess, scales,
+                  h_acc, hist_tile::aligned(grad, 16) &&
+                  hist_tile::aligned(hess, 16)),
+        plan, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 conv_grid(static_cast<unsigned>(ceil_div(per_class, kThreads)),
-                         static_cast<unsigned>(K));
+                       static_cast<unsigned>(K));
   to_float_kernel<<<conv_grid, kThreads, 0, stream>>>(h_acc, per_class,
-                                                        scales + K, hist);
+                                                      scales + K, hist);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The int form, the same interface but for the weights: qgrad, qhess (K, N)
 // int8 grid values (null when with_hist == 0, which reads none), and hist
 // (K, S, G, Bmax, 2) int32, written only when with_hist != 0; no scales
-// and no int64 histogram scratch.
+// and no int64 histogram scratch; plan for 8-byte cells.
 extern "C" int lgbt_route_and_hist_int(
     const uint8_t* bins_T, int64_t n_rows, int G, int K,
     const int32_t* leaf_id, const int32_t* tabs, int L,
     const int32_t* cat_words, int W, const int8_t* qgrad,
     const int8_t* qhess, const float* cnt, int S, int Bmax, int with_hist,
     int32_t* new_leaf, int32_t* slot, int64_t* cnt_acc, int32_t* hist,
-    float* cnt_out, cudaStream_t stream) {
+    float* cnt_out, const int64_t* plan, cudaStream_t stream) {
+  if (with_hist && !hist_ok(n_rows, G, K, S, Bmax, plan, kIntCellBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = launch_route(bins_T, n_rows, K, leaf_id, tabs, L,
                                  cat_words, W, cnt, S, new_leaf, slot,
                                  cnt_acc, cnt_out, stream);
@@ -408,24 +291,10 @@ extern "C" int lgbt_route_and_hist_int(
 
   const int64_t cells = static_cast<int64_t>(K) * S * G * Bmax * 2;
   err = cudaMemsetAsync(hist, 0, sizeof(int32_t) * cells, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int per_pair = Bmax * 2 * static_cast<int>(sizeof(int32_t));
-  dim3 grid;
-  int64_t rows_per_block;
-  int pairs_per_block;
-  if (!hist_grid(n_rows, G, K * S, per_pair, &grid, &rows_per_block,
-                 &pairs_per_block))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows > 0) {
-    const int smem = pairs_per_block * per_pair;
-    err = cudaFuncSetAttribute(hist_int_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    hist_int_kernel<<<grid, kThreads, smem, stream>>>(
-        bins_T, n_rows, G, Bmax, slot, qgrad, qhess, rows_per_block,
-        pairs_per_block, S, K, hist);
-    err = cudaGetLastError();
-  }
-  return static_cast<int>(err);
+  if (err != cudaSuccess || n_rows == 0) return static_cast<int>(err);
+  return static_cast<int>(hist_tile::launch_tiles<hist_tile::GradHessInt>(
+      tile_args(bins_T, n_rows, G, K, S, Bmax, slot, qgrad, qhess, nullptr,
+                hist, hist_tile::aligned(qgrad, 4) &&
+                hist_tile::aligned(qhess, 4)),
+      plan, stream));
 }

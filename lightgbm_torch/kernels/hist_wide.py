@@ -19,12 +19,14 @@ tensors on the CPU; a kernel that fails to build or launch raises.
 
 The kernel (``csrc/hist_rows.cu``, which also serves K5 at K = 1) adds rows
 into shared-memory tiles of one class's slots x as many groups as fit x
-bins; ``hist_plan`` picks that layout, and the row ranges, from the
-launch's shapes alone.
+bins (``csrc/hist_tile.cuh``, the tile pass K2's histograms share);
+``hist_plan`` picks that layout, and the row ranges, from the launch's
+shapes and the tile's cell size alone.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -39,11 +41,13 @@ SMEM_BLOCK = 232448         # a block's dynamic shared memory
 SMEM_SM = 233472            # an SM's shared memory, 1 KB of it per block
 THREADS = 1024              # threads a block, the most an SM holds at the
                             # kernel's 64 registers
-CELL_BYTES = 20             # five 32-bit words per (pair, group, bin) cell
+CELL_BYTES = 20             # K5/K8: five 32-bit words per (pair, group, bin)
+                            # cell (K2: route_hist.CELL_BYTES, INT_CELL_BYTES)
 
 
 class HistPlan(NamedTuple):
-    """One launch of csrc/hist_rows.cu, in the field order the C side reads.
+    """One launch of the tile pass (csrc/hist_tile.cuh: K5, K8 and K2's
+    histograms), in the field order the C side reads.
 
     A block holds a tile of ``pairs_per_tile`` class-major (class, slot)
     pairs (pair = class * S + slot) x ``groups_per_tile`` groups x Bmax
@@ -68,31 +72,35 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def hist_plan(n: int, G: int, K: int, S: int, Bmax: int) -> HistPlan:
-    """The launch plan of one K5 (K = 1) or K8 launch over ``n`` rows, G
-    groups, K classes, S slots and Bmax bins.
+@functools.lru_cache(maxsize=1024)
+def hist_plan(n: int, G: int, K: int, S: int, Bmax: int,
+              cell_bytes: int = CELL_BYTES) -> HistPlan:
+    """The launch plan of one tile pass over ``n`` rows, G groups, K
+    classes, S slots and Bmax bins, in cells of ``cell_bytes`` bytes (K5 and
+    K8: the default; K2: 16, its int form 8).
 
     A block's tile holds the S pairs of one class and as many groups as
     fit in a block's shared memory, so that the block reads one class's
     slots and weights once for all its groups; or, where one group's S
     pairs do not fit, an even share of them and one group.  Rows then split
     into the fewest ranges that give a full wave of blocks over the card
-    and a last wave at least 85 % full, each thread at least 4 rows."""
-    return _plan(n, G, K, S, Bmax, SMEM_BLOCK, THREADS)
+    and a last wave at least 85 % full, each thread at least 4 rows.
+    Cached: a training run asks for the same few shapes every round."""
+    return _plan(n, G, K, S, Bmax, SMEM_BLOCK, THREADS, cell_bytes)
 
 
 def _plan(n: int, G: int, K: int, S: int, Bmax: int, smem_budget: int,
-          threads: int) -> HistPlan:
+          threads: int, cell_bytes: int = CELL_BYTES) -> HistPlan:
     """``hist_plan`` with the block's shared memory and threads given, so
     that tests can reach plans of many tiles and row ranges at small
     shapes."""
-    cap = max(1, smem_budget // (Bmax * CELL_BYTES))
+    cap = max(1, smem_budget // (Bmax * cell_bytes))
     if S <= cap:
         ppt, gpt = S, min(G, cap // S)
     else:
         ppt, gpt = _cdiv(S, _cdiv(S, cap)), 1
     pair_tiles, group_tiles = _cdiv(K * S, ppt), _cdiv(G, gpt)
-    smem = ppt * gpt * Bmax * CELL_BYTES
+    smem = ppt * gpt * Bmax * cell_bytes
     per_sm = max(1, min(THREADS // threads, SMEM_SM // (smem + 1024)))
     wave = SMS * per_sm
     blocks = pair_tiles * group_tiles

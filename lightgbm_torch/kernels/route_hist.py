@@ -31,6 +31,12 @@ place of the float weights, and (K, S, G, Bmax, 2) int32 histograms that sum
 them exactly (``ops/histogram.build_histograms_int``); the caller unscales
 them.  Its own CUDA entry point (``lgbt_route_and_hist_int``, the same
 source) and launch count.
+
+The kernel's histogram pass is the tile pass of K5 and K8
+(``csrc/hist_tile.cuh``) over the slots routing wrote, under
+``hist_wide.hist_plan`` of the launch's shapes with this module's cell
+sizes: 16 bytes (two int64 sums as 32-bit word pairs) for the float form,
+8 (two int32 sums) for the int form.
 """
 from __future__ import annotations
 
@@ -42,9 +48,14 @@ from ..ops.histogram import (build_histograms_gh, build_histograms_int,
                              scale_table, slot_counts)
 from ..utils.log import LightGBMError
 from . import build
+from .hist_wide import hist_plan, plan_arg
 from .layout import (R_BUNDLED, R_CHOSEN, R_DEFBIN, R_DEFLEFT, R_GROUP,
                      R_ISCAT, R_MZBIN, R_NANBIN, R_NBINS, R_NEWID, R_SLOT_KEEP,
                      R_SLOT_L, R_SLOT_R, R_SPAN, R_THR, ROUTE_FIELDS)
+
+# bytes of one (pair, group, bin) cell of the histogram pass's tile
+CELL_BYTES = 16          # float form: grad and hess, two 32-bit words each
+INT_CELL_BYTES = 8       # int form: grad and hess, one int32 word each
 
 
 def route_and_hist(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
@@ -182,6 +193,8 @@ def route_and_hist_cuda(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
         hist_acc = torch.empty(hist.shape, dtype=torch.int64, device=dev)
     else:
         hist = hist_acc = counts          # never written
+    plan = (hist_plan(n, G, K, num_slots, max_bins, CELL_BYTES)
+            if with_hist else None)
     fn = build.load("route_and_hist").lgbt_route_and_hist
     rc = fn(bins_T.data_ptr(), n, G, K, leaf_id.data_ptr(), tabs.data_ptr(),
             L, cat_words.data_ptr(), cat_words.shape[2], grad.data_ptr(),
@@ -189,10 +202,11 @@ def route_and_hist_cuda(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
             int(with_hist), scales.data_ptr(), new_leaf.data_ptr(),
             slot.data_ptr(), hist_acc.data_ptr(), cnt_acc.data_ptr(),
             hist.data_ptr(), counts.data_ptr(),
+            plan_arg(plan) if with_hist else None,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise LightGBMError(f"route_and_hist kernel launch failed "
-                            f"(cudaError {rc})")
+                            f"(cudaError {rc}, plan {plan})")
     route_and_hist_cuda.launches += 1
     return new_leaf, hist if with_hist else None, counts
 
@@ -258,6 +272,8 @@ def route_and_hist_int_cuda(bins_T, leaf_id, tabs, cat_words, qgrad, qhess,
     cnt_acc = torch.empty((K, num_slots), dtype=torch.int64, device=dev)
     hist = (torch.empty((K, num_slots, G, max_bins, 2), dtype=torch.int32,
                         device=dev) if with_hist else None)
+    plan = (hist_plan(n, G, K, num_slots, max_bins, INT_CELL_BYTES)
+            if with_hist else None)
     fn = build.load("route_and_hist_int").lgbt_route_and_hist_int
     rc = fn(bins_T.data_ptr(), n, G, K, leaf_id.data_ptr(), tabs.data_ptr(),
             L, cat_words.data_ptr(), cat_words.shape[2],
@@ -266,10 +282,11 @@ def route_and_hist_int_cuda(bins_T, leaf_id, tabs, cat_words, qgrad, qhess,
             num_slots, max_bins, int(with_hist), new_leaf.data_ptr(),
             slot.data_ptr(), cnt_acc.data_ptr(),
             hist.data_ptr() if with_hist else None, counts.data_ptr(),
+            plan_arg(plan) if with_hist else None,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise LightGBMError(f"route_and_hist_int kernel launch failed "
-                            f"(cudaError {rc})")
+                            f"(cudaError {rc}, plan {plan})")
     route_and_hist_int_cuda.launches += 1
     return new_leaf, hist, counts
 

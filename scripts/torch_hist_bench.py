@@ -1,27 +1,40 @@
 #!/usr/bin/env python3
-"""Time the port's two row-order histogram kernels, K5 ``scatter_hist`` and
-K8 ``hist_wide``, on one NVIDIA GPU at the training path's shapes.
+"""Time the port's histogram kernels that add rows in their natural order,
+K5 ``scatter_hist``, K8 ``hist_wide`` and both forms of K2
+``route_and_hist``, on one NVIDIA GPU at the training path's shapes.
 
-    python3 scripts/torch_hist_bench.py [--root DIR] [--sass] [--label TEXT]
+    python3 scripts/torch_hist_bench.py [--root DIR] [--only k58|k2]
+                                        [--sass] [--route-probe]
+                                        [--label TEXT]
 
 ``--root`` is the checkout whose ``lightgbm_torch`` is measured (default:
 this repository), so a parent commit unpacked with ``git archive`` can be
-timed in the same call.  Inputs are synthetic and seeded: 1M rows (K8:
+timed in the same call.  Inputs are synthetic and seeded: 1M rows (K = 10:
 900 000 rows x 10 classes) x 28 groups of uniform bins, N(0, 1) gradients,
-hessians in [0.05, 0.25], count weights 1; a root round (every row in slot
-0) and rounds of S slots that hold half the rows, drawn at random in their
-natural order.  Each shape prints one JSON line: the kernel's device time
-(``chip_smoke.device_ms``), one float32 ``index_add_`` over the same (row,
-class, group) triples, the bytes bound (``chip_smoke.hist_work``), and
-whether the kernel equals its plain version bit for bit.  ``--sass`` prints
-the atomic instructions of the built libraries (``cuobjdump -sass``) and
-the device time of one K8 launch by CUDA kernel (``torch.profiler``).
-Needs a CUDA device.
+hessians in [0.05, 0.25] (K2's int form: int8 grid values in [-2, 2] and
+[0, 4]), count weights 1; a root round (every row in slot 0) and rounds of
+S slots that hold half the rows, drawn at random in their natural order
+(K2: half the rows in S / 2 leaves whose split on one group sends each row
+to one of two slots by its bin, the other half in a leaf without a slot).
+Each shape prints one JSON line: the kernel's device time
+(``chip_smoke.device_ms``), one ``index_add_`` over the same (row, class,
+group) triples (float32; int32 for K2's int form), the bound
+(``chip_smoke.hist_work`` / ``k2_work``), and whether the kernel equals its
+plain version bit for bit.  ``--sass`` also prints the atomic instructions
+of the built libraries (``cuobjdump -sass``) and the device time of one K8
+launch and of K2 launches of each form (K = 10 at S = 64 and at the root,
+K = 1 at the root) by CUDA kernel and memset (``torch.profiler``).
+``--route-probe`` trains 3 binary trees on 1M HIGGS-shaped rows with float
+and with quantized gradients, and times each tree's route-only K2 launch
+through its own form and through the other (``device_ms``, CUDA events
+around one call, ``torch.profiler``), beside what the launch's data hold
+per warp.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import itertools
 import json
 import re
 import subprocess
@@ -31,6 +44,8 @@ from pathlib import Path
 import numpy as np
 
 ROWS, ROWS_K, GROUPS, CLASSES = 1_000_000, 900_000, 28, 10
+LIBRARIES = ("scatter_hist", "hist_wide", "route_and_hist",
+             "route_and_hist_int")
 
 
 def make_inputs(torch, n, G, K, S, Bmax, seed):
@@ -60,11 +75,58 @@ def make_inputs(torch, n, G, K, S, Bmax, seed):
     return t, shifts
 
 
+def make_k2_inputs(torch, n, G, K, S, Bmax, seed, int_form):
+    """Seeded arguments of one K2 launch with histograms (the float form's,
+    or with ``int_form`` the int form's) on the card.  S = 1 is the root
+    round: every row in leaf 0, which is not split and keeps slot 0.  For
+    S > 1, half the rows of each class lie in S / 2 leaves, leaf j split at
+    the middle bin of group j % G, its rows going to slot 2j (left) or
+    2j + 1; the other half lie in a leaf that is not split and has no
+    slot."""
+    from lightgbm_torch.kernels import layout as tl
+    from lightgbm_torch.ops.histogram import hist_shift, scale_table
+    rs = np.random.RandomState(seed)
+    bins = rs.randint(0, Bmax, size=(G, n)).astype(np.uint8)
+    half = S // 2
+    L = 1 if S == 1 else half + 1
+    tabs = np.zeros((K, L, len(tl.ROUTE_FIELDS)), np.int32)
+    if S == 1:
+        leaf = np.zeros((K, n), np.int32)
+    else:
+        leaf = np.where(rs.rand(K, n) < 0.5,
+                        rs.randint(0, half, size=(K, n)), half)
+        j = np.arange(half)
+        for f, v in ((tl.R_CHOSEN, 1), (tl.R_NEWID, j), (tl.R_GROUP, j % G),
+                     (tl.R_NBINS, Bmax), (tl.R_THR, (Bmax - 1) // 2),
+                     (tl.R_NANBIN, -1), (tl.R_MZBIN, -1),
+                     (tl.R_SLOT_L, 2 * j), (tl.R_SLOT_R, 2 * j + 1)):
+            tabs[:, :half, f] = v
+        tabs[:, half, tl.R_SLOT_KEEP] = -1
+    words = np.zeros((K, L, (Bmax + 31) // 32), np.int32)
+    cnt = np.ones(n, np.float32)
+    dev = torch.device("cuda")
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+         for x in (bins, leaf.astype(np.int32), tabs, words)]
+    if int_form:
+        qg = rs.randint(-2, 3, size=(K, n)).astype(np.int8)
+        qh = rs.randint(0, 5, size=(K, n)).astype(np.int8)
+        return (*t, torch.from_numpy(qg).to(dev), torch.from_numpy(qh).to(dev),
+                torch.from_numpy(cnt).to(dev), S, Bmax, True)
+    grad = rs.randn(K, n).astype(np.float32)
+    hess = rs.uniform(0.05, 0.25, size=(K, n)).astype(np.float32)
+    shifts = tuple(hist_shift(float(max(np.abs(grad[k]).max(),
+                                        np.abs(hess[k]).max())), n)
+                   for k in range(K))
+    return (*t, torch.from_numpy(grad).to(dev), torch.from_numpy(hess).to(dev),
+            torch.from_numpy(cnt).to(dev), S, Bmax, shifts, True,
+            scale_table(shifts, dev))
+
+
 def sass_atomics(build) -> dict:
     """Atomic and CAS instructions in each built library's SASS, counted by
     opcode."""
     out = {}
-    for name in ("scatter_hist", "hist_wide"):
+    for name in LIBRARIES:
         path = build.library_path(name)
         text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
                                str(path)], capture_output=True, text=True,
@@ -77,10 +139,191 @@ def sass_atomics(build) -> dict:
     return out
 
 
+def profile_split(torch, fn, reps=5):
+    """Device time of ``reps`` calls of ``fn`` by CUDA kernel and memset
+    (``torch.profiler`` ``key_averages``), and the device operations of the
+    last call in the order they ran, each with its microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0))
+        if dev_us > 0:
+            by_name.append({"name": ev.key[:80], "count": ev.count,
+                            "device_us_total": dev_us})
+    seq = sorted((ev.time_range.start, ev.name[:60],
+                  ev.time_range.elapsed_us()) for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+    per_call = len(seq) // reps if reps else 0
+    return {"by_name": by_name,
+            "last_call_in_order": [[n, us] for _, n, us in
+                                   seq[len(seq) - per_call:]]}
+
+
+def time_shapes(torch, cs, emit, families):
+    from lightgbm_torch.kernels import hist_wide as hw, route_hist as rh
+    from lightgbm_torch.kernels import scatter_hist as sh
+    shapes = []
+    if "k58" in families:
+        shapes += ([("scatter_hist", ROWS, GROUPS, 0, S, B)
+                    for B in (63, 255) for S in (1, 16, 64)]
+                   + [("hist_wide", ROWS_K, GROUPS, CLASSES, S, B)
+                      for B in (63, 255) for S in (1, 16, 64)])
+    if "k2" in families:
+        shapes += [(name, ROWS if K == 1 else ROWS_K, GROUPS, K, S, B)
+                   for name in ("route_and_hist", "route_and_hist_int")
+                   for K in (1, CLASSES) for B in (63, 255)
+                   for S in (1, 16, 64)]
+    for i, (name, n, G, K, S, Bmax) in enumerate(shapes):
+        int_form = name == "route_and_hist_int"
+        if name in ("route_and_hist", "route_and_hist_int"):
+            a = make_k2_inputs(torch, n, G, K, S, Bmax, i, int_form)
+            kernel, plain = ((rh.route_and_hist_int_cuda,
+                              rh.route_and_hist_int_plain) if int_form else
+                             (rh.route_and_hist_cuda,
+                              rh.route_and_hist_plain))
+        else:
+            (bins, slot, grad, hess, cnt), shifts = make_inputs(
+                torch, n, G, K, S, Bmax, seed=i)
+            if name == "scatter_hist":
+                a = (bins, slot, grad, hess, cnt, S, Bmax, shifts[0])
+                kernel, plain = sh.scatter_hist_cuda, sh.scatter_hist_plain
+            else:
+                a = (bins, slot, grad, hess, cnt, S, Bmax, shifts)
+                kernel, plain = hw.hist_wide_cuda, hw.hist_wide_plain
+        want = plain(*a)
+        out = kernel(*a)
+        torch.cuda.synchronize()
+        if name.startswith("route_and_hist"):
+            same = all(torch.equal(x, y) for x, y in zip(out, want))
+        else:
+            same = torch.equal(out, want)
+        row = {"kernel": name, "rows": n, "groups": G, "classes": max(K, 1),
+               "slots": S, "max_bins": Bmax, "bit_equal": bool(same),
+               "ms": cs.device_ms(lambda: kernel(*a))}
+        if name.startswith("route_and_hist"):
+            acc, cell, vals = cs.k2k_index_add_inputs(a)
+            work = cs.k2_work(a, out, int_form)
+        else:
+            acc, cell, vals = cs.index_add_inputs(name, a)
+            work = cs.hist_work(name, a, out)
+        row["index_add_ms"] = cs.device_ms(lambda: acc.index_add_(0, cell,
+                                                                  vals))
+        del acc, cell, vals
+        row["bound_ms"], row["bound_by"] = cs.bound(*work)
+        emit(row)
+        del want, out, a
+        torch.cuda.empty_cache()
+
+
+def per_warp(torch, x, ignore=None):
+    """Mean over the warps (32 consecutive rows) of the number of distinct
+    values of ``x`` in a warp and of the most rows sharing one value, rows
+    whose value is ``ignore`` left out."""
+    n = x.numel()
+    w = torch.full((-(-n // 32) * 32,), -(2 ** 40), dtype=torch.int64,
+                   device=x.device)
+    w[:n] = x.long()
+    if ignore is not None:
+        w[:n][x == ignore] = -(2 ** 40)
+    w = w.view(-1, 32).sort(dim=1).values
+    valid = w > -(2 ** 40)
+    new = torch.ones_like(valid)
+    new[:, 1:] = w[:, 1:] != w[:, :-1]
+    distinct = (new & valid).sum(dim=1)
+    # run lengths: a run starts where ``new`` is set
+    idx = torch.arange(32, device=x.device).expand_as(w)
+    start = torch.where(new, idx, torch.zeros_like(idx)).cummax(dim=1).values
+    run = torch.where(valid, idx - start + 1, torch.zeros_like(idx))
+    return (float(distinct.float().mean()),
+            float(run.max(dim=1).values.float().mean()))
+
+
+def route_probe(torch, cs, emit):
+    """The route-only K2 launch of a float tree and of a quantized tree
+    (the third of 3 binary trees on 1M rows each), each timed through the
+    float form and the int form of K2 (a route-only launch reads no
+    weights), with ``device_ms``, with CUDA events around one call from an
+    idle device, and split by ``torch.profiler``; and what the launch's
+    data hold."""
+    import lightgbm_torch as lt
+    from lightgbm_torch.kernels import layout as tl, route_hist as rh
+    from lightgbm_torch.ops.histogram import scale_table
+
+    X, y = cs.make_higgs_like(ROWS, GROUPS, 0)
+    ds = lt.Dataset(X, label=y, params={"max_bin": 63}).construct()
+    del X
+    base = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
+            "learning_rate": 0.1, "verbosity": -1}
+    launches = {}
+    for tree, extra in (("float_tree", {}),
+                        ("quantized_tree", {"use_quantized_grad": True})):
+        with cs.TimedIters(capture_at=2) as t:
+            lt.train({**base, **extra}, ds, 3)
+        if tree == "float_tree":
+            launches[tree] = [a for a, _ in t.cap.k2 if not a[10]]
+        else:
+            launches[tree] = [a for a, _ in t.cap.k2i if not a[9]]
+    for tree, items in launches.items():
+        for i, a in enumerate(items):
+            bins_T, lid, tabs, words = a[:4]
+            cnt, S, Bmax = a[6], a[7], a[8]
+            K, n = lid.shape
+            zeros = torch.zeros((K, n), dtype=torch.float32,
+                                device=lid.device)
+            shifts = (0,) * K
+            as_float = (bins_T, lid, tabs, words, zeros, zeros, cnt, S, Bmax,
+                        shifts, False, scale_table(shifts, lid.device))
+            as_int = (bins_T, lid, tabs, words, None, None, cnt, S, Bmax,
+                      False)
+            new_leaf, slot = rh.route_plain(bins_T, lid[0], tabs[0],
+                                            words[0])
+            rec = tabs[0][lid[0].long()]
+            in_slot = slot[(slot >= 0) & (cnt > 0)]
+            per_slot = torch.bincount(in_slot.long(), minlength=S)
+            row = {"probe": tree, "launch": i, "rows": n, "classes": K,
+                   "leaves": tabs.shape[1], "slots": S, "max_bins": Bmax,
+                   "cat_words": words.shape[2],
+                   "leaves_split": int((tabs[0][:, tl.R_CHOSEN] > 0).sum()),
+                   "rows_routed": int((rec[:, tl.R_CHOSEN] > 0).sum()),
+                   "rows_in_a_slot": int(in_slot.numel()),
+                   "slots_used": int((per_slot > 0).sum()),
+                   "most_rows_in_one_slot": int(per_slot.max())
+                   if S else 0,
+                   "lid_contiguous": bool(lid.is_contiguous()),
+                   "cnt_ptr_mod_256": int(cnt.data_ptr() % 256)}
+            routed = rec[:, tl.R_CHOSEN] > 0
+            groups = torch.where(routed, rec[:, tl.R_GROUP], -1)
+            slot_w = torch.where(cnt > 0, slot, -1)
+            row["per_warp_distinct_leaves"], _ = per_warp(torch, lid[0])
+            row["per_warp_distinct_groups_read"], _ = per_warp(
+                torch, groups, ignore=-1)
+            (row["per_warp_distinct_slots"],
+             row["per_warp_most_count_adds_to_one_slot"]) = per_warp(
+                torch, torch.where(slot_w >= 0, slot_w, -1), ignore=-1)
+            for form, fn in (("float_form", lambda: rh.route_and_hist_cuda(
+                                 *as_float)),
+                             ("int_form", lambda: rh.route_and_hist_int_cuda(
+                                 *as_int))):
+                row[form] = {"device_ms": cs.device_ms(fn),
+                             "event_ms_one_call": cs.cuda_ms(fn, reps=20),
+                             "profile": profile_split(torch, fn)}
+            emit(row)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--only", choices=("k58", "k2"), default=None)
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--route-probe", action="store_true")
     ap.add_argument("--label", default="")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -90,70 +333,44 @@ def main(argv=None) -> int:
         return 2
     import chip_smoke as cs
     from lightgbm_torch.kernels import build, hist_wide as hw
-    from lightgbm_torch.kernels import scatter_hist as sh
+    from lightgbm_torch.kernels import route_hist as rh
 
     def emit(obj):
         print(json.dumps({"label": args.label, **obj}), flush=True)
 
     emit({"card": cs.nvidia_smi_line(), "root": args.root,
-          "built_s": build.build(["scatter_hist", "hist_wide"]),
-          "ptxas": [ln.strip() for ln in
-                    (build.BUILD_DIR / "hist_wide.log").read_text()
-                    .splitlines() if "registers" in ln or "spill" in ln
-                    or "Compiling entry" in ln]})
+          "built_s": build.build(list(LIBRARIES)),
+          "ptxas": {name: [ln.strip() for ln in
+                           (build.BUILD_DIR / f"{name}.log").read_text()
+                           .splitlines() if "registers" in ln
+                           or "spill" in ln or "Compiling entry" in ln]
+                    for name in LIBRARIES
+                    if (build.BUILD_DIR / f"{name}.log").exists()}})
     if args.sass:
         emit({"sass_atomics": sass_atomics(build)})
-    shapes = ([("scatter_hist", ROWS, GROUPS, 0, S, B)
-               for B in (63, 255) for S in (1, 16, 64)]
-              + [("hist_wide", ROWS_K, GROUPS, CLASSES, S, B)
-                 for B in (63, 255) for S in (1, 16, 64)])
-    for i, (name, n, G, K, S, Bmax) in enumerate(shapes):
+    time_shapes(torch, cs, emit, ("k58", "k2") if args.only is None
+                else (args.only,))
+    if args.sass:
+        # one launch of each at K = 10, S = 64, Bmax 63 under
+        # torch.profiler: device time by kernel and memset
         (bins, slot, grad, hess, cnt), shifts = make_inputs(
-            torch, n, G, K, S, Bmax, seed=i)
-        if name == "scatter_hist":
-            a = (bins, slot, grad, hess, cnt, S, Bmax, shifts[0])
-            kernel, plain = sh.scatter_hist_cuda, sh.scatter_hist_plain
-        else:
-            a = (bins, slot, grad, hess, cnt, S, Bmax, shifts)
-            kernel, plain = hw.hist_wide_cuda, hw.hist_wide_plain
-        want = plain(*a)
-        out = kernel(*a)
-        torch.cuda.synchronize()
-        row = {"kernel": name, "rows": n, "groups": G, "classes": max(K, 1),
-               "slots": S, "max_bins": Bmax,
-               "bit_equal": bool(torch.equal(out, want)),
-               "ms": cs.device_ms(lambda: kernel(*a))}
-        acc, cell, vals = cs.index_add_inputs(name, a)
-        row["index_add_ms"] = cs.device_ms(lambda: acc.index_add_(0, cell,
-                                                                  vals))
-        del acc, cell, vals
-        row["bound_ms"], row["bound_by"] = cs.bound(*cs.hist_work(name, a,
-                                                                  out))
-        emit(row)
-        del want, out, a, bins, slot, grad, hess, cnt
-        torch.cuda.empty_cache()
-    if not args.sass:
-        return 0
-    # one K8 launch at S = 64 under torch.profiler: device time by kernel
-    (bins, slot, grad, hess, cnt), shifts = make_inputs(
-        torch, ROWS_K, GROUPS, CLASSES, 64, 63, seed=99)
-    a = (bins, slot, grad, hess, cnt, 64, 63, shifts)
-    hw.hist_wide_cuda(*a)
-    torch.cuda.synchronize()
-    act = [torch.profiler.ProfilerActivity.CPU,
-           torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        for _ in range(5):
-            hw.hist_wide_cuda(*a)
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total",
-                         getattr(ev, "cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append({"name": ev.key[:80], "count": ev.count,
-                         "device_us_total": dev_us})
-    emit({"profile_hist_wide_S64_B63_5_launches": rows})
+            torch, ROWS_K, GROUPS, CLASSES, 64, 63, seed=99)
+        a = (bins, slot, grad, hess, cnt, 64, 63, shifts)
+        emit({"profile_hist_wide_S64_B63_5_launches":
+              profile_split(torch, lambda: hw.hist_wide_cuda(*a))})
+        del a, bins, slot, grad, hess, cnt
+        for (K, S), (int_form, fn) in itertools.product(
+                ((CLASSES, 64), (CLASSES, 1), (1, 1)),
+                ((False, rh.route_and_hist_cuda),
+                 (True, rh.route_and_hist_int_cuda))):
+            a = make_k2_inputs(torch, ROWS_K if K > 1 else ROWS, GROUPS, K,
+                               S, 63, 98, int_form)
+            key = "route_and_hist_int" if int_form else "route_and_hist"
+            emit({f"profile_{key}_K{K}_S{S}_B63_5_launches":
+                  profile_split(torch, lambda: fn(*a))})
+            del a
+    if args.route_probe:
+        route_probe(torch, cs, emit)
     return 0
 
 

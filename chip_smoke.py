@@ -52,7 +52,10 @@ Phases, each printing one JSON line:
    launch count is read around that ``predict`` call alone; then the kernel
    is held bit for bit against its plain version on all rows, the scores
    against the host walk on a 20 000-row subsample, and the kernel, the
-   plain version, the host walk and ``predict`` are timed.
+   plain version, the host walk and ``predict`` are timed; the line also
+   gives the kernel's launch plan, its node visits, the share of its
+   lanes' steps that walk a node, the packed node bytes the visits read
+   and the bytes its stages copy from L2 into shared memory.
 7. train: the full phase's Dataset trained through ``lightgbm_torch.train``
    (binary, 255 leaves, learning rate 0.1, split budget 64) for
    ``--train-iters`` iterations with the kernel counts read around that
@@ -121,8 +124,17 @@ Phases, each printing one JSON line:
    Bmax 255, K = 10 x S = 64 at Bmax 63 and 255 (several pair tiles), G =
    1, N = 1, N = 0, no row in a slot, and a ragged row count with
    unaligned operands; for K2 at K = 1 and K = 10, also EFB-bundled, NaN,
-   zero-as-missing and categorical route records.  Last, so that the cells
-   before it run as they did before it existed.
+   zero-as-missing and categorical route records; and K6 over block plans
+   with one slot taking every row, edge weights, single-row and empty
+   slots, pad blocks, S = 64, 300 groups over group tiles, G = 1, N = 0
+   and 1, and a ragged end with unaligned operands.  After the cells, so
+   that they run as they did before it existed.
+14. predict_adversarial: K1 on synthetic trees and bins made from
+   ``--seed``, each class bit-equal to its plain version: NaN, zero, EFB
+   and categorical nodes, early stop, trees of 16 383 leaves (walked from
+   global memory) and 40 000 (children past 16 bits), a chain 63 deep with
+   and without a depth bound of 9, single-leaf trees, K = 3, N = 1, a
+   ragged N, 3000 groups (bins in global memory), unaligned bins.
 
 Then a ``kernels`` line (each ported kernel's launches on its main path,
 largest error against its plain version, time, plain time, bound and
@@ -321,13 +333,19 @@ def ops_needed(rec):
             + 2 * np.where(is_cat, 0, missing))
 
 
-def node_record_bytes(rec):
-    """Bytes of node record the kernel reads at each node of one tree: three
-    16-byte quads, the missing-value quad on a numeric node, a bitset word on
-    a categorical one."""
+def walk_record_bytes(rec):
+    """Bytes of packed node words the kernel reads at each node of one tree
+    (kernels/predict.pack_nodes): the two walk words (8); at a special node
+    (NaN or zero bin, EFB, categorical) the flags and 32-bit children (12);
+    at an EFB node its span, default bin and bin count (12); at a
+    categorical node its bitset base and one bitset word (8)."""
     from lightgbm_torch.kernels import predict as tpk
 
-    return 48 + np.where(rec[:, tpk.F_ISCAT] > 0, 4, 16)
+    is_cat = rec[:, tpk.F_ISCAT] > 0
+    bundled = rec[:, tpk.F_BUNDLED] > 0
+    special = (is_cat | bundled | (rec[:, tpk.F_HASNAN] > 0)
+               | (rec[:, tpk.F_HASMZ] > 0))
+    return 8 + 12 * special + 12 * bundled + 8 * is_cat
 
 
 def path_sum(inp, use, node_weight, max_depth):
@@ -339,7 +357,7 @@ def path_sum(inp, use, node_weight, max_depth):
     from lightgbm_torch.kernels import predict as tpk
 
     nodes, lv, words, _ = inp.classes[0]
-    recs = nodes.cpu().numpy()
+    recs = tpk.unpack_nodes(nodes).cpu().numpy()
     tab = np.zeros(tuple(lv.shape), np.float32)
     for i, t in enumerate(use):
         sums = tpk.leaf_path_sums(t, node_weight(recs[i]))
@@ -348,6 +366,34 @@ def path_sum(inp, use, node_weight, max_depth):
                                   torch.as_tensor(tab, device=lv.device),
                                   words, max_depth)
     return float(out.double().sum().item())
+
+
+def walk_lane_efficiency(bins_T, nodes, depth_tab, words, max_depth,
+                         rows_per_tile):
+    """The share of K1's lane steps that walk a node: each warp (32
+    consecutive rows of a tile of ``rows_per_tile``) takes as many steps in
+    a tree as its deepest row, so a shallower row's lane idles.  Each row's
+    depth in each tree comes from the kernel walking that tree alone with
+    ``depth_tab`` ((T, L) float32 leaf depths) in place of the leaf values;
+    these launches are not on the main path and the count was read."""
+    import torch
+    import torch.nn.functional as F
+    from lightgbm_torch.kernels import predict as tpk
+
+    n = bins_T.shape[1]
+    R = rows_per_tile
+    tiles = -(-n // R)
+    Rw = 32 * -(-R // 32)
+    done = warp = 0.0
+    for t in range(nodes.shape[1]):
+        d = tpk.predict_stream_cuda(bins_T, nodes[:, t:t + 1].contiguous(),
+                                    depth_tab[t:t + 1].contiguous(), words,
+                                    max_depth)
+        d = F.pad(d, (0, tiles * R - n)).view(tiles, R)
+        d = F.pad(d, (0, Rw - R)).view(tiles, Rw // 32, 32).double()
+        done += float(d.sum().item())
+        warp += 32.0 * float(d.max(dim=-1).values.sum().item())
+    return done / warp if warp else 1.0
 
 
 # --------------------------------------------------------------------------
@@ -593,11 +639,24 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
                                                         words, depths),
                        reps=1, warmup=0)
     # the work this data needs: node visits, the operations of each visit
-    # from its node's flags plus one add per row and tree, and the node
-    # record bytes the visits read (from L2 once the model is resident)
+    # from its node's flags plus one add per row and tree, the record bytes
+    # the visits read, and the bytes the launch copies from L2 into shared
+    # memory under its plan (every tile: each tree's walk records and leaf
+    # values, and its rows' bins)
     visits = path_sum(inp, use, lambda r: np.ones(len(r)), maxd)
     n_ops = path_sum(inp, use, ops_needed, maxd) + rows * len(use)
-    record_bytes = path_sum(inp, use, node_record_bytes, maxd)
+    record_bytes = path_sum(inp, use, walk_record_bytes, maxd)
+    G, T, L = inp.bins_T.shape[0], lv.shape[0], lv.shape[1]
+    plan = tpk.predict_plan(rows, G, L, T)
+    depth_tab = np.zeros(tuple(lv.shape), np.float32)
+    for i, t in enumerate(use):
+        sums = tpk.leaf_path_sums(t)
+        depth_tab[i, :len(sums)] = sums
+    lane_eff = walk_lane_efficiency(inp.bins_T, nodes, torch.as_tensor(
+        depth_tab, device=lv.device), words, maxd, plan.rows_per_tile)
+    stage_bytes = (plan.tiles * T * tpk.STAGE_NODE_BYTES * L
+                   if plan.trees_per_stage else 0)
+    stage_bytes += G * rows if plan.bins_stride else 0
     n_bytes = sum(t.numel() * t.element_size()
                   for t in (inp.bins_T, nodes, lv, words)) + 4 * rows
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -622,8 +681,11 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
           "predict_breakdown_s": breakdown, "node_visits": visits,
           "bytes": n_bytes, "ops": n_ops, "ops_per_visit": n_ops / visits,
           "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
-          "node_record_bytes": record_bytes,
-          "node_record_gb_per_s": record_bytes / (ms / 1e3) / 1e9})
+          "plan": plan._asdict(), "walk_lane_efficiency": lane_eff,
+          "record_bytes_read": record_bytes,
+          "record_bytes_per_visit": record_bytes / visits,
+          "stage_copy_bytes": stage_bytes,
+          "stage_copy_gb_per_s": stage_bytes / (ms / 1e3) / 1e9})
     return kernel, ds, Xs, ys
 
 
@@ -1824,6 +1886,72 @@ K2_ADVERSARIAL = (
 K2_INT_GATE = ("k1_int32_gate", 2 ** 31 // 127, 1, 1, 1, 1, "edge", 0)
 
 
+def k6_adversarial_inputs(seed, n, G, S, Bmax, kind, T, offset=0):
+    """Arguments of one K6 launch on the card, made with numpy from
+    ``seed``: (N, G) row-major bins, the slot-sorted block plan of T
+    positions (ops/compact.py; its trailing pad blocks gather only the pad
+    row) of half the rows in S slots, N(0, 1) grads, hesses in [0.01, 1),
+    0/1 counts.  ``kind``: "one_slot" puts every row in slot S - 1;
+    "edge" every row in slot 0 (the root's plan) and bin 0 with weights
+    +-1.5 and 1.5, so that at the shift hist_shift picks the sums reach
+    2**61; "single_rows" one row in each of S - 1 slots and none in the
+    last.  ``offset`` > 0 hands the kernel views that start that many
+    elements into their storage, so that no operand is 16-byte aligned."""
+    import torch
+    from lightgbm_torch.ops.compact import plan_blocks, plan_single_slot
+    from lightgbm_torch.ops.histogram import hist_shift
+
+    rs = np.random.RandomState(seed)
+    bins = rs.randint(0, Bmax, size=(n, G)).astype(np.uint8)
+    slot = np.where(rs.rand(n) < 0.5, rs.randint(0, S, size=n),
+                    -1).astype(np.int32)
+    grad = rs.randn(n).astype(np.float32)
+    hess = rs.uniform(0.01, 1.0, size=n).astype(np.float32)
+    cnt = (rs.rand(n) < 0.9).astype(np.float32)
+    if kind == "one_slot":
+        slot[:] = S - 1
+    elif kind == "edge":
+        bins[:] = 0
+        slot[:] = 0
+        grad = np.where(grad < 0, -1.5, 1.5).astype(np.float32)
+        hess[:] = 1.5
+        cnt[:] = 1.0
+    elif kind == "single_rows":
+        slot[:] = -1
+        slot[rs.choice(n, size=min(n, S - 1), replace=False)] = \
+            np.arange(min(n, S - 1))
+    shift = hist_shift(float(max(np.abs(grad).max(initial=0.0),
+                                 np.abs(hess).max(initial=0.0))), n)
+    dev = torch.device("cuda")
+    plan = (plan_single_slot(n, T, dev) if kind == "edge" or n == 0
+            else plan_blocks(torch.from_numpy(slot).to(dev), S, T))
+
+    def view(x):
+        # a contiguous view ``offset`` elements into its storage
+        flat = torch.as_tensor(np.ascontiguousarray(x)).reshape(-1).to(dev)
+        t = torch.cat([flat[:offset], flat]) if offset else flat
+        return t[offset:].view(x.shape)
+
+    return (view(bins), view(plan.gather_idx.cpu().numpy()),
+            plan.scalars, view(grad), view(hess), view(cnt), S, Bmax, shift,
+            T)
+
+
+# (label, n, G, S, Bmax, kind, block rows T, operand offset)
+K6_ADVERSARIAL = (
+    ("k6_one_slot", 1_000_000, 28, 64, 64, "one_slot", 1024, 0),
+    ("k6_edge_weights", 1_000_000, 28, 1, 64, "edge", 1024, 0),
+    ("k6_single_rows", 100_000, 28, 64, 64, "single_rows", 1024, 0),
+    ("k6_s64_b64", 1_000_000, 28, 64, 64, "random", 1024, 0),
+    ("k6_s16_b128", 500_000, 28, 16, 128, "random", 1024, 0),
+    ("k6_group_tiles", 100_000, 300, 8, 128, "random", 1024, 0),
+    ("k6_g1", 100_003, 1, 7, 2, "random", 1024, 0),
+    ("k6_n1", 1, 28, 3, 63, "random", 1024, 0),
+    ("k6_n0", 0, 28, 3, 63, "random", 1024, 0),
+    ("k6_unaligned_ragged", 250_001, 27, 13, 100, "random", 999, 1),
+)
+
+
 def phase_hist_adversarial(seed):
     """K5, K8 and both forms of K2 launched on synthetic inputs that stress
     the tile pass's plan and arithmetic (one cell taking every row, weights
@@ -1893,10 +2021,189 @@ def phase_hist_adversarial(seed):
             "rows_in_a_slot": float(out[2].sum().item()),
             "max_abs_err": diff}
         del args, out, want
+    from lightgbm_torch.kernels import hist_sorted as hs
+    err["hist_direct"] = 0.0
+    for i, (label, n, G, S, Bmax, kind, T, off) in \
+            enumerate(K6_ADVERSARIAL):
+        args = k6_adversarial_inputs(seed + 200 + i, n, G, S, Bmax, kind, T,
+                                     off)
+        out = hs.hist_direct_cuda(*args)
+        want = hs.hist_sorted_plain(*args)
+        torch.cuda.synchronize()
+        diff = max_abs_diff(out, want)
+        err["hist_direct"] = max(err["hist_direct"], diff)
+        if not (torch.equal(out, want) and torch.isfinite(out).all()):
+            raise RuntimeError(f"{label}: hist_direct differs from its "
+                               f"plain version (max abs {diff})")
+        cases[label] = {"kernel": "hist_direct", "rows": n, "groups": G,
+                        "slots": S, "max_bins": Bmax, "kind": kind,
+                        "block_rows": T, "operand_offset": off,
+                        "plan": list(hs.sorted_plan(args[2].shape[0], T, S,
+                                                    G, Bmax)),
+                        "rows_counted": float(want[..., 2].sum().item()),
+                        "max_abs_err": diff}
+        del args, out, want
     torch.cuda.empty_cache()
     emit({"phase": "hist_adversarial", "cases": cases,
           "all_bit_equal": True, "max_abs_err": err})
     return err
+
+
+def k1_records(rs, T, L, G, words, kinds=(), chain=False, leaves=None,
+               max_bin=256):
+    """(T, L, 16) int32 node records (kernels/predict.NODE_FIELDS) of T
+    random trees grown as random_tree grows them (``chain``: each node
+    sends its left child to a leaf, a path L - 1 deep), and each tree's
+    depth.  ``leaves``: each tree's leaf count (default L; 1: a single-leaf
+    tree, all-zero records); numeric thresholds below ``max_bin``.
+    ``kinds`` mixes in NaN and zero bins ("nan"), EFB-bundled features
+    ("efb") and categorical bitsets ("cat", their words appended to
+    ``words``)."""
+    from lightgbm_torch.kernels import predict as tpk
+
+    rec = np.zeros((T, L, len(tpk.NODE_FIELDS)), np.int32)
+    depths = []
+    for t in range(T):
+        ni = (leaves[t] if leaves else L) - 1
+        depth, parent = {0: 0}, {0: None}   # leaf -> depth, (node, side)
+        open_leaves = [0]
+        for s in range(ni):
+            if chain:
+                leaf = s
+                open_leaves.remove(s)
+            else:
+                j = rs.randint(len(open_leaves))
+                leaf = open_leaves[j]
+                open_leaves[j] = open_leaves[-1]
+                open_leaves.pop()
+            d = depth.pop(leaf)
+            if parent[leaf] is not None:
+                rec[t, parent[leaf][0], parent[leaf][1]] = s
+            rec[t, s, tpk.F_LEFT] = L + leaf
+            rec[t, s, tpk.F_RIGHT] = L + s + 1
+            parent[leaf], parent[s + 1] = (s, tpk.F_LEFT), (s, tpk.F_RIGHT)
+            depth[leaf], depth[s + 1] = d + 1, d + 1
+            open_leaves += [leaf, s + 1]
+            r = rec[t, s]
+            r[tpk.F_GROUP] = rs.randint(G)
+            r[tpk.F_THR] = rs.randint(max_bin)
+            r[tpk.F_DEFLEFT] = rs.rand() < 0.5
+            u = rs.rand()
+            if "cat" in kinds and u < 0.2:
+                nb = rs.randint(2, 256)
+                r[tpk.F_ISCAT], r[tpk.F_NBINS] = 1, nb
+                r[tpk.F_CATBASE] = len(words)
+                # a bit for every byte a bin can hold
+                words.extend(rs.randint(0, 2 ** 32, size=8,
+                                        dtype=np.uint64).tolist())
+            elif "efb" in kinds and u < 0.5:
+                nb = rs.randint(2, 57)
+                r[tpk.F_BUNDLED], r[tpk.F_NBINS] = 1, nb
+                r[tpk.F_SPAN] = rs.randint(200)
+                r[tpk.F_DEFBIN] = rs.randint(nb)
+                r[tpk.F_THR] = rs.randint(nb)
+            if "nan" in kinds:
+                for has, b in ((tpk.F_HASNAN, tpk.F_NANBIN),
+                               (tpk.F_HASMZ, tpk.F_MZBIN)):
+                    if rs.rand() < 0.5:
+                        r[has], r[b] = 1, rs.randint(256)
+        depths.append(max(max(depth.values()), 1))
+    return rec, depths
+
+
+# (label, N, G, classes, T, L, kinds, chain, early stop (freq, margin) or
+# None, depth bound or None (the trees' own), bins view offset)
+K1_ADVERSARIAL = (
+    ("predict_kinds", 200_001, 28, 1, 60, 255, ("nan", "efb", "cat"),
+     False, None, None, 0),
+    ("predict_early_stop", 100_000, 28, 1, 40, 255, ("nan", "efb"), False,
+     (3, 0.4), None, 0),
+    ("predict_big_trees", 50_000, 28, 1, 3, 16383, ("nan", "efb", "cat"),
+     False, None, None, 0),
+    ("predict_huge_trees", 20_000, 28, 1, 2, 40_000, ("nan",), False, None,
+     None, 0),
+    ("predict_chain_63", 100_000, 28, 1, 10, 64, ("nan",), True, None,
+     None, 0),
+    ("predict_chain_cut_at_9", 100_000, 28, 1, 10, 64, ("nan",), True,
+     None, 9, 0),
+    ("predict_single_leaf", 30_000, 28, 1, 12, 31, ("nan",), False, None,
+     None, 0),
+    ("predict_k3", 60_000, 28, 3, 20, 63, ("nan", "efb", "cat"), False,
+     None, None, 0),
+    ("predict_n1", 1, 28, 1, 20, 255, ("nan", "efb", "cat"), False, None,
+     None, 0),
+    ("predict_wide_g", 20_000, 3000, 1, 10, 63, ("nan",), False, None,
+     None, 0),
+    ("predict_all_global", 20_000, 300, 1, 2, 16383, ("nan", "efb", "cat"),
+     False, None, None, 0),
+    ("predict_unaligned_ragged", 100_003, 28, 1, 30, 255, ("nan", "efb"),
+     False, (7, 1.0), None, 1),
+)
+
+
+def phase_predict_adversarial(seed):
+    """K1 launched on synthetic models and bins made from ``--seed``
+    (outside any main path's launch counts), each class's scores held
+    bit-equal to the plain version: NaN, zero, EFB and categorical nodes,
+    early stop, trees of 16383 leaves (too large for a stage: walk words
+    read from global memory) and of 40 000 (children past 16 bits: every
+    node special), a chain 63 deep and the same cut by a depth bound
+    of 9 (rows past it resolve to leaf 0), single-leaf trees, K = 3 class
+    tables, N = 1, a ragged N, 3000 groups (bins read from global memory),
+    16383-leaf trees over 300 groups (trees and bins both in global
+    memory) and a bins view that is not 16-byte aligned.  Every form of
+    the kernel (trees staged or not x bins staged or not) runs.  Returns
+    the largest difference."""
+    import torch
+    from lightgbm_torch.kernels import predict as tpk
+
+    dev = torch.device("cuda")
+    cases, err, forms = {}, 0.0, set()
+    for i, (label, n, G, K, T, L, kinds, chain, es, cut, off) in \
+            enumerate(K1_ADVERSARIAL):
+        plan = tpk.predict_plan(n, G, L, T)
+        forms.add((plan.trees_per_stage > 0, plan.bins_stride > 0))
+        rs = np.random.RandomState(seed + 300 + i)
+        bins = rs.randint(0, 256, size=G * n + off).astype(np.uint8)
+        bins_T = torch.from_numpy(bins).to(dev)[off:].view(G, n)
+        es_freq, margin = es or (0, 0.0)
+        for k in range(K):
+            words = []
+            leaves = ([1 if t % 3 == 1 else L for t in range(T)]
+                      if label == "predict_single_leaf" else None)
+            rec, depths = k1_records(rs, T, L, G, words, kinds, chain, leaves)
+            if cut:
+                depths = [cut] * T
+            nodes = torch.from_numpy(tpk.pack_nodes(rec)).to(dev)
+            lv = torch.from_numpy(rs.uniform(-0.1, 0.1, size=(T, L))
+                                  .astype(np.float32)).to(dev)
+            wt = torch.from_numpy(np.asarray(words or [0], np.uint64)
+                                  .astype(np.uint32).view(np.int32)).to(dev)
+            got = tpk.predict_stream_cuda(bins_T, nodes, lv, wt, max(depths),
+                                          es_freq, margin)
+            want = tpk.predict_stream_plain(bins_T, nodes, lv, wt, depths,
+                                            es_freq, margin)
+            torch.cuda.synchronize()
+            diff = max_abs_diff(got, want)
+            err = max(err, diff)
+            if not (torch.equal(got, want) and torch.isfinite(got).all()):
+                raise RuntimeError(f"{label} class {k}: predict_stream "
+                                   f"differs from its plain version (max "
+                                   f"abs {diff})")
+        cases[label] = {"rows": n, "groups": G, "classes": K, "trees": T,
+                        "num_leaves": L, "kinds": list(kinds),
+                        "max_depth": max(depths), "early_stop": es,
+                        "bins_offset": off,
+                        "plan": plan._asdict(), "max_abs_err": diff}
+        del bins_T, nodes, lv, wt, got, want
+    torch.cuda.empty_cache()
+    if len(forms) != 4:
+        raise RuntimeError(f"K1's adversarial cases ran the kernel forms "
+                           f"(trees staged, bins staged) {sorted(forms)}, "
+                           f"not all four")
+    emit({"phase": "predict_adversarial", "cases": cases,
+          "all_bit_equal": True, "max_abs_err": err})
+    return {"predict_stream": err}
 
 
 # --------------------------------------------------------------------------
@@ -2477,10 +2784,12 @@ def main(argv=None) -> int:
         mc_small_err = phase_train_multiclass_small(args.seed)
         k2k_k8, mc_err = phase_train_multiclass(args.seed, smi)
         adv_err = phase_hist_adversarial(args.seed)
+        k1_adv_err = phase_predict_adversarial(args.seed)
     kernel_lines = [k1, k2, k3, k4] + k567 + k2k_k8 + [k2i]
     errs = (small_err, sampled_small_err, quant_small_err, sampled_err,
-            backends_err, quant_err, mc_small_err, mc_err, adv_err)
-    for k in kernel_lines[1:]:
+            backends_err, quant_err, mc_small_err, mc_err, adv_err,
+            k1_adv_err)
+    for k in kernel_lines:
         # K2's int form has one row for both its class counts
         names = ((k["name"], k["name"] + "_k")
                  if k["name"] == "route_and_hist_int" else (k["name"],))

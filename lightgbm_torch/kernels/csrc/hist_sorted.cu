@@ -2,52 +2,63 @@
 // (slot, group, bin), each block of the plan belonging to one slot.
 //
 // Replaces the TPU kernels lightgbm_tpu/pallas/hist_kernel.py
-// `_hist_direct` -> `_direct_kernel` (Bmax <= 128) and `_hist_nibble` ->
-// `_nibble_kernel` (Bmax > 128), which read the block plan of
+// `_hist_direct` -> `_direct_kernel` (Bmax <= 128, K6) and `_hist_nibble`
+// -> `_nibble_kernel` (Bmax > 128, K7), which read the block plan of
 // lightgbm_tpu/ops/compact.py `plan_blocks` (reference analog:
 // src/treelearner/cuda/cuda_histogram_constructor.cu over the leaf-ordered
 // rows of cuda_data_partition.cu).
 //
-// Design (sm_90a):
-//   * The TPU kernels build a (G*B, T) bf16 one-hot of each block (direct)
-//     or two 16-bin digit one-hots (nibble), contract them with the weights
-//     split into bf16 hi and lo parts on the matrix unit, and read bins
-//     packed four to an int32; all of that exists because the TPU has no
-//     fast scatter.  None of it is copied.  As in the reference CUDA
-//     learner, the rows of one slot are contiguous, so a block's histogram
-//     tile needs no slot axis: (G_chunk, Bmax) cells of two int64 and one
-//     int32 (20 bytes) in shared memory, filled with integer atomics.
-//   * One thread block walks a contiguous range of plan blocks.  Plan
-//     blocks of one slot are adjacent, so the tile is flushed (64-bit
-//     global atomics of its non-zero cells into an int64 (S, G, Bmax, 3)
-//     sum) only when the slot changes and at the end of the range, as the
-//     TPU kernel writes its accumulator back at a slot's last block.  A
-//     position whose gather index is the pad row n adds nothing, so the
-//     plan's pad blocks (first = last = 0) add nothing; slots with no rows
-//     stay zero.
-//   * Each row's bins are read from the row-major (N, G) matrix, its G
-//     group bytes contiguous, through the plan's gather index; groups that
-//     do not fit one tile (G * Bmax * 20 > kSmemBytes) split over gridDim.y.
-//   * Sums are exact fixed point as in scatter_hist.cu, so the result is the
-//     same on every run and equals the plain version bit for bit.
-//   * Two instantiations of one template: `direct` for Bmax <= 128 (K6, 256
-//     threads, several blocks per SM) and `nibble` for 128 < Bmax <= 256
-//     (K7, 512 threads: at 28 groups and Bmax 256 the tile is 143 KB of the
-//     227 KB a block may use, so one block fills an SM).
-//   * What bounds it: the bytes a pass must move (the 4-byte gather index,
-//     the row's G bin bytes and its three weights: ~44 B/row at 28 groups
-//     beside the slot sort) take ~13 us at 1M rows and 3.35 TB/s.  This
-//     first version is held back by shared-memory atomic conflicts (rows of
-//     a block share their slot, and rows of a warp often share bins), by
-//     gathered rows that are scattered in memory, and by the flushes.
+// The TPU kernels build a (G*B, T) bf16 one-hot of each block (direct) or
+// two 16-bin digit one-hots (nibble), contract them with the weights split
+// into bf16 hi and lo parts on the matrix unit, and read bins packed four
+// to an int32; all of that exists because the TPU has no fast scatter.
+// None of it is copied.  As in the reference CUDA learner, the rows of one
+// slot are contiguous, so a block's histogram tile needs no slot axis: (G
+// chunk, Bmax) cells in shared memory, filled with integer atomics, flushed
+// into an int64 (S, G, Bmax, 3) sum with 64-bit global atomics when the
+// slot changes and at the end of a block's range, as the TPU kernel writes
+// its accumulator back at a slot's last block.  A position whose gather
+// index is the pad row n adds nothing, so the plan's pad blocks add
+// nothing; slots with no rows stay zero.  Sums are exact fixed point, so
+// the result is the same on every run and equals the plain version
+// (lightgbm_torch/kernels/hist_sorted.py::hist_sorted_plain) bit for bit.
 //
-// Plain PyTorch version of the same contract:
-// lightgbm_torch/kernels/hist_sorted.py::hist_sorted_plain.
+// What bounds it on an H100: the bytes a pass must move (the 4-byte gather
+// index, the row's G bin bytes and its three weights: ~44 B/row at 28
+// groups beside the slot sort) take ~13 us at 1M rows and 3.35 TB/s; the
+// adds are far fewer operations than the card's rate covers.
+//
+// K6 (`direct_kernel`, Bmax <= 128) is built on the tile pass of the
+// row-order kernels (csrc/hist_tile.cuh, channel set GradHessCount: 20-byte
+// cells of split 32-bit words).  The first port (kept below as the
+// `sorted_hist_kernel` template, K7's kernel) was held back by what PRs of
+// K5, K8 and K2 measured and removed there: 64-bit shared atomicAdds, which
+// compile to ATOMS.CAST.SPIN.64 compare-and-swap loops on sm_90a, in blocks
+// whose rows all share one slot, so that they contend as a root launch
+// does; a grid of ~2 blocks of 256 threads an SM, a quarter of the threads
+// an SM holds; one row a thread with scalar loads.  K6 now:
+//
+//   * adds each row's (grad, hess, count) with GradHessCount::add (native
+//     32-bit shared atomics, the low word's carry into the high word) and
+//     flushes with GradHessCount::flush, so its SASS has no
+//     ATOMS.CAST.SPIN.64;
+//   * reads 4 plan positions a thread at a time (an int4 of gather
+//     indices), each row's three weights, and its G group bytes as whole
+//     32-bit words where the row-major bins allow it, the next word of the
+//     4 rows loaded before this word's adds;
+//   * runs as many blocks as the tile's shared memory lets an SM hold, over
+//     ranges of plan blocks sized by kernels/hist_sorted.py::sorted_plan
+//     (checked here), a pad block skipped on its first gather index, and
+//     flushes once per slot run within a block.
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hist_tile.cuh"
+
 namespace {
 
+// K7 (`sorted_hist_kernel<512>`, the first port's design, unchanged)
 constexpr int kSmemBytes = 200 * 1024;  // histogram tile of one block
 constexpr int kTargetBlocks = 2 * 132;  // ~2 blocks per SM on an H100
 constexpr int kCellBytes = 20;          // int64 grad, int64 hess, int32 count
@@ -187,6 +198,200 @@ int launch(const uint8_t* bins, int64_t n_rows, int G,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- K6
+
+// plan fields, in the order of kernels/hist_sorted.py::SORTED_PLAN_FIELDS
+enum {
+  kGroupsPerTile, kGroupTiles, kBlocksPerRange, kRanges, kPlanThreads,
+  kPlanSmem
+};
+constexpr int kDirectMaxThreads = 1024;
+
+struct DirectArgs {
+  hist_tile::Args ch;          // the channel set's scale and int64 output
+  const uint8_t* bins;         // (n, G) row-major
+  const int32_t* gather_idx;   // (NB * T) source row of every position
+  const int32_t* scalars;      // (NB, 3) slot of every plan block
+  const float* grad;
+  const float* hess;
+  const float* cnt;
+  int64_t n;
+  int G, Bmax, NB, T, S;
+  int groups_per_tile, blocks_per_range;
+  int vec_idx;                 // 4 gather indices as one int4
+  int vec_bins;                // a row's group bytes as 32-bit words
+};
+
+// Adds the tile's non-zero cells into slot s of the int64 sum and zeroes
+// them.  Called by every thread of the block between barriers.
+__device__ void flush_direct(const DirectArgs& a, unsigned* w, int cells,
+                             int s, int g0, int ng) {
+  using Ch = hist_tile::GradHessCount;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int gl = i / a.Bmax;
+    if (gl < ng)
+      Ch::flush(a.ch, w, cells, i,
+                (static_cast<int64_t>(s) * a.G + g0 + gl) * a.Bmax + i -
+                    gl * a.Bmax);
+#pragma unroll
+    for (int k = 0; k < Ch::kWords; ++k) w[k * cells + i] = 0u;
+  }
+}
+
+// grid: x = range of plan blocks, y = group tile
+__global__ void __launch_bounds__(kDirectMaxThreads)
+direct_kernel(const DirectArgs a) {
+  using Ch = hist_tile::GradHessCount;
+  extern __shared__ __align__(16) unsigned tile[];
+  const int gpt = a.groups_per_tile;
+  const int g0 = static_cast<int>(blockIdx.y) * gpt;
+  const int ng = min(g0 + gpt, a.G) - g0;
+  const int cells = gpt * a.Bmax;
+  for (int i = threadIdx.x; i < Ch::kWords * cells; i += blockDim.x)
+    tile[i] = 0u;
+  const int b0 = static_cast<int>(blockIdx.x) * a.blocks_per_range;
+  const int b1 = min(b0 + a.blocks_per_range, a.NB);
+  int cur = -1;  // the slot whose rows the tile holds
+  for (int blk = b0; blk < b1; ++blk) {
+    const int s = __ldg(a.scalars + 3 * blk);
+    const int32_t* idx = a.gather_idx + static_cast<int64_t>(blk) * a.T;
+    // a block past every slot's run gathers only the pad row n, and a real
+    // block's first position is a row of its slot
+    if (s < 0 || s >= a.S || __ldg(idx) >= a.n) continue;
+    if (s != cur) {
+      __syncthreads();
+      if (cur >= 0) flush_direct(a, tile, cells, cur, g0, ng);
+      __syncthreads();
+      cur = s;
+    }
+    for (int p = 4 * threadIdx.x; p < a.T; p += 4 * blockDim.x) {
+      const int nr = min(4, a.T - p);
+      int row[4];
+      hist_tile::load4(idx + p, nr, a.vec_idx && nr == 4, row);
+      bool ok[4];
+      Ch::Row rw;
+      Ch::Raw raw;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ok[i] = row[i] >= 0 && row[i] < a.n;   // the pad row adds nothing
+        rw.c[i] = ok[i] ? __ldg(a.cnt + row[i]) : 0.0f;
+        raw.g[i] = ok[i] ? __ldg(a.grad + row[i]) : 0.0f;
+        raw.h[i] = ok[i] ? __ldg(a.hess + row[i]) : 0.0f;
+      }
+      Ch::Val v;
+      Ch::value(a.ch, 0, rw, raw, v);
+      const uint8_t* rb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        rb[i] = a.bins + static_cast<int64_t>(ok[i] ? row[i] : 0) * a.G + g0;
+      if (a.vec_bins) {
+        // ng is a multiple of 4: whole words of 4 groups' bins
+        unsigned word[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          word[i] = ok[i] ? __ldg(reinterpret_cast<const unsigned*>(rb[i]))
+                          : 0u;
+        for (int gw = 0; gw < ng; gw += 4) {
+          // the next word of each row, loaded before this word's adds
+          unsigned next[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            next[i] = ok[i] && gw + 4 < ng
+                          ? __ldg(reinterpret_cast<const unsigned*>(
+                                rb[i] + gw + 4))
+                          : 0u;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (!ok[i]) continue;
+              const int b = (word[i] >> (8 * j)) & 0xff;
+              Ch::add(tile, cells, (gw + j) * a.Bmax + b, v, i);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) word[i] = next[i];
+        }
+      } else {
+        for (int gl = 0; gl < ng; ++gl) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (!ok[i]) continue;
+            Ch::add(tile, cells, gl * a.Bmax + __ldg(rb[i] + gl), v, i);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (cur >= 0) flush_direct(a, tile, cells, cur, g0, ng);
+}
+
+bool direct_plan_ok(const int64_t* q, int NB, int G, int Bmax) {
+  return q != nullptr && q[kGroupsPerTile] >= 1 && q[kGroupTiles] >= 1 &&
+         q[kGroupTiles] * q[kGroupsPerTile] >= G &&
+         (q[kGroupTiles] - 1) * q[kGroupsPerTile] < G &&
+         q[kGroupTiles] <= 65535 && q[kBlocksPerRange] >= 1 &&
+         q[kRanges] >= 1 && q[kRanges] <= INT_MAX &&
+         q[kRanges] * q[kBlocksPerRange] >= NB &&
+         (q[kRanges] - 1) * q[kBlocksPerRange] < (NB > 0 ? NB : 1) &&
+         q[kPlanThreads] >= 32 && q[kPlanThreads] <= kDirectMaxThreads &&
+         q[kPlanThreads] % 32 == 0 &&
+         q[kPlanSmem] == q[kGroupsPerTile] * Bmax * kCellBytes &&
+         q[kPlanSmem] <= hist_tile::kMaxSmem;
+}
+
+int hist_direct(const uint8_t* bins, int64_t n_rows, int G,
+                const int32_t* gather_idx, const int32_t* scalars, int NB,
+                int T, const float* grad, const float* hess, const float* cnt,
+                int S, int Bmax, float scale, float inv_scale, int64_t* acc,
+                float* hist, const int64_t* plan, cudaStream_t stream) {
+  if (n_rows < 0 || G < 1 || T < 1 || S < 1 || Bmax < 1 || Bmax > 128 ||
+      !direct_plan_ok(plan, NB, G, Bmax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* h_acc = reinterpret_cast<unsigned long long*>(acc);
+  const int64_t cells = static_cast<int64_t>(S) * G * Bmax * 3;
+  cudaError_t err = cudaMemsetAsync(h_acc, 0, sizeof(int64_t) * cells, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (NB > 0 && n_rows > 0) {
+    DirectArgs a{};
+    a.ch.out = h_acc;
+    a.ch.scales = nullptr;
+    a.ch.scale0 = scale;
+    a.bins = bins;
+    a.gather_idx = gather_idx;
+    a.scalars = scalars;
+    a.grad = grad;
+    a.hess = hess;
+    a.cnt = cnt;
+    a.n = n_rows;
+    a.G = G;
+    a.Bmax = Bmax;
+    a.NB = NB;
+    a.T = T;
+    a.S = S;
+    a.groups_per_tile = static_cast<int>(plan[kGroupsPerTile]);
+    a.blocks_per_range = static_cast<int>(plan[kBlocksPerRange]);
+    a.vec_idx = T % 4 == 0 && hist_tile::aligned(gather_idx, 16);
+    a.vec_bins = G % 4 == 0 && a.groups_per_tile % 4 == 0 &&
+                 hist_tile::aligned(bins, 4);
+    const int smem = static_cast<int>(plan[kPlanSmem]);
+    err = cudaFuncSetAttribute(direct_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>(plan[kRanges]),
+                    static_cast<unsigned>(plan[kGroupTiles]));
+    direct_kernel<<<grid, static_cast<unsigned>(plan[kPlanThreads]), smem,
+                    stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  to_float_kernel<<<static_cast<unsigned>(ceil_div(cells, 256)), 256, 0,
+                    stream>>>(h_acc, cells, inv_scale, hist);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C interfaces, loaded with ctypes.  Each launches on `stream`, does not
@@ -194,16 +399,20 @@ int launch(const uint8_t* bins, int64_t n_rows, int G,
 // the row-major (n_rows, G) uint8 matrix; gather_idx (NB*T) and scalars
 // (NB, 3) are the block plan; acc is (S*G*Bmax*3) int64 scratch this call
 // zeroes; hist is the (S, G, Bmax, 3) float32 result.
+
+// K6 (Bmax <= 128): plan is the host array of
+// kernels/hist_sorted.py::sorted_plan.
 extern "C" int lgbt_hist_direct(
     const uint8_t* bins, int64_t n_rows, int G, const int32_t* gather_idx,
     const int32_t* scalars, int NB, int T, const float* grad,
     const float* hess, const float* cnt, int S, int Bmax, float scale,
-    float inv_scale, int64_t* acc, float* hist, cudaStream_t stream) {
-  if (Bmax > 128) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<256>(bins, n_rows, G, gather_idx, scalars, NB, T, grad, hess,
-                     cnt, S, Bmax, scale, inv_scale, acc, hist, stream);
+    float inv_scale, int64_t* acc, float* hist, const int64_t* plan,
+    cudaStream_t stream) {
+  return hist_direct(bins, n_rows, G, gather_idx, scalars, NB, T, grad, hess,
+                     cnt, S, Bmax, scale, inv_scale, acc, hist, plan, stream);
 }
 
+// K7 (128 < Bmax <= 256)
 extern "C" int lgbt_hist_nibble(
     const uint8_t* bins, int64_t n_rows, int G, const int32_t* gather_idx,
     const int32_t* scalars, int NB, int T, const float* grad,

@@ -5,118 +5,348 @@
 // `predict_stream` -> `_predict_kernel` (reference analog:
 // src/boosting/gbdt_prediction.cpp PredictRaw, per-row loop over trees).
 //
-// Design (sm_90a, one thread per row):
-//   * The TPU kernel advances a whole row block one tree level at a time with
-//     a node-one-hot matmul, because the TPU has no fast gather.  Here each
-//     thread chases its own row's pointers: node fields are read straight
-//     from global memory, 64 bytes per node as four int4 loads.  At 500 trees
-//     x 255 leaves the node tables are 8 MB and the leaf values 0.5 MB, so
-//     the whole model stays resident in the 50 MB L2 after the first rows.
-//   * The TPU tables digit-encode every field in 7 bits and store leaf values
-//     as bf16 hi/lo pairs so that bf16 matmuls stay exact.  These tables are
-//     plain int32, and the leaf values are the exact float32 values.  The sum
-//     is therefore closer to the host float64 walk than the TPU kernel's, and
-//     the two device kernels agree to a tolerance, not bit for bit.
-//   * Bins are transposed (G, N) uint8 so that the threads of a warp read
-//     neighbouring bytes when they sit at the same node.
-//   * What bounds it: the bytes a call must move (bins + tables + output)
-//     take far less time at the HBM rate than the operations the node
-//     visits need (about 4 per visit on numeric data: bin address, compare,
-//     child select, leaf test) at the card's core rate, so the bound is set
-//     by operations; chip_smoke.py computes both from the visits of its run.
-//     The kernel itself is held back by the walk being a chain of dependent
-//     loads (node -> bin -> child) whose latency only the rows in flight
-//     hide, and by the threads of a warp diverging to different nodes.  Its
-//     times are in PERF.md; making it faster is later work.
-//   * The depth loop is bounded by `max_depth`, so a malformed model cannot
-//     hang the card; a row still on an internal node after max_depth steps
-//     (a single-leaf tree) resolves to leaf 0, as the TPU kernel does.
-//   * Binary prediction early stop: after every `es_freq` trees a row whose
-//     margin 2|score| exceeds `es_margin` stops adding trees (reference:
-//     prediction_early_stop.cpp CreateBinary); its score is final.
+// The TPU kernel advances a whole row block one tree level at a time with a
+// node-one-hot matmul, because the TPU has no fast gather, and its tables
+// digit-encode every field in 7 bits and store leaf values as bf16 hi/lo
+// pairs so that bf16 matmuls stay exact.  None of that is copied: each row
+// chases its own pointers through plain records, and the leaf values are
+// the exact float32 values, so the sum is closer to the host float64 walk
+// than the TPU kernel's (the two device kernels agree to a tolerance).
+//
+// What bounds it on an H100: the bytes a call must move (bins, tables,
+// output) take far less time at the HBM rate than the operations of the
+// node visits (bin address, compare, child select, leaf test) at the card's
+// core rate, so the bound is set by operations (chip_smoke.py computes both
+// from the visits of its run).  The first port (one thread a row, each
+// visit three or four 16-byte loads of a 64-byte record from L2 and one
+// bin byte from global memory) ran at L2's rate, ~100x its bound.  This
+// design:
+//
+//   * Nodes are packed in word planes (kernels/predict.py::pack_nodes).  A
+//     step reads two words: the children (16 bits each) and the group with
+//     the threshold bin and a special-node bit.  Only a special node (NaN
+//     or zero bin, EFB bundle, categorical bitset, or children past 16
+//     bits) reads its flags, children and side words, from global memory.
+//   * A block owns a tile of rows (kernels/predict.py::predict_plan) and
+//     walks every tree over them.  The tile's (G, rows) bin bytes are copied
+//     into shared memory once; the trees come in stages of a few (the two
+//     walk words and the leaf value of each node, 12 bytes), double-
+//     buffered: cp.async fetches stage s + 1 while stage s is walked.  The
+//     model is re-read from L2 once per tile, not once per visit.  Trees too
+//     large for a stage are walked from global memory, and bins too wide
+//     for a tile's shared memory are read from global memory: paths of the
+//     plan.
+//   * The walk is one row a thread, the threads of a block taking each tree
+//     together, so that the inner loop is one 8-byte load of the staged
+//     walk words, a bin load, one compare and a child select; 1536 threads
+//     an SM (three blocks at 42 registers) hide the loads' latency.  Chip
+//     runs on an NVIDIA H100 (PERF.md) found this faster than rows that
+//     move on to their next tree on their own (the bookkeeping cost more
+//     instructions than the divergence it saved) and than several rows a
+//     thread.  A warp still waits for its deepest row in each tree: ~60 %
+//     of its lanes' steps do work on the main path's model.
+//   * The same sums: each row adds its trees' leaf values in float32 in tree
+//     order; the prediction early stop (reference:
+//     prediction_early_stop.cpp CreateBinary) tests 2|score| > margin after
+//     every es_freq trees and freezes the row; a block whose rows have all
+//     stopped skips its remaining stages.
+//   * The walk of one tree is bounded by `max_depth` steps, so a malformed
+//     model cannot hang the card; a row still on an internal node after
+//     max_depth steps (a single-leaf tree) resolves to leaf 0, as the TPU
+//     kernel does.
 //
 // Plain PyTorch version of the same contract:
 // lightgbm_torch/kernels/predict.py::predict_stream_plain.  Both add the
 // same float32 values in the same order, so they agree bit for bit.
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-// Node record: 16 int32 fields, in the order of NODE_FIELDS in
-// lightgbm_torch/kernels/predict.py.
-//   q0 = (group, span_start, default_bin, bundled)
-//   q1 = (has_nan, nan_bin, has_mz, mz_bin)
-//   q2 = (num_bins, threshold_bin, default_left, is_cat)
-//   q3 = (left, right, cat_base, unused)
-// Children: c >= 0 is an internal node, c >= L encodes leaf c - L.
-constexpr int kInt4PerNode = 4;
-constexpr int kThreads = 256;
+// word planes of the packed nodes, in the order of
+// kernels/predict.py::PACKED_WORDS.  Children: c < L an internal node,
+// c >= L leaf c - L.
+enum {
+  kChildren16, kGroupThr, kFlags, kLeft, kRight, kSpanStart, kDefaultBin,
+  kNumBins, kCatBase, kPlanes
+};
+// the flags word, kernels/predict.py::FLAG_BITS
+enum {
+  kNanShift = 0, kMzShift = 9, kDefaultLeftBit = 18, kIsCatBit = 19,
+  kBundledBit = 20
+};
+constexpr unsigned kBinMask = 0x1ff;  // a 9-bit bin code; 0x1ff: none
+constexpr int kThrMask = 0x7fff;      // group_thr bits 16-30
+// plan fields, kernels/predict.py::PREDICT_PLAN_FIELDS
+enum {
+  kRowsPerTile, kThreads, kTiles, kTreesPerStage, kBinsStride, kSmem
+};
+constexpr int kMaxThreads = 512;
+// blocks of 512 threads an SM holds: at most 42 registers a thread
+constexpr int kMinBlocks = 3;
+constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory, sm_90
+constexpr int kStageNodeBytes = 12;  // the two walk words, the leaf value
 
-__global__ void __launch_bounds__(kThreads)
-predict_stream_kernel(const uint8_t* __restrict__ bins_T, int64_t n_rows,
-                      const int4* __restrict__ nodes,
-                      const float* __restrict__ leaf_value,
-                      const uint32_t* __restrict__ cat_words, int n_trees,
-                      int L, int max_depth, int es_freq, float es_margin,
-                      float* __restrict__ out) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (row >= n_rows) return;
-  float score = 0.0f;
-  for (int t = 0; t < n_trees; ++t) {
-    const int4* tree = nodes + static_cast<int64_t>(t) * L * kInt4PerNode;
-    int enc = 0;
-    for (int d = 0; d < max_depth && enc < L; ++d) {
-      const int4* nd = tree + static_cast<int64_t>(enc) * kInt4PerNode;
-      const int4 q0 = __ldg(nd);
-      const int4 q2 = __ldg(nd + 2);
-      const int4 q3 = __ldg(nd + 3);
-      const int gb = bins_T[static_cast<int64_t>(q0.x) * n_rows + row];
-      int fb = gb;
-      if (q0.w) {
-        // EFB bundle: the span holds the feature's non-default bins
-        const int ls = gb - q0.y;
-        fb = (ls >= 0 && ls < q2.x - 1) ? ls + (ls >= q0.z ? 1 : 0) : q0.z;
+struct Args {
+  const uint8_t* bins_T;     // (G, n)
+  const int32_t* planes;     // (kPlanes, T, L) packed nodes
+  const float* leaf_value;   // (T, L)
+  const uint32_t* cat_words;
+  float* out;
+  int64_t n;
+  int G, T, L, max_depth, es_freq;
+  float es_margin;
+  int rows_per_tile, trees_per_stage, bins_stride;
+  int vec_bins;              // bins copied in 16-byte chunks
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+__host__ __device__ __forceinline__ int stage_bytes(int64_t trees, int L) {
+  return static_cast<int>((kStageNodeBytes * trees * L + 15) / 16 * 16);
+}
+
+// The next node of a row at special node i of tree t (global index), given
+// the row's bin of the node's group: c < L an internal node, c >= L leaf
+// c - L.  Reads the node's other words from global memory.
+__device__ __noinline__ int route_special(const Args& a, int t, int i,
+                                          int gb) {
+  const int32_t* w = a.planes + static_cast<int64_t>(t) * a.L + i;
+  const int64_t plane = static_cast<int64_t>(a.T) * a.L;
+  const unsigned f = static_cast<unsigned>(__ldg(w + kFlags * plane));
+  const int left = __ldg(w + kLeft * plane);
+  const int right = __ldg(w + kRight * plane);
+  int fb = gb;
+  if (f & (1u << kBundledBit)) {
+    // EFB bundle: the span holds the feature's non-default bins
+    const int ls = gb - __ldg(w + kSpanStart * plane);
+    const int def = __ldg(w + kDefaultBin * plane);
+    fb = (ls >= 0 && ls < __ldg(w + kNumBins * plane) - 1)
+             ? ls + (ls >= def ? 1 : 0) : def;
+  }
+  if (f & (1u << kIsCatBit)) {
+    // categorical: bin-domain bitset; missing flags never apply
+    const uint32_t word =
+        __ldg(a.cat_words + __ldg(w + kCatBase * plane) + (fb >> 5));
+    return ((word >> (fb & 31)) & 1u) ? left : right;
+  }
+  const int nan = static_cast<int>((f >> kNanShift) & kBinMask);
+  const int mz = static_cast<int>((f >> kMzShift) & kBinMask);
+  const int thr =
+      (__ldg(w + kGroupThr * plane) >> 16) & kThrMask;
+  const bool go_left = (fb == nan || fb == mz)
+                           ? ((f >> kDefaultLeftBit) & 1u) != 0
+                           : fb <= thr;
+  return go_left ? left : right;
+}
+
+// grid: one block per tile of rows, one row a thread.  kTrees: trees
+// staged in shared memory (else read from global memory); kBins: the
+// tile's bins staged in shared memory (else read from global memory).
+template <bool kTrees, bool kBins>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+predict_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int L = a.L;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * a.rows_per_tile;
+  const int64_t rows_left = a.n - r0;
+  const int R = rows_left < a.rows_per_tile ? static_cast<int>(rows_left)
+                                            : a.rows_per_tile;
+  const int stride = a.bins_stride;
+  uint8_t* sbins = smem;
+  unsigned char* stages = smem + (kBins ? a.G * stride : 0);
+  const int ts = kTrees ? a.trees_per_stage : a.T;
+  const int sbytes = kTrees ? stage_bytes(ts, L) : 0;
+  const int64_t plane = static_cast<int64_t>(a.T) * L;
+
+  // the tile's bins: row r of group g at sbins[g * stride + r - r0]
+  if (kBins) {
+    const int chunks = (R + 15) / 16;
+    if (a.vec_bins) {
+      for (int k = threadIdx.x; k < a.G * chunks; k += blockDim.x) {
+        const int g = k / chunks;
+        const int c = k - g * chunks;
+        cp_async16(sbins + g * stride + 16 * c,
+                   a.bins_T + static_cast<int64_t>(g) * a.n + r0 + 16 * c,
+                   min(16, R - 16 * c));
       }
-      bool go_left;
-      if (q2.w) {
-        // categorical: bin-domain bitset; missing flags never apply
-        const uint32_t w = __ldg(cat_words + q3.z + (fb >> 5));
-        go_left = (w >> (fb & 31)) & 1u;
-      } else {
-        const int4 q1 = __ldg(nd + 1);
-        const bool missing = (q1.x && fb == q1.y) || (q1.z && fb == q1.w);
-        go_left = missing ? (q2.z != 0) : (fb <= q2.y);
+    } else {
+      for (int k = threadIdx.x; k < a.G * R; k += blockDim.x) {
+        const int g = k / R;
+        const int r = k - g * R;
+        sbins[g * stride + r] =
+            __ldg(a.bins_T + static_cast<int64_t>(g) * a.n + r0 + r);
       }
-      enc = go_left ? q3.x : q3.y;
-    }
-    const int leaf = enc >= L ? enc - L : 0;
-    score += __ldg(leaf_value + static_cast<int64_t>(t) * L + leaf);
-    if (es_freq > 0 && (t + 1) % es_freq == 0 &&
-        2.0f * fabsf(score) > es_margin) {
-      break;
     }
   }
-  out[row] = score;
+  // stage s: trees [s * ts, min((s + 1) * ts, T)) into buffer s & 1: each
+  // node's (children, group_thr) words side by side, then the leaf values
+  auto issue = [&](int s) {
+    const int t0 = s * ts;
+    const int cnt = (min(t0 + ts, a.T) - t0) * L;
+    int32_t* sw = reinterpret_cast<int32_t*>(stages + (s & 1) * sbytes);
+    const int64_t base = static_cast<int64_t>(t0) * L;
+    for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
+      cp_async4(sw + 2 * k, a.planes + kChildren16 * plane + base + k);
+      cp_async4(sw + 2 * k + 1, a.planes + kGroupThr * plane + base + k);
+      cp_async4(sw + 2 * ts * L + k, a.leaf_value + base + k);
+    }
+  };
+  const int n_stages = kTrees ? (a.T + ts - 1) / ts : 1;
+  if (kTrees) issue(0);
+  cp_async_commit();
+
+  const int lr = threadIdx.x;       // the thread's row in the tile
+  const int lq = min(lr, R - 1);    // ... clamped for loads
+  bool live = lr < R;
+  float score = 0.0f;
+  for (int s = 0; s < n_stages; ++s) {
+    if (kTrees && s + 1 < n_stages) issue(s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int t0 = s * ts;
+    const int ns = min(t0 + ts, a.T) - t0;
+    const int2* walk = nullptr;  // staged (children, group_thr) pairs
+    const int32_t* ch = a.planes + kChildren16 * plane;
+    const int32_t* gt = a.planes + kGroupThr * plane;
+    const float* lv = a.leaf_value;
+    if (kTrees) {
+      walk = reinterpret_cast<const int2*>(stages + (s & 1) * sbytes);
+      lv = reinterpret_cast<const float*>(walk + ts * L);
+    }
+    for (int tt = 0; tt < ns && live; ++tt) {
+      const int tb = tt * L;  // the tree in the stage (global: t0 = 0)
+      int nd = 0;
+#pragma unroll 2
+      for (int d = 0; d < a.max_depth && nd < L; ++d) {
+        const int2 r = kTrees ? walk[tb + nd]
+                              : make_int2(__ldg(ch + tb + nd),
+                                          __ldg(gt + tb + nd));
+        const int w = r.y;  // group | threshold bin << 16 | special << 31
+        const int g = w & 0xffff;
+        const int gb = kBins ? sbins[g * stride + lq]
+                             : __ldg(a.bins_T + static_cast<int64_t>(g) *
+                                     a.n + r0 + lq);
+        if (w < 0) {
+          nd = route_special(a, t0 + tt, nd, gb);
+        } else {
+          // gb <= threshold bin, as (gb << 16) <= w: the group in w's low
+          // half breaks no tie
+          const unsigned c = static_cast<unsigned>(r.x);
+          nd = (gb << 16) <= w ? static_cast<int>(c & 0xffffu)
+                               : static_cast<int>(c >> 16);
+        }
+      }
+      const int leaf = tb + (nd >= L ? nd - L : 0);
+      score += kTrees ? lv[leaf] : __ldg(lv + leaf);
+      if (a.es_freq > 0 && (t0 + tt + 1) % a.es_freq == 0 &&
+          2.0f * fabsf(score) > a.es_margin)
+        live = false;
+    }
+    // every thread reaches this barrier; a block whose rows have all
+    // stopped skips the rest
+    if (!__syncthreads_or(live)) break;
+  }
+  cp_async_wait<0>();
+  if (lr < R) a.out[r0 + lr] = score;
+}
+
+bool plan_ok(const int64_t* q, int64_t n, int G, int T, int L) {
+  if (q == nullptr) return false;
+  const int64_t ts = q[kTreesPerStage];
+  const int64_t stride = q[kBinsStride];
+  const int64_t smem = G * stride + (ts > 0 ? 2LL * stage_bytes(ts, L) : 0);
+  return q[kThreads] >= 32 && q[kThreads] <= kMaxThreads &&
+         q[kThreads] % 32 == 0 &&
+         q[kRowsPerTile] >= 16 && q[kRowsPerTile] % 16 == 0 &&
+         q[kRowsPerTile] <= q[kThreads] &&
+         q[kTiles] >= 1 && q[kTiles] <= INT_MAX &&
+         q[kTiles] * q[kRowsPerTile] >= n &&
+         (q[kTiles] - 1) * q[kRowsPerTile] < n &&
+         ts >= 0 && ts <= T &&
+         (stride == 0 || (stride >= q[kRowsPerTile] && stride % 16 == 0)) &&
+         q[kSmem] == smem && q[kSmem] <= kMaxSmem;
+}
+
+template <bool kTrees, bool kBins>
+cudaError_t launch(const Args& a, const int64_t* q, cudaStream_t stream) {
+  const int smem = static_cast<int>(q[kSmem]);
+  cudaError_t err = cudaFuncSetAttribute(
+      predict_kernel<kTrees, kBins>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  predict_kernel<kTrees, kBins>
+      <<<static_cast<unsigned>(q[kTiles]), static_cast<unsigned>(q[kThreads]),
+         smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes.  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() (0 = launched).
+// C interface, loaded with ctypes.  bins_T: (G, n_rows) uint8; nodes: the
+// (9, n_trees, L) int32 packed nodes; leaf_value:
+// (n_trees, L) float32; plan: the host array of
+// kernels/predict.py::predict_plan.  Launches on `stream`, does not
+// synchronise, and returns the first CUDA error (0 = launched;
+// cudaErrorInvalidValue for a plan outside its limits or bad operands).
 extern "C" int lgbt_predict_stream(const uint8_t* bins_T, int64_t n_rows,
-                                   const int32_t* nodes,
+                                   int G, const int32_t* nodes,
                                    const float* leaf_value,
                                    const int32_t* cat_words, int n_trees,
                                    int L, int max_depth, int es_freq,
                                    float es_margin, float* out,
-                                   cudaStream_t stream) {
-  const int64_t blocks = (n_rows + kThreads - 1) / kThreads;
-  predict_stream_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                          stream>>>(
-      bins_T, n_rows, reinterpret_cast<const int4*>(nodes), leaf_value,
-      reinterpret_cast<const uint32_t*>(cat_words), n_trees, L, max_depth,
-      es_freq, es_margin, out);
-  return static_cast<int>(cudaGetLastError());
+                                   const int64_t* plan, cudaStream_t stream) {
+  if (n_rows < 1 || G < 1 || n_trees < 1 || L < 1 || max_depth < 1 ||
+      !plan_ok(plan, n_rows, G, n_trees, L))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.bins_T = bins_T;
+  a.planes = nodes;
+  a.leaf_value = leaf_value;
+  a.cat_words = reinterpret_cast<const uint32_t*>(cat_words);
+  a.out = out;
+  a.n = n_rows;
+  a.G = G;
+  a.T = n_trees;
+  a.L = L;
+  a.max_depth = max_depth;
+  a.es_freq = es_freq;
+  a.es_margin = es_margin;
+  a.rows_per_tile = static_cast<int>(plan[kRowsPerTile]);
+  a.trees_per_stage = static_cast<int>(plan[kTreesPerStage]);
+  a.bins_stride = static_cast<int>(plan[kBinsStride]);
+  a.vec_bins = n_rows % 16 == 0 && aligned(bins_T, 16);
+  const bool trees = plan[kTreesPerStage] > 0, bins = plan[kBinsStride] > 0;
+  const cudaError_t err =
+      trees ? (bins ? launch<true, true>(a, plan, stream)
+                    : launch<true, false>(a, plan, stream))
+            : (bins ? launch<false, true>(a, plan, stream)
+                    : launch<false, false>(a, plan, stream));
+  return static_cast<int>(err);
 }

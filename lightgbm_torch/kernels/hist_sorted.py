@@ -16,19 +16,91 @@ bf16 hi/lo weights and its four-bins-per-int32 packing are not copied.
 (``hist_nibble_cuda``) for tensors on a CUDA device and runs
 ``hist_sorted_plain`` only for tensors on the CPU; a kernel that fails to
 build or launch raises.
+
+K6 (``csrc/hist_sorted.cu`` ``direct_kernel``) adds the plan's rows into
+shared-memory tiles of one slot x as many groups as fit x bins, in the
+20-byte cells of the row-order kernels' tile pass (``csrc/hist_tile.cuh``);
+``sorted_plan`` picks its tiles, ranges of plan blocks and threads from the
+plan's shapes alone.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ..ops.histogram import hist3_plain
 from ..utils.log import LightGBMError
 from . import build
+from .hist_wide import (CELL_BYTES, SMEM_BLOCK, SMEM_SM, SMS, THREADS,
+                        _cdiv)
 
 # the largest Bmax K6 takes; K7 takes the rest up to 256
 DIRECT_MAX_BINS = 128
+
+
+class SortedPlan(NamedTuple):
+    """One K6 launch, in the field order the C side reads.
+
+    A block holds a tile of one slot x ``groups_per_tile`` groups x Bmax
+    bins (``smem`` bytes, 20 a cell) and walks ``blocks_per_range``
+    consecutive plan blocks, flushing the tile when the slot changes and at
+    the end; ``ranges`` x ``group_tiles`` blocks of ``threads`` threads
+    cover every plan block and group."""
+    groups_per_tile: int
+    group_tiles: int
+    blocks_per_range: int
+    ranges: int
+    threads: int
+    smem: int
+
+
+SORTED_PLAN_FIELDS = SortedPlan._fields
+
+
+@functools.lru_cache(maxsize=1024)
+def sorted_plan(NB: int, T: int, S: int, G: int, Bmax: int) -> SortedPlan:
+    """The launch plan of K6 over NB plan blocks of T positions, S slots, G
+    groups and Bmax bins: 256 threads a block; two waves of blocks over the
+    card, or one at a single slot (the root), where every block flushes
+    into the same cells and fewer, longer ranges flush less (NVIDIA H100,
+    scripts/torch_hist_bench.py: 256 threads beat 128 and 512, and at the
+    root two plan blocks a range beat one)."""
+    return _sorted_plan(NB, T, S, G, Bmax, SMEM_BLOCK, 256,
+                        1 if S == 1 else 2)
+
+
+def _sorted_plan(NB: int, T: int, S: int, G: int, Bmax: int,
+                 smem_budget: int, threads: int,
+                 waves: int) -> SortedPlan:
+    """``sorted_plan`` with the block's shared-memory budget, its threads
+    and the waves of blocks wanted given, so that tests reach many group
+    tiles and ranges at small shapes.
+
+    Groups: all that fit in the budget, else an even share, a multiple of 4
+    where it fits (a row's group bytes then load as whole words).  Ranges:
+    the fewest plan blocks a range that make ``waves`` waves of blocks over
+    the card (0: one range), so that a block flushes once per slot run of
+    its range and the plan's trailing pad blocks do not leave SMs idle."""
+    cap = max(1, smem_budget // (Bmax * CELL_BYTES))
+    tiles = _cdiv(G, cap)
+    gpt = _cdiv(G, tiles)
+    if tiles > 1 and 4 * _cdiv(gpt, 4) <= cap:
+        gpt = 4 * _cdiv(gpt, 4)
+    group_tiles = _cdiv(G, gpt)
+    smem = gpt * Bmax * CELL_BYTES
+    per_sm = max(1, min(THREADS // threads, SMEM_SM // (smem + 1024)))
+    blocks = _cdiv(waves * SMS * per_sm, group_tiles)
+    per_range = _cdiv(max(NB, 1), blocks) if blocks else max(NB, 1)
+    return SortedPlan(gpt, group_tiles, per_range,
+                      _cdiv(max(NB, 1), per_range), threads, smem)
+
+
+def plan_arg(plan: SortedPlan) -> ctypes.Array:
+    """The plan as the C side's int64 array."""
+    return (ctypes.c_int64 * len(SORTED_PLAN_FIELDS))(*plan)
 
 
 def hist_sorted(bins, gather_idx, scalars, grad, hess, cnt, num_slots: int,
@@ -78,20 +150,27 @@ def _launch(kernel: str, bins, gather_idx, scalars, grad, hess, cnt,
                        device=dev)
     acc = torch.empty(hist.shape, dtype=torch.int64, device=dev)
     fn = getattr(build.load(kernel), build.SIGNATURES[kernel][0])
+    # K6 takes its launch plan; K7 plans inside
+    plan = (sorted_plan(nb, block_rows, num_slots, G, max_bins)
+            if kernel == "hist_direct" else None)
     rc = fn(bins.data_ptr(), n, G, gather_idx.data_ptr(), scalars.data_ptr(),
             nb, block_rows, grad.data_ptr(), hess.data_ptr(), cnt.data_ptr(),
             num_slots, max_bins, float(2.0 ** shift), float(2.0 ** -shift),
             acc.data_ptr(), hist.data_ptr(),
+            *(() if plan is None else (plan_arg(plan),)),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
-        raise LightGBMError(f"{kernel} kernel launch failed (cudaError {rc})")
+        planned = "" if plan is None else f", plan {tuple(plan)}"
+        raise LightGBMError(f"{kernel} kernel launch failed (cudaError "
+                            f"{rc}{planned})")
     return hist
 
 
 def hist_direct_cuda(bins, gather_idx, scalars, grad, hess, cnt,
                      num_slots: int, max_bins: int, shift: int,
                      block_rows: int) -> torch.Tensor:
-    """Launch K6 (csrc/hist_sorted.cu, Bmax <= 128) on the current stream."""
+    """Launch K6 (csrc/hist_sorted.cu, Bmax <= 128) on the current stream,
+    under ``sorted_plan`` of the shapes."""
     if not 0 < max_bins <= DIRECT_MAX_BINS:
         raise LightGBMError(f"hist_direct takes Bmax <= {DIRECT_MAX_BINS}, "
                             f"got {max_bins}")

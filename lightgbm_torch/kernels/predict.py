@@ -5,9 +5,14 @@ Counterpart of ``lightgbm_tpu/pallas/predict_kernel.py:158-340``
 (``predict_stream``, ``build_predict_tables``, ``tree_max_depth``).  The TPU
 kernel digit-encodes every node field in 7 bits and splits leaf values into
 bf16 hi/lo pairs so that its one-hot bf16 matmuls stay exact.  The port's
-tables are plain int32 node records and exact float32 leaf values, read by a
-pointer-chasing CUDA kernel (``csrc/predict_stream.cu``).  Its sums are
-therefore closer to the host float64 walk than the TPU kernel's, and the two
+host tables are plain int32 node records of 16 fields and exact float32 leaf
+values; on the device the records travel as word planes (``pack_nodes``):
+two words that every routing step reads (16-bit children; group, threshold
+bin and a special-node bit), and the rest, read only at special nodes (NaN
+or zero bins, EFB bundles, categorical bitsets).  The CUDA kernel
+(``csrc/predict_stream.cu``) walks tiles of rows through stages of trees
+copied into shared memory, under the launch plan ``predict_plan``.  Its sums
+are closer to the host float64 walk than the TPU kernel's, and the two
 packages agree to a tolerance (rtol 1e-4, atol 1e-5), not bit for bit.
 
 ``predict_stream`` launches the CUDA kernel for tensors on a CUDA device and
@@ -17,6 +22,7 @@ fails to build or launch raises; nothing falls back to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
@@ -24,16 +30,36 @@ import torch
 
 from ..utils.log import LightGBMError
 from . import build
+from .hist_wide import SMEM_BLOCK, SMEM_SM, SMS, _cdiv
 
-# int32 fields of one node record, in the order csrc/predict_stream.cu reads
-# them as four int4 loads
+# int32 fields of one host node record (build_predict_tables)
 NODE_FIELDS = ("group", "span_start", "default_bin", "bundled",
                "has_nan", "nan_bin", "has_mz", "mz_bin",
                "num_bins", "threshold_bin", "default_left", "is_cat",
                "left", "right", "cat_base", "unused")
 (F_GROUP, F_SPAN, F_DEFBIN, F_BUNDLED, F_HASNAN, F_NANBIN, F_HASMZ, F_MZBIN,
  F_NBINS, F_THR, F_DEFLEFT, F_ISCAT, F_LEFT, F_RIGHT, F_CATBASE,
- _F_UNUSED) = range(len(NODE_FIELDS))
+ F_UNUSED) = range(len(NODE_FIELDS))
+
+# int32 word planes of the packed nodes (pack_nodes), in the order of the C
+# enum in csrc/predict_stream.cu.  The walk reads two words a step:
+# ``children16`` (left child in the low 16 bits, right in the high 16) and
+# ``group_thr`` (group in bits 0-15, threshold bin in bits 16-30, bit 31
+# set at a special node: NaN or zero bin, EFB bundle, categorical, or
+# children past 16 bits); a special node's step reads the rest.
+PACKED_WORDS = ("children16", "group_thr", "flags", "left", "right",
+                "span_start", "default_bin", "num_bins", "cat_base")
+# the flags word: the NaN and zero bins as 9-bit codes (NO_BIN: none), then
+# one bit each
+FLAG_BITS = (("nan_shift", 0), ("mz_shift", 9), ("default_left_bit", 18),
+             ("is_cat_bit", 19), ("bundled_bit", 20))
+NAN_SHIFT, MZ_SHIFT, DEFLEFT_BIT, ISCAT_BIT, BUNDLED_BIT = (
+    b for _, b in FLAG_BITS)
+BIN_BITS = 9
+NO_BIN = (1 << BIN_BITS) - 1
+THR_BITS = 15                      # group_thr's threshold bin
+SPECIAL_BIT = 31                   # group_thr's special-node bit
+CHILD16_MAX_L = 1 << 15            # children fit 16 bits up to this L
 
 
 class PredictTables(NamedTuple):
@@ -149,21 +175,189 @@ def tree_max_depth(t) -> int:
     return max(1, int(leaf_path_sums(t).max()))
 
 
+def pack_nodes(nodes: np.ndarray) -> np.ndarray:
+    """(9, T, L) int32 word planes (``PACKED_WORDS``) of (T, L, 16) host
+    records, each word of every node of a tree contiguous, so that the
+    kernel stages a tree's two walk words as two contiguous runs.  Every
+    field of every node kind round-trips (``unpack_nodes``).  Raises where
+    a field is outside its packed width: a group past 65535, a threshold
+    bin past 32767, a NaN or zero bin past 510, a flag other than 0 or 1,
+    or a missing-value bin set where its flag is not (build_predict_tables
+    writes 0 there)."""
+    rec = np.asarray(nodes, np.int64)
+    if rec.ndim != 3 or rec.shape[2] != len(NODE_FIELDS):
+        raise LightGBMError(f"pack_nodes takes (T, L, {len(NODE_FIELDS)}) "
+                            f"records, got {rec.shape}")
+    L = rec.shape[1]
+    flags = rec[..., [F_BUNDLED, F_HASNAN, F_HASMZ, F_DEFLEFT, F_ISCAT]]
+    bad = []
+    if not ((0 <= rec[..., F_GROUP]) & (rec[..., F_GROUP] < 1 << 16)).all():
+        bad.append("group")
+    if not ((0 <= rec[..., F_THR])
+            & (rec[..., F_THR] < 1 << THR_BITS)).all():
+        bad.append("threshold_bin")
+    if not ((flags == 0) | (flags == 1)).all():
+        bad.append("flags")
+    for has, b, name in ((F_HASNAN, F_NANBIN, "nan_bin"),
+                         (F_HASMZ, F_MZBIN, "mz_bin")):
+        ok = np.where(rec[..., has] > 0,
+                      (0 <= rec[..., b]) & (rec[..., b] < NO_BIN),
+                      rec[..., b] == 0)
+        if not ok.all():
+            bad.append(name)
+    if (rec[..., F_UNUSED] != 0).any():
+        bad.append("unused")
+    if bad:
+        raise LightGBMError(f"pack_nodes: fields outside the packed record: "
+                            f"{bad}")
+    nan = np.where(rec[..., F_HASNAN] > 0, rec[..., F_NANBIN], NO_BIN)
+    mz = np.where(rec[..., F_HASMZ] > 0, rec[..., F_MZBIN], NO_BIN)
+    flag_word = ((nan << NAN_SHIFT) | (mz << MZ_SHIFT)
+                 | (rec[..., F_DEFLEFT] << DEFLEFT_BIT)
+                 | (rec[..., F_ISCAT] << ISCAT_BIT)
+                 | (rec[..., F_BUNDLED] << BUNDLED_BIT))
+    special = ((rec[..., F_HASNAN] | rec[..., F_HASMZ] | rec[..., F_BUNDLED]
+                | rec[..., F_ISCAT]) > 0) | (L > CHILD16_MAX_L)
+    group_thr = (rec[..., F_GROUP] | (rec[..., F_THR] << 16)
+                 | (special.astype(np.int64) << SPECIAL_BIT))
+    children16 = (np.where(L > CHILD16_MAX_L, 0, (rec[..., F_LEFT] & 0xFFFF)
+                           | ((rec[..., F_RIGHT] & 0xFFFF) << 16)))
+    words = np.stack([children16, group_thr, flag_word, rec[..., F_LEFT],
+                      rec[..., F_RIGHT], rec[..., F_SPAN], rec[..., F_DEFBIN],
+                      rec[..., F_NBINS], rec[..., F_CATBASE]], axis=0)
+    # int64 -> uint32 bit pattern -> int32
+    return np.ascontiguousarray(
+        (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32))
+
+
+def unpack_nodes(packed: torch.Tensor) -> torch.Tensor:
+    """(T, L, 16) int32 host records of (9, T, L) packed word planes, with
+    tensor ops on the packed tensor's device."""
+    (_, group_thr, flags, left, right, span, defbin, nbins,
+     catbase) = (packed[i].to(torch.int64) & 0xFFFFFFFF
+                 for i in range(len(PACKED_WORDS)))
+    nan = (flags >> NAN_SHIFT) & NO_BIN
+    mz = (flags >> MZ_SHIFT) & NO_BIN
+    fields = [group_thr & 0xFFFF, span, defbin, (flags >> BUNDLED_BIT) & 1,
+              (nan != NO_BIN).to(torch.int64), torch.where(nan != NO_BIN, nan,
+                                                           0),
+              (mz != NO_BIN).to(torch.int64), torch.where(mz != NO_BIN, mz, 0),
+              nbins, (group_thr >> 16) & ((1 << THR_BITS) - 1),
+              (flags >> DEFLEFT_BIT) & 1, (flags >> ISCAT_BIT) & 1, left,
+              right, catbase, torch.zeros_like(left)]
+    # back to the int32 bit pattern of each field
+    out = torch.stack(fields, dim=-1)
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
 def tables_to_device(tables: PredictTables, device: torch.device):
-    """(nodes int32, leaf_value f32, cat_words int32 bit pattern) tensors."""
-    return (torch.as_tensor(tables.nodes).to(device),
+    """(packed nodes int32, leaf_value f32, cat_words int32 bit pattern)
+    tensors."""
+    return (torch.as_tensor(pack_nodes(tables.nodes)).to(device),
             torch.as_tensor(tables.leaf_value).to(device),
             torch.as_tensor(tables.cat_words.view(np.int32)).to(device))
+
+
+class PredictPlan(NamedTuple):
+    """One launch of csrc/predict_stream.cu, in the field order the C side
+    reads.
+
+    Block b owns rows [b * rows_per_tile, (b + 1) * rows_per_tile), one
+    a thread of its ``threads`` threads (``tiles`` blocks).
+    It walks every tree over its rows, ``trees_per_stage`` trees at a time
+    copied into shared memory while the stage before is walked (two
+    stages); 0: the trees are too large for a stage and their records are
+    read from global memory.  ``bins_stride`` > 0 stages the tile's (G,
+    rows) bin bytes in shared memory, that many bytes a group; 0 leaves
+    them in global memory.  ``smem``: the block's dynamic shared memory."""
+    rows_per_tile: int
+    threads: int
+    tiles: int
+    trees_per_stage: int
+    bins_stride: int
+    smem: int
+
+
+PREDICT_PLAN_FIELDS = PredictPlan._fields
+# bytes of one tree node in a stage: its two walk words and its leaf value
+STAGE_NODE_BYTES = 12
+SM_THREADS = 1536                  # one-row threads an SM holds (csrc
+                                   # kMinBlocks blocks of kMaxThreads)
+MAX_THREADS = 512                  # a block's threads (csrc kMaxThreads)
+BIN_STAGE_MAX = 64 * 1024          # the most bin bytes a tile stages
+
+
+def _round16(x: int) -> int:
+    return 16 * _cdiv(x, 16)
+
+
+def stage_bytes(trees: int, L: int) -> int:
+    """Shared memory of one stage: ``trees`` trees' children words, their
+    group-and-threshold words and their leaf values, padded to 16 bytes."""
+    return _round16(STAGE_NODE_BYTES * trees * L)
+
+
+@functools.lru_cache(maxsize=256)
+def predict_plan(n_rows: int, G: int, L: int, n_trees: int) -> PredictPlan:
+    """The launch plan of one K1 launch over ``n_rows`` rows of G groups and
+    ``n_trees`` trees of L node slots: 512 threads of one row, up to 8 trees
+    a stage, three blocks an SM."""
+    return _predict_plan(n_rows, G, L, n_trees, SMEM_BLOCK, 512)
+
+
+def _predict_plan(n: int, G: int, L: int, T: int, smem_budget: int,
+                  threads: int, stage_trees: int = 8) -> PredictPlan:
+    """``predict_plan`` with the block's shared memory, threads and most
+    trees a stage given, so that tests reach trees and bins in global
+    memory at small shapes.
+
+    Rows: one a thread (several a thread measured slower on the card,
+    PERF.md), in the fewest tiles of at most ``threads`` rows that fill
+    whole waves of blocks over the card, each tile a multiple of 16
+    rows (the bins' 16-byte copy).  Bins: staged where the tile's G x rows
+    bytes stay within 64 KB and half the budget.  Trees: up to
+    ``stage_trees`` a stage, as many as let the SM hold the blocks its
+    threads allow (one block, where not even one tree fits that), no more
+    than there are; none where a tree does not fit."""
+    cap = threads
+    bins_stride = _round16(min(cap, _round16(max(n, 1)))) + 16
+    if G * bins_stride > min(BIN_STAGE_MAX, smem_budget // 2):
+        bins_stride = 0
+    bins_bytes = G * bins_stride
+    ts = 0
+    for per_sm in (max(1, SM_THREADS // threads), 1):
+        room = min(smem_budget, SMEM_SM // per_sm - 1024) - bins_bytes
+        fit = max(room, 0) // (2 * STAGE_NODE_BYTES * L)
+        while fit and 2 * stage_bytes(fit, L) > room:
+            fit -= 1
+        if fit:
+            ts = min(fit, max(T, 1), stage_trees)
+            break
+    smem = bins_bytes + (2 * stage_bytes(ts, L) if ts else 0)
+    per_sm = max(1, min(SM_THREADS // threads, SMEM_SM // (smem + 1024)))
+    wave = SMS * per_sm
+    tiles = _cdiv(max(n, 1), cap)
+    tiles = max(tiles, min(wave, _cdiv(max(n, 1), 16)))
+    if tiles > wave:
+        tiles = wave * _cdiv(tiles, wave)
+    rows_per_tile = min(cap, _round16(_cdiv(max(n, 1), tiles)))
+    tiles = _cdiv(max(n, 1), rows_per_tile)
+    return PredictPlan(rows_per_tile, threads, tiles, ts, bins_stride, smem)
+
+
+def plan_arg(plan: PredictPlan) -> ctypes.Array:
+    """The plan as the C side's int64 array."""
+    return (ctypes.c_int64 * len(PREDICT_PLAN_FIELDS))(*plan)
 
 
 def predict_stream(bins_T: torch.Tensor, nodes: torch.Tensor,
                    leaf_value: torch.Tensor, cat_words: torch.Tensor,
                    depths: Sequence[int], es_freq: int = 0,
                    es_margin: float = 0.0) -> torch.Tensor:
-    """Raw scores (N,) f32 of one class: (G, N) uint8 bins, (T, L, 16) int32
-    node records, (T, L) f32 leaf values, (W,) int32 bitset words and each
-    tree's depth.  es_freq > 0 enables the binary prediction-early-stop
-    margin check every es_freq trees."""
+    """Raw scores (N,) f32 of one class: (G, N) uint8 bins, (9, T, L) int32
+    packed nodes (``pack_nodes``), (T, L) f32 leaf values, (W,) int32
+    bitset words and each tree's depth.  es_freq > 0 enables the binary
+    prediction-early-stop margin check every es_freq trees."""
     if bins_T.device.type == "cuda":
         return predict_stream_cuda(bins_T, nodes, leaf_value, cat_words,
                                    int(max(depths, default=1)), es_freq,
@@ -178,32 +372,31 @@ def predict_stream(bins_T: torch.Tensor, nodes: torch.Tensor,
 def predict_stream_cuda(bins_T, nodes, leaf_value, cat_words,
                         max_depth: int, es_freq: int = 0,
                         es_margin: float = 0.0) -> torch.Tensor:
-    """Launch csrc/predict_stream.cu on the current stream."""
+    """Launch csrc/predict_stream.cu on the current stream under
+    ``predict_plan`` of the shapes."""
     dev = bins_T.device
-    T, L, nf = nodes.shape
-    for name, x, dtype in (("bins_T", bins_T, torch.uint8),
-                           ("nodes", nodes, torch.int32),
-                           ("leaf_value", leaf_value, torch.float32),
-                           ("cat_words", cat_words, torch.int32)):
-        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-            raise LightGBMError(
-                f"predict_stream: {name} must be a contiguous {dtype} tensor "
-                f"on {dev}, got {x.dtype} on {x.device}")
-    if (nf != len(NODE_FIELDS) or tuple(leaf_value.shape) != (T, L)
+    build.check_operands("predict_stream", dev, (
+        ("bins_T", bins_T, torch.uint8), ("nodes", nodes, torch.int32),
+        ("leaf_value", leaf_value, torch.float32),
+        ("cat_words", cat_words, torch.int32)))
+    if (nodes.dim() != 3 or nodes.shape[0] != len(PACKED_WORDS)
+            or tuple(leaf_value.shape) != tuple(nodes.shape[1:])
             or bins_T.dim() != 2 or cat_words.numel() < 1):
         raise LightGBMError("predict_stream: table shapes do not agree")
-    n = bins_T.shape[1]
+    _, T, L = nodes.shape
+    G, n = bins_T.shape
     out = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0 or T == 0:
         return out.zero_()
+    plan = predict_plan(n, G, L, T)
     fn = build.load("predict_stream").lgbt_predict_stream
-    rc = fn(bins_T.data_ptr(), n, nodes.data_ptr(), leaf_value.data_ptr(),
-            cat_words.data_ptr(), T, L, int(max_depth), int(es_freq),
-            float(es_margin), out.data_ptr(),
+    rc = fn(bins_T.data_ptr(), n, G, nodes.data_ptr(), leaf_value.data_ptr(),
+            cat_words.data_ptr(), T, L, max(int(max_depth), 1), int(es_freq),
+            float(es_margin), out.data_ptr(), plan_arg(plan),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise LightGBMError(f"predict_stream kernel launch failed "
-                            f"(cudaError {rc})")
+                            f"(cudaError {rc}, plan {tuple(plan)})")
     predict_stream_cuda.launches += 1
     return out
 
@@ -245,9 +438,11 @@ def walk_tree_plain(bins_T: torch.Tensor, tnodes: torch.Tensor,
 def predict_stream_plain(bins_T, nodes, leaf_value, cat_words,
                          depths: Sequence[int], es_freq: int = 0,
                          es_margin: float = 0.0) -> torch.Tensor:
-    """Plain PyTorch version of the kernel's contract: each tree walked with
-    tensor ops over all rows, leaf values added in float32 in tree order.
-    Frozen rows (early stop) add nothing further, as in the kernel."""
+    """Plain PyTorch version of the kernel's contract: the packed nodes
+    unpacked, each tree walked with tensor ops over all rows, leaf values
+    added in float32 in tree order.  Frozen rows (early stop) add nothing
+    further, as in the kernel."""
+    nodes = unpack_nodes(nodes)
     n = bins_T.shape[1]
     score = torch.zeros(n, dtype=torch.float32, device=bins_T.device)
     active = torch.ones(n, dtype=torch.bool, device=bins_T.device)

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Time the port's histogram kernels that add rows in their natural order,
-K5 ``scatter_hist``, K8 ``hist_wide`` and both forms of K2
-``route_and_hist``, on one NVIDIA GPU at the training path's shapes.
+"""Time the port's histogram kernels, K5 ``scatter_hist``, K8 ``hist_wide``
+and both forms of K2 ``route_and_hist`` (rows in their natural order), K6
+``hist_direct`` and K7 ``hist_nibble`` (the slot-sorted block plan), and
+the prediction kernel K1 ``predict_stream``, on one NVIDIA GPU at the main
+paths' shapes.
 
-    python3 scripts/torch_hist_bench.py [--root DIR] [--only k58|k2]
+    python3 scripts/torch_hist_bench.py [--root DIR]
+                                        [--only k58|k2|k67|k1]
                                         [--sass] [--route-probe]
                                         [--label TEXT]
 
@@ -20,8 +23,16 @@ Each shape prints one JSON line: the kernel's device time
 (``chip_smoke.device_ms``), one ``index_add_`` over the same (row, class,
 group) triples (float32; int32 for K2's int form), the bound
 (``chip_smoke.hist_work`` / ``k2_work``), and whether the kernel equals its
-plain version bit for bit.  ``--sass`` also prints the atomic instructions
-of the built libraries (``cuobjdump -sass``) and the device time of one K8
+plain version bit for bit.  K6 and K7 (1M rows x 28 groups, row-major, at
+Bmax 63 and 255, S = 1 (the root's plan), 16 and 64 over half the rows,
+blocks of 1024) print the same, and K6 also its time under other launch
+plans (128, 256 and 512 threads; 1, 2 and 3 plan blocks a range).  K1 runs
+synthetic numeric trees (``chip_smoke.k1_records``) of 31 and 255 leaves,
+100 and 500 of them, over 1M rows x 28 groups: its time, its launch plan,
+the node visits (the kernel itself summing per-leaf depths), the bytes its
+stages copy into shared memory and its bound.  ``--sass`` also prints the
+atomic instructions of each kernel function of the built libraries
+(``cuobjdump -sass``) and the device time of one K8, one K6 and one K1
 launch and of K2 launches of each form (K = 10 at S = 64 and at the root,
 K = 1 at the root) by CUDA kernel and memset (``torch.profiler``).
 ``--route-probe`` trains 3 binary trees on 1M HIGGS-shaped rows with float
@@ -34,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import itertools
 import json
 import re
@@ -45,7 +57,9 @@ import numpy as np
 
 ROWS, ROWS_K, GROUPS, CLASSES = 1_000_000, 900_000, 28, 10
 LIBRARIES = ("scatter_hist", "hist_wide", "route_and_hist",
-             "route_and_hist_int")
+             "route_and_hist_int", "hist_direct", "hist_nibble",
+             "predict_stream")
+BLOCK_ROWS = 1024
 
 
 def make_inputs(torch, n, G, K, S, Bmax, seed):
@@ -123,19 +137,26 @@ def make_k2_inputs(torch, n, G, K, S, Bmax, seed, int_form):
 
 
 def sass_atomics(build) -> dict:
-    """Atomic and CAS instructions in each built library's SASS, counted by
-    opcode."""
+    """Atomic and CAS instructions in the SASS of each kernel function of
+    each built library, counted by opcode, and each function's instruction
+    count."""
     out = {}
     for name in LIBRARIES:
         path = build.library_path(name)
         text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
                                str(path)], capture_output=True, text=True,
                               timeout=300).stdout
-        ops = collections.Counter(
-            m.group(1) for m in re.finditer(
-                r"\s((?:ATOMS|ATOMG|ATOM|RED|REDG|REDUX)\.[A-Z0-9_.]+)",
-                text))
-        out[name] = dict(sorted(ops.items()))
+        per_fn = {}
+        for chunk in text.split("Function : ")[1:]:
+            fn = chunk.split()[0]
+            ops = collections.Counter(
+                m.group(1) for m in re.finditer(
+                    r"\s((?:ATOMS|ATOMG|ATOM|RED|REDG|REDUX)\.[A-Z0-9_.]+)",
+                    chunk))
+            per_fn[fn] = {"instructions": len(re.findall(
+                r"^\s+/\*[0-9a-f]{4}\*/", chunk, re.M)),
+                **dict(sorted(ops.items()))}
+        out[name] = per_fn
     return out
 
 
@@ -220,6 +241,162 @@ def time_shapes(torch, cs, emit, families):
         row["bound_ms"], row["bound_by"] = cs.bound(*work)
         emit(row)
         del want, out, a
+        torch.cuda.empty_cache()
+
+
+def make_sorted_inputs(torch, n, G, S, Bmax, seed):
+    """Seeded arguments of one K6 or K7 launch on the card: (N, G)
+    row-major bins, the slot-sorted block plan of half the rows in S slots
+    (S = 1: the root's plan of every row), the weights of make_inputs."""
+    from lightgbm_torch.ops.compact import plan_blocks, plan_single_slot
+    from lightgbm_torch.ops.histogram import hist_shift
+    rs = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    bins = torch.from_numpy(rs.randint(0, Bmax, size=(n, G))
+                            .astype(np.uint8)).to(dev)
+    grad = rs.randn(n).astype(np.float32)
+    hess = rs.uniform(0.05, 0.25, size=n).astype(np.float32)
+    shift = hist_shift(float(max(np.abs(grad).max(), hess.max())), n)
+    if S == 1:
+        plan = plan_single_slot(n, BLOCK_ROWS, dev)
+    else:
+        slot = np.where(rs.rand(n) < 0.5, rs.randint(0, S, size=n),
+                        -1).astype(np.int32)
+        plan = plan_blocks(torch.from_numpy(slot).to(dev), S, BLOCK_ROWS)
+    return (bins, plan.gather_idx, plan.scalars,
+            torch.from_numpy(grad).to(dev), torch.from_numpy(hess).to(dev),
+            torch.ones(n, dtype=torch.float32, device=dev), S, Bmax, shift,
+            BLOCK_ROWS)
+
+
+def hist_direct_under(torch, hs, a, plan):
+    """One K6 launch over make_sorted_inputs' arguments ``a`` under
+    ``plan``, through the library's C entry point (the wrapper always
+    launches ``sorted_plan``'s)."""
+    from lightgbm_torch.kernels import build
+    bins, gather_idx, scalars, grad, hess, cnt, S, Bmax, shift, T = a
+    n, G = bins.shape
+    hist = torch.empty((S, G, Bmax, 3), dtype=torch.float32,
+                       device=bins.device)
+    acc = torch.empty(hist.shape, dtype=torch.int64, device=bins.device)
+    fn = getattr(build.load("hist_direct"),
+                 build.SIGNATURES["hist_direct"][0])
+    rc = fn(bins.data_ptr(), n, G, gather_idx.data_ptr(), scalars.data_ptr(),
+            scalars.shape[0], T, grad.data_ptr(), hess.data_ptr(),
+            cnt.data_ptr(), S, Bmax, float(2.0 ** shift),
+            float(2.0 ** -shift), acc.data_ptr(), hist.data_ptr(),
+            hs.plan_arg(plan),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"hist_direct under plan {tuple(plan)}: "
+                           f"cudaError {rc}")
+    return hist
+
+
+def time_sorted(torch, cs, emit):
+    """K6 at Bmax 63 and K7 at Bmax 255, S = 1, 16 and 64, each beside one
+    float32 ``index_add_`` and its bound; K6 also under other plans."""
+    from lightgbm_torch.kernels import hist_sorted as hs
+    for i, (name, Bmax, S) in enumerate(
+            (name, B, S) for name, B in (("hist_direct", 63),
+                                         ("hist_nibble", 255))
+            for S in (1, 16, 64)):
+        a = make_sorted_inputs(torch, ROWS, GROUPS, S, Bmax, 200 + i)
+        kernel = (hs.hist_direct_cuda if name == "hist_direct"
+                  else hs.hist_nibble_cuda)
+        want = hs.hist_sorted_plain(*a)
+        out = kernel(*a)
+        torch.cuda.synchronize()
+        NB = a[2].shape[0]
+        row = {"kernel": name, "rows": ROWS, "groups": GROUPS, "slots": S,
+               "max_bins": Bmax, "plan_blocks": NB,
+               "bit_equal": bool(torch.equal(out, want)),
+               "ms": cs.device_ms(lambda: kernel(*a))}
+        acc, cell, vals = cs.index_add_inputs(name, a)
+        row["index_add_ms"] = cs.device_ms(lambda: acc.index_add_(0, cell,
+                                                                  vals))
+        del acc, cell, vals
+        row["bound_ms"], row["bound_by"] = cs.bound(*cs.hist_work(name, a,
+                                                                  out))
+        if name == "hist_direct" and hasattr(hs, "sorted_plan"):
+            # a checkout whose K6 takes a launch plan
+            base = hs.sorted_plan(NB, BLOCK_ROWS, S, GROUPS, Bmax)
+            row["plan"] = list(base)
+            row["plans_ms"] = {}
+            for threads, per_range in itertools.product((128, 256, 512),
+                                                        (1, 2, 3)):
+                p = base._replace(threads=threads,
+                                  blocks_per_range=per_range,
+                                  ranges=-(-NB // per_range))
+                same = torch.equal(hist_direct_under(torch, hs, a, p), want)
+                row["plans_ms"][f"{threads}x{per_range}"] = [
+                    cs.device_ms(lambda: hist_direct_under(torch, hs, a, p)),
+                    bool(same)]
+        emit(row)
+        del a, want, out
+        torch.cuda.empty_cache()
+
+
+def k1_inputs(torch, cs, T, L, seed):
+    """Seeded K1 operands: T synthetic numeric trees of L leaves
+    (``chip_smoke.k1_records``, thresholds among the bins' 64 values),
+    (G, N) bins of 64 values, leaf values in +-0.1; and each leaf's depth
+    as a table of the leaf values' shape."""
+    from lightgbm_torch.kernels import predict as tpk
+    rs = np.random.RandomState(seed)
+    rec, depths = cs.k1_records(rs, T, L, GROUPS, [], max_bin=64)
+    dev = torch.device("cuda")
+    bins_T = torch.from_numpy(rs.randint(0, 64, size=(GROUPS, ROWS))
+                              .astype(np.uint8)).to(dev)
+    lv = torch.from_numpy(rs.uniform(-0.1, 0.1, size=(T, L))
+                          .astype(np.float32)).to(dev)
+    leaf_depth = np.zeros((T, L), np.float32)
+    for t in range(T):
+        # a leaf's depth: one more than its parent node's
+        node_depth = np.zeros(L, np.int64)
+        for s in range(L - 1):
+            for c in rec[t, s, [tpk.F_LEFT, tpk.F_RIGHT]]:
+                if c >= L:
+                    leaf_depth[t, c - L] = node_depth[s] + 1
+                else:
+                    node_depth[c] = node_depth[s] + 1
+    nodes = torch.from_numpy(tpk.pack_nodes(rec)).to(dev)
+    words = torch.zeros(1, dtype=torch.int32, device=dev)
+    return (bins_T, nodes, lv, words, max(depths),
+            torch.from_numpy(leaf_depth).to(dev))
+
+
+def time_predict(torch, cs, emit):
+    """K1 on synthetic numeric trees: 100 and 500 trees of 31 and 255
+    leaves over 1M rows; the visits come from the kernel summing each
+    leaf's depth (float32 sums of integers below 2**24 are exact)."""
+    from lightgbm_torch.kernels import predict as tpk
+    if not hasattr(tpk, "pack_nodes"):
+        emit({"kernel": "predict_stream", "skipped": "this checkout's K1 "
+              "reads 16-field records; chip_smoke.py times it"})
+        return
+    for i, (T, L) in enumerate(itertools.product((100, 500), (31, 255))):
+        bins_T, nodes, lv, words, maxd, leaf_depth = k1_inputs(
+            torch, cs, T, L, 300 + i)
+        ms = cs.device_ms(lambda: tpk.predict_stream_cuda(
+            bins_T, nodes, lv, words, maxd), reps=5)
+        visits = float(tpk.predict_stream_cuda(
+            bins_T, nodes, leaf_depth, words, maxd).double().sum().item())
+        plan = tpk.predict_plan(ROWS, GROUPS, L, T)
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in (bins_T, nodes, lv, words)) + 4 * ROWS
+        # numeric nodes without missing bins: 4 operations a visit, one add
+        # a row and tree
+        bound = cs.bound(n_bytes, 4 * visits + ROWS * T)
+        lane_eff = cs.walk_lane_efficiency(bins_T, nodes, leaf_depth, words,
+                                           maxd, plan.rows_per_tile)
+        emit({"kernel": "predict_stream", "rows": ROWS, "groups": GROUPS,
+              "trees": T, "num_leaves": L, "max_depth": maxd, "ms": ms,
+              "plan": plan._asdict(), "node_visits": visits,
+              "walk_lane_efficiency": lane_eff,
+              "stage_copy_bytes": plan.tiles * T * tpk.STAGE_NODE_BYTES * L
+              + GROUPS * ROWS, "bound_ms": bound[0], "bound_by": bound[1]})
+        del bins_T, nodes, lv, words, leaf_depth
         torch.cuda.empty_cache()
 
 
@@ -321,7 +498,8 @@ def route_probe(torch, cs, emit):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    ap.add_argument("--only", choices=("k58", "k2"), default=None)
+    ap.add_argument("--only", choices=("k58", "k2", "k67", "k1"),
+                    default=None)
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--route-probe", action="store_true")
     ap.add_argument("--label", default="")
@@ -348,8 +526,13 @@ def main(argv=None) -> int:
                     if (build.BUILD_DIR / f"{name}.log").exists()}})
     if args.sass:
         emit({"sass_atomics": sass_atomics(build)})
-    time_shapes(torch, cs, emit, ("k58", "k2") if args.only is None
+    families = (("k58", "k2", "k67", "k1") if args.only is None
                 else (args.only,))
+    time_shapes(torch, cs, emit, families)
+    if "k67" in families:
+        time_sorted(torch, cs, emit)
+    if "k1" in families:
+        time_predict(torch, cs, emit)
     if args.sass:
         # one launch of each at K = 10, S = 64, Bmax 63 under
         # torch.profiler: device time by kernel and memset
@@ -359,6 +542,18 @@ def main(argv=None) -> int:
         emit({"profile_hist_wide_S64_B63_5_launches":
               profile_split(torch, lambda: hw.hist_wide_cuda(*a))})
         del a, bins, slot, grad, hess, cnt
+        from lightgbm_torch.kernels import hist_sorted as hs
+        from lightgbm_torch.kernels import predict as tpk
+        a = make_sorted_inputs(torch, ROWS, GROUPS, 64, 63, 97)
+        emit({"profile_hist_direct_S64_B63_5_launches":
+              profile_split(torch, lambda: hs.hist_direct_cuda(*a))})
+        if hasattr(tpk, "pack_nodes"):
+            k1 = k1_inputs(torch, cs, 500, 255, 96)[:5]
+            emit({"profile_predict_stream_T500_L255_5_launches":
+                  profile_split(torch,
+                                lambda: tpk.predict_stream_cuda(*k1))})
+            del k1
+        del a
         for (K, S), (int_form, fn) in itertools.product(
                 ((CLASSES, 64), (CLASSES, 1), (1, 1)),
                 ((False, rh.route_and_hist_cuda),

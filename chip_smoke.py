@@ -124,11 +124,15 @@ Phases, each printing one JSON line:
    Bmax 255, K = 10 x S = 64 at Bmax 63 and 255 (several pair tiles), G =
    1, N = 1, N = 0, no row in a slot, and a ragged row count with
    unaligned operands; for K2 at K = 1 and K = 10, also EFB-bundled, NaN,
-   zero-as-missing and categorical route records; and K6 over block plans
-   with one slot taking every row, edge weights, single-row and empty
-   slots, pad blocks, S = 64, 300 groups over group tiles, G = 1, N = 0
-   and 1, and a ragged end with unaligned operands.  After the cells, so
-   that they run as they did before it existed.
+   zero-as-missing and categorical route records; K6 and K7 over block
+   plans with one slot taking every row, edge weights, single-row and
+   empty slots, pad blocks, S = 64, 300 groups over group tiles, G = 1,
+   N = 0 and 1, and a ragged end with unaligned operands (K7 at Bmax 129,
+   200, 255 and 256, G = 27); and K3 over EFB, NaN and zero-as-missing
+   records, children outside the tree, R = 0, 1 and 17, 16 383 leaves (the
+   packed table in global memory), 3000 groups, N = 0 and 1, and a ragged
+   row count with unaligned bins.  After the cells, so that they run as
+   they did before it existed.
 14. predict_adversarial: K1 on synthetic trees and bins made from
    ``--seed``, each class bit-equal to its plain version: NaN, zero, EFB
    and categorical nodes, early stop, trees of 16 383 leaves (walked from
@@ -1952,17 +1956,124 @@ K6_ADVERSARIAL = (
 )
 
 
+# K7's cases through the same inputs: Bmax 129 / 200 / 255 / 256, the root
+# and 64 slots, every row in one cell, pad blocks (every plan's trailing
+# blocks), unaligned operands and G not a multiple of 4
+K7_ADVERSARIAL = (
+    ("k7_one_slot", 1_000_000, 28, 64, 255, "one_slot", 1024, 0),
+    ("k7_edge_weights", 1_000_000, 28, 1, 255, "edge", 1024, 0),
+    ("k7_root_b256", 1_000_000, 28, 1, 256, "edge", 1024, 0),
+    ("k7_single_rows", 100_000, 28, 64, 256, "single_rows", 1024, 0),
+    ("k7_s64_b255", 1_000_000, 28, 64, 255, "random", 1024, 0),
+    ("k7_s1_b129", 1_000_000, 28, 1, 129, "random", 1024, 0),
+    ("k7_s16_b256", 500_000, 28, 16, 256, "random", 1024, 0),
+    ("k7_group_tiles", 100_000, 300, 8, 200, "random", 1024, 0),
+    ("k7_g1", 100_003, 1, 7, 130, "random", 1024, 0),
+    ("k7_n1", 1, 28, 3, 255, "random", 1024, 0),
+    ("k7_n0", 0, 28, 3, 255, "random", 1024, 0),
+    ("k7_g27_unaligned_ragged", 250_001, 27, 13, 255, "random", 999, 1),
+)
+
+
+def k3_records(rs, R, L, G, Bmax, kind="grown"):
+    """(R, L, 16) int32 route records of R growth rounds, made with numpy
+    from ``rs``: each round splits about 0.7 of the leaves so far (while
+    ids below L remain) on a random group at a random bin, the right child
+    a new id, default direction at random.  ``kind``: "missing" gives half
+    the splits a NaN bin and half a zero-as-missing bin; "routes" also
+    EFB-bundles 0.4 of them and puts thresholds below 0 and past 255;
+    "out_of_range" sends 0.25 of the right children outside [0, L)."""
+    from lightgbm_torch.kernels import layout as tl
+
+    tabs = np.zeros((R, L, len(tl.ROUTE_FIELDS)), np.int32)
+    tabs[..., tl.R_NANBIN] = -1
+    tabs[..., tl.R_MZBIN] = -1
+    tabs[..., tl.R_NBINS] = Bmax
+    cur = 1
+    for r in range(R):
+        split = np.flatnonzero(rs.rand(cur) < 0.7)[:max(L - cur, 0)]
+        k = len(split)
+        rec = tabs[r]
+        rec[split, tl.R_CHOSEN] = 1
+        rec[split, tl.R_NEWID] = cur + np.arange(k)
+        rec[split, tl.R_GROUP] = rs.randint(0, G, k)
+        rec[split, tl.R_THR] = rs.randint(0, Bmax, k)
+        rec[split, tl.R_DEFLEFT] = rs.rand(k) < 0.5
+        if kind in ("missing", "routes"):
+            rec[split, tl.R_NANBIN] = np.where(
+                rs.rand(k) < 0.5, rs.randint(0, Bmax, k), -1)
+            rec[split, tl.R_MZBIN] = np.where(
+                rs.rand(k) < 0.5, rs.randint(0, Bmax, k), -1)
+        if kind == "routes":
+            nb = rs.randint(2, Bmax + 1, k)
+            bundled = rs.rand(k) < 0.4
+            rec[split, tl.R_BUNDLED] = bundled
+            rec[split, tl.R_NBINS] = np.where(bundled, nb, Bmax)
+            rec[split, tl.R_SPAN] = np.where(bundled,
+                                             rs.randint(0, Bmax, k), 0)
+            rec[split, tl.R_DEFBIN] = rs.randint(0, Bmax, k) % nb
+            u = rs.rand(k)
+            rec[split, tl.R_THR] = np.where(
+                u < 0.05, -1, np.where(u > 0.95, 300, rec[split, tl.R_THR]))
+        if kind == "out_of_range":
+            bad = rs.rand(k) < 0.25
+            rec[split, tl.R_NEWID] = np.where(
+                bad, np.where(rs.rand(k) < 0.5, L + rs.randint(0, 3, k),
+                              -1 - rs.randint(0, 3, k)),
+                rec[split, tl.R_NEWID])
+        cur += k
+    return tabs
+
+
+def k3_adversarial_inputs(seed, n, G, R, L, Bmax, kind, offset=0):
+    """Arguments of one K3 launch on the card, made with numpy from
+    ``seed``: the (G, N) bins (uniform below Bmax) and ``k3_records``'
+    (R, L, 16) records.  ``offset`` > 0 hands the kernel a bins view that
+    starts that many bytes into its storage, so that it is not 16-byte
+    aligned."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+    tabs = k3_records(rs, R, L, G, Bmax, kind)
+    bins = rs.randint(0, Bmax, size=(G, n + offset)).astype(np.uint8)
+    dev = torch.device("cuda")
+    flat = torch.from_numpy(bins.reshape(-1)).to(dev)
+    return (flat[offset:offset + G * n].view(G, n),
+            torch.from_numpy(tabs).to(dev))
+
+
+# (label, n, G, R, L, Bmax, kind, bins offset): the main path's shape, EFB
+# / NaN / zero-as-missing records, children outside [0, L), R = 0, 1 and
+# 17, tables too large for shared memory (16 383 leaves), 3000 groups, N =
+# 1, N = 0, and a ragged unaligned N
+K3_ADVERSARIAL = (
+    ("k3_grown", 1_000_000, 28, 9, 255, 255, "grown", 0),
+    ("k3_missing", 200_000, 28, 9, 255, 63, "missing", 0),
+    ("k3_routes", 200_000, 28, 9, 255, 256, "routes", 0),
+    ("k3_out_of_range", 100_000, 28, 9, 255, 63, "out_of_range", 0),
+    ("k3_r0", 100_000, 28, 0, 255, 63, "grown", 0),
+    ("k3_r1", 100_000, 28, 1, 2, 63, "grown", 0),
+    ("k3_r17_l16383", 250_000, 28, 17, 16383, 255, "routes", 0),
+    ("k3_g3000", 100_000, 3000, 9, 255, 63, "missing", 0),
+    ("k3_g3000_l16383", 50_000, 3000, 17, 16383, 63, "grown", 0),
+    ("k3_n1", 1, 28, 9, 255, 63, "routes", 0),
+    ("k3_n0", 0, 28, 9, 255, 63, "grown", 0),
+    ("k3_unaligned_ragged", 250_001, 27, 9, 255, 200, "routes", 1),
+)
+
+
 def phase_hist_adversarial(seed):
     """K5, K8 and both forms of K2 launched on synthetic inputs that stress
     the tile pass's plan and arithmetic (one cell taking every row, weights
     at the shift's edge and, for K2's int form, at the int32 gate's, S = 64
     at Bmax 255, K = 10 x S = 64 over several pair tiles, G = 1, N = 1,
     N = 0, no row in a slot, a ragged end and unaligned operands; for K2
-    also EFB, NaN, zero-as-missing and categorical route records), each
-    held bit-equal to its plain version on the same tensors.  Outside any
-    main path's launch counts.  Returns the largest differences by kernel
-    (K2 over K > 1 classes as ``route_and_hist_k`` and
-    ``route_and_hist_int_k``)."""
+    also EFB, NaN, zero-as-missing and categorical route records); K6 and
+    K7 over block plans (``K6_ADVERSARIAL``, ``K7_ADVERSARIAL``) and K3
+    over route records (``K3_ADVERSARIAL``), each held bit-equal to its
+    plain version on the same tensors.  Outside any main path's launch
+    counts.  Returns the largest differences by kernel (K2 over K > 1
+    classes as ``route_and_hist_k`` and ``route_and_hist_int_k``)."""
     import torch
     from lightgbm_torch.kernels import hist_wide as hw, route_hist as rh
     from lightgbm_torch.kernels import scatter_hist as sh
@@ -2022,20 +2133,24 @@ def phase_hist_adversarial(seed):
             "max_abs_err": diff}
         del args, out, want
     from lightgbm_torch.kernels import hist_sorted as hs
-    err["hist_direct"] = 0.0
+    from lightgbm_torch.kernels import route_replay as rr
+    err["hist_direct"] = err["hist_nibble"] = 0.0
     for i, (label, n, G, S, Bmax, kind, T, off) in \
-            enumerate(K6_ADVERSARIAL):
+            enumerate(K6_ADVERSARIAL + K7_ADVERSARIAL):
         args = k6_adversarial_inputs(seed + 200 + i, n, G, S, Bmax, kind, T,
                                      off)
-        out = hs.hist_direct_cuda(*args)
+        name = sorted_kernel(Bmax)
+        kernel = hs.hist_direct_cuda if name == "hist_direct" \
+            else hs.hist_nibble_cuda
+        out = kernel(*args)
         want = hs.hist_sorted_plain(*args)
         torch.cuda.synchronize()
         diff = max_abs_diff(out, want)
-        err["hist_direct"] = max(err["hist_direct"], diff)
+        err[name] = max(err[name], diff)
         if not (torch.equal(out, want) and torch.isfinite(out).all()):
-            raise RuntimeError(f"{label}: hist_direct differs from its "
-                               f"plain version (max abs {diff})")
-        cases[label] = {"kernel": "hist_direct", "rows": n, "groups": G,
+            raise RuntimeError(f"{label}: {name} differs from its plain "
+                               f"version (max abs {diff})")
+        cases[label] = {"kernel": name, "rows": n, "groups": G,
                         "slots": S, "max_bins": Bmax, "kind": kind,
                         "block_rows": T, "operand_offset": off,
                         "plan": list(hs.sorted_plan(args[2].shape[0], T, S,
@@ -2043,6 +2158,37 @@ def phase_hist_adversarial(seed):
                         "rows_counted": float(want[..., 2].sum().item()),
                         "max_abs_err": diff}
         del args, out, want
+    err["route_replay"] = 0.0
+    forms = set()
+    for i, (label, n, G, R, L, Bmax, kind, off) in \
+            enumerate(K3_ADVERSARIAL):
+        bins_T, tabs = k3_adversarial_inputs(seed + 300 + i, n, G, R, L,
+                                             Bmax, kind, off)
+        out = rr.route_replay_cuda(bins_T, tabs)
+        want = rr.route_replay_plain(bins_T, tabs)
+        torch.cuda.synchronize()
+        diff = max_abs_diff(out, want)
+        err["route_replay"] = max(err["route_replay"], diff)
+        if not torch.equal(out, want):
+            raise RuntimeError(f"{label}: route_replay differs from its "
+                               f"plain version (max abs {diff})")
+        plan = rr.replay_plan(n, G, R, L) if n else None
+        if plan is not None:
+            forms.add(plan.tab_bytes > 0)
+        packed = rr.pack_records(tabs, G)
+        cases[label] = {"kernel": "route_replay", "rows": n, "groups": G,
+                        "rounds": R, "leaves": L, "max_bins": Bmax,
+                        "kind": kind, "bins_offset": off,
+                        "plan": None if plan is None else list(plan),
+                        "special_records": int(
+                            (packed[..., 1] < 0).sum().item()),
+                        "rows_stopped": int((want < 0).sum().item()),
+                        "distinct_leaves": int(torch.unique(want).numel()),
+                        "max_abs_err": diff}
+        del bins_T, tabs, out, want
+    if forms != {True, False}:
+        raise RuntimeError(f"K3's cases staged the table {forms}, not both "
+                           f"staged and in global memory")
     torch.cuda.empty_cache()
     emit({"phase": "hist_adversarial", "cases": cases,
           "all_bit_equal": True, "max_abs_err": err})

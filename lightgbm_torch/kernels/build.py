@@ -45,11 +45,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _c_ptr, _c_int, _c_i64, _c_f32 = (ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_int64, ctypes.c_float)
-# the two entry points of csrc/hist_sorted.cu take the same arguments, K6
-# its launch plan too
+# the two entry points of csrc/hist_sorted.cu take the same arguments
 _SORTED_ARGS = [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_int, _c_int,
                 _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_f32, _c_f32,
-                _c_ptr, _c_ptr, _c_ptr]
+                _c_ptr, _c_ptr, _c_ptr, _c_ptr]
 # C signature of each library's entry point: (symbol, argtypes)
 SIGNATURES = {
     "predict_stream": ("lgbt_predict_stream",
@@ -69,13 +68,13 @@ SIGNATURES = {
     "leaf_gather": ("lgbt_leaf_gather",
                     [_c_ptr, _c_i64, _c_ptr, _c_int, _c_ptr, _c_ptr]),
     "route_replay": ("lgbt_route_replay",
-                     [_c_ptr, _c_i64, _c_ptr, _c_int, _c_int, _c_ptr,
-                      _c_ptr]),
+                     [_c_ptr, _c_i64, _c_int, _c_ptr, _c_int, _c_int, _c_ptr,
+                      _c_ptr, _c_ptr, _c_ptr]),
     "scatter_hist": ("lgbt_scatter_hist",
                      [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
                       _c_int, _c_int, _c_f32, _c_f32, _c_ptr, _c_ptr,
                       _c_ptr, _c_ptr]),
-    "hist_direct": ("lgbt_hist_direct", _SORTED_ARGS[:-1] + [_c_ptr, _c_ptr]),
+    "hist_direct": ("lgbt_hist_direct", _SORTED_ARGS),
     "hist_nibble": ("lgbt_hist_nibble", _SORTED_ARGS),
     "hist_wide": ("lgbt_hist_wide",
                   [_c_ptr, _c_i64, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernels lightgbm_tpu/pallas/hist_kernel.py
 // `_hist_direct` -> `_direct_kernel` (Bmax <= 128, K6) and `_hist_nibble`
-// -> `_nibble_kernel` (Bmax > 128, K7), which read the block plan of
+// -> `_nibble_kernel` (128 < Bmax <= 256, K7), which read the block plan of
 // lightgbm_tpu/ops/compact.py `plan_blocks` (reference analog:
 // src/treelearner/cuda/cuda_histogram_constructor.cu over the leaf-ordered
 // rows of cuda_data_partition.cu).
@@ -11,45 +11,47 @@
 // The TPU kernels build a (G*B, T) bf16 one-hot of each block (direct) or
 // two 16-bin digit one-hots (nibble), contract them with the weights split
 // into bf16 hi and lo parts on the matrix unit, and read bins packed four
-// to an int32; all of that exists because the TPU has no fast scatter.
-// None of it is copied.  As in the reference CUDA learner, the rows of one
-// slot are contiguous, so a block's histogram tile needs no slot axis: (G
-// chunk, Bmax) cells in shared memory, filled with integer atomics, flushed
-// into an int64 (S, G, Bmax, 3) sum with 64-bit global atomics when the
-// slot changes and at the end of a block's range, as the TPU kernel writes
-// its accumulator back at a slot's last block.  A position whose gather
-// index is the pad row n adds nothing, so the plan's pad blocks add
-// nothing; slots with no rows stay zero.  Sums are exact fixed point, so
-// the result is the same on every run and equals the plain version
-// (lightgbm_torch/kernels/hist_sorted.py::hist_sorted_plain) bit for bit.
+// to an int32; all of that exists because the TPU has no fast scatter, and
+// the two differ only in how the one-hot is split.  None of it is copied:
+// K6 and K7 are one kernel here, `direct_kernel`, and differ only in the
+// Bmax range each entry point takes and in the launch plan
+// kernels/hist_sorted.py::sorted_plan picks for it.  As in the reference
+// CUDA learner, the rows of one slot are contiguous, so a block's
+// histogram tile needs no slot axis: (groups, Bmax) cells in shared memory,
+// flushed into an int64 (S, G, Bmax, 3) sum with 64-bit global atomics
+// when the slot changes and at the end of a block's range, as the TPU
+// kernel writes its accumulator back at a slot's last block.  A position
+// whose gather index is the pad row n adds nothing, so the plan's pad
+// blocks add nothing; slots with no rows stay zero.  Sums are exact fixed
+// point, so the result is the same on every run and equals the plain
+// version (lightgbm_torch/kernels/hist_sorted.py::hist_sorted_plain) bit
+// for bit.
 //
 // What bounds it on an H100: the bytes a pass must move (the 4-byte gather
 // index, the row's G bin bytes and its three weights: ~44 B/row at 28
 // groups beside the slot sort) take ~13 us at 1M rows and 3.35 TB/s; the
 // adds are far fewer operations than the card's rate covers.
 //
-// K6 (`direct_kernel`, Bmax <= 128) is built on the tile pass of the
-// row-order kernels (csrc/hist_tile.cuh, channel set GradHessCount: 20-byte
-// cells of split 32-bit words).  The first port (kept below as the
-// `sorted_hist_kernel` template, K7's kernel) was held back by what PRs of
-// K5, K8 and K2 measured and removed there: 64-bit shared atomicAdds, which
-// compile to ATOMS.CAST.SPIN.64 compare-and-swap loops on sm_90a, in blocks
-// whose rows all share one slot, so that they contend as a root launch
-// does; a grid of ~2 blocks of 256 threads an SM, a quarter of the threads
-// an SM holds; one row a thread with scalar loads.  K6 now:
+// The kernel runs on the tile pass of the row-order kernels
+// (csrc/hist_tile.cuh, channel set GradHessCount: 20-byte cells of split
+// 32-bit words).  The first port (one template for both, 64-bit shared
+// atomicAdds, which compile to ATOMS.CAST.SPIN.64 compare-and-swap loops on
+// sm_90a; ~2 blocks of 256 threads an SM; one row a thread with scalar
+// loads) was replaced for K6 first and then for K7.  Now:
 //
-//   * adds each row's (grad, hess, count) with GradHessCount::add (native
-//     32-bit shared atomics, the low word's carry into the high word) and
-//     flushes with GradHessCount::flush, so its SASS has no
+//   * each row's (grad, hess, count) is added with GradHessCount::add
+//     (native 32-bit shared atomics, the low word's carry into the high
+//     word) and flushed with GradHessCount::flush, so the SASS has no
 //     ATOMS.CAST.SPIN.64;
-//   * reads 4 plan positions a thread at a time (an int4 of gather
+//   * a thread reads 4 plan positions at a time (an int4 of gather
 //     indices), each row's three weights, and its G group bytes as whole
 //     32-bit words where the row-major bins allow it, the next word of the
 //     4 rows loaded before this word's adds;
-//   * runs as many blocks as the tile's shared memory lets an SM hold, over
-//     ranges of plan blocks sized by kernels/hist_sorted.py::sorted_plan
-//     (checked here), a pad block skipped on its first gather index, and
-//     flushes once per slot run within a block.
+//   * blocks run over ranges of plan blocks in tiles of groups sized by
+//     sorted_plan (checked here), a pad block skipped on its first gather
+//     index, and flush once per slot run within a block.  At Bmax > 128 a
+//     tile of all 28 groups takes 143 KB, one block an SM, so K7's plan
+//     chooses its tile, threads and ranges apart from K6's.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,92 +60,7 @@
 
 namespace {
 
-// K7 (`sorted_hist_kernel<512>`, the first port's design, unchanged)
-constexpr int kSmemBytes = 200 * 1024;  // histogram tile of one block
-constexpr int kTargetBlocks = 2 * 132;  // ~2 blocks per SM on an H100
-constexpr int kCellBytes = 20;          // int64 grad, int64 hess, int32 count
-
-// Adds the tile's non-zero cells into slot `s` of the global sum and
-// zeroes them.  Called by every thread of the block between barriers.
-__device__ void flush_tile(unsigned long long* s_gh, int* s_cnt, int cells,
-                           int s, int g0, int G, int Bmax,
-                           unsigned long long* __restrict__ acc) {
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int b = i % Bmax;
-    const int g = g0 + i / Bmax;
-    unsigned long long* out =
-        acc + ((static_cast<int64_t>(s) * G + g) * Bmax + b) * 3;
-    const unsigned long long vg = s_gh[2 * i];
-    const unsigned long long vh = s_gh[2 * i + 1];
-    const int c = s_cnt[i];
-    if (vg != 0ull) atomicAdd(out, vg);
-    if (vh != 0ull) atomicAdd(out + 1, vh);
-    if (c != 0)
-      atomicAdd(out + 2,
-                static_cast<unsigned long long>(static_cast<long long>(c)));
-    s_gh[2 * i] = 0ull;
-    s_gh[2 * i + 1] = 0ull;
-    s_cnt[i] = 0;
-  }
-}
-
-// grid: x = range of plan blocks, y = group chunk
-template <int kThreads>
-__global__ void __launch_bounds__(kThreads)
-sorted_hist_kernel(const uint8_t* __restrict__ bins, int64_t n_rows, int G,
-                   int Bmax, const int32_t* __restrict__ gather_idx,
-                   const int32_t* __restrict__ scalars, int NB, int T,
-                   const float* __restrict__ grad,
-                   const float* __restrict__ hess,
-                   const float* __restrict__ cnt, float scale,
-                   int blocks_per_range, int groups_per_chunk, int S,
-                   unsigned long long* __restrict__ acc) {
-  // shared tile: Gc x Bmax x (grad, hess) int64, then Gc x Bmax int32
-  // counts
-  extern __shared__ unsigned long long s_gh[];
-  const int g0 = blockIdx.y * groups_per_chunk;
-  const int g1 = g0 + groups_per_chunk < G ? g0 + groups_per_chunk : G;
-  const int gc = g1 - g0;
-  const int cells = gc * Bmax;
-  int* s_cnt = reinterpret_cast<int*>(s_gh + 2 * cells);
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    s_gh[2 * i] = 0ull;
-    s_gh[2 * i + 1] = 0ull;
-    s_cnt[i] = 0;
-  }
-  const int b0 = blockIdx.x * blocks_per_range;
-  const int b1 = b0 + blocks_per_range < NB ? b0 + blocks_per_range : NB;
-  int cur = -1;  // the slot whose rows the tile holds
-  for (int blk = b0; blk < b1; ++blk) {
-    const int s = scalars[3 * blk];
-    if (s < 0 || s >= S) continue;
-    if (s != cur) {
-      __syncthreads();
-      if (cur >= 0) flush_tile(s_gh, s_cnt, cells, cur, g0, G, Bmax, acc);
-      __syncthreads();
-      cur = s;
-    }
-    const int32_t* idx = gather_idx + static_cast<int64_t>(blk) * T;
-    for (int t = threadIdx.x; t < T; t += blockDim.x) {
-      const int64_t row = idx[t];
-      if (row < 0 || row >= n_rows) continue;   // the pad row
-      const long long qg = __float2ll_rn(grad[row] * scale);
-      const long long qh = __float2ll_rn(hess[row] * scale);
-      const int c = __float2int_rn(cnt[row]);
-      const uint8_t* rb = bins + row * G + g0;
-      for (int g = 0; g < gc; ++g) {
-        const int cell = g * Bmax + rb[g];
-        if (qg != 0)
-          atomicAdd(&s_gh[2 * cell], static_cast<unsigned long long>(qg));
-        if (qh != 0)
-          atomicAdd(&s_gh[2 * cell + 1], static_cast<unsigned long long>(qh));
-        if (c != 0) atomicAdd(&s_cnt[cell], c);
-      }
-    }
-  }
-  __syncthreads();
-  if (cur >= 0) flush_tile(s_gh, s_cnt, cells, cur, g0, G, Bmax, acc);
-}
+constexpr int kCellBytes = 20;  // GradHessCount: five 32-bit words a cell
 
 // channels (grad, hess, count): grad and hess scaled by 2**-shift
 __global__ void to_float_kernel(const unsigned long long* __restrict__ acc,
@@ -158,47 +75,6 @@ __global__ void to_float_kernel(const unsigned long long* __restrict__ acc,
 }
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
-
-template <int kThreads>
-int launch(const uint8_t* bins, int64_t n_rows, int G,
-           const int32_t* gather_idx, const int32_t* scalars, int NB, int T,
-           const float* grad, const float* hess, const float* cnt, int S,
-           int Bmax, float scale, float inv_scale, int64_t* acc, float* hist,
-           cudaStream_t stream) {
-  auto* h_acc = reinterpret_cast<unsigned long long*>(acc);
-  const int64_t cells = static_cast<int64_t>(S) * G * Bmax * 3;
-  cudaError_t err = cudaMemsetAsync(h_acc, 0, sizeof(int64_t) * cells, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int per_group = Bmax * kCellBytes;
-  int groups_per_chunk = kSmemBytes / per_group;
-  if (groups_per_chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int chunks = static_cast<int>(ceil_div(G, groups_per_chunk));
-  groups_per_chunk = static_cast<int>(ceil_div(G, chunks));  // balanced
-  if (NB > 0) {
-    int64_t ranges = kTargetBlocks / chunks;
-    if (ranges < 1) ranges = 1;
-    if (ranges > NB) ranges = NB;
-    const int blocks_per_range = static_cast<int>(ceil_div(NB, ranges));
-    ranges = ceil_div(NB, blocks_per_range);
-    const int smem = groups_per_chunk * per_group;
-    err = cudaFuncSetAttribute(sorted_hist_kernel<kThreads>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned>(ranges),
-                    static_cast<unsigned>(chunks));
-    sorted_hist_kernel<kThreads><<<grid, kThreads, smem, stream>>>(
-        bins, n_rows, G, Bmax, gather_idx, scalars, NB, T, grad, hess, cnt,
-        scale, blocks_per_range, groups_per_chunk, S, h_acc);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  to_float_kernel<<<static_cast<unsigned>(ceil_div(cells, 256)), 256, 0,
-                    stream>>>(h_acc, cells, inv_scale, hist);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------- K6
 
 // plan fields, in the order of kernels/hist_sorted.py::SORTED_PLAN_FIELDS
 enum {
@@ -341,12 +217,15 @@ bool direct_plan_ok(const int64_t* q, int NB, int G, int Bmax) {
          q[kPlanSmem] <= hist_tile::kMaxSmem;
 }
 
-int hist_direct(const uint8_t* bins, int64_t n_rows, int G,
+// One launch of direct_kernel over a plan that direct_plan_ok accepts, for
+// Bmax in [lo, hi].
+int hist_sorted(const uint8_t* bins, int64_t n_rows, int G,
                 const int32_t* gather_idx, const int32_t* scalars, int NB,
                 int T, const float* grad, const float* hess, const float* cnt,
                 int S, int Bmax, float scale, float inv_scale, int64_t* acc,
-                float* hist, const int64_t* plan, cudaStream_t stream) {
-  if (n_rows < 0 || G < 1 || T < 1 || S < 1 || Bmax < 1 || Bmax > 128 ||
+                float* hist, const int64_t* plan, int lo, int hi,
+                cudaStream_t stream) {
+  if (n_rows < 0 || G < 1 || T < 1 || S < 1 || Bmax < lo || Bmax > hi ||
       !direct_plan_ok(plan, NB, G, Bmax))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* h_acc = reinterpret_cast<unsigned long long*>(acc);
@@ -398,18 +277,19 @@ int hist_direct(const uint8_t* bins, int64_t n_rows, int G,
 // synchronise, and returns the first CUDA error (0 = launched).  bins is
 // the row-major (n_rows, G) uint8 matrix; gather_idx (NB*T) and scalars
 // (NB, 3) are the block plan; acc is (S*G*Bmax*3) int64 scratch this call
-// zeroes; hist is the (S, G, Bmax, 3) float32 result.
+// zeroes; hist is the (S, G, Bmax, 3) float32 result; plan is the host
+// array of kernels/hist_sorted.py::sorted_plan.
 
-// K6 (Bmax <= 128): plan is the host array of
-// kernels/hist_sorted.py::sorted_plan.
+// K6 (Bmax <= 128)
 extern "C" int lgbt_hist_direct(
     const uint8_t* bins, int64_t n_rows, int G, const int32_t* gather_idx,
     const int32_t* scalars, int NB, int T, const float* grad,
     const float* hess, const float* cnt, int S, int Bmax, float scale,
     float inv_scale, int64_t* acc, float* hist, const int64_t* plan,
     cudaStream_t stream) {
-  return hist_direct(bins, n_rows, G, gather_idx, scalars, NB, T, grad, hess,
-                     cnt, S, Bmax, scale, inv_scale, acc, hist, plan, stream);
+  return hist_sorted(bins, n_rows, G, gather_idx, scalars, NB, T, grad, hess,
+                     cnt, S, Bmax, scale, inv_scale, acc, hist, plan, 1, 128,
+                     stream);
 }
 
 // K7 (128 < Bmax <= 256)
@@ -417,9 +297,9 @@ extern "C" int lgbt_hist_nibble(
     const uint8_t* bins, int64_t n_rows, int G, const int32_t* gather_idx,
     const int32_t* scalars, int NB, int T, const float* grad,
     const float* hess, const float* cnt, int S, int Bmax, float scale,
-    float inv_scale, int64_t* acc, float* hist, cudaStream_t stream) {
-  if (Bmax <= 128 || Bmax > 256)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch<512>(bins, n_rows, G, gather_idx, scalars, NB, T, grad, hess,
-                     cnt, S, Bmax, scale, inv_scale, acc, hist, stream);
+    float inv_scale, int64_t* acc, float* hist, const int64_t* plan,
+    cudaStream_t stream) {
+  return hist_sorted(bins, n_rows, G, gather_idx, scalars, NB, T, grad, hess,
+                     cnt, S, Bmax, scale, inv_scale, acc, hist, plan, 129,
+                     256, stream);
 }

@@ -17,11 +17,11 @@ bf16 hi/lo weights and its four-bins-per-int32 packing are not copied.
 ``hist_sorted_plain`` only for tensors on the CPU; a kernel that fails to
 build or launch raises.
 
-K6 (``csrc/hist_sorted.cu`` ``direct_kernel``) adds the plan's rows into
-shared-memory tiles of one slot x as many groups as fit x bins, in the
-20-byte cells of the row-order kernels' tile pass (``csrc/hist_tile.cuh``);
-``sorted_plan`` picks its tiles, ranges of plan blocks and threads from the
-plan's shapes alone.
+K6 and K7 are one kernel (``csrc/hist_sorted.cu`` ``direct_kernel``): it
+adds the plan's rows into shared-memory tiles of one slot x groups x bins,
+in the 20-byte cells of the row-order kernels' tile pass
+(``csrc/hist_tile.cuh``); ``sorted_plan`` picks its tiles, ranges of plan
+blocks and threads from the plan's shapes alone, K7's apart from K6's.
 """
 from __future__ import annotations
 
@@ -39,10 +39,12 @@ from .hist_wide import (CELL_BYTES, SMEM_BLOCK, SMEM_SM, SMS, THREADS,
 
 # the largest Bmax K6 takes; K7 takes the rest up to 256
 DIRECT_MAX_BINS = 128
+# the most groups a K7 tile holds
+NIBBLE_GROUPS = 8
 
 
 class SortedPlan(NamedTuple):
-    """One K6 launch, in the field order the C side reads.
+    """One K6 or K7 launch, in the field order the C side reads.
 
     A block holds a tile of one slot x ``groups_per_tile`` groups x Bmax
     bins (``smem`` bytes, 20 a cell) and walks ``blocks_per_range``
@@ -62,29 +64,36 @@ SORTED_PLAN_FIELDS = SortedPlan._fields
 
 @functools.lru_cache(maxsize=1024)
 def sorted_plan(NB: int, T: int, S: int, G: int, Bmax: int) -> SortedPlan:
-    """The launch plan of K6 over NB plan blocks of T positions, S slots, G
-    groups and Bmax bins: 256 threads a block; two waves of blocks over the
-    card, or one at a single slot (the root), where every block flushes
-    into the same cells and fewer, longer ranges flush less (NVIDIA H100,
-    scripts/torch_hist_bench.py: 256 threads beat 128 and 512, and at the
-    root two plan blocks a range beat one)."""
+    """The launch plan of K6 (Bmax <= 128) or K7 (above) over NB plan
+    blocks of T positions, S slots, G groups and Bmax bins: 256 threads a
+    block; two waves of blocks over the card, or one at a single slot (the
+    root), where every block flushes into the same cells and fewer, longer
+    ranges flush less (NVIDIA H100, scripts/torch_hist_bench.py: 256
+    threads beat 128 and 512, and at the root two plan blocks a range beat
+    one).  K7's tile holds at most NIBBLE_GROUPS groups, so that four
+    blocks share an SM: at T = 1024 positions only 256 threads of a block
+    have rows, and 8 groups beat tiles of 28, 16, 12 and 4 at every S."""
     return _sorted_plan(NB, T, S, G, Bmax, SMEM_BLOCK, 256,
-                        1 if S == 1 else 2)
+                        1 if S == 1 else 2,
+                        0 if Bmax <= DIRECT_MAX_BINS else NIBBLE_GROUPS)
 
 
 def _sorted_plan(NB: int, T: int, S: int, G: int, Bmax: int,
-                 smem_budget: int, threads: int,
-                 waves: int) -> SortedPlan:
-    """``sorted_plan`` with the block's shared-memory budget, its threads
-    and the waves of blocks wanted given, so that tests reach many group
-    tiles and ranges at small shapes.
+                 smem_budget: int, threads: int, waves: int,
+                 max_groups: int = 0) -> SortedPlan:
+    """``sorted_plan`` with the block's shared-memory budget, its threads,
+    the waves of blocks wanted and the most groups a tile (0: no limit)
+    given, so that tests reach many group tiles and ranges at small shapes.
 
-    Groups: all that fit in the budget, else an even share, a multiple of 4
-    where it fits (a row's group bytes then load as whole words).  Ranges:
-    the fewest plan blocks a range that make ``waves`` waves of blocks over
-    the card (0: one range), so that a block flushes once per slot run of
-    its range and the plan's trailing pad blocks do not leave SMs idle."""
+    Groups: all that fit in the budget and the limit, else an even share, a
+    multiple of 4 where it fits (a row's group bytes then load as whole
+    words).  Ranges: the fewest plan blocks a range that make ``waves``
+    waves of blocks over the card (0: one range), so that a block flushes
+    once per slot run of its range and the plan's trailing pad blocks do
+    not leave SMs idle."""
     cap = max(1, smem_budget // (Bmax * CELL_BYTES))
+    if max_groups > 0:
+        cap = min(cap, max_groups)
     tiles = _cdiv(G, cap)
     gpt = _cdiv(G, tiles)
     if tiles > 1 and 4 * _cdiv(gpt, 4) <= cap:
@@ -150,19 +159,15 @@ def _launch(kernel: str, bins, gather_idx, scalars, grad, hess, cnt,
                        device=dev)
     acc = torch.empty(hist.shape, dtype=torch.int64, device=dev)
     fn = getattr(build.load(kernel), build.SIGNATURES[kernel][0])
-    # K6 takes its launch plan; K7 plans inside
-    plan = (sorted_plan(nb, block_rows, num_slots, G, max_bins)
-            if kernel == "hist_direct" else None)
+    plan = sorted_plan(nb, block_rows, num_slots, G, max_bins)
     rc = fn(bins.data_ptr(), n, G, gather_idx.data_ptr(), scalars.data_ptr(),
             nb, block_rows, grad.data_ptr(), hess.data_ptr(), cnt.data_ptr(),
             num_slots, max_bins, float(2.0 ** shift), float(2.0 ** -shift),
-            acc.data_ptr(), hist.data_ptr(),
-            *(() if plan is None else (plan_arg(plan),)),
+            acc.data_ptr(), hist.data_ptr(), plan_arg(plan),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
-        planned = "" if plan is None else f", plan {tuple(plan)}"
         raise LightGBMError(f"{kernel} kernel launch failed (cudaError "
-                            f"{rc}{planned})")
+                            f"{rc}, plan {tuple(plan)})")
     return hist
 
 
@@ -184,7 +189,7 @@ def hist_nibble_cuda(bins, gather_idx, scalars, grad, hess, cnt,
                      num_slots: int, max_bins: int, shift: int,
                      block_rows: int) -> torch.Tensor:
     """Launch K7 (csrc/hist_sorted.cu, 128 < Bmax <= 256) on the current
-    stream."""
+    stream, under ``sorted_plan`` of the shapes."""
     if not DIRECT_MAX_BINS < max_bins <= 256:
         raise LightGBMError(f"hist_nibble takes {DIRECT_MAX_BINS} < Bmax <= "
                             f"256, got {max_bins}")

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Time the port's histogram kernels, K5 ``scatter_hist``, K8 ``hist_wide``
 and both forms of K2 ``route_and_hist`` (rows in their natural order), K6
-``hist_direct`` and K7 ``hist_nibble`` (the slot-sorted block plan), and
-the prediction kernel K1 ``predict_stream``, on one NVIDIA GPU at the main
-paths' shapes.
+``hist_direct`` and K7 ``hist_nibble`` (the slot-sorted block plan), the
+prediction kernel K1 ``predict_stream`` and the route replay K3
+``route_replay``, on one NVIDIA GPU at the main paths' shapes.
 
     python3 scripts/torch_hist_bench.py [--root DIR]
-                                        [--only k58|k2|k67|k1]
+                                        [--only k58|k2|k67|k1|k3]
                                         [--sass] [--route-probe]
                                         [--label TEXT]
 
@@ -25,8 +25,15 @@ group) triples (float32; int32 for K2's int form), the bound
 (``chip_smoke.hist_work`` / ``k2_work``), and whether the kernel equals its
 plain version bit for bit.  K6 and K7 (1M rows x 28 groups, row-major, at
 Bmax 63 and 255, S = 1 (the root's plan), 16 and 64 over half the rows,
-blocks of 1024) print the same, and K6 also its time under other launch
-plans (128, 256 and 512 threads; 1, 2 and 3 plan blocks a range).  K1 runs
+blocks of 1024) print the same, K6 also its time under other launch
+plans (128, 256 and 512 threads; 1, 2 and 3 plan blocks a range) and K7
+under its (tiles of 28, 16, 12, 8 and 4 groups; 256, 512 and 1024
+threads; 1-12 plan blocks a range or the plan's own).  K3 runs one sampled
+tree's launch (12 GOSS trees on 1M HIGGS-shaped rows) and grown synthetic
+trees (``chip_smoke.k3_records``) of R = 1, 5 and 9 rounds and 31 and 255
+leaves over 1M rows x 28 groups: its time with the L2 cache warm and cold,
+the plain version's, its bound (``chip_smoke.k3_work``), its time under
+other plans and one launch split by kernel.  K1 runs
 synthetic numeric trees (``chip_smoke.k1_records``) of 31 and 255 leaves,
 100 and 500 of them, over 1M rows x 28 groups: its time, its launch plan,
 the node visits (the kernel itself summing per-leaf depths), the bytes its
@@ -58,7 +65,7 @@ import numpy as np
 ROWS, ROWS_K, GROUPS, CLASSES = 1_000_000, 900_000, 28, 10
 LIBRARIES = ("scatter_hist", "hist_wide", "route_and_hist",
              "route_and_hist_int", "hist_direct", "hist_nibble",
-             "predict_stream")
+             "predict_stream", "route_replay")
 BLOCK_ROWS = 1024
 
 
@@ -269,18 +276,17 @@ def make_sorted_inputs(torch, n, G, S, Bmax, seed):
             BLOCK_ROWS)
 
 
-def hist_direct_under(torch, hs, a, plan):
-    """One K6 launch over make_sorted_inputs' arguments ``a`` under
-    ``plan``, through the library's C entry point (the wrapper always
-    launches ``sorted_plan``'s)."""
+def sorted_under(torch, hs, name, a, plan):
+    """One K6 or K7 launch (``name``) over make_sorted_inputs' arguments
+    ``a`` under ``plan``, through the library's C entry point (the wrapper
+    always launches ``sorted_plan``'s)."""
     from lightgbm_torch.kernels import build
     bins, gather_idx, scalars, grad, hess, cnt, S, Bmax, shift, T = a
     n, G = bins.shape
     hist = torch.empty((S, G, Bmax, 3), dtype=torch.float32,
                        device=bins.device)
     acc = torch.empty(hist.shape, dtype=torch.int64, device=bins.device)
-    fn = getattr(build.load("hist_direct"),
-                 build.SIGNATURES["hist_direct"][0])
+    fn = getattr(build.load(name), build.SIGNATURES[name][0])
     rc = fn(bins.data_ptr(), n, G, gather_idx.data_ptr(), scalars.data_ptr(),
             scalars.shape[0], T, grad.data_ptr(), hess.data_ptr(),
             cnt.data_ptr(), S, Bmax, float(2.0 ** shift),
@@ -288,9 +294,20 @@ def hist_direct_under(torch, hs, a, plan):
             hs.plan_arg(plan),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"hist_direct under plan {tuple(plan)}: "
+        raise RuntimeError(f"{name} under plan {tuple(plan)}: "
                            f"cudaError {rc}")
     return hist
+
+
+def plan_sweep(torch, cs, hs, name, a, want, variants):
+    """Device time and bit equality of one K6 or K7 launch under each
+    (label, plan) of ``variants``."""
+    out = {}
+    for label, p in variants:
+        same = torch.equal(sorted_under(torch, hs, name, a, p), want)
+        out[label] = [cs.device_ms(lambda: sorted_under(torch, hs, name, a,
+                                                        p)), bool(same)]
+    return out
 
 
 def time_sorted(torch, cs, emit):
@@ -322,19 +339,179 @@ def time_sorted(torch, cs, emit):
             # a checkout whose K6 takes a launch plan
             base = hs.sorted_plan(NB, BLOCK_ROWS, S, GROUPS, Bmax)
             row["plan"] = list(base)
-            row["plans_ms"] = {}
-            for threads, per_range in itertools.product((128, 256, 512),
-                                                        (1, 2, 3)):
-                p = base._replace(threads=threads,
-                                  blocks_per_range=per_range,
-                                  ranges=-(-NB // per_range))
-                same = torch.equal(hist_direct_under(torch, hs, a, p), want)
-                row["plans_ms"][f"{threads}x{per_range}"] = [
-                    cs.device_ms(lambda: hist_direct_under(torch, hs, a, p)),
-                    bool(same)]
+            row["plans_ms"] = plan_sweep(torch, cs, hs, name, a, want, [
+                (f"{threads}x{per_range}",
+                 base._replace(threads=threads, blocks_per_range=per_range,
+                               ranges=-(-NB // per_range)))
+                for threads, per_range in itertools.product((128, 256, 512),
+                                                            (1, 2, 3))])
+        if name == "hist_nibble" and hasattr(hs, "NIBBLE_GROUPS"):
+            # a checkout whose K7 takes a launch plan: groups a tile x
+            # threads x plan blocks a range ("w": the plan's own, waves of
+            # blocks over the card)
+            base = hs.sorted_plan(NB, BLOCK_ROWS, S, GROUPS, Bmax)
+            row["plan"] = list(base)
+            variants = []
+            for gpt, threads in itertools.product((28, 16, 12, 8, 4),
+                                                  (256, 512, 1024)):
+                p = hs._sorted_plan(NB, BLOCK_ROWS, S, GROUPS, Bmax,
+                                    gpt * Bmax * hs.CELL_BYTES, threads,
+                                    1 if S == 1 else 2, gpt)
+                variants.append((f"{gpt}g_{threads}t_w{p.blocks_per_range}",
+                                 p))
+                for per_range in (1, 2, 3, 4, 6, 8, 12):
+                    variants.append((f"{gpt}g_{threads}t_{per_range}",
+                                     p._replace(blocks_per_range=per_range,
+                                                ranges=-(-NB // per_range))))
+            row["plans_ms"] = plan_sweep(torch, cs, hs, name, a, want,
+                                         variants)
         emit(row)
         del a, want, out
         torch.cuda.empty_cache()
+
+
+def own_chip_smoke():
+    """This checkout's chip_smoke.py (the input generators), whichever
+    checkout ``--root`` times."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_bench", Path(__file__).resolve().parents[1] /
+        "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def replay_under(torch, rr, bins_T, tabs, plan):
+    """One K3 launch under ``plan``, through the library's C entry point
+    (the wrapper always launches ``replay_plan``'s)."""
+    from lightgbm_torch.kernels import build
+    G, n = bins_T.shape
+    R, L = tabs.shape[0], tabs.shape[1]
+    out = torch.empty(n, dtype=torch.int32, device=bins_T.device)
+    packed = torch.empty((max(R * (L + 1), 1), 2), dtype=torch.int32,
+                         device=bins_T.device)
+    rc = build.load("route_replay").lgbt_route_replay(
+        bins_T.data_ptr(), n, G, tabs.data_ptr(), R, L, packed.data_ptr(),
+        out.data_ptr(), rr.plan_arg(plan),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"route_replay under plan {tuple(plan)}: "
+                           f"cudaError {rc}")
+    return out
+
+
+def cold_ms(torch, fn, reps=10):
+    """Device milliseconds of one call of ``fn`` that finds the L2 cache
+    cold: each call follows a 128 MB write (more than the 50 MB L2), CUDA
+    events around the call alone, everything queued behind a spin kernel
+    so that the host's enqueue leaves no gap; the median over ``reps``."""
+    import statistics
+    import time
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flush.zero_()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int((2 * reps * host_s + 2e-3) * 2e9))
+    for start, end in ev:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in ev)
+
+
+def sampled_tree_k3(torch, cs):
+    """The K3 launch of one sampled tree of phase train_sampled's run (GOSS
+    at LightGBM's default rates on 1M HIGGS-shaped rows, 255 leaves; the
+    12th tree, after 10 warmup trees): its (bins_T, tabs)."""
+    import lightgbm_torch as lt
+    own = own_chip_smoke()
+    X, y = own.make_higgs_like(ROWS, GROUPS, 0)
+    ds = lt.Dataset(X, label=y, params={"max_bin": 63}).construct()
+    del X
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
+              "learning_rate": 0.1, "data_sample_strategy": "goss",
+              "top_rate": 0.2, "other_rate": 0.1, "feature_fraction": 0.8,
+              "verbosity": -1}
+    with cs.TimedIters(capture_at=11) as t:
+        lt.train(params, ds, 12)
+    (bins_T, tabs), _ = t.cap.k3[0]
+    return bins_T, tabs
+
+
+def time_replay(torch, cs, emit):
+    """K3 on one sampled tree's launch (``sampled_tree_k3``, the main path's
+    data) and over 1M rows x 28 groups of 255 bins at R = 1, 5 and 9 rounds
+    of L = 31 and 255 leaves (``chip_smoke.k3_records``: grown trees,
+    numeric splits without missing bins), beside its bound
+    (``chip_smoke.k3_work``) and the plain version, with the L2 cache warm
+    (``device_ms``: launches back to back) and cold (``cold_ms``); in a
+    checkout whose K3 takes a launch plan, also under other plans (the
+    packed table in global memory, threads x rows a thread), and one launch
+    split by kernel (``torch.profiler``)."""
+    from lightgbm_torch.kernels import route_replay as rr
+    own = own_chip_smoke()
+    dev = torch.device("cuda")
+    cases = [("sampled_tree",) + sampled_tree_k3(torch, cs)]
+    for i, (R, L) in enumerate(itertools.product((1, 5, 9), (31, 255))):
+        rs = np.random.RandomState(400 + i)
+        tabs = torch.from_numpy(own.k3_records(rs, R, L, GROUPS, 255)).to(
+            dev)
+        bins_T = torch.from_numpy(rs.randint(0, 255, size=(GROUPS, ROWS))
+                                  .astype(np.uint8)).to(dev)
+        cases.append((f"R{R}_L{L}", bins_T, tabs))
+    for label, bins_T, tabs in cases:
+        G, n = bins_T.shape
+        R, L = tabs.shape[0], tabs.shape[1]
+        want = rr.route_replay_plain(bins_T, tabs)
+        out = rr.route_replay_cuda(bins_T, tabs)
+        torch.cuda.synchronize()
+        row = {"kernel": "route_replay", "case": label, "rows": n,
+               "groups": G, "rounds": R, "num_leaves": L,
+               "leaves_reached": int(torch.unique(want).numel()),
+               "bit_equal": bool(torch.equal(out, want)),
+               "ms": cs.device_ms(lambda: rr.route_replay_cuda(bins_T,
+                                                               tabs)),
+               "cold_ms": cold_ms(torch, lambda: rr.route_replay_cuda(
+                   bins_T, tabs)),
+               "plain_ms": cs.cuda_ms(lambda: rr.route_replay_plain(
+                   bins_T, tabs), reps=1, warmup=0)}
+        row["bound_ms"], row["bound_by"] = cs.bound(*cs.k3_work(bins_T,
+                                                                tabs))
+        if hasattr(rr, "replay_plan"):
+            base = rr.replay_plan(n, G, R, L)
+            row["plan"] = list(base)
+            variants = [("global_table", dict(stage_tab=False))]
+            variants += [(f"{t}t_{k}r", dict(threads=t, rows_per_thread=k))
+                         for t, k in ((128, 4), (256, 2), (256, 3),
+                                      (512, 2), (512, 4))]
+            row["plans_ms"] = {}
+            for name, kw in variants:
+                kw = {"threads": 256, "rows_per_thread": rr.ROWS_PER_THREAD,
+                      **kw}
+                p = rr._replay_plan(n, G, R, L, rr.SMEM_BLOCK, **kw)
+                same = torch.equal(replay_under(torch, rr, bins_T, tabs, p),
+                                   want)
+                row["plans_ms"][name] = [
+                    cs.device_ms(lambda: replay_under(torch, rr, bins_T,
+                                                      tabs, p)),
+                    bool(same), list(p),
+                    cold_ms(torch, lambda: replay_under(torch, rr, bins_T,
+                                                        tabs, p))]
+            row["profile_5_launches"] = profile_split(
+                torch, lambda: rr.route_replay_cuda(bins_T, tabs))
+        emit(row)
+        del want, out
+        torch.cuda.empty_cache()
+    del cases
 
 
 def k1_inputs(torch, cs, T, L, seed):
@@ -498,7 +675,7 @@ def route_probe(torch, cs, emit):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    ap.add_argument("--only", choices=("k58", "k2", "k67", "k1"),
+    ap.add_argument("--only", choices=("k58", "k2", "k67", "k1", "k3"),
                     default=None)
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--route-probe", action="store_true")
@@ -526,13 +703,15 @@ def main(argv=None) -> int:
                     if (build.BUILD_DIR / f"{name}.log").exists()}})
     if args.sass:
         emit({"sass_atomics": sass_atomics(build)})
-    families = (("k58", "k2", "k67", "k1") if args.only is None
+    families = (("k58", "k2", "k67", "k1", "k3") if args.only is None
                 else (args.only,))
     time_shapes(torch, cs, emit, families)
     if "k67" in families:
         time_sorted(torch, cs, emit)
     if "k1" in families:
         time_predict(torch, cs, emit)
+    if "k3" in families:
+        time_replay(torch, cs, emit)
     if args.sass:
         # one launch of each at K = 10, S = 64, Bmax 63 under
         # torch.profiler: device time by kernel and memset

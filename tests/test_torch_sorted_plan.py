@@ -1,7 +1,8 @@
-"""K6 ``hist_direct``'s launch plan and tile pass over the slot-sorted
-block plan, on the CPU.
+"""K6 ``hist_direct``'s and K7 ``hist_nibble``'s launch plan and tile pass
+over the slot-sorted block plan, on the CPU.
 
-K6 (``csrc/hist_sorted.cu`` ``direct_kernel``) adds the rows of the plan's
+K6 (Bmax <= 128) and K7 (128 < Bmax <= 256) are one kernel
+(``csrc/hist_sorted.cu`` ``direct_kernel``): it adds the rows of the plan's
 blocks into shared-memory tiles of one slot x ``groups_per_tile`` groups x
 Bmax bins, in the split 32-bit words of the row-order kernels' tile pass
 (``csrc/hist_tile.cuh``, 20-byte cells), each block over a range of plan
@@ -11,15 +12,16 @@ The kernel runs only on the card (``chip_smoke.py`` holds it bit for bit
 against its plain version there); these tests hold:
 
 - every plan block in one range and every group in one tile, within the
-  sm_90 limits the C side checks, the main path's plan pinned, and the
-  plan's field order equal to the C enum;
+  sm_90 limits the C side checks, K6's and K7's main-path plans pinned, and
+  the plan's field order equal to the C enum;
 - an int64 emulation of the pass (split words with carries, one flush per
   slot run in a range, pad blocks skipped, pad positions adding nothing)
   equal to ``hist_sorted_plain`` bit for bit: integer sums, no tolerance;
 - ``hist_sorted_plain`` equal to the JAX package's
   ``build_histograms_sorted`` (``lightgbm_tpu/pallas/hist_kernel.py:357``,
-  Pallas in interpret mode) at the same block plan, on dyadic weights that
-  its bf16 hi/lo split keeps exact.
+  Pallas in interpret mode: ``_hist_direct`` at Bmax <= 128, ``_hist_nibble``
+  above) at the same block plan, on dyadic weights that its bf16 hi/lo
+  split keeps exact.
 """
 import re
 from pathlib import Path
@@ -83,6 +85,26 @@ def test_plan_owns_every_block_and_group_once(NB, T, S, G, Bmax):
             4 * -(-plan.groups_per_tile // 4) > cap
 
 
+@settings(max_examples=300, deadline=None)
+@given(NB=st.integers(0, 20_000), T=st.sampled_from([32, 256, 1024, 4096]),
+       S=st.integers(1, 64), G=st.integers(1, 3000),
+       Bmax=st.integers(129, 256))
+def test_k7_plan_owns_every_block_and_group_once(NB, T, S, G, Bmax):
+    """K7's plans (Bmax 129-256): tiles of at most NIBBLE_GROUPS groups, so
+    that several blocks share an SM."""
+    plan = khs.sorted_plan(NB, T, S, G, Bmax)
+    _limits(plan, NB, G, Bmax)
+    assert [b for r in _ranges(plan, NB) for b in r] == list(range(NB))
+    groups = [g for y in range(plan.group_tiles)
+              for g in range(y * plan.groups_per_tile,
+                             min((y + 1) * plan.groups_per_tile, G))]
+    assert groups == list(range(G))
+    assert plan.groups_per_tile <= khs.NIBBLE_GROUPS
+    if G >= khs.NIBBLE_GROUPS:
+        # whole words of 4 groups' bins
+        assert plan.groups_per_tile % 4 == 0
+
+
 @settings(max_examples=200, deadline=None)
 @given(NB=st.integers(0, 5_000), S=st.integers(1, 64),
        G=st.integers(1, 64), Bmax=st.integers(1, 128),
@@ -110,6 +132,26 @@ def test_main_path_plan_pinned():
     assert khs.sorted_plan(NB + 1, 1024, 64, 28, 64).ranges == NB + 1
     root = khs.sorted_plan(num_blocks(1_000_000, 1, 1024), 1024, 1, 28, 63)
     assert (root.blocks_per_range, root.ranges) == (2, 489)
+
+
+def test_k7_main_path_plan_pinned():
+    """Phase train_backends at max_bin 255: 1M rows in blocks of 1024, 28
+    groups of 255 bins.  Tiles of 8 groups (40 800 bytes, four blocks an
+    SM; the three 8-group tiles and one of 4 over the 28 groups); four plan
+    blocks a range at 64 slots (two waves), eight at the root (one wave):
+    the fastest of scripts/torch_hist_bench.py's sweep on an NVIDIA H100
+    (tiles of 28, 16, 12, 8 and 4 groups x 256, 512 and 1024 threads x 1-12
+    plan blocks a range)."""
+    NB = num_blocks(1_000_000, 64, 1024)
+    assert khs.sorted_plan(NB, 1024, 64, 28, 255) == khs.SortedPlan(
+        groups_per_tile=8, group_tiles=4, blocks_per_range=4, ranges=261,
+        threads=256, smem=40800)
+    root = khs.sorted_plan(num_blocks(1_000_000, 1, 1024), 1024, 1, 28, 255)
+    assert root == khs.SortedPlan(
+        groups_per_tile=8, group_tiles=4, blocks_per_range=8, ranges=123,
+        threads=256, smem=40800)
+    # K6's plan is untouched by K7's group limit
+    assert khs.sorted_plan(NB, 1024, 64, 28, 128).groups_per_tile == 28
 
 
 def test_plan_fields_follow_the_c_enum():
@@ -234,6 +276,16 @@ CASES = [
     (800, 3, 5, 31, 64, "none", None),
     (1, 28, 3, 63, 1024, "random", None),
     (0, 4, 3, 10, 64, "random", None),
+    # K7: Bmax 129-256 under its own plan (tiles of at most 8 groups), pad
+    # blocks, a ragged end, one cell taking every row, several group tiles
+    (3000, 5, 6, 129, 256, "random", None),
+    (2999, 9, 13, 200, 128, "random", None),
+    (2999, 13, 13, 255, 128, "random", (4 * 255 * 20, 32, 0)),
+    (2500, 28, 64, 255, 64, "random", None),
+    (4096, 3, 2, 255, 512, "edge", None),
+    (1500, 6, 3, 256, 256, "one_slot", (0, 32, 0)),
+    (2500, 4, 64, 256, 64, "single_rows", None),
+    (1, 10, 3, 255, 1024, "random", None),
 ]
 
 
@@ -269,6 +321,39 @@ def test_emulated_pass_equals_plain_bit_for_bit(n, G, S, Bmax, T, kind,
     if kind == "edge":
         # sums reach within a factor 4 of 2**62 (the shift's edge)
         assert np.abs(got[0, :, 0, :2]).max() * 2.0 ** shift >= 2 ** 60
+
+
+@pytest.mark.parametrize("S,Bmax", [(6, 255), (1, 255), (3, 129)])
+def test_plain_equals_jax_nibble(S, Bmax, monkeypatch):
+    """At Bmax > 128 the JAX package's build_histograms_sorted runs
+    _hist_nibble (interpret mode): hist_sorted_plain and the emulation of
+    K7's pass under its plan equal it at the same block plan."""
+    monkeypatch.setattr(jhk, "_INTERPRET", True)
+    rs = np.random.RandomState(S + Bmax)
+    n, G, T = 1500, 5, 256
+    bins = rs.randint(0, Bmax, size=(n, G)).astype(np.uint8)
+    slot = (np.zeros(n, np.int32) if S == 1
+            else np.where(rs.rand(n) < 0.7, rs.randint(0, S, n), -1)
+            .astype(np.int32))
+    grad = (np.round(64 * rs.randn(n)) / 64).astype(np.float32)
+    hess = (np.round(16 * rs.rand(n)) / 16 + 0.5).astype(np.float32)
+    cnt = (rs.rand(n) > 0.2).astype(np.float32)
+    grad, hess = grad * cnt, hess * cnt
+    shift = hist_shift(float(max(np.abs(grad).max(), hess.max())), n)
+    want = np.asarray(jhk.build_histograms_sorted(
+        jnp.asarray(bins), jnp.asarray(slot), jnp.asarray(grad),
+        jnp.asarray(hess), jnp.asarray(cnt), S, Bmax, block_rows=T))
+    t = torch.as_tensor
+    plan_b = (plan_single_slot(n, T) if S == 1
+              else plan_blocks(t(slot), S, T))
+    got = khs.hist_sorted_plain(t(bins), plan_b.gather_idx, plan_b.scalars,
+                                t(grad), t(hess), t(cnt), S, Bmax, shift, T)
+    np.testing.assert_array_equal(got.numpy(), want)
+    plan = khs.sorted_plan(plan_b.scalars.shape[0], T, S, G, Bmax)
+    em, _ = emulate(plan, bins, plan_b.gather_idx.numpy(),
+                    plan_b.scalars.numpy(), grad, hess, cnt, S, Bmax, shift,
+                    T)
+    np.testing.assert_array_equal(em, want)
 
 
 @pytest.mark.parametrize("S,kind", [(6, "random"), (1, "root"),

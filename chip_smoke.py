@@ -116,7 +116,30 @@ Phases, each printing one JSON line:
    their bound and one ``index_add_`` call; a quantized arm (5 lockstep
    iterations through K2's int form over the 10 classes), one iteration's
    int launches replayed and timed.
-13. hist_adversarial: K5, K8 and both forms of K2 launched on synthetic
+13. train_categorical_small: 20 000 rows of train_small's numeric columns
+   and three categorical ones (3 categories, 40 with NaN and negative
+   values, 200 Zipf-distributed), dyadic custom gradients on the CPU and
+   the card, byte-identical text under stream (127 leaves, the sprint
+   round), scatter and pallas at max_bin 63 and 255, GOSS and bagging
+   (never fused: K3 is not launched), K = 3 lockstep under stream and
+   pallas, and quantized gradients; every K2 (both forms), K4, K5, K6, K7
+   and K8 launch of the card's runs replayed bit-equal; K1 on a binary
+   model trained on the card, over rows with unseen, NaN and negative
+   categories, bit-equal to its plain version and within rtol 1e-4 / atol
+   1e-5 of the host walk; the categorical splits per tree by kind
+   (one-hot, sorted, reversed).
+14. train_categorical: the categorical cell, rows in the shape of the
+   airline delay task of szilard/GBM-perf (Month, DayofMonth, DayOfWeek,
+   UniqueCarrier, Origin and Dest categorical, 250 airports each; DepTime,
+   Distance), ``--rows`` trained and a quarter as many held out, binary,
+   255 leaves, max_bin 255, learning rate 0.1, ``--train-iters`` iterations
+   at the default categorical parameters, the kernel counts read around
+   training (K2, K4) and around the held-out ``predict`` (K1); held-out
+   AUC beside a run with every column numeric; one tree's K2 and K4
+   launches replayed and timed beside the bound and ``index_add_``; K1 on
+   the model against its plain version and timed; one iteration timed
+   phase by phase.
+15. hist_adversarial: K5, K8 and both forms of K2 launched on synthetic
    inputs made from ``--seed`` (outside any main path's launch counts),
    each held bit-equal to its plain version: every row in slot 0 and bin
    0, weights at the fixed-point shift's edge (sums near 2**61) and, for
@@ -133,7 +156,7 @@ Phases, each printing one JSON line:
    packed table in global memory), 3000 groups, N = 0 and 1, and a ragged
    row count with unaligned bins.  After the cells, so that they run as
    they did before it existed.
-14. predict_adversarial: K1 on synthetic trees and bins made from
+16. predict_adversarial: K1 on synthetic trees and bins made from
    ``--seed``, each class bit-equal to its plain version: NaN, zero, EFB
    and categorical nodes, early stop, trees of 16 383 leaves (walked from
    global memory) and 40 000 (children past 16 bits), a chain 63 deep with
@@ -143,7 +166,8 @@ Phases, each printing one JSON line:
 Then a ``kernels`` line (each ported kernel's launches on its main path,
 largest error against its plain version, time, plain time, bound and
 library time; K5's entry also ``by_max_bin``, its replayed launches'
-times at max_bin 63 and 255), the card's name and power limit as
+times at max_bin 63 and 255; K1's, K2's and K4's also ``categorical``, the
+same numbers on the categorical cell), the card's name and power limit as
 nvidia-smi prints them, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failure raises and exits non-zero; without a CUDA device
 the script exits 2 and prints no result.
@@ -535,6 +559,18 @@ def check_kernel_against_plain(bst, X, es=None):
     return inp, outs, err
 
 
+def k1_work(inp, use, max_depth, rows):
+    """Bytes and operations one K1 launch needs on these rows (one class):
+    the bins, packed nodes, leaf values and categorical words read once and
+    the scores written; the operations of each node visit from its node's
+    flags, plus one add per row and tree."""
+    nodes, lv, words, _ = inp.classes[0]
+    n_ops = path_sum(inp, use, ops_needed, max_depth) + rows * len(use)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (inp.bins_T, nodes, lv, words)) + 4 * rows
+    return n_bytes, n_ops
+
+
 def phase_small(seed, tmp):
     """Mixed features, binary and 3-class, with and without early stop, and
     a zero-as-missing Dataset."""
@@ -648,7 +684,7 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
     # memory under its plan (every tile: each tree's walk records and leaf
     # values, and its rows' bins)
     visits = path_sum(inp, use, lambda r: np.ones(len(r)), maxd)
-    n_ops = path_sum(inp, use, ops_needed, maxd) + rows * len(use)
+    n_bytes, n_ops = k1_work(inp, use, maxd, rows)
     record_bytes = path_sum(inp, use, walk_record_bytes, maxd)
     G, T, L = inp.bins_T.shape[0], lv.shape[0], lv.shape[1]
     plan = tpk.predict_plan(rows, G, L, T)
@@ -661,8 +697,6 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
     stage_bytes = (plan.tiles * T * tpk.STAGE_NODE_BYTES * L
                    if plan.trees_per_stage else 0)
     stage_bytes += G * rows if plan.bins_stride else 0
-    n_bytes = sum(t.numel() * t.element_size()
-                  for t in (inp.bins_T, nodes, lv, words)) + 4 * rows
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / CORE_OPS_PER_S * 1e3
     kernel = {"name": "predict_stream", "route": "cuda",
@@ -1027,14 +1061,17 @@ def k2_work(args, out, int_form=False):
     int8: 2 B); a routed row (its leaf splits) reads the bin of its split
     group unless it reads all G bins already; the histograms (4 B a cell)
     and counts are written once.
+    A launch with categorical records also reads its (K, L, W) bitset words
+    once.
     Operations: per row and class the leaf test (1); per routed row the bin
     address, compare, child and slot selects (4), +3 to unbundle an EFB
-    bin, +1 per missing-value bin; per weighted row in a slot two
+    bin, +1 per missing-value bin, +3 for a categorical record's bit test
+    (word address, shift, mask); per weighted row in a slot two
     quantizations (2; none in the int form) and one add per group and
     channel (2G)."""
     from lightgbm_torch.kernels import layout as tl
 
-    bins_T, leaf_id, tabs, _, _, _, cnt, num_slots, max_bins = args[:9]
+    bins_T, leaf_id, tabs, words, _, _, cnt, num_slots, max_bins = args[:9]
     with_hist = args[9] if int_form else args[10]
     w_bytes, quant_ops = (2, 0) if int_form else (8, 2)
     new_leaf, _, counts = out
@@ -1056,12 +1093,15 @@ def k2_work(args, out, int_form=False):
         any_slot |= in_slot_rows
         per_class.append((rec, chosen, float(in_slot_rows.sum())))
     ops, n_bytes = 0.0, 4.0 * float(any_slot.sum())
+    if any((rec[:, tl.R_ISCAT] > 0).any() for rec, _, _ in per_class):
+        n_bytes += 4.0 * words.numel()
     for rec, chosen, in_slot in per_class:
         bin_read = chosen & ~any_slot if with_hist else chosen
         ops += (n + 4 * float(chosen.sum())
                 + 3 * float((chosen & (rec[:, tl.R_BUNDLED] > 0)).sum())
                 + float((chosen & (rec[:, tl.R_NANBIN] >= 0)).sum())
-                + float((chosen & (rec[:, tl.R_MZBIN] >= 0)).sum()))
+                + float((chosen & (rec[:, tl.R_MZBIN] >= 0)).sum())
+                + 3 * float((chosen & (rec[:, tl.R_ISCAT] > 0)).sum()))
         n_bytes += 8.0 * n + float(bin_read.sum()) + 4 * num_slots
         if with_hist:
             ops += in_slot * (quant_ops + 2 * G)
@@ -2873,6 +2913,390 @@ def phase_train_quantized(ds, Xs, ys, smi, iters=20, timed_tree=2):
     return line, err
 
 
+# --------------------------------------------------------------------------
+# categorical training
+# --------------------------------------------------------------------------
+
+class KeepGrownTrees:
+    """A ``train`` callback that keeps a reference to each iteration's
+    grown trees' device arrays (a list append: no copy, no device work),
+    so that their split kinds can be counted after ``train`` has moved the
+    trees to the host."""
+
+    def __init__(self):
+        self.arrays = []
+
+    def __call__(self, env):
+        eng = env.model.engine
+        self.arrays.extend(e["arrays"] for e in
+                           eng._lazy_trees[-eng.num_tree_per_iteration:])
+
+
+def cat_kinds(arrays):
+    """The kinds of categorical split over grown trees' device arrays: the
+    trees, those with a categorical node, and the one-hot, sorted (forward)
+    and reversed nodes in all and per tree."""
+    from lightgbm_torch.ops import split as sp
+    per_tree = []
+    for a in arrays:
+        d = a.dir_flags[:max(int(a.num_leaves) - 1, 0)].cpu().numpy()
+        cat = (d & sp.DIR_CATEGORICAL) != 0
+        oh = cat & ((d & sp.DIR_CAT_ONEHOT) != 0)
+        rev = cat & ((d & sp.DIR_CAT_REVERSED) != 0)
+        per_tree.append((int(oh.sum()), int((cat & ~oh & ~rev).sum()),
+                         int(rev.sum())))
+    t = np.array(per_tree or [(0, 0, 0)]).reshape(-1, 3)
+    n = len(per_tree)
+    names = ("one_hot", "sorted", "reversed")
+    return {"trees": n,
+            "trees_with_categorical": int((t.sum(axis=1) > 0).sum()),
+            "total": dict(zip(names, t.sum(axis=0).tolist())),
+            "per_tree": dict(zip(names, (t.sum(axis=0) / max(n, 1))
+                                 .tolist()))}
+
+
+def zipf_choice(rs, k, a, size):
+    """``size`` draws of k categories whose frequencies follow a Zipf law of
+    exponent ``a`` (category 0 the most frequent)."""
+    p = 1.0 / np.arange(1, k + 1) ** a
+    return rs.choice(k, size, p=p / p.sum())
+
+
+def make_categorical_small(n, seed):
+    """make_train_small's numeric columns (NaN, zero-heavy, the EFB pair,
+    dense) and three categorical ones: 3 categories (6), 40 with NaN and
+    negative values (7), 200 drawn from a Zipf law (8); the binary label
+    gains their effects."""
+    X, _ = make_train_small(n, seed)
+    rs = np.random.RandomState(seed + 13)
+    c3 = rs.randint(0, 3, n).astype(np.float64)
+    c40 = rs.randint(0, 40, n).astype(np.float64)
+    c40[rs.rand(n) < 0.05] = np.nan
+    neg = rs.rand(n) < 0.03
+    c40[neg] = -rs.randint(1, 4, int(neg.sum()))
+    c200 = zipf_choice(rs, 200, 1.1, n).astype(np.float64)
+    eff40, eff200 = rs.randn(41), rs.randn(200)
+    m40 = np.where(np.isnan(c40) | (c40 < 0), 40, c40).astype(int)
+    logit = (np.nan_to_num(X[:, 0]) + 0.8 * X[:, 1] + 2.0 * X[:, 2]
+             - 1.5 * X[:, 3] + (c3 == 1) + eff40[m40]
+             + 0.7 * eff200[c200.astype(int)])
+    y = (rs.rand(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float64)
+    return np.column_stack([X, c3, c40, c200]), y
+
+
+CAT_SMALL = [6, 7, 8]
+
+
+def phase_train_categorical_small(seed, n=20_000, iters=5, num_leaves=127):
+    """Categorical training on both devices, dyadic custom gradients:
+    make_categorical_small's rows under stream (127 leaves at split budget
+    64, so the route-only sprint runs), scatter and pallas at max_bin 63
+    and 255, GOSS and bagging (unfused: categorical trees never take K3),
+    K = 3 in lockstep under stream and pallas, and quantized gradients,
+    each byte-identical on the CPU and the card; every K2 (both forms), K4,
+    K5, K6, K7 and K8 launch of the card's runs replayed bit-equal through
+    its plain version; K1 on a binary model trained on the card, over rows
+    with unseen, NaN and negative categories, bit-equal to its plain
+    version and within rtol 1e-4 / atol 1e-5 of the host walk."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.basic import _host_predict
+
+    X, y = make_categorical_small(n, seed)
+    # at 255 bins the EFB pair would need uint16 bins: one of it is left out
+    Xw = np.delete(X, 3, axis=1)
+    cat_w = [c - 1 for c in CAT_SMALL]
+    rs = np.random.RandomState(seed + 11)
+    logits = np.stack([np.nan_to_num(X[:, 0]) + (X[:, 6] == 1),
+                       2.0 * X[:, 2] - 1.5 * X[:, 3],
+                       np.isin(X[:, 8], [0, 2, 5]) + 0.5 * X[:, 5]], 1)
+    y3 = np.argmax(logits + rs.randn(n, 3), axis=1).astype(np.float64)
+    base = {"objective": "none", "num_leaves": num_leaves,
+            "max_splits_per_round": 64, "max_bin": 63, "verbosity": -1}
+    mc = {"objective": "multiclass", "num_class": 3}
+    quant = {"use_quantized_grad": True}
+    # name: (extra params, data, categorical columns, label, fobj, iters)
+    runs = {
+        "stream": ({}, X, CAT_SMALL, y, dyadic_fobj, iters),
+        "scatter_63": ({"hist_backend": "scatter"}, X, CAT_SMALL, y,
+                       dyadic_fobj, 3),
+        "pallas_63": ({"hist_backend": "pallas"}, X, CAT_SMALL, y,
+                      dyadic_fobj, 3),
+        "scatter_255": ({"hist_backend": "scatter", "max_bin": 255}, Xw,
+                        cat_w, y, dyadic_fobj, 2),
+        "pallas_255": ({"hist_backend": "pallas", "max_bin": 255}, Xw, cat_w,
+                       y, dyadic_fobj, 2),
+        "goss": (sampled_params("goss"), X, CAT_SMALL, y, dyadic_fobj, iters),
+        "bagging": ({"bagging_fraction": 0.7, "bagging_freq": 1}, X,
+                    CAT_SMALL, y, dyadic_fobj, iters),
+        "multiclass": (mc, X, CAT_SMALL, y3, dyadic_mc_fobj, 3),
+        "multiclass_pallas": ({**mc, "hist_backend": "pallas"}, X, CAT_SMALL,
+                              y3, dyadic_mc_fobj, 3),
+        "quantized": (quant, X, CAT_SMALL, y, pow2_fobj, iters),
+    }
+    cap, out = Capture(), {}
+    for name, (extra, data, cats, label, fobj, n_iter) in runs.items():
+        texts = []
+        for dev in ("cpu", "cuda"):
+            p = {**base, **extra, "device_type": dev}
+            bst = lt.Booster(p, lt.Dataset(data, label=label,
+                                           categorical_feature=cats,
+                                           params=p))
+            kernels.reset_launch_counts()
+            with cap if dev == "cuda" else contextlib.nullcontext():
+                for _ in range(n_iter):
+                    bst.update(fobj=fobj)
+            # the grown trees, before the model text moves them to the host
+            kind = cat_kinds([e["arrays"] for e in bst.engine._lazy_trees])
+            texts.append(model_trees_text(bst))
+        counts = kernels.launch_counts()
+        if texts[0] != texts[1]:
+            raise RuntimeError(f"categorical {name}: training differs "
+                               f"between CPU and card")
+        eng = bst.engine
+        if not (eng.grow_params.cat is not None
+                and kind["trees_with_categorical"] > 0):
+            raise RuntimeError(f"categorical {name}: no categorical split "
+                               f"({kind})")
+        if counts["route_replay"]:
+            raise RuntimeError(f"categorical {name}: K3 replayed a "
+                               f"categorical tree")
+        if name in ("goss", "bagging") and not (
+                eng.last_compact_rows > 0
+                and eng.route_only_passes_per_tree() > 1):
+            raise RuntimeError(f"categorical {name}: compaction "
+                               f"{eng.last_compact_rows}, route-only passes "
+                               f"{eng.route_only_passes_per_tree()}")
+        out[name] = {"leaves_per_tree": [t.num_leaves for t in eng.models],
+                     "categorical_splits": kind,
+                     "launches": {k: v for k, v in counts.items() if v}}
+    torch.cuda.synchronize()
+    replayed, err = replay_against_plain(cap)
+    want = ("route_and_hist", "route_and_hist_k", "route_and_hist_int",
+            "leaf_gather", "scatter_hist", "hist_direct", "hist_nibble",
+            "hist_wide")
+    if not all(replayed[k] for k in want):
+        raise RuntimeError(f"the categorical runs replayed {replayed}")
+    # K1 on a binary model trained on the card, over rows with categories
+    # the training rows never had
+    p = {**base, "objective": "binary", "device_type": "cuda"}
+    grown = KeepGrownTrees()
+    bst = lt.train(p, lt.Dataset(X, label=y, categorical_feature=CAT_SMALL,
+                                 params=p), iters, callbacks=[grown])
+    binary_kind = cat_kinds(grown.arrays)
+    Xt = make_categorical_small(n, seed + 1)[0]
+    for i, col in enumerate(CAT_SMALL):
+        Xt = adversarial_categories(Xt, col, seed + 20 + i)
+    _, _, k1_err = check_kernel_against_plain(bst, Xt)
+    pred = bst.predict(Xt, raw_score=True)
+    use, _, _, _ = bst._resolve_tree_slice(0, None)
+    host = _host_predict(Xt, use, 1, False, 10, 10.0)
+    np.testing.assert_allclose(pred, host, rtol=RTOL, atol=ATOL)
+    err["predict_stream"] = k1_err
+    emit({"phase": "train_categorical_small", "rows": n,
+          "num_leaves": num_leaves, "categorical_columns": CAT_SMALL,
+          "runs": out, "text_identical_cpu_card": True,
+          "replayed_launches": replayed, "replay_max_abs_err": err,
+          "binary_categorical_splits": binary_kind,
+          "k1_rows": len(Xt), "k1_equals_plain": True,
+          "predict_max_abs_err_vs_host": float(np.abs(pred - host).max())})
+    return err
+
+
+# name, categories (None: numeric), of szilard/GBM-perf's airline task
+AIRLINE_FEATURES = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
+                    ("UniqueCarrier", 22), ("Origin", 250), ("Dest", 250),
+                    ("DepTime", None), ("Distance", None))
+AIRLINE_CATEGORICAL = [i for i, (_, k) in enumerate(AIRLINE_FEATURES) if k]
+
+
+def make_airline_like(n, seed, positives=0.19):
+    """Rows in the shape of the airline delay task of szilard/GBM-perf
+    (``dep_delayed_15min``: US flights, the label a departure 15 minutes or
+    more late): Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin and
+    Dest as category codes, DepTime as hhmm and Distance in miles.
+    Carriers and airports follow Zipf laws, departure times a daytime
+    spread, distances a log-normal law.  The label is a logistic of
+    per-category effects (fixed by ``seed``), the departure hour and the
+    distance, its intercept set for the given share of positives."""
+    rs = np.random.RandomState(seed)
+    cols, effects = [], 0.0
+    eff_rs = np.random.RandomState(seed + 1)
+    scale = {"Month": 0.3, "DayofMonth": 0.1, "DayOfWeek": 0.2,
+             "UniqueCarrier": 0.4, "Origin": 0.5, "Dest": 0.3}
+    for name, k in AIRLINE_FEATURES:
+        if k is None:
+            continue
+        codes = (zipf_choice(rs, k, 1.0 if k == 22 else 1.1, n)
+                 if name in ("UniqueCarrier", "Origin", "Dest")
+                 else rs.randint(0, k, n))
+        cols.append(codes)
+        effects = effects + scale[name] * eff_rs.randn(k)[codes]
+    minutes = np.clip(rs.normal(13.5 * 60, 4.5 * 60, n), 0, 1439).astype(int)
+    dep_time = (minutes // 60) * 100 + minutes % 60
+    distance = np.clip(np.round(rs.lognormal(6.4, 0.6, n)), 30, 4900)
+    hour = minutes / 60.0
+    logit = (effects + 0.11 * (hour - 12.0) + 0.0002 * (distance - 700.0)
+             + 0.5 * rs.randn(n))
+    lo, hi = -10.0, 10.0
+    for _ in range(40):
+        mid = 0.5 * (lo + hi)
+        if (1.0 / (1.0 + np.exp(-(logit + mid)))).mean() > positives:
+            hi = mid
+        else:
+            lo = mid
+    p = 1.0 / (1.0 + np.exp(-(logit + 0.5 * (lo + hi))))
+    y = (rs.rand(n) < p).astype(np.float64)
+    X = np.column_stack(cols + [dep_time, distance]).astype(np.float64)
+    return X, y
+
+
+def phase_train_categorical(seed, smi, rows=1_000_000, held_out=250_000,
+                            iters=20, timed_tree=2):
+    """The categorical cell at full width: make_airline_like's 1 250 000
+    rows, the last 250 000 held out; binary, 255 leaves, max_bin 255,
+    learning rate 0.1, the default split budget and categorical
+    parameters, backend auto (stream), ``iters`` iterations through
+    ``lightgbm_torch.train`` with the kernel counts read around the call
+    (K2 and K4 launched, K3 never); ``Booster.predict`` on the held-out
+    rows with the counts read around it (K1 launched, the device path
+    taken) and AUC > 0.60, beside the AUC of the same rows trained with
+    ``categorical_feature=[]`` (a sanity check, not a gate); every K2 and
+    K4 launch of one timed tree replayed bit-equal and timed beside its
+    bound and an ``index_add_`` call; K1 on the model against its plain
+    version and timed; one more iteration timed phase by phase.  Returns
+    K2's, K4's and K1's categorical entries and the replays' largest
+    differences."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.basic import _to_2d_float
+    from lightgbm_torch.kernels import leaf_gather as lg
+    from lightgbm_torch.kernels import predict as tpk
+
+    t0 = time.perf_counter()
+    X, y = make_airline_like(rows + held_out, seed)
+    Xs, ys = X[rows:], y[rows:]
+    X, y = X[:rows], y[:rows]
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    ds = lt.Dataset(X, label=y, categorical_feature=AIRLINE_CATEGORICAL,
+                    params={"max_bin": 255}).construct()
+    data_s = time.perf_counter() - t0
+    mappers = ds.bin_mappers()
+    num_bins = [int(m.num_bins) for m in mappers]
+    grown = KeepGrownTrees()
+    kernels.reset_launch_counts()
+    with TimedIters(capture_at=timed_tree) as timed:
+        t0 = time.perf_counter()
+        bst = lt.train(params, ds, iters, callbacks=[grown])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    kind = cat_kinds(grown.arrays)
+    tree_s, cap = timed.seconds, timed.cap
+    if (bst.num_trees() != iters or launches["route_and_hist"] == 0
+            or launches["leaf_gather"] != iters or launches["route_replay"]):
+        raise RuntimeError(f"categorical training made {bst.num_trees()} "
+                           f"trees with launches {launches}")
+    if kind["trees_with_categorical"] == 0:
+        raise RuntimeError(f"categorical training split no category: {kind}")
+
+    # held-out prediction through K1 (the host side warmed once)
+    bst.predict(Xs[:20_000])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred = bst.predict(Xs)
+    predict_s = time.perf_counter() - t0
+    k1_launches = kernels.launch_counts()["predict_stream"]
+    held_auc = auc(ys, pred)
+    if not (k1_launches > 0 and pred.shape == (held_out,)
+            and np.isfinite(pred).all() and held_auc > 0.60):
+        raise RuntimeError(f"categorical predict: {k1_launches} K1 "
+                           f"launches, AUC {held_auc}")
+    use, _, _, _ = bst._resolve_tree_slice(0, None)
+    breakdown = {}
+    path = ("device" if bst._device_predict_inputs(
+        _to_2d_float(Xs), use, 1, None, times=breakdown) is not None
+        else "host")
+    inp, (got,), k1_err = check_kernel_against_plain(bst, Xs)
+    nodes, lv, words, depths = inp.classes[0]
+    maxd = int(max(depths))
+    k1_ms = device_ms(lambda: tpk.predict_stream_cuda(inp.bins_T, nodes, lv,
+                                                      words, maxd), reps=5)
+    k1_plain = cuda_ms(lambda: tpk.predict_stream_plain(inp.bins_T, nodes, lv,
+                                                        words, depths),
+                       reps=1, warmup=0)
+    k1_bnd = bound(*k1_work(inp, use, maxd, held_out))
+
+    # the same rows with every column numeric (a sanity check)
+    num_ds = lt.Dataset(X, label=y, categorical_feature=[],
+                        params={"max_bin": 255})
+    t0 = time.perf_counter()
+    num_bst = lt.train(params, num_ds, iters)
+    torch.cuda.synchronize()
+    numeric_train_s = time.perf_counter() - t0
+    numeric_auc = auc(ys, num_bst.predict(Xs))
+
+    # K2 and K4 of one tree: replayed, then timed launch by launch
+    replayed, err = replay_against_plain(cap)
+    full = time_k2_launches([(a, o) for a, o in cap.k2 if a[10]], False)
+    route_only = [(a, o) for a, o in cap.k2 if not a[10]]
+    route = time_k2_launches(route_only, False) if route_only else None
+    (lid, vals), _ = cap.k4[0]
+    k4_ms = device_ms(lambda: lg.leaf_gather_cuda(lid, vals))
+    k4_plain = device_ms(lambda: lg.leaf_gather_plain(lid, vals))
+    k4_lib = device_ms(lambda: torch.index_select(vals, 0, lid))
+    k4_bnd = bound(8.0 * lid.numel() + 4.0 * vals.numel(), lid.numel())
+
+    profiled_s, phases_s, host_reads = profiled_iteration(bst)
+    total = sum(phases_s.values())
+    after_first = tree_s[1:] or tree_s
+    emit({"phase": "train_categorical", "card": smi, "rows": rows,
+          "held_out_rows": held_out,
+          "features": [n for n, _ in AIRLINE_FEATURES],
+          "categorical_features": AIRLINE_CATEGORICAL,
+          "num_bins": num_bins, "max_bins": int(bst.engine.dd.max_bins),
+          "positives": float(y.mean()), "iterations": iters,
+          "num_leaves": 255, "data_s": data_s,
+          "leaves_per_tree": [t.num_leaves for t in bst.engine.models],
+          "categorical_splits": kind,
+          "train_s": train_s, "s_per_tree": statistics.median(after_first),
+          "first_tree_s": tree_s[0], "tree_s": tree_s,
+          "k2_launches_per_tree": launches["route_and_hist"] / iters,
+          "replayed_launches_timed_tree": replayed,
+          "replay_max_abs_err": err, "k2_full_hist": full,
+          "k2_route_only": route,
+          "k4_ms": k4_ms, "k4_plain_ms": k4_plain, "k4_library_ms": k4_lib,
+          "k4_bound_ms": k4_bnd[0],
+          "held_out_auc": held_auc, "numeric_only_auc": numeric_auc,
+          "numeric_only_train_s": numeric_train_s,
+          "predict_s": predict_s, "predict_path": path,
+          "predict_breakdown_s": breakdown, "k1_launches": k1_launches,
+          "k1_ms": k1_ms, "k1_plain_ms": k1_plain, "k1_bound_ms": k1_bnd[0],
+          "k1_bound_by": k1_bnd[1], "k1_equals_plain": True,
+          "profiled_iteration_s": profiled_s,
+          "profiled_iteration_phases_s": phases_s,
+          "profiled_iteration_phase_share": {
+              k: v / total for k, v in phases_s.items()} if total else {},
+          "profiled_iteration_host_reads": host_reads})
+    k2 = {"cell": "train_categorical", "max_bins": int(bst.engine.dd.max_bins),
+          "launches": launches["route_and_hist"],
+          "ms": full["mean_ms"], "plain_ms": full["mean_plain_ms"],
+          "bound_ms": full["mean_bound_ms"], "bound_by": full["bound_by"],
+          "library_ms": full["mean_index_add_ms"]}
+    k4 = {"cell": "train_categorical", "launches": launches["leaf_gather"],
+          "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bnd[0],
+          "library_ms": k4_lib}
+    k1 = {"cell": "train_categorical", "launches": k1_launches,
+          "rows": held_out, "trees": len(use), "ms": k1_ms,
+          "plain_ms": k1_plain, "bound_ms": k1_bnd[0], "bound_by": k1_bnd[1]}
+    err["predict_stream"] = k1_err
+    return {"route_and_hist": k2, "leaf_gather": k4,
+            "predict_stream": k1}, err
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2929,13 +3353,18 @@ def main(argv=None) -> int:
         del ds, Xs, ys
         mc_small_err = phase_train_multiclass_small(args.seed)
         k2k_k8, mc_err = phase_train_multiclass(args.seed, smi)
+        cat_small_err = phase_train_categorical_small(args.seed)
+        cat_lines, cat_err = phase_train_categorical(
+            args.seed, smi, args.rows, args.rows // 4, args.train_iters)
         adv_err = phase_hist_adversarial(args.seed)
         k1_adv_err = phase_predict_adversarial(args.seed)
     kernel_lines = [k1, k2, k3, k4] + k567 + k2k_k8 + [k2i]
     errs = (small_err, sampled_small_err, quant_small_err, sampled_err,
-            backends_err, quant_err, mc_small_err, mc_err, adv_err,
-            k1_adv_err)
+            backends_err, quant_err, mc_small_err, mc_err, cat_small_err,
+            cat_err, adv_err, k1_adv_err)
     for k in kernel_lines:
+        if k["name"] in cat_lines:
+            k["categorical"] = cat_lines[k["name"]]
         # K2's int form has one row for both its class counts
         names = ((k["name"], k["name"] + "_k")
                  if k["name"] == "route_and_hist_int" else (k["name"],))

@@ -1,9 +1,9 @@
 """lightgbm_torch — the PyTorch/CUDA port of lightgbm_tpu.
 
-Training (gbdt on numeric features, binary, L2 and multiclass, with
-bagging, GOSS and feature sampling, quantized gradients, validation sets
-and early stopping) and batch prediction run on an NVIDIA Hopper GPU
-through hand-written CUDA kernels (``kernels/``):
+Training (gbdt on numeric and categorical features, binary, L2 and
+multiclass, with bagging, GOSS and feature sampling, quantized gradients,
+validation sets and early stopping) and batch prediction run on an NVIDIA
+Hopper GPU through hand-written CUDA kernels (``kernels/``):
 
     import lightgbm_torch as lgb
     train = lgb.Dataset(X, label=y)

@@ -1,7 +1,7 @@
 """Parameter/config system of the port.
 
 A copy of ``lightgbm_tpu/config.py`` trimmed to the keys batch prediction,
-single-device numeric training, sampling and evaluation read, plus the
+single-device training, sampling and evaluation read, plus the
 training keys whose non-default values the port refuses.  The alias table is kept whole, so ``resolve_aliases`` maps every
 parameter name exactly as the reference does and the ``parameters:`` block
 of a saved model is the same text.  Keys the trimmed ``Config`` does not
@@ -380,6 +380,17 @@ class Config:
     lambda_l2: float = 0.0
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
+
+    # Categorical splits (ops/split.py): a category bin takes part only
+    # with min_data_per_group rows; features of at most max_cat_to_onehot
+    # bins split one category against the rest, wider ones a subset of at
+    # most max_cat_threshold categories sorted by grad / (hess +
+    # cat_smooth), with cat_l2 added to lambda_l2
+    min_data_per_group: int = 100
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_to_onehot: int = 4
 
     # Histogram formulation of the growth loop: auto (= stream) | stream |
     # scatter | pallas, auto | single | mixed, and the leaves split per

@@ -39,10 +39,10 @@ an iteration with a non-finite gradient grows a no-op tree from zeroed
 gradients and does not end training, and a model with non-finite leaves
 does not seed one.
 
-Training covers gbdt on numeric features with the binary, L2 and multiclass
-objectives (or custom gradients); every other training feature raises
-"not yet ported" (``_check_unsupported_params``) instead of training a
-different model.
+Training covers gbdt on numeric and categorical features with the binary,
+L2 and multiclass objectives (or custom gradients); every other training
+feature raises "not yet ported" (``_check_unsupported_params``) instead of
+training a different model.
 """
 from __future__ import annotations
 
@@ -61,7 +61,7 @@ from ..objectives import ObjectiveFunction
 from ..ops.grow import GrowParams, fusion_applies, grow_tree, grow_tree_k
 from ..ops.histogram import dequantize, hist_shift, quantize
 from ..ops.predict import _walk_one_tree
-from ..ops.split import leaf_output
+from ..ops.split import CatParams, leaf_output
 from ..robustness.guards import NanGuard, check_finite_init, check_model_trees
 from ..tree import (DIR_CATEGORICAL, DIR_DEFAULT_LEFT, Tree, TreeArrays,
                     finalize_tree)
@@ -242,9 +242,6 @@ class GBDT:
         if name not in ("binary", "regression", "multiclass",
                         "multiclassova", "none"):
             raise _not_ported(f"objective {name!r}")
-        if any(m.bin_type == BIN_CATEGORICAL
-               for m in self.train_data.bin_mappers()):
-            raise _not_ported("a categorical feature")
         if self.dd.bins.dtype != torch.uint8:
             raise _not_ported("a feature bundle wider than 256 bins")
         if c.hist_backend in ("segsum", "onehot"):
@@ -309,6 +306,10 @@ class GBDT:
             min_sum_hessian_in_leaf=c.min_sum_hessian_in_leaf,
             min_gain_to_split=c.min_gain_to_split,
             max_delta_step=c.max_delta_step,
+            cat=(CatParams(c.cat_l2, c.cat_smooth, c.max_cat_threshold,
+                           c.max_cat_to_onehot, c.min_data_per_group)
+                 if any(m.bin_type == BIN_CATEGORICAL
+                        for m in self.train_data.bin_mappers()) else None),
             # auto resolves on: the replay gives the same leaves as the
             # per-round route-only passes, and the grower applies the
             # reference's gate

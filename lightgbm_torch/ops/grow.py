@@ -69,6 +69,14 @@ minus child).  No fixed-point shift is chosen then.  The other backends, and
 ``stream`` outside the gate, sum the grid-valued floats as any float
 weights.
 
+Categorical splits (reference: ops/grow.py:936-951, :2017-2031): each
+chosen categorical split's left bins are recomputed from the split leaf's
+cached histogram (``categorical_left_bitset``), kept in the node arrays'
+``cat_bitset`` and packed into the leaf's row of the (K, L, W) words K2
+routes by; the torch routing of the other backends reads the same bits.
+Route fusion is off for a tree with a categorical feature, as in the
+reference: K3's records carry no bitsets.
+
 The loop is a Python loop over rounds.  Each round reads one (K,) vector on
 the host (each class's number of splittable leaves), and each iteration one
 more (each class's largest weight, which fixes its histograms' fixed-point
@@ -83,17 +91,18 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device_data import FeatureLayout, RoutingLayout
-from ..kernels.layout import build_route_tables
+from ..kernels.layout import build_route_tables, cat_words_from_bits
 from ..kernels.route_hist import route_and_hist, route_and_hist_int
 from ..kernels.route_replay import route_replay
-from ..tree import DIR_DEFAULT_LEFT, TreeArrays
+from ..tree import DIR_CATEGORICAL, DIR_DEFAULT_LEFT, TreeArrays
 from ..utils.timer import host_list, phase
 from .compact import (check_compact_supported, compact_row_views,
                       compact_transposed_view, plan_sample_rows)
 from .histogram import (build_histograms, build_histograms_k, hist_shift,
                         hist_subtract, scale_table)
 from .predict import feature_local_bin
-from .split import NEG_INF, find_best_splits, leaf_output
+from .split import (EPS_HESS, NEG_INF, CatParams, categorical_left_bitset,
+                    find_best_splits, gather_feature_histograms, leaf_output)
 
 
 class GrowParams(NamedTuple):
@@ -112,6 +121,10 @@ class GrowParams(NamedTuple):
     hist_backend: str = "stream"     # stream | scatter | pallas
     # quantized gradients through K2's int form (models/gbdt.py gate)
     int_hist: bool = False
+    # the categorical split parameters, set only when the data has a
+    # categorical feature: only then does the split scan run its
+    # categorical branch
+    cat: Optional[CatParams] = None
 
 
 class GrowResult(NamedTuple):
@@ -125,13 +138,14 @@ class GrowResult(NamedTuple):
 def fusion_applies(params: GrowParams, compact_rows: int) -> bool:
     """The reference's gate for route fusion (ops/grow.py:626-633): a
     compacted stream tree grown in the sprint schedule (S >= 64, no depth
-    limit) with at most 256 leaves.  Categorical trees, forced splits and
-    CEGB, which the gate also excludes, do not train in the port."""
+    limit) with at most 256 leaves, on data without a categorical feature
+    (K3's route records carry no bitsets).  Forced splits and CEGB, which
+    the gate also excludes, do not train in the port."""
     L = params.num_leaves
     S = min(params.max_splits_per_round, max(L - 1, 1))
     return (params.route_fusion and params.hist_backend == "stream"
             and compact_rows > 0 and S >= 64 and params.max_depth <= 0
-            and L <= 256)
+            and L <= 256 and params.cat is None)
 
 
 class _Grower:
@@ -183,6 +197,11 @@ class _Grower:
         self.best_left_g, self.best_left_h, self.best_left_c = \
             z(f32), z(f32), z(f32)
         self.hist = torch.zeros((K, L, G, max_bins, 2), dtype=f32, device=dev)
+        self.cat = params.cat
+        # the left bins of each node's categorical split, and of each
+        # leaf's split of the round as the words K2 reads
+        self.cat_bitset = torch.zeros((K, L, max_bins), dtype=torch.bool,
+                                      device=dev)
         self.cat_words = torch.zeros((K, L, max(-(-max_bins // 32), 1)),
                                      dtype=torch.int32, device=dev)
         self.leaf_id = torch.zeros((K, n), dtype=torch.int32, device=dev)
@@ -250,7 +269,8 @@ class _Grower:
             return find_best_splits(
                 hist, g, h, c, self.layout, p.lambda_l1, p.lambda_l2,
                 max(p.min_data_in_leaf, 1), p.min_sum_hessian_in_leaf,
-                p.min_gain_to_split, p.max_delta_step, self.col_mask)
+                p.min_gain_to_split, p.max_delta_step, self.col_mask,
+                self.cat)
 
     def _k2(self, bins_T, leaf_id, tabs, grad, hess, cnt, num_slots,
             with_hist):
@@ -462,11 +482,19 @@ class _Grower:
                                              ldir, slot_l, slot_r,
                                              slot_keep)),
                     self.routing)
+        bits = None
+        if self.cat is not None:
+            bits = self._cat_bits(fo, fnode, feat, thr, dirf, pg, ph, pc)
         num_slots = max(ksp)
         if self.stream:
             hist_k, cnt_k = self.k2(tabs, num_slots, with_hist)
         else:
-            self.route_rows(chosen, new_id, lfeat, lthr, ldir)
+            lbits = None
+            if bits is not None:
+                lbits = torch.zeros((KL, self.Bmax), dtype=torch.bool,
+                                    device=dev)
+                lbits[fo] = bits
+            self.route_rows(chosen, new_id, lfeat, lthr, ldir, lbits)
             with phase(self.timer, "other"):
                 slot_map = torch.full((KL,), -1, dtype=torch.int32,
                                       device=dev)
@@ -513,17 +541,38 @@ class _Grower:
             self._store_best(ids2, res)
         self.count_splittable()
 
+    def _cat_bits(self, fo, fnode, feat, thr, dirf, pg, ph, pc):
+        """(P, Bmax) left bins of the round's P splits of the leaves at
+        flat positions ``fo``, from each leaf's cached histogram (reference:
+        ops/grow.py:936-951), kept at the new nodes ``fnode`` and as the
+        words K2 reads at the split leaves; the rows of numeric splits are
+        never read."""
+        with phase(self.timer, "cat_bitset"):
+            G = self.bins_T.shape[0]
+            parent_hist = self.hist.view(-1, G, self.Bmax, 2)[fo]
+            hf = gather_feature_histograms(parent_hist, self.layout, pg, ph)
+            hf_feat = hf[torch.arange(feat.shape[0], device=self.dev), feat]
+            bits = categorical_left_bitset(
+                hf_feat, thr, dirf, self.layout.valid_mask[feat],
+                self.cat.cat_smooth, self.cat.min_data_per_group,
+                pc / torch.clamp(ph, min=EPS_HESS))
+            self.cat_bitset.view(-1, self.Bmax)[fnode] = bits
+            self.cat_words.view(-1, self.cat_words.shape[-1])[fo] = \
+                cat_words_from_bits(bits)
+        return bits
+
     def _flat_leaf(self):
         """(K, N) int64 position of every row's leaf in the flattened
         (K * L) leaf axis."""
         return self.leaf_id.to(torch.int64) + self.class_base
 
-    def route_rows(self, chosen, new_id, lfeat, lthr, ldir):
+    def route_rows(self, chosen, new_id, lfeat, lthr, ldir, lbits=None):
         """Every row's new leaf in each class after the round's splits, in
         torch ops over the flattened (K * L) per-leaf tensors (reference:
-        ops/grow.py:1037-1065, and :2158-2185 for K classes; numeric
-        decisions only, as the port trains no categorical feature): the
-        split feature's group bin, unbundled from its EFB group; a NaN or
+        ops/grow.py:1037-1065, and :2158-2185 for K classes): the split
+        feature's group bin, unbundled from its EFB group; under a
+        categorical split it goes left when its bit is set in the leaf's
+        row of ``lbits`` (K * L, Bmax); under a numeric one a NaN or
         zero-as-missing bin goes the default way, any other bin left at
         most the threshold."""
         rt = self.routing
@@ -538,6 +587,10 @@ class _Grower:
                        | ((mzb >= 0) & (fb == mzb)))
             default_left = (ldir[lid] & DIR_DEFAULT_LEFT) != 0
             go_left = torch.where(missing, default_left, fb <= lthr[lid])
+            if lbits is not None:
+                is_cat = (ldir[lid] & DIR_CATEGORICAL) != 0
+                go_left = torch.where(
+                    is_cat, lbits.view(-1)[lid * self.Bmax + fb], go_left)
             self.leaf_id = torch.where((chosen[lid] > 0) & ~go_left,
                                        new_id[lid], self.leaf_id.to(
                                            torch.int64)).to(torch.int32)
@@ -575,8 +628,7 @@ class _Grower:
                 internal_value=self.internal_value,
                 internal_weight=self.internal_weight,
                 internal_count=self.internal_count,
-                cat_bitset=torch.zeros((self.K, self.L, self.Bmax),
-                                       dtype=torch.bool, device=self.dev),
+                cat_bitset=self.cat_bitset,
                 leaf_value=lv, leaf_weight=self.sum_h,
                 leaf_count=self.cnt_leaf,
                 leaf_parent=self.leaf_parent.to(i32),

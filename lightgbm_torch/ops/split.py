@@ -1,22 +1,29 @@
-"""Best-split search over histograms, numeric features.
+"""Best-split search over histograms, numeric and categorical features.
 
-The port's counterpart of ``lightgbm_tpu/ops/split.py:59-650`` (reference:
-src/treelearner/feature_histogram.hpp:166 FindBestThreshold).  Every (slot,
-feature, threshold) candidate is evaluated at once: prefix sums along the bin
-axis, a gain tensor for the reverse (missing-left) and forward
-(missing-right) scans, then argmax reductions with the reference's
-tie-breaks.  Only the numeric path is ported: L1/L2, ``min_data_in_leaf``,
-``min_sum_hessian_in_leaf``, ``min_gain_to_split``, ``max_delta_step``, NaN
-and zero-as-missing bins and the EFB residual fill.  Categorical,
-monotone, path-smoothing, extra-trees and CEGB branches are not ported
-(models/gbdt.py refuses the parameters that need them).
+The port's counterpart of ``lightgbm_tpu/ops/split.py:59-677`` (reference:
+src/treelearner/feature_histogram.hpp:166 FindBestThreshold and :232 the
+categorical one-hot and sorted-subset splits).  Every (slot, feature,
+threshold) candidate is evaluated at once: prefix sums along the bin axis,
+a gain tensor for the reverse (missing-left) and forward (missing-right)
+scans, then argmax reductions with the reference's tie-breaks.  Ported: L1/L2,
+``min_data_in_leaf``, ``min_sum_hessian_in_leaf``, ``min_gain_to_split``,
+``max_delta_step``, NaN and zero-as-missing bins, the EFB residual fill, and
+categorical features: one category against the rest, or a prefix of the
+categories sorted by g / (h + ``cat_smooth``) taken from either end, with
+``cat_l2``, ``max_cat_threshold``, ``max_cat_to_onehot`` and
+``min_data_per_group``.  Monotone, path-smoothing, extra-trees and CEGB
+branches are not ported (models/gbdt.py refuses the parameters that need
+them).
 
 Arithmetic is float32 in the reference's operation order, with one
-deliberate difference: the prefix sums along the bin axis are taken in
-float64 and rounded to float32 once, so the CPU and CUDA paths of the port
-agree whatever order their cumsums add in.  On histograms whose sums are
-exact in float32 (dyadic gradients) this changes nothing and the result is
-bit-equal to the reference; elsewhere gains agree within float32 rounding.
+deliberate difference: the prefix sums along the bin axis (of the bins and
+of the sorted categories) and the totals of the eligible categories are
+taken in float64 and rounded to float32 once, so the CPU and CUDA paths of
+the port agree whatever order their sums add in.  On histograms whose sums
+are exact in float32 (dyadic gradients) this changes nothing and the result
+is bit-equal to the reference; elsewhere gains agree within float32
+rounding.  Sorts are stable, as ``jnp.argsort`` is: ties between categories
+decide which go left.
 """
 from __future__ import annotations
 
@@ -31,13 +38,16 @@ EPS_HESS = 1e-15
 
 # dir_flags bits (reference: ops/split.py DIR_*)
 DIR_DEFAULT_LEFT = 1   # missing values go left
-DIR_CATEGORICAL = 2    # categorical split
+DIR_CATEGORICAL = 2    # categorical split (threshold: prefix length k)
+DIR_CAT_ONEHOT = 4     # one category left (threshold: its bin)
+DIR_CAT_REVERSED = 8   # the prefix taken from the high end of the order
 
 
 class SplitResult(NamedTuple):
     gain: torch.Tensor         # (S,) f32, gain over the parent; NEG_INF none
     feature: torch.Tensor      # (S,) i64
-    threshold: torch.Tensor    # (S,) i64 bin t, left = bin <= t
+    threshold: torch.Tensor    # (S,) i64 numeric: bin t, left = bin <= t;
+                               # categorical: prefix length k or one bin
     dir_flags: torch.Tensor    # (S,) i64 DIR_* bits
     left_sum_g: torch.Tensor   # (S,) f32
     left_sum_h: torch.Tensor
@@ -102,6 +112,138 @@ def gather_feature_histograms(hist: torch.Tensor, layout: FeatureLayout,
     return hf
 
 
+class CatParams(NamedTuple):
+    """The categorical split parameters, the reference's defaults."""
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_threshold: int = 32
+    max_cat_to_onehot: int = 4
+    min_data_per_group: int = 100
+
+
+class _Scan(NamedTuple):
+    """The regularization and gates every candidate of a scan shares."""
+    l1: float
+    l2: float
+    max_delta_step: float
+    min_data: int
+    min_hess: float
+
+
+def _pair_gain(sc: _Scan, lg, lh, lc, rg, rh, rc):
+    """Gain of the two children of a candidate, NEG_INF where a child has
+    too few rows or too little hessian."""
+    if sc.max_delta_step > 0.0:
+        ol = leaf_output(lg, lh, sc.l1, sc.l2, sc.max_delta_step)
+        orr = leaf_output(rg, rh, sc.l1, sc.l2, sc.max_delta_step)
+        gain = (leaf_gain_given_output(lg, lh, sc.l1, sc.l2, ol)
+                + leaf_gain_given_output(rg, rh, sc.l1, sc.l2, orr))
+    else:
+        gain = (leaf_term(lg, lh, sc.l1, sc.l2)
+                + leaf_term(rg, rh, sc.l1, sc.l2))
+    ok = ((lc >= sc.min_data) & (rc >= sc.min_data)
+          & (lh >= sc.min_hess) & (rh >= sc.min_hess))
+    return torch.where(ok, gain, NEG_INF)
+
+
+def _parent_term(sc: _Scan, parent_g, parent_h):
+    """The parent's own gain, which a candidate must beat; under
+    max_delta_step at its clamped output."""
+    if sc.max_delta_step > 0.0:
+        out = leaf_output(parent_g, parent_h, sc.l1, sc.l2, sc.max_delta_step)
+        return leaf_gain_given_output(parent_g, parent_h, sc.l1, sc.l2, out)
+    return leaf_term(parent_g, parent_h, sc.l1, sc.l2)
+
+
+def _relative(gain, parent_term):
+    """Gain over the parent's, NEG_INF kept."""
+    r = gain - parent_term[:, None, None]
+    return torch.where(gain <= NEG_INF / 2, NEG_INF, r)
+
+
+def _category_order(hg, hh, hc, valid, cat_smooth, min_data_per_group):
+    """(eligible, order): the categories with min_data_per_group rows, and
+    the bins in the stable ascending sort of g / (h + cat_smooth), the
+    ineligible bins sorted to the end."""
+    eligible = valid & (hc >= min_data_per_group)
+    ratio = torch.where(eligible, hg / (hh + cat_smooth), 1e10)
+    return eligible, torch.argsort(ratio, dim=-1, stable=True)
+
+
+class _CatBest(NamedTuple):
+    """Each (slot, feature)'s best categorical split."""
+    gain: torch.Tensor         # (S, F) over the cat-regularized parent
+    threshold: torch.Tensor    # (S, F) prefix length k, or the one-hot bin
+    dir_flags: torch.Tensor    # (S, F) DIR_CATEGORICAL | ONEHOT / REVERSED
+    left_g: torch.Tensor       # (S, F)
+    left_h: torch.Tensor
+    left_c: torch.Tensor
+
+
+def _categorical_scan(hg, hh, hc, parent_g, parent_h, parent_c,
+                      layout: FeatureLayout, sc: _Scan,
+                      cat: CatParams) -> _CatBest:
+    """The categorical branch (reference: find_best_splits :518-590): one
+    category against the rest, and the prefixes of the sorted eligible
+    categories, forward and reversed, of at most max_cat_threshold
+    categories; features of at most max_cat_to_onehot bins take one-hot
+    only.  Gains use lambda_l2 + cat_l2, the parent's term too."""
+    S, F, Bmax = hg.shape
+    dev = hg.device
+    sc = sc._replace(l2=sc.l2 + cat.cat_l2)
+    pg = parent_g[:, None, None]
+    ph = parent_h[:, None, None]
+    pc = parent_c[:, None, None]
+
+    def gain_of(lg, lh, lc):
+        return _pair_gain(sc, lg, lh, lc, pg - lg, ph - lh, pc - lc)
+
+    valid = layout.valid_mask[None]
+    is_cat = layout.is_cat[None, :, None]
+    oh_gain = torch.where(valid & (hc >= cat.min_data_per_group) & is_cat,
+                          gain_of(hg, hh, hc), NEG_INF)
+    eligible, order = _category_order(hg, hh, hc, valid, cat.cat_smooth,
+                                      cat.min_data_per_group)
+    csg, csh, csc = (_cumsum(torch.gather(a, 2, order))
+                     for a in (hg, hh, hc))
+    n_elig = eligible.sum(dim=-1, keepdim=True)             # (S, F, 1)
+    k_iota = 1 + torch.arange(Bmax, device=dev)[None, None, :]
+    k_ok = k_iota <= torch.clamp(n_elig - 1, max=cat.max_cat_threshold)
+    fwd_gain = torch.where(k_ok, gain_of(csg, csh, csc), NEG_INF)
+    # the reversed prefix is the suffix of the ascending eligible order
+    eg, eh, ec = (torch.where(eligible, a, 0.0).double().sum(
+        dim=-1, keepdim=True).to(a.dtype) for a in (hg, hh, hc))
+    rev_lg, rev_lh, rev_lc = eg - csg, eh - csh, ec - csc
+    rev_k = n_elig - k_iota
+    rev_ok = (rev_k >= 1) & (rev_k <= cat.max_cat_threshold)
+    rev_gain = torch.where(rev_ok, gain_of(rev_lg, rev_lh, rev_lc), NEG_INF)
+
+    use_onehot = layout.num_bins[None, :, None] <= cat.max_cat_to_onehot
+    sorted_gain = torch.maximum(fwd_gain, rev_gain)
+    sorted_rev = rev_gain > fwd_gain
+    cat_gain = torch.where(use_onehot, oh_gain,
+                           torch.maximum(oh_gain, sorted_gain))
+    use_oh = use_onehot | (oh_gain >= sorted_gain)
+    cat_gain = torch.where(is_cat, cat_gain, NEG_INF)
+    cat_rel = _relative(cat_gain, _parent_term(sc, parent_g, parent_h))
+
+    t = torch.argmax(cat_rel, dim=-1)                        # (S, F)
+    ti = t[..., None]
+
+    def at_t(a):
+        return torch.gather(a, 2, ti)[..., 0]
+
+    oh, rev = at_t(use_oh), at_t(sorted_rev)
+    left = [torch.where(oh, at_t(x), torch.where(rev, e[..., 0] - at_t(c),
+                                                 at_t(c)))
+            for x, c, e in ((hg, csg, eg), (hh, csh, eh), (hc, csc, ec))]
+    flags = (DIR_CATEGORICAL + torch.where(oh, DIR_CAT_ONEHOT, 0)
+             + torch.where(~oh & rev, DIR_CAT_REVERSED, 0))
+    return _CatBest(gain=at_t(cat_rel), threshold=torch.where(oh, t, t + 1),
+                    dir_flags=flags, left_g=left[0], left_h=left[1],
+                    left_c=left[2])
+
+
 def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
                      parent_h: torch.Tensor, parent_c: torch.Tensor,
                      layout: FeatureLayout, lambda_l1: float,
@@ -109,13 +251,20 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
                      min_sum_hessian_in_leaf: float,
                      min_gain_to_split: float,
                      max_delta_step: float = 0.0,
-                     col_mask: Optional[torch.Tensor] = None) -> SplitResult:
-    """Best numeric split of each of the S histogram slots (reference:
-    find_best_splits, numeric-only path).  ``col_mask`` (F,) bool is the
-    tree's feature sample: a feature outside it never wins."""
+                     col_mask: Optional[torch.Tensor] = None,
+                     cat: Optional[CatParams] = None) -> SplitResult:
+    """Best split of each of the S histogram slots (reference:
+    find_best_splits).  ``col_mask`` (F,) bool is the tree's feature
+    sample: a feature outside it never wins.  ``cat``: the categorical
+    parameters, under which a categorical feature (``layout.is_cat``) takes
+    its categorical split, never its numeric scan; None (a layout without
+    categorical features) runs the numeric scan alone, as the reference's
+    ``enable_categorical=False``."""
     S = hist.shape[0]
     Bmax = hist.shape[2]
     dev = hist.device
+    sc = _Scan(lambda_l1, lambda_l2, max_delta_step, min_data_in_leaf,
+               min_sum_hessian_in_leaf)
     hf = gather_feature_histograms(hist, layout, parent_g, parent_h)
     hg, hh = hf[..., 0], hf[..., 1]                        # (S, F, Bmax)
     cnt_factor = parent_c / torch.clamp(parent_h, min=EPS_HESS)
@@ -148,20 +297,7 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
     has_miss = has_nan | has_mz
 
     def split_gain(lg, lh, lc, rc):
-        rg, rh = pg - lg, ph - lh
-        if max_delta_step > 0.0:
-            ol = leaf_output(lg, lh, lambda_l1, lambda_l2, max_delta_step)
-            orr = leaf_output(rg, rh, lambda_l1, lambda_l2, max_delta_step)
-            gain = (leaf_gain_given_output(lg, lh, lambda_l1, lambda_l2, ol)
-                    + leaf_gain_given_output(rg, rh, lambda_l1, lambda_l2,
-                                             orr))
-        else:
-            gain = (leaf_term(lg, lh, lambda_l1, lambda_l2)
-                    + leaf_term(rg, rh, lambda_l1, lambda_l2))
-        ok = ((lc >= min_data_in_leaf) & (rc >= min_data_in_leaf)
-              & (lh >= min_sum_hessian_in_leaf)
-              & (rh >= min_sum_hessian_in_leaf))
-        return torch.where(ok, gain, NEG_INF)
+        return _pair_gain(sc, lg, lh, lc, pg - lg, ph - lh, rc)
 
     # the reverse scan (missing left) is the only scan of a feature without
     # missing values; the forward scan (missing right) also runs for missing
@@ -190,19 +326,9 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
                            NEG_INF)
     gain_fwd = torch.where((bin_iota < fwd_hi) & ~fwd_skip, gain_fwd, NEG_INF)
 
-    if max_delta_step > 0.0:
-        p_out = leaf_output(parent_g, parent_h, lambda_l1, lambda_l2,
-                            max_delta_step)
-        parent_term = leaf_gain_given_output(parent_g, parent_h, lambda_l1,
-                                             lambda_l2, p_out)
-    else:
-        parent_term = leaf_term(parent_g, parent_h, lambda_l1, lambda_l2)
-
-    def rel(gain):
-        r = gain - parent_term[:, None, None]
-        return torch.where(gain <= NEG_INF / 2, NEG_INF, r)
-
-    rel_rev, rel_fwd = rel(gain_rev), rel(gain_fwd)
+    parent_term = _parent_term(sc, parent_g, parent_h)
+    rel_rev = _relative(gain_rev, parent_term)
+    rel_fwd = _relative(gain_fwd, parent_term)
     # reverse keeps the highest of tied thresholds, forward the lowest, and
     # reverse wins a tie between the scans
     t_rev = (Bmax - 1) - torch.argmax(torch.flip(rel_rev, [-1]), dim=-1)
@@ -212,6 +338,11 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
     use_rev = g_rev >= g_fwd
     best_t = torch.where(use_rev, t_rev, t_fwd)                # (S, F)
     best_gain_f = torch.where(use_rev, g_rev, g_fwd)
+    if cat is not None:
+        cb = _categorical_scan(hg, hh, hc, parent_g, parent_h, parent_c,
+                               layout, sc, cat)
+        best_gain_f = torch.where(layout.is_cat[None, :], cb.gain,
+                                  best_gain_f)
     if col_mask is not None:
         best_gain_f = torch.where(col_mask[None, :], best_gain_f, NEG_INF)
 
@@ -227,6 +358,42 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
     lc = torch.where(dflt_l, lc_rev[ar, best_f, t], lc_fwd[ar, best_f, t])
     gain = torch.where(gain > min_gain_to_split, gain, NEG_INF)
     dir_flags = torch.where(dflt_l, DIR_DEFAULT_LEFT, 0)
+    if cat is not None:
+        # the winner's categorical split where its feature is categorical
+        f_cat = layout.is_cat[best_f]
+
+        def pick(num, c):
+            return torch.where(f_cat, c[ar, best_f], num)
+
+        t, dir_flags = pick(t, cb.threshold), pick(dir_flags, cb.dir_flags)
+        lg, lh, lc = (pick(lg, cb.left_g), pick(lh, cb.left_h),
+                      pick(lc, cb.left_c))
     return SplitResult(gain=gain, feature=best_f, threshold=t,
                        dir_flags=dir_flags, left_sum_g=lg, left_sum_h=lh,
                        left_count=lc)
+
+
+def categorical_left_bitset(hist_f: torch.Tensor, threshold: torch.Tensor,
+                            dir_flags: torch.Tensor, valid_mask: torch.Tensor,
+                            cat_smooth: float, min_data_per_group: int,
+                            cnt_factor: torch.Tensor) -> torch.Tensor:
+    """(S, Bmax) bool: the bins that go left under each slot's chosen
+    categorical split, from the split feature's (S, Bmax, 2) histogram
+    (reference: categorical_left_bitset).  One-hot: the threshold's bin;
+    a sorted subset: the first (or, reversed, the last) k eligible bins of
+    the order ``find_best_splits`` sorted, k the threshold.  cnt_factor
+    (S,) estimates the bins' counts from their hessians, as the scan
+    does."""
+    hg, hh = hist_f[..., 0], hist_f[..., 1]
+    hc = round_int(hh * cnt_factor[..., None])
+    Bmax = hg.shape[-1]
+    eligible, order = _category_order(hg, hh, hc, valid_mask, cat_smooth,
+                                      min_data_per_group)
+    rank = torch.argsort(order, dim=-1)
+    n_elig = eligible.sum(dim=-1, keepdim=True)
+    k = threshold[..., None]
+    rev = ((dir_flags & DIR_CAT_REVERSED) != 0)[..., None]
+    in_set = torch.where(rev, (rank >= k) & (rank < n_elig), rank < k)
+    onehot = ((dir_flags & DIR_CAT_ONEHOT) != 0)[..., None]
+    bin_iota = torch.arange(Bmax, device=hg.device)
+    return torch.where(onehot, bin_iota == k, in_set & eligible)

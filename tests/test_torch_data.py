@@ -176,13 +176,17 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 def test_training_rounds_raise_not_ported():
-    """Training rounds run for numeric features; a categorical feature in
-    training is not ported yet and raises."""
+    """Training rounds run with a categorical feature, which once raised
+    "not yet ported": five rounds on the 200 rows, one tree with a
+    categorical node.  Six categories over 200 rows leave none with the
+    default 100 rows of min_data_per_group, so it is 5 here."""
     X, y = make_mixed(n=200)
-    with pytest.raises(lt.LightGBMError, match="not yet ported"):
-        lt.train({"objective": "regression", **CPU},
-                 lt.Dataset(X, label=y, categorical_feature=[2]),
-                 num_boost_round=5)
+    bst = lt.train({"objective": "regression", "min_data_per_group": 5,
+                    **CPU},
+                   lt.Dataset(X, label=y, categorical_feature=[2]),
+                   num_boost_round=5)
+    assert bst.current_iteration() == 5
+    assert any(t.num_cat > 0 for t in bst.engine.models)
 
 
 def test_unported_objective_raises():

@@ -670,11 +670,6 @@ def test_unported_inputs_raise():
         lt.train(_REG, ds, 2, resume_from="x")
     with pytest.raises(lt.LightGBMError, match="not yet ported"):
         lt.cv(_REG, ds, 2)
-    Xc = X.copy()
-    Xc[:, 4] = np.random.RandomState(0).randint(0, 5, len(X))
-    with pytest.raises(lt.LightGBMError, match="not yet ported"):
-        lt.train(_REG, lt.Dataset(Xc, label=y, categorical_feature=[4],
-                                  params=CPU), 2)
     with pytest.raises(lt.LightGBMError, match="hist_precision=double"):
         lt.train({**_REG, "hist_precision": "double"}, ds, 2)
     # an EFB bundle of two sparse 255-bin features needs uint16 bins

@@ -139,7 +139,30 @@ Phases, each printing one JSON line:
    launches replayed and timed beside the bound and ``index_add_``; K1 on
    the model against its plain version and timed; one iteration timed
    phase by phase.
-15. hist_adversarial: K5, K8 and both forms of K2 launched on synthetic
+15. train_wide_small: groups wider than 256 bins (16-bit bins) on both
+   devices: 20 000 rows of two dense columns and six mutually exclusive
+   sparse ones that EFB bundles at the default max_bin 255 (3 groups, one
+   of 1525 bins), dyadic custom gradients (quantized: power-of-two scales)
+   under stream, scatter, GOSS (fused: K3), bagging, quantized gradients
+   and K = 3 lockstep under stream and scatter, byte-identical text on the
+   CPU and the card, every card run through its kernel's 16-bit form;
+   every K2 (three forms), K3, K4, K5 and K8 launch replayed bit-equal;
+   ``hist_backend="pallas"`` refused ("not yet ported"); K1 over 16-bit
+   bins bit-equal to its plain version and within rtol 1e-4 / atol 1e-5 of
+   the host walk.
+16. train_wide: the LightGBM paper's Flight Delay set in shape: make_airline_
+   like's rows at 300 airports with Month, DayofMonth, DayOfWeek,
+   UniqueCarrier, Origin and Dest one-hot encoded (672 columns) beside
+   DepTime and Distance, 500 000 rows trained and 100 000 held out; binary, 255 leaves, max_bin 255, default EFB (groups past 256
+   bins), learning rate 0.1, ``--train-iters`` iterations under auto
+   (stream); arms with GOSS at the default rates (15 iterations, 10 of
+   warmup: K3), scatter (10: K5), quantized gradients (5: K2's int form)
+   and K = 3 under scatter on 200 000 of the rows (3: K8); held-out
+   ``predict`` through K1 (AUC > 0.60); the group count, each group's
+   bins, Bmax, ``s_per_tree``, ``train_s``; one tree's launches of each arm
+   replayed bit-equal and timed beside the bound and ``index_add_``; one
+   iteration timed phase by phase.  It raises if no group passes 256 bins.
+17. hist_adversarial: K5, K8 and both forms of K2 launched on synthetic
    inputs made from ``--seed`` (outside any main path's launch counts),
    each held bit-equal to its plain version: every row in slot 0 and bin
    0, weights at the fixed-point shift's edge (sums near 2**61) and, for
@@ -154,20 +177,27 @@ Phases, each printing one JSON line:
    200, 255 and 256, G = 27); and K3 over EFB, NaN and zero-as-missing
    records, children outside the tree, R = 0, 1 and 17, 16 383 leaves (the
    packed table in global memory), 3000 groups, N = 0 and 1, and a ragged
-   row count with unaligned bins.  After the cells, so that they run as
-   they did before it existed.
-16. predict_adversarial: K1 on synthetic trees and bins made from
+   row count with unaligned bins; each list also over 16-bit bins (Bmax
+   257, 1524, past a tile's shared memory so that tiles hold a range of
+   bins, 40 000; K = 10; N = 0, 1 and ragged; unaligned bins; K3 records
+   with thresholds and missing bins past 255).  After the cells, so that
+   they run as they did before it existed.
+18. predict_adversarial: K1 on synthetic trees and bins made from
    ``--seed``, each class bit-equal to its plain version: NaN, zero, EFB
    and categorical nodes, early stop, trees of 16 383 leaves (walked from
    global memory) and 40 000 (children past 16 bits), a chain 63 deep with
    and without a depth bound of 9, single-leaf trees, K = 3, N = 1, a
-   ragged N, 3000 groups (bins in global memory), unaligned bins.
+   ragged N, 3000 groups (bins in global memory), unaligned bins; then
+   16-bit bins (thresholds and bins past 32 767, NaN bins past 510, every
+   form of the kernel).
 
 Then a ``kernels`` line (each ported kernel's launches on its main path,
 largest error against its plain version, time, plain time, bound and
 library time; K5's entry also ``by_max_bin``, its replayed launches'
 times at max_bin 63 and 255; K1's, K2's and K4's also ``categorical``, the
-same numbers on the categorical cell), the card's name and power limit as
+same numbers on the categorical cell; K1's, K2's, K2 int's, K3's, K5's and
+K8's also ``wide``, their 16-bit forms' numbers on the Flight Delay cell),
+the card's name and power limit as
 nvidia-smi prints them, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failure raises and exits non-zero; without a CUDA device
 the script exits 2 and prints no result.
@@ -1102,12 +1132,13 @@ def k2_work(args, out, int_form=False):
                 + float((chosen & (rec[:, tl.R_NANBIN] >= 0)).sum())
                 + float((chosen & (rec[:, tl.R_MZBIN] >= 0)).sum())
                 + 3 * float((chosen & (rec[:, tl.R_ISCAT] > 0)).sum()))
-        n_bytes += 8.0 * n + float(bin_read.sum()) + 4 * num_slots
+        n_bytes += (8.0 * n + float(bin_read.sum()) * bins_T.element_size()
+                    + 4 * num_slots)
         if with_hist:
             ops += in_slot * (quant_ops + 2 * G)
             n_bytes += in_slot * w_bytes + num_slots * G * max_bins * 2 * 4
     if with_hist:
-        n_bytes += float(any_slot.sum()) * G
+        n_bytes += float(any_slot.sum()) * G * bins_T.element_size()
     return n_bytes, ops
 
 
@@ -1343,8 +1374,9 @@ def phase_train_sampled_small(seed, n=20_000, iters=5, num_leaves=127):
 
 def k3_work(bins_T, tabs):
     """Bytes and operations one K3 launch needs on these inputs, counted
-    from what the rows need: 4 B of leaf id written per row, one byte of
-    bins per distinct group on a row's path, the records read once;
+    from what the rows need: 4 B of leaf id written per row, one bin (a
+    byte, two for 16-bit bins) per distinct group on a row's path, the
+    records read once;
     operations per row and round the record select (1), per routed row the
     bin address, compare, child select and leaf update (4), +3 to unbundle
     an EFB bin, +1 per missing-value bin (the numeric part of k2_work's
@@ -1369,7 +1401,8 @@ def k3_work(bins_T, tabs):
                      + (chosen & (rec[:, tl.R_MZBIN] >= 0)).sum())
         go_left, _ = numeric_go_left(bins_T, rows, rec)
         lid = torch.where(chosen & ~go_left, rec[:, tl.R_NEWID].long(), lid)
-    n_bytes = 4.0 * n + float(seen.sum()) + 4.0 * tabs.numel()
+    n_bytes = (4.0 * n + float(seen.sum()) * bins_T.element_size()
+               + 4.0 * tabs.numel())
     return n_bytes, ops
 
 
@@ -1544,7 +1577,8 @@ def hist_work(name, args, out):
         G = bins.shape[1]
         pairs = rows = float((gather_idx < bins.shape[0]).sum().item())
         n_bytes = 4.0 * gather_idx.numel() + 4.0 * scalars.numel()
-    n_bytes += rows * (G + 4) + pairs * 8 + 4.0 * out.numel()
+    n_bytes += (rows * (G * args[0].element_size() + 4) + pairs * 8
+                + 4.0 * out.numel())
     return n_bytes, pairs * (3 + 3 * G)
 
 
@@ -1554,6 +1588,7 @@ def index_add_inputs(name, args):
     it adds, for the library call ``index_add_`` (float32 sums, not exact),
     and its zeroed (K * S * G * Bmax, 3) output."""
     import torch
+    from lightgbm_torch.kernels.layout import bin_values
     if name in ("scatter_hist", "hist_wide"):
         bins_T, slot, grad, hess, cnt, num_slots, max_bins = args[:7]
         if slot.dim() == 1:
@@ -1576,7 +1611,7 @@ def index_add_inputs(name, args):
     G = bins_rows.shape[1]
     g = torch.arange(G, device=s.device)
     cell = ((s[:, None] * G + g[None, :]) * max_bins
-            + bins_rows.long()).reshape(-1)
+            + bin_values(bins_rows).long()).reshape(-1)
     vals = w[:, None, :].expand(-1, G, -1).reshape(-1, 3).contiguous()
     out = torch.zeros((n_cells * G * max_bins, 3), dtype=torch.float32,
                       device=s.device)
@@ -1723,6 +1758,19 @@ def phase_train_backends(seed, rows, ds63, Xs, ys, smi, iters=10,
     return lines, err
 
 
+def bin_dtype(Bmax):
+    """The host bins' dtype at Bmax: uint8, or uint16 (16-bit bins, held
+    on the card as int16 storage) past 256 bins."""
+    return np.uint8 if Bmax <= 256 else np.uint16
+
+
+def bins_tensor(bins, dev):
+    """Host bins (uint8 or uint16) as a flat tensor of their card storage
+    on ``dev``."""
+    from lightgbm_torch.kernels.layout import bins_to_torch
+    return bins_to_torch(np.ascontiguousarray(bins).reshape(-1)).to(dev)
+
+
 def hist_adversarial_inputs(seed, n, G, K, S, Bmax, kind="random",
                             offset=0):
     """Operands of one K5 (K = 0) or K8 launch on the card, made with numpy
@@ -1738,7 +1786,7 @@ def hist_adversarial_inputs(seed, n, G, K, S, Bmax, kind="random",
 
     rs = np.random.RandomState(seed)
     kk = max(K, 1)
-    bins = rs.randint(0, Bmax, size=(G, n + offset)).astype(np.uint8)
+    bins = rs.randint(0, Bmax, size=(G, n + offset)).astype(bin_dtype(Bmax))
     slot = np.where(rs.rand(kk, n + offset) < 0.5,
                     rs.randint(0, S, size=(kk, n + offset)), -1)
     grad = rs.randn(kk, n + offset).astype(np.float32)
@@ -1758,8 +1806,7 @@ def hist_adversarial_inputs(seed, n, G, K, S, Bmax, kind="random",
               for k in range(kk)]
     dev = torch.device("cuda")
     # each operand a contiguous view ``offset`` elements into its storage
-    bins_t = torch.from_numpy(bins.reshape(-1)).to(dev)[
-        offset:offset + G * n].view(G, n)
+    bins_t = bins_tensor(bins, dev)[offset:offset + G * n].view(G, n)
     flat = [torch.from_numpy(np.ascontiguousarray(x).reshape(-1)).to(dev)
             [offset:offset + kk * n].view(kk, n)
             for x in (slot.astype(np.int32), grad, hess)]
@@ -1795,6 +1842,27 @@ HIST_ADVERSARIAL = (
     ("k8_negative", "hist_wide", 50_000, 28, 10, 64, 63, "negative", 0),
     ("k8_unaligned_ragged", "hist_wide", 250_001, 28, 3, 21, 200, "random",
      3),
+    # 16-bit bins: just past 256, the Flight Delay bundles' width, bin
+    # tiles (K5/K8's 20-byte cells tile past 11 622 bins), bins past 32 767
+    ("k5_wide_b257", "scatter_hist", 1_000_000, 8, 0, 64, 257, "random", 0),
+    ("k5_wide_b1524_s64", "scatter_hist", 500_000, 3, 0, 64, 1524,
+     "random", 0),
+    ("k5_wide_b14529_bin_tiles", "scatter_hist", 200_000, 3, 0, 16, 14_529,
+     "random", 0),
+    ("k5_wide_b40000", "scatter_hist", 200_000, 2, 0, 4, 40_000, "random",
+     0),
+    ("k5_wide_one_cell", "scatter_hist", 200_000, 3, 0, 1, 1524,
+     "one_cell", 0),
+    ("k5_wide_n1", "scatter_hist", 1, 3, 0, 3, 1524, "random", 0),
+    ("k5_wide_n0", "scatter_hist", 0, 3, 0, 3, 1524, "random", 0),
+    ("k5_wide_unaligned_ragged", "scatter_hist", 250_001, 3, 0, 13, 1524,
+     "random", 1),
+    ("k8_wide_k10_b1524", "hist_wide", 300_000, 3, 10, 16, 1524, "random",
+     0),
+    ("k8_wide_b40000", "hist_wide", 100_000, 2, 3, 4, 40_000, "random", 0),
+    ("k8_wide_n1", "hist_wide", 1, 3, 10, 16, 1524, "random", 0),
+    ("k8_wide_unaligned_ragged", "hist_wide", 100_003, 3, 3, 7, 300,
+     "random", 3),
 )
 
 
@@ -1855,7 +1923,7 @@ def k2_adversarial_inputs(seed, n, G, K, S, Bmax, kind, int_form,
             rs.rand(*shape) < 0.5, rs.randint(0, Bmax, size=shape), -1)
         tabs[:, :half, tl.R_DEFLEFT] = rs.rand(*shape) < 0.5
         tabs[:, :half, tl.R_ISCAT] = rs.rand(*shape) < 0.3
-    bins = rs.randint(0, Bmax, size=(G, m)).astype(np.uint8)
+    bins = rs.randint(0, Bmax, size=(G, m)).astype(bin_dtype(Bmax))
     leaf = rs.randint(0, L, size=(K, m)).astype(np.int32)
     if kind in ("one_cell", "edge"):
         bins[:] = 0
@@ -1882,8 +1950,10 @@ def k2_adversarial_inputs(seed, n, G, K, S, Bmax, kind, int_form,
 
     def rows_view(x):
         # a contiguous (K, n) or (G, n) view ``offset`` elements into its
-        # storage
-        t = torch.from_numpy(np.ascontiguousarray(x).reshape(-1)).to(dev)
+        # storage (16-bit bins in int16 storage)
+        x = np.ascontiguousarray(x)
+        t = torch.from_numpy((x.view(np.int16) if x.dtype == np.uint16
+                              else x).reshape(-1)).to(dev)
         return t[offset:offset + x.shape[0] * n].view(x.shape[0], n)
 
     bins_t, leaf_t, grad_t, hess_t = (rows_view(x)
@@ -1924,6 +1994,18 @@ K2_ADVERSARIAL = (
     ("k10_negative", 50_000, 28, 10, 64, 63, "negative", 0),
     ("k1_unaligned_ragged", 250_001, 28, 1, 13, 255, "routes", 1),
     ("k3_unaligned_ragged", 250_001, 28, 3, 21, 200, "routes", 3),
+    # 16-bit bins: just past 256, the Flight Delay bundles' width, bin
+    # tiles (16-byte cells tile past 14 528 bins, the int form's 8-byte
+    # ones past 29 056), bins past 32 767, EFB spans past 256
+    ("k1_wide_b257", 500_000, 8, 1, 64, 257, "routes", 0),
+    ("k1_wide_b1524", 500_000, 3, 1, 64, 1524, "routes", 0),
+    ("k1_wide_b14529_bin_tiles", 200_000, 3, 1, 16, 14_529, "random", 0),
+    ("k1_wide_b40000", 100_000, 2, 1, 4, 40_000, "routes", 0),
+    ("k10_wide_b1524", 200_000, 3, 10, 16, 1524, "routes", 0),
+    ("k1_wide_one_cell", 200_000, 3, 1, 1, 1524, "one_cell", 0),
+    ("k1_wide_n1", 1, 3, 1, 3, 1524, "routes", 0),
+    ("k1_wide_n0", 0, 3, 1, 3, 1524, "random", 0),
+    ("k3_wide_unaligned_ragged", 250_001, 3, 3, 13, 1524, "routes", 3),
 )
 # the int form at its caller's gate (half * N < 2**31): 2**31 // 127 rows
 # of -127 and 127 in one cell
@@ -2022,7 +2104,10 @@ def k3_records(rs, R, L, G, Bmax, kind="grown"):
     a new id, default direction at random.  ``kind``: "missing" gives half
     the splits a NaN bin and half a zero-as-missing bin; "routes" also
     EFB-bundles 0.4 of them and puts thresholds below 0 and past 255;
-    "out_of_range" sends 0.25 of the right children outside [0, L)."""
+    "out_of_range" sends 0.25 of the right children outside [0, L);
+    "narrow_thr" draws the thresholds and the NaN and zero bins below 256
+    whatever Bmax (over 16-bit bins: records the kernel packs, not special
+    ones)."""
     from lightgbm_torch.kernels import layout as tl
 
     tabs = np.zeros((R, L, len(tl.ROUTE_FIELDS)), np.int32)
@@ -2039,11 +2124,14 @@ def k3_records(rs, R, L, G, Bmax, kind="grown"):
         rec[split, tl.R_GROUP] = rs.randint(0, G, k)
         rec[split, tl.R_THR] = rs.randint(0, Bmax, k)
         rec[split, tl.R_DEFLEFT] = rs.rand(k) < 0.5
-        if kind in ("missing", "routes"):
+        if kind in ("missing", "routes", "narrow_thr"):
+            top = min(Bmax, 256) if kind == "narrow_thr" else Bmax
             rec[split, tl.R_NANBIN] = np.where(
-                rs.rand(k) < 0.5, rs.randint(0, Bmax, k), -1)
+                rs.rand(k) < 0.5, rs.randint(0, top, k), -1)
             rec[split, tl.R_MZBIN] = np.where(
-                rs.rand(k) < 0.5, rs.randint(0, Bmax, k), -1)
+                rs.rand(k) < 0.5, rs.randint(0, top, k), -1)
+        if kind == "narrow_thr":
+            rec[split, tl.R_THR] = rs.randint(0, min(Bmax, 256), k)
         if kind == "routes":
             nb = rs.randint(2, Bmax + 1, k)
             bundled = rs.rand(k) < 0.4
@@ -2075,9 +2163,9 @@ def k3_adversarial_inputs(seed, n, G, R, L, Bmax, kind, offset=0):
 
     rs = np.random.RandomState(seed)
     tabs = k3_records(rs, R, L, G, Bmax, kind)
-    bins = rs.randint(0, Bmax, size=(G, n + offset)).astype(np.uint8)
+    bins = rs.randint(0, Bmax, size=(G, n + offset)).astype(bin_dtype(Bmax))
     dev = torch.device("cuda")
-    flat = torch.from_numpy(bins.reshape(-1)).to(dev)
+    flat = bins_tensor(bins, dev)
     return (flat[offset:offset + G * n].view(G, n),
             torch.from_numpy(tabs).to(dev))
 
@@ -2099,6 +2187,14 @@ K3_ADVERSARIAL = (
     ("k3_n1", 1, 28, 9, 255, 63, "routes", 0),
     ("k3_n0", 0, 28, 9, 255, 63, "grown", 0),
     ("k3_unaligned_ragged", 250_001, 27, 9, 255, 200, "routes", 1),
+    # 16-bit bins: thresholds and missing bins past 255 (special records),
+    # records packed over bins past 255 (the clamped compare), bins past
+    # 32 767
+    ("k3_wide_routes", 500_000, 8, 9, 255, 1524, "routes", 0),
+    ("k3_wide_narrow_thr", 500_000, 8, 9, 255, 1524, "narrow_thr", 0),
+    ("k3_wide_b40000", 200_000, 3, 9, 255, 40_000, "missing", 0),
+    ("k3_wide_n1", 1, 3, 9, 255, 1524, "routes", 0),
+    ("k3_wide_unaligned_ragged", 250_001, 5, 9, 255, 700, "routes", 1),
 )
 
 
@@ -2111,9 +2207,11 @@ def phase_hist_adversarial(seed):
     also EFB, NaN, zero-as-missing and categorical route records); K6 and
     K7 over block plans (``K6_ADVERSARIAL``, ``K7_ADVERSARIAL``) and K3
     over route records (``K3_ADVERSARIAL``), each held bit-equal to its
-    plain version on the same tensors.  Outside any main path's launch
-    counts.  Returns the largest differences by kernel (K2 over K > 1
-    classes as ``route_and_hist_k`` and ``route_and_hist_int_k``)."""
+    plain version on the same tensors; every list also has 16-bit cases
+    (Bmax 257, 1524, past the tiles' shared memory, 40 000).  Outside any
+    main path's launch counts.  Returns the largest differences by kernel
+    (K2 over K > 1 classes as ``route_and_hist_k`` and
+    ``route_and_hist_int_k``; the 16-bit cases also as ``<name>_wide``)."""
     import torch
     from lightgbm_torch.kernels import hist_wide as hw, route_hist as rh
     from lightgbm_torch.kernels import scatter_hist as sh
@@ -2133,6 +2231,8 @@ def phase_hist_adversarial(seed):
         torch.cuda.synchronize()
         diff = max_abs_diff(out, want)
         err[name] = max(err[name], diff)
+        if Bmax > 256:
+            err[name + "_wide"] = max(err.get(name + "_wide", 0.0), diff)
         if not (torch.equal(out, want) and torch.isfinite(out).all()):
             raise RuntimeError(f"{label}: {name} differs from its plain "
                                f"version (max abs {diff})")
@@ -2159,6 +2259,8 @@ def phase_hist_adversarial(seed):
         diff = max(max_abs_diff(x, y) for x, y in zip(out, want))
         key = name + ("_k" if K > 1 else "")
         err[key] = max(err[key], diff)
+        if Bmax > 256:
+            err[name + "_wide"] = max(err.get(name + "_wide", 0.0), diff)
         if not (all(torch.equal(x, y) for x, y in zip(out, want))
                 and torch.isfinite(out[1].float()).all()):
             raise RuntimeError(f"{label}: {name} differs from its plain "
@@ -2209,13 +2311,16 @@ def phase_hist_adversarial(seed):
         torch.cuda.synchronize()
         diff = max_abs_diff(out, want)
         err["route_replay"] = max(err["route_replay"], diff)
+        if Bmax > 256:
+            err["route_replay_wide"] = max(err.get("route_replay_wide", 0.0),
+                                           diff)
         if not torch.equal(out, want):
             raise RuntimeError(f"{label}: route_replay differs from its "
                                f"plain version (max abs {diff})")
         plan = rr.replay_plan(n, G, R, L) if n else None
         if plan is not None:
             forms.add(plan.tab_bytes > 0)
-        packed = rr.pack_records(tabs, G)
+        packed = rr.pack_records(tabs, G, bins_T.dtype == torch.int16)
         cases[label] = {"kernel": "route_replay", "rows": n, "groups": G,
                         "rounds": R, "leaves": L, "max_bins": Bmax,
                         "kind": kind, "bins_offset": off,
@@ -2279,8 +2384,9 @@ def k1_records(rs, T, L, G, words, kinds=(), chain=False, leaves=None,
                 nb = rs.randint(2, 256)
                 r[tpk.F_ISCAT], r[tpk.F_NBINS] = 1, nb
                 r[tpk.F_CATBASE] = len(words)
-                # a bit for every byte a bin can hold
-                words.extend(rs.randint(0, 2 ** 32, size=8,
+                # a bit for every bin value below max_bin (at least a byte)
+                words.extend(rs.randint(0, 2 ** 32,
+                                        size=max(8, -(-max_bin // 32)),
                                         dtype=np.uint64).tolist())
             elif "efb" in kinds and u < 0.5:
                 nb = rs.randint(2, 57)
@@ -2327,6 +2433,50 @@ K1_ADVERSARIAL = (
 )
 
 
+def k1_wide_records(rs, T, L, G, words, kinds, Bmax):
+    """``k1_records`` over 16-bit bins below Bmax, then a third of the
+    numeric nodes with a threshold past 32 767 and a quarter with a NaN bin
+    past 510 where Bmax reaches them: wide nodes, special, read from their
+    own planes."""
+    from lightgbm_torch.kernels import predict as tpk
+    rec, depths = k1_records(rs, T, L, G, words, kinds, max_bin=Bmax)
+    inner = np.zeros(rec.shape[:2], bool)
+    inner[:, :L - 1] = True
+    num = inner & (rec[..., tpk.F_BUNDLED] == 0) & (rec[..., tpk.F_ISCAT]
+                                                    == 0)
+    if Bmax > 32_768:
+        hi = num & (rs.rand(*inner.shape) < 0.33)
+        rec[..., tpk.F_THR] = np.where(
+            hi, rs.randint(32_768, Bmax, inner.shape), rec[..., tpk.F_THR])
+    if Bmax > 511:
+        nan = num & (rs.rand(*inner.shape) < 0.25)
+        rec[..., tpk.F_HASNAN] = np.where(nan, 1, rec[..., tpk.F_HASNAN])
+        rec[..., tpk.F_NANBIN] = np.where(
+            nan, rs.randint(511, Bmax, inner.shape), rec[..., tpk.F_NANBIN])
+    return rec, depths
+
+
+# 16-bit bins: (label, N, G, classes, T, L, kinds, Bmax, bins view offset)
+# -- the Flight Delay bundles' width, thresholds and bins past 32 767, K =
+# 3, N = 1, bins and trees in global memory, a ragged unaligned N
+K1_WIDE_ADVERSARIAL = (
+    ("predict_wide_b1524", 200_001, 8, 1, 60, 255, ("nan", "efb", "cat"),
+     1524, 0),
+    ("predict_wide_b40000", 100_000, 4, 1, 30, 255, ("nan", "efb"), 40_000,
+     0),
+    ("predict_wide_k3", 60_000, 8, 3, 20, 63, ("nan", "efb", "cat"), 1524,
+     0),
+    ("predict_wide_n1", 1, 8, 1, 20, 255, ("nan", "efb"), 40_000, 0),
+    ("predict_wide_bins_global", 20_000, 3000, 1, 10, 63, ("nan",), 700, 0),
+    ("predict_wide_trees_global", 50_000, 8, 1, 3, 16383, ("nan", "efb"),
+     40_000, 0),
+    ("predict_wide_all_global", 20_000, 300, 1, 2, 16383, ("nan",), 1524,
+     0),
+    ("predict_wide_unaligned_ragged", 100_003, 8, 1, 30, 255,
+     ("nan", "efb"), 1524, 1),
+)
+
+
 def phase_predict_adversarial(seed):
     """K1 launched on synthetic models and bins made from ``--seed``
     (outside any main path's launch counts), each class's scores held
@@ -2337,9 +2487,11 @@ def phase_predict_adversarial(seed):
     of 9 (rows past it resolve to leaf 0), single-leaf trees, K = 3 class
     tables, N = 1, a ragged N, 3000 groups (bins read from global memory),
     16383-leaf trees over 300 groups (trees and bins both in global
-    memory) and a bins view that is not 16-byte aligned.  Every form of
-    the kernel (trees staged or not x bins staged or not) runs.  Returns
-    the largest difference."""
+    memory) and a bins view that is not 16-byte aligned; then 16-bit bins
+    (``K1_WIDE_ADVERSARIAL``: thresholds and bins past 32 767, NaN bins
+    past 510, Bmax 1524).  Every form of the kernel (trees staged or not x
+    bins staged or not) runs at both widths.  Returns the largest
+    differences, the 16-bit cases' also as ``predict_stream_wide``."""
     import torch
     from lightgbm_torch.kernels import predict as tpk
 
@@ -2382,14 +2534,55 @@ def phase_predict_adversarial(seed):
                         "bins_offset": off,
                         "plan": plan._asdict(), "max_abs_err": diff}
         del bins_T, nodes, lv, wt, got, want
+    wide_err, wide_forms = 0.0, set()
+    for i, (label, n, G, K, T, L, kinds, Bmax, off) in \
+            enumerate(K1_WIDE_ADVERSARIAL):
+        plan = tpk.predict_plan(n, G, L, T, 2)
+        wide_forms.add((plan.trees_per_stage > 0, plan.bins_stride > 0))
+        rs = np.random.RandomState(seed + 400 + i)
+        bins = rs.randint(0, Bmax, size=G * n + off).astype(np.uint16)
+        # a quarter of the rows' bins past 32 767 where Bmax reaches it
+        if Bmax > 32_768:
+            bins[:G * n // 4] = rs.randint(32_768, Bmax, G * n // 4)
+        bins_T = bins_tensor(bins, dev)[off:].view(G, n)
+        wide_nodes = 0
+        for k in range(K):
+            words = []
+            rec, depths = k1_wide_records(rs, T, L, G, words, kinds, Bmax)
+            packed = tpk.pack_nodes(rec)
+            wide_nodes += int((((packed[tpk.PACKED_WORDS.index("flags")]
+                                 .view(np.uint32) >> tpk.WIDE_BIT) & 1)
+                               > 0).sum())
+            nodes = torch.from_numpy(packed).to(dev)
+            lv = torch.from_numpy(rs.uniform(-0.1, 0.1, size=(T, L))
+                                  .astype(np.float32)).to(dev)
+            wt = torch.from_numpy(np.asarray(words or [0], np.uint64)
+                                  .astype(np.uint32).view(np.int32)).to(dev)
+            got = tpk.predict_stream_cuda(bins_T, nodes, lv, wt, max(depths))
+            want = tpk.predict_stream_plain(bins_T, nodes, lv, wt, depths)
+            torch.cuda.synchronize()
+            diff = max_abs_diff(got, want)
+            wide_err = max(wide_err, diff)
+            if not (torch.equal(got, want) and torch.isfinite(got).all()):
+                raise RuntimeError(f"{label} class {k}: predict_stream "
+                                   f"differs from its plain version over "
+                                   f"16-bit bins (max abs {diff})")
+        cases[label] = {"rows": n, "groups": G, "classes": K, "trees": T,
+                        "num_leaves": L, "kinds": list(kinds),
+                        "max_bins": Bmax, "wide_nodes": wide_nodes,
+                        "bins_offset": off, "plan": plan._asdict(),
+                        "max_abs_err": diff}
+        del bins_T, nodes, lv, wt, got, want
     torch.cuda.empty_cache()
-    if len(forms) != 4:
+    if len(forms) != 4 or len(wide_forms) != 4:
         raise RuntimeError(f"K1's adversarial cases ran the kernel forms "
                            f"(trees staged, bins staged) {sorted(forms)}, "
-                           f"not all four")
+                           f"16-bit {sorted(wide_forms)}, not all four")
     emit({"phase": "predict_adversarial", "cases": cases,
-          "all_bit_equal": True, "max_abs_err": err})
-    return {"predict_stream": err}
+          "all_bit_equal": True, "max_abs_err": err,
+          "max_abs_err_wide": wide_err})
+    return {"predict_stream": max(err, wide_err),
+            "predict_stream_wide": wide_err}
 
 
 # --------------------------------------------------------------------------
@@ -2484,6 +2677,7 @@ def k2k_index_add_inputs(args):
     form int32, exact), and its zeroed (K * S * G * Bmax, 2) output.  The
     slots are the plain route's (the routing has no library call)."""
     import torch
+    from lightgbm_torch.kernels.layout import bin_values
     from lightgbm_torch.kernels.route_hist import route_plain
 
     bins_T, leaf_id, tabs, words, grad, hess, cnt, num_slots, max_bins = \
@@ -2497,7 +2691,7 @@ def k2k_index_add_inputs(args):
     G = bins_T.shape[0]
     g = torch.arange(G, device=s.device)
     cell = ((s[:, None] * G + g[None, :]) * max_bins
-            + bins_T[:, rows].t().long()).reshape(-1)
+            + bin_values(bins_T[:, rows].t()).long()).reshape(-1)
     # the int form's int8 grid values add as int32, its result type
     w = torch.stack([grad[kk, rows], hess[kk, rows]], dim=1)
     w = w.to(torch.int32 if grad.dtype == torch.int8 else torch.float32)
@@ -3111,7 +3305,7 @@ AIRLINE_FEATURES = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
 AIRLINE_CATEGORICAL = [i for i, (_, k) in enumerate(AIRLINE_FEATURES) if k]
 
 
-def make_airline_like(n, seed, positives=0.19):
+def make_airline_like(n, seed, positives=0.19, airports=250):
     """Rows in the shape of the airline delay task of szilard/GBM-perf
     (``dep_delayed_15min``: US flights, the label a departure 15 minutes or
     more late): Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin and
@@ -3119,7 +3313,8 @@ def make_airline_like(n, seed, positives=0.19):
     Carriers and airports follow Zipf laws, departure times a daytime
     spread, distances a log-normal law.  The label is a logistic of
     per-category effects (fixed by ``seed``), the departure hour and the
-    distance, its intercept set for the given share of positives."""
+    distance, its intercept set for the given share of positives.
+    ``airports``: the Origin and Dest categories (the source has ~300)."""
     rs = np.random.RandomState(seed)
     cols, effects = [], 0.0
     eff_rs = np.random.RandomState(seed + 1)
@@ -3128,6 +3323,8 @@ def make_airline_like(n, seed, positives=0.19):
     for name, k in AIRLINE_FEATURES:
         if k is None:
             continue
+        if name in ("Origin", "Dest"):
+            k = airports
         codes = (zipf_choice(rs, k, 1.0 if k == 22 else 1.1, n)
                  if name in ("UniqueCarrier", "Origin", "Dest")
                  else rs.randint(0, k, n))
@@ -3297,6 +3494,365 @@ def phase_train_categorical(seed, smi, rows=1_000_000, held_out=250_000,
             "predict_stream": k1}, err
 
 
+# --------------------------------------------------------------------------
+# groups wider than 256 bins (16-bit bins)
+# --------------------------------------------------------------------------
+
+def make_wide_small(n, seed):
+    """Rows whose EFB bundle is wider than 256 bins at the default max_bin
+    255: two dense columns and six mutually exclusive sparse ones (each
+    row holds at most one, 3 in 4 rows one of them), continuous values,
+    so that the six bundle into one group of ~1500 bins (3 groups in all);
+    a binary label from both kinds."""
+    rs = np.random.RandomState(seed)
+    X = np.zeros((n, 8))
+    X[:, 0] = rs.randn(n)
+    X[:, 1] = rs.randn(n)
+    which = rs.randint(0, 8, n)
+    for j in range(6):
+        m = which == j
+        X[m, 2 + j] = rs.rand(int(m.sum())) + 0.5
+    logit = (X[:, 0] + 0.5 * X[:, 1] + 2.0 * (X[:, 3] > 1.0)
+             - 1.5 * (X[:, 5] > 0.8))
+    y = (logit + 0.5 * rs.randn(n) > 0).astype(np.float64)
+    return X, y
+
+
+def wide_label3(X, seed):
+    """A 3-class label on make_wide_small's rows."""
+    rs = np.random.RandomState(seed)
+    logits = np.stack([X[:, 0], 2.0 * (X[:, 3] > 1.0) + X[:, 1],
+                       1.5 * (X[:, 5] > 0.8) - X[:, 0]], axis=1)
+    return np.argmax(logits + rs.randn(len(X), 3), axis=1).astype(float)
+
+
+def wide_group_bins(bst):
+    """(group count, each group's bin count, Bmax) of a trained booster's
+    data."""
+    eng = bst.engine
+    binned = eng.train_data.binned
+    counts = [int(c) for c in binned.group_bin_counts]
+    return len(binned.group_features), counts, int(eng.dd.max_bins)
+
+
+def phase_train_wide_small(seed, n=20_000, iters=3, num_leaves=31):
+    """Training on 16-bit bins on both devices: make_wide_small's rows at
+    the defaults (3 groups, one of ~1500 bins), dyadic custom gradients
+    (quantized: power-of-two scales) under stream, scatter, GOSS (127
+    leaves at budget 64: fused, K3), bagging, quantized gradients and K = 3
+    in lockstep under stream and scatter, each byte-identical on the CPU
+    and the card, the card's runs through the 16-bit forms; every K2 (three
+    forms), K3, K4, K5 and K8 launch of the card's runs replayed bit-equal
+    through its plain version; pallas refusing such bins; K1 over 16-bit
+    bins on a binary model trained on the card, bit-equal to its plain
+    version and within rtol 1e-4 / atol 1e-5 of the host walk."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.basic import _host_predict
+
+    X, y = make_wide_small(n, seed)
+    y3 = wide_label3(X, seed + 1)
+    base = {"objective": "none", "num_leaves": num_leaves,
+            "max_splits_per_round": 8, "min_data_in_leaf": 5,
+            "verbosity": -1}
+    mc = {"objective": "multiclass", "num_class": 3}
+    goss = {**sampled_params("goss"), "num_leaves": 127,
+            "max_splits_per_round": 64}
+    # name: (extra params, label, fobj, iterations, kernel whose 16-bit
+    # form the card's run must launch)
+    runs = {
+        "stream": ({}, y, dyadic_fobj, iters, "route_and_hist"),
+        "scatter": ({"hist_backend": "scatter"}, y, dyadic_fobj, iters,
+                    "scatter_hist"),
+        "goss": (goss, y, dyadic_fobj, 4, "route_replay"),
+        "bagging": ({"bagging_fraction": 0.5, "bagging_freq": 1}, y,
+                    dyadic_fobj, iters, "route_and_hist"),
+        "quantized": ({"use_quantized_grad": True}, y, pow2_fobj, iters,
+                      "route_and_hist_int"),
+        "multiclass": (mc, y3, dyadic_mc_fobj, 2, "route_and_hist"),
+        "multiclass_scatter": ({**mc, "hist_backend": "scatter"}, y3,
+                               dyadic_mc_fobj, 2, "hist_wide"),
+    }
+    cap, out, groups = Capture(), {}, None
+    for name, (extra, label, fobj, n_iter, want) in runs.items():
+        texts = []
+        for dev in ("cpu", "cuda"):
+            p = {**base, **extra, "device_type": dev}
+            bst = lt.Booster(p, lt.Dataset(X, label=label, params=p))
+            kernels.reset_launch_counts()
+            with cap if dev == "cuda" else contextlib.nullcontext():
+                for _ in range(n_iter):
+                    bst.update(fobj=fobj)
+            texts.append(model_trees_text(bst))
+        wide = kernels.wide_launch_counts()
+        if texts[0] != texts[1]:
+            raise RuntimeError(f"wide {name}: training differs between CPU "
+                               f"and card")
+        groups = wide_group_bins(bst)
+        if not (bst.engine.dd.bins.dtype == torch.int16 and wide[want] > 0
+                and groups[2] > 256):
+            raise RuntimeError(f"wide {name}: bins {bst.engine.dd.bins.dtype}"
+                               f", groups {groups}, 16-bit launches {wide}")
+        out[name] = {"leaves_per_tree": [t.num_leaves
+                                         for t in bst.engine.models],
+                     "wide_launches": {k: v for k, v in wide.items() if v}}
+    torch.cuda.synchronize()
+    replayed, err = replay_against_plain(cap)
+    need = ("route_and_hist", "route_and_hist_k", "route_and_hist_int",
+            "route_replay", "leaf_gather", "scatter_hist", "hist_wide")
+    if not all(replayed[k] for k in need):
+        raise RuntimeError(f"the wide runs replayed {replayed}")
+    try:
+        p = {**base, "objective": "binary", "hist_backend": "pallas",
+             "device_type": "cuda"}
+        lt.train(p, lt.Dataset(X, label=y, params=p), 1)
+    except lt.LightGBMError as e:
+        if "not yet ported" not in str(e):
+            raise
+        pallas = str(e)
+    else:
+        raise RuntimeError("pallas trained on 16-bit bins")
+    # K1 over 16-bit bins, on a binary model trained on the card
+    p = {**base, "objective": "binary", "device_type": "cuda"}
+    bst = lt.train(p, lt.Dataset(X, label=y, params=p), 5)
+    Xt = make_wide_small(n, seed + 1)[0]
+    kernels.reset_launch_counts()
+    pred = bst.predict(Xt, raw_score=True)
+    k1_wide = kernels.wide_launch_counts()["predict_stream"]
+    inp, _, k1_err = check_kernel_against_plain(bst, Xt)
+    use, _, _, _ = bst._resolve_tree_slice(0, None)
+    host = _host_predict(Xt, use, 1, False, 10, 10.0)
+    np.testing.assert_allclose(pred, host, rtol=RTOL, atol=ATOL)
+    if not (k1_wide == 1 and inp.bins_T.dtype == torch.int16):
+        raise RuntimeError(f"wide predict: {k1_wide} 16-bit K1 launches")
+    err["predict_stream"] = k1_err
+    emit({"phase": "train_wide_small", "rows": n, "groups": groups[0],
+          "group_bins": groups[1], "max_bins": groups[2], "runs": out,
+          "text_identical_cpu_card": True, "replayed_launches": replayed,
+          "replay_max_abs_err": err, "pallas_refused": pallas,
+          "k1_rows": len(Xt), "k1_equals_plain": True,
+          "predict_max_abs_err_vs_host": float(np.abs(pred - host).max())})
+    return err
+
+
+WIDE_ONEHOT = ("Month", "DayofMonth", "DayOfWeek", "UniqueCarrier",
+               "Origin", "Dest")
+
+
+def make_airline_onehot(n, seed, airports=300):
+    """make_airline_like's rows with its six categorical fields one-hot
+    encoded into 0/1 float columns (the LightGBM paper's Flight Delay set,
+    the airline data so encoded), DepTime and Distance as they are: at 300
+    airports 12 + 31 + 7 + 22 + 300 + 300 = 672 one-hot columns and two
+    numeric ones, 674 in all."""
+    X, y = make_airline_like(n, seed, airports=airports)
+    sizes = [k if name not in ("Origin", "Dest") else airports
+             for name, k in AIRLINE_FEATURES if k]
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    out = np.zeros((n, int(offsets[-1]) + 2))
+    rows = np.arange(n)
+    for j, off in enumerate(offsets[:-1]):
+        out[rows, int(off) + X[:, j].astype(np.int64)] = 1.0
+    out[:, -2:] = X[:, -2:]
+    return out, y
+
+
+def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
+                     goss_iters=15, backend_iters=10, timed_tree=2):
+    """The Flight Delay cell: make_airline_onehot's 674 columns at 300
+    airports, ``rows`` trained and ``held_out`` held out; binary, 255
+    leaves, max_bin 255, default EFB (bundles of one-hot columns past 256
+    bins: 16-bit bins), learning rate 0.1, ``iters`` iterations under auto
+    (stream, K2), the kernel counts read around each call; a GOSS arm at
+    LightGBM's default rates (``goss_iters``, 10 of warmup: K3), a scatter
+    arm (K5), a quantized arm (K2's int form) and a 3-class scatter arm on
+    200 000 of the rows (K8); held-out ``Booster.predict`` through K1 (AUC
+    > 0.60); one tree's launches of each arm replayed bit-equal, then timed
+    beside the bound and, where one exists, an ``index_add_`` call; one
+    more iteration timed phase by phase.  Returns the 16-bit entries of K1,
+    K2, K2 int, K3, K5 and K8 and the replays' largest differences."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.kernels import predict as tpk
+    from lightgbm_torch.kernels import route_replay as rr
+
+    t0 = time.perf_counter()
+    X, y = make_airline_onehot(rows + held_out, seed)
+    Xs, ys = X[rows:], y[rows:]
+    X, y = X[:rows], y[:rows]
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "verbosity": -1}
+    ds = lt.Dataset(X, label=y, params={"max_bin": 255}).construct()
+    data_s = time.perf_counter() - t0
+
+    def run(extra, n_iter, data=ds, capture_at=timed_tree):
+        kernels.reset_launch_counts()
+        with TimedIters(capture_at=capture_at) as timed:
+            t0 = time.perf_counter()
+            bst = lt.train({**params, **extra}, data, n_iter)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        return (bst, timed, train_s, kernels.launch_counts(),
+                kernels.wide_launch_counts())
+
+    bst, timed, train_s, launches, wide = run({}, iters)
+    n_groups, group_bins, Bmax = wide_group_bins(bst)
+    if bst.engine.dd.bins.dtype != torch.int16 or Bmax <= 256:
+        raise RuntimeError(f"Flight Delay rows: no group past 256 bins "
+                           f"({group_bins})")
+    if (bst.num_trees() != iters or wide["route_and_hist"] == 0
+            or launches["leaf_gather"] != iters):
+        raise RuntimeError(f"wide training made {bst.num_trees()} trees "
+                           f"with launches {launches}, 16-bit {wide}")
+    # held-out prediction through K1 (the host side warmed once)
+    bst.predict(Xs[:20_000])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred = bst.predict(Xs)
+    predict_s = time.perf_counter() - t0
+    k1_launches = kernels.wide_launch_counts()["predict_stream"]
+    held_auc = auc(ys, pred)
+    if not (k1_launches == 1 and pred.shape == (held_out,)
+            and np.isfinite(pred).all() and held_auc > 0.60):
+        raise RuntimeError(f"wide predict: {k1_launches} 16-bit K1 "
+                           f"launches, AUC {held_auc}")
+    inp, _, k1_err = check_kernel_against_plain(bst, Xs)
+    use, _, _, _ = bst._resolve_tree_slice(0, None)
+    nodes, lv, words, depths = inp.classes[0]
+    maxd = int(max(depths))
+    k1_ms = device_ms(lambda: tpk.predict_stream_cuda(inp.bins_T, nodes, lv,
+                                                      words, maxd), reps=5)
+    k1_plain = cuda_ms(lambda: tpk.predict_stream_plain(inp.bins_T, nodes, lv,
+                                                        words, depths),
+                       reps=1, warmup=0)
+    k1_bnd = bound(*k1_work(inp, use, maxd, held_out))
+    replayed, err = replay_against_plain(timed.cap)
+    k2 = time_k2_launches([(a, o) for a, o in timed.cap.k2 if a[10]], False)
+    profiled_s, phases_s, host_reads = profiled_iteration(bst)
+    total = sum(phases_s.values())
+    tree_s = timed.seconds
+
+    # GOSS at the default rates: K3 over the 16-bit bins
+    goss = {"data_sample_strategy": "goss"}
+    g_bst, g_timed, g_train_s, g_launches, g_wide = run(goss, goss_iters,
+                                                        capture_at=12)
+    if g_wide["route_replay"] == 0 or len(g_timed.cap.k3) != 1:
+        raise RuntimeError(f"wide GOSS: 16-bit launches {g_wide}, "
+                           f"{len(g_timed.cap.k3)} K3 in the timed tree")
+    g_rep, g_err = replay_against_plain(g_timed.cap)
+    (k3_bins, k3_tabs), _ = g_timed.cap.k3[0]
+    k3_ms = device_ms(lambda: rr.route_replay_cuda(k3_bins, k3_tabs))
+    k3_plain = cuda_ms(lambda: rr.route_replay_plain(k3_bins, k3_tabs),
+                       reps=1, warmup=0)
+    k3_bnd = bound(*k3_work(k3_bins, k3_tabs))
+    k3_special = int((rr.pack_records(k3_tabs, k3_bins.shape[0], True)
+                      [..., 1] < 0).sum().item())
+
+    # scatter: K5 over the 16-bit bins
+    s_bst, s_timed, s_train_s, _, s_wide = run({"hist_backend": "scatter"},
+                                               backend_iters)
+    if s_wide["scatter_hist"] == 0:
+        raise RuntimeError(f"wide scatter: 16-bit launches {s_wide}")
+    s_rep, s_err = replay_against_plain(s_timed.cap)
+    k5 = time_hist_launches("scatter_hist", s_timed.cap.k5)
+    s_auc = auc(ys, s_bst.predict(Xs))
+
+    # quantized gradients: K2's int form over the 16-bit bins
+    q_bst, q_timed, q_train_s, _, q_wide = run({"use_quantized_grad": True},
+                                               5)
+    if q_wide["route_and_hist_int"] == 0:
+        raise RuntimeError(f"wide quantized: 16-bit launches {q_wide}")
+    q_rep, q_err = replay_against_plain(q_timed.cap)
+    k2i = time_k2_launches([(a, o) for a, o in q_timed.cap.k2i if a[9]],
+                           True)
+
+    # K = 3 under scatter: K8 over the same mappers' 16-bit bins
+    mc_rows = min(rows, 200_000)
+    dep_hour = X[:mc_rows, -2] // 100
+    y3 = np.where(y[:mc_rows] > 0, 2, (dep_hour >= 17).astype(int))
+    mc_ds = lt.Dataset(X[:mc_rows], label=y3.astype(float), reference=ds)
+    m_bst, m_timed, m_train_s, _, m_wide = run(
+        {"objective": "multiclass", "num_class": 3,
+         "hist_backend": "scatter"}, 3, data=mc_ds, capture_at=1)
+    if m_wide["hist_wide"] == 0:
+        raise RuntimeError(f"wide multiclass: 16-bit launches {m_wide}")
+    m_rep, m_err = replay_against_plain(m_timed.cap)
+    k8 = time_hist_launches("hist_wide", m_timed.cap.k8)
+
+    for e in (g_err, s_err, q_err, m_err):
+        for k, v in e.items():
+            err[k] = max(err.get(k, 0.0), v)
+    err["predict_stream"] = k1_err
+    after_first = tree_s[1:] or tree_s
+    emit({"phase": "train_wide", "card": smi, "rows": rows,
+          "held_out_rows": held_out, "features": int(X.shape[1]),
+          "one_hot_fields": list(WIDE_ONEHOT), "airports": 300,
+          "data_s": data_s, "groups": n_groups, "group_bins": group_bins,
+          "groups_past_256_bins": sum(b > 256 for b in group_bins),
+          "max_bins": Bmax, "iterations": iters, "num_leaves": 255,
+          "leaves_per_tree": [t.num_leaves for t in bst.engine.models],
+          "train_s": train_s, "s_per_tree": statistics.median(after_first),
+          "first_tree_s": tree_s[0], "tree_s": tree_s,
+          "k2_launches_per_tree": launches["route_and_hist"] / iters,
+          "launches": launches, "wide_launches": wide,
+          "held_out_auc": held_auc, "predict_s": predict_s,
+          "k1_launches": k1_launches, "k1_ms": k1_ms,
+          "k1_plain_ms": k1_plain, "k1_bound_ms": k1_bnd[0],
+          "k1_bound_by": k1_bnd[1], "k1_equals_plain": True,
+          "replayed_launches_timed_tree": replayed, "k2_full_hist": k2,
+          "profiled_iteration_s": profiled_s,
+          "profiled_iteration_phases_s": phases_s,
+          "profiled_iteration_phase_share": {
+              k: v / total for k, v in phases_s.items()} if total else {},
+          "profiled_iteration_host_reads": host_reads,
+          "goss": {"iterations": goss_iters, "train_s": g_train_s,
+                   "s_per_tree_sampled": statistics.median(
+                       g_timed.seconds[10:] or g_timed.seconds),
+                   "wide_launches": g_wide, "replayed": g_rep,
+                   "k3_ms": k3_ms, "k3_plain_ms": k3_plain,
+                   "k3_bound_ms": k3_bnd[0], "k3_rounds": int(
+                       k3_tabs.shape[0]), "k3_special_records": k3_special},
+          "scatter": {"iterations": backend_iters, "train_s": s_train_s,
+                      "s_per_tree": statistics.median(s_timed.seconds[1:]),
+                      "held_out_auc": s_auc, "wide_launches": s_wide,
+                      "replayed": s_rep, "k5": k5},
+          "quantized": {"iterations": 5, "train_s": q_train_s,
+                        "wide_launches": q_wide, "replayed": q_rep,
+                        "k2_int_full_hist": k2i},
+          "multiclass_scatter": {"rows": mc_rows, "iterations": 3,
+                                 "train_s": m_train_s,
+                                 "wide_launches": m_wide,
+                                 "replayed": m_rep, "k8": k8},
+          "replay_max_abs_err": err})
+
+    def entry(launches_n, name, ms, plain, bnd, lib):
+        return {"cell": "train_wide", "max_bins": Bmax,
+                "launches": launches_n, "max_abs_err": err.get(name, 0.0),
+                "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": lib}
+
+    def hist_entry(launches_n, name, t):
+        return entry(launches_n, name, t["mean_ms"], t["mean_plain_ms"],
+                     (t["mean_bound_ms"], t["bound_by"]),
+                     t["mean_index_add_ms"])
+
+    return {"predict_stream": {**entry(k1_launches, "predict_stream", k1_ms,
+                                       k1_plain, k1_bnd, None),
+                               "rows": held_out, "trees": len(use)},
+            "route_and_hist": hist_entry(wide["route_and_hist"],
+                                         "route_and_hist", k2),
+            "route_and_hist_int": hist_entry(q_wide["route_and_hist_int"],
+                                             "route_and_hist_int", k2i),
+            "route_replay": entry(g_wide["route_replay"], "route_replay",
+                                  k3_ms, k3_plain, k3_bnd, None),
+            "scatter_hist": hist_entry(s_wide["scatter_hist"],
+                                       "scatter_hist", k5),
+            "hist_wide": hist_entry(m_wide["hist_wide"], "hist_wide", k8)}, \
+        err
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3354,14 +3910,16 @@ def main(argv=None) -> int:
         mc_small_err = phase_train_multiclass_small(args.seed)
         k2k_k8, mc_err = phase_train_multiclass(args.seed, smi)
         cat_small_err = phase_train_categorical_small(args.seed)
+        wide_small_err = phase_train_wide_small(args.seed)
         cat_lines, cat_err = phase_train_categorical(
             args.seed, smi, args.rows, args.rows // 4, args.train_iters)
+        wide_lines, wide_err = phase_train_wide(args.seed, smi)
         adv_err = phase_hist_adversarial(args.seed)
         k1_adv_err = phase_predict_adversarial(args.seed)
     kernel_lines = [k1, k2, k3, k4] + k567 + k2k_k8 + [k2i]
     errs = (small_err, sampled_small_err, quant_small_err, sampled_err,
             backends_err, quant_err, mc_small_err, mc_err, cat_small_err,
-            cat_err, adv_err, k1_adv_err)
+            cat_err, wide_small_err, wide_err, adv_err, k1_adv_err)
     for k in kernel_lines:
         if k["name"] in cat_lines:
             k["categorical"] = cat_lines[k["name"]]
@@ -3370,6 +3928,17 @@ def main(argv=None) -> int:
                  if k["name"] == "route_and_hist_int" else (k["name"],))
         k["max_abs_err"] = max([k["max_abs_err"]]
                                + [e.get(n, 0.0) for e in errs for n in names])
+        if k["name"] in wide_lines:
+            # the 16-bit form: its launches on the Flight Delay cell, its
+            # replays there and on the small rows, its adversarial cases
+            w = wide_lines[k["name"]]
+            w["max_abs_err"] = max(
+                [w["max_abs_err"]]
+                + [e.get(n, 0.0) for e in (wide_small_err, wide_err)
+                   for n in names]
+                + [e.get(k["name"] + "_wide", 0.0)
+                   for e in (adv_err, k1_adv_err)])
+            k["wide"] = w
     emit({"kernels": kernel_lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -394,8 +394,10 @@ class Booster:
     def _device_predict_inputs(self, X, use, k, es=None, times=None):
         """Bin the raw matrix with the training mappers and build the device
         tensors of a batch walk, or None when the device path does not apply
-        (small batch, no engine, linear trees, early stop with k > 1,
-        bundled or near-full categorical features, bins wider than uint8).
+        (small batch, no engine, linear trees, early stop with k > 1, a
+        bundled categorical feature, which EFB never makes).  Bins wider
+        than uint8 (groups wider than 256 bins, or a categorical sentinel
+        bin past 255) go to K1 as 16-bit bins.
         The reference's VMEM-size gates (basic.py:1569-1576, :1633) do not
         apply: on the GPU the tables sit in device memory and L2.  A dict
         passed as ``times`` receives the seconds of its host stages:
@@ -421,15 +423,18 @@ class Booster:
         routing_np, _ = build_routing_np(tb)
         for f in sorted(cat_feats):
             # the NaN/unseen sentinel re-bin below needs the cat feature
-            # alone in its group, and the sentinel bin num_bins must fit
-            # the uint8 storage — bundled or near-full ladders stay host
-            if routing_np["bundled"][f] or tb.bin_mappers[f].num_bins >= 255:
+            # alone in its group.  Not reached: EFB never bundles a
+            # categorical feature (binning.py), but a bundle's span could
+            # not hold the sentinel, so such a model would walk on the host
+            if routing_np["bundled"][f]:
                 return None
         t0 = time.perf_counter()
         binned = construct_binned(X, tb.bin_mappers, tb.group_features)
         bins = binned.bins
-        if bins.dtype != np.uint8:
-            return None    # bundles wider than 256 bins: the host walk
+        if (bins.dtype == np.uint8 and cat_feats
+                and max(tb.bin_mappers[f].num_bins for f in cat_feats) > 255):
+            # the sentinel bin num_bins past uint8: 16-bit bins
+            bins = bins.astype(np.uint16)
         if cat_feats:
             # the host walk routes NaN / unseen / negative categories RIGHT
             # (bit absent from the bitset); the mapper bins them to bin 0

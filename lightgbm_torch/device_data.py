@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .binning import BIN_CATEGORICAL, MISSING_NAN, MISSING_ZERO, BinnedData
+from .kernels.layout import bins_to_torch
 from .utils.log import LightGBMError
 
 ROUTING_FIELDS = ("feat_group", "span_start", "default_bin", "bundled",
@@ -53,7 +54,8 @@ class FeatureLayout(NamedTuple):
 
 
 class DeviceData(NamedTuple):
-    bins: torch.Tensor           # (N_pad, G) uint8/int16 on ``device``
+    bins: torch.Tensor           # (N_pad, G) uint8, or int16 storage of
+                                 # 16-bit bins, on ``device``
     routing: RoutingLayout
     layout: FeatureLayout
     num_data: int
@@ -185,10 +187,8 @@ def to_device(binned: BinnedData, device: torch.device,
     n_pad = -(-n // pad_rows_to) * pad_rows_to
     if n_pad != n:
         bins = np.pad(bins, ((0, n_pad - n), (0, 0)))
-    if bins.dtype == np.uint16:
-        # torch has no uint16 arithmetic; group bins stay < 2**15
-        bins = bins.astype(np.int16)
-    return DeviceData(bins=torch.as_tensor(bins, device=device),
+    # 16-bit bins keep their bytes in int16 storage (kernels/layout.py)
+    return DeviceData(bins=bins_to_torch(bins).to(device),
                       routing=routing, layout=layout, num_data=n,
                       num_features=binned.num_features,
                       num_groups=binned.num_groups, max_bins=Bmax,

@@ -26,6 +26,9 @@ version runs only for CPU tensors.  Importing this package builds nothing:
 Each CUDA wrapper counts its launches in a plain integer attribute
 ``launches``; ``launch_counts`` reads them and ``reset_launch_counts`` sets
 them to zero, so a run can show that its path went through the kernels.
+The wrappers whose kernels read bins also count the launches over 16-bit
+bins (groups wider than 256 bins) in ``wide_launches``
+(``wide_launch_counts``).
 """
 from __future__ import annotations
 
@@ -52,6 +55,14 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def wide_launch_counts() -> Dict[str, int]:
+    """Launches over 16-bit bins, of each wrapper that has that form."""
+    return {name: fn.wide_launches for name, fn in WRAPPERS.items()
+            if hasattr(fn, "wide_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "wide_launches"):
+            fn.wide_launches = 0

@@ -49,37 +49,40 @@ _c_ptr, _c_int, _c_i64, _c_f32 = (ctypes.c_void_p, ctypes.c_int,
 _SORTED_ARGS = [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_int, _c_int,
                 _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_f32, _c_f32,
                 _c_ptr, _c_ptr, _c_ptr, _c_ptr]
-# C signature of each library's entry point: (symbol, argtypes)
+# C signature of each library's entry point: (symbol, argtypes).  Every
+# kernel that reads bins takes them as a pointer and their width in bytes
+# (1: uint8, 2: 16-bit)
 SIGNATURES = {
     "predict_stream": ("lgbt_predict_stream",
-                       [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_ptr,
-                        _c_int, _c_int, _c_int, _c_int, _c_f32, _c_ptr,
-                        _c_ptr, _c_ptr]),
+                       [_c_ptr, _c_int, _c_i64, _c_int, _c_ptr, _c_ptr,
+                        _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_f32,
+                        _c_ptr, _c_ptr, _c_ptr]),
     "route_and_hist": ("lgbt_route_and_hist",
-                       [_c_ptr, _c_i64, _c_int, _c_int, _c_ptr, _c_ptr,
-                        _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
-                        _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
-                        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+                       [_c_ptr, _c_int, _c_i64, _c_int, _c_int, _c_ptr,
+                        _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr,
+                        _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
+                        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+                        _c_ptr]),
     "route_and_hist_int": ("lgbt_route_and_hist_int",
-                           [_c_ptr, _c_i64, _c_int, _c_int, _c_ptr, _c_ptr,
-                            _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,
-                            _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
-                            _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+                           [_c_ptr, _c_int, _c_i64, _c_int, _c_int, _c_ptr,
+                            _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr,
+                            _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
+                            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
     "leaf_gather": ("lgbt_leaf_gather",
                     [_c_ptr, _c_i64, _c_ptr, _c_int, _c_ptr, _c_ptr]),
     "route_replay": ("lgbt_route_replay",
-                     [_c_ptr, _c_i64, _c_int, _c_ptr, _c_int, _c_int, _c_ptr,
-                      _c_ptr, _c_ptr, _c_ptr]),
+                     [_c_ptr, _c_int, _c_i64, _c_int, _c_ptr, _c_int, _c_int,
+                      _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
     "scatter_hist": ("lgbt_scatter_hist",
-                     [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-                      _c_int, _c_int, _c_f32, _c_f32, _c_ptr, _c_ptr,
+                     [_c_ptr, _c_int, _c_i64, _c_int, _c_ptr, _c_ptr, _c_ptr,
+                      _c_ptr, _c_int, _c_int, _c_f32, _c_f32, _c_ptr, _c_ptr,
                       _c_ptr, _c_ptr]),
     "hist_direct": ("lgbt_hist_direct", _SORTED_ARGS),
     "hist_nibble": ("lgbt_hist_nibble", _SORTED_ARGS),
     "hist_wide": ("lgbt_hist_wide",
-                  [_c_ptr, _c_i64, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
-                   _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-                   _c_ptr]),
+                  [_c_ptr, _c_int, _c_i64, _c_int, _c_int, _c_ptr, _c_ptr,
+                   _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
+                   _c_ptr, _c_ptr]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -167,3 +170,18 @@ def check_operands(name: str, dev, operands) -> None:
             raise LightGBMError(
                 f"{name}: {label} must be a contiguous {dtype} tensor on "
                 f"{dev}, got {x.dtype} on {x.device}")
+
+
+def init_counts(wrapper) -> None:
+    """Give a CUDA wrapper its launch counts: ``launches`` (every launch)
+    and ``wide_launches`` (those over 16-bit bins)."""
+    wrapper.launches = 0
+    wrapper.wide_launches = 0
+
+
+def count_launch(wrapper, bin_width: int) -> None:
+    """Count one launch of the wrapper's kernel over bins of ``bin_width``
+    bytes a bin."""
+    wrapper.launches += 1
+    if bin_width == 2:
+        wrapper.wide_launches += 1

@@ -10,7 +10,10 @@
 // scatter-add of each row).  The TPU kernels keep the whole histogram in
 // VMEM and contract a bin one-hot on the matrix unit; here rows scatter into
 // shared-memory tiles with integer atomics, for any Bmax <= 256, any K * S
-// and any G, with nothing falling back.
+// and any G, with nothing falling back.  Groups wider than 256 bins (EFB
+// bundles, max_bin > 255) take the 16-bit form: bins read as uint16_t, 4
+// rows' in one 8-byte load, and, where one pair's Bmax cells exceed a
+// block's shared memory, tiles of a range of bins (csrc/hist_tile.cuh).
 //
 // The function: cell (k, s, g, b) sums, over the rows n with slot[k, n] ==
 // s and bins_T[g, n] == b, grad[k, n] and hess[k, n] rounded once to int64
@@ -95,13 +98,14 @@ __global__ void to_float_kernel(const unsigned long long* __restrict__ acc,
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-int hist_rows(const uint8_t* bins_T, int64_t n, int G, int K,
+int hist_rows(const void* bins_T, int bin_bytes, int64_t n, int G, int K,
               const int32_t* slot, const float* grad, const float* hess,
               const float* cnt, int S, int Bmax, const float* scales,
               float scale0, float inv0, const int64_t* plan, int64_t* acc,
               float* hist, cudaStream_t stream) {
-  if (n < 0 || G < 1 || K < 1 || S < 1 || Bmax < 1 || Bmax > 256 ||
-      !plan_ok(plan, n, G, K, S, Bmax, kCellBytes))
+  if (n < 0 || G < 1 || K < 1 || S < 1 || Bmax < 1 ||
+      !plan_ok(plan, n, G, K, S, Bmax, kCellBytes, bin_bytes) ||
+      Bmax > max_group_bins(bin_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* h_acc = reinterpret_cast<unsigned long long*>(acc);
   const int64_t per_class = static_cast<int64_t>(S) * G * Bmax * 3;
@@ -114,9 +118,9 @@ int hist_rows(const uint8_t* bins_T, int64_t n, int G, int K,
     a.cnt = cnt; a.scales = scales; a.out = h_acc; a.n = n;
     a.G = G; a.K = K; a.S = S; a.Bmax = Bmax;
     a.scale0 = scale0;
-    a.vec = n % 4 == 0 && aligned(slot, 16) && aligned(grad, 16) &&
-            aligned(hess, 16) && aligned(cnt, 16) && aligned(bins_T, 4);
-    err = launch_tiles<GradHessCount>(a, plan, stream);
+    a.vec = bins_aligned(bins_T, n, bin_bytes) && aligned(slot, 16) &&
+            aligned(grad, 16) && aligned(hess, 16) && aligned(cnt, 16);
+    err = launch_tiles<GradHessCount>(a, bin_bytes, plan, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   to_float_kernel<<<static_cast<unsigned>(ceil_div(cells, 256)), 256, 0,
@@ -130,29 +134,33 @@ int hist_rows(const uint8_t* bins_T, int64_t n, int G, int K,
 
 // C interfaces, loaded with ctypes.  Each launches on `stream`, does not
 // synchronise, and returns the first CUDA error (0 = launched;
-// cudaErrorInvalidValue for a plan outside its limits).  acc is int64
-// scratch of the histogram's size that the call zeroes; hist is the float32
+// cudaErrorInvalidValue for a plan outside its limits).  bins_T is (G,
+// n_rows), bin_bytes 1 (uint8) or 2 (16-bit) a bin.  acc is int64 scratch
+// of the histogram's size that the call zeroes; hist is the float32
 // result; plan is the host array of kernels/hist_wide.py::hist_plan.
 
 // K5: (N,) slots and weights, one shift (scale = 2**shift, inv_scale its
 // inverse); hist (S, G, Bmax, 3).
 extern "C" int lgbt_scatter_hist(
-    const uint8_t* bins_T, int64_t n_rows, int G, const int32_t* slot,
+    const void* bins_T, int bin_bytes, int64_t n_rows, int G,
+    const int32_t* slot,
     const float* grad, const float* hess, const float* cnt, int S, int Bmax,
     float scale, float inv_scale, int64_t* acc, float* hist,
     const int64_t* plan, cudaStream_t stream) {
-  return hist_rows(bins_T, n_rows, G, 1, slot, grad, hess, cnt, S, Bmax,
-                   nullptr, scale, inv_scale, plan, acc, hist, stream);
+  return hist_rows(bins_T, bin_bytes, n_rows, G, 1, slot, grad, hess, cnt,
+                   S, Bmax, nullptr, scale, inv_scale, plan, acc, hist,
+                   stream);
 }
 
 // K8: (K, N) class-major slots, grads and hesses, (N,) counts; scales (2, K)
 // on the device, row 0 each class's 2**shift and row 1 its 2**-shift;
 // hist (K, S, G, Bmax, 3).
 extern "C" int lgbt_hist_wide(
-    const uint8_t* bins_T, int64_t n_rows, int G, int K, const int32_t* slot,
+    const void* bins_T, int bin_bytes, int64_t n_rows, int G, int K,
+    const int32_t* slot,
     const float* grad, const float* hess, const float* cnt, int S, int Bmax,
     const float* scales, int64_t* acc, float* hist, const int64_t* plan,
     cudaStream_t stream) {
-  return hist_rows(bins_T, n_rows, G, K, slot, grad, hess, cnt, S, Bmax,
-                   scales, 0.0f, 0.0f, plan, acc, hist, stream);
+  return hist_rows(bins_T, bin_bytes, n_rows, G, K, slot, grad, hess, cnt,
+                   S, Bmax, scales, 0.0f, 0.0f, plan, acc, hist, stream);
 }

@@ -10,7 +10,15 @@
 // or one 32-bit word of int8 weights, one 32-bit word of 4 bin bytes per
 // group; a scalar edge for a ragged end or unaligned operands), places each
 // row's pair in the tile with no division and one compare, and adds each of
-// its groups' cells with native 32-bit shared-memory atomics.  An int64 sum
+// its groups' cells with native 32-bit shared-memory atomics.
+//
+// Bins are uint8, or 16-bit for groups wider than 256 bins (the `T`
+// template argument; the caller's int16 storage read as uint16_t): four
+// rows' 16-bit bins load as one 8-byte word (uint2).  Only the 16-bit form
+// has a bin-tile axis: where one pair's Bmax cells exceed a block's shared
+// memory, a tile holds `bins_per_tile` bins [b0, b0 + bins_per_tile) and a
+// row whose bin lies outside skips; `bin_tiles` tiles cover Bmax.  The
+// 8-bit form's instructions are those it had before the 16-bit form.  An int64 sum
 // is two words: the low word's add returns its old value, which says
 // whether it carried into the high word (exact modulo 2**64, so exact for
 // sums that fit in int64).  The block then flushes its tile once with
@@ -36,11 +44,11 @@ constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory, sm_90
 // plan fields, in the order of kernels/hist_wide.py::PLAN_FIELDS
 enum {
   kPairsPerTile, kGroupsPerTile, kPairTiles, kGroupTiles, kRowRanges,
-  kRowsPerRange, kThreads, kSmem
+  kRowsPerRange, kThreads, kSmem, kBinsPerTile, kBinTiles
 };
 
 struct Args {
-  const uint8_t* bins_T;   // (G, N)
+  const void* bins_T;      // (G, N) uint8, or uint16 (the `T` argument)
   const int32_t* slot;     // (K, N)
   const void* grad;        // (K, N) float32, or int8 grid values
   const void* hess;        // (K, N) float32, or int8 grid values
@@ -51,6 +59,7 @@ struct Args {
   int64_t rows_per_range;
   int G, K, S, Bmax;
   int pairs_per_tile, groups_per_tile;
+  int bins_per_tile, bin_tiles;  // the 16-bit form's bin tiles
   float scale0;
   int vec;                 // whole-word row loads allowed
 };
@@ -86,6 +95,41 @@ __device__ __forceinline__ unsigned load_bytes4(const uint8_t* p, int nr,
     w |= static_cast<unsigned>(__ldg(p + i)) << (8 * i);
   return w;
 }
+
+// bins of 4 rows: uint8 as one 32-bit word of 4 bytes, 16-bit as one
+// 8-byte word of 4 halves (missing rows read 0)
+template <class T>
+struct Bins4;
+
+template <>
+struct Bins4<uint8_t> {
+  using Word = unsigned;
+  __device__ __forceinline__ static Word load(const uint8_t* p, int nr,
+                                              bool full) {
+    return load_bytes4(p, nr, full);
+  }
+  __device__ __forceinline__ static int bin(Word w, int i) {
+    return (w >> (8 * i)) & 0xff;
+  }
+};
+
+template <>
+struct Bins4<uint16_t> {
+  using Word = uint2;
+  __device__ __forceinline__ static Word load(const uint16_t* p, int nr,
+                                              bool full) {
+    if (full) return __ldg(reinterpret_cast<const uint2*>(p));
+    uint2 w = make_uint2(0u, 0u);
+    for (int i = 0; i < nr; ++i) {
+      const unsigned v = static_cast<unsigned>(__ldg(p + i)) << (16 * (i & 1));
+      if (i < 2) w.x |= v; else w.y |= v;
+    }
+    return w;
+  }
+  __device__ __forceinline__ static int bin(Word w, int i) {
+    return ((i < 2 ? w.x : w.y) >> (16 * (i & 1))) & 0xffff;
+  }
+};
 
 __device__ __forceinline__ void load4(const int8_t* p, int nr, bool full,
                                       int out[4]) {
@@ -252,18 +296,28 @@ __device__ __forceinline__ int rows_left(int64_t row, int64_t r1) {
   return r1 - row >= 4 ? 4 : (r1 > row ? static_cast<int>(r1 - row) : 0);
 }
 
-// grid: x = pair tile, y = group tile, z = row range
-template <class Ch>
+// grid: x = pair tile (16-bit form: pair tile * bin_tiles + bin tile),
+// y = group tile, z = row range
+template <class Ch, class T>
 __global__ void __launch_bounds__(kMaxThreads)
 tile_kernel(const Args a) {
+  constexpr bool kBinTiles = sizeof(T) > 1;
   extern __shared__ __align__(16) unsigned smem[];
   const int P = a.K * a.S;
-  const int c0 = static_cast<int>(blockIdx.x) * a.pairs_per_tile;
+  int pair_tile = static_cast<int>(blockIdx.x);
+  int b0 = 0;          // the tile's first bin
+  int bpt = a.Bmax;    // bins a tile holds
+  if (kBinTiles) {
+    pair_tile = static_cast<int>(blockIdx.x) / a.bin_tiles;
+    bpt = a.bins_per_tile;
+    b0 = (static_cast<int>(blockIdx.x) - pair_tile * a.bin_tiles) * bpt;
+  }
+  const int c0 = pair_tile * a.pairs_per_tile;
   const int c1 = min(c0 + a.pairs_per_tile, P);
   const int gpt = a.groups_per_tile;
   const int g0 = static_cast<int>(blockIdx.y) * gpt;
   const int ng = min(g0 + gpt, a.G) - g0;
-  const int cells = a.pairs_per_tile * gpt * a.Bmax;
+  const int cells = a.pairs_per_tile * gpt * bpt;
   for (int i = threadIdx.x; i < Ch::kWords * cells; i += blockDim.x)
     smem[i] = 0u;
   __syncthreads();
@@ -302,17 +356,23 @@ tile_kernel(const Args a) {
       if (!any) continue;
       typename Ch::Val v;
       Ch::value(a, k, rw, raw, v);
-      const uint8_t* col = a.bins_T + static_cast<int64_t>(g0) * a.n + row;
-      unsigned word = load_bytes4(col, nr, full);
+      using B4 = Bins4<T>;
+      const T* col = static_cast<const T*>(a.bins_T) +
+                     static_cast<int64_t>(g0) * a.n + row;
+      typename B4::Word word = B4::load(col, nr, full);
       for (int gl = 0; gl < ng; ++gl) {
-        // the next group's bin bytes, loaded before this group's adds
-        const unsigned next_word =
-            gl + 1 < ng ? load_bytes4(col + (gl + 1) * a.n, nr, full) : 0u;
+        // the next group's bins, loaded before this group's adds
+        const typename B4::Word next_word =
+            gl + 1 < ng ? B4::load(col + (gl + 1) * a.n, nr, full)
+                        : typename B4::Word{};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           if (lp[i] < 0) continue;
-          const int b = (word >> (8 * i)) & 0xff;
-          Ch::add(smem, cells, (lp[i] * gpt + gl) * a.Bmax + b, v, i);
+          const int b = B4::bin(word, i) - b0;
+          if (kBinTiles && static_cast<unsigned>(b) >=
+                               static_cast<unsigned>(bpt))
+            continue;  // outside the tile's bins
+          Ch::add(smem, cells, (lp[i] * gpt + gl) * bpt + b, v, i);
         }
         word = next_word;
       }
@@ -322,13 +382,13 @@ tile_kernel(const Args a) {
 
   // flush the tile once
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int b = i % a.Bmax;
-    const int t = i / a.Bmax;
+    const int b = i % bpt;
+    const int t = i / bpt;
     const int g = g0 + t % gpt;
     const int p = c0 + t / gpt;
-    if (p >= c1 || g >= g0 + ng) continue;
+    if (p >= c1 || g >= g0 + ng || (kBinTiles && b0 + b >= a.Bmax)) continue;
     Ch::flush(a, smem, cells, i,
-              (static_cast<int64_t>(p) * a.G + g) * a.Bmax + b);
+              (static_cast<int64_t>(p) * a.G + g) * a.Bmax + b0 + b);
   }
 }
 
@@ -336,11 +396,20 @@ inline bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// the plan's limits for a tile of cell_bytes a cell; false: refuse it
+// the plan's limits for a tile of cell_bytes a cell over bins of
+// bin_bytes (1 or 2) a bin; false: refuse it.  Only 16-bit bins tile Bmax.
 inline bool plan_ok(const int64_t* q, int64_t n, int G, int K, int S,
-                    int Bmax, int cell_bytes) {
+                    int Bmax, int cell_bytes, int bin_bytes) {
   const int64_t P = static_cast<int64_t>(K) * S;
-  return q != nullptr && q[kPairsPerTile] >= 1 && q[kGroupsPerTile] >= 1 &&
+  if (q == nullptr || (bin_bytes != 1 && bin_bytes != 2)) return false;
+  const int64_t bpt = q[kBinsPerTile];
+  const bool bins_ok =
+      bin_bytes == 1 ? (q[kBinTiles] == 1 && bpt == Bmax)
+                     : (bpt >= 1 && bpt <= Bmax && q[kBinTiles] >= 1 &&
+                        q[kBinTiles] * bpt >= Bmax &&
+                        (q[kBinTiles] - 1) * bpt < Bmax &&
+                        q[kPairTiles] * q[kBinTiles] <= INT_MAX);
+  return bins_ok && q[kPairsPerTile] >= 1 && q[kGroupsPerTile] >= 1 &&
          q[kPairTiles] >= 1 && q[kGroupTiles] >= 1 &&
          q[kPairTiles] * q[kPairsPerTile] >= P &&
          (q[kPairTiles] - 1) * q[kPairsPerTile] < P &&
@@ -352,28 +421,50 @@ inline bool plan_ok(const int64_t* q, int64_t n, int G, int K, int S,
          q[kRowRanges] * q[kRowsPerRange] >= n &&
          q[kThreads] >= 32 && q[kThreads] <= kMaxThreads &&
          q[kThreads] % 32 == 0 &&
-         q[kSmem] == q[kPairsPerTile] * q[kGroupsPerTile] * Bmax *
+         q[kSmem] == q[kPairsPerTile] * q[kGroupsPerTile] * bpt *
                          cell_bytes &&
          q[kSmem] <= kMaxSmem;
 }
 
-// Launch the tile pass of channel set Ch over a.n > 0 rows under a plan
-// that plan_ok accepted.
-template <class Ch>
-cudaError_t launch_tiles(Args a, const int64_t* plan, cudaStream_t stream) {
+// Launch the tile pass of channel set Ch over a.n > 0 rows of T bins
+// under a plan that plan_ok accepted.
+template <class Ch, class T>
+cudaError_t launch_tiles_of(Args a, const int64_t* plan,
+                            cudaStream_t stream) {
   a.rows_per_range = plan[kRowsPerRange];
   a.pairs_per_tile = static_cast<int>(plan[kPairsPerTile]);
   a.groups_per_tile = static_cast<int>(plan[kGroupsPerTile]);
+  a.bins_per_tile = static_cast<int>(plan[kBinsPerTile]);
+  a.bin_tiles = static_cast<int>(plan[kBinTiles]);
   const int smem = static_cast<int>(plan[kSmem]);
   cudaError_t err = cudaFuncSetAttribute(
-      tile_kernel<Ch>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tile_kernel<Ch, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(plan[kPairTiles]),
+  const dim3 grid(static_cast<unsigned>(plan[kPairTiles] * plan[kBinTiles]),
                   static_cast<unsigned>(plan[kGroupTiles]),
                   static_cast<unsigned>(plan[kRowRanges]));
-  tile_kernel<Ch><<<grid, static_cast<unsigned>(plan[kThreads]), smem,
-                    stream>>>(a);
+  tile_kernel<Ch, T><<<grid, static_cast<unsigned>(plan[kThreads]), smem,
+                       stream>>>(a);
   return cudaGetLastError();
+}
+
+// launch_tiles_of at the bins' width, bin_bytes 1 (uint8) or 2 (16-bit)
+template <class Ch>
+cudaError_t launch_tiles(const Args& a, int bin_bytes, const int64_t* plan,
+                         cudaStream_t stream) {
+  return bin_bytes == 2 ? launch_tiles_of<Ch, uint16_t>(a, plan, stream)
+                        : launch_tiles_of<Ch, uint8_t>(a, plan, stream);
+}
+
+// whole-word loads of 4 rows' bins allowed: the row count a multiple of 4
+// and the bins aligned to 4 bins
+inline bool bins_aligned(const void* bins_T, int64_t n, int bin_bytes) {
+  return n % 4 == 0 && aligned(bins_T, 4 * static_cast<uintptr_t>(bin_bytes));
+}
+
+// the most bins a group of bin_bytes a bin can have
+inline int max_group_bins(int bin_bytes) {
+  return bin_bytes == 2 ? 65536 : 256;
 }
 
 }  // namespace hist_tile

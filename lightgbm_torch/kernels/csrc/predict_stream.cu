@@ -50,6 +50,14 @@
 //     prediction_early_stop.cpp CreateBinary) tests 2|score| > margin after
 //     every es_freq trees and freezes the row; a block whose rows have all
 //     stopped skips its remaining stages.
+//   * Bins are uint8, or 16-bit where a group is wider than 256 bins (the
+//     `T` template argument, the caller's int16 storage read as uint16_t):
+//     a tile stages two bytes a bin, and the walk word's compare is
+//     unsigned, so that a bin of 32 768 or more goes right of every 15-bit
+//     threshold.  A node whose threshold bin does not fit those 15 bits, or
+//     whose NaN or zero bin does not fit the flags' 9-bit codes, is special
+//     and wide: its step reads the whole threshold and 16-bit missing bins
+//     from their own planes.  The 8-bit form is unchanged.
 //   * The walk of one tree is bounded by `max_depth` steps, so a malformed
 //     model cannot hang the card; a row still on an internal node after
 //     max_depth steps (a single-leaf tree) resolves to leaf 0, as the TPU
@@ -69,14 +77,15 @@ namespace {
 // c >= L leaf c - L.
 enum {
   kChildren16, kGroupThr, kFlags, kLeft, kRight, kSpanStart, kDefaultBin,
-  kNumBins, kCatBase, kPlanes
+  kNumBins, kCatBase, kThreshold, kMissing, kPlanes
 };
 // the flags word, kernels/predict.py::FLAG_BITS
 enum {
   kNanShift = 0, kMzShift = 9, kDefaultLeftBit = 18, kIsCatBit = 19,
-  kBundledBit = 20
+  kBundledBit = 20, kWideBit = 21
 };
 constexpr unsigned kBinMask = 0x1ff;  // a 9-bit bin code; 0x1ff: none
+constexpr int kNoBin16 = 0xffff;      // the missing plane's code of none
 constexpr int kThrMask = 0x7fff;      // group_thr bits 16-30
 // plan fields, kernels/predict.py::PREDICT_PLAN_FIELDS
 enum {
@@ -89,7 +98,7 @@ constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory, sm_90
 constexpr int kStageNodeBytes = 12;  // the two walk words, the leaf value
 
 struct Args {
-  const uint8_t* bins_T;     // (G, n)
+  const void* bins_T;        // (G, n) uint8, or uint16 (the `T` argument)
   const int32_t* planes;     // (kPlanes, T, L) packed nodes
   const float* leaf_value;   // (T, L)
   const uint32_t* cat_words;
@@ -129,7 +138,9 @@ __host__ __device__ __forceinline__ int stage_bytes(int64_t trees, int L) {
 
 // The next node of a row at special node i of tree t (global index), given
 // the row's bin of the node's group: c < L an internal node, c >= L leaf
-// c - L.  Reads the node's other words from global memory.
+// c - L.  Reads the node's other words from global memory.  T: the bin
+// type (a 16-bit bin can equal the 9-bit code of none, 0x1ff).
+template <class T>
 __device__ __noinline__ int route_special(const Args& a, int t, int i,
                                           int gb) {
   const int32_t* w = a.planes + static_cast<int64_t>(t) * a.L + i;
@@ -151,10 +162,22 @@ __device__ __noinline__ int route_special(const Args& a, int t, int i,
         __ldg(a.cat_words + __ldg(w + kCatBase * plane) + (fb >> 5));
     return ((word >> (fb & 31)) & 1u) ? left : right;
   }
-  const int nan = static_cast<int>((f >> kNanShift) & kBinMask);
-  const int mz = static_cast<int>((f >> kMzShift) & kBinMask);
-  const int thr =
-      (__ldg(w + kGroupThr * plane) >> 16) & kThrMask;
+  int nan, mz, thr;
+  if (f & (1u << kWideBit)) {
+    // a threshold or missing bin too wide for the walk word and the flags
+    const unsigned m = static_cast<unsigned>(__ldg(w + kMissing * plane));
+    nan = (m & 0xffffu) == kNoBin16 ? -1 : static_cast<int>(m & 0xffffu);
+    mz = (m >> 16) == kNoBin16 ? -1 : static_cast<int>(m >> 16);
+    thr = __ldg(w + kThreshold * plane);
+  } else {
+    nan = static_cast<int>((f >> kNanShift) & kBinMask);
+    mz = static_cast<int>((f >> kMzShift) & kBinMask);
+    thr = (__ldg(w + kGroupThr * plane) >> 16) & kThrMask;
+    if (sizeof(T) > 1) {
+      nan = nan == static_cast<int>(kBinMask) ? -1 : nan;
+      mz = mz == static_cast<int>(kBinMask) ? -1 : mz;
+    }
+  }
   const bool go_left = (fb == nan || fb == mz)
                            ? ((f >> kDefaultLeftBit) & 1u) != 0
                            : fb <= thr;
@@ -163,40 +186,45 @@ __device__ __noinline__ int route_special(const Args& a, int t, int i,
 
 // grid: one block per tile of rows, one row a thread.  kTrees: trees
 // staged in shared memory (else read from global memory); kBins: the
-// tile's bins staged in shared memory (else read from global memory).
-template <bool kTrees, bool kBins>
+// tile's bins staged in shared memory (else read from global memory); T:
+// the bin type.
+template <bool kTrees, bool kBins, class T>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 predict_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const T* bins_T = static_cast<const T*>(a.bins_T);
   const int L = a.L;
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * a.rows_per_tile;
   const int64_t rows_left = a.n - r0;
   const int R = rows_left < a.rows_per_tile ? static_cast<int>(rows_left)
                                             : a.rows_per_tile;
-  const int stride = a.bins_stride;
-  uint8_t* sbins = smem;
-  unsigned char* stages = smem + (kBins ? a.G * stride : 0);
+  const int stride = a.bins_stride;  // bins a group
+  T* sbins = reinterpret_cast<T*>(smem);
+  unsigned char* stages =
+      smem + (kBins ? a.G * stride * static_cast<int>(sizeof(T)) : 0);
   const int ts = kTrees ? a.trees_per_stage : a.T;
   const int sbytes = kTrees ? stage_bytes(ts, L) : 0;
   const int64_t plane = static_cast<int64_t>(a.T) * L;
 
   // the tile's bins: row r of group g at sbins[g * stride + r - r0]
   if (kBins) {
-    const int chunks = (R + 15) / 16;
+    // 16-byte chunks of a group's R bins (16 uint8 or 8 16-bit bins)
+    constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+    const int chunks = (R + kPer - 1) / kPer;
     if (a.vec_bins) {
       for (int k = threadIdx.x; k < a.G * chunks; k += blockDim.x) {
         const int g = k / chunks;
         const int c = k - g * chunks;
-        cp_async16(sbins + g * stride + 16 * c,
-                   a.bins_T + static_cast<int64_t>(g) * a.n + r0 + 16 * c,
-                   min(16, R - 16 * c));
+        cp_async16(sbins + g * stride + kPer * c,
+                   bins_T + static_cast<int64_t>(g) * a.n + r0 + kPer * c,
+                   static_cast<int>(sizeof(T)) * min(kPer, R - kPer * c));
       }
     } else {
       for (int k = threadIdx.x; k < a.G * R; k += blockDim.x) {
         const int g = k / R;
         const int r = k - g * R;
         sbins[g * stride + r] =
-            __ldg(a.bins_T + static_cast<int64_t>(g) * a.n + r0 + r);
+            __ldg(bins_T + static_cast<int64_t>(g) * a.n + r0 + r);
       }
     }
   }
@@ -247,16 +275,23 @@ predict_kernel(const Args a) {
         const int w = r.y;  // group | threshold bin << 16 | special << 31
         const int g = w & 0xffff;
         const int gb = kBins ? sbins[g * stride + lq]
-                             : __ldg(a.bins_T + static_cast<int64_t>(g) *
+                             : __ldg(bins_T + static_cast<int64_t>(g) *
                                      a.n + r0 + lq);
         if (w < 0) {
-          nd = route_special(a, t0 + tt, nd, gb);
+          nd = route_special<T>(a, t0 + tt, nd, gb);
         } else {
           // gb <= threshold bin, as (gb << 16) <= w: the group in w's low
-          // half breaks no tie
+          // half breaks no tie (16-bit bins: unsigned, a bin past 32 767
+          // above every 15-bit threshold)
           const unsigned c = static_cast<unsigned>(r.x);
-          nd = (gb << 16) <= w ? static_cast<int>(c & 0xffffu)
-                               : static_cast<int>(c >> 16);
+          bool left;
+          if (sizeof(T) == 1)
+            left = (gb << 16) <= w;
+          else
+            left = static_cast<unsigned>(gb) << 16 <=
+                   static_cast<unsigned>(w);
+          nd = left ? static_cast<int>(c & 0xffffu)
+                    : static_cast<int>(c >> 16);
         }
       }
       const int leaf = tb + (nd >= L ? nd - L : 0);
@@ -273,11 +308,13 @@ predict_kernel(const Args a) {
   if (lr < R) a.out[r0 + lr] = score;
 }
 
-bool plan_ok(const int64_t* q, int64_t n, int G, int T, int L) {
+bool plan_ok(const int64_t* q, int64_t n, int G, int T, int L,
+             int bin_bytes) {
   if (q == nullptr) return false;
   const int64_t ts = q[kTreesPerStage];
   const int64_t stride = q[kBinsStride];
-  const int64_t smem = G * stride + (ts > 0 ? 2LL * stage_bytes(ts, L) : 0);
+  const int64_t smem = G * stride * bin_bytes +
+                       (ts > 0 ? 2LL * stage_bytes(ts, L) : 0);
   return q[kThreads] >= 32 && q[kThreads] <= kMaxThreads &&
          q[kThreads] % 32 == 0 &&
          q[kRowsPerTile] >= 16 && q[kRowsPerTile] % 16 == 0 &&
@@ -290,17 +327,26 @@ bool plan_ok(const int64_t* q, int64_t n, int G, int T, int L) {
          q[kSmem] == smem && q[kSmem] <= kMaxSmem;
 }
 
-template <bool kTrees, bool kBins>
+template <bool kTrees, bool kBins, class T>
 cudaError_t launch(const Args& a, const int64_t* q, cudaStream_t stream) {
   const int smem = static_cast<int>(q[kSmem]);
   cudaError_t err = cudaFuncSetAttribute(
-      predict_kernel<kTrees, kBins>,
+      predict_kernel<kTrees, kBins, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  predict_kernel<kTrees, kBins>
+  predict_kernel<kTrees, kBins, T>
       <<<static_cast<unsigned>(q[kTiles]), static_cast<unsigned>(q[kThreads]),
          smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_of(const Args& a, const int64_t* q, cudaStream_t stream) {
+  const bool trees = q[kTreesPerStage] > 0, bins = q[kBinsStride] > 0;
+  return trees ? (bins ? launch<true, true, T>(a, q, stream)
+                       : launch<true, false, T>(a, q, stream))
+               : (bins ? launch<false, true, T>(a, q, stream)
+                       : launch<false, false, T>(a, q, stream));
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
@@ -309,21 +355,24 @@ bool aligned(const void* p, uintptr_t bytes) {
 
 }  // namespace
 
-// C interface, loaded with ctypes.  bins_T: (G, n_rows) uint8; nodes: the
-// (9, n_trees, L) int32 packed nodes; leaf_value:
+// C interface, loaded with ctypes.  bins_T: (G, n_rows), bin_bytes 1
+// (uint8) or 2 (16-bit) a bin; nodes: the (11, n_trees, L) int32 packed
+// nodes; leaf_value:
 // (n_trees, L) float32; plan: the host array of
 // kernels/predict.py::predict_plan.  Launches on `stream`, does not
 // synchronise, and returns the first CUDA error (0 = launched;
 // cudaErrorInvalidValue for a plan outside its limits or bad operands).
-extern "C" int lgbt_predict_stream(const uint8_t* bins_T, int64_t n_rows,
-                                   int G, const int32_t* nodes,
+extern "C" int lgbt_predict_stream(const void* bins_T, int bin_bytes,
+                                   int64_t n_rows, int G,
+                                   const int32_t* nodes,
                                    const float* leaf_value,
                                    const int32_t* cat_words, int n_trees,
                                    int L, int max_depth, int es_freq,
                                    float es_margin, float* out,
                                    const int64_t* plan, cudaStream_t stream) {
-  if (n_rows < 1 || G < 1 || n_trees < 1 || L < 1 || max_depth < 1 ||
-      !plan_ok(plan, n_rows, G, n_trees, L))
+  if ((bin_bytes != 1 && bin_bytes != 2) || n_rows < 1 || G < 1 ||
+      n_trees < 1 || L < 1 || max_depth < 1 ||
+      !plan_ok(plan, n_rows, G, n_trees, L, bin_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.bins_T = bins_T;
@@ -341,12 +390,11 @@ extern "C" int lgbt_predict_stream(const uint8_t* bins_T, int64_t n_rows,
   a.rows_per_tile = static_cast<int>(plan[kRowsPerTile]);
   a.trees_per_stage = static_cast<int>(plan[kTreesPerStage]);
   a.bins_stride = static_cast<int>(plan[kBinsStride]);
-  a.vec_bins = n_rows % 16 == 0 && aligned(bins_T, 16);
-  const bool trees = plan[kTreesPerStage] > 0, bins = plan[kBinsStride] > 0;
-  const cudaError_t err =
-      trees ? (bins ? launch<true, true>(a, plan, stream)
-                    : launch<true, false>(a, plan, stream))
-            : (bins ? launch<false, true>(a, plan, stream)
-                    : launch<false, false>(a, plan, stream));
+  // whole 16-byte chunks: each group's row run and the tile starts
+  // 16-byte aligned (rows_per_tile is a multiple of 16)
+  a.vec_bins = (n_rows * bin_bytes) % 16 == 0 && aligned(bins_T, 16);
+  const cudaError_t err = bin_bytes == 2
+                              ? launch_of<uint16_t>(a, plan, stream)
+                              : launch_of<uint8_t>(a, plan, stream);
   return static_cast<int>(err);
 }

@@ -13,7 +13,8 @@
 //
 // The function.  Routing: each (row, class) reads its leaf's 64-byte int32
 // route record (lightgbm_torch/kernels/layout.py ROUTE_FIELDS), the bin of
-// the split's group in the (G, N) uint8 bins, unbundles an EFB bin, sends a
+// the split's group in the (G, N) bins (uint8, or 16-bit where a group is
+// wider than 256 bins), unbundles an EFB bin, sends a
 // NaN / zero-as-missing bin the default way and reads a categorical split's
 // bitset; it writes the row's new leaf and histogram slot, and adds the
 // row's count weight to its slot's exact count.  Histograms: cell (k, s, g,
@@ -36,8 +37,8 @@
 //
 // Design (sm_90a):
 //   * Routing is one thread per (row, class), the class on gridDim.y: four
-//     int4 record loads through the read-only cache, one bin byte, the
-//     bitset word for a categorical split.  Per-slot counts are shared-memory
+//     int4 record loads through the read-only cache, one bin (a byte, or
+//     two for 16-bit bins), the bitset word for a categorical split.  Per-slot counts are shared-memory
 //     atomics, flushed with one 64-bit global atomic per slot and block, and
 //     converted by a small kernel.
 //   * The histogram pass is csrc/hist_tile.cuh, the tile pass K5 and K8 run
@@ -47,7 +48,9 @@
 //     KB x Bmax bins, so it reads one class's slots and weights once for all
 //     its groups; 1024 threads read 4 rows each at a time (int4 slots,
 //     float4 grad and hess or one 32-bit word each of int8 grid values, one
-//     32-bit word of 4 bin bytes per group; a scalar edge for a ragged end
+//     32-bit word of 4 bin bytes per group, or one 8-byte word of 4 16-bit
+//     bins, with tiles of a range of bins where one slot's cells would not
+//     fit in shared memory; a scalar edge for a ragged end
 //     and for unaligned operands, as in a compacted launch whose N is not a
 //     multiple of 4); a row is placed with no division and one compare.
 //     Float form: each int64 sum is two 32-bit words added with native
@@ -90,8 +93,9 @@ constexpr int kIntCellBytes = 8;       // int form: two int32 words a cell
 //   q1 = (default_bin, bundled, nan_bin, mz_bin)
 //   q2 = (num_bins, threshold, default_left, is_cat)
 //   q3 = (slot_left, slot_right, slot_keep, unused)
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-route_kernel(const uint8_t* __restrict__ bins_T, int64_t n_rows,
+route_kernel(const T* __restrict__ bins_T, int64_t n_rows,
              const int32_t* __restrict__ leaf_id,
              const int4* __restrict__ tabs, int L,
              const uint32_t* __restrict__ cat_words, int W,
@@ -123,6 +127,7 @@ route_kernel(const uint8_t* __restrict__ bins_T, int64_t n_rows,
         const int4 q1 = __ldg(rec + 1);
         const int4 q2 = __ldg(rec + 2);
         const int gb = bins_T[static_cast<int64_t>(q0.z) * n_rows + row];
+        // (a 16-bit bin reads as 0 .. 65535)
         int fb = gb;
         if (q1.y) {
           // EFB bundle: the span holds the feature's non-default bins
@@ -175,11 +180,11 @@ int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 // Zero the counts, route every (row, class) and convert the counts to
 // float32: the part of a round both forms share.
-cudaError_t launch_route(const uint8_t* bins_T, int64_t n_rows, int K,
-                         const int32_t* leaf_id, const int32_t* tabs, int L,
-                         const int32_t* cat_words, int W, const float* cnt,
-                         int S, int32_t* new_leaf, int32_t* slot,
-                         int64_t* cnt_acc, float* cnt_out,
+cudaError_t launch_route(const void* bins_T, int bin_bytes, int64_t n_rows,
+                         int K, const int32_t* leaf_id, const int32_t* tabs,
+                         int L, const int32_t* cat_words, int W,
+                         const float* cnt, int S, int32_t* new_leaf,
+                         int32_t* slot, int64_t* cnt_acc, float* cnt_out,
                          cudaStream_t stream) {
   auto* c_acc = reinterpret_cast<unsigned long long*>(cnt_acc);
   cudaError_t err =
@@ -189,11 +194,17 @@ cudaError_t launch_route(const uint8_t* bins_T, int64_t n_rows, int K,
   if (row_blocks > 0) {
     const dim3 route_grid(static_cast<unsigned>(row_blocks),
                           static_cast<unsigned>(K));
-    route_kernel<<<route_grid, kThreads, sizeof(unsigned long long) * S,
-                   stream>>>(
-        bins_T, n_rows, leaf_id, reinterpret_cast<const int4*>(tabs), L,
-        reinterpret_cast<const uint32_t*>(cat_words), W, cnt, S, new_leaf,
-        slot, c_acc);
+    const size_t smem = sizeof(unsigned long long) * S;
+    const auto* t4 = reinterpret_cast<const int4*>(tabs);
+    const auto* words = reinterpret_cast<const uint32_t*>(cat_words);
+    if (bin_bytes == 2)
+      route_kernel<<<route_grid, kThreads, smem, stream>>>(
+          static_cast<const uint16_t*>(bins_T), n_rows, leaf_id, t4, L,
+          words, W, cnt, S, new_leaf, slot, c_acc);
+    else
+      route_kernel<<<route_grid, kThreads, smem, stream>>>(
+          static_cast<const uint8_t*>(bins_T), n_rows, leaf_id, t4, L,
+          words, W, cnt, S, new_leaf, slot, c_acc);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -205,23 +216,24 @@ cudaError_t launch_route(const uint8_t* bins_T, int64_t n_rows, int K,
 }
 
 // The histogram operands' limits and the plan; false: refuse the launch.
-bool hist_ok(int64_t n_rows, int G, int K, int S, int Bmax,
+bool hist_ok(int64_t n_rows, int G, int K, int S, int Bmax, int bin_bytes,
              const int64_t* plan, int cell_bytes) {
   return n_rows >= 0 && G >= 1 && K >= 1 && S >= 1 && Bmax >= 1 &&
-         Bmax <= 256 &&
-         hist_tile::plan_ok(plan, n_rows, G, K, S, Bmax, cell_bytes);
+         hist_tile::plan_ok(plan, n_rows, G, K, S, Bmax, cell_bytes,
+                            bin_bytes) &&
+         Bmax <= hist_tile::max_group_bins(bin_bytes);
 }
 
-hist_tile::Args tile_args(const uint8_t* bins_T, int64_t n_rows, int G,
-                          int K, int S, int Bmax, const int32_t* slot,
+hist_tile::Args tile_args(const void* bins_T, int bin_bytes, int64_t n_rows,
+                          int G, int K, int S, int Bmax, const int32_t* slot,
                           const void* grad, const void* hess,
                           const float* scales, void* out, int vec) {
   hist_tile::Args a{};
   a.bins_T = bins_T; a.slot = slot; a.grad = grad; a.hess = hess;
   a.scales = scales; a.out = out; a.n = n_rows;
   a.G = G; a.K = K; a.S = S; a.Bmax = Bmax;
-  a.vec = n_rows % 4 == 0 && hist_tile::aligned(slot, 16) &&
-          hist_tile::aligned(bins_T, 4) && vec;
+  a.vec = hist_tile::bins_aligned(bins_T, n_rows, bin_bytes) &&
+          hist_tile::aligned(slot, 16) && vec;
   return a;
 }
 
@@ -230,7 +242,8 @@ hist_tile::Args tile_args(const uint8_t* bins_T, int64_t n_rows, int G,
 // C interface, loaded with ctypes.  Launches on `stream`, does not
 // synchronise, and returns the first CUDA error (0 = launched;
 // cudaErrorInvalidValue for a histogram plan outside its limits, before
-// anything is launched).  Per-class arrays are class-major: leaf_id, grad,
+// anything is launched).  bins_T is (G, N), bin_bytes 1 (uint8) or 2
+// (16-bit) a bin.  Per-class arrays are class-major: leaf_id, grad,
 // hess, new_leaf and slot (K, N); tabs (K, L, 16); cat_words (K, L, W);
 // scales (2, K) on the device, row 0 each class's 2**shift and row 1 its
 // 2**-shift.  hist_acc (K*S*G*Bmax*2) and cnt_acc (K*S) are int64 scratch
@@ -239,16 +252,18 @@ hist_tile::Args tile_args(const uint8_t* bins_T, int64_t n_rows, int G,
 // of kernels/hist_wide.py::hist_plan for 16-byte cells (read only when
 // with_hist != 0).
 extern "C" int lgbt_route_and_hist(
-    const uint8_t* bins_T, int64_t n_rows, int G, int K,
+    const void* bins_T, int bin_bytes, int64_t n_rows, int G, int K,
     const int32_t* leaf_id, const int32_t* tabs, int L,
     const int32_t* cat_words, int W, const float* grad, const float* hess,
     const float* cnt, int S, int Bmax, int with_hist, const float* scales,
     int32_t* new_leaf, int32_t* slot, int64_t* hist_acc, int64_t* cnt_acc,
     float* hist, float* cnt_out, const int64_t* plan, cudaStream_t stream) {
-  if (with_hist && !hist_ok(n_rows, G, K, S, Bmax, plan, kCellBytes))
+  if ((bin_bytes != 1 && bin_bytes != 2) ||
+      (with_hist &&
+       !hist_ok(n_rows, G, K, S, Bmax, bin_bytes, plan, kCellBytes)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = launch_route(bins_T, n_rows, K, leaf_id, tabs, L,
-                                 cat_words, W, cnt, S, new_leaf, slot,
+  cudaError_t err = launch_route(bins_T, bin_bytes, n_rows, K, leaf_id, tabs,
+                                 L, cat_words, W, cnt, S, new_leaf, slot,
                                  cnt_acc, cnt_out, stream);
   if (err != cudaSuccess || !with_hist) return static_cast<int>(err);
 
@@ -258,10 +273,10 @@ extern "C" int lgbt_route_and_hist(
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_rows > 0) {
     err = hist_tile::launch_tiles<hist_tile::GradHess>(
-        tile_args(bins_T, n_rows, G, K, S, Bmax, slot, grad, hess, scales,
-                  h_acc, hist_tile::aligned(grad, 16) &&
+        tile_args(bins_T, bin_bytes, n_rows, G, K, S, Bmax, slot, grad, hess,
+                  scales, h_acc, hist_tile::aligned(grad, 16) &&
                   hist_tile::aligned(hess, 16)),
-        plan, stream);
+        bin_bytes, plan, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 conv_grid(static_cast<unsigned>(ceil_div(per_class, kThreads)),
@@ -276,16 +291,18 @@ extern "C" int lgbt_route_and_hist(
 // (K, S, G, Bmax, 2) int32, written only when with_hist != 0; no scales
 // and no int64 histogram scratch; plan for 8-byte cells.
 extern "C" int lgbt_route_and_hist_int(
-    const uint8_t* bins_T, int64_t n_rows, int G, int K,
+    const void* bins_T, int bin_bytes, int64_t n_rows, int G, int K,
     const int32_t* leaf_id, const int32_t* tabs, int L,
     const int32_t* cat_words, int W, const int8_t* qgrad,
     const int8_t* qhess, const float* cnt, int S, int Bmax, int with_hist,
     int32_t* new_leaf, int32_t* slot, int64_t* cnt_acc, int32_t* hist,
     float* cnt_out, const int64_t* plan, cudaStream_t stream) {
-  if (with_hist && !hist_ok(n_rows, G, K, S, Bmax, plan, kIntCellBytes))
+  if ((bin_bytes != 1 && bin_bytes != 2) ||
+      (with_hist &&
+       !hist_ok(n_rows, G, K, S, Bmax, bin_bytes, plan, kIntCellBytes)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = launch_route(bins_T, n_rows, K, leaf_id, tabs, L,
-                                 cat_words, W, cnt, S, new_leaf, slot,
+  cudaError_t err = launch_route(bins_T, bin_bytes, n_rows, K, leaf_id, tabs,
+                                 L, cat_words, W, cnt, S, new_leaf, slot,
                                  cnt_acc, cnt_out, stream);
   if (err != cudaSuccess || !with_hist) return static_cast<int>(err);
 
@@ -293,8 +310,8 @@ extern "C" int lgbt_route_and_hist_int(
   err = cudaMemsetAsync(hist, 0, sizeof(int32_t) * cells, stream);
   if (err != cudaSuccess || n_rows == 0) return static_cast<int>(err);
   return static_cast<int>(hist_tile::launch_tiles<hist_tile::GradHessInt>(
-      tile_args(bins_T, n_rows, G, K, S, Bmax, slot, qgrad, qhess, nullptr,
-                hist, hist_tile::aligned(qgrad, 4) &&
+      tile_args(bins_T, bin_bytes, n_rows, G, K, S, Bmax, slot, qgrad, qhess,
+                nullptr, hist, hist_tile::aligned(qgrad, 4) &&
                 hist_tile::aligned(qhess, 4)),
-      plan, stream));
+      bin_bytes, plan, stream));
 }

@@ -18,6 +18,15 @@
 // trees off this path, as the reference does.  A child outside [0, L)
 // stops the row at -1.
 //
+// Bins are uint8, or 16-bit where a group is wider than 256 bins (the `T`
+// template argument, the caller's int16 storage read as uint16_t).  The
+// packed record's 9-bit fields stay: in the 16-bit form a record whose
+// threshold or NaN / zero bin is past 255 is special as well, and a row's
+// bin is clamped to 256 before the packed compare, which decides a bin past
+// 255 as the full record does (right of any threshold <= 255, equal to no
+// missing bin <= 255 nor to the 0x1ff code of none).  The 8-bit form is
+// unchanged.
+//
 // What bounds it on an H100: the bytes the rows need, 4 B of leaf id
 // written per row plus one byte per distinct group on its path (~8.4 MB at
 // 1M rows and 9 rounds, ~2.5 us at 3.35 TB/s).  The first port (one thread
@@ -32,8 +41,9 @@
 //     zero-as-missing bins (9 bits each, 0x1ff: none), default-left, a
 //     chosen bit and a special bit.  An unsplit leaf packs to zero.  A
 //     record that does not fit (an EFB bundle, a child or group past 16
-//     bits, a group outside the bins) is special and reads its full record
-//     from global memory.
+//     bits, a group outside the bins; over 16-bit bins also a threshold or
+//     missing bin past 255) is special and reads its full record from
+//     global memory.
 //   * Persistent blocks (about one wave) loop over tiles of rows
 //     (kernels/route_replay.py::replay_plan).  Each block copies the packed
 //     table into shared memory once (cp.async); a table too large for the
@@ -69,7 +79,7 @@ constexpr int kRows = 4;              // rows a thread in one tile, at most
 constexpr int kMaxSmem = 232448;      // a block's dynamic shared memory, sm_90
 
 struct Args {
-  const uint8_t* bins_T;   // (G, n)
+  const void* bins_T;      // (G, n) uint8, or uint16 (the `T` argument)
   const int4* tabs;        // (R, L) records of 16 int32, as 4 int4
   const int2* packed;      // (R, L) packed records
   int32_t* out;            // (n,)
@@ -103,9 +113,9 @@ __device__ __forceinline__ unsigned missing_code(int b) {
 //   q1 = (default_bin, bundled, nan_bin, mz_bin)
 //   q2 = (num_bins, threshold, default_left, is_cat)
 //   q3 = (slot_left, slot_right, slot_keep, unused)   -- not read here
-// grid: x = round, y = a block of leaves
+// grid: x = round, y = a block of leaves.  wide: the bins are 16-bit.
 __global__ void pack_kernel(const int4* __restrict__ tabs, int L, int G,
-                            int2* __restrict__ packed) {
+                            int wide, int2* __restrict__ packed) {
   const int r = static_cast<int>(blockIdx.x);
   const int l = static_cast<int>(blockIdx.y * blockDim.x + threadIdx.x);
   if (l > L) return;
@@ -122,7 +132,8 @@ __global__ void pack_kernel(const int4* __restrict__ tabs, int L, int G,
   const int groups = G < 0x10000 ? G : 0x10000;
   const int leaves = L < 0x10000 ? L : 0x10000;
   if (q1.y > 0 || q0.y < 0 || q0.y >= leaves || q0.z < 0 ||
-      q0.z >= groups) {
+      q0.z >= groups ||
+      (wide && (q2.y > 255 || q1.z > 255 || q1.w > 255))) {
     packed[i] = make_int2(
         0, static_cast<int>((1u << kChosenBit) | (1u << kSpecialBit)));
     return;
@@ -140,8 +151,9 @@ __global__ void pack_kernel(const int4* __restrict__ tabs, int L, int G,
 
 // The next leaf of row `row` at leaf `lid` in round r, from the full record
 // and the row's bin in global memory (special records).
+template <class T>
 __device__ __noinline__ int special_step(const int4* __restrict__ tabs,
-                                         const uint8_t* __restrict__ bins_T,
+                                         const T* __restrict__ bins_T,
                                          int64_t n, int L, int r, int lid,
                                          int64_t row) {
   const int4* rec = tabs + (static_cast<int64_t>(r) * L + lid) * 4;
@@ -168,10 +180,12 @@ __device__ __forceinline__ int tile_rows(const Args& a, int t) {
 
 // grid: persistent blocks, block b taking tiles b, b + gridDim.x, ...
 // kTab: the packed table staged in shared memory (else read from global
-// memory, a table too large for the plan).
-template <bool kTab>
+// memory, a table too large for the plan); T: the bin type.
+template <bool kTab, class T>
 __global__ void __launch_bounds__(kMaxThreads)
 replay_kernel(const Args a) {
+  constexpr bool kWide = sizeof(T) > 1;
+  const T* bins_T = static_cast<const T*>(a.bins_T);
   extern __shared__ __align__(16) unsigned char smem[];
   const int2* stab = reinterpret_cast<const int2*>(smem);
   const int tid = static_cast<int>(threadIdx.x);
@@ -193,11 +207,11 @@ replay_kernel(const Args a) {
     const int64_t r0 = static_cast<int64_t>(tile) * a.rows_per_tile;
     const int nr = tile_rows(a, tile);
     int lid[kRows];             // L: the row stopped, or no row
-    const uint8_t* row[kRows];  // the row's byte of group 0
+    const T* row[kRows];        // the row's bin of group 0
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       lid[i] = tid + i * nt < nr ? 0 : L;
-      row[i] = a.bins_T + r0 + min(tid + i * nt, nr - 1);
+      row[i] = bins_T + r0 + min(tid + i * nt, nr - 1);
     }
     for (int r = 0; r < a.R; ++r) {
       const int2* trow = (kTab ? stab : a.packed) +
@@ -213,6 +227,8 @@ replay_kernel(const Args a) {
       for (int i = 0; i < kRows; ++i) {
         const unsigned g = static_cast<unsigned>(p[i].x) >> 16;
         gb[i] = p[i].y == 0 ? 0u : __ldg(row[i] + g * n32);
+        // a 16-bit bin past 255 compares as 256 (see the head of the file)
+        if (kWide) gb[i] = min(gb[i], 256u);
       }
       int nxt[kRows];
       unsigned special = 0u;  // rows whose record is special, one bit each
@@ -233,8 +249,8 @@ replay_kernel(const Args a) {
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
           if (!((special >> i) & 1u)) continue;
-          const int c = special_step(a.tabs, a.bins_T, a.n, L, r, lid[i],
-                                     row[i] - a.bins_T);
+          const int c = special_step(a.tabs, bins_T, a.n, L, r, lid[i],
+                                     row[i] - bins_T);
           nxt[i] = c >= 0 && c < L ? c : L;
         }
       }
@@ -268,32 +284,40 @@ bool plan_ok(const int64_t* q, int64_t n, int R, int L) {
          (tab == 0 || tab == round16(8LL * R * (L + 1))) && tab <= kMaxSmem;
 }
 
-template <bool kTab>
+template <bool kTab, class T>
 cudaError_t launch(const Args& a, const int64_t* q, cudaStream_t stream) {
   const int smem = static_cast<int>(q[kTabBytes]);
   cudaError_t err = cudaFuncSetAttribute(
-      replay_kernel<kTab>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      replay_kernel<kTab, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  replay_kernel<kTab><<<static_cast<unsigned>(q[kBlocks]),
-                        static_cast<unsigned>(q[kThreads]), smem, stream>>>(
-      a);
+  replay_kernel<kTab, T><<<static_cast<unsigned>(q[kBlocks]),
+                           static_cast<unsigned>(q[kThreads]), smem,
+                           stream>>>(a);
   return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_of(const Args& a, const int64_t* q, cudaStream_t stream) {
+  return q[kTabBytes] > 0 ? launch<true, T>(a, q, stream)
+                          : launch<false, T>(a, q, stream);
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  Launches on `stream`, does not
 // synchronise, and returns the first CUDA error (0 = launched).  bins_T is
-// the (G, n_rows) uint8 column layout, tabs holds R x L records of 16
+// the (G, n_rows) column layout, bin_bytes 1 (uint8) or 2 (16-bit) a bin;
+// tabs holds R x L records of 16
 // int32, packed is (R * (L + 1)) int2 scratch (16-byte aligned) this
 // call fills, out the (n_rows,) int32 leaves; plan is the host array of
 // kernels/route_replay.py::replay_plan.
-extern "C" int lgbt_route_replay(const uint8_t* bins_T, int64_t n_rows,
-                                 int G, const int32_t* tabs, int R, int L,
-                                 int32_t* packed, int32_t* out,
+extern "C" int lgbt_route_replay(const void* bins_T, int bin_bytes,
+                                 int64_t n_rows, int G, const int32_t* tabs,
+                                 int R, int L, int32_t* packed, int32_t* out,
                                  const int64_t* plan, cudaStream_t stream) {
-  if (n_rows < 1 || n_rows > UINT32_MAX || G < 1 || R < 0 ||
+  if ((bin_bytes != 1 && bin_bytes != 2) || n_rows < 1 ||
+      n_rows > UINT32_MAX || G < 1 || R < 0 ||
       (R > 0 && (L < 1 || L / 256 + 1 > 65535)) ||
       !aligned(packed, 16) || !plan_ok(plan, n_rows, R, L))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -310,13 +334,13 @@ extern "C" int lgbt_route_replay(const uint8_t* bins_T, int64_t n_rows,
   if (R > 0) {
     const dim3 grid(static_cast<unsigned>(R),
                     static_cast<unsigned>(L / 256 + 1));
-    pack_kernel<<<grid, 256, 0, stream>>>(a.tabs, L, G,
+    pack_kernel<<<grid, 256, 0, stream>>>(a.tabs, L, G, bin_bytes == 2,
                                           reinterpret_cast<int2*>(packed));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const cudaError_t err = plan[kTabBytes] > 0
-                              ? launch<true>(a, plan, stream)
-                              : launch<false>(a, plan, stream);
+  const cudaError_t err = bin_bytes == 2
+                              ? launch_of<uint16_t>(a, plan, stream)
+                              : launch_of<uint8_t>(a, plan, stream);
   return static_cast<int>(err);
 }

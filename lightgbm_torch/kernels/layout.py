@@ -8,7 +8,11 @@ N_pad), because its vector unit works on 32-bit lanes in (8, 128) tiles.
 The port keeps one byte per bin, transposed to a contiguous (G, N) uint8
 tensor with no padding: the threads of a warp hold neighbouring rows, so
 when they read one group they read neighbouring bytes.  The same layout
-serves prediction (K1) and training (K2).
+serves prediction (K1) and training (K2).  Where a group is wider than 256
+bins the host bins are uint16, and the card keeps their two bytes a bin as
+``torch.int16`` (torch has no uint16 arithmetic): the kernels read those
+bytes as ``uint16_t``, and torch ops widen them with ``bin_values``, so
+that a bin of 32 768 or more never reads as negative.
 
 Route tables: one record of ROUTE_FIELDS int32 per leaf, the split a round
 applies to that leaf's rows.  The TPU tables are float32 rows of 7-bit
@@ -27,6 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.log import LightGBMError
+
 ROUTE_FIELDS = ("chosen", "new_id", "group", "span_start", "default_bin",
                 "bundled", "nan_bin", "mz_bin", "num_bins", "threshold",
                 "default_left", "is_cat", "slot_left", "slot_right",
@@ -36,12 +42,39 @@ ROUTE_FIELDS = ("chosen", "new_id", "group", "span_start", "default_bin",
  _R_UNUSED) = range(len(ROUTE_FIELDS))
 
 
-def pack_bins_T(bins: np.ndarray, device: torch.device) -> torch.Tensor:
-    """(N, G) uint8 host bins -> (G, N) uint8 contiguous on ``device``."""
+def bins_to_torch(bins: np.ndarray) -> torch.Tensor:
+    """The host bins as a CPU tensor of their card storage, the bytes
+    unchanged: uint8 as torch.uint8, uint16 as torch.int16."""
+    bins = np.ascontiguousarray(bins)
+    if bins.dtype == np.uint16:
+        return torch.from_numpy(bins.view(np.int16))
     if bins.dtype != np.uint8:
-        raise ValueError(f"pack_bins_T takes uint8 bins, got {bins.dtype}")
-    b = torch.as_tensor(np.ascontiguousarray(bins)).to(device)
-    return b.t().contiguous()
+        raise ValueError(f"bins must be uint8 or uint16, got {bins.dtype}")
+    return torch.from_numpy(bins)
+
+
+def pack_bins_T(bins: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(N, G) uint8 or uint16 host bins -> (G, N) contiguous on ``device``,
+    in their storage dtype (``bins_to_torch``)."""
+    return bins_to_torch(bins).to(device).t().contiguous()
+
+
+def bin_bytes(bins: torch.Tensor) -> int:
+    """Bytes a bin of this storage takes, 1 or 2: the width the kernels
+    read.  Raises for any other dtype."""
+    if bins.dtype == torch.uint8:
+        return 1
+    if bins.dtype == torch.int16:
+        return 2
+    raise LightGBMError(f"bins must be torch.uint8 or torch.int16 (16-bit "
+                        f"bins), got {bins.dtype}")
+
+
+def bin_values(bins: torch.Tensor) -> torch.Tensor:
+    """int32 bin values of uint8 or int16 (16-bit) bin storage: the int16
+    bytes read as unsigned."""
+    v = bins.to(torch.int32)
+    return v & 0xFFFF if bins.dtype == torch.int16 else v
 
 
 def build_route_tables(chosen, new_id, feat, threshold, dir_flags,

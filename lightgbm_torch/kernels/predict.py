@@ -9,7 +9,8 @@ host tables are plain int32 node records of 16 fields and exact float32 leaf
 values; on the device the records travel as word planes (``pack_nodes``):
 two words that every routing step reads (16-bit children; group, threshold
 bin and a special-node bit), and the rest, read only at special nodes (NaN
-or zero bins, EFB bundles, categorical bitsets).  The CUDA kernel
+or zero bins, EFB bundles, categorical bitsets, and, over 16-bit bins, a
+threshold or missing bin too wide for the walk words).  The CUDA kernel
 (``csrc/predict_stream.cu``) walks tiles of rows through stages of trees
 copied into shared memory, under the launch plan ``predict_plan``.  Its sums
 are closer to the host float64 walk than the TPU kernel's, and the two
@@ -31,6 +32,7 @@ import torch
 from ..utils.log import LightGBMError
 from . import build
 from .hist_wide import SMEM_BLOCK, SMEM_SM, SMS, _cdiv
+from .layout import bin_bytes, bin_values
 
 # int32 fields of one host node record (build_predict_tables)
 NODE_FIELDS = ("group", "span_start", "default_bin", "bundled",
@@ -45,18 +47,25 @@ NODE_FIELDS = ("group", "span_start", "default_bin", "bundled",
 # enum in csrc/predict_stream.cu.  The walk reads two words a step:
 # ``children16`` (left child in the low 16 bits, right in the high 16) and
 # ``group_thr`` (group in bits 0-15, threshold bin in bits 16-30, bit 31
-# set at a special node: NaN or zero bin, EFB bundle, categorical, or
-# children past 16 bits); a special node's step reads the rest.
+# set at a special node: NaN or zero bin, EFB bundle, categorical, a wide
+# field, or children past 16 bits); a special node's step reads the rest.
+# ``threshold`` is the whole threshold bin and ``missing`` the NaN bin in
+# bits 0-15 and the zero bin in bits 16-31 (NO_BIN16: none); the walk reads
+# them only at a node whose flags set ``wide_bit``: a threshold bin past
+# group_thr's 15 bits or a missing bin past the flags' 9-bit codes, which
+# only 16-bit bins (groups or features wider than 256 bins) reach.
 PACKED_WORDS = ("children16", "group_thr", "flags", "left", "right",
-                "span_start", "default_bin", "num_bins", "cat_base")
+                "span_start", "default_bin", "num_bins", "cat_base",
+                "threshold", "missing")
 # the flags word: the NaN and zero bins as 9-bit codes (NO_BIN: none), then
 # one bit each
 FLAG_BITS = (("nan_shift", 0), ("mz_shift", 9), ("default_left_bit", 18),
-             ("is_cat_bit", 19), ("bundled_bit", 20))
-NAN_SHIFT, MZ_SHIFT, DEFLEFT_BIT, ISCAT_BIT, BUNDLED_BIT = (
+             ("is_cat_bit", 19), ("bundled_bit", 20), ("wide_bit", 21))
+NAN_SHIFT, MZ_SHIFT, DEFLEFT_BIT, ISCAT_BIT, BUNDLED_BIT, WIDE_BIT = (
     b for _, b in FLAG_BITS)
 BIN_BITS = 9
 NO_BIN = (1 << BIN_BITS) - 1
+NO_BIN16 = 0xFFFF                  # ``missing``'s code of none
 THR_BITS = 15                      # group_thr's threshold bin
 SPECIAL_BIT = 31                   # group_thr's special-node bit
 CHILD16_MAX_L = 1 << 15            # children fit 16 bits up to this L
@@ -176,14 +185,16 @@ def tree_max_depth(t) -> int:
 
 
 def pack_nodes(nodes: np.ndarray) -> np.ndarray:
-    """(9, T, L) int32 word planes (``PACKED_WORDS``) of (T, L, 16) host
+    """(11, T, L) int32 word planes (``PACKED_WORDS``) of (T, L, 16) host
     records, each word of every node of a tree contiguous, so that the
     kernel stages a tree's two walk words as two contiguous runs.  Every
-    field of every node kind round-trips (``unpack_nodes``).  Raises where
-    a field is outside its packed width: a group past 65535, a threshold
-    bin past 32767, a NaN or zero bin past 510, a flag other than 0 or 1,
-    or a missing-value bin set where its flag is not (build_predict_tables
-    writes 0 there)."""
+    field of every node kind round-trips (``unpack_nodes``).  A threshold
+    bin past 32767 or a NaN or zero bin past 510 (16-bit bins) makes the
+    node special and wide: its step reads ``threshold`` and ``missing``.
+    Raises where a field is outside its packed width: a group past 65535,
+    a negative threshold bin, a NaN or zero bin past 65534, a flag other
+    than 0 or 1, or a missing-value bin set where its flag is not
+    (build_predict_tables writes 0 there)."""
     rec = np.asarray(nodes, np.int64)
     if rec.ndim != 3 or rec.shape[2] != len(NODE_FIELDS):
         raise LightGBMError(f"pack_nodes takes (T, L, {len(NODE_FIELDS)}) "
@@ -193,15 +204,14 @@ def pack_nodes(nodes: np.ndarray) -> np.ndarray:
     bad = []
     if not ((0 <= rec[..., F_GROUP]) & (rec[..., F_GROUP] < 1 << 16)).all():
         bad.append("group")
-    if not ((0 <= rec[..., F_THR])
-            & (rec[..., F_THR] < 1 << THR_BITS)).all():
+    if not (0 <= rec[..., F_THR]).all():
         bad.append("threshold_bin")
     if not ((flags == 0) | (flags == 1)).all():
         bad.append("flags")
     for has, b, name in ((F_HASNAN, F_NANBIN, "nan_bin"),
                          (F_HASMZ, F_MZBIN, "mz_bin")):
         ok = np.where(rec[..., has] > 0,
-                      (0 <= rec[..., b]) & (rec[..., b] < NO_BIN),
+                      (0 <= rec[..., b]) & (rec[..., b] < NO_BIN16),
                       rec[..., b] == 0)
         if not ok.all():
             bad.append(name)
@@ -210,41 +220,53 @@ def pack_nodes(nodes: np.ndarray) -> np.ndarray:
     if bad:
         raise LightGBMError(f"pack_nodes: fields outside the packed record: "
                             f"{bad}")
-    nan = np.where(rec[..., F_HASNAN] > 0, rec[..., F_NANBIN], NO_BIN)
-    mz = np.where(rec[..., F_HASMZ] > 0, rec[..., F_MZBIN], NO_BIN)
+    nan16 = np.where(rec[..., F_HASNAN] > 0, rec[..., F_NANBIN], NO_BIN16)
+    mz16 = np.where(rec[..., F_HASMZ] > 0, rec[..., F_MZBIN], NO_BIN16)
+    thr = rec[..., F_THR]
+    wide = ((thr >= 1 << THR_BITS) | ((nan16 >= NO_BIN) & (nan16 != NO_BIN16))
+            | ((mz16 >= NO_BIN) & (mz16 != NO_BIN16)))
+    nan = np.where(nan16 < NO_BIN, nan16, NO_BIN)
+    mz = np.where(mz16 < NO_BIN, mz16, NO_BIN)
     flag_word = ((nan << NAN_SHIFT) | (mz << MZ_SHIFT)
                  | (rec[..., F_DEFLEFT] << DEFLEFT_BIT)
                  | (rec[..., F_ISCAT] << ISCAT_BIT)
-                 | (rec[..., F_BUNDLED] << BUNDLED_BIT))
+                 | (rec[..., F_BUNDLED] << BUNDLED_BIT)
+                 | (wide.astype(np.int64) << WIDE_BIT))
     special = ((rec[..., F_HASNAN] | rec[..., F_HASMZ] | rec[..., F_BUNDLED]
-                | rec[..., F_ISCAT]) > 0) | (L > CHILD16_MAX_L)
-    group_thr = (rec[..., F_GROUP] | (rec[..., F_THR] << 16)
+                | rec[..., F_ISCAT]) > 0) | wide | (L > CHILD16_MAX_L)
+    group_thr = (rec[..., F_GROUP] | (np.where(wide, 0, thr) << 16)
                  | (special.astype(np.int64) << SPECIAL_BIT))
     children16 = (np.where(L > CHILD16_MAX_L, 0, (rec[..., F_LEFT] & 0xFFFF)
                            | ((rec[..., F_RIGHT] & 0xFFFF) << 16)))
     words = np.stack([children16, group_thr, flag_word, rec[..., F_LEFT],
                       rec[..., F_RIGHT], rec[..., F_SPAN], rec[..., F_DEFBIN],
-                      rec[..., F_NBINS], rec[..., F_CATBASE]], axis=0)
+                      rec[..., F_NBINS], rec[..., F_CATBASE], thr,
+                      nan16 | (mz16 << 16)], axis=0)
     # int64 -> uint32 bit pattern -> int32
     return np.ascontiguousarray(
         (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32))
 
 
 def unpack_nodes(packed: torch.Tensor) -> torch.Tensor:
-    """(T, L, 16) int32 host records of (9, T, L) packed word planes, with
-    tensor ops on the packed tensor's device."""
-    (_, group_thr, flags, left, right, span, defbin, nbins,
-     catbase) = (packed[i].to(torch.int64) & 0xFFFFFFFF
-                 for i in range(len(PACKED_WORDS)))
-    nan = (flags >> NAN_SHIFT) & NO_BIN
-    mz = (flags >> MZ_SHIFT) & NO_BIN
+    """(T, L, 16) int32 host records of (11, T, L) packed word planes, with
+    tensor ops on the packed tensor's device: the walk's threshold and
+    missing bins as the kernel reads them, from the walk words and the
+    flags, or from ``threshold`` and ``missing`` at a wide node."""
+    (_, group_thr, flags, left, right, span, defbin, nbins, catbase,
+     thr_full, missing) = (packed[i].to(torch.int64) & 0xFFFFFFFF
+                           for i in range(len(PACKED_WORDS)))
+    wide = ((flags >> WIDE_BIT) & 1) > 0
+    nan = torch.where(wide, missing & 0xFFFF, (flags >> NAN_SHIFT) & NO_BIN)
+    mz = torch.where(wide, missing >> 16, (flags >> MZ_SHIFT) & NO_BIN)
+    none = torch.where(wide, NO_BIN16, NO_BIN)
+    thr = torch.where(wide, thr_full, (group_thr >> 16)
+                      & ((1 << THR_BITS) - 1))
     fields = [group_thr & 0xFFFF, span, defbin, (flags >> BUNDLED_BIT) & 1,
-              (nan != NO_BIN).to(torch.int64), torch.where(nan != NO_BIN, nan,
-                                                           0),
-              (mz != NO_BIN).to(torch.int64), torch.where(mz != NO_BIN, mz, 0),
-              nbins, (group_thr >> 16) & ((1 << THR_BITS) - 1),
-              (flags >> DEFLEFT_BIT) & 1, (flags >> ISCAT_BIT) & 1, left,
-              right, catbase, torch.zeros_like(left)]
+              (nan != none).to(torch.int64), torch.where(nan != none, nan, 0),
+              (mz != none).to(torch.int64), torch.where(mz != none, mz, 0),
+              nbins, thr, (flags >> DEFLEFT_BIT) & 1,
+              (flags >> ISCAT_BIT) & 1, left, right, catbase,
+              torch.zeros_like(left)]
     # back to the int32 bit pattern of each field
     out = torch.stack(fields, dim=-1)
     return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
@@ -268,8 +290,9 @@ class PredictPlan(NamedTuple):
     copied into shared memory while the stage before is walked (two
     stages); 0: the trees are too large for a stage and their records are
     read from global memory.  ``bins_stride`` > 0 stages the tile's (G,
-    rows) bin bytes in shared memory, that many bytes a group; 0 leaves
-    them in global memory.  ``smem``: the block's dynamic shared memory."""
+    rows) bins in shared memory, that many bins a group (a byte each, or
+    two for 16-bit bins); 0 leaves them in global memory.  ``smem``: the
+    block's dynamic shared memory."""
     rows_per_tile: int
     threads: int
     tiles: int
@@ -298,15 +321,18 @@ def stage_bytes(trees: int, L: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def predict_plan(n_rows: int, G: int, L: int, n_trees: int) -> PredictPlan:
-    """The launch plan of one K1 launch over ``n_rows`` rows of G groups and
-    ``n_trees`` trees of L node slots: 512 threads of one row, up to 8 trees
-    a stage, three blocks an SM."""
-    return _predict_plan(n_rows, G, L, n_trees, SMEM_BLOCK, 512)
+def predict_plan(n_rows: int, G: int, L: int, n_trees: int,
+                 bin_width: int = 1) -> PredictPlan:
+    """The launch plan of one K1 launch over ``n_rows`` rows of G groups of
+    ``bin_width`` bytes a bin and ``n_trees`` trees of L node slots: 512
+    threads of one row, up to 8 trees a stage, three blocks an SM."""
+    return _predict_plan(n_rows, G, L, n_trees, SMEM_BLOCK, 512,
+                         bin_width=bin_width)
 
 
 def _predict_plan(n: int, G: int, L: int, T: int, smem_budget: int,
-                  threads: int, stage_trees: int = 8) -> PredictPlan:
+                  threads: int, stage_trees: int = 8,
+                  bin_width: int = 1) -> PredictPlan:
     """``predict_plan`` with the block's shared memory, threads and most
     trees a stage given, so that tests reach trees and bins in global
     memory at small shapes.
@@ -315,15 +341,16 @@ def _predict_plan(n: int, G: int, L: int, T: int, smem_budget: int,
     PERF.md), in the fewest tiles of at most ``threads`` rows that fill
     whole waves of blocks over the card, each tile a multiple of 16
     rows (the bins' 16-byte copy).  Bins: staged where the tile's G x rows
-    bytes stay within 64 KB and half the budget.  Trees: up to
+    bins (``bin_width`` bytes each) stay within 64 KB and half the budget.
+    Trees: up to
     ``stage_trees`` a stage, as many as let the SM hold the blocks its
     threads allow (one block, where not even one tree fits that), no more
     than there are; none where a tree does not fit."""
     cap = threads
     bins_stride = _round16(min(cap, _round16(max(n, 1)))) + 16
-    if G * bins_stride > min(BIN_STAGE_MAX, smem_budget // 2):
+    if G * bins_stride * bin_width > min(BIN_STAGE_MAX, smem_budget // 2):
         bins_stride = 0
-    bins_bytes = G * bins_stride
+    bins_bytes = G * bins_stride * bin_width
     ts = 0
     for per_sm in (max(1, SM_THREADS // threads), 1):
         room = min(smem_budget, SMEM_SM // per_sm - 1024) - bins_bytes
@@ -354,8 +381,9 @@ def predict_stream(bins_T: torch.Tensor, nodes: torch.Tensor,
                    leaf_value: torch.Tensor, cat_words: torch.Tensor,
                    depths: Sequence[int], es_freq: int = 0,
                    es_margin: float = 0.0) -> torch.Tensor:
-    """Raw scores (N,) f32 of one class: (G, N) uint8 bins, (9, T, L) int32
-    packed nodes (``pack_nodes``), (T, L) f32 leaf values, (W,) int32
+    """Raw scores (N,) f32 of one class: (G, N) bins (uint8, or the int16
+    storage of 16-bit bins), (11, T, L) int32 packed nodes
+    (``pack_nodes``), (T, L) f32 leaf values, (W,) int32
     bitset words and each tree's depth.  es_freq > 0 enables the binary
     prediction-early-stop margin check every es_freq trees."""
     if bins_T.device.type == "cuda":
@@ -375,8 +403,9 @@ def predict_stream_cuda(bins_T, nodes, leaf_value, cat_words,
     """Launch csrc/predict_stream.cu on the current stream under
     ``predict_plan`` of the shapes."""
     dev = bins_T.device
+    width = bin_bytes(bins_T)
     build.check_operands("predict_stream", dev, (
-        ("bins_T", bins_T, torch.uint8), ("nodes", nodes, torch.int32),
+        ("bins_T", bins_T, bins_T.dtype), ("nodes", nodes, torch.int32),
         ("leaf_value", leaf_value, torch.float32),
         ("cat_words", cat_words, torch.int32)))
     if (nodes.dim() != 3 or nodes.shape[0] != len(PACKED_WORDS)
@@ -388,20 +417,21 @@ def predict_stream_cuda(bins_T, nodes, leaf_value, cat_words,
     out = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0 or T == 0:
         return out.zero_()
-    plan = predict_plan(n, G, L, T)
+    plan = predict_plan(n, G, L, T, width)
     fn = build.load("predict_stream").lgbt_predict_stream
-    rc = fn(bins_T.data_ptr(), n, G, nodes.data_ptr(), leaf_value.data_ptr(),
-            cat_words.data_ptr(), T, L, max(int(max_depth), 1), int(es_freq),
-            float(es_margin), out.data_ptr(), plan_arg(plan),
+    rc = fn(bins_T.data_ptr(), width, n, G, nodes.data_ptr(),
+            leaf_value.data_ptr(), cat_words.data_ptr(), T, L,
+            max(int(max_depth), 1), int(es_freq), float(es_margin),
+            out.data_ptr(), plan_arg(plan),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise LightGBMError(f"predict_stream kernel launch failed "
                             f"(cudaError {rc}, plan {tuple(plan)})")
-    predict_stream_cuda.launches += 1
+    build.count_launch(predict_stream_cuda, width)
     return out
 
 
-predict_stream_cuda.launches = 0
+build.init_counts(predict_stream_cuda)
 
 
 def walk_tree_plain(bins_T: torch.Tensor, tnodes: torch.Tensor,
@@ -415,7 +445,7 @@ def walk_tree_plain(bins_T: torch.Tensor, tnodes: torch.Tensor,
     for _ in range(depth):
         at_leaf = enc >= L
         nd = tnodes[torch.where(at_leaf, 0, enc)]            # (N, 16)
-        gb = bins_T[nd[:, F_GROUP].long(), rows].to(torch.int32)
+        gb = bin_values(bins_T[nd[:, F_GROUP].long(), rows])
         ls = gb - nd[:, F_SPAN]
         defbin = nd[:, F_DEFBIN]
         in_span = (ls >= 0) & (ls < nd[:, F_NBINS] - 1)

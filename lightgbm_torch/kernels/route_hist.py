@@ -6,7 +6,10 @@ Counterpart of ``lightgbm_tpu/pallas/stream_kernel.py:520-633``
 (``route_and_hist``; routing math ``_route_step`` :93-151, the categorical
 overlay :228-242, and the reference's ``num_class = K`` branches :174-205,
 :263-279, :349-396).  One launch routes K class trees (K = 1: one tree).
-Given the (G, N) uint8 bins, each class's (K, N) current leaf ids, (K, N)
+Given the (G, N) bins (uint8, or the int16 storage of 16-bit bins where a
+group is wider than 256 bins: the reference's ``pack_bins_T`` spills such
+bins into the next group's byte and is not followed; kernels/layout.py),
+each class's (K, N) current leaf ids, (K, N)
 float32 grad and hess weights and the (N,) float32 count weights shared by
 the classes (zero on pad rows), the round's (K, L, 16) int32 route records
 and (K, L, W) int32 categorical bitsets (kernels/layout.py) and one
@@ -51,7 +54,8 @@ from . import build
 from .hist_wide import hist_plan, plan_arg
 from .layout import (R_BUNDLED, R_CHOSEN, R_DEFBIN, R_DEFLEFT, R_GROUP,
                      R_ISCAT, R_MZBIN, R_NANBIN, R_NBINS, R_NEWID, R_SLOT_KEEP,
-                     R_SLOT_L, R_SLOT_R, R_SPAN, R_THR, ROUTE_FIELDS)
+                     R_SLOT_L, R_SLOT_R, R_SPAN, R_THR, ROUTE_FIELDS,
+                     bin_bytes, bin_values)
 
 # bytes of one (pair, group, bin) cell of the histogram pass's tile
 CELL_BYTES = 16          # float form: grad and hess, two 32-bit words each
@@ -83,7 +87,7 @@ def numeric_go_left(bins_T, rows, rec):
     unbundled when the feature shares an EFB group; a NaN or zero-as-missing
     bin (-1 = none) goes the default way, any other bin left when it is at
     most the threshold."""
-    gb = bins_T[rec[:, R_GROUP].to(torch.int64), rows].to(torch.int32)
+    gb = bin_values(bins_T[rec[:, R_GROUP].to(torch.int64), rows])
     ls = gb - rec[:, R_SPAN]
     defbin = rec[:, R_DEFBIN]
     in_span = (ls >= 0) & (ls < rec[:, R_NBINS] - 1)
@@ -155,13 +159,17 @@ def _check_operands(what, dev, operands, shapes_ok):
 
 def _route_shapes_ok(bins_T, leaf_id, tabs, cat_words, cnt, num_slots,
                      max_bins):
+    """The shapes agree.  The bitsets need words only for the categorical
+    features' bins (ops/grow.py sizes them so), which EFB never bundles,
+    so any W >= 1 is taken."""
     G, n = bins_T.shape
     K, L = tabs.shape[0], tabs.shape[1]
     return (tuple(tabs.shape) == (K, L, len(ROUTE_FIELDS))
             and cat_words.dim() == 3 and tuple(cat_words.shape[:2]) == (K, L)
-            and cat_words.shape[2] * 32 >= max_bins
+            and cat_words.shape[2] >= 1
             and tuple(leaf_id.shape) == (K, n) and tuple(cnt.shape) == (n,)
-            and num_slots >= 1 and 0 < max_bins <= 256)
+            and num_slots >= 1
+            and 0 < max_bins <= 256 ** bin_bytes(bins_T))
 
 
 def route_and_hist_cuda(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
@@ -173,9 +181,10 @@ def route_and_hist_cuda(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
         scales = scale_table(shifts, dev)
     G, n = bins_T.shape
     K, L = tabs.shape[0], tabs.shape[1]
+    width = bin_bytes(bins_T)
     _check_operands(
         "route_and_hist", dev,
-        (("bins_T", bins_T, torch.uint8), ("leaf_id", leaf_id, torch.int32),
+        (("bins_T", bins_T, bins_T.dtype), ("leaf_id", leaf_id, torch.int32),
          ("tabs", tabs, torch.int32), ("cat_words", cat_words, torch.int32),
          ("grad", grad, torch.float32), ("hess", hess, torch.float32),
          ("cnt", cnt, torch.float32), ("scales", scales, torch.float32)),
@@ -196,10 +205,10 @@ def route_and_hist_cuda(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
     plan = (hist_plan(n, G, K, num_slots, max_bins, CELL_BYTES)
             if with_hist else None)
     fn = build.load("route_and_hist").lgbt_route_and_hist
-    rc = fn(bins_T.data_ptr(), n, G, K, leaf_id.data_ptr(), tabs.data_ptr(),
-            L, cat_words.data_ptr(), cat_words.shape[2], grad.data_ptr(),
-            hess.data_ptr(), cnt.data_ptr(), num_slots, max_bins,
-            int(with_hist), scales.data_ptr(), new_leaf.data_ptr(),
+    rc = fn(bins_T.data_ptr(), width, n, G, K, leaf_id.data_ptr(),
+            tabs.data_ptr(), L, cat_words.data_ptr(), cat_words.shape[2],
+            grad.data_ptr(), hess.data_ptr(), cnt.data_ptr(), num_slots,
+            max_bins, int(with_hist), scales.data_ptr(), new_leaf.data_ptr(),
             slot.data_ptr(), hist_acc.data_ptr(), cnt_acc.data_ptr(),
             hist.data_ptr(), counts.data_ptr(),
             plan_arg(plan) if with_hist else None,
@@ -207,11 +216,11 @@ def route_and_hist_cuda(bins_T, leaf_id, tabs, cat_words, grad, hess, cnt,
     if rc != 0:
         raise LightGBMError(f"route_and_hist kernel launch failed "
                             f"(cudaError {rc}, plan {plan})")
-    route_and_hist_cuda.launches += 1
+    build.count_launch(route_and_hist_cuda, width)
     return new_leaf, hist if with_hist else None, counts
 
 
-route_and_hist_cuda.launches = 0
+build.init_counts(route_and_hist_cuda)
 
 
 def route_and_hist_int(bins_T, leaf_id, tabs, cat_words, qgrad, qhess, cnt,
@@ -254,7 +263,8 @@ def route_and_hist_int_cuda(bins_T, leaf_id, tabs, cat_words, qgrad, qhess,
     dev = bins_T.device
     G, n = bins_T.shape
     K, L = tabs.shape[0], tabs.shape[1]
-    operands = [("bins_T", bins_T, torch.uint8),
+    width = bin_bytes(bins_T)
+    operands = [("bins_T", bins_T, bins_T.dtype),
                 ("leaf_id", leaf_id, torch.int32),
                 ("tabs", tabs, torch.int32),
                 ("cat_words", cat_words, torch.int32),
@@ -275,8 +285,8 @@ def route_and_hist_int_cuda(bins_T, leaf_id, tabs, cat_words, qgrad, qhess,
     plan = (hist_plan(n, G, K, num_slots, max_bins, INT_CELL_BYTES)
             if with_hist else None)
     fn = build.load("route_and_hist_int").lgbt_route_and_hist_int
-    rc = fn(bins_T.data_ptr(), n, G, K, leaf_id.data_ptr(), tabs.data_ptr(),
-            L, cat_words.data_ptr(), cat_words.shape[2],
+    rc = fn(bins_T.data_ptr(), width, n, G, K, leaf_id.data_ptr(),
+            tabs.data_ptr(), L, cat_words.data_ptr(), cat_words.shape[2],
             qgrad.data_ptr() if with_hist else None,
             qhess.data_ptr() if with_hist else None, cnt.data_ptr(),
             num_slots, max_bins, int(with_hist), new_leaf.data_ptr(),
@@ -287,8 +297,8 @@ def route_and_hist_int_cuda(bins_T, leaf_id, tabs, cat_words, qgrad, qhess,
     if rc != 0:
         raise LightGBMError(f"route_and_hist_int kernel launch failed "
                             f"(cudaError {rc}, plan {plan})")
-    route_and_hist_int_cuda.launches += 1
+    build.count_launch(route_and_hist_int_cuda, width)
     return new_leaf, hist, counts
 
 
-route_and_hist_int_cuda.launches = 0
+build.init_counts(route_and_hist_int_cuda)

@@ -20,7 +20,10 @@ The kernel (``csrc/route_replay.cu``) first packs each record into the 8
 bytes the decision reads (``pack_records``; a record that does not fit is
 special and is read whole from global memory), then runs persistent blocks
 over tiles of rows (``replay_plan``), the packed table in shared memory,
-each thread loading its rows' records and bins together.
+each thread loading its rows' records and bins together.  Over 16-bit bins
+(groups wider than 256 bins; kernels/layout.py) a record whose threshold or
+missing bin does not fit its 9-bit field is special too, and the kernel
+compares a row's bin past 255 as 256.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from ..utils.log import LightGBMError
 from . import build
 from .hist_wide import SMEM_BLOCK, SMEM_SM, SMS, _cdiv
 from .layout import (R_BUNDLED, R_CHOSEN, R_DEFLEFT, R_GROUP, R_MZBIN,
-                     R_NANBIN, R_NEWID, R_THR, ROUTE_FIELDS)
+                     R_NANBIN, R_NEWID, R_THR, ROUTE_FIELDS, bin_bytes)
 from .route_hist import numeric_go_left
 
 # the packed record's second word (csrc/route_replay.cu): bits 0-8 the
@@ -112,7 +115,8 @@ def plan_arg(plan: ReplayPlan) -> ctypes.Array:
     return (ctypes.c_int64 * len(REPLAY_PLAN_FIELDS))(*plan)
 
 
-def pack_records(tabs: torch.Tensor, G: int) -> torch.Tensor:
+def pack_records(tabs: torch.Tensor, G: int,
+                 wide: bool = False) -> torch.Tensor:
     """(R, L + 1, 2) int32 packed records of the (R, L, 16) int32 route
     records, as csrc/route_replay.cu's pack kernel writes them: a leaf not
     split that round packs to (0, 0), and so does leaf L, the stop leaf a
@@ -121,8 +125,9 @@ def pack_records(tabs: torch.Tensor, G: int) -> torch.Tensor:
     << 9 | zero bin << 18 | default-left << 27 | 1 << 28), missing bins
     outside [0, 255] as 0x1ff (none); a record that does not fit (an EFB
     bundle, a child outside [0, min(L, 2**16)), a group outside [0,
-    min(G, 2**16))) to (0, 1 << 28 | 1 << 31), special: the kernel reads
-    it whole."""
+    min(G, 2**16)); with ``wide``, 16-bit bins, also a threshold or a NaN
+    or zero bin past 255) to (0, 1 << 28 | 1 << 31), special: the kernel
+    reads it whole."""
     t = tabs.to(torch.int64)
     R, L = t.shape[0], t.shape[1]
     chosen = t[..., R_CHOSEN] > 0
@@ -130,6 +135,9 @@ def pack_records(tabs: torch.Tensor, G: int) -> torch.Tensor:
     special = ((t[..., R_BUNDLED] > 0) | (new_id < 0)
                | (new_id >= min(L, 0x10000)) | (group < 0)
                | (group >= min(G, 0x10000)))
+    if wide:
+        special = (special | (thr > 255) | (t[..., R_NANBIN] > 255)
+                   | (t[..., R_MZBIN] > 255))
 
     def code(b):
         return torch.where((b >= 0) & (b <= 255), b, BIN_NONE)
@@ -151,7 +159,8 @@ def pack_records(tabs: torch.Tensor, G: int) -> torch.Tensor:
 
 def route_replay(bins_T: torch.Tensor, tabs: torch.Tensor) -> torch.Tensor:
     """(N,) int32 leaf of every row after the (R, L, 16) int32 route
-    records ``tabs``, applied in order from leaf 0; bins_T: (G, N) uint8."""
+    records ``tabs``, applied in order from leaf 0; bins_T: (G, N) uint8
+    or the int16 storage of 16-bit bins."""
     if bins_T.device.type == "cuda":
         return route_replay_cuda(bins_T, tabs)
     if bins_T.device.type == "cpu":
@@ -183,8 +192,9 @@ def route_replay_cuda(bins_T: torch.Tensor,
     """Launch csrc/route_replay.cu on the current stream, under
     ``replay_plan`` of the shapes."""
     dev = bins_T.device
+    width = bin_bytes(bins_T)
     build.check_operands("route_replay", dev, (
-        ("bins_T", bins_T, torch.uint8), ("tabs", tabs, torch.int32)))
+        ("bins_T", bins_T, bins_T.dtype), ("tabs", tabs, torch.int32)))
     if (bins_T.dim() != 2 or tabs.dim() != 3
             or tabs.shape[2] != len(ROUTE_FIELDS) or bins_T.shape[0] < 1
             or (tabs.shape[0] > 0 and tabs.shape[1] < 1)):
@@ -198,14 +208,14 @@ def route_replay_cuda(bins_T: torch.Tensor,
                          device=dev)
     plan = replay_plan(n, G, R, L)
     fn = build.load("route_replay").lgbt_route_replay
-    rc = fn(bins_T.data_ptr(), n, G, tabs.data_ptr(), R, L,
+    rc = fn(bins_T.data_ptr(), width, n, G, tabs.data_ptr(), R, L,
             packed.data_ptr(), out.data_ptr(), plan_arg(plan),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise LightGBMError(f"route_replay kernel launch failed "
                             f"(cudaError {rc}, plan {tuple(plan)})")
-    route_replay_cuda.launches += 1
+    build.count_launch(route_replay_cuda, width)
     return out
 
 
-route_replay_cuda.launches = 0
+build.init_counts(route_replay_cuda)

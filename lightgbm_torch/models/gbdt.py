@@ -242,8 +242,11 @@ class GBDT:
         if name not in ("binary", "regression", "multiclass",
                         "multiclassova", "none"):
             raise _not_ported(f"objective {name!r}")
-        if self.dd.bins.dtype != torch.uint8:
-            raise _not_ported("a feature bundle wider than 256 bins")
+        if (self.dd.bins.dtype != torch.uint8
+                and self._resolve_hist_backend() == "pallas"):
+            # K6/K7 read uint8 bins; the other backends take 16-bit ones
+            raise _not_ported("hist_backend='pallas' on a feature bundle "
+                              "wider than 256 bins")
         if c.hist_backend in ("segsum", "onehot"):
             raise _not_ported(f"hist_backend={c.hist_backend!r}")
         if c.hist_precision == "double":
@@ -295,6 +298,8 @@ class GBDT:
 
     def _make_grow_params(self) -> GrowParams:
         c = self.config
+        cat_bins = [int(m.num_bins) for m in self.train_data.bin_mappers()
+                    if m.bin_type == BIN_CATEGORICAL]
         return GrowParams(
             num_leaves=max(c.num_leaves, 2), max_depth=c.max_depth,
             # auto (0) is 64, as the reference resolves it for its stream
@@ -308,8 +313,8 @@ class GBDT:
             max_delta_step=c.max_delta_step,
             cat=(CatParams(c.cat_l2, c.cat_smooth, c.max_cat_threshold,
                            c.max_cat_to_onehot, c.min_data_per_group)
-                 if any(m.bin_type == BIN_CATEGORICAL
-                        for m in self.train_data.bin_mappers()) else None),
+                 if cat_bins else None),
+            cat_bins=max(cat_bins, default=0),
             # auto resolves on: the replay gives the same leaves as the
             # per-round route-only passes, and the grower applies the
             # reference's gate

@@ -125,6 +125,9 @@ class GrowParams(NamedTuple):
     # categorical feature: only then does the split scan run its
     # categorical branch
     cat: Optional[CatParams] = None
+    # the most bins of a categorical feature, which sizes the bitset words
+    # a round routes by (0: not given, Bmax)
+    cat_bins: int = 0
 
 
 class GrowResult(NamedTuple):
@@ -202,7 +205,12 @@ class _Grower:
         # leaf's split of the round as the words K2 reads
         self.cat_bitset = torch.zeros((K, L, max_bins), dtype=torch.bool,
                                       device=dev)
-        self.cat_words = torch.zeros((K, L, max(-(-max_bins // 32), 1)),
+        # words for the categorical features' bins only (EFB never
+        # bundles a categorical feature, so no wide bundle sizes them;
+        # without their count, for Bmax)
+        cat_bins = ((params.cat_bins or max_bins)
+                    if params.cat is not None else 0)
+        self.cat_words = torch.zeros((K, L, max(-(-cat_bins // 32), 1)),
                                      dtype=torch.int32, device=dev)
         self.leaf_id = torch.zeros((K, n), dtype=torch.int32, device=dev)
         # offset of class k's leaves in the flattened (K * L) leaf axis
@@ -557,8 +565,9 @@ class _Grower:
                 self.cat.cat_smooth, self.cat.min_data_per_group,
                 pc / torch.clamp(ph, min=EPS_HESS))
             self.cat_bitset.view(-1, self.Bmax)[fnode] = bits
-            self.cat_words.view(-1, self.cat_words.shape[-1])[fo] = \
-                cat_words_from_bits(bits)
+            W = self.cat_words.shape[-1]
+            self.cat_words.view(-1, W)[fo] = cat_words_from_bits(
+                bits[:, :32 * W])
         return bits
 
     def _flat_leaf(self):

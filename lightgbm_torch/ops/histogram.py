@@ -31,13 +31,16 @@ exact sum: within half an ulp of the true sum of the quantized weights,
 which is closer to the exact float sum than a float32 running sum gets.
 Weights that are dyadic (multiples of 2**-shift) are not changed by the
 rounding, so on such inputs the histogram equals every exact formulation
-bit for bit.
+bit for bit.  Bins are uint8, or the int16 storage of 16-bit bins, read as
+unsigned (``kernels.layout.bin_values``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..kernels.layout import bin_values
 
 # |shift| stays inside float32's normal exponent range, so 2**shift and
 # 2**-shift are exact float32 scales
@@ -82,7 +85,7 @@ def build_histograms_gh(bins_T: torch.Tensor, slot: torch.Tensor,
                         cnt: torch.Tensor, num_slots: int, max_bins: int,
                         shift: int):
     """(S, G, Bmax, 2) float32 grad/hess histograms and (S,) float32 exact
-    counts of the rows' slots.  bins_T: (G, N) uint8; slot: (N,) int32;
+    counts of the rows' slots.  bins_T: (G, N) bins; slot: (N,) int32;
     grad, hess, cnt: (N,) float32."""
     G = bins_T.shape[0]
     dev = bins_T.device
@@ -93,7 +96,8 @@ def build_histograms_gh(bins_T: torch.Tensor, slot: torch.Tensor,
     acc = torch.zeros(num_slots * G * max_bins * 2, dtype=torch.int64,
                       device=dev)
     for g in range(G):
-        cell = ((s * G + g) * max_bins + bins_T[g, keep].to(torch.int64)) * 2
+        cell = ((s * G + g) * max_bins
+                + bin_values(bins_T[g, keep]).to(torch.int64)) * 2
         acc.index_add_(0, cell, qg)
         acc.index_add_(0, cell + 1, qh)
     hist = dequantize(acc, shift).reshape(num_slots, G, max_bins, 2)
@@ -106,7 +110,7 @@ def build_histograms_int(bins_T: torch.Tensor, slot: torch.Tensor,
     """(K, S, G, Bmax, 2) int32 (grad, hess) histograms of each class's
     rows' slots: exact integer sums of the int8 grid values (reference:
     stream_kernel.py ``int_weights`` branch :342-386).  bins_T: (G, N)
-    uint8; slot: (K, N) int32; qgrad, qhess: (K, N) int8.  The caller keeps
+    bins; slot: (K, N) int32; qgrad, qhess: (K, N) int8.  The caller keeps
     every sum inside int32 (the ``int_hist`` gate: half * N < 2**31)."""
     G = bins_T.shape[0]
     K = slot.shape[0]
@@ -117,7 +121,7 @@ def build_histograms_int(bins_T: torch.Tensor, slot: torch.Tensor,
                       device=bins_T.device)
     for g in range(G):
         acc.index_add_(0, (s * G + g) * max_bins
-                       + bins_T[g, rows].to(torch.int64), q)
+                       + bin_values(bins_T[g, rows]).to(torch.int64), q)
     return acc.reshape(K, num_slots, G, max_bins, 2)
 
 
@@ -125,7 +129,7 @@ def hist3_plain(bins_T: torch.Tensor, slot: torch.Tensor,
                 grad: torch.Tensor, hess: torch.Tensor, cnt: torch.Tensor,
                 num_slots: int, max_bins: int, shift: int) -> torch.Tensor:
     """(S, G, Bmax, 3) float32 (grad, hess, count) histograms of the rows'
-    slots.  bins_T: (G, N) uint8 (any strides); slot: (N,) int32; grad,
+    slots.  bins_T: (G, N) bins (any strides); slot: (N,) int32; grad,
     hess, cnt: (N,) float32."""
     G = bins_T.shape[0]
     dev = bins_T.device
@@ -137,7 +141,7 @@ def hist3_plain(bins_T: torch.Tensor, slot: torch.Tensor,
                       device=dev)
     for g in range(G):
         acc.index_add_(0, (s * G + g) * max_bins
-                       + bins_T[g, keep].to(torch.int64), q)
+                       + bin_values(bins_T[g, keep]).to(torch.int64), q)
     hist = acc.to(torch.float32)
     hist[:, :2] *= 2.0 ** -shift
     return hist.reshape(num_slots, G, max_bins, 3)
@@ -181,7 +185,7 @@ def build_histograms_k(bins_T: torch.Tensor, slot: torch.Tensor,
                        max_bins: int, shifts, backend: str,
                        scales=None) -> torch.Tensor:
     """(K, S, G, Bmax, 3) float32 histograms of K class trees (reference:
-    ops/histogram.py ``build_histograms_k``).  bins_T: (G, N) uint8; slot,
+    ops/histogram.py ``build_histograms_k``).  bins_T: (G, N) bins; slot,
     grad, hess: (K, N), class k's slot and weights of every row; cnt: (N,)
     shared; shifts: K ints, class k's fixed-point shift; scales: their
     ``scale_table``, or None.  ``scatter`` and

@@ -11,17 +11,19 @@ from __future__ import annotations
 import torch
 
 from ..device_data import RoutingLayout
+from ..kernels.layout import bin_values
 from ..tree import DIR_CATEGORICAL, DIR_DEFAULT_LEFT
 
 
 def feature_local_bin(group_bin: torch.Tensor, feat: torch.Tensor,
                       routing: RoutingLayout) -> torch.Tensor:
-    """Map a group-local stored bin to the feature-local bin for per-row
+    """Map a group-local stored bin (uint8, or the int16 storage of a
+    16-bit bin, read as unsigned) to the feature-local bin for per-row
     routing."""
     span_start = routing.span_start[feat]
     default_bin = routing.default_bin[feat]
     nb = routing.num_bins[feat]
-    v = group_bin.to(torch.int32)
+    v = bin_values(group_bin)
     # bundled: the stored span holds the nb-1 non-default bins from span_start
     ls = v - span_start
     in_span = (ls >= 0) & (ls < nb - 1)

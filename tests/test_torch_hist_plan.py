@@ -323,6 +323,8 @@ def test_k2_plan_owns_every_pair_once_within_limits(S, Bmax, K, G, n, cell,
 def test_k5_k8_plans_unchanged_by_the_cell_size(n, G, K, S, Bmax, plan):
     """K5 and K8 (20-byte cells, the default) get the plans they had
     before the cell size became an argument."""
+    # (the bin-tile fields: every bin in one tile)
+    plan = plan + (Bmax, 1)
     assert tuple(khw.hist_plan(n, G, K, S, Bmax)) == plan
     assert tuple(khw.hist_plan(n, G, K, S, Bmax, khw.CELL_BYTES)) == plan
 

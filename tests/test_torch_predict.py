@@ -275,7 +275,8 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         tbuild.nvcc()
 
 
-_CTYPE_OF = {"const uint8_t*": "c_void_p", "const int32_t*": "c_void_p",
+_CTYPE_OF = {"const uint8_t*": "c_void_p", "const void*": "c_void_p",
+             "const int32_t*": "c_void_p",
              "const int8_t*": "c_void_p",
              "const float*": "c_void_p", "float*": "c_void_p",
              "int32_t*": "c_void_p", "int64_t*": "c_void_p",

@@ -187,7 +187,9 @@ def test_pack_nodes_holds_wide_fields_and_refuses_the_rest(L):
     """Groups up to 65535, thresholds up to 32767, bins up to 510 and
     bitset bases past 2**24 round-trip, and children past 16 bits where L
     needs them (every node then special: its step reads 32-bit children);
-    what does not fit raises."""
+    a threshold past 32767 or a missing bin past 510 (16-bit bins)
+    round-trips through its own planes at a special node; what does not
+    fit raises."""
     rs = np.random.RandomState(L)
     shape = (3, L)
     rec = np.zeros(shape + (len(tpk.NODE_FIELDS),), np.int32)
@@ -218,8 +220,16 @@ def test_pack_nodes_holds_wide_fields_and_refuses_the_rest(L):
         c16 = packed[tpk.PACKED_WORDS.index("children16")].view(np.uint32)
         np.testing.assert_array_equal(c16 & 0xFFFF, rec[..., tpk.F_LEFT])
         np.testing.assert_array_equal(c16 >> 16, rec[..., tpk.F_RIGHT])
-    for f, v in ((tpk.F_GROUP, 1 << 16), (tpk.F_THR, 1 << tpk.THR_BITS),
-                 (tpk.F_THR, -1), (tpk.F_NANBIN, tpk.NO_BIN),
+    wide = rec.copy()
+    wide[1, 2, tpk.F_THR] = 1 << tpk.THR_BITS
+    wide[2, 3, tpk.F_HASNAN], wide[2, 3, tpk.F_NANBIN] = 1, tpk.NO_BIN
+    packed = tpk.pack_nodes(wide)
+    np.testing.assert_array_equal(
+        tpk.unpack_nodes(torch.as_tensor(packed)).numpy(), wide)
+    gt = packed[tpk.PACKED_WORDS.index("group_thr")].view(np.uint32)
+    assert (gt[1, 2] >> tpk.SPECIAL_BIT) == (gt[2, 3] >> tpk.SPECIAL_BIT) == 1
+    for f, v in ((tpk.F_GROUP, 1 << 16), (tpk.F_THR, -(1 << tpk.THR_BITS)),
+                 (tpk.F_THR, -1), (tpk.F_NANBIN, tpk.NO_BIN16),
                  (tpk.F_DEFLEFT, 2), (tpk.F_UNUSED, 1)):
         bad = rec.copy()
         bad[1, 2, f] = v

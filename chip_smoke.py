@@ -47,9 +47,14 @@ Phases, each printing one JSON line:
    4 updates grow a no-op tree without ending training.
 6. full: the repo's north-star shape, HIGGS-like data (28 numeric features,
    max_bin 63) and a seeded synthetic 500-tree x 255-leaf binary model
-   written as LightGBM model text: ``Dataset`` over 1M rows, ``train(params,
-   ds, 0, init_model=path)``, ``predict`` on 1M more rows.  The kernel's
-   launch count is read around that ``predict`` call alone; then the kernel
+   written as LightGBM model text: ``Dataset`` over 1M rows (binned on the
+   card by ``bin_rows``), ``train(params, ds, 0, init_model=path)``,
+   ``predict`` on 1M more rows (uploaded raw and binned on the card).  The
+   kernels' launch counts are read around that ``predict`` call alone; its
+   ``bin_rows`` launch and the Dataset's are replayed through the plain
+   version and held to the host's ``construct_binned`` byte for byte, and
+   timed (``predict_breakdown_s``: tables, upload, binning; beside it the
+   host binning and bins upload predict ran before); then K1
    is held bit for bit against its plain version on all rows, the scores
    against the host walk on a 20 000-row subsample, and the kernel, the
    plain version, the host walk and ``predict`` are timed; the line also
@@ -143,11 +148,11 @@ Phases, each printing one JSON line:
    devices: 20 000 rows of two dense columns and six mutually exclusive
    sparse ones that EFB bundles at the default max_bin 255 (3 groups, one
    of 1525 bins), dyadic custom gradients (quantized: power-of-two scales)
-   under stream, scatter, GOSS (fused: K3), bagging, quantized gradients
-   and K = 3 lockstep under stream and scatter, byte-identical text on the
-   CPU and the card, every card run through its kernel's 16-bit form;
-   every K2 (three forms), K3, K4, K5 and K8 launch replayed bit-equal;
-   ``hist_backend="pallas"`` refused ("not yet ported"); K1 over 16-bit
+   under stream, scatter, pallas, GOSS (fused: K3), bagging, quantized
+   gradients and K = 3 lockstep under stream and scatter, byte-identical
+   text on the CPU and the card, every card run through its kernel's
+   16-bit form, pallas's card text equal to scatter's; every K2 (three
+   forms), K3, K4, K5, K7 and K8 launch replayed bit-equal; K1 over 16-bit
    bins bit-equal to its plain version and within rtol 1e-4 / atol 1e-5 of
    the host walk.
 16. train_wide: the LightGBM paper's Flight Delay set in shape: make_airline_
@@ -162,6 +167,9 @@ Phases, each printing one JSON line:
    bins, Bmax, ``s_per_tree``, ``train_s``; one tree's launches of each arm
    replayed bit-equal and timed beside the bound and ``index_add_``; one
    iteration timed phase by phase.  It raises if no group passes 256 bins.
+   A pallas arm (10 iterations: K7's 16-bit form) must grow scatter's text.
+   The Dataset and the held-out rows are binned on the card (16-bit),
+   every ``bin_rows`` launch held to its plain version and the host.
 17. hist_adversarial: K5, K8 and both forms of K2 launched on synthetic
    inputs made from ``--seed`` (outside any main path's launch counts),
    each held bit-equal to its plain version: every row in slot 0 and bin
@@ -180,8 +188,10 @@ Phases, each printing one JSON line:
    row count with unaligned bins; each list also over 16-bit bins (Bmax
    257, 1524, past a tile's shared memory so that tiles hold a range of
    bins, 40 000; K = 10; N = 0, 1 and ragged; unaligned bins; K3 records
-   with thresholds and missing bins past 255).  After the cells, so that
-   they run as they did before it existed.
+   with thresholds and missing bins past 255; K7 at Bmax 257, 301, 700
+   and 1525, the top bin, empty slots, and bin-tiled plans at 12 000 and
+   40 000 bins).  After the cells, so that they run as they did before it
+   existed.
 18. predict_adversarial: K1 on synthetic trees and bins made from
    ``--seed``, each class bit-equal to its plain version: NaN, zero, EFB
    and categorical nodes, early stop, trees of 16 383 leaves (walked from
@@ -190,13 +200,25 @@ Phases, each printing one JSON line:
    ragged N, 3000 groups (bins in global memory), unaligned bins; then
    16-bit bins (thresholds and bins past 32 767, NaN bins past 510, every
    form of the kernel).
+19. bin_adversarial: ``bin_rows`` on rows made from ``--seed``
+   (``BIN_ADVERSARIAL``): NaN, +-inf, -0.0, every bound and one ulp either
+   side under MISSING_NAN, MISSING_ZERO and none; categorical features of
+   5000 categories (past 4096 and 256 bins), of 20 and of 256, with
+   negative, non-integer, unseen and |v| >= 2**63 values; an EFB bundle of
+   overlapping sparse features; uint8 and 16-bit output, rows and
+   transposed; the predict form's sentinels (widened past 255); N = 1,
+   ragged N; and 30 000 features (rows read from global memory, two
+   upload chunks), each byte-equal to its plain version on the card and to
+   the host (``construct_binned`` or the old sentinel re-bin).
 
 Then a ``kernels`` line (each ported kernel's launches on its main path,
 largest error against its plain version, time, plain time, bound and
 library time; K5's entry also ``by_max_bin``, its replayed launches'
 times at max_bin 63 and 255; K1's, K2's and K4's also ``categorical``, the
-same numbers on the categorical cell; K1's, K2's, K2 int's, K3's, K5's and
-K8's also ``wide``, their 16-bit forms' numbers on the Flight Delay cell),
+same numbers on the categorical cell; K1's, K2's, K2 int's, K3's, K5's, K7's
+and K8's also ``wide``, their 16-bit forms' numbers on the Flight Delay
+cell; ``bin_rows``, which replaces no TPU kernel but the JAX package's
+native host binner, its launches in phase full's ``predict``),
 the card's name and power limit as
 nvidia-smi prints them, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failure raises and exits non-zero; without a CUDA device
@@ -234,7 +256,8 @@ KERNEL_SOURCES = {
     "scatter_hist": "lightgbm_torch/kernels/csrc/hist_rows.cu",
     "hist_direct": "lightgbm_torch/kernels/csrc/hist_sorted.cu",
     "hist_nibble": "lightgbm_torch/kernels/csrc/hist_sorted.cu",
-    "hist_wide": "lightgbm_torch/kernels/csrc/hist_rows.cu"}
+    "hist_wide": "lightgbm_torch/kernels/csrc/hist_rows.cu",
+    "bin_rows": "lightgbm_torch/kernels/csrc/bin_rows.cu"}
 KERNEL_REPLACES = {
     "predict_stream": "lightgbm_tpu/pallas/predict_kernel.py:176",
     "route_and_hist": "lightgbm_tpu/pallas/stream_kernel.py:580",
@@ -245,7 +268,9 @@ KERNEL_REPLACES = {
     "scatter_hist": "lightgbm_tpu/pallas/scatter_hist_kernel.py:103",
     "hist_direct": "lightgbm_tpu/pallas/hist_kernel.py:158",
     "hist_nibble": "lightgbm_tpu/pallas/hist_kernel.py:194",
-    "hist_wide": "lightgbm_tpu/pallas/hist_kernel.py:305"}
+    "hist_wide": "lightgbm_tpu/pallas/hist_kernel.py:305",
+    # no pallas_call: the JAX package bins rows on the host, in native C++
+    "bin_rows": "lightgbm_tpu/native/binner.cpp:164"}
 # the histogram kernels of the non-stream backends
 HIST_KERNELS = ("scatter_hist", "hist_direct", "hist_nibble")
 
@@ -601,6 +626,329 @@ def k1_work(inp, use, max_depth, rows):
     return n_bytes, n_ops
 
 
+# ------------------------------------------------------------------------
+# rows binned on the card (bin_rows)
+# ------------------------------------------------------------------------
+
+def host_predict_bins(X, mappers, groups, cat_feats):
+    """The (N, G) host bins that ``Booster.predict`` walked before rows were
+    binned on the card: ``construct_binned`` with the training mappers and
+    groups, widened to uint16 where a split categorical feature has more
+    than 255 bins, each such feature's NaN, negative and unseen values
+    re-binned to its sentinel bin ``num_bins``.  The oracle of bin_rows'
+    predict form."""
+    from lightgbm_torch.binning import construct_binned, device_group_order
+
+    bins = construct_binned(X, mappers, groups).bins
+    if (bins.dtype == np.uint8 and cat_feats
+            and max(mappers[f].num_bins for f in cat_feats) > 255):
+        bins = bins.astype(np.uint16)
+    group_of = {f: gi for gi, g in enumerate(
+        device_group_order(groups, mappers)) for f in g}
+    for f in sorted(cat_feats):
+        m = mappers[f]
+        v = X[:, f]
+        ivc = np.where(np.isnan(v), -1.0, v)
+        ivc = np.clip(ivc, -1.0, float(2 ** 62)).astype(np.int64)
+        ok = (ivc >= 0) & np.isin(ivc, m.categories.astype(np.int64))
+        bins[~ok, group_of[f]] = m.num_bins
+    return bins
+
+
+class BinCapture:
+    """Records every ``bin_rows`` call (its chunk of rows, tables, output
+    and first row) while active, by wrapping the dispatcher that
+    ``bin_matrix`` calls.  The calls still go through the kernel's wrapper
+    and are counted there."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from lightgbm_torch.kernels import bin_rows as br
+        self._orig = orig = br.bin_rows
+
+        def call(x, tables, out, row0=0, transpose=False):
+            res = orig(x, tables, out, row0, transpose)
+            self.calls.append((x, tables, out, row0, transpose))
+            return res
+
+        br.bin_rows = call
+        return self
+
+    def __exit__(self, *exc):
+        from lightgbm_torch.kernels import bin_rows as br
+        br.bin_rows = self._orig
+
+
+def replay_bin_rows(cap, host=None):
+    """Every captured bin_rows launch through its plain version on the card
+    (the same chunk and tables, a fresh output); raises unless the bins are
+    equal byte for byte, and, where ``host`` (N, G) host bins are given,
+    unless the captured output equals them too.  Returns the launches
+    replayed and the largest difference of bin values."""
+    import torch
+    from lightgbm_torch.kernels import bin_rows as br
+    from lightgbm_torch.kernels.layout import bin_values, bins_to_numpy
+
+    outs = {}
+    for x, tables, out, row0, transpose in cap.calls:
+        want = outs.setdefault(id(out), (out, torch.zeros_like(out)))[1]
+        br.bin_rows_plain(x, tables, want, row0, transpose)
+    err = 0.0
+    for out, want in outs.values():
+        err = max(err, max_abs_diff(bin_values(out), bin_values(want)))
+        if not torch.equal(out, want):
+            raise RuntimeError(f"bin_rows differs from its plain version "
+                               f"(max abs {err})")
+    if host is not None:
+        (out, transpose) = (cap.calls[-1][2], cap.calls[-1][4])
+        got = bins_to_numpy(out)
+        got = got.T if transpose else got
+        if got.dtype != host.dtype or not np.array_equal(got, host):
+            raise RuntimeError(f"bin_rows differs from the host bins "
+                               f"({got.dtype} {got.shape} against "
+                               f"{host.dtype} {host.shape})")
+    return len(cap.calls), err
+
+
+def split_cat_features(use):
+    """The categorical features the trees split on: those whose values
+    ``Booster.predict`` bins in the predict form (sentinels)."""
+    cats = set()
+    for t in use:
+        ni = max(t.num_leaves - 1, 0)
+        dt = np.asarray(t.decision_type[:ni]).astype(np.int64)
+        cats.update(int(f) for f in
+                    np.asarray(t.split_feature[:ni])[(dt & 1) > 0])
+    return cats
+
+
+def predict_replayed(bst, X, **kw):
+    """``Booster.predict`` on the host rows X with its bin_rows launches
+    captured, each replayed through the plain version on the card, and the
+    card's bins held byte for byte to the host's old path
+    (``host_predict_bins``).  Returns the prediction, the seconds it took,
+    the capture, and the launches replayed and their largest difference."""
+    use, _, _, _ = bst._resolve_tree_slice(0, None)
+    with BinCapture() as cap:
+        t0 = time.perf_counter()
+        pred = bst.predict(X, **kw)
+        seconds = time.perf_counter() - t0
+    if not cap.calls:
+        raise RuntimeError("predict binned no rows on the card")
+    tb = bst.engine.train_data.binned
+    with np.errstate(invalid="ignore"):
+        host = host_predict_bins(np.asarray(X, np.float64), tb.bin_mappers,
+                                 tb.group_features, split_cat_features(use))
+    return (pred, seconds, cap) + replay_bin_rows(cap, host)
+
+
+def construct_replayed(ds, X):
+    """``Dataset.construct`` on the card with its bin_rows launches
+    captured, each replayed through the plain version on the card, and the
+    card's bins held byte for byte to ``construct_binned`` on the host.
+    Returns the seconds ``construct`` took (the checks after it not
+    counted), the capture, the launches replayed and their largest
+    difference."""
+    from lightgbm_torch.binning import construct_binned
+    with BinCapture() as cap:
+        t0 = time.perf_counter()
+        ds.construct()
+        seconds = time.perf_counter() - t0
+    b = ds.binned
+    with np.errstate(invalid="ignore"):
+        host = construct_binned(X, b.bin_mappers, b.group_features).bins
+    if not np.array_equal(b.bins, host):
+        raise RuntimeError("a Dataset's host copy of its card bins differs "
+                           "from construct_binned")
+    return (seconds, cap) + replay_bin_rows(cap, host)
+
+
+def bin_rows_work(x, tables):
+    """Bytes and operations one bin_rows launch needs: each raw value read
+    once, each group's bin written once, the tables read once; per value of
+    a feature in a group a binary search (one compare a level, two more for
+    the NaN test and the assembly)."""
+    from lightgbm_torch.kernels import bin_rows as br
+    n = x.shape[0]
+    tab_bytes = sum(t.numel() * t.element_size() for t in (
+        tables.feats, tables.group_start, tables.bounds, tables.cats,
+        tables.cat_bins))
+    n_bytes = x.numel() * 8 + n * tables.num_groups * tables.out_bytes \
+        + tab_bytes
+    levels = sum(int(max(r[br.F_BOUNDS_LEN], r[br.F_CATS_LEN])).bit_length()
+                 + 2 for r in tables.host_feats)
+    return n_bytes, n * levels
+
+
+def time_bin_rows(cap):
+    """The largest captured bin_rows launch timed: the kernel
+    (``device_ms``, into a scratch output), its plain version (CUDA events,
+    one call) and its bound."""
+    import torch
+    from lightgbm_torch.kernels import bin_rows as br
+
+    x, tables, out, _, transpose = max(cap.calls,
+                                       key=lambda c: c[0].shape[0])
+    n = x.shape[0]
+    scratch = torch.empty((tables.num_groups, n) if transpose
+                          else (n, tables.num_groups), dtype=out.dtype,
+                          device=out.device)
+    ms = device_ms(lambda: br.bin_rows_cuda(x, tables, scratch, 0,
+                                            transpose), reps=10)
+    plain = cuda_ms(lambda: br.bin_rows_plain(x, tables, scratch, 0,
+                                              transpose), reps=1, warmup=0)
+    bnd = bound(*bin_rows_work(x, tables))
+    return {"rows": n, "features": int(x.shape[1]),
+            "groups": tables.num_groups, "out_bytes": tables.out_bytes,
+            "transpose": bool(transpose), "plan": list(br.bin_plan(
+                n, int(x.shape[1]))), "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def bin_adversarial_data(seed, n):
+    """Mappers, groups and (n, F) rows for bin_rows' edge cases, from
+    ``seed``: numeric features under MISSING_NAN (0), MISSING_ZERO (1) and
+    none (2); categorical features of 5000 categories (3, past the host's
+    4096-category path and 256 bins), 20 (4, negative values dropped) and
+    256 (5, whose sentinel bin passes uint8); and three sparse numeric
+    features (6, 7, 8) with overlapping non-zeros, bundled into one group.
+    The rows mix draws with NaN, +-inf, -0.0, each bound and one ulp on
+    either side of it, and for the categorical columns unseen, negative,
+    non-integer and |v| >= 2**63 values."""
+    from lightgbm_torch.binning import BinMapper
+
+    rs = np.random.RandomState(seed)
+    m = 20_000
+    s_nan = rs.randn(m)
+    s_nan[rs.rand(m) < 0.1] = np.nan
+    s_zero = np.where(rs.rand(m) < 0.3, 0.0, rs.randn(m))
+    s_none = rs.randn(m) * 100
+    mappers = [BinMapper.find_numerical(s_nan, 255, 3, True, False),
+               BinMapper.find_numerical(s_zero, 63, 3, True, True),
+               BinMapper.find_numerical(s_none, 63, 3, False, False),
+               BinMapper.find_categorical(
+                   np.concatenate([np.arange(5000), rs.randint(0, 6000, m)]),
+                   5000, 1, True),
+               BinMapper.find_categorical(rs.randint(-3, 20, m), 255, 1,
+                                          True),
+               BinMapper.find_categorical(
+                   np.concatenate([np.arange(256), rs.randint(0, 256, m)]),
+                   256, 1, True)]
+    sparse = []
+    for _ in range(3):
+        col = np.where(rs.rand(m) < 0.2, rs.rand(m) + 0.5, 0.0)
+        mappers.append(BinMapper.find_numerical(col, 15, 3, True, False))
+        sparse.append(col)
+    F = len(mappers)
+    X = np.zeros((n, F))
+    for f, mp in enumerate(mappers):
+        if mp.bin_type == 1:
+            cats = mp.categories.astype(np.float64)
+            special = np.array([np.nan, np.inf, -np.inf, -0.0, -0.5, -1.0,
+                                -7.0, 0.5, 2.0 ** 62, 2.0 ** 63, -2.0 ** 63,
+                                1e19, -1e19, 1e300, cats.max() + 1,
+                                cats.max() + 1000, 3.7])
+            pick = rs.rand(n)
+            col = rs.choice(cats, n)
+            col = np.where(pick < 0.2, rs.choice(special, n), col)
+            col = np.where((pick > 0.2) & (pick < 0.3),
+                           col + rs.choice([0.25, 0.75, -0.25], n), col)
+            edges = special
+        else:
+            ub = mp.upper_bounds[np.isfinite(mp.upper_bounds)]
+            edges = np.concatenate([ub, np.nextafter(ub, np.inf),
+                                    np.nextafter(ub, -np.inf)]) \
+                if len(ub) else np.zeros(1)
+            special = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0,
+                                np.nextafter(0.0, 1.0),
+                                np.nextafter(0.0, -1.0)])
+            pick = rs.rand(n)
+            col = (rs.choice(sparse[f - 6], n) if f >= 6
+                   else rs.randn(n) * (100 if f == 2 else 1))
+            col = np.where(pick < 0.3, rs.choice(edges, n), col)
+            col = np.where((pick > 0.3) & (pick < 0.4),
+                           rs.choice(special, n), col)
+        # every edge value at least once, in the first rows
+        k = min(n, len(edges))
+        col[:k] = edges[:k]
+        X[:, f] = col
+    groups = [[0], [1], [2], [3], [4], [5], [6, 7, 8]]
+    return mappers, groups, X
+
+
+# (label, rows, features of bin_adversarial_data's mappers, sentinel
+# features, transpose)
+BIN_ADVERSARIAL = (
+    ("b16_rows", 250_001, (0, 1, 2, 3, 4, 5, 6, 7, 8), (), False),
+    ("b16_transposed", 250_001, (0, 1, 2, 3, 4, 5, 6, 7, 8), (), True),
+    ("b8_rows", 1_000_003, (0, 1, 2, 4, 6, 7, 8), (), False),
+    ("b8_transposed", 1_000_003, (0, 1, 2, 4, 6, 7, 8), (), True),
+    ("predict_b16", 250_001, (0, 1, 2, 3, 4, 5, 6, 7, 8), (3, 4, 5), True),
+    ("predict_b8_widened", 100_003, (0, 1, 2, 4, 5, 6, 7, 8), (4, 5),
+     True),
+    ("predict_b8", 100_003, (0, 1, 2, 4, 6, 7, 8), (4,), True),
+    ("n1", 1, (0, 1, 2, 3, 4, 5, 6, 7, 8), (3,), True),
+)
+
+
+def phase_bin_adversarial(seed):
+    """bin_rows on ``BIN_ADVERSARIAL``'s edge cases and on rows wider than
+    a block's shared memory (30 000 features, read from global memory),
+    each output held byte-equal to its plain version on the card and to
+    the host (``construct_binned``, or for the predict form the host's
+    old sentinel re-bin, ``host_predict_bins``).  Outside any main path's
+    launch counts.  Returns the largest difference."""
+    import torch
+    from lightgbm_torch.binning import construct_binned, device_group_order
+    from lightgbm_torch.kernels import bin_rows as br
+
+    dev = torch.device("cuda")
+    mappers, groups, X = bin_adversarial_data(seed, 1_000_003)
+    cases, err = {}, 0.0
+    for i, (label, n, feats, sentinel, transpose) in enumerate(
+            BIN_ADVERSARIAL + (("wide_rows_unstaged", 2000, None, (),
+                                True),)):
+        if feats is None:
+            rs = np.random.RandomState(seed + 1)
+            Xc = rs.randn(n, 30_000)
+            Xc[rs.rand(n, 30_000) < 0.01] = np.nan
+            ms = [mappers[0]] * Xc.shape[1]
+            gs = [[f] for f in range(Xc.shape[1])]
+        else:
+            # the chosen features, renumbered; their groups as they were
+            where = {f: j for j, f in enumerate(feats)}
+            Xc = np.ascontiguousarray(X[:n, list(feats)])
+            ms = [mappers[f] for f in feats]
+            gs = [[where[f] for f in g if f in where] for g in groups]
+            gs = [g for g in gs if g]
+            sentinel = [where[f] for f in sentinel]
+        gs = device_group_order(gs, ms)
+        tables = br.bin_tables(ms, gs, dev, sentinel=sentinel)
+        with BinCapture() as cap, np.errstate(invalid="ignore"):
+            out = br.bin_matrix(Xc, tables, transpose=transpose)
+        torch.cuda.synchronize()
+        host = (host_predict_bins(Xc, ms, gs, sentinel) if sentinel else
+                construct_binned(Xc, ms, gs).bins)
+        launches, diff = replay_bin_rows(cap, host)
+        err = max(err, diff)
+        cases[label] = {"rows": n, "features": int(Xc.shape[1]),
+                        "groups": len(gs), "sentinel": list(sentinel),
+                        "transpose": transpose,
+                        "out_bytes": tables.out_bytes,
+                        "plan": list(br.bin_plan(n, int(Xc.shape[1]))),
+                        "launches": launches, "max_abs_err": diff}
+        del out, cap
+    if not (cases["wide_rows_unstaged"]["plan"][3] == 0
+            and cases["b8_rows"]["plan"][3] == 1):
+        raise RuntimeError("bin_rows' cases did not run both staged and "
+                           "unstaged")
+    emit({"phase": "bin_adversarial", "cases": cases,
+          "all_byte_equal": True, "max_abs_err": err})
+    return {"bin_rows": err}
+
+
 def phase_small(seed, tmp):
     """Mixed features, binary and 3-class, with and without early stop, and
     a zero-as-missing Dataset."""
@@ -656,14 +1004,17 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
     from lightgbm_torch import kernels
     from lightgbm_torch.basic import _host_predict, _to_2d_float
     from lightgbm_torch.kernels import predict as tpk
+    from lightgbm_torch.kernels.layout import pack_bins_T
 
     t0 = time.perf_counter()
     X, y = make_higgs_like(rows, 28, seed)
     Xs, ys = make_higgs_like(rows, 28, seed + 1)
     params = {"objective": "binary", "num_leaves": num_leaves, "max_bin": 63,
               "verbosity": -1}
-    ds = lt.Dataset(X, label=y, params=dict(params)).construct()
+    ds = lt.Dataset(X, label=y, params=dict(params))
     t_data = time.perf_counter() - t0
+    construct_s, _, ds_launches, ds_err = construct_replayed(ds, X)
+    t_data += construct_s
     rs = np.random.RandomState(seed + 2)
     trees = [random_tree(rs, ds.bin_mappers(), num_leaves)
              for _ in range(n_trees)]
@@ -676,15 +1027,14 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
 
     bst.predict(Xs[:sub_rows])             # warm the host side once
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    pred = bst.predict(Xs, raw_score=True)
-    t_predict = time.perf_counter() - t0
+    pred, t_predict, bin_cap, bin_replayed, bin_err = predict_replayed(
+        bst, Xs, raw_score=True)
     launches = kernels.launch_counts()
     if pred.shape != (rows,) or not np.isfinite(pred).all():
         raise RuntimeError("predict returned a wrong shape or non-finite "
                            "scores")
-    if launches["predict_stream"] == 0:
-        raise RuntimeError("predict_stream was not launched by predict")
+    if launches["predict_stream"] == 0 or launches["bin_rows"] == 0:
+        raise RuntimeError(f"predict launched {launches}")
 
     inp, (got,), err = check_kernel_against_plain(bst, Xs)
     if not np.array_equal(got.cpu().numpy().astype(np.float64), pred):
@@ -696,11 +1046,22 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
     t_host = time.perf_counter() - t0
     np.testing.assert_allclose(pred[:sub_rows], host, rtol=RTOL, atol=ATOL)
 
-    # host stages of the device path as predict runs them (its float64 copy
-    # of the rows made first, as predict makes it)
+    # stages of the device path as predict runs them (its float64 copy of
+    # the rows made first, as predict makes it), and the host binning and
+    # upload of the bins that predict ran before rows were binned on the
+    # card, on the same rows
     breakdown = {}
-    bst._device_predict_inputs(_to_2d_float(Xs), use, 1, None,
+    bst._device_predict_inputs(_to_2d_float(Xs)[0], use, 1, None,
                                times=breakdown)
+    tb = bst.engine.train_data.binned
+    t0 = time.perf_counter()
+    pack_bins_T(host_predict_bins(Xs, tb.bin_mappers, tb.group_features,
+                                  split_cat_features(use)), torch.device(
+                                      "cuda"))
+    torch.cuda.synchronize()
+    host_binning_s = time.perf_counter() - t0
+    bin_time = time_bin_rows(bin_cap)
+    del bin_cap
     nodes, lv, words, depths = inp.classes[0]
     maxd = int(max(depths))
     ms = device_ms(lambda: tpk.predict_stream_cuda(inp.bins_T, nodes, lv,
@@ -740,13 +1101,19 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
               "library_ms": None}
     emit({"phase": "full", "card": smi, "rows": rows, "features": 28, "trees": n_trees,
           "num_leaves": num_leaves, "max_depth": maxd,
-          "dataset_s": t_data, "train0_s": t_train0, "predict_s": t_predict,
+          "dataset_s": t_data, "construct_s": construct_s,
+          "train0_s": t_train0, "predict_s": t_predict,
           "predict_rows_per_s": rows / t_predict,
           "kernel_ms": ms, "kernel_rows_per_s": rows / (ms / 1e3),
           "plain_ms": plain_ms, "host_walk_s": t_host,
           "host_walk_rows": sub_rows,
           "max_abs_err_vs_host": float(np.abs(pred[:sub_rows] - host).max()),
-          "predict_breakdown_s": breakdown, "node_visits": visits,
+          "predict_breakdown_s": breakdown,
+          "host_binning_upload_s": host_binning_s,
+          "bin_rows": {**bin_time, "launches": launches["bin_rows"],
+                       "replayed": bin_replayed, "max_abs_err": bin_err,
+                       "dataset_launches_replayed": ds_launches},
+          "node_visits": visits,
           "bytes": n_bytes, "ops": n_ops, "ops_per_visit": n_ops / visits,
           "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
           "plan": plan._asdict(), "walk_lane_efficiency": lane_eff,
@@ -754,7 +1121,15 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
           "record_bytes_per_visit": record_bytes / visits,
           "stage_copy_bytes": stage_bytes,
           "stage_copy_gb_per_s": stage_bytes / (ms / 1e3) / 1e9})
-    return kernel, ds, Xs, ys
+    binner = {"name": "bin_rows", "route": "cuda",
+              "source": KERNEL_SOURCES["bin_rows"],
+              "replaces": KERNEL_REPLACES["bin_rows"],
+              "launches": launches["bin_rows"],
+              "max_abs_err": max(bin_err, ds_err),
+              "ms": bin_time["ms"], "plain_ms": bin_time["plain_ms"],
+              "bound_ms": bin_time["bound_ms"],
+              "bound_by": bin_time["bound_by"], "library_ms": None}
+    return kernel, binner, ds, Xs, ys
 
 
 # --------------------------------------------------------------------------
@@ -2021,14 +2396,16 @@ def k6_adversarial_inputs(seed, n, G, S, Bmax, kind, T, offset=0):
     "edge" every row in slot 0 (the root's plan) and bin 0 with weights
     +-1.5 and 1.5, so that at the shift hist_shift picks the sums reach
     2**61; "single_rows" one row in each of S - 1 slots and none in the
-    last.  ``offset`` > 0 hands the kernel views that start that many
-    elements into their storage, so that no operand is 16-byte aligned."""
+    last; "top_bin" every bin Bmax - 1.  Past 256 bins the bins are 16-bit
+    (int16 storage).  ``offset`` > 0 hands the kernel views that start that
+    many elements into their storage, so that no operand is 16-byte
+    aligned."""
     import torch
     from lightgbm_torch.ops.compact import plan_blocks, plan_single_slot
     from lightgbm_torch.ops.histogram import hist_shift
 
     rs = np.random.RandomState(seed)
-    bins = rs.randint(0, Bmax, size=(n, G)).astype(np.uint8)
+    bins = rs.randint(0, Bmax, size=(n, G)).astype(bin_dtype(Bmax))
     slot = np.where(rs.rand(n) < 0.5, rs.randint(0, S, size=n),
                     -1).astype(np.int32)
     grad = rs.randn(n).astype(np.float32)
@@ -2046,6 +2423,8 @@ def k6_adversarial_inputs(seed, n, G, S, Bmax, kind, T, offset=0):
         slot[:] = -1
         slot[rs.choice(n, size=min(n, S - 1), replace=False)] = \
             np.arange(min(n, S - 1))
+    elif kind == "top_bin":
+        bins[:] = Bmax - 1
     shift = hist_shift(float(max(np.abs(grad).max(initial=0.0),
                                  np.abs(hess).max(initial=0.0))), n)
     dev = torch.device("cuda")
@@ -2054,7 +2433,8 @@ def k6_adversarial_inputs(seed, n, G, S, Bmax, kind, T, offset=0):
 
     def view(x):
         # a contiguous view ``offset`` elements into its storage
-        flat = torch.as_tensor(np.ascontiguousarray(x)).reshape(-1).to(dev)
+        flat = (bins_tensor(x, dev) if x is bins else
+                torch.as_tensor(np.ascontiguousarray(x)).reshape(-1).to(dev))
         t = torch.cat([flat[:offset], flat]) if offset else flat
         return t[offset:].view(x.shape)
 
@@ -2094,6 +2474,20 @@ K7_ADVERSARIAL = (
     ("k7_n1", 1, 28, 3, 255, "random", 1024, 0),
     ("k7_n0", 0, 28, 3, 255, "random", 1024, 0),
     ("k7_g27_unaligned_ragged", 250_001, 27, 13, 255, "random", 999, 1),
+    # 16-bit bins: Bmax 257, 301 (the Flight Delay cell's) and 1525, the
+    # top bin, slots with no rows, 64 slots, a bin-tiled plan (a group of
+    # more than 11 622 bins: one group a tile, a range of bins), unaligned
+    ("k7_wide_b257", 500_000, 8, 16, 257, "random", 1024, 0),
+    ("k7_wide_b301_s64", 1_000_000, 8, 64, 301, "random", 1024, 0),
+    ("k7_wide_b301_root", 500_000, 8, 1, 301, "edge", 1024, 0),
+    ("k7_wide_b1525_top_bin", 300_000, 3, 16, 1525, "top_bin", 1024, 0),
+    ("k7_wide_b1525_single_rows", 100_000, 3, 64, 1525, "single_rows",
+     1024, 0),
+    ("k7_wide_bin_tiles", 200_000, 3, 8, 40_000, "random", 1024, 0),
+    ("k7_wide_bin_tiles_top_bin", 100_000, 2, 4, 12_000, "top_bin", 1024,
+     0),
+    ("k7_wide_unaligned_ragged", 250_001, 9, 13, 700, "random", 999, 1),
+    ("k7_wide_n1", 1, 8, 3, 301, "random", 1024, 0),
 )
 
 
@@ -2289,6 +2683,8 @@ def phase_hist_adversarial(seed):
         torch.cuda.synchronize()
         diff = max_abs_diff(out, want)
         err[name] = max(err[name], diff)
+        if Bmax > 256:
+            err[name + "_wide"] = max(err.get(name + "_wide", 0.0), diff)
         if not (torch.equal(out, want) and torch.isfinite(out).all()):
             raise RuntimeError(f"{label}: {name} differs from its plain "
                                f"version (max abs {diff})")
@@ -2300,6 +2696,8 @@ def phase_hist_adversarial(seed):
                         "rows_counted": float(want[..., 2].sum().item()),
                         "max_abs_err": diff}
         del args, out, want
+    if not any(cases[c[0]]["plan"][7] > 1 for c in K7_ADVERSARIAL):
+        raise RuntimeError("no K7 case ran a bin-tiled plan")
     err["route_replay"] = 0.0
     forms = set()
     for i, (label, n, G, R, L, Bmax, kind, off) in \
@@ -3379,8 +3777,10 @@ def phase_train_categorical(seed, smi, rows=1_000_000, held_out=250_000,
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
               "learning_rate": 0.1, "verbosity": -1}
     ds = lt.Dataset(X, label=y, categorical_feature=AIRLINE_CATEGORICAL,
-                    params={"max_bin": 255}).construct()
+                    params={"max_bin": 255})
     data_s = time.perf_counter() - t0
+    construct_s, _, ds_bin_launches, ds_bin_err = construct_replayed(ds, X)
+    data_s += construct_s
     mappers = ds.bin_mappers()
     num_bins = [int(m.num_bins) for m in mappers]
     grown = KeepGrownTrees()
@@ -3403,9 +3803,7 @@ def phase_train_categorical(seed, smi, rows=1_000_000, held_out=250_000,
     # held-out prediction through K1 (the host side warmed once)
     bst.predict(Xs[:20_000])
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    pred = bst.predict(Xs)
-    predict_s = time.perf_counter() - t0
+    pred, predict_s, _, bin_launches, bin_err = predict_replayed(bst, Xs)
     k1_launches = kernels.launch_counts()["predict_stream"]
     held_auc = auc(ys, pred)
     if not (k1_launches > 0 and pred.shape == (held_out,)
@@ -3413,9 +3811,14 @@ def phase_train_categorical(seed, smi, rows=1_000_000, held_out=250_000,
         raise RuntimeError(f"categorical predict: {k1_launches} K1 "
                            f"launches, AUC {held_auc}")
     use, _, _, _ = bst._resolve_tree_slice(0, None)
+    sentinels = sorted(split_cat_features(use))
+    if not sentinels:
+        raise RuntimeError("the categorical model splits no categorical "
+                           "feature: predict ran no sentinel bins")
+    use, _, _, _ = bst._resolve_tree_slice(0, None)
     breakdown = {}
     path = ("device" if bst._device_predict_inputs(
-        _to_2d_float(Xs), use, 1, None, times=breakdown) is not None
+        _to_2d_float(Xs)[0], use, 1, None, times=breakdown) is not None
         else "host")
     inp, (got,), k1_err = check_kernel_against_plain(bst, Xs)
     nodes, lv, words, depths = inp.classes[0]
@@ -3470,7 +3873,13 @@ def phase_train_categorical(seed, smi, rows=1_000_000, held_out=250_000,
           "held_out_auc": held_auc, "numeric_only_auc": numeric_auc,
           "numeric_only_train_s": numeric_train_s,
           "predict_s": predict_s, "predict_path": path,
-          "predict_breakdown_s": breakdown, "k1_launches": k1_launches,
+          "predict_breakdown_s": breakdown,
+          "bin_rows": {"construct_s": construct_s,
+                       "dataset_launches_replayed": ds_bin_launches,
+                       "predict_launches_replayed": bin_launches,
+                       "sentinel_features": sentinels,
+                       "max_abs_err": max(bin_err, ds_bin_err)},
+          "k1_launches": k1_launches,
           "k1_ms": k1_ms, "k1_plain_ms": k1_plain, "k1_bound_ms": k1_bnd[0],
           "k1_bound_by": k1_bnd[1], "k1_equals_plain": True,
           "profiled_iteration_s": profiled_s,
@@ -3490,6 +3899,7 @@ def phase_train_categorical(seed, smi, rows=1_000_000, held_out=250_000,
           "rows": held_out, "trees": len(use), "ms": k1_ms,
           "plain_ms": k1_plain, "bound_ms": k1_bnd[0], "bound_by": k1_bnd[1]}
     err["predict_stream"] = k1_err
+    err["bin_rows"] = max(bin_err, ds_bin_err)
     return {"route_and_hist": k2, "leaf_gather": k4,
             "predict_stream": k1}, err
 
@@ -3538,14 +3948,15 @@ def wide_group_bins(bst):
 def phase_train_wide_small(seed, n=20_000, iters=3, num_leaves=31):
     """Training on 16-bit bins on both devices: make_wide_small's rows at
     the defaults (3 groups, one of ~1500 bins), dyadic custom gradients
-    (quantized: power-of-two scales) under stream, scatter, GOSS (127
-    leaves at budget 64: fused, K3), bagging, quantized gradients and K = 3
-    in lockstep under stream and scatter, each byte-identical on the CPU
-    and the card, the card's runs through the 16-bit forms; every K2 (three
-    forms), K3, K4, K5 and K8 launch of the card's runs replayed bit-equal
-    through its plain version; pallas refusing such bins; K1 over 16-bit
-    bins on a binary model trained on the card, bit-equal to its plain
-    version and within rtol 1e-4 / atol 1e-5 of the host walk."""
+    (quantized: power-of-two scales) under stream, scatter, pallas, GOSS
+    (127 leaves at budget 64: fused, K3), bagging, quantized gradients and
+    K = 3 in lockstep under stream and scatter, each byte-identical on the
+    CPU and the card, the card's runs through the 16-bit forms, pallas's
+    card text equal to scatter's; every K2 (three forms), K3, K4, K5, K7
+    and K8 launch of the card's runs replayed bit-equal through its plain
+    version; K1 over 16-bit bins on a binary model trained on the card,
+    bit-equal to its plain version and within rtol 1e-4 / atol 1e-5 of the
+    host walk."""
     import torch
     import lightgbm_torch as lt
     from lightgbm_torch import kernels
@@ -3565,6 +3976,8 @@ def phase_train_wide_small(seed, n=20_000, iters=3, num_leaves=31):
         "stream": ({}, y, dyadic_fobj, iters, "route_and_hist"),
         "scatter": ({"hist_backend": "scatter"}, y, dyadic_fobj, iters,
                     "scatter_hist"),
+        "pallas": ({"hist_backend": "pallas"}, y, dyadic_fobj, iters,
+                   "hist_nibble"),
         "goss": (goss, y, dyadic_fobj, 4, "route_replay"),
         "bagging": ({"bagging_fraction": 0.5, "bagging_freq": 1}, y,
                     dyadic_fobj, iters, "route_and_hist"),
@@ -3574,7 +3987,7 @@ def phase_train_wide_small(seed, n=20_000, iters=3, num_leaves=31):
         "multiclass_scatter": ({**mc, "hist_backend": "scatter"}, y3,
                                dyadic_mc_fobj, 2, "hist_wide"),
     }
-    cap, out, groups = Capture(), {}, None
+    cap, out, groups, card_text = Capture(), {}, None, {}
     for name, (extra, label, fobj, n_iter, want) in runs.items():
         texts = []
         for dev in ("cpu", "cuda"):
@@ -3597,22 +4010,16 @@ def phase_train_wide_small(seed, n=20_000, iters=3, num_leaves=31):
         out[name] = {"leaves_per_tree": [t.num_leaves
                                          for t in bst.engine.models],
                      "wide_launches": {k: v for k, v in wide.items() if v}}
+        card_text[name] = texts[1]
     torch.cuda.synchronize()
     replayed, err = replay_against_plain(cap)
     need = ("route_and_hist", "route_and_hist_k", "route_and_hist_int",
-            "route_replay", "leaf_gather", "scatter_hist", "hist_wide")
+            "route_replay", "leaf_gather", "scatter_hist", "hist_nibble",
+            "hist_wide")
     if not all(replayed[k] for k in need):
         raise RuntimeError(f"the wide runs replayed {replayed}")
-    try:
-        p = {**base, "objective": "binary", "hist_backend": "pallas",
-             "device_type": "cuda"}
-        lt.train(p, lt.Dataset(X, label=y, params=p), 1)
-    except lt.LightGBMError as e:
-        if "not yet ported" not in str(e):
-            raise
-        pallas = str(e)
-    else:
-        raise RuntimeError("pallas trained on 16-bit bins")
+    if card_text["pallas"] != card_text["scatter"]:
+        raise RuntimeError("wide pallas and scatter grow different trees")
     # K1 over 16-bit bins, on a binary model trained on the card
     p = {**base, "objective": "binary", "device_type": "cuda"}
     bst = lt.train(p, lt.Dataset(X, label=y, params=p), 5)
@@ -3630,7 +4037,7 @@ def phase_train_wide_small(seed, n=20_000, iters=3, num_leaves=31):
     emit({"phase": "train_wide_small", "rows": n, "groups": groups[0],
           "group_bins": groups[1], "max_bins": groups[2], "runs": out,
           "text_identical_cpu_card": True, "replayed_launches": replayed,
-          "replay_max_abs_err": err, "pallas_refused": pallas,
+          "replay_max_abs_err": err,
           "k1_rows": len(Xt), "k1_equals_plain": True,
           "predict_max_abs_err_vs_host": float(np.abs(pred - host).max())})
     return err
@@ -3670,8 +4077,10 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
     200 000 of the rows (K8); held-out ``Booster.predict`` through K1 (AUC
     > 0.60); one tree's launches of each arm replayed bit-equal, then timed
     beside the bound and, where one exists, an ``index_add_`` call; one
-    more iteration timed phase by phase.  Returns the 16-bit entries of K1,
-    K2, K2 int, K3, K5 and K8 and the replays' largest differences."""
+    more iteration timed phase by phase; the Dataset binned on the card,
+    one chunk of its rows timed through bin_rows' training form.  Returns
+    the 16-bit entries of K1, K2, K2 int, K3, K5, K7, K8 and bin_rows and
+    the replays' largest differences."""
     import torch
     import lightgbm_torch as lt
     from lightgbm_torch import kernels
@@ -3684,8 +4093,19 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
     X, y = X[:rows], y[:rows]
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
               "learning_rate": 0.1, "verbosity": -1}
-    ds = lt.Dataset(X, label=y, params={"max_bin": 255}).construct()
+    ds = lt.Dataset(X, label=y, params={"max_bin": 255})
     data_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    construct_s, ds_cap, ds_bin_launches, ds_bin_err = construct_replayed(
+        ds, X)
+    data_s += construct_s
+    ds_bin_wide = kernels.wide_launch_counts()["bin_rows"]
+    if ds_bin_wide != ds_bin_launches:
+        raise RuntimeError(f"Flight Delay Dataset: {ds_bin_wide} of "
+                           f"{ds_bin_launches} bin_rows launches 16-bit")
+    # the training form over 16-bit bins: one (N, G) chunk of the Dataset
+    bin_time = time_bin_rows(ds_cap)
+    del ds_cap
 
     def run(extra, n_iter, data=ds, capture_at=timed_tree):
         kernels.reset_launch_counts()
@@ -3709,11 +4129,12 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
     # held-out prediction through K1 (the host side warmed once)
     bst.predict(Xs[:20_000])
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    pred = bst.predict(Xs)
-    predict_s = time.perf_counter() - t0
+    pred, predict_s, _, bin_launches, bin_err = predict_replayed(bst, Xs)
     k1_launches = kernels.wide_launch_counts()["predict_stream"]
+    bin_wide = kernels.wide_launch_counts()["bin_rows"]
     held_auc = auc(ys, pred)
+    if bin_wide == 0:
+        raise RuntimeError("wide predict binned no 16-bit rows")
     if not (k1_launches == 1 and pred.shape == (held_out,)
             and np.isfinite(pred).all() and held_auc > 0.60):
         raise RuntimeError(f"wide predict: {k1_launches} 16-bit K1 "
@@ -3759,6 +4180,18 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
     k5 = time_hist_launches("scatter_hist", s_timed.cap.k5)
     s_auc = auc(ys, s_bst.predict(Xs))
 
+    # pallas: K7's 16-bit form over the slot-sorted block plan
+    p_bst, p_timed, p_train_s, p_launches, p_wide = run(
+        {"hist_backend": "pallas"}, backend_iters)
+    if p_wide["hist_nibble"] == 0 or p_launches["route_and_hist"]:
+        raise RuntimeError(f"wide pallas: launches {p_launches}, 16-bit "
+                           f"{p_wide}")
+    if model_trees_text(p_bst) != model_trees_text(s_bst):
+        raise RuntimeError("wide pallas and scatter grow different trees")
+    p_rep, p_err = replay_against_plain(p_timed.cap)
+    k7 = time_hist_launches("hist_nibble", p_timed.cap.k67)
+    p_auc = auc(ys, p_bst.predict(Xs))
+
     # quantized gradients: K2's int form over the 16-bit bins
     q_bst, q_timed, q_train_s, _, q_wide = run({"use_quantized_grad": True},
                                                5)
@@ -3781,10 +4214,11 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
     m_rep, m_err = replay_against_plain(m_timed.cap)
     k8 = time_hist_launches("hist_wide", m_timed.cap.k8)
 
-    for e in (g_err, s_err, q_err, m_err):
+    for e in (g_err, s_err, p_err, q_err, m_err):
         for k, v in e.items():
             err[k] = max(err.get(k, 0.0), v)
     err["predict_stream"] = k1_err
+    err["bin_rows"] = max(bin_err, ds_bin_err)
     after_first = tree_s[1:] or tree_s
     emit({"phase": "train_wide", "card": smi, "rows": rows,
           "held_out_rows": held_out, "features": int(X.shape[1]),
@@ -3798,6 +4232,12 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
           "k2_launches_per_tree": launches["route_and_hist"] / iters,
           "launches": launches, "wide_launches": wide,
           "held_out_auc": held_auc, "predict_s": predict_s,
+          "bin_rows": {"construct_s": construct_s,
+                       "dataset_launches_replayed": ds_bin_launches,
+                       "predict_launches_replayed": bin_launches,
+                       "predict_wide_launches": bin_wide,
+                       "timed_launch": bin_time,
+                       "max_abs_err": max(bin_err, ds_bin_err)},
           "k1_launches": k1_launches, "k1_ms": k1_ms,
           "k1_plain_ms": k1_plain, "k1_bound_ms": k1_bnd[0],
           "k1_bound_by": k1_bnd[1], "k1_equals_plain": True,
@@ -3818,6 +4258,10 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
                       "s_per_tree": statistics.median(s_timed.seconds[1:]),
                       "held_out_auc": s_auc, "wide_launches": s_wide,
                       "replayed": s_rep, "k5": k5},
+          "pallas": {"iterations": backend_iters, "train_s": p_train_s,
+                     "s_per_tree": statistics.median(p_timed.seconds[1:]),
+                     "held_out_auc": p_auc, "text_equals_scatter": True,
+                     "wide_launches": p_wide, "replayed": p_rep, "k7": k7},
           "quantized": {"iterations": 5, "train_s": q_train_s,
                         "wide_launches": q_wide, "replayed": q_rep,
                         "k2_int_full_hist": k2i},
@@ -3849,8 +4293,15 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
                                   k3_ms, k3_plain, k3_bnd, None),
             "scatter_hist": hist_entry(s_wide["scatter_hist"],
                                        "scatter_hist", k5),
-            "hist_wide": hist_entry(m_wide["hist_wide"], "hist_wide", k8)}, \
-        err
+            "hist_nibble": hist_entry(p_wide["hist_nibble"], "hist_nibble",
+                                      k7),
+            "hist_wide": hist_entry(m_wide["hist_wide"], "hist_wide", k8),
+            "bin_rows": {**entry(ds_bin_wide + bin_wide, "bin_rows",
+                                 bin_time["ms"], bin_time["plain_ms"],
+                                 (bin_time["bound_ms"],
+                                  bin_time["bound_by"]), None),
+                         "rows": bin_time["rows"],
+                         "transpose": bin_time["transpose"]}}, err
 
 
 def nvidia_smi_line() -> str:
@@ -3897,8 +4348,9 @@ def main(argv=None) -> int:
         small_err = phase_train_small(args.seed)
         sampled_small_err = phase_train_sampled_small(args.seed)
         quant_small_err = phase_train_quantized_small(args.seed)
-        k1, ds, Xs, ys = phase_full(args.seed, args.rows, args.trees,
-                                    args.leaves, tmp, smi)
+        k1, binner, ds, Xs, ys = phase_full(args.seed, args.rows,
+                                            args.trees, args.leaves, tmp,
+                                            smi)
         k2, k4 = phase_train(ds, Xs, ys, args.train_iters, smi)
         k3, sampled_err = phase_train_sampled(ds, Xs, ys, smi,
                                               args.sampled_iters)
@@ -3916,10 +4368,12 @@ def main(argv=None) -> int:
         wide_lines, wide_err = phase_train_wide(args.seed, smi)
         adv_err = phase_hist_adversarial(args.seed)
         k1_adv_err = phase_predict_adversarial(args.seed)
-    kernel_lines = [k1, k2, k3, k4] + k567 + k2k_k8 + [k2i]
+        bin_adv_err = phase_bin_adversarial(args.seed)
+    kernel_lines = [k1, k2, k3, k4] + k567 + k2k_k8 + [k2i, binner]
     errs = (small_err, sampled_small_err, quant_small_err, sampled_err,
             backends_err, quant_err, mc_small_err, mc_err, cat_small_err,
-            cat_err, wide_small_err, wide_err, adv_err, k1_adv_err)
+            cat_err, wide_small_err, wide_err, adv_err, k1_adv_err,
+            bin_adv_err)
     for k in kernel_lines:
         if k["name"] in cat_lines:
             k["categorical"] = cat_lines[k["name"]]

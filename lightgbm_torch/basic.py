@@ -7,9 +7,11 @@ training, evaluation and batch prediction: a Dataset over a numpy array
 ``reference=``), and a Booster that trains (``update``, one boosting
 iteration), evaluates its validation sets, holds a model and predicts.  ``Booster.predict`` on at least
 ``_DEVICE_PREDICT_MIN_ROWS`` rows of a Booster built on a training Dataset
-bins the rows with the training mappers and walks every tree on the device
+uploads the raw rows, bins them there with the training mappers
+(``kernels/bin_rows.py``) and walks every tree on the device
 (``kernels/predict.py``); smaller batches and Boosters loaded from a model
-file alone take the host float64 walk, as in the reference.
+file alone take the host float64 walk, as in the reference.  A Dataset on
+a CUDA device is binned on the card the same way.
 
 Device rule: a Dataset is constructed on ``device_type`` (default
 ``"cuda"``), and with no GPU that raises; ``device_type="cpu"`` runs the
@@ -20,17 +22,19 @@ from __future__ import annotations
 import os
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .binning import (BinnedData, construct_binned, find_bin_mappers,
-                      find_feature_groups, load_forced_bins)
+from .binning import (BinnedData, construct_binned, device_group_order,
+                      find_bin_mappers, find_feature_groups,
+                      load_forced_bins)
 from .config import Config, resolve_aliases
 from .device_data import (DeviceData, build_routing_np, resolve_device,
                           to_device)
-from .kernels.layout import pack_bins_T
+from .kernels.bin_rows import bin_matrix, bin_tables
+from .kernels.layout import bins_to_numpy
 from .kernels.predict import (build_predict_tables, predict_stream,
                               tables_to_device)
 from .metrics import create_metrics
@@ -38,13 +42,68 @@ from .objectives import create_objective
 from .utils.log import LightGBMError, log_warning, set_verbosity
 
 
-def _to_2d_float(data) -> np.ndarray:
+def _to_2d_float(data, align_categories=None
+                 ) -> Tuple[np.ndarray, Optional[List[str]], List[int],
+                            Optional[List[list]]]:
+    """Coerce a numpy array or a pandas DataFrame to a 2-D float64 array;
+    returns (array, feature names or None, the indices of the frame's
+    category columns, the frame's category lists or None) (reference:
+    lightgbm_tpu/basic.py:44-135, the DataFrame branch; python-package
+    basic.py _data_from_pandas).
+
+    A category column becomes its codes, -1 (missing) as NaN.
+    ``align_categories``, the TRAINING frame's category lists (by category
+    column), recodes a validation or predict frame through them, so that
+    codes agree with training whatever the frame's category order; a
+    category training did not see becomes NaN.  pandas is imported only
+    for a DataFrame."""
+    if hasattr(data, "dtypes") and hasattr(data, "columns"):
+        import pandas as pd
+        feature_names = [str(c) for c in data.columns]
+        df = data.copy()
+        cat_idx: List[int] = []
+        cat_lists: List[list] = []
+        for i, col in enumerate(df.columns):
+            if isinstance(df[col].dtype, pd.CategoricalDtype):
+                if align_categories is not None \
+                        and len(cat_lists) < len(align_categories):
+                    train_cats = align_categories[len(cat_lists)]
+                    frame_cats = list(df[col].cat.categories)
+                    strs = [str(c) for c in frame_cats]
+                    if (train_cats and frame_cats
+                            and all(isinstance(t, str) for t in train_cats)
+                            and not set(train_cats) & set(frame_cats)
+                            and len(set(strs)) == len(strs)):
+                        # a model file's lists hold non-JSON categories
+                        # (datetimes) as strings: match those by str(),
+                        # unless two stringify alike (then unseen)
+                        df[col] = df[col].cat.rename_categories(strs)
+                    df[col] = df[col].cat.set_categories(train_cats)
+                cat_lists.append(list(df[col].cat.categories))
+                codes = df[col].cat.codes.astype(np.float64)
+                df[col] = codes.where(codes >= 0, np.nan)  # unseen -> NaN
+                cat_idx.append(i)
+            elif df[col].dtype == object:
+                raise LightGBMError(f"DataFrame column {col!r} has object "
+                                    "dtype; convert to numeric or "
+                                    "categorical first")
+        if align_categories is not None \
+                and len(cat_lists) != len(align_categories):
+            # positional alignment of other columns would code wrongly
+            raise LightGBMError(
+                f"DataFrame has {len(cat_lists)} categorical columns but "
+                f"the training data had {len(align_categories)}; "
+                "categorical columns must match training")
+        arr = df.to_numpy(dtype=np.float64, na_value=np.nan)
+        # an empty list (a frame with no category column) stays apart from
+        # None (not a frame), so the count check above still fires
+        return arr, feature_names, cat_idx, cat_lists
     arr = np.asarray(data, dtype=np.float64)
     if arr.ndim == 1:
         arr = arr.reshape(-1, 1)
     if arr.ndim != 2:
         raise LightGBMError(f"data must be 2-D, got shape {arr.shape}")
-    return arr
+    return arr, None, [], None
 
 
 class Dataset:
@@ -61,8 +120,13 @@ class Dataset:
         self.reference = reference
         self._feature_name_arg = feature_name
         self._categorical_feature_arg = categorical_feature
-        self.pandas_categorical = None   # numpy input carries no categories
-        self.raw_data = _to_2d_float(data)
+        # a DataFrame's category columns are categorical features, coded
+        # through the reference's category lists (reference: basic.py
+        # :350-354)
+        align = (reference.pandas_categorical if reference is not None
+                 else None)
+        (self.raw_data, self._pandas_names, self._pandas_cat_idx,
+         self.pandas_categorical) = _to_2d_float(data, align)
         self.num_data_, self.num_feature_ = self.raw_data.shape
         self.label = (None if label is None
                       else np.asarray(label, np.float64).reshape(-1))
@@ -73,13 +137,17 @@ class Dataset:
         self.binned: Optional[BinnedData] = None
         self.device: Optional[torch.device] = None
         self._device_data: Optional[DeviceData] = None
+        # the (N, G) bins made on the device, until to_device takes them
+        self._device_bins: Optional[torch.Tensor] = None
 
     def _resolve_categorical(self) -> List[int]:
+        """The frame's category columns, then those the argument names
+        (reference: basic.py:456-470)."""
         arg = self._categorical_feature_arg
+        cats = list(self._pandas_cat_idx)
         if arg == "auto" or arg is None or arg == "":
-            return []
+            return cats
         names = self.feature_name()
-        cats = []
         for c in (arg if isinstance(arg, (list, tuple)) else [arg]):
             if isinstance(c, str):
                 if c in names:
@@ -94,11 +162,15 @@ class Dataset:
     def feature_name(self) -> List[str]:
         if isinstance(self._feature_name_arg, list):
             return [str(x) for x in self._feature_name_arg]
+        if self._pandas_names is not None:
+            return list(self._pandas_names)
         return [f"Column_{i}" for i in range(self.num_feature_)]
 
     def construct(self) -> "Dataset":
-        """Resolve the device, then bin on the host (reference: the dense
-        in-memory path of basic.Dataset.construct)."""
+        """Resolve the device, then bin on it through
+        ``kernels/bin_rows.py``, the bins copied back once for the host
+        copy (reference: the dense in-memory path of
+        basic.Dataset.construct)."""
         if self.binned is not None:
             return self
         if self.num_data_ == 0:
@@ -111,9 +183,7 @@ class Dataset:
                     f"is not the same as in the reference Dataset "
                     f"({ref.num_feature()})")
             self.device = ref.device
-            self.binned = construct_binned(self.raw_data,
-                                           ref.binned.bin_mappers,
-                                           ref.binned.group_features)
+            self._bin(ref.binned.bin_mappers, ref.binned.group_features)
             return self
         cfg = Config.from_params(self.params)
         self.device = resolve_device(cfg.device_type)
@@ -140,13 +210,28 @@ class Dataset:
             groups = find_feature_groups(sample_bins, mappers,
                                          enable_bundle=True)
             del sample_bins
-        self.binned = construct_binned(self.raw_data, mappers, groups)
+        self._bin(mappers, groups)
         return self
+
+    def _bin(self, mappers, groups) -> None:
+        """The rows' bins under ``mappers`` and ``groups``, made by
+        ``bin_rows`` on the Dataset's device and kept there for
+        ``device_data``."""
+        if groups is None:
+            groups = [[f] for f in range(self.num_feature_)]
+        groups = device_group_order(groups, mappers)
+        bins = bin_matrix(self.raw_data,
+                          bin_tables(mappers, groups, self.device))
+        self.binned = construct_binned(self.raw_data, mappers, groups,
+                                       bins=bins_to_numpy(bins))
+        self._device_bins = bins
 
     def device_data(self) -> DeviceData:
         if self._device_data is None:
             self.construct()
-            self._device_data = to_device(self.binned, self.device)
+            self._device_data = to_device(self.binned, self.device,
+                                          bins=self._device_bins)
+            self._device_bins = None
         return self._device_data
 
     def bin_mappers(self):
@@ -353,7 +438,7 @@ class Booster:
         if pred_leaf or pred_contrib:
             raise LightGBMError("pred_leaf and pred_contrib are not yet "
                                 "ported to lightgbm_torch")
-        X = _to_2d_float(data)
+        X, _, _, _ = _to_2d_float(data, self._pandas_categorical())
         expected = self.num_feature()
         if expected and X.shape[1] != expected:
             raise LightGBMError(
@@ -392,17 +477,19 @@ class Booster:
         return trees[start_iteration * k:end * k], k, start_iteration, end
 
     def _device_predict_inputs(self, X, use, k, es=None, times=None):
-        """Bin the raw matrix with the training mappers and build the device
-        tensors of a batch walk, or None when the device path does not apply
-        (small batch, no engine, linear trees, early stop with k > 1, a
-        bundled categorical feature, which EFB never makes).  Bins wider
-        than uint8 (groups wider than 256 bins, or a categorical sentinel
-        bin past 255) go to K1 as 16-bit bins.
+        """Upload the raw matrix, bin it on the device with the training
+        mappers (``kernels/bin_rows.py``, the predict form) and build the
+        device tensors of a batch walk, or None when the device path does
+        not apply (small batch, no engine, linear trees, early stop with
+        k > 1, a bundled categorical feature, which EFB never makes).  Bins
+        wider than uint8 (groups wider than 256 bins, or a categorical
+        sentinel bin past 255) go to K1 as 16-bit bins.
         The reference's VMEM-size gates (basic.py:1569-1576, :1633) do not
         apply: on the GPU the tables sit in device memory and L2.  A dict
-        passed as ``times`` receives the seconds of its host stages:
-        ``binning`` (with the categorical sentinel re-bin), ``tables`` and
-        ``upload`` (bins and tables copied to the device)."""
+        passed as ``times`` receives the seconds of its stages: ``tables``
+        (the binning and walk tables built and copied to the device),
+        ``upload`` (the raw rows copied to the device) and ``binning`` (the
+        binning kernel)."""
         if (self._engine is None or not use
                 or X.shape[0] < self._DEVICE_PREDICT_MIN_ROWS):
             return None
@@ -422,42 +509,30 @@ class Booster:
         tb = eng.train_data.binned
         routing_np, _ = build_routing_np(tb)
         for f in sorted(cat_feats):
-            # the NaN/unseen sentinel re-bin below needs the cat feature
-            # alone in its group.  Not reached: EFB never bundles a
-            # categorical feature (binning.py), but a bundle's span could
-            # not hold the sentinel, so such a model would walk on the host
+            # the NaN/unseen sentinel bin below needs the cat feature alone
+            # in its group.  Not reached: EFB never bundles a categorical
+            # feature (binning.py), but a bundle's span could not hold the
+            # sentinel, so such a model would walk on the host
             if routing_np["bundled"][f]:
                 return None
         t0 = time.perf_counter()
-        binned = construct_binned(X, tb.bin_mappers, tb.group_features)
-        bins = binned.bins
-        if (bins.dtype == np.uint8 and cat_feats
-                and max(tb.bin_mappers[f].num_bins for f in cat_feats) > 255):
-            # the sentinel bin num_bins past uint8: 16-bit bins
-            bins = bins.astype(np.uint16)
-        if cat_feats:
-            # the host walk routes NaN / unseen / negative categories RIGHT
-            # (bit absent from the bitset); the mapper bins them to bin 0
-            # (the most frequent category) — re-bin those rows to the
-            # sentinel bin one past the span, whose bitset bit is always
-            # zero by construction (build_predict_tables)
-            for f in sorted(cat_feats):
-                m = tb.bin_mappers[f]
-                v = X[:, f]
-                ivc = np.where(np.isnan(v), -1.0, v)
-                ivc = np.clip(ivc, -1.0, float(2 ** 62)).astype(np.int64)
-                ok = (ivc >= 0) & np.isin(ivc, m.categories.astype(np.int64))
-                bins[~ok, int(routing_np["feat_group"][f])] = m.num_bins
-        t1 = time.perf_counter()
+        dev = eng.device
+        # the host walk routes NaN / unseen / negative categories RIGHT
+        # (bit absent from the bitset); the mapper bins them to bin 0 (the
+        # most frequent category), so the predict form bins those values
+        # of split categorical features to the sentinel bin one past the
+        # span, whose bitset bit is always zero by construction
+        # (build_predict_tables), in 16-bit bins where it passes 255
+        bin_tabs = bin_tables(tb.bin_mappers, tb.group_features, dev,
+                              sentinel=cat_feats)
         host_tables = [build_predict_tables(use[c::k], routing_np, L,
                                             tb.bin_mappers) for c in range(k)]
-        t2 = time.perf_counter()
-        dev = eng.device
         classes = [(*tables_to_device(t, dev), t.depths) for t in host_tables]
-        bins_T = pack_bins_T(bins, dev)
+        t1 = time.perf_counter()
+        stages = {} if times is not None else None
+        bins_T = bin_matrix(X, bin_tabs, transpose=True, times=stages)
         if times is not None:
-            times.update(binning=t1 - t0, tables=t2 - t1,
-                         upload=time.perf_counter() - t2)
+            times.update(tables=t1 - t0, **stages)
         es_freq, es_margin = (int(es[0]), float(es[1])) if es else (0, 0.0)
         return DevicePredictInputs(X.shape[0], bins_T, classes, es_freq,
                                    es_margin)
@@ -476,6 +551,13 @@ class Booster:
         if k == 1:
             return host[0].astype(np.float64)
         return np.stack(host, axis=1).astype(np.float64)
+
+    def _pandas_categorical(self):
+        """The training frame's category lists, which a predict frame's
+        codes are aligned to (reference: basic.py:1663-1669)."""
+        if self._engine is not None:
+            return self.engine.train_data.pandas_categorical
+        return self._loaded_trees.pandas_categorical
 
     def _average_output(self) -> bool:
         if self._engine is not None:

@@ -618,10 +618,12 @@ def _group_layout(groups: List[List[int]], bin_mappers: List[BinMapper],
     for g in groups:
         if len(g) == 1:
             group_bin_counts.append(int(bin_mappers[g[0]].num_bins))
+            feature_offsets[g[0]] = group_offsets[-1]
         else:
             # bundle: 1 shared default bin + each feature's non-default bins
             cnt = 1
             for f in g:
+                feature_offsets[f] = group_offsets[-1] + cnt - 1
                 cnt += int(bin_mappers[f].num_bins) - 1
             group_bin_counts.append(cnt)
         group_offsets.append(group_offsets[-1] + group_bin_counts[-1])
@@ -632,8 +634,12 @@ def _group_layout(groups: List[List[int]], bin_mappers: List[BinMapper],
 
 
 def construct_binned(data: np.ndarray, bin_mappers: List[BinMapper],
-                     groups: Optional[List[List[int]]] = None) -> BinnedData:
-    """Bin a raw (N, F) float matrix into the dense group-bin layout."""
+                     groups: Optional[List[List[int]]] = None,
+                     bins: Optional[np.ndarray] = None) -> BinnedData:
+    """Bin a raw (N, F) float matrix into the dense group-bin layout.
+    ``bins``: the (N, G) bins of these rows made elsewhere (the card's
+    kernels/bin_rows.py), kept as they are; the rows then only give their
+    shape."""
     n, num_features = data.shape
     if len(bin_mappers) != num_features:
         raise ValueError(f"{len(bin_mappers)} bin mappers for "
@@ -644,14 +650,17 @@ def construct_binned(data: np.ndarray, bin_mappers: List[BinMapper],
 
     (group_bin_counts, group_offsets, feature_offsets, feature_num_bins,
      dtype) = _group_layout(groups, bin_mappers, num_features)
-    bins = np.zeros((n, len(groups)), dtype=dtype)
-
-    for gi, g in enumerate(groups):
-        if len(g) == 1:
-            f = g[0]
-            bins[:, gi] = bin_mappers[f].transform(data[:, f]).astype(dtype)
-            feature_offsets[f] = group_offsets[gi]
-        else:
+    if bins is not None:
+        if bins.shape != (n, len(groups)) or bins.dtype != dtype:
+            raise ValueError(f"bins {bins.shape} {bins.dtype} for {n} rows "
+                             f"of {len(groups)} groups of {dtype.__name__}")
+    else:
+        bins = np.zeros((n, len(groups)), dtype=dtype)
+        for gi, g in enumerate(groups):
+            if len(g) == 1:
+                f = g[0]
+                bins[:, gi] = bin_mappers[f].transform(data[:, f]).astype(dtype)
+                continue
             # one int64 accumulator per group, cast to the storage dtype once
             in_group = 1
             col = np.zeros(n, dtype=np.int64)
@@ -664,7 +673,6 @@ def construct_binned(data: np.ndarray, bin_mappers: List[BinMapper],
                 # the bundle
                 local = np.where(b > m.default_bin, b - 1, b)
                 col = np.where(nondef, in_group + local, col)
-                feature_offsets[f] = group_offsets[gi] + in_group - 1
                 in_group += m.num_bins - 1
             bins[:, gi] = col.astype(dtype)
 

@@ -9,7 +9,7 @@ the reference's ``build_layouts`` and are equal to it field by field.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -178,17 +178,28 @@ def build_layouts(binned: BinnedData, device: torch.device):
 
 
 def to_device(binned: BinnedData, device: torch.device,
-              pad_rows_to: int = 256) -> DeviceData:
+              pad_rows_to: int = 256,
+              bins: Optional[torch.Tensor] = None) -> DeviceData:
     """(N_pad, G) bins on ``device``, rows padded with zeros to a multiple
-    of ``pad_rows_to`` as in the reference."""
+    of ``pad_rows_to`` as in the reference.  ``bins``: the same (N, G) bins
+    already on ``device`` in card storage (binned there by
+    kernels/bin_rows.py), which are padded there instead of uploaded."""
     routing, layout, Bmax = build_layouts(binned, device)
-    bins = np.ascontiguousarray(binned.bins)
-    n = bins.shape[0]
+    n = binned.bins.shape[0]
     n_pad = -(-n // pad_rows_to) * pad_rows_to
-    if n_pad != n:
-        bins = np.pad(bins, ((0, n_pad - n), (0, 0)))
-    # 16-bit bins keep their bytes in int16 storage (kernels/layout.py)
-    return DeviceData(bins=bins_to_torch(bins).to(device),
+    if bins is not None:
+        if bins.device != device or tuple(bins.shape) != binned.bins.shape:
+            raise ValueError("the card's bins do not match the host bins")
+        if n_pad != n:
+            bins = torch.cat([bins, bins.new_zeros((n_pad - n,
+                                                    bins.shape[1]))])
+    else:
+        host = np.ascontiguousarray(binned.bins)
+        if n_pad != n:
+            host = np.pad(host, ((0, n_pad - n), (0, 0)))
+        # 16-bit bins keep their bytes in int16 storage (kernels/layout.py)
+        bins = bins_to_torch(host).to(device)
+    return DeviceData(bins=bins,
                       routing=routing, layout=layout, num_data=n,
                       num_features=binned.num_features,
                       num_groups=binned.num_groups, max_bins=Bmax,

@@ -22,20 +22,23 @@ version runs only for CPU tensors.  Importing this package builds nothing:
 - ``hist_wide`` (K8, hist_wide.py): the K class trees' slot histograms of
   batched multiclass in one pass over the rows (``scatter`` and
   ``pallas``); K2 has a class axis of its own for ``stream``.
+- ``bin_rows`` (bin_rows.py, no TPU kernel: the counterpart of the JAX
+  package's native host binner): raw float64 rows to group bins, for
+  ``Dataset.construct`` and ``Booster.predict`` on the card.
 
 Each CUDA wrapper counts its launches in a plain integer attribute
 ``launches``; ``launch_counts`` reads them and ``reset_launch_counts`` sets
 them to zero, so a run can show that its path went through the kernels.
-The wrappers whose kernels read bins also count the launches over 16-bit
-bins (groups wider than 256 bins) in ``wide_launches``
+The wrappers whose kernels read or write bins also count the launches over
+16-bit bins (groups wider than 256 bins) in ``wide_launches``
 (``wide_launch_counts``).
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from . import (hist_sorted, hist_wide, leaf_gather, predict, route_hist,
-               route_replay, scatter_hist)
+from . import (bin_rows, hist_sorted, hist_wide, leaf_gather, predict,
+               route_hist, route_replay, scatter_hist)
 
 # kernel name -> its CUDA wrapper
 WRAPPERS = {
@@ -48,6 +51,7 @@ WRAPPERS = {
     "hist_direct": hist_sorted.hist_direct_cuda,
     "hist_nibble": hist_sorted.hist_nibble_cuda,
     "hist_wide": hist_wide.hist_wide_cuda,
+    "bin_rows": bin_rows.bin_rows_cuda,
 }
 
 

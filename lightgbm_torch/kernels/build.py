@@ -38,6 +38,9 @@ SOURCES: Dict[str, str] = {
     "hist_direct": "csrc/hist_sorted.cu",
     "hist_nibble": "csrc/hist_sorted.cu",
     "hist_wide": "csrc/hist_rows.cu",
+    # raw rows to group bins (no TPU kernel: the native host binner's
+    # counterpart)
+    "bin_rows": "csrc/bin_rows.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,9 +49,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _c_ptr, _c_int, _c_i64, _c_f32 = (ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_int64, ctypes.c_float)
 # the two entry points of csrc/hist_sorted.cu take the same arguments
-_SORTED_ARGS = [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_int, _c_int,
-                _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_f32, _c_f32,
-                _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+_SORTED_ARGS = [_c_ptr, _c_int, _c_i64, _c_int, _c_ptr, _c_ptr, _c_int,
+                _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_f32,
+                _c_f32, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
 # C signature of each library's entry point: (symbol, argtypes).  Every
 # kernel that reads bins takes them as a pointer and their width in bytes
 # (1: uint8, 2: 16-bit)
@@ -83,6 +86,10 @@ SIGNATURES = {
                   [_c_ptr, _c_int, _c_i64, _c_int, _c_int, _c_ptr, _c_ptr,
                    _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
                    _c_ptr, _c_ptr]),
+    "bin_rows": ("lgbt_bin_rows",
+                 [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr,
+                  _c_ptr, _c_ptr, _c_ptr, _c_int, _c_i64, _c_i64, _c_int,
+                  _c_ptr, _c_ptr]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernels lightgbm_tpu/pallas/hist_kernel.py
 // `_hist_direct` -> `_direct_kernel` (Bmax <= 128, K6) and `_hist_nibble`
-// -> `_nibble_kernel` (128 < Bmax <= 256, K7), which read the block plan of
+// -> `_nibble_kernel` (Bmax > 128, K7; past 256 bins the contract over
+// 16-bit bins, which that kernel's byte packing cannot hold), which read
+// the block plan of
 // lightgbm_tpu/ops/compact.py `plan_blocks` (reference analog:
 // src/treelearner/cuda/cuda_histogram_constructor.cu over the leaf-ordered
 // rows of cuda_data_partition.cu).
@@ -52,6 +54,17 @@
 //     index, and flush once per slot run within a block.  At Bmax > 128 a
 //     tile of all 28 groups takes 143 KB, one block an SM, so K7's plan
 //     chooses its tile, threads and ranges apart from K6's.
+//
+// Bins are uint8, or 16-bit where a group is wider than 256 bins (the `T`
+// template argument; the caller's int16 storage read as uint16_t), which
+// only K7 meets (16-bit storage means Bmax > 256).  The 8-bit
+// instantiation is the code the kernel had before the 16-bit form; the
+// 16-bit form loads a row's 4 groups as one 8-byte word where aligned
+// and, only where one group's Bmax cells exceed a block's shared memory
+// (Bmax > 11 622), tiles the bin axis: a tile then holds one group and
+// `bins_per_tile` bins [b0, b0 + bins_per_tile), grid z picks the bin
+// tile, and a row whose bin lies outside it skips, as the row-order tile
+// pass does (csrc/hist_tile.cuh).
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -79,13 +92,13 @@ int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 // plan fields, in the order of kernels/hist_sorted.py::SORTED_PLAN_FIELDS
 enum {
   kGroupsPerTile, kGroupTiles, kBlocksPerRange, kRanges, kPlanThreads,
-  kPlanSmem
+  kPlanSmem, kBinsPerTile, kBinTiles
 };
 constexpr int kDirectMaxThreads = 1024;
 
 struct DirectArgs {
   hist_tile::Args ch;          // the channel set's scale and int64 output
-  const uint8_t* bins;         // (n, G) row-major
+  const void* bins;            // (n, G) row-major, uint8 or uint16
   const int32_t* gather_idx;   // (NB * T) source row of every position
   const int32_t* scalars;      // (NB, 3) slot of every plan block
   const float* grad;
@@ -94,35 +107,43 @@ struct DirectArgs {
   int64_t n;
   int G, Bmax, NB, T, S;
   int groups_per_tile, blocks_per_range;
+  int bins_per_tile;           // the 16-bit form's bin tiles (grid z)
   int vec_idx;                 // 4 gather indices as one int4
-  int vec_bins;                // a row's group bytes as 32-bit words
+  int vec_bins;                // a row's 4 groups' bins as one word
 };
 
-// Adds the tile's non-zero cells into slot s of the int64 sum and zeroes
-// them.  Called by every thread of the block between barriers.
+// Adds the tile's non-zero cells (bins [b0, b0 + bpt) of its groups) into
+// slot s of the int64 sum and zeroes them.  Called by every thread of the
+// block between barriers.
 __device__ void flush_direct(const DirectArgs& a, unsigned* w, int cells,
-                             int s, int g0, int ng) {
+                             int s, int g0, int ng, int b0, int bpt) {
   using Ch = hist_tile::GradHessCount;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int gl = i / a.Bmax;
-    if (gl < ng)
+    const int gl = i / bpt;
+    const int b = b0 + i - gl * bpt;
+    if (gl < ng && b < a.Bmax)
       Ch::flush(a.ch, w, cells, i,
-                (static_cast<int64_t>(s) * a.G + g0 + gl) * a.Bmax + i -
-                    gl * a.Bmax);
+                (static_cast<int64_t>(s) * a.G + g0 + gl) * a.Bmax + b);
 #pragma unroll
     for (int k = 0; k < Ch::kWords; ++k) w[k * cells + i] = 0u;
   }
 }
 
-// grid: x = range of plan blocks, y = group tile
+// grid: x = range of plan blocks, y = group tile, z = bin tile (16-bit
+// form)
+template <class T>
 __global__ void __launch_bounds__(kDirectMaxThreads)
 direct_kernel(const DirectArgs a) {
   using Ch = hist_tile::GradHessCount;
+  using B4 = hist_tile::Bins4<T>;
+  constexpr bool kBinTiles = sizeof(T) > 1;
   extern __shared__ __align__(16) unsigned tile[];
   const int gpt = a.groups_per_tile;
   const int g0 = static_cast<int>(blockIdx.y) * gpt;
   const int ng = min(g0 + gpt, a.G) - g0;
-  const int cells = gpt * a.Bmax;
+  const int bpt = kBinTiles ? a.bins_per_tile : a.Bmax;
+  const int bin0 = kBinTiles ? static_cast<int>(blockIdx.z) * bpt : 0;
+  const int cells = gpt * bpt;
   for (int i = threadIdx.x; i < Ch::kWords * cells; i += blockDim.x)
     tile[i] = 0u;
   const int b0 = static_cast<int>(blockIdx.x) * a.blocks_per_range;
@@ -136,7 +157,7 @@ direct_kernel(const DirectArgs a) {
     if (s < 0 || s >= a.S || __ldg(idx) >= a.n) continue;
     if (s != cur) {
       __syncthreads();
-      if (cur >= 0) flush_direct(a, tile, cells, cur, g0, ng);
+      if (cur >= 0) flush_direct(a, tile, cells, cur, g0, ng, bin0, bpt);
       __syncthreads();
       cur = s;
     }
@@ -156,33 +177,34 @@ direct_kernel(const DirectArgs a) {
       }
       Ch::Val v;
       Ch::value(a.ch, 0, rw, raw, v);
-      const uint8_t* rb[4];
+      const T* rb[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        rb[i] = a.bins + static_cast<int64_t>(ok[i] ? row[i] : 0) * a.G + g0;
+        rb[i] = static_cast<const T*>(a.bins) +
+                static_cast<int64_t>(ok[i] ? row[i] : 0) * a.G + g0;
       if (a.vec_bins) {
         // ng is a multiple of 4: whole words of 4 groups' bins
-        unsigned word[4];
+        typename B4::Word word[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          word[i] = ok[i] ? __ldg(reinterpret_cast<const unsigned*>(rb[i]))
-                          : 0u;
+          word[i] = ok[i] ? B4::load(rb[i], 4, true) : typename B4::Word{};
         for (int gw = 0; gw < ng; gw += 4) {
           // the next word of each row, loaded before this word's adds
-          unsigned next[4];
+          typename B4::Word next[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            next[i] = ok[i] && gw + 4 < ng
-                          ? __ldg(reinterpret_cast<const unsigned*>(
-                                rb[i] + gw + 4))
-                          : 0u;
+            next[i] = ok[i] && gw + 4 < ng ? B4::load(rb[i] + gw + 4, 4, true)
+                                           : typename B4::Word{};
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               if (!ok[i]) continue;
-              const int b = (word[i] >> (8 * j)) & 0xff;
-              Ch::add(tile, cells, (gw + j) * a.Bmax + b, v, i);
+              const int b = B4::bin(word[i], j) - bin0;
+              if (kBinTiles && static_cast<unsigned>(b) >=
+                                   static_cast<unsigned>(bpt))
+                continue;  // outside the tile's bins
+              Ch::add(tile, cells, (gw + j) * bpt + b, v, i);
             }
           }
 #pragma unroll
@@ -193,18 +215,34 @@ direct_kernel(const DirectArgs a) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             if (!ok[i]) continue;
-            Ch::add(tile, cells, gl * a.Bmax + __ldg(rb[i] + gl), v, i);
+            const int b = static_cast<int>(__ldg(rb[i] + gl)) - bin0;
+            if (kBinTiles &&
+                static_cast<unsigned>(b) >= static_cast<unsigned>(bpt))
+              continue;
+            Ch::add(tile, cells, gl * bpt + b, v, i);
           }
         }
       }
     }
   }
   __syncthreads();
-  if (cur >= 0) flush_direct(a, tile, cells, cur, g0, ng);
+  if (cur >= 0) flush_direct(a, tile, cells, cur, g0, ng, bin0, bpt);
 }
 
-bool direct_plan_ok(const int64_t* q, int NB, int G, int Bmax) {
-  return q != nullptr && q[kGroupsPerTile] >= 1 && q[kGroupTiles] >= 1 &&
+// the plan's limits over bins of bin_bytes (1 or 2) a bin; false: refuse
+// it.  Only 16-bit bins tile Bmax.
+bool direct_plan_ok(const int64_t* q, int NB, int G, int Bmax,
+                    int bin_bytes) {
+  if (q == nullptr) return false;
+  const int64_t bpt = q[kBinsPerTile];
+  const bool bins_ok =
+      bin_bytes == 1 ? (q[kBinTiles] == 1 && bpt == Bmax)
+                     : (bpt >= 1 && bpt <= Bmax && q[kBinTiles] >= 1 &&
+                        q[kBinTiles] <= 65535 &&
+                        q[kBinTiles] * bpt >= Bmax &&
+                        (q[kBinTiles] - 1) * bpt < Bmax &&
+                        (q[kBinTiles] == 1 || q[kGroupsPerTile] == 1));
+  return bins_ok && q[kGroupsPerTile] >= 1 && q[kGroupTiles] >= 1 &&
          q[kGroupTiles] * q[kGroupsPerTile] >= G &&
          (q[kGroupTiles] - 1) * q[kGroupsPerTile] < G &&
          q[kGroupTiles] <= 65535 && q[kBlocksPerRange] >= 1 &&
@@ -213,20 +251,38 @@ bool direct_plan_ok(const int64_t* q, int NB, int G, int Bmax) {
          (q[kRanges] - 1) * q[kBlocksPerRange] < (NB > 0 ? NB : 1) &&
          q[kPlanThreads] >= 32 && q[kPlanThreads] <= kDirectMaxThreads &&
          q[kPlanThreads] % 32 == 0 &&
-         q[kPlanSmem] == q[kGroupsPerTile] * Bmax * kCellBytes &&
+         q[kPlanSmem] == q[kGroupsPerTile] * bpt * kCellBytes &&
          q[kPlanSmem] <= hist_tile::kMaxSmem;
 }
 
+template <class T>
+cudaError_t launch_direct(const DirectArgs& a, const int64_t* plan,
+                          cudaStream_t stream) {
+  const int smem = static_cast<int>(plan[kPlanSmem]);
+  cudaError_t err = cudaFuncSetAttribute(
+      direct_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(plan[kRanges]),
+                  static_cast<unsigned>(plan[kGroupTiles]),
+                  static_cast<unsigned>(plan[kBinTiles]));
+  direct_kernel<T><<<grid, static_cast<unsigned>(plan[kPlanThreads]), smem,
+                     stream>>>(a);
+  return cudaGetLastError();
+}
+
 // One launch of direct_kernel over a plan that direct_plan_ok accepts, for
-// Bmax in [lo, hi].
-int hist_sorted(const uint8_t* bins, int64_t n_rows, int G,
+// Bmax in [lo, hi] (hi 0: the most a group of bin_bytes a bin has).
+int hist_sorted(const void* bins, int bin_bytes, int64_t n_rows, int G,
                 const int32_t* gather_idx, const int32_t* scalars, int NB,
                 int T, const float* grad, const float* hess, const float* cnt,
                 int S, int Bmax, float scale, float inv_scale, int64_t* acc,
                 float* hist, const int64_t* plan, int lo, int hi,
                 cudaStream_t stream) {
+  if (bin_bytes != 1 && bin_bytes != 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hi == 0) hi = hist_tile::max_group_bins(bin_bytes);
   if (n_rows < 0 || G < 1 || T < 1 || S < 1 || Bmax < lo || Bmax > hi ||
-      !direct_plan_ok(plan, NB, G, Bmax))
+      !direct_plan_ok(plan, NB, G, Bmax, bin_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* h_acc = reinterpret_cast<unsigned long long*>(acc);
   const int64_t cells = static_cast<int64_t>(S) * G * Bmax * 3;
@@ -251,19 +307,12 @@ int hist_sorted(const uint8_t* bins, int64_t n_rows, int G,
     a.S = S;
     a.groups_per_tile = static_cast<int>(plan[kGroupsPerTile]);
     a.blocks_per_range = static_cast<int>(plan[kBlocksPerRange]);
+    a.bins_per_tile = static_cast<int>(plan[kBinsPerTile]);
     a.vec_idx = T % 4 == 0 && hist_tile::aligned(gather_idx, 16);
     a.vec_bins = G % 4 == 0 && a.groups_per_tile % 4 == 0 &&
-                 hist_tile::aligned(bins, 4);
-    const int smem = static_cast<int>(plan[kPlanSmem]);
-    err = cudaFuncSetAttribute(direct_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned>(plan[kRanges]),
-                    static_cast<unsigned>(plan[kGroupTiles]));
-    direct_kernel<<<grid, static_cast<unsigned>(plan[kPlanThreads]), smem,
-                    stream>>>(a);
-    err = cudaGetLastError();
+                 hist_tile::aligned(bins, 4 * bin_bytes);
+    err = bin_bytes == 2 ? launch_direct<uint16_t>(a, plan, stream)
+                         : launch_direct<uint8_t>(a, plan, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   to_float_kernel<<<static_cast<unsigned>(ceil_div(cells, 256)), 256, 0,
@@ -275,31 +324,32 @@ int hist_sorted(const uint8_t* bins, int64_t n_rows, int G,
 
 // C interfaces, loaded with ctypes.  Each launches on `stream`, does not
 // synchronise, and returns the first CUDA error (0 = launched).  bins is
-// the row-major (n_rows, G) uint8 matrix; gather_idx (NB*T) and scalars
-// (NB, 3) are the block plan; acc is (S*G*Bmax*3) int64 scratch this call
-// zeroes; hist is the (S, G, Bmax, 3) float32 result; plan is the host
-// array of kernels/hist_sorted.py::sorted_plan.
+// the row-major (n_rows, G) matrix of bin_bytes (1: uint8, 2: 16-bit) a
+// bin; gather_idx (NB*T) and scalars (NB, 3) are the block plan; acc is
+// (S*G*Bmax*3) int64 scratch this call zeroes; hist is the (S, G, Bmax, 3)
+// float32 result; plan is the host array of
+// kernels/hist_sorted.py::sorted_plan.
 
 // K6 (Bmax <= 128)
 extern "C" int lgbt_hist_direct(
-    const uint8_t* bins, int64_t n_rows, int G, const int32_t* gather_idx,
-    const int32_t* scalars, int NB, int T, const float* grad,
-    const float* hess, const float* cnt, int S, int Bmax, float scale,
-    float inv_scale, int64_t* acc, float* hist, const int64_t* plan,
-    cudaStream_t stream) {
-  return hist_sorted(bins, n_rows, G, gather_idx, scalars, NB, T, grad, hess,
-                     cnt, S, Bmax, scale, inv_scale, acc, hist, plan, 1, 128,
-                     stream);
+    const void* bins, int bin_bytes, int64_t n_rows, int G,
+    const int32_t* gather_idx, const int32_t* scalars, int NB, int T,
+    const float* grad, const float* hess, const float* cnt, int S, int Bmax,
+    float scale, float inv_scale, int64_t* acc, float* hist,
+    const int64_t* plan, cudaStream_t stream) {
+  return hist_sorted(bins, bin_bytes, n_rows, G, gather_idx, scalars, NB, T,
+                     grad, hess, cnt, S, Bmax, scale, inv_scale, acc, hist,
+                     plan, 1, 128, stream);
 }
 
-// K7 (128 < Bmax <= 256)
+// K7 (Bmax > 128: up to 256 over uint8 bins, 65 536 over 16-bit bins)
 extern "C" int lgbt_hist_nibble(
-    const uint8_t* bins, int64_t n_rows, int G, const int32_t* gather_idx,
-    const int32_t* scalars, int NB, int T, const float* grad,
-    const float* hess, const float* cnt, int S, int Bmax, float scale,
-    float inv_scale, int64_t* acc, float* hist, const int64_t* plan,
-    cudaStream_t stream) {
-  return hist_sorted(bins, n_rows, G, gather_idx, scalars, NB, T, grad, hess,
-                     cnt, S, Bmax, scale, inv_scale, acc, hist, plan, 129,
-                     256, stream);
+    const void* bins, int bin_bytes, int64_t n_rows, int G,
+    const int32_t* gather_idx, const int32_t* scalars, int NB, int T,
+    const float* grad, const float* hess, const float* cnt, int S, int Bmax,
+    float scale, float inv_scale, int64_t* acc, float* hist,
+    const int64_t* plan, cudaStream_t stream) {
+  return hist_sorted(bins, bin_bytes, n_rows, G, gather_idx, scalars, NB, T,
+                     grad, hess, cnt, S, Bmax, scale, inv_scale, acc, hist,
+                     plan, 129, 0, stream);
 }

@@ -3,7 +3,9 @@ and their plain PyTorch version.
 
 Counterpart of ``lightgbm_tpu/pallas/hist_kernel.py:357-393``
 (``build_histograms_sorted``: the ``_hist_direct`` kernel for Bmax <= 128,
-``_hist_nibble`` above).  Given the row-major (N, G) uint8 bins, a block
+``_hist_nibble`` above).  Given the row-major (N, G) bins (uint8, or the
+int16 storage of 16-bit bins where a group is wider than 256 bins,
+kernels/layout.py), a block
 plan (ops/compact.py: the (NB*T,) int32 gather index of every block
 position, the pad row N where a position is past its slot's run, and the
 (NB, 3) int32 (slot, first, last) of every block) and the (N,) float32
@@ -11,7 +13,10 @@ grad, hess and count weights, it returns the (S, G, Bmax, 3) float32
 (grad, hess, count) histograms of the plan's slots: grad and hess exact
 fixed point at ``shift``, counts exact (ops/histogram.py), slots with no
 rows zero.  The TPU's one-hot contraction, its 16-bin hi/lo split, its
-bf16 hi/lo weights and its four-bins-per-int32 packing are not copied.
+bf16 hi/lo weights and its four-bins-per-int32 packing are not copied;
+the packing also cuts the TPU kernel's bins to a byte, so K7 takes the
+contract (any Bmax above 128) and not that packing: over 16-bit bins it
+runs up to 65 536 bins.
 ``hist_sorted`` launches K6 (``hist_direct_cuda``) or K7
 (``hist_nibble_cuda``) for tensors on a CUDA device and runs
 ``hist_sorted_plain`` only for tensors on the CPU; a kernel that fails to
@@ -21,7 +26,9 @@ K6 and K7 are one kernel (``csrc/hist_sorted.cu`` ``direct_kernel``): it
 adds the plan's rows into shared-memory tiles of one slot x groups x bins,
 in the 20-byte cells of the row-order kernels' tile pass
 (``csrc/hist_tile.cuh``); ``sorted_plan`` picks its tiles, ranges of plan
-blocks and threads from the plan's shapes alone, K7's apart from K6's.
+blocks and threads from the plan's shapes alone, K7's apart from K6's, and
+past 256 bins, where one group's cells exceed a block's shared memory, a
+bin-tile axis.
 """
 from __future__ import annotations
 
@@ -36,8 +43,10 @@ from ..utils.log import LightGBMError
 from . import build
 from .hist_wide import (CELL_BYTES, SMEM_BLOCK, SMEM_SM, SMS, THREADS,
                         _cdiv)
+from .layout import bin_bytes
 
-# the largest Bmax K6 takes; K7 takes the rest up to 256
+# the largest Bmax K6 takes; K7 takes the rest (up to 256 over uint8 bins,
+# 65 536 over 16-bit bins)
 DIRECT_MAX_BINS = 128
 # the most groups a K7 tile holds
 NIBBLE_GROUPS = 8
@@ -46,17 +55,23 @@ NIBBLE_GROUPS = 8
 class SortedPlan(NamedTuple):
     """One K6 or K7 launch, in the field order the C side reads.
 
-    A block holds a tile of one slot x ``groups_per_tile`` groups x Bmax
-    bins (``smem`` bytes, 20 a cell) and walks ``blocks_per_range``
-    consecutive plan blocks, flushing the tile when the slot changes and at
-    the end; ``ranges`` x ``group_tiles`` blocks of ``threads`` threads
-    cover every plan block and group."""
+    A block holds a tile of one slot x ``groups_per_tile`` groups x
+    ``bins_per_tile`` bins (``smem`` bytes, 20 a cell) and walks
+    ``blocks_per_range`` consecutive plan blocks, flushing the tile when
+    the slot changes and at the end; ``ranges`` x ``group_tiles`` x
+    ``bin_tiles`` blocks of ``threads`` threads cover every plan block,
+    group and bin.  A tile holds all Bmax bins (``bin_tiles`` 1) unless one
+    group's cells exceed the budget, which only 16-bit bins reach (Bmax >
+    11 622): then a tile holds one group and a range of the bins, and a row
+    whose bin lies outside it skips."""
     groups_per_tile: int
     group_tiles: int
     blocks_per_range: int
     ranges: int
     threads: int
     smem: int
+    bins_per_tile: int
+    bin_tiles: int
 
 
 SORTED_PLAN_FIELDS = SortedPlan._fields
@@ -86,25 +101,34 @@ def _sorted_plan(NB: int, T: int, S: int, G: int, Bmax: int,
     given, so that tests reach many group tiles and ranges at small shapes.
 
     Groups: all that fit in the budget and the limit, else an even share, a
-    multiple of 4 where it fits (a row's group bytes then load as whole
-    words).  Ranges: the fewest plan blocks a range that make ``waves``
-    waves of blocks over the card (0: one range), so that a block flushes
-    once per slot run of its range and the plan's trailing pad blocks do
-    not leave SMs idle."""
-    cap = max(1, smem_budget // (Bmax * CELL_BYTES))
+    multiple of 4 where it fits (a row's group bins then load as whole
+    words).  Bins: all of them, unless past 256 bins one group's cells
+    exceed the budget; then one group a tile and an even share of the bins.
+    Ranges: the fewest plan blocks a range that make ``waves`` waves of
+    blocks over the card (0: one range), so that a block flushes once per
+    slot run of its range and the plan's trailing pad blocks do not leave
+    SMs idle."""
+    per_group = Bmax * CELL_BYTES
+    bin_tiles = (1 if Bmax <= 256 or per_group <= smem_budget
+                 else _cdiv(Bmax, max(smem_budget // CELL_BYTES, 1)))
+    bpt = _cdiv(Bmax, bin_tiles)
+    cap = max(1, smem_budget // (bpt * CELL_BYTES))
     if max_groups > 0:
         cap = min(cap, max_groups)
+    if bin_tiles > 1:
+        cap = 1
     tiles = _cdiv(G, cap)
     gpt = _cdiv(G, tiles)
     if tiles > 1 and 4 * _cdiv(gpt, 4) <= cap:
         gpt = 4 * _cdiv(gpt, 4)
     group_tiles = _cdiv(G, gpt)
-    smem = gpt * Bmax * CELL_BYTES
+    smem = gpt * bpt * CELL_BYTES
     per_sm = max(1, min(THREADS // threads, SMEM_SM // (smem + 1024)))
-    blocks = _cdiv(waves * SMS * per_sm, group_tiles)
+    blocks = _cdiv(waves * SMS * per_sm, group_tiles * bin_tiles)
     per_range = _cdiv(max(NB, 1), blocks) if blocks else max(NB, 1)
     return SortedPlan(gpt, group_tiles, per_range,
-                      _cdiv(max(NB, 1), per_range), threads, smem)
+                      _cdiv(max(NB, 1), per_range), threads, smem, bpt,
+                      bin_tiles)
 
 
 def plan_arg(plan: SortedPlan) -> ctypes.Array:
@@ -144,8 +168,9 @@ def _launch(kernel: str, bins, gather_idx, scalars, grad, hess, cnt,
             num_slots: int, max_bins: int, shift: int,
             block_rows: int) -> torch.Tensor:
     dev = bins.device
+    width = bin_bytes(bins)
     build.check_operands(kernel, dev, (
-        ("bins", bins, torch.uint8), ("gather_idx", gather_idx, torch.int32),
+        ("bins", bins, bins.dtype), ("gather_idx", gather_idx, torch.int32),
         ("scalars", scalars, torch.int32), ("grad", grad, torch.float32),
         ("hess", hess, torch.float32), ("cnt", cnt, torch.float32)))
     n, G = bins.shape
@@ -160,7 +185,8 @@ def _launch(kernel: str, bins, gather_idx, scalars, grad, hess, cnt,
     acc = torch.empty(hist.shape, dtype=torch.int64, device=dev)
     fn = getattr(build.load(kernel), build.SIGNATURES[kernel][0])
     plan = sorted_plan(nb, block_rows, num_slots, G, max_bins)
-    rc = fn(bins.data_ptr(), n, G, gather_idx.data_ptr(), scalars.data_ptr(),
+    rc = fn(bins.data_ptr(), width, n, G, gather_idx.data_ptr(),
+            scalars.data_ptr(),
             nb, block_rows, grad.data_ptr(), hess.data_ptr(), cnt.data_ptr(),
             num_slots, max_bins, float(2.0 ** shift), float(2.0 ** -shift),
             acc.data_ptr(), hist.data_ptr(), plan_arg(plan),
@@ -181,23 +207,25 @@ def hist_direct_cuda(bins, gather_idx, scalars, grad, hess, cnt,
                             f"got {max_bins}")
     hist = _launch("hist_direct", bins, gather_idx, scalars, grad, hess, cnt,
                    num_slots, max_bins, shift, block_rows)
-    hist_direct_cuda.launches += 1
+    build.count_launch(hist_direct_cuda, bin_bytes(bins))
     return hist
 
 
 def hist_nibble_cuda(bins, gather_idx, scalars, grad, hess, cnt,
                      num_slots: int, max_bins: int, shift: int,
                      block_rows: int) -> torch.Tensor:
-    """Launch K7 (csrc/hist_sorted.cu, 128 < Bmax <= 256) on the current
-    stream, under ``sorted_plan`` of the shapes."""
-    if not DIRECT_MAX_BINS < max_bins <= 256:
+    """Launch K7 (csrc/hist_sorted.cu, 128 < Bmax <= 256 over uint8 bins,
+    up to 65 536 over 16-bit bins) on the current stream, under
+    ``sorted_plan`` of the shapes."""
+    top = 256 if bin_bytes(bins) == 1 else 65536
+    if not DIRECT_MAX_BINS < max_bins <= top:
         raise LightGBMError(f"hist_nibble takes {DIRECT_MAX_BINS} < Bmax <= "
-                            f"256, got {max_bins}")
+                            f"{top} over {bins.dtype} bins, got {max_bins}")
     hist = _launch("hist_nibble", bins, gather_idx, scalars, grad, hess, cnt,
                    num_slots, max_bins, shift, block_rows)
-    hist_nibble_cuda.launches += 1
+    build.count_launch(hist_nibble_cuda, bin_bytes(bins))
     return hist
 
 
-hist_direct_cuda.launches = 0
-hist_nibble_cuda.launches = 0
+build.init_counts(hist_direct_cuda)
+build.init_counts(hist_nibble_cuda)

@@ -53,6 +53,14 @@ def bins_to_torch(bins: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(bins)
 
 
+def bins_to_numpy(bins: torch.Tensor) -> np.ndarray:
+    """Bins in card storage (any device) as host bins, the bytes unchanged:
+    torch.uint8 as uint8, torch.int16 as uint16 (``bins_to_torch``'s
+    inverse)."""
+    host = bins.cpu().numpy()
+    return host.view(np.uint16) if bins.dtype == torch.int16 else host
+
+
 def pack_bins_T(bins: np.ndarray, device: torch.device) -> torch.Tensor:
     """(N, G) uint8 or uint16 host bins -> (G, N) contiguous on ``device``,
     in their storage dtype (``bins_to_torch``)."""

@@ -242,11 +242,6 @@ class GBDT:
         if name not in ("binary", "regression", "multiclass",
                         "multiclassova", "none"):
             raise _not_ported(f"objective {name!r}")
-        if (self.dd.bins.dtype != torch.uint8
-                and self._resolve_hist_backend() == "pallas"):
-            # K6/K7 read uint8 bins; the other backends take 16-bit ones
-            raise _not_ported("hist_backend='pallas' on a feature bundle "
-                              "wider than 256 bins")
         if c.hist_backend in ("segsum", "onehot"):
             raise _not_ported(f"hist_backend={c.hist_backend!r}")
         if c.hist_precision == "double":

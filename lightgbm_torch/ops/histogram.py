@@ -159,7 +159,8 @@ def build_histograms(bins: torch.Tensor, slot, grad: torch.Tensor,
     """(S, G, Bmax, 3) float32 histograms through a backend's kernel.
     ``scatter``: K5 over (G, N) bins in the rows' natural order.
     ``pallas``: the slot-sorted block plan (ops/compact.py), then K6
-    (Bmax <= 128) or K7 over (N, G) row-major bins.  ``slot=None`` puts every
+    (Bmax <= 128) or K7 over (N, G) row-major bins, uint8 or the int16
+    storage of 16-bit bins (K7 only).  ``slot=None`` puts every
     row in slot 0 (the root; ``pallas`` then plans without a sort)."""
     if backend == "scatter":
         from ..kernels import scatter_hist as ksh

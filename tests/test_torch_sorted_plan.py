@@ -1,19 +1,23 @@
 """K6 ``hist_direct``'s and K7 ``hist_nibble``'s launch plan and tile pass
 over the slot-sorted block plan, on the CPU.
 
-K6 (Bmax <= 128) and K7 (128 < Bmax <= 256) are one kernel
-(``csrc/hist_sorted.cu`` ``direct_kernel``): it adds the rows of the plan's
-blocks into shared-memory tiles of one slot x ``groups_per_tile`` groups x
-Bmax bins, in the split 32-bit words of the row-order kernels' tile pass
+K6 (Bmax <= 128) and K7 (Bmax > 128: up to 256 over uint8 bins, 65 536
+over 16-bit bins) are one kernel (``csrc/hist_sorted.cu``
+``direct_kernel``): it adds the rows of the plan's blocks into
+shared-memory tiles of one slot x ``groups_per_tile`` groups x
+``bins_per_tile`` bins (all Bmax, except past 256 bins where one group's
+cells exceed a block), in the split 32-bit words of the row-order kernels'
+tile pass
 (``csrc/hist_tile.cuh``, 20-byte cells), each block over a range of plan
 blocks, flushing into an int64 sum when the slot changes and at the range's
 end; ``kernels/hist_sorted.py::sorted_plan`` picks the tiles and ranges.
 The kernel runs only on the card (``chip_smoke.py`` holds it bit for bit
 against its plain version there); these tests hold:
 
-- every plan block in one range and every group in one tile, within the
-  sm_90 limits the C side checks, K6's and K7's main-path plans pinned, and
-  the plan's field order equal to the C enum;
+- every plan block in one range and every group and bin in one tile,
+  within the sm_90 limits the C side checks, K6's and K7's main-path plans
+  pinned (K7's at Bmax 255 and, over 16-bit bins, 301), and the plan's
+  field order equal to the C enum;
 - an int64 emulation of the pass (split words with carries, one flush per
   slot run in a range, pad blocks skipped, pad positions adding nothing)
   equal to ``hist_sorted_plain`` bit for bit: integer sums, no tolerance;
@@ -38,6 +42,7 @@ from lightgbm_tpu.pallas import hist_kernel as jhk
 
 from lightgbm_torch.kernels import hist_sorted as khs
 from lightgbm_torch.kernels import hist_wide as khw
+from lightgbm_torch.kernels.layout import bins_to_torch
 from lightgbm_torch.ops.compact import num_blocks, plan_blocks, \
     plan_single_slot
 from lightgbm_torch.ops.histogram import hist_shift
@@ -47,15 +52,21 @@ SRC = Path(khs.__file__).parent / "csrc" / "hist_sorted.cu"
 
 
 def _limits(plan, NB, G, Bmax):
-    """The limits direct_plan_ok in csrc/hist_sorted.cu checks."""
-    gpt = plan.groups_per_tile
+    """The limits direct_plan_ok in csrc/hist_sorted.cu checks (a bin axis
+    only past 256 bins, where the bins are 16-bit)."""
+    gpt, bpt = plan.groups_per_tile, plan.bins_per_tile
+    if Bmax <= 256:
+        assert (bpt, plan.bin_tiles) == (Bmax, 1)
+    assert 1 <= bpt <= Bmax and 1 <= plan.bin_tiles <= 65535
+    assert plan.bin_tiles * bpt >= Bmax > (plan.bin_tiles - 1) * bpt
+    assert plan.bin_tiles == 1 or gpt == 1
     assert gpt >= 1 and 1 <= plan.group_tiles <= 65535
     assert plan.group_tiles * gpt >= G > (plan.group_tiles - 1) * gpt
     assert plan.blocks_per_range >= 1 and 1 <= plan.ranges <= 2 ** 31 - 1
     assert plan.ranges * plan.blocks_per_range >= NB
     assert (plan.ranges - 1) * plan.blocks_per_range < max(NB, 1)
     assert 32 <= plan.threads <= 1024 and plan.threads % 32 == 0
-    assert plan.smem == gpt * Bmax * khw.CELL_BYTES
+    assert plan.smem == gpt * bpt * khw.CELL_BYTES
     assert plan.smem <= khw.SMEM_BLOCK
 
 
@@ -105,6 +116,33 @@ def test_k7_plan_owns_every_block_and_group_once(NB, T, S, G, Bmax):
         assert plan.groups_per_tile % 4 == 0
 
 
+@settings(max_examples=300, deadline=None)
+@given(NB=st.integers(0, 20_000), T=st.sampled_from([32, 256, 1024, 4096]),
+       S=st.integers(1, 64), G=st.integers(1, 300),
+       Bmax=st.integers(257, 65536))
+def test_k7_wide_plan_owns_every_block_group_and_bin_once(NB, T, S, G,
+                                                          Bmax):
+    """K7's third range (16-bit bins, Bmax > 256): bins tile only where one
+    group's cells exceed a block's shared memory (Bmax > 11 622), and then
+    a tile holds one group and an even share of the bins."""
+    plan = khs.sorted_plan(NB, T, S, G, Bmax)
+    _limits(plan, NB, G, Bmax)
+    assert [b for r in _ranges(plan, NB) for b in r] == list(range(NB))
+    groups = [g for y in range(plan.group_tiles)
+              for g in range(y * plan.groups_per_tile,
+                             min((y + 1) * plan.groups_per_tile, G))]
+    assert groups == list(range(G))
+    bins = [b for z in range(plan.bin_tiles)
+            for b in range(z * plan.bins_per_tile,
+                           min((z + 1) * plan.bins_per_tile, Bmax))]
+    assert bins == list(range(Bmax))
+    tiled = Bmax * khw.CELL_BYTES > khw.SMEM_BLOCK
+    assert (plan.bin_tiles > 1) == tiled
+    assert plan.groups_per_tile <= khs.NIBBLE_GROUPS
+    # the blocks of one launch fit the grid's y and z limits
+    assert plan.group_tiles <= 65535 and plan.bin_tiles <= 65535
+
+
 @settings(max_examples=200, deadline=None)
 @given(NB=st.integers(0, 5_000), S=st.integers(1, 64),
        G=st.integers(1, 64), Bmax=st.integers(1, 128),
@@ -125,7 +163,7 @@ def test_main_path_plan_pinned():
     NB = 1_000_000 // 1024 + 64
     assert khs.sorted_plan(NB, 1024, 64, 28, 64) == khs.SortedPlan(
         groups_per_tile=28, group_tiles=1, blocks_per_range=1, ranges=NB,
-        threads=256, smem=35840)
+        threads=256, smem=35840, bins_per_tile=64, bin_tiles=1)
     # the real plan's block count; the root's plan takes two plan blocks
     # a range, one wave
     assert num_blocks(1_000_000, 64, 1024) == NB + 1
@@ -145,13 +183,21 @@ def test_k7_main_path_plan_pinned():
     NB = num_blocks(1_000_000, 64, 1024)
     assert khs.sorted_plan(NB, 1024, 64, 28, 255) == khs.SortedPlan(
         groups_per_tile=8, group_tiles=4, blocks_per_range=4, ranges=261,
-        threads=256, smem=40800)
+        threads=256, smem=40800, bins_per_tile=255, bin_tiles=1)
     root = khs.sorted_plan(num_blocks(1_000_000, 1, 1024), 1024, 1, 28, 255)
     assert root == khs.SortedPlan(
         groups_per_tile=8, group_tiles=4, blocks_per_range=8, ranges=123,
-        threads=256, smem=40800)
+        threads=256, smem=40800, bins_per_tile=255, bin_tiles=1)
     # K6's plan is untouched by K7's group limit
     assert khs.sorted_plan(NB, 1024, 64, 28, 128).groups_per_tile == 28
+    # the Flight Delay cell (phase train_wide: 500 000 rows, 8 groups, two
+    # bundles of 301 bins, 16-bit): one tile of all 8 groups, no bin tiles
+    NB = num_blocks(500_000, 64, 1024)
+    assert khs.sorted_plan(NB, 1024, 64, 8, 301) == khs.SortedPlan(
+        groups_per_tile=8, group_tiles=1, blocks_per_range=1, ranges=NB,
+        threads=256, smem=48160, bins_per_tile=301, bin_tiles=1)
+    # past 11 622 bins a tile holds one group and a range of the bins
+    assert khs.sorted_plan(NB, 1024, 64, 3, 40_000)[6:] == (10_000, 4)
 
 
 def test_plan_fields_follow_the_c_enum():
@@ -174,8 +220,9 @@ def emulate(plan, bins, gather_idx, scalars, grad, hess, cnt, S, Bmax,
     walks its plan blocks, skips a block whose slot is outside [0, S) or
     whose first position is the pad row, flushes its tile into the int64
     sums when the slot changes and at the end, and adds each position's
-    row (pad positions add nothing) in low and high 32-bit words (the low
-    words' carries go to the high word) and 32-bit counts."""
+    row (pad positions add nothing, nor a row whose bin lies outside a
+    bin-tiled block's bins) in low and high 32-bit words (the low words'
+    carries go to the high word) and 32-bit counts."""
     n, G = bins.shape
     NB = scalars.shape[0]
     vals = np.stack([np.rint(grad.astype(np.float64) * 2.0 ** shift),
@@ -183,12 +230,14 @@ def emulate(plan, bins, gather_idx, scalars, grad, hess, cnt, S, Bmax,
                     ).astype(np.int64).view(np.uint64)
     counts = np.rint(cnt).astype(np.int64).view(np.uint64)
     acc = np.zeros((S, G, Bmax, 3), np.uint64)
-    gpt = plan.groups_per_tile
+    gpt, bpt = plan.groups_per_tile, plan.bins_per_tile
     flushes = 0
     for blocks in _ranges(plan, NB):
-        for y in range(plan.group_tiles):
+        for y, z in [(y, z) for y in range(plan.group_tiles)
+                     for z in range(plan.bin_tiles)]:
             g0, g1 = y * gpt, min((y + 1) * gpt, G)
-            shape = (g1 - g0, Bmax)
+            b0, b1 = z * bpt, min((z + 1) * bpt, Bmax)
+            shape = (g1 - g0, b1 - b0)
             tile = None
             cur = -1
 
@@ -197,9 +246,10 @@ def emulate(plan, bins, gather_idx, scalars, grad, hess, cnt, S, Bmax,
                 lo_w = lo & MASK32
                 hi_w = (hi + (lo >> np.uint64(32))) & MASK32
                 words = (hi_w << np.uint64(32)) | lo_w
-                acc[cur, g0:g1, :, :2] += np.moveaxis(words, 0, -1)
+                acc[cur, g0:g1, b0:b1, :2] += np.moveaxis(words, 0, -1)
                 c32 = (c & MASK32).astype(np.uint32).view(np.int32)
-                acc[cur, g0:g1, :, 2] += c32.astype(np.int64).view(np.uint64)
+                acc[cur, g0:g1, b0:b1, 2] += \
+                    c32.astype(np.int64).view(np.uint64)
 
             for blk in blocks:
                 s = int(scalars[blk, 0])
@@ -217,11 +267,15 @@ def emulate(plan, bins, gather_idx, scalars, grad, hess, cnt, S, Bmax,
                 r = idx[(idx >= 0) & (idx < n)]
                 lo, hi, c = tile
                 for gl in range(g1 - g0):
-                    b = bins[r, g0 + gl].astype(np.int64)
+                    b = bins[r, g0 + gl].astype(np.int64) - b0
+                    # a row whose bin lies outside the tile's bins skips
+                    inside = (b >= 0) & (b < b1 - b0)
+                    rr, b = r[inside], b[inside]
                     for j in range(2):
-                        np.add.at(lo[j], (gl, b), vals[j, r] & MASK32)
-                        np.add.at(hi[j], (gl, b), vals[j, r] >> np.uint64(32))
-                    np.add.at(c, (gl, b), counts[r])
+                        np.add.at(lo[j], (gl, b), vals[j, rr] & MASK32)
+                        np.add.at(hi[j], (gl, b),
+                                  vals[j, rr] >> np.uint64(32))
+                    np.add.at(c, (gl, b), counts[rr])
             if cur >= 0:
                 flush()
                 flushes += 1
@@ -232,7 +286,8 @@ def emulate(plan, bins, gather_idx, scalars, grad, hess, cnt, S, Bmax,
 
 def _case(seed, n, G, S, Bmax, kind):
     rs = np.random.RandomState(seed)
-    bins = rs.randint(0, Bmax, size=(n, G)).astype(np.uint8)
+    bins = rs.randint(0, Bmax, size=(n, G)).astype(
+        np.uint8 if Bmax <= 256 else np.uint16)
     slot = np.where(rs.rand(n) < 0.7, rs.randint(0, S, n), -1).astype(
         np.int32)
     if S > 2:
@@ -254,6 +309,8 @@ def _case(seed, n, G, S, Bmax, kind):
             np.arange(min(n, S - 1))
     elif kind == "none":                        # no row in any slot
         slot[:] = -1
+    elif kind == "top_bin":                     # every bin Bmax - 1
+        bins[:] = Bmax - 1
     shift = hist_shift(float(max(np.abs(grad).max(initial=0.0),
                                  np.abs(hess).max(initial=0.0))), n)
     return bins, slot, grad, hess, cnt, shift
@@ -286,6 +343,15 @@ CASES = [
     (1500, 6, 3, 256, 256, "one_slot", (0, 32, 0)),
     (2500, 4, 64, 256, 64, "single_rows", None),
     (1, 10, 3, 255, 1024, "random", None),
+    # K7 over 16-bit bins (int16 storage): Bmax 257, 301 and 1525, the top
+    # bin, and budgets that tile the bin axis (one group a tile, a range of
+    # bins; rows outside a tile's bins skip)
+    (3000, 5, 6, 257, 256, "random", None),
+    (2999, 8, 13, 301, 128, "random", None),
+    (2000, 3, 6, 1525, 256, "top_bin", None),
+    (2999, 3, 13, 1525, 128, "random", (1525 * 20 // 4, 32, 0)),
+    (2500, 2, 5, 700, 64, "top_bin", (700 * 20 // 3, 64, 1)),
+    (1500, 4, 3, 301, 256, "one_slot", (301 * 20 - 1, 32, 0)),
 ]
 
 
@@ -310,7 +376,8 @@ def test_emulated_pass_equals_plain_bit_for_bit(n, G, S, Bmax, T, kind,
     _limits(plan, sc.shape[0], G, Bmax)
     got, flushes = emulate(plan, bins, gi, sc, grad, hess, cnt, S, Bmax,
                            shift, T)
-    want = khs.hist_sorted_plain(t(bins), plan_b.gather_idx, plan_b.scalars,
+    want = khs.hist_sorted_plain(bins_to_torch(bins), plan_b.gather_idx,
+                                 plan_b.scalars,
                                  t(grad), t(hess), t(cnt), S, Bmax, shift,
                                  T).numpy()
     np.testing.assert_array_equal(got, want)

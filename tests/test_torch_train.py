@@ -672,14 +672,3 @@ def test_unported_inputs_raise():
         lt.cv(_REG, ds, 2)
     with pytest.raises(lt.LightGBMError, match="hist_precision=double"):
         lt.train({**_REG, "hist_precision": "double"}, ds, 2)
-    # an EFB bundle of two sparse 255-bin features needs uint16 bins, which
-    # the pallas backend's K6/K7 do not read (the other backends train on
-    # it: tests/test_torch_wide_bins.py)
-    rs = np.random.RandomState(0)
-    Xw = rs.randn(3000, 3)
-    a = rs.rand(3000)
-    Xw[:, 1] = np.where(a < 0.3, rs.rand(3000) + 0.5, 0.0)
-    Xw[:, 2] = np.where(a > 0.7, rs.rand(3000) + 0.5, 0.0)
-    wide = {**_REG, "max_bin": 255, "hist_backend": "pallas"}
-    with pytest.raises(lt.LightGBMError, match="wider than 256 bins"):
-        lt.train(wide, lt.Dataset(Xw, label=Xw[:, 0], params=wide), 2)

@@ -44,6 +44,7 @@ from lightgbm_tpu.pallas import scatter_hist_kernel as jsh
 import lightgbm_torch as lt
 from lightgbm_torch import basic as tbasic
 from lightgbm_torch.kernels import build
+from lightgbm_torch.kernels import hist_sorted as khs
 from lightgbm_torch.kernels import hist_wide as khw
 from lightgbm_torch.kernels import layout as tl
 from lightgbm_torch.kernels import predict as tpk
@@ -654,9 +655,9 @@ def test_dyadic_training_byte_identical_to_jax_scatter(case, monkeypatch):
 
 
 def test_two_sparse_columns_bundle_trains_under_stream():
-    """The EFB bundle of two sparse 255-bin columns that the pallas backend
-    refuses (tests/test_torch_train.py) trains under stream, byte-identical
-    to the JAX package's scatter on dyadic gradients."""
+    """The EFB bundle of two sparse 255-bin columns (a group of 509 bins)
+    trains under stream, byte-identical to the JAX package's scatter on
+    dyadic gradients."""
     rs = np.random.RandomState(0)
     Xw = rs.randn(3000, 3)
     a = rs.rand(3000)
@@ -694,11 +695,83 @@ def test_real_gradients_first_tree_and_scores_close_to_jax_segsum():
                                atol=2e-4)
 
 
-def test_pallas_on_wide_bins_raises():
-    X, y = _probe(3000)
-    p = {**_BASE, "objective": "binary", "hist_backend": "pallas", **CPU}
-    with pytest.raises(lt.LightGBMError, match="not yet ported"):
-        lt.train(p, lt.Dataset(X, label=y, params=CPU), 1)
+# pallas on 16-bit bins: K7's third Bmax range (K8 for K = 3).  case:
+# setup, the JAX package's oracle backend
+_PALLAS = {"plain": ("plain", "scatter"), "goss": ("goss", "scatter"),
+           "quantized": ("quantized", "scatter"),
+           "multiclass": ("multiclass", "scatter"),
+           "plain_segsum": ("plain", "segsum")}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_text(setup, backend):
+    if backend == "scatter":
+        return _jax_scatter_text(setup)
+    extra, fobj, iters, _ = _SETUPS[setup]
+    X, y = _setup_data(setup)
+    jb = lgb.Booster({**_BASE, **extra, "hist_backend": backend},
+                     lgb.Dataset(X, label=y))
+    for _ in range(iters):
+        jb.update(fobj=fobj)
+    return _trees_text(jb.model_to_string())
+
+
+@pytest.mark.parametrize("case", sorted(_PALLAS))
+def test_pallas_on_wide_bins_byte_identical_to_jax(case, monkeypatch):
+    """``hist_backend="pallas"`` on the probe's 16-bit bins (Bmax ~1500):
+    dyadic custom gradients (quantized: power-of-two scales) grow model text
+    byte-identical to the JAX package's scatter (its one-hot contraction at
+    Bmax > 128) and segsum, under plain, GOSS, quantized and K = 3
+    training, the binary runs through K7's plain version on int16 storage
+    (the JAX package's own pallas packs bins to a byte and is no oracle
+    past 255)."""
+    setup, oracle = _PALLAS[case]
+    extra, fobj, iters, _ = _SETUPS[setup]
+    X, y = _setup_data(setup)
+    seen = []
+    orig = khs.hist_sorted
+
+    def counted(bins, *args):
+        seen.append((bins.dtype, args[6]))
+        return orig(bins, *args)
+
+    monkeypatch.setattr(khs, "hist_sorted", counted)
+    tb = lt.Booster({**_BASE, **extra, "hist_backend": "pallas", **CPU},
+                    lt.Dataset(X, label=y, params=CPU))
+    for _ in range(iters):
+        tb.update(fobj=fobj)
+    assert _trees_text(tb.model_to_string()) == _jax_text(setup, oracle)
+    assert tb.engine.dd.bins.dtype == torch.int16
+    assert tb.engine.grow_params.hist_backend == "pallas"
+    if setup != "multiclass":
+        # K7 (Bmax > 128) over the int16 storage of 16-bit bins
+        assert seen and all(d == torch.int16 and b > 256 for d, b in seen)
+
+
+@pytest.mark.parametrize("Bmax", [301, 1525])
+def test_plain_k7_on_16bit_bins_equals_jax_segsum(Bmax):
+    """hist_sorted_plain over a slot-sorted block plan of 16-bit bins (int16
+    storage, bins past 255 and at Bmax - 1) equals the JAX package's segsum
+    histograms of the same rows and slots bit for bit on dyadic weights."""
+    from lightgbm_torch.ops.compact import plan_blocks
+    rs = np.random.RandomState(Bmax)
+    n, G, S = 3000, 3, 5
+    bins = rs.randint(0, Bmax, size=(n, G)).astype(np.uint16)
+    bins[::7, 1] = Bmax - 1
+    slot = np.where(rs.rand(n) < 0.8, rs.randint(0, S, n), -1).astype(
+        np.int32)
+    grad = (rs.randint(-64, 64, n) / 64).astype(np.float32)
+    hess = (rs.randint(1, 64, n) / 64).astype(np.float32)
+    cnt = (rs.rand(n) < 0.9).astype(np.float32)
+    plan = plan_blocks(torch.as_tensor(slot), S, 256)
+    got = khs.hist_sorted_plain(tl.bins_to_torch(bins), plan.gather_idx,
+                                plan.scalars, _t(grad), _t(hess), _t(cnt),
+                                S, Bmax, hist_shift(1.0, n), 256).numpy()
+    want = np.asarray(_hist_segsum(jnp.asarray(bins), jnp.asarray(slot),
+                                   jnp.asarray(grad), jnp.asarray(hess),
+                                   jnp.asarray(cnt), S, Bmax))
+    np.testing.assert_array_equal(got, want)
+    assert (got[:, 1, Bmax - 1, 2] > 0).any()
 
 
 # --------------------------------------------------------------- predict
@@ -816,9 +889,11 @@ def test_c_entry_points_take_the_bin_width():
         src = (here / build.SOURCES[name]).read_text()
         params = re.search(r'extern "C" int ' + sym + r"\(([^)]*)\)",
                            src).group(1).split(",")
-        if name in ("leaf_gather", "hist_direct", "hist_nibble"):
+        if name in ("leaf_gather", "bin_rows"):
             continue
-        assert params[0].split() == ["const", "void*", "bins_T"], name
+        # K6/K7 read row-major (N, G) bins, the others (G, N)
+        bins = "bins" if name in ("hist_direct", "hist_nibble") else "bins_T"
+        assert params[0].split() == ["const", "void*", bins], name
         assert params[1].split() == ["int", "bin_bytes"], name
         assert argtypes[1] is build._c_int, name
 

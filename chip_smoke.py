@@ -211,6 +211,21 @@ Phases, each printing one JSON line:
    upload chunks), each byte-equal to its plain version on the card and to
    the host (``construct_binned`` or the old sentinel re-bin).
 
+Training on the card runs the fused iteration by default (``fused_iter``
+auto): each iteration's head, rounds and tail replayed as CUDA graphs,
+their kernels' launches credited per replay.  The launch captures of the
+phases above run the fused steps without graphs
+(``utils.graphs.uncaptured``), on the same code and shapes.  Phases train,
+train_sampled, train_quantized, train_categorical, train_multiclass
+(stream) and train_wide each add an eager arm (``fused_iter`` off, the
+same iterations): its model text must equal the fused run's byte for
+byte, and the line's ``fused_iter`` entry gives both arms' ``s_per_tree``
+(and the fused arm's over the iterations that only replayed graphs), host
+reads, graph replays and kernel launches per tree, and the idle share of
+one more iteration (``torch.profiler``).  The small phases hold L2
+regression fused on the card against eager on the CPU, byte for byte
+(multiclass: fused against eager on the card, softmax rounding apart).
+
 Then a ``kernels`` line (each ported kernel's launches on its main path,
 largest error against its plain version, time, plain time, bound and
 library time; K5's entry also ``by_max_bin``, its replayed launches'
@@ -529,10 +544,13 @@ def device_ms(fn, reps=20, clock_hz=2e9):
 class TimedIters:
     """Times every boosting iteration (``GBDT.train_one_iter``, the device
     synchronised at its end) while active, and captures the K2, K3 and K4
-    launches of iteration ``capture_at`` into ``cap``."""
+    launches of iteration ``capture_at`` into ``cap``.  ``replayed`` marks
+    the fused iterations that only replayed graphs (no step run eagerly or
+    captured)."""
 
     def __init__(self, capture_at=None):
         self.seconds, self.cap, self.capture_at = [], Capture(), capture_at
+        self.replayed = []
 
     def __enter__(self):
         import torch
@@ -540,12 +558,16 @@ class TimedIters:
         self._orig = orig = GBDT.train_one_iter
 
         def timed(eng, *a, **kw):
+            g = eng._graphs
+            before = (g.captures, g.eager_runs)
             t0 = time.perf_counter()
             with (self.cap if len(self.seconds) == self.capture_at
                   else contextlib.nullcontext()):
                 out = orig(eng, *a, **kw)
             torch.cuda.synchronize()
             self.seconds.append(time.perf_counter() - t0)
+            self.replayed.append(bool(eng._fused)
+                                 and (g.captures, g.eager_runs) == before)
             return out
 
         GBDT.train_one_iter = timed
@@ -570,6 +592,108 @@ def profiled_iteration(bst):
     seconds = time.perf_counter() - t0
     bst.engine.timer = None
     return seconds, dict(timer.seconds), timer.host_reads
+
+
+def idle_share(bst):
+    """One more iteration of ``bst`` under ``torch.profiler``: (the share of
+    the iteration's wall time, from its start to the device's end, in which
+    no kernel ran on the card, its seconds).  Busy time is the union of the
+    kernels' intervals in the trace (graph replays' kernels included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    if not spans:
+        return None, wall
+    return max(0.0, 1.0 - busy * 1e-6 / wall), wall
+
+
+def arm_numbers(bst, timed, launches, reads):
+    """An arm's per-tree numbers: ``s_per_tree`` (median after the first
+    iteration; fused, also the median of the iterations that only replayed
+    graphs), host reads, graph replays and kernel launches per iteration,
+    and the idle share of one more iteration (``idle_share``)."""
+    eng = bst.engine
+    iters = max(len(timed.seconds), 1)
+    replayed = [t for t, r in zip(timed.seconds, timed.replayed) if r]
+    graph_replays, captures = eng._graphs.replays, eng._graphs.captures
+    share, share_s = idle_share(bst)
+    return {"fused": bool(eng._fused),
+            "s_per_tree": statistics.median(timed.seconds[1:]
+                                            or timed.seconds),
+            "s_per_tree_replayed": (statistics.median(replayed)
+                                    if replayed else None),
+            "iterations_replayed": len(replayed),
+            "host_reads_per_tree": reads / iters,
+            "graph_replays_per_tree": graph_replays / iters,
+            "graph_captures": captures,
+            "kernel_launches_per_tree": sum(launches.values()) / iters,
+            "loop_rounds": list(eng._loop_rounds),
+            "idle_share": share, "idle_share_iteration_s": share_s}
+
+
+def fused_and_eager(fused_bst, fused_timed, fused_launches, fused_reads,
+                    train, iters):
+    """The fused main run against the same training with ``fused_iter``
+    off (``train(extra, iters)``): byte-identical model text on the card,
+    and both arms' numbers.  Raises unless the main run fused."""
+    from lightgbm_torch import kernels
+    from lightgbm_torch.utils.timer import host_reads
+
+    if not fused_bst.engine._fused or fused_bst.engine._graphs.replays == 0:
+        raise RuntimeError("the main run did not replay fused graphs")
+    kernels.reset_launch_counts()
+    r0 = host_reads()
+    with TimedIters() as timed:
+        eager = train({"fused_iter": "off"}, iters)
+    reads = host_reads() - r0
+    launches = kernels.launch_counts()
+    if eager.engine._fused:
+        raise RuntimeError("fused_iter=off fused")
+    if model_trees_text(eager) != model_trees_text(fused_bst,
+                                                  num_iteration=iters):
+        raise RuntimeError("fused and eager iterations grow different "
+                           "trees")
+    return {"text_identical": True,
+            "fused": arm_numbers(fused_bst, fused_timed, fused_launches,
+                                 fused_reads),
+            "eager": arm_numbers(eager, timed, launches, reads)}
+
+
+def fused_against_cpu(X, y, params, iters, **ds_kw):
+    """L2 regression fused on the card against eager on the CPU: the same
+    float32 gradients and exact sums, so byte-identical text."""
+    import lightgbm_torch as lt
+
+    texts = {}
+    for dev, fused in (("cuda", "on"), ("cpu", "off")):
+        p = {**params, "objective": "regression", "device_type": dev,
+             "fused_iter": fused}
+        bst = lt.train(p, lt.Dataset(X, label=y, params=p, **ds_kw), iters)
+        if bst.engine._fused != (dev == "cuda"):
+            raise RuntimeError(f"fused_iter={fused} on {dev}")
+        texts[dev] = model_trees_text(bst)
+    if texts["cuda"] != texts["cpu"]:
+        raise RuntimeError(f"fused on the card differs from eager on the "
+                           f"CPU under {params}")
+    return True
 
 
 # --------------------------------------------------------------------------
@@ -1168,12 +1292,25 @@ def tree_structure(t):
             t.right_child.tolist())
 
 
+def owned(args):
+    """The arguments with every tensor copied: the fused iteration's
+    buffers (its gradients, compacted rows and shift tables) are written
+    again by the next iteration."""
+    import torch
+    return tuple(a.clone() if isinstance(a, torch.Tensor)
+                 else tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                            for x in a) if isinstance(a, tuple) else a
+                 for a in args)
+
+
 class Capture:
     """Records every K2 (both forms), K3, K4, K5, K6/K7 and K8 call of the
     training loop (inputs and outputs) while active, by wrapping the
     dispatchers that ops/grow.py, ops/histogram.py and models/gbdt.py call.
     The calls still go through the kernels' wrappers and are counted
-    there."""
+    there.  While active, the fused iteration runs its steps without CUDA
+    graphs (``utils.graphs.uncaptured``): the same code and shapes its
+    graphs hold, through the wrappers this watches."""
 
     def __init__(self):
         self.k2, self.k3, self.k4, self.k5, self.k67 = [], [], [], [], []
@@ -1183,6 +1320,9 @@ class Capture:
         from lightgbm_torch.kernels import hist_sorted, hist_wide, scatter_hist
         from lightgbm_torch.models import gbdt
         from lightgbm_torch.ops import grow
+        from lightgbm_torch.utils import graphs
+        self._uncaptured = graphs.uncaptured()
+        self._uncaptured.__enter__()
         self._orig = (grow.route_and_hist, grow.route_replay,
                       gbdt.leaf_gather, scatter_hist.scatter_hist,
                       hist_sorted.hist_sorted, hist_wide.hist_wide,
@@ -1193,15 +1333,14 @@ class Capture:
         def k2(bins_T, leaf_id, tabs, words, grad, hess, cnt, *args):
             out = k2_call(bins_T, leaf_id, tabs, words, grad, hess, cnt,
                           *args)
-            self.k2.append(((bins_T, leaf_id.clone(), tabs.clone(),
-                             words.clone(), grad, hess, cnt) + tuple(args),
-                            out))
+            self.k2.append((owned((bins_T, leaf_id, tabs, words, grad, hess,
+                                   cnt) + tuple(args)), out))
             return out
 
         def k2i(bins_T, leaf_id, tabs, words, *args):
             out = k2i_call(bins_T, leaf_id, tabs, words, *args)
-            self.k2i.append(((bins_T, leaf_id.clone(), tabs.clone(),
-                              words.clone()) + tuple(args), out))
+            self.k2i.append((owned((bins_T, leaf_id, tabs, words)
+                                   + tuple(args)), out))
             return out
 
         def k3(bins_T, tabs):
@@ -1243,6 +1382,7 @@ class Capture:
         (grow.route_and_hist, grow.route_replay, gbdt.leaf_gather,
          scatter_hist.scatter_hist, hist_sorted.hist_sorted,
          hist_wide.hist_wide, grow.route_and_hist_int) = self._orig
+        self._uncaptured.__exit__(*exc)
 
 
 def max_abs_diff(a, b) -> float:
@@ -1442,6 +1582,10 @@ def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
     if not all(replayed_nb[k] for k in HIST_KERNELS):
         raise RuntimeError(f"the backends' runs replayed {replayed_nb}")
     err = {k: max(v, err_255[k], err_nb[k]) for k, v in err.items()}
+    # the fused iteration on the card against the eager one on the CPU
+    fused_cpu = {name: fused_against_cpu(X, y, {**base, **extra}, iters)
+                 for name, extra in (("l2", {}),
+                                     ("l2_max_depth", {"max_depth": 5}))}
     emit({"phase": "train_small", "rows": n, "iterations": iters,
           "num_leaves": num_leaves, "dyadic_leaves_per_tree": nl,
           "dyadic_text_identical": True, "binary_first_tree_identical": True,
@@ -1451,7 +1595,8 @@ def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
           "backends_text_identical": True,
           "backends_leaves_per_tree": nb_leaves,
           "replayed_launches_backends": replayed_nb,
-          "replay_max_abs_err": err})
+          "replay_max_abs_err": err,
+          "fused_card_text_equals_eager_cpu": fused_cpu})
     return err
 
 
@@ -1576,14 +1721,18 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
     from lightgbm_torch import kernels
     from lightgbm_torch.kernels import leaf_gather as lg
 
+    from lightgbm_torch.utils.timer import host_reads
+
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
               "learning_rate": 0.1, "verbosity": -1}
     kernels.reset_launch_counts()
+    r0 = host_reads()
     with TimedIters(capture_at=timed_tree) as timed:
         t0 = time.perf_counter()
         bst = lt.train(params, ds, iters)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
+    reads = host_reads() - r0
     tree_s, cap = timed.seconds, timed.cap
     launches = kernels.launch_counts()
     n_trees = bst.num_trees()
@@ -1617,8 +1766,12 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
     k4_lib = device_ms(lambda: torch.index_select(vals, 0, lid))
     k4_bnd = bound(8.0 * lid.numel() + 4.0 * vals.numel(), lid.numel())
 
+    # the fused iteration (the main path) against the eager one
+    fused = fused_and_eager(bst, timed, launches, reads,
+                            lambda extra, n: lt.train({**params, **extra},
+                                                      ds, n), iters)
     # one more iteration, its phases timed (synchronised at every boundary)
-    profiled_s, phases_s, host_reads = profiled_iteration(bst)
+    profiled_s, phases_s, prof_reads = profiled_iteration(bst)
 
     after_first = tree_s[1:] or tree_s
     emit({"phase": "train", "card": smi, "rows": int(ds.num_data()),
@@ -1635,7 +1788,8 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
           "determinism_first_3_trees_identical": True,
           "profiled_iteration_s": profiled_s,
           "profiled_iteration_phases_s": phases_s,
-          "profiled_iteration_host_reads": host_reads})
+          "profiled_iteration_host_reads": prof_reads,
+          "fused_iter": fused})
     k2 = {"name": "route_and_hist", "route": "cuda",
           "source": KERNEL_SOURCES["route_and_hist"],
           "replaces": KERNEL_REPLACES["route_and_hist"],
@@ -1741,9 +1895,13 @@ def phase_train_sampled_small(seed, n=20_000, iters=5, num_leaves=127):
     replayed, err = replay_against_plain(cap)
     if not (replayed["scatter_hist"] and replayed["hist_direct"]):
         raise RuntimeError(f"the backends' sampled runs replayed {replayed}")
+    fused_cpu = {kind: fused_against_cpu(
+        X, y, {**base, **sampled_params(kind)}, iters)
+        for kind in ("bagging", "goss")}
     emit({"phase": "train_sampled_small", "rows": n, "iterations": iters,
           "num_leaves": num_leaves, **out, "replayed_launches": replayed,
-          "replay_max_abs_err": err})
+          "replay_max_abs_err": err,
+          "fused_card_text_equals_eager_cpu": fused_cpu})
     return err
 
 
@@ -1812,8 +1970,11 @@ def phase_train_sampled(ds, Xs, ys, smi, iters=40, valid_rows=250_000,
     def run(extra, n_iter, **kw):
         return lt.train({**params, **extra}, ds, n_iter, **kw)
 
+    from lightgbm_torch.utils.timer import host_reads
+
     record = {}
     kernels.reset_launch_counts()
+    r0 = host_reads()
     with TimedIters(capture_at=timed_tree) as main:
         t0 = time.perf_counter()
         bst = run({}, iters, valid_sets=[valid],
@@ -1821,6 +1982,7 @@ def phase_train_sampled(ds, Xs, ys, smi, iters=40, valid_rows=250_000,
                              lt.record_evaluation(record)])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
+    reads = host_reads() - r0
     launches = kernels.launch_counts()
     eng = bst.engine
     n_trees = bst.num_trees()
@@ -1881,6 +2043,12 @@ def phase_train_sampled(ds, Xs, ys, smi, iters=40, valid_rows=250_000,
              for a, _ in k2_full]
     (lid, vals), _ = main.cap.k4[0]
     k4_ms = device_ms(lambda: lg.leaf_gather_cuda(lid, vals))
+    # the fused iteration (the main path) against the eager one, with the
+    # validation set
+    fused = fused_and_eager(
+        bst, main, launches, reads,
+        lambda extra, n: run(extra, n, valid_sets=[valid],
+                             callbacks=[lt.record_evaluation({})]), n_trees)
     prof = profiled_iteration(bst)
     prof_dense = profiled_iteration(arm_bst["no_compaction"])
     emit({"phase": "train_sampled", "card": smi, "rows": int(ds.num_data()),
@@ -1916,7 +2084,8 @@ def phase_train_sampled(ds, Xs, ys, smi, iters=40, valid_rows=250_000,
           "profiled_iteration_phases_s": prof[1],
           "profiled_iteration_host_reads": prof[2],
           "profiled_iteration_no_compaction_s": prof_dense[0],
-          "profiled_iteration_no_compaction_phases_s": prof_dense[1]})
+          "profiled_iteration_no_compaction_phases_s": prof_dense[1],
+          "fused_iter": fused})
     return {"name": "route_replay", "route": "cuda",
             "source": KERNEL_SOURCES["route_replay"],
             "replaces": KERNEL_REPLACES["route_replay"],
@@ -3056,6 +3225,14 @@ def phase_train_multiclass_small(seed, n=20_000, iters=5, num_leaves=127):
                                               for t in bst.engine.models],
                    "real_leaves_per_tree": [t.num_leaves
                                             for t in real[0].engine.models]}
+    # the fused lockstep iteration, its graphs replayed, against the eager
+    # one on the card (softmax rounds differently on the CPU)
+    pair = [lt.train(p, lt.Dataset(X, label=y, params=p), iters)
+            for p in ({**base, "fused_iter": fused, "device_type": "cuda"}
+                      for fused in ("on", "off"))]
+    if (model_trees_text(pair[0]) != model_trees_text(pair[1])
+            or pair[0].engine._graphs.replays == 0):
+        raise RuntimeError("multiclass: fused and eager lockstep differ")
     torch.cuda.synchronize()
     replayed, err = replay_against_plain(cap)
     if not (replayed["route_and_hist_k"] and replayed["hist_wide"]):
@@ -3064,6 +3241,7 @@ def phase_train_multiclass_small(seed, n=20_000, iters=5, num_leaves=127):
           "iterations": iters, "num_leaves": num_leaves, "runs": out,
           "dyadic_text_identical_cpu_card": True,
           "lockstep_per_class_identical": True,
+          "fused_eager_identical_card": True,
           "replayed_launches": replayed, "replay_max_abs_err": err})
     return err
 
@@ -3129,16 +3307,20 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
     base = {"objective": "multiclass", "num_class": K, "num_leaves": 255,
             "max_bin": 63, "learning_rate": 0.1, "max_splits_per_round": 64,
             "verbosity": -1}
+    from lightgbm_torch.utils.timer import host_reads
+
     runs, texts, caps = {}, {}, {}
     for hb in ("stream", "pallas", "scatter"):
         want = "route_and_hist" if hb == "stream" else "hist_wide"
         other = "hist_wide" if hb == "stream" else "route_and_hist"
         kernels.reset_launch_counts()
+        r0 = host_reads()
         with TimedIters(capture_at=min(timed_iter, iters - 1)) as timed:
             t0 = time.perf_counter()
             bst = lt.train({**base, "hist_backend": hb}, ds, iters)
             torch.cuda.synchronize()
             train_s = time.perf_counter() - t0
+        reads = host_reads() - r0
         counts = kernels.launch_counts()
         if (bst.num_trees() != iters * K or counts[want] == 0
                 or counts[other] != 0 or counts["leaf_gather"] != iters):
@@ -3154,6 +3336,7 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
                                         for t in bst.engine.models]}
         if hb == "stream":
             stream_bst, stream_counts = bst, counts
+            stream_timed, stream_reads = timed, reads
     if texts["pallas"] != texts["scatter"]:
         raise RuntimeError("multiclass: pallas and scatter grow different "
                            "trees")
@@ -3183,6 +3366,11 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
     with TimedIters() as probe:
         lt.train({**base, "objective": "binary", "num_class": 1}, bin_ds,
                  iters)
+    # the fused iteration (stream's main path) against the eager one
+    runs["stream"]["fused_iter"] = fused_and_eager(
+        stream_bst, stream_timed, stream_counts, stream_reads,
+        lambda extra, n: lt.train({**base, "hist_backend": "stream",
+                                   **extra}, ds, n), iters)
     s_iter = runs["stream"]["s_per_iter"]
     s_bin = statistics.median(probe.seconds[1:])
     s_pc = statistics.median(pc.seconds[1:])
@@ -3389,7 +3577,9 @@ def phase_train_quantized_small(seed, n=20_000, iters=5, num_leaves=127):
     if rets != [False] * 4 or len(leaves) != 4 or leaves[1] != 1 \
             or min(leaves[:1] + leaves[2:]) < 2:
         raise RuntimeError(f"nan_guard: NaN gradients gave {rets}, {leaves}")
+    fused_cpu = fused_against_cpu(X, y, base, iters)
     emit({"phase": "train_quantized_small", "rows": n, "iterations": iters,
+          "fused_card_text_equals_eager_cpu": fused_cpu,
           "num_leaves": num_leaves, "runs": out,
           "text_identical_cpu_card": True, "replayed_launches": replayed,
           "replay_max_abs_err": err, "nan_init_trees": guarded.num_trees(),
@@ -3416,15 +3606,19 @@ def phase_train_quantized(ds, Xs, ys, smi, iters=20, timed_tree=2):
     import lightgbm_torch as lt
     from lightgbm_torch import kernels
 
+    from lightgbm_torch.utils.timer import host_reads
+
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
               "learning_rate": 0.1, "verbosity": -1,
               "use_quantized_grad": True}
     kernels.reset_launch_counts()
+    r0 = host_reads()
     with TimedIters(capture_at=timed_tree) as timed:
         t0 = time.perf_counter()
         bst = lt.train(params, ds, iters)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
+    reads = host_reads() - r0
     launches = kernels.launch_counts()
     if (bst.num_trees() != iters or launches["route_and_hist_int"] == 0
             or launches["route_and_hist"] != 0
@@ -3438,6 +3632,9 @@ def phase_train_quantized(ds, Xs, ys, smi, iters=20, timed_tree=2):
     again = lt.train(params, ds, 3)
     if model_trees_text(again) != model_trees_text(bst, num_iteration=3):
         raise RuntimeError("quantized training does not repeat bit for bit")
+    fused = fused_and_eager(bst, timed, launches, reads,
+                            lambda extra, n: lt.train({**params, **extra},
+                                                      ds, n), iters)
     arms = {}
     for name, extra, want in (
             ("renew", {"quant_train_renew_leaf": True}, "route_and_hist_int"),
@@ -3475,7 +3672,7 @@ def phase_train_quantized(ds, Xs, ys, smi, iters=20, timed_tree=2):
     route = time_k2_launches([(a, o) for a, o in k2i if not a[9]], True)
     compacted = time_k2_launches([(a, o) for a, o in bag_t.cap.k2i
                                   if a[9]], True)
-    profiled_s, phases_s, host_reads = profiled_iteration(bst)
+    profiled_s, phases_s, prof_reads = profiled_iteration(bst)
     tree_s = timed.seconds
     emit({"phase": "train_quantized", "card": smi, "rows": int(ds.num_data()),
           "iterations": iters, "num_leaves": 255, "num_grad_quant_bins": 4,
@@ -3493,7 +3690,8 @@ def phase_train_quantized(ds, Xs, ys, smi, iters=20, timed_tree=2):
           "k2_int_route_only": route, "k2_int_compacted": compacted,
           "profiled_iteration_s": profiled_s,
           "profiled_iteration_phases_s": phases_s,
-          "profiled_iteration_host_reads": host_reads})
+          "profiled_iteration_host_reads": prof_reads,
+          "fused_iter": fused})
     line = {"name": "route_and_hist_int", "route": "cuda",
             "source": KERNEL_SOURCES["route_and_hist_int"],
             "replaces": KERNEL_REPLACES["route_and_hist_int"],
@@ -3686,7 +3884,10 @@ def phase_train_categorical_small(seed, n=20_000, iters=5, num_leaves=127):
     host = _host_predict(Xt, use, 1, False, 10, 10.0)
     np.testing.assert_allclose(pred, host, rtol=RTOL, atol=ATOL)
     err["predict_stream"] = k1_err
+    fused_cpu = fused_against_cpu(X, y, base, iters,
+                                  categorical_feature=CAT_SMALL)
     emit({"phase": "train_categorical_small", "rows": n,
+          "fused_card_text_equals_eager_cpu": fused_cpu,
           "num_leaves": num_leaves, "categorical_columns": CAT_SMALL,
           "runs": out, "text_identical_cpu_card": True,
           "replayed_launches": replayed, "replay_max_abs_err": err,
@@ -3783,13 +3984,17 @@ def phase_train_categorical(seed, smi, rows=1_000_000, held_out=250_000,
     data_s += construct_s
     mappers = ds.bin_mappers()
     num_bins = [int(m.num_bins) for m in mappers]
+    from lightgbm_torch.utils.timer import host_reads
+
     grown = KeepGrownTrees()
     kernels.reset_launch_counts()
+    r0 = host_reads()
     with TimedIters(capture_at=timed_tree) as timed:
         t0 = time.perf_counter()
         bst = lt.train(params, ds, iters, callbacks=[grown])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
+    reads = host_reads() - r0
     launches = kernels.launch_counts()
     kind = cat_kinds(grown.arrays)
     tree_s, cap = timed.seconds, timed.cap
@@ -3850,7 +4055,10 @@ def phase_train_categorical(seed, smi, rows=1_000_000, held_out=250_000,
     k4_lib = device_ms(lambda: torch.index_select(vals, 0, lid))
     k4_bnd = bound(8.0 * lid.numel() + 4.0 * vals.numel(), lid.numel())
 
-    profiled_s, phases_s, host_reads = profiled_iteration(bst)
+    fused = fused_and_eager(bst, timed, launches, reads,
+                            lambda extra, n: lt.train({**params, **extra},
+                                                      ds, n), iters)
+    profiled_s, phases_s, prof_reads = profiled_iteration(bst)
     total = sum(phases_s.values())
     after_first = tree_s[1:] or tree_s
     emit({"phase": "train_categorical", "card": smi, "rows": rows,
@@ -3886,7 +4094,8 @@ def phase_train_categorical(seed, smi, rows=1_000_000, held_out=250_000,
           "profiled_iteration_phases_s": phases_s,
           "profiled_iteration_phase_share": {
               k: v / total for k, v in phases_s.items()} if total else {},
-          "profiled_iteration_host_reads": host_reads})
+          "profiled_iteration_host_reads": prof_reads,
+          "fused_iter": fused})
     k2 = {"cell": "train_categorical", "max_bins": int(bst.engine.dd.max_bins),
           "launches": launches["route_and_hist"],
           "ms": full["mean_ms"], "plain_ms": full["mean_plain_ms"],
@@ -4034,7 +4243,9 @@ def phase_train_wide_small(seed, n=20_000, iters=3, num_leaves=31):
     if not (k1_wide == 1 and inp.bins_T.dtype == torch.int16):
         raise RuntimeError(f"wide predict: {k1_wide} 16-bit K1 launches")
     err["predict_stream"] = k1_err
+    fused_cpu = fused_against_cpu(X, y, base, iters)
     emit({"phase": "train_wide_small", "rows": n, "groups": groups[0],
+          "fused_card_text_equals_eager_cpu": fused_cpu,
           "group_bins": groups[1], "max_bins": groups[2], "runs": out,
           "text_identical_cpu_card": True, "replayed_launches": replayed,
           "replay_max_abs_err": err,
@@ -4107,6 +4318,8 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
     bin_time = time_bin_rows(ds_cap)
     del ds_cap
 
+    from lightgbm_torch.utils.timer import host_reads
+
     def run(extra, n_iter, data=ds, capture_at=timed_tree):
         kernels.reset_launch_counts()
         with TimedIters(capture_at=capture_at) as timed:
@@ -4117,7 +4330,9 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
         return (bst, timed, train_s, kernels.launch_counts(),
                 kernels.wide_launch_counts())
 
+    r0 = host_reads()
     bst, timed, train_s, launches, wide = run({}, iters)
+    reads = host_reads() - r0
     n_groups, group_bins, Bmax = wide_group_bins(bst)
     if bst.engine.dd.bins.dtype != torch.int16 or Bmax <= 256:
         raise RuntimeError(f"Flight Delay rows: no group past 256 bins "
@@ -4151,7 +4366,11 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
     k1_bnd = bound(*k1_work(inp, use, maxd, held_out))
     replayed, err = replay_against_plain(timed.cap)
     k2 = time_k2_launches([(a, o) for a, o in timed.cap.k2 if a[10]], False)
-    profiled_s, phases_s, host_reads = profiled_iteration(bst)
+    # the fused iteration (the main path) against the eager one
+    fused = fused_and_eager(bst, timed, launches, reads,
+                            lambda extra, n: lt.train({**params, **extra},
+                                                      ds, n), iters)
+    profiled_s, phases_s, prof_reads = profiled_iteration(bst)
     total = sum(phases_s.values())
     tree_s = timed.seconds
 
@@ -4246,7 +4465,8 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
           "profiled_iteration_phases_s": phases_s,
           "profiled_iteration_phase_share": {
               k: v / total for k, v in phases_s.items()} if total else {},
-          "profiled_iteration_host_reads": host_reads,
+          "profiled_iteration_host_reads": prof_reads,
+          "fused_iter": fused,
           "goss": {"iterations": goss_iters, "train_s": g_train_s,
                    "s_per_tree_sampled": statistics.median(
                        g_timed.seconds[10:] or g_timed.seconds),

@@ -463,6 +463,16 @@ class Config:
     # the poisoned iteration), skip (skip silently), raise, none (guard off)
     nan_guard: str = "warn"
 
+    # The fused iteration (models/gbdt.py ``_iter_fused``): the grower's
+    # state on the device, no host read inside a round, and each iteration
+    # replayed as CUDA graphs (auto = on for a CUDA device under the stream
+    # backend, off on the CPU; on | off force it); its flags (finished,
+    # the guard's, the sampled count, compaction overflow) are read in one
+    # batched poll every eval_fetch_freq iterations (0 = auto: 16 when
+    # fused, 1 otherwise)
+    fused_iter: str = "auto"
+    eval_fetch_freq: int = 0
+
     def __post_init__(self) -> None:
         self._unknown: Dict[str, Any] = {}
 
@@ -506,13 +516,17 @@ class Config:
             raise LightGBMError(
                 f"device_type={self.device_type!r} is not one of 'cuda' "
                 "('gpu' is an alias) or 'cpu'")
-        for key in ("row_compaction", "route_fusion"):
+        for key in ("row_compaction", "route_fusion", "fused_iter"):
             allowed = (("auto", "off", "pad") if key == "row_compaction"
                        else ("auto", "on", "off"))
             if str(getattr(self, key)).strip().lower() not in allowed:
                 raise LightGBMError(
                     f"{key}={getattr(self, key)!r} is not one of "
                     + ", ".join(repr(a) for a in allowed))
+        if self.eval_fetch_freq < 0:
+            raise LightGBMError(
+                f"eval_fetch_freq={self.eval_fetch_freq} must be >= 0 "
+                "(0 = auto)")
         # GOSS conflicts (reference: Config::CheckParamConflict,
         # src/io/config.cpp): the rates partition the data, and active
         # bagging cannot be combined with GOSS

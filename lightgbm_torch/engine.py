@@ -108,6 +108,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
             break
     else:
         booster.engine._trim_trailing_trivial()
+    booster.engine.flush_nan_guard()
 
     if evaluation_result_list:
         best: Dict[str, Dict[str, float]] = collections.defaultdict(dict)

@@ -2,8 +2,8 @@
 trees it grows.
 
 The port's counterpart of ``lightgbm_tpu/models/gbdt.py`` (reference:
-src/boosting/gbdt.h GBDT), the unfused single-device iteration of the
-reference (``_train_one_iter_impl``, gbdt.py:2089-2403: one tree per
+src/boosting/gbdt.h GBDT), the single-device iteration of the reference
+(eager: ``_train_one_iter_impl``, gbdt.py:2089-2403: one tree per
 iteration, or one per class) with ``hist_backend`` ``stream`` (the
 default), ``scatter`` or ``pallas``.  An iteration computes the
 objective's gradients on the training score (or takes custom ones), samples
@@ -34,6 +34,17 @@ rounds each class's gradients and hessians onto a grid of
 ``quant_train_renew_leaf`` then sets each leaf's value from the raw
 gradients' sums (exact fixed point; K class trees grow one at a time).
 
+The fused iteration (``fused_iter``; reference: ``_iter_fused``,
+gbdt.py:1727-1928): under the stream backend, without custom gradients or
+leaf renewal, an iteration is a head (gradients, sampling, the guard,
+quantization, compaction and the root pass), the tree's rounds and a tail
+(the sprint, K3, K4), each step captured once as a CUDA graph and replayed
+after (utils/graphs.py), over a ``TrainState`` and a device-state grower
+(ops/grow.py ``_DeviceGrower``) whose tensors live at fixed addresses.  The
+host reads one small vector per tree and polls the iteration's flags every
+``eval_fetch_freq`` iterations; the trees equal the eager iteration's, bit
+for bit.
+
 ``nan_guard`` (robustness/guards.py): non-finite init scores are zeroed,
 an iteration with a non-finite gradient grows a no-op tree from zeroed
 gradients and does not end training, and a model with non-finite leaves
@@ -46,6 +57,7 @@ training a different model.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,14 +70,17 @@ from ..kernels.leaf_gather import leaf_gather
 from ..kernels.predict import tree_max_depth
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction
-from ..ops.grow import GrowParams, fusion_applies, grow_tree, grow_tree_k
+from ..ops.grow import (GrowParams, _DeviceGrower, fusion_applies,
+                        grow_device, grow_tree, grow_tree_k, loop_plan,
+                        sprint_and_replay)
 from ..ops.histogram import dequantize, hist_shift, quantize
 from ..ops.predict import _walk_one_tree
 from ..ops.split import CatParams, leaf_output
 from ..robustness.guards import NanGuard, check_finite_init, check_model_trees
 from ..tree import (DIR_CATEGORICAL, DIR_DEFAULT_LEFT, Tree, TreeArrays,
                     finalize_tree)
-from ..utils.log import LightGBMError
+from ..utils.graphs import GraphRunner
+from ..utils.log import LightGBMError, log_warning
 from ..utils.random import prng_key, split, uniform
 from ..utils.timer import host_int, host_list, phase
 from .sample_strategy import SampleStrategy, create_sample_strategy
@@ -104,6 +119,47 @@ def quantize_gh(grad, hess, key, num_bins: int, stochastic: bool):
     gq, gs = q(grad, grad.abs().amax(dim=0), kg, -half)
     hq, hs = q(hess, hess.amax(dim=0), kh, 0.0)
     return gq, hq, torch.stack([gs, hs])
+
+
+@dataclass
+class TrainState:
+    """The fused iteration's state on the device, the single-device
+    counterpart of ``lightgbm_tpu/parallel/sharded_state.py:26-60``
+    ``ShardedTrainState`` (no sharding).  Every tensor is allocated once and
+    written in place by the iteration's graphs; the host reads the flags
+    only at the poll (``GBDT._poll_device_flags``)."""
+    score: torch.Tensor      # (N,) or (N, K) training score
+    grad: torch.Tensor       # the last iteration's sampled gradients
+    hess: torch.Tensor
+    leaf_id: torch.Tensor    # (K, N) int32 every row's leaf in each tree
+    mask: torch.Tensor       # (N,) float32 in-bag count weights
+    sampled: torch.Tensor    # () int64 in-bag rows of the last iteration
+    overflow: torch.Tensor   # () int64 iterations whose in-bag rows
+                             # outgrew the compaction capacity
+    finished: torch.Tensor   # () bool the last iteration made no split
+                             # (and its gradients were finite)
+    ok: torch.Tensor         # () bool its gradients were finite
+
+
+@dataclass
+class FusedInputs:
+    """What changes from one fused iteration to the next, in device buffers
+    the host fills before the replays (a Python value would be baked into a
+    graph at capture): the bagging epoch's mask, the quantizer's and GOSS's
+    key words (``prng_key``: (0, seed & 0xFFFFFFFF)), the learning rate and
+    the feature sample."""
+    mask: torch.Tensor       # (N,) float32
+    qkey: torch.Tensor       # (2,) int64
+    skey: torch.Tensor       # (2,) int64
+    rate: torch.Tensor       # () float32
+    col_mask: Optional[torch.Tensor]   # (F,) bool, or None
+
+
+# the fields of a grown tree packed into one int32 buffer (float32 fields
+# by their bits), then each class's leaf count; the categorical bitsets
+# travel apart
+_PACKED_FIELDS = [f for f in TreeArrays._fields
+                  if f not in ("num_leaves", "cat_bitset")]
 
 
 class GBDT:
@@ -167,6 +223,22 @@ class GBDT:
                                    objective.name if objective else "none")
         # a utils.timer.PhaseTimer here times the phases of each iteration
         self.timer = None
+        # the fused iteration: its state, inputs, graphs, a device-state
+        # grower per compaction capacity, the loop rounds of recent trees
+        # (each tree's plan), the guard's unread flags, and GOSS's
+        # compaction overflow
+        self._fused: Optional[bool] = None
+        self._train_state: Optional[TrainState] = None
+        self._fused_in: Optional[FusedInputs] = None
+        self._graphs = GraphRunner(self.device)
+        self._fused_growers = {}
+        self._loop_rounds: List[int] = []
+        self._tree_out = self._bits_out = None
+        self._pending_ok: List[Tuple[int, torch.Tensor]] = []
+        self._compact_overflow = False
+        self._overflow_seen = 0
+        self._finished_check_every = 1
+        self._finished_last = False
 
     def _compute_init_score(self) -> List[float]:
         k = self.num_tree_per_iteration
@@ -347,11 +419,50 @@ class GBDT:
             # K2, K5 and K8 read the (G, N) layout K1 reads, K6/K7 the
             # (N, G) rows of DeviceData.bins
             self._bins_T = self.dd.bins.t().contiguous()
+            self._fused = self._can_fuse_iteration()
+            # the batched flag poll's cadence (reference: gbdt.py:398-410)
+            eff = int(self.config.eval_fetch_freq or 0)
+            self._finished_check_every = (eff if eff > 0
+                                          else 16 if self._fused else 1)
+
+    def _can_fuse_iteration(self) -> bool:
+        """The fused iteration's gate (reference: gbdt.py:1583-1625):
+        objectives whose gradients trace, no leaf renewal (the objective's
+        or the quantizer's), multiclass only in lockstep; custom gradients
+        run eager at each update (``train_one_iter``).  The port fuses only
+        the stream backend: the scatter and pallas rounds size their slot
+        maps and block plans from the data.  ``auto`` fuses on a CUDA
+        device and not on the CPU, as the reference's auto fuses on its
+        accelerator; ``on`` on the CPU runs the same device-state grower
+        without graphs."""
+        c = self.config
+        mode = str(c.fused_iter).strip().lower()
+        if mode == "off":
+            return False
+        obj = self.objective
+        if (obj is None or not getattr(obj, "jit_safe_gradients", True)
+                or getattr(obj, "need_renew_leaf", False)
+                or (c.use_quantized_grad and c.quant_train_renew_leaf)
+                or (self.num_tree_per_iteration > 1
+                    and not c.multiclass_batched)):
+            return False
+        backend = self.grow_params.hist_backend
+        if backend != "stream":
+            if mode == "on":
+                raise _not_ported(f"fused_iter=on with hist_backend="
+                                  f"{backend!r}")
+            return False
+        return mode == "on" or self.device.type == "cuda"
 
     def _feature_mask(self) -> Optional[torch.Tensor]:
         """This tree's feature sample (reference: gbdt.py:1287-1296), one
         draw of the engine's RandomState per iteration; None without
         feature_fraction."""
+        mask = self._feature_mask_host()
+        return None if mask is None else torch.as_tensor(mask,
+                                                         device=self.device)
+
+    def _feature_mask_host(self) -> Optional[np.ndarray]:
         f = self.dd.num_features
         frac = self.config.feature_fraction
         if frac >= 1.0:
@@ -360,7 +471,7 @@ class GBDT:
         keep = self._rng.choice(f, size=kcnt, replace=False)
         mask = np.zeros(f, bool)
         mask[keep] = True
-        return torch.as_tensor(mask, device=self.device)
+        return mask
 
     def _row_compaction_capacity(self, mask: torch.Tensor) -> int:
         """Row capacity of this iteration's compacted view, 0 for none
@@ -402,6 +513,37 @@ class GBDT:
         self._compact_cap = cap
         return cap
 
+    def _fused_compact_rows(self, sample_mode: str) -> int:
+        """The compaction capacity of a fused iteration (reference:
+        gbdt.py:1664-1725).  Bagging keeps the eager rule and its in-bag
+        count read, one per epoch (``mask_key``).  A GOSS mask is drawn
+        inside the graph, so its capacity is analytic: the expected in-bag
+        share plus 25 % and six binomial sigmas, rounded up to the eager
+        quantum, sticky while it covers; an in-bag count past it is counted
+        in ``TrainState.overflow``, and the poll then warns and turns
+        compaction off for the rest of the run."""
+        if sample_mode == "none" or self._compact_overflow:
+            return 0
+        if sample_mode == "mask_arg":
+            return self._row_compaction_capacity(self._fused_in.mask
+                                                 * self._pad_mask)
+        mode = str(self.config.row_compaction).strip().lower()
+        if mode == "off":
+            return 0
+        local = self._score_shape[0]
+        unit = _COMPACT_UNIT
+        if mode == "pad":
+            return -(-local // unit) * unit
+        frac = self.sample_strategy.expected_fraction(self.iter_)
+        sigma = float(np.sqrt(max(local * frac * (1.0 - frac), 1.0)))
+        q = max(unit, -(-local // (32 * unit)) * unit)
+        cap = max(unit, -(-int(1.25 * frac * local + 6.0 * sigma) // q) * q)
+        if cap * 4 >= local * 3 or cap >= local:
+            return 0
+        if not (self._compact_cap and cap <= self._compact_cap < local):
+            self._compact_cap = cap
+        return self._compact_cap
+
     def route_only_passes_per_tree(self) -> int:
         """Full-row route-only passes the last tree cost (reference:
         gbdt.py:705-728): none unless it was compacted; one replay when
@@ -429,8 +571,13 @@ class GBDT:
         gbdt.cpp:353).  ``grad``/``hess`` are custom gradients of the
         unpadded rows, (N, K) for K trees per iteration.  Returns True when
         no tree made a split: training cannot go on, and the trailing no-op
-        trees are dropped."""
+        trees are dropped.  The flag is read every ``eval_fetch_freq``
+        iterations; without custom gradients, the gate
+        (``_can_fuse_iteration``) sends the iteration down the fused path
+        (``_iter_fused``)."""
         self._ensure_training()
+        if grad is None and hess is None and self._fused:
+            return self._iter_fused()
         dev = self.device
         k = self.num_tree_per_iteration
         with phase(self.timer, "gradients"):
@@ -453,29 +600,15 @@ class GBDT:
             # pad rows (gbdt.py:2165-2177)
             mask, grad, hess = self.sample_strategy.sample(
                 self.iter_, self._pad(grad), self._pad(hess))
-            mask = mask * self._pad_mask
-            rows = self._pad_mask if k == 1 else self._pad_mask[:, None]
-            grad = grad * rows
-            hess = hess * rows
             col_mask = self._feature_mask()
         c = self.config
-        ok, gh_scales = None, None
         with phase(self.timer, "gradients"):
-            if self._nan_guard.enabled:
-                # one all-finite flag on the device; a tripped flag zeroes
-                # the iteration (reference: _guard_gh, gbdt.py:1308-1321)
-                ok = torch.isfinite(grad).all() & torch.isfinite(hess).all()
-                if self._nan_guard.mode == "raise" and not bool(ok):
-                    self._nan_guard.record(self.iter_)
-                grad = torch.where(ok, grad, 0.0)
-                hess = torch.where(ok, hess, 0.0)
-            grad_raw, hess_raw = grad, hess
-            if c.use_quantized_grad:
-                key = prng_key((c.data_random_seed + 11) * 131071
-                               + self.iter_)
-                grad, hess, gh_scales = quantize_gh(
-                    grad, hess, key, c.num_grad_quant_bins,
-                    c.stochastic_rounding)
+            mask, grad, hess, ok, gh_scales, grad_raw, hess_raw = \
+                self._guard_and_quantize(mask, grad, hess,
+                                         prng_key(self._quant_seed()))
+            if ok is not None and self._nan_guard.mode == "raise" \
+                    and not bool(ok):
+                self._nan_guard.record(self.iter_)
         renew = c.use_quantized_grad and c.quant_train_renew_leaf
         compact = self._row_compaction_capacity(mask)
         self.last_compact_rows = compact
@@ -507,6 +640,60 @@ class GBDT:
                 delta = leaf_gather((leaf_k + off[:, None]).reshape(-1),
                                     (values * rate).reshape(-1))
                 self.score = self.score + delta.view(k, -1).t()
+        self._add_trees(trees, rate)
+        # a trivial iteration ends training unless the guard tripped: a
+        # skipped iteration grows no-op trees by design (reference:
+        # gbdt.py:2383-2390); the flag is read only then
+        finished = all(arrays.num_leaves <= 1 for arrays, _ in trees)
+        if finished and ok is not None:
+            with phase(self.timer, "host_sync"):
+                finished = bool(host_int(ok, self.timer))
+            if not finished:
+                self._nan_guard.record(self.iter_)
+        self._finished_last = finished
+        self.iter_ += 1
+        if self.iter_ % self._finished_check_every == 0 \
+                and self._finished_last:
+            self._trim_trailing_trivial()
+            return True
+        return False
+
+    def _quant_seed(self) -> int:
+        """The seed of this iteration's quantizer key (reference:
+        gbdt.py:1866)."""
+        return (self.config.data_random_seed + 11) * 131071 + self.iter_
+
+    def _guard_and_quantize(self, mask, grad, hess, qkey):
+        """The pad rows masked out of a sampled iteration's mask and
+        gradients, the non-finite guard's flag and zeroing (reference:
+        _guard_gh, gbdt.py:1308-1321) and the quantizer under ``qkey``:
+        (mask, grad, hess, ok or None, gh_scales or None, grad_raw,
+        hess_raw), the raw ones before quantization."""
+        k = self.num_tree_per_iteration
+        c = self.config
+        mask = mask * self._pad_mask
+        rows = self._pad_mask if k == 1 else self._pad_mask[:, None]
+        grad = grad * rows
+        hess = hess * rows
+        ok = gh_scales = None
+        if self._nan_guard.enabled:
+            # one all-finite flag on the device; a tripped flag zeroes
+            # the iteration
+            ok = torch.isfinite(grad).all() & torch.isfinite(hess).all()
+            grad = torch.where(ok, grad, 0.0)
+            hess = torch.where(ok, hess, 0.0)
+        grad_raw, hess_raw = grad, hess
+        if c.use_quantized_grad:
+            grad, hess, gh_scales = quantize_gh(
+                grad, hess, qkey, c.num_grad_quant_bins,
+                c.stochastic_rounding)
+        return mask, grad, hess, ok, gh_scales, grad_raw, hess_raw
+
+    def _add_trees(self, trees, rate: float) -> None:
+        """Each class's grown tree walked on every validation set and kept
+        for the host (``models``); ``trees``: (arrays, rounds) per class,
+        rounds bounding its depth."""
+        k = self.num_tree_per_iteration
         with phase(self.timer, "valid"):
             # the walk is stationary once a row reaches its leaf, and no
             # leaf is deeper than the rounds that grew the tree; every
@@ -521,19 +708,243 @@ class GBDT:
             bias = self.init_scores[kk] if self.iter_ == 0 else 0.0
             self._lazy_trees.append({"arrays": arrays, "rate": rate,
                                      "bias": bias})
-        # a trivial iteration ends training unless the guard tripped: a
-        # skipped iteration grows no-op trees by design (reference:
-        # gbdt.py:2383-2390); the flag is read only then
-        finished = all(arrays.num_leaves <= 1 for arrays, _ in trees)
-        if finished and ok is not None:
+
+    # ------------------------------------------------------------------
+    def _ensure_train_state(self) -> TrainState:
+        """The fused iteration's state and input buffers, allocated at its
+        first iteration; a score set outside the fused iteration (a loaded
+        init model, an eager update) is copied into the state's."""
+        st = self._train_state
+        if st is None:
+            k = self.num_tree_per_iteration
+            n = self._score_shape[0]
+            dev = self.device
+            z = torch.zeros(self._score_shape, dtype=torch.float32,
+                            device=dev)
+
+            def scalar(dtype, v=0):
+                return torch.full((), v, dtype=dtype, device=dev)
+
+            st = self._train_state = TrainState(
+                score=self.score.clone(), grad=z, hess=z.clone(),
+                leaf_id=torch.zeros((k, n), dtype=torch.int32, device=dev),
+                mask=self._pad_mask.clone(), sampled=scalar(torch.int64),
+                overflow=scalar(torch.int64),
+                finished=scalar(torch.bool, False),
+                ok=scalar(torch.bool, True))
+            ncol = self.dd.num_features
+            self._fused_in = FusedInputs(
+                mask=torch.ones(n, dtype=torch.float32, device=dev),
+                qkey=torch.zeros(2, dtype=torch.int64, device=dev),
+                skey=torch.zeros(2, dtype=torch.int64, device=dev),
+                rate=scalar(torch.float32),
+                col_mask=(torch.ones(ncol, dtype=torch.bool, device=dev)
+                          if self.config.feature_fraction < 1.0 else None))
+        if st.score is not self.score:
+            st.score.copy_(self.score)
+            self.score = st.score
+        return st
+
+    def _fill_inputs(self, sample_mode: str) -> None:
+        """This iteration's inputs into their device buffers, before any
+        replay reads them; none waits for the device."""
+        inp = self._fused_in
+        strategy = self.sample_strategy
+        mask32 = 0xFFFFFFFF
+        if sample_mode == "mask_arg":
+            inp.mask.copy_(strategy.epoch_mask(self.iter_))
+        elif sample_mode == "traced":
+            inp.skey[1].fill_(strategy.key_seed(self.iter_) & mask32)
+        if self.config.use_quantized_grad:
+            inp.qkey[1].fill_(self._quant_seed() & mask32)
+        inp.rate.fill_(self.config.learning_rate)
+        col = self._feature_mask_host()
+        if col is not None:
+            src = torch.from_numpy(col)
+            if self.device.type == "cuda":
+                src = src.pin_memory()
+            inp.col_mask.copy_(src, non_blocking=True)
+
+    def _fused_grower(self, compact: int) -> _DeviceGrower:
+        gr = self._fused_growers.get(compact)
+        if gr is None:
+            gr = self._fused_growers[compact] = _DeviceGrower(
+                self._bins_T, self.num_tree_per_iteration, self.dd.layout,
+                self.dd.routing, self.grow_params, self.dd.max_bins,
+                col_mask=self._fused_in.col_mask, compact_rows=compact)
+        return gr
+
+    def _fused_head(self, st: TrainState, gr: _DeviceGrower,
+                    sample_mode: str, compact: int) -> None:
+        """The head graph: gradients on the training score, sampling, the
+        guard, quantization, then the grower's compaction and root pass."""
+        inp = self._fused_in
+        k = self.num_tree_per_iteration
+        grad, hess = self.objective.get_gradients(st.score[:self.num_data])
+        grad, hess = self._pad(grad), self._pad(hess)
+        if sample_mode == "mask_arg":
+            mask, grad, hess = inp.mask, grad * inp.mask, hess * inp.mask
+        elif sample_mode == "traced":
+            mask, grad, hess = self.sample_strategy.sample_keyed(
+                (inp.skey[0], inp.skey[1]), grad, hess)
+        else:
+            mask = torch.ones_like(self._pad_mask)
+        mask, grad, hess, ok, gh_scales, _, _ = self._guard_and_quantize(
+            mask, grad, hess, (inp.qkey[0], inp.qkey[1]))
+        st.grad.copy_(grad)
+        st.hess.copy_(hess)
+        st.mask.copy_(mask)
+        if ok is not None:
+            st.ok.copy_(ok)
+        nc = (mask > 0).sum()
+        st.sampled.copy_(nc)
+        if compact:
+            st.overflow.add_(nc > compact)
+        if k == 1:
+            gr.begin(st.grad[None], st.hess[None], st.mask,
+                     None if gh_scales is None else gh_scales[None])
+        else:
+            gr.begin(st.grad.t().contiguous(), st.hess.t().contiguous(),
+                     st.mask,
+                     None if gh_scales is None else gh_scales.t().contiguous())
+
+    def _fused_tail(self, st: TrainState, gr: _DeviceGrower, rounds: int,
+                    sprint) -> None:
+        """The tail graph: the sprint, K3's replay, K4's score add, the
+        finished flag, and the trees packed into the output buffers."""
+        k = self.num_tree_per_iteration
+        sprint_and_replay(gr, rounds, sprint)
+        a = gr.result_arrays()
+        values = a["leaf_value"] * self._fused_in.rate
+        if k == 1:
+            st.score.add_(leaf_gather(gr.leaf_id[0], values[0]))
+        else:
+            L = values.shape[1]
+            off = torch.arange(k, dtype=torch.int32, device=self.device) * L
+            delta = leaf_gather((gr.leaf_id + off[:, None]).reshape(-1),
+                                values.reshape(-1))
+            st.score.add_(delta.view(k, -1).t())
+        st.leaf_id.copy_(gr.leaf_id)
+        fin = (gr.cur <= 1).all()
+        if self._nan_guard.enabled:
+            fin = fin & st.ok
+        st.finished.copy_(fin)
+        packed = torch.cat(
+            [a[f].reshape(-1).view(torch.int32) for f in _PACKED_FIELDS]
+            + [gr.cur.to(torch.int32)])
+        if self._tree_out is None:
+            self._tree_out, self._bits_out = packed, a["cat_bitset"].clone()
+        else:
+            self._tree_out.copy_(packed)
+            self._bits_out.copy_(a["cat_bitset"])
+
+    def _fused_trees(self) -> List[TreeArrays]:
+        """Each class's tree of the last fused iteration, views of one copy
+        of the output buffers (the next replay overwrites them)."""
+        k = self.num_tree_per_iteration
+        L = self.grow_params.num_leaves
+        flat = self._tree_out.clone()
+        bits = self._bits_out.clone()
+        fields, pos = {}, 0
+        for f in _PACKED_FIELDS:
+            v = flat[pos:pos + k * L].view(k, L)
+            if f in ("split_gain", "internal_value", "internal_weight",
+                     "internal_count", "leaf_value", "leaf_weight",
+                     "leaf_count"):
+                v = v.view(torch.float32)
+            fields[f] = v
+            pos += k * L
+        num_leaves = flat[pos:pos + k]
+        return [TreeArrays(num_leaves=num_leaves[kk], cat_bitset=bits[kk],
+                           **{f: v[kk] for f, v in fields.items()})
+                for kk in range(k)]
+
+    def _iter_fused(self) -> bool:
+        """One fused iteration (reference: ``_iter_fused``, gbdt.py:1727-
+        1889): the head graph, the tree's round graphs (the host plans
+        their number from recent trees and reads one (K,) vector per tree,
+        after them: does a class still need a full round?), the tail graph.
+        No host read happens inside a round.  The finished flag, the
+        guard's flags and the sampled and overflow counts are read at the
+        poll, every ``eval_fetch_freq`` iterations (16 by default)."""
+        st = self._ensure_train_state()
+        gp = self.grow_params
+        strategy = self.sample_strategy
+        sample_mode = (strategy.fused_mode(self.iter_)
+                       if strategy.is_active() else "none")
+        self._fill_inputs(sample_mode)
+        compact = self._fused_compact_rows(sample_mode)
+        self.last_compact_rows = compact
+        gr = self._fused_grower(compact)
+
+        def run(key, fn):
+            # one grower, and so one set of graphs, per capacity
+            self._graphs.run((compact,) + key, fn)
+
+        def read(t):
             with phase(self.timer, "host_sync"):
-                finished = bool(host_int(ok, self.timer))
-            if not finished:
-                self._nan_guard.record(self.iter_)
+                return host_list(t, self.timer)
+
+        with phase(self.timer, "fused_head"):
+            run(("head", sample_mode),
+                lambda: self._fused_head(st, gr, sample_mode, compact))
+        plan = max(self._loop_rounds[-4:], default=loop_plan(gp))
+        with phase(self.timer, "fused_rounds"):
+            rounds, sprint, used = grow_device(gr, gp, run, read, plan)
+        self._loop_rounds.append(used)
+        with phase(self.timer, "fused_tail"):
+            run(("tail", rounds, sprint),
+                lambda: self._fused_tail(st, gr, rounds, sprint))
+        depth = rounds + (sprint is not None)
+        rate = self.config.learning_rate
+        self._add_trees([(a, depth) for a in self._fused_trees()], rate)
+        if self._nan_guard.enabled:
+            if self._nan_guard.mode == "raise":
+                # the reference reads the flag at once under raise
+                if not bool(host_int(st.ok, self.timer)):
+                    self._nan_guard.record(self.iter_)
+            else:
+                self._pending_ok.append((self.iter_, st.ok.clone()))
         self.iter_ += 1
-        if finished:
+        if self.iter_ % self._finished_check_every == 0 \
+                and self._poll_device_flags():
             self._trim_trailing_trivial()
-        return finished
+            return True
+        return False
+
+    def _poll_device_flags(self) -> bool:
+        """One batched read of every flag the host loop needs (reference:
+        gbdt.py:1891-1928): the last fused iteration's finished flag, the
+        guard's unread flags, the in-bag row count and the overflow count.
+        An overflow warns and turns compaction off for the rest of the
+        run.  Returns the finished flag."""
+        st = self._train_state
+        pending, self._pending_ok = self._pending_ok, []
+        got = host_list(torch.stack(
+            [st.finished.to(torch.int64), st.sampled, st.overflow]
+            + [ok.to(torch.int64) for _, ok in pending]), self.timer)
+        self.last_sampled_rows = got[1]
+        if got[2] > self._overflow_seen:
+            self._overflow_seen = got[2]
+            if not self._compact_overflow:
+                self._compact_overflow = True
+                log_warning(
+                    "fused iteration: the in-bag row count exceeded the "
+                    "analytic compaction capacity "
+                    f"({self.last_compact_rows}); trees since the last poll "
+                    "trained on a truncated sample - disabling row "
+                    "compaction for the rest of this run (set "
+                    "row_compaction=off to silence)")
+        for (iteration, _), ok in zip(pending, got[3:]):
+            if not ok:
+                self._nan_guard.record(iteration)
+        return bool(got[0])
+
+    def flush_nan_guard(self) -> None:
+        """Read the flags no poll has read yet (reference: gbdt.py:1337,
+        at the end of ``train``)."""
+        if self._train_state is not None and self._fused:
+            self._poll_device_flags()
 
     def _renew_leaves_exact(self, arrays: TreeArrays, leaf_id, grad_raw,
                             hess_raw) -> TreeArrays:
@@ -743,8 +1154,12 @@ def _arrays_to_host(arrays_list: List[TreeArrays]) -> List[TreeArrays]:
     one float64 transfer (int32, float32 and bool values are exact in
     float64)."""
     names = [n for n in TreeArrays._fields if n != "num_leaves"]
+    # a fused iteration's leaf count is a device scalar: it rides along
     parts = [getattr(a, n).reshape(-1).to(torch.float64)
-             for a in arrays_list for n in names]
+             for a in arrays_list
+             for n in names + (["num_leaves"]
+                               if isinstance(a.num_leaves, torch.Tensor)
+                               else [])]
     flat = torch.cat(parts).cpu().numpy()
     out, pos = [], 0
     for a in arrays_list:
@@ -757,7 +1172,11 @@ def _arrays_to_host(arrays_list: List[TreeArrays]) -> List[TreeArrays]:
             fields[n] = flat[pos:pos + size].astype(np_dtype).reshape(
                 tuple(t.shape))
             pos += size
-        out.append(TreeArrays(num_leaves=int(a.num_leaves), **fields))
+        num_leaves = a.num_leaves
+        if isinstance(num_leaves, torch.Tensor):
+            num_leaves = flat[pos]
+            pos += 1
+        out.append(TreeArrays(num_leaves=int(num_leaves), **fields))
     return out
 
 

@@ -48,6 +48,19 @@ class SampleStrategy:
                           device=grad.device)
         return mask, grad, hess
 
+    def fused_mode(self, iteration: int) -> str:
+        """How the fused iteration gets this iteration's mask (reference:
+        sample_strategy.py:55-61): ``none`` (no sampling), ``mask_arg``
+        (the epoch's mask, drawn before the replay and copied into the
+        graph's input) or ``traced`` (drawn inside the graph from a key
+        the host writes into a device buffer)."""
+        return "none"
+
+    def expected_fraction(self, iteration: int) -> float:
+        """The expected in-bag share of this iteration's mask: the fused
+        path's analytic compaction capacity reads it."""
+        return 1.0
+
 
 class BaggingSampleStrategy(SampleStrategy):
     """Fraction bagging and pos/neg-balanced bagging (reference:
@@ -76,9 +89,17 @@ class BaggingSampleStrategy(SampleStrategy):
         # the mask is a pure function of the bagging epoch
         return iteration // max(self.config.bagging_freq, 1)
 
+    def fused_mode(self, iteration: int) -> str:
+        return "mask_arg" if self.active else "none"
+
     def sample(self, iteration: int, grad, hess):
         if not self.active:
             return super().sample(iteration, grad, hess)
+        m = self.epoch_mask(iteration)
+        return m, grad * m, hess * m
+
+    def epoch_mask(self, iteration: int) -> torch.Tensor:
+        """The (cached) in-bag mask of this iteration's bagging epoch."""
         c = self.config
         epoch = self.mask_key(iteration)
         if self._mask is None or epoch != self._mask_epoch:
@@ -91,8 +112,7 @@ class BaggingSampleStrategy(SampleStrategy):
             else:
                 self._mask = (u < c.bagging_fraction).to(torch.float32)
             self._mask_epoch = epoch
-        m = self._mask
-        return m, grad * m, hess * m
+        return self._mask
 
 
 class GOSSStrategy(SampleStrategy):
@@ -111,17 +131,36 @@ class GOSSStrategy(SampleStrategy):
         # every warmup iteration has the same all-ones mask
         return -1 if self._is_warmup(iteration) else iteration
 
+    def fused_mode(self, iteration: int) -> str:
+        # warmup iterations are unsampled
+        return "none" if self._is_warmup(iteration) else "traced"
+
+    def key_seed(self, iteration: int) -> int:
+        """The seed of this iteration's draw, ``PRNGKey(seed)``'s."""
+        return self.config.bagging_seed * 524287 + iteration
+
+    def expected_fraction(self, iteration: int) -> float:
+        if self._is_warmup(iteration):
+            return 1.0
+        c = self.config
+        return min(1.0, c.top_rate + (1.0 - c.top_rate) * c.other_rate)
+
     def sample(self, iteration: int, grad, hess):
         if self._is_warmup(iteration):
             return SampleStrategy.sample(self, iteration, grad, hess)
+        return self.sample_keyed(prng_key(self.key_seed(iteration)), grad,
+                                 hess)
+
+    def sample_keyed(self, key, grad, hess):
+        """The draw under ``key`` (two Python ints, or two 0-d tensors that
+        a captured iteration reads): the same ops either way."""
         c = self.config
         n = self.num_data
         mag = torch.abs(grad * hess)
         k_top = max(1, int(c.top_rate * n))
         thresh = torch.sort(mag).values[n - k_top]
         is_top = mag >= thresh
-        u = uniform(prng_key(c.bagging_seed * 524287 + iteration), n,
-                    grad.device)
+        u = uniform(key, n, grad.device)
         keep_rest = ~is_top & (u < c.other_rate)
         amp = (1.0 - c.top_rate) / max(c.other_rate, 1e-12)
         mask = (is_top | keep_rest).to(torch.float32)

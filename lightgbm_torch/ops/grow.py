@@ -77,10 +77,16 @@ routes by; the torch routing of the other backends reads the same bits.
 Route fusion is off for a tree with a categorical feature, as in the
 reference: K3's records carry no bitsets.
 
-The loop is a Python loop over rounds.  Each round reads one (K,) vector on
-the host (each class's number of splittable leaves), and each iteration one
-more (each class's largest weight, which fixes its histograms' fixed-point
-shift; not under the int form).  Not ported:
+The eager loop (``_Grower``, ``_grow``) is a Python loop over rounds.
+Each round reads one (K,) vector on the host (each class's number of
+splittable leaves), and each iteration one more (each class's largest
+weight, which fixes its histograms' fixed-point shift; not under the int
+form).  The fused iteration's grower (``_DeviceGrower``, ``grow_device``;
+reference: the ``lax.while_loop`` of :849 and the prefix and sprint loops
+of :1530-1560) keeps those counts on the device, gives every round a static
+shape (K * min(2**r, B) pair slots, K2 at min(2**r, B) slots) and reads the
+host once per tree, after the rounds its caller planned: the same trees, bit
+for bit, since a round no class needs changes nothing.  Not ported:
 forced splits, monotone and interaction constraints, CEGB, by-node feature
 sampling, extra trees, path smoothing and meshes.
 """
@@ -91,7 +97,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device_data import FeatureLayout, RoutingLayout
-from ..kernels.layout import build_route_tables, cat_words_from_bits
+from ..kernels.layout import (ROUTE_FIELDS, build_route_tables,
+                              cat_words_from_bits)
 from ..kernels.route_hist import route_and_hist, route_and_hist_int
 from ..kernels.route_replay import route_replay
 from ..tree import DIR_CATEGORICAL, DIR_DEFAULT_LEFT, TreeArrays
@@ -99,7 +106,8 @@ from ..utils.timer import host_list, phase
 from .compact import (check_compact_supported, compact_row_views,
                       compact_transposed_view, plan_sample_rows)
 from .histogram import (build_histograms, build_histograms_k, hist_shift,
-                        hist_subtract, scale_table)
+                        hist_shifts, hist_subtract, scale_table,
+                        scale_table_dev)
 from .predict import feature_local_bin
 from .split import (EPS_HESS, NEG_INF, CatParams, categorical_left_bitset,
                     find_best_splits, gather_feature_histograms, leaf_output)
@@ -151,6 +159,24 @@ def fusion_applies(params: GrowParams, compact_rows: int) -> bool:
             and L <= 256 and params.cat is None)
 
 
+# per-leaf fields of the growing trees: (dtype, initial value); each is a
+# flat (K * L + 1) tensor whose last entry is a spare leaf, which takes the
+# writes of a dead pair (a device-state round's split slot that no class
+# fills) and of a link from a leaf without a parent
+_I64, _F32 = torch.int64, torch.float32
+_LEAF_FIELDS = {
+    "split_feature": (_I64, 0), "threshold_bin": (_I64, 0),
+    "dir_flags": (_I64, 0), "left_child": (_I64, 0),
+    "right_child": (_I64, 0), "split_gain": (_F32, 0),
+    "internal_value": (_F32, 0), "internal_weight": (_F32, 0),
+    "internal_count": (_F32, 0), "sum_g": (_F32, 0), "sum_h": (_F32, 0),
+    "cnt_leaf": (_F32, 0), "depth": (_I64, 0), "leaf_parent": (_I64, -1),
+    "best_gain": (_F32, NEG_INF), "best_feat": (_I64, 0),
+    "best_thr": (_I64, 0), "best_dir": (_I64, 0),
+    "best_left_g": (_F32, 0), "best_left_h": (_F32, 0),
+    "best_left_c": (_F32, 0)}
+
+
 class _Grower:
     """The state of K class trees while they grow (K = 1: one tree):
     per-leaf sums, cached best splits and histograms, node arrays, and
@@ -161,115 +187,159 @@ class _Grower:
     backends run the single-class K5 or K6/K7 for one class and K8 for
     K.  ``gh_scales``: (K, 2) each class's quantized (grad, hess) scales,
     or None; with ``params.int_hist`` the ``*_h`` weights are then the int8
-    grid values K2's int form reads."""
+    grid values K2's int form reads (``wg``, ``wh``: the weights K2 reads,
+    the int8 grid values or the float ``*_h`` rows).
+
+    The per-leaf tensors are (K, L) views of flat (K * L + 1) tensors
+    (``self.fl``) whose last entry is a spare leaf; a round writes the node
+    and leaf entries of its splits through flat indices (``_split_pairs``),
+    and every write it makes in place.  This eager grower keeps the
+    schedule's counts (``cur``, ``progressed``, ``npos``, ``rounds``) on
+    the host and reads one (K,) vector a round; ``_DeviceGrower`` keeps
+    them on the device."""
+
+    # a device-state grower writes its buffers in place (``_put``)
+    persistent = False
 
     def __init__(self, bins_T, grad, hess, cnt, layout: FeatureLayout,
                  routing: RoutingLayout, params: GrowParams, max_bins: int,
                  timer=None, col_mask=None, compact_rows: int = 0,
                  bins=None, gh_scales=None):
-        self.bins_T, self.grad, self.hess, self.cnt = bins_T, grad, hess, cnt
-        K = self.K = grad.shape[0]
+        self._alloc(bins_T, grad.shape[0], layout, routing, params, max_bins,
+                    timer, col_mask, compact_rows)
+        self.records = []          # the rounds' route tables, when fused
+        # per class on the host: leaves so far, whether the last round
+        # split, splittable leaves, rounds that split
+        self.cur = [1] * self.K
+        self.progressed = [True] * self.K
+        self.npos = [0] * self.K
+        self.rounds = [0] * self.K
+        self._setup_rows(grad, hess, cnt, gh_scales, bins)
+
+    def _alloc(self, bins_T, K, layout, routing, params, max_bins, timer,
+               col_mask, compact_rows):
+        """The per-leaf tensors, zeroed, and what does not change over a
+        run."""
+        self.bins_T = bins_T
+        self.K = K
         self.stream = params.hist_backend == "stream"
         self.layout, self.routing, self.p = layout, routing, params
         self.Bmax = max_bins
         self.timer = timer
         self.col_mask = col_mask
+        self.compact_rows = compact_rows
         self.compact = compact_rows > 0
         if self.compact and K > 1:
             raise ValueError("a compacted view grows one class tree")
         self.fuse = fusion_applies(params, compact_rows)
-        self.records = []          # the rounds' route tables, when fused
-        dev = bins_T.device
-        self.dev = dev
+        dev = self.dev = bins_T.device
         L = self.L = params.num_leaves
         G, n = bins_T.shape
-        f32, i64 = torch.float32, torch.int64
-
-        def z(dtype, fill=0):
-            return torch.full((K, L), fill, dtype=dtype, device=dev)
-
-        self.split_feature, self.threshold_bin = z(i64), z(i64)
-        self.dir_flags, self.left_child, self.right_child = \
-            z(i64), z(i64), z(i64)
-        self.split_gain, self.internal_value = z(f32), z(f32)
-        self.internal_weight, self.internal_count = z(f32), z(f32)
-        self.sum_g, self.sum_h, self.cnt_leaf = z(f32), z(f32), z(f32)
-        self.depth, self.leaf_parent = z(i64), z(i64, -1)
-        self.best_gain = z(f32, NEG_INF)
-        self.best_feat, self.best_thr, self.best_dir = z(i64), z(i64), z(i64)
-        self.best_left_g, self.best_left_h, self.best_left_c = \
-            z(f32), z(f32), z(f32)
-        self.hist = torch.zeros((K, L, G, max_bins, 2), dtype=f32, device=dev)
+        KL = self.KL = K * L
+        self.fl = {name: torch.full((KL + 1,), fill, dtype=dtype, device=dev)
+                   for name, (dtype, fill) in _LEAF_FIELDS.items()}
+        for name, t in self.fl.items():
+            setattr(self, name, t[:KL].view(K, L))
+        self.hist_f = torch.zeros((KL + 1, G, max_bins, 2), dtype=_F32,
+                                  device=dev)
+        self.hist = self.hist_f[:KL].view(K, L, G, max_bins, 2)
         self.cat = params.cat
         # the left bins of each node's categorical split, and of each
         # leaf's split of the round as the words K2 reads
-        self.cat_bitset = torch.zeros((K, L, max_bins), dtype=torch.bool,
-                                      device=dev)
+        self.cat_bitset_f = torch.zeros((KL + 1, max_bins), dtype=torch.bool,
+                                        device=dev)
+        self.cat_bitset = self.cat_bitset_f[:KL].view(K, L, max_bins)
         # words for the categorical features' bins only (EFB never
         # bundles a categorical feature, so no wide bundle sizes them;
         # without their count, for Bmax)
         cat_bins = ((params.cat_bins or max_bins)
                     if params.cat is not None else 0)
-        self.cat_words = torch.zeros((K, L, max(-(-cat_bins // 32), 1)),
-                                     dtype=torch.int32, device=dev)
+        W = max(-(-cat_bins // 32), 1)
+        self.cat_words_f = torch.zeros((KL + 1, W), dtype=torch.int32,
+                                       device=dev)
+        self.cat_words = self.cat_words_f[:KL].view(K, L, W)
         self.leaf_id = torch.zeros((K, n), dtype=torch.int32, device=dev)
+        if self.compact and self.stream:
+            # the compacted rows' leaves
+            self.leaf_id_h = torch.zeros((1, compact_rows),
+                                         dtype=torch.int32, device=dev)
         # offset of class k's leaves in the flattened (K * L) leaf axis
         self.class_base = torch.arange(K, device=dev)[:, None] * L
+
+    def _put(self, name, value):
+        """Bind attribute ``name`` to ``value``; a device-state grower
+        copies it into the tensor already bound there, whose address its
+        captured graphs hold."""
+        old = getattr(self, name, None)
+        if self.persistent and old is not None:
+            old.copy_(value)
+        else:
+            setattr(self, name, value)
+
+    def _setup_rows(self, grad, hess, cnt, gh_scales, bins=None):
+        """The rows every histogram pass of the tree reads, and the
+        fixed-point shifts or int scales."""
+        p, timer, K = self.p, self.timer, self.K
+        bins_T = self.bins_T
+        self._put("grad", grad)
+        self._put("hess", hess)
+        self._put("cnt", cnt)
+        grad, hess, cnt = self.grad, self.hess, self.cnt
         if not self.stream:
-            self.rows = torch.arange(n, device=dev)
+            self.rows = torch.arange(bins_T.shape[1], device=self.dev)
             if self.compact:
-                check_compact_supported(params.hist_backend)
+                check_compact_supported(p.hist_backend)
                 with phase(timer, "compact"):
                     (self.bins_h, g, h, self.cnt_h,
-                     self.c_perm) = compact_row_views(bins_T, grad[0],
-                                                      hess[0], cnt,
-                                                      compact_rows)
+                     self.c_perm) = compact_row_views(
+                         bins_T, grad[0], hess[0], cnt, self.compact_rows)
                 self.grad_h, self.hess_h = g[None], h[None]
             else:
                 # K6/K7 read the (N, G) rows; K5 and K8 the (G, N) layout
-                self.bins_h = (bins if params.hist_backend == "pallas"
+                self.bins_h = (bins if p.hist_backend == "pallas"
                                and K == 1 else bins_T)
                 self.grad_h, self.hess_h, self.cnt_h = grad, hess, cnt
         elif self.compact:
             with phase(timer, "compact"):
-                perm = plan_sample_rows(cnt, compact_rows).perm
-                (self.bins_h, g, h,
-                 self.cnt_h) = compact_transposed_view(bins_T, perm, grad[0],
-                                                       hess[0], cnt)
-            self.grad_h, self.hess_h = g[None], h[None]
-            self.leaf_id_h = torch.zeros((1, compact_rows), dtype=torch.int32,
-                                         device=dev)
+                plan = plan_sample_rows(cnt, self.compact_rows)
+                bins_h, g, h, cnt_h = compact_transposed_view(
+                    bins_T, plan.perm, grad[0], hess[0], cnt)
+            self._put("bins_h", bins_h)
+            self._put("cnt_h", cnt_h)
+            self._put("grad_h", g[None])
+            self._put("hess_h", h[None])
         else:
             self.bins_h, self.grad_h, self.hess_h, self.cnt_h = \
                 bins_T, grad, hess, cnt
             self.leaf_id_h = self.leaf_id
-        # per class on the host: leaves so far, whether the last round
-        # split, splittable leaves, rounds that split
-        self.cur = [1] * K
-        self.progressed = [True] * K
-        self.npos = [0] * K
-        self.rounds = [0] * K
-        self.use_int = (self.stream and params.int_hist
+        self.use_int = (self.stream and p.int_hist
                         and gh_scales is not None)
         if self.use_int:
             # the rows' integer grid values for K2's int form (reference:
             # ops/grow.py:592-594), exact: round(q * scale * (1 / scale))
             # is q for every |q| <= 127
-            inv = 1.0 / torch.clamp(gh_scales, min=1e-30)
-            self.grad_h = torch.round(self.grad_h * inv[:, 0:1]).to(
-                torch.int8)
-            self.hess_h = torch.round(self.hess_h * inv[:, 1:2]).to(
-                torch.int8)
-            self.hscale = gh_scales[:, None, None, None, :]
+            self._put("gh_scales", gh_scales)
+            inv = 1.0 / torch.clamp(self.gh_scales, min=1e-30)
+            self._put("grad_q", torch.round(self.grad_h * inv[:, 0:1]).to(
+                torch.int8))
+            self._put("hess_q", torch.round(self.hess_h * inv[:, 1:2]).to(
+                torch.int8))
+            self.wg, self.wh = self.grad_q, self.hess_q
+            self.hscale = self.gh_scales[:, None, None, None, :]
             self.shifts = self.scales = None
         else:
+            self.wg, self.wh = self.grad_h, self.hess_h
             # one fixed-point scale per class tree, from all N rows, so
-            # that the compacted and the full passes quantize alike: every
-            # class's largest weight in one read
+            # that the compacted and the full passes quantize alike
             m = torch.maximum(grad.abs().amax(dim=1), hess.abs().amax(dim=1))
-            self.shifts = tuple(hist_shift(v, n)
-                                for v in host_list(m, timer))
-            self.scales = scale_table(self.shifts, dev)
+            self._set_shifts(m)
+
+    def _set_shifts(self, m):
+        """Every class's shift from its largest weight, in one read."""
+        n = self.bins_T.shape[1]
+        self.shifts = tuple(hist_shift(v, n)
+                            for v in host_list(m, self.timer))
+        self.scales = scale_table(self.shifts, self.dev)
 
     def find_splits(self, hist, g, h, c):
         p = self.p
@@ -303,38 +373,42 @@ class _Grower:
         (K, S) counts."""
         with phase(self.timer, "k2"):
             new_leaf, hist, counts = self._k2(
-                self.bins_h, self.leaf_id_h, tabs, self.grad_h, self.hess_h,
+                self.bins_h, self.leaf_id_h, tabs, self.wg, self.wh,
                 self.cnt_h, num_slots, with_hist)
-        if not self.compact:
-            self.leaf_id = self.leaf_id_h = new_leaf
-        elif self.fuse:
-            self.records.append(tabs[0])
-            self.leaf_id_h = new_leaf
-        else:
+        if self.compact and self.fuse:
+            self._keep_record(tabs[0])
+        elif self.compact:
             # a route-only pass reads no weights (the int form takes none)
             w = (None, None) if self.use_int else (self.grad, self.hess)
             with phase(self.timer, "k2"):
-                self.leaf_id, _, _ = self._k2(
-                    self.bins_T, self.leaf_id, tabs, *w, self.cnt, num_slots,
-                    False)
-            self.leaf_id_h = new_leaf
+                full, _, _ = self._k2(self.bins_T, self.leaf_id, tabs, *w,
+                                      self.cnt, num_slots, False)
+            self.leaf_id.copy_(full)
+        self.leaf_id_h.copy_(new_leaf)
         return hist, counts
+
+    def _keep_record(self, tab):
+        self.records.append(tab)
 
     def replay(self):
         """Every row's leaf from the kept route tables (K3), once per fused
         tree that made a split."""
         if self.fuse and self.records:
             with phase(self.timer, "k3"):
-                self.leaf_id = route_replay(self.bins_T,
-                                            torch.stack(self.records))[None]
+                self.leaf_id.copy_(route_replay(
+                    self.bins_T, torch.stack(self.records))[None])
 
-    def count_splittable(self):
+    def _splittable(self):
+        """(K,) each class's leaves whose cached split can be taken."""
         p = self.p
         cand = self.best_gain > 0
         if p.max_depth > 0:
             cand = cand & (self.depth < p.max_depth)
+        return cand.sum(dim=1)
+
+    def count_splittable(self):
         with phase(self.timer, "host_sync"):
-            self.npos = host_list(cand.sum(dim=1), self.timer)
+            self.npos = host_list(self._splittable(), self.timer)
 
     def histograms(self, slot, num_slots: int):
         """The non-stream backend's (K, S, G, Bmax, 3) histograms of the
@@ -366,8 +440,8 @@ class _Grower:
                                        self.routing)
             with phase(self.timer, "k2"):
                 _, root_hist, _ = self._k2(
-                    self.bins_h, self.leaf_id_h, tabs0, self.grad_h,
-                    self.hess_h, self.cnt_h, 1, True)
+                    self.bins_h, self.leaf_id_h, tabs0, self.wg, self.wh,
+                    self.cnt_h, 1, True)
             root_hist = root_hist[:, 0]
         else:
             root_hist = self.histograms(None, 1)[:, 0, ..., :2]
@@ -391,7 +465,7 @@ class _Grower:
                         ("best_left_g", res.left_sum_g),
                         ("best_left_h", res.left_sum_h),
                         ("best_left_c", res.left_count)):
-            getattr(self, name).view(-1)[ids] = v
+            self.fl[name][ids] = v
 
     def _can_finish(self, c: int, sprint: int) -> bool:
         """Class c can make its remaining splits in one route-only round of
@@ -406,7 +480,7 @@ class _Grower:
         class whose own loop would have stopped (no progress, its leaf
         budget reached or, with ``freeze_sprint``, ready for a sprint of
         that many splits) takes no split."""
-        p, L, dev, K = self.p, self.L, self.dev, self.K
+        L, K = self.L, self.K
         ksp = []
         for c in range(K):
             active = self.progressed[c] and self.cur[c] < L and not (
@@ -416,95 +490,111 @@ class _Grower:
             if active and k <= 0:
                 self.progressed[c] = False
             ksp.append(k)
-        P = sum(ksp)
-        if P == 0:
+        if sum(ksp) == 0:
             return
+        with phase(self.timer, "other"):
+            cls, rank, new = _pair_index(ksp, self.cur, self.dev)
+        self._split_pairs(cls, rank, new, None, max(ksp), with_hist)
+        for c in range(K):
+            self.rounds[c] += ksp[c] > 0
+            self.cur[c] += ksp[c]
+        if with_hist:
+            self.count_splittable()
+
+    def _split_pairs(self, cls, rank, new, live, num_slots: int,
+                     with_hist: bool):
+        """The splits of one round, class-major pairs: pair i splits the
+        rank[i]-th leaf by cached gain of class cls[i] into it and leaf
+        new[i].  ``live``: None (every pair splits), or (P,) bool, and a
+        dead pair's writes all go to the spare leaf.  Routes every row,
+        builds the histograms of the smaller children in slot rank[i] of
+        their class (``num_slots`` slots a class), subtracts the larger
+        siblings' and scans the children for their best splits."""
+        p, L, dev, K = self.p, self.L, self.dev, self.K
         G = self.bins_T.shape[0]
-        KL = K * L
+        KL = self.KL
+        fl = self.fl
         with phase(self.timer, "other"):
             cand = torch.where(self.best_gain > 0, self.best_gain, NEG_INF)
             if p.max_depth > 0:
                 cand = torch.where(self.depth < p.max_depth, cand, NEG_INF)
             order = torch.argsort(-cand, dim=1, stable=True)
             # split i of class c takes its rank-th leaf and makes leaf
-            # cur[c] + rank; pairs are class-major
-            cls, rank, new = _pair_index(ksp, self.cur, dev)
+            # cur[c] + rank
             old = order[cls, rank]
             base = cls * L
             node = new - 1
             fo, fn, fnode = base + old, base + new, base + node
+            if live is not None:
+                fo, fn, fnode = (torch.where(live, x, KL)
+                                 for x in (fo, fn, fnode))
             (feat, thr, dirf, gain, pg, ph, pc, lg, lh, lc) = (
-                t.view(-1)[fo] for t in (
-                    self.best_feat, self.best_thr, self.best_dir,
-                    self.best_gain, self.sum_g, self.sum_h, self.cnt_leaf,
-                    self.best_left_g, self.best_left_h, self.best_left_c))
+                fl[name][fo] for name in (
+                    "best_feat", "best_thr", "best_dir", "best_gain",
+                    "sum_g", "sum_h", "cnt_leaf", "best_left_g",
+                    "best_left_h", "best_left_c"))
             rg, rh, rc = pg - lg, ph - lh, pc - lc
-            parent_hist = (self.hist.view(KL, G, self.Bmax, 2)[fo]
-                           if with_hist else None)
+            parent_hist = self.hist_f[fo] if with_hist else None
 
             # node arrays, then the link from the split leaf's parent node
-            self.split_feature.view(-1)[fnode] = feat
-            self.threshold_bin.view(-1)[fnode] = thr
-            self.dir_flags.view(-1)[fnode] = dirf
-            self.split_gain.view(-1)[fnode] = gain
-            self.internal_value.view(-1)[fnode] = leaf_output(
+            fl["split_feature"][fnode] = feat
+            fl["threshold_bin"][fnode] = thr
+            fl["dir_flags"][fnode] = dirf
+            fl["split_gain"][fnode] = gain
+            fl["internal_value"][fnode] = leaf_output(
                 pg, ph, p.lambda_l1, p.lambda_l2, p.max_delta_step)
-            self.internal_weight.view(-1)[fnode] = ph
-            self.internal_count.view(-1)[fnode] = pc
-            self.left_child.view(-1)[fnode] = ~old
-            self.right_child.view(-1)[fnode] = ~new
-            parent = self.leaf_parent.view(-1)[fo]
+            fl["internal_weight"][fnode] = ph
+            fl["internal_count"][fnode] = pc
+            fl["left_child"][fnode] = ~old
+            fl["right_child"][fnode] = ~new
+            parent = fl["leaf_parent"][fo]
             has_p = parent >= 0
-            pidx = base + torch.clamp(parent, min=0)
-            was_left = (self.left_child.view(-1)[pidx] == ~old) & has_p
-            # rows without a parent write to a spare slot past the end
-            dump = torch.full_like(parent, KL)
-            lc_ext = torch.cat([self.left_child.view(-1),
-                                self.left_child.view(-1)[:1]])
-            rc_ext = torch.cat([self.right_child.view(-1),
-                                self.right_child.view(-1)[:1]])
-            lc_ext[torch.where(was_left, pidx, dump)] = node
-            rc_ext[torch.where(has_p & ~was_left, pidx, dump)] = node
-            self.left_child = lc_ext[:KL].view(K, L)
-            self.right_child = rc_ext[:KL].view(K, L)
-            self.leaf_parent.view(-1)[fo] = node
-            self.leaf_parent.view(-1)[fn] = node
+            if live is not None:
+                has_p = has_p & live
+            pidx = torch.where(has_p, base + torch.clamp(parent, min=0), KL)
+            was_left = (fl["left_child"][pidx] == ~old) & has_p
+            # links without a parent write to the spare leaf
+            fl["left_child"][torch.where(was_left, pidx, KL)] = node
+            fl["right_child"][torch.where(has_p & ~was_left, pidx, KL)] = node
+            fl["leaf_parent"][fo] = node
+            fl["leaf_parent"][fn] = node
 
             # the smaller child of split i fills histogram slot rank[i] of
             # its class
             smaller_is_left = lc <= rc
-            zi = torch.zeros(KL, dtype=torch.int64, device=dev)
+            zi = torch.zeros(KL + 1, dtype=torch.int64, device=dev)
             chosen, new_id, lfeat, lthr, ldir = (zi.clone() for _ in range(5))
-            chosen[fo] = 1
+            # (an index fill: a scalar put would copy from the host)
+            chosen.index_fill_(0, fo, 1)
             new_id[fo] = new
             lfeat[fo] = feat
             lthr[fo] = thr
             ldir[fo] = dirf
             if self.stream:
-                slot_l = torch.full((KL,), -1, dtype=torch.int64, device=dev)
+                slot_l = torch.full((KL + 1,), -1, dtype=torch.int64,
+                                    device=dev)
                 slot_r, slot_keep = slot_l.clone(), slot_l.clone()
                 slot_l[fo] = torch.where(smaller_is_left, rank, -1)
                 slot_r[fo] = torch.where(smaller_is_left, -1, rank)
                 tabs = build_route_tables(
-                    *(x.view(K, L) for x in (chosen, new_id, lfeat, lthr,
-                                             ldir, slot_l, slot_r,
-                                             slot_keep)),
+                    *(x[:KL].view(K, L) for x in (chosen, new_id, lfeat,
+                                                  lthr, ldir, slot_l, slot_r,
+                                                  slot_keep)),
                     self.routing)
         bits = None
         if self.cat is not None:
             bits = self._cat_bits(fo, fnode, feat, thr, dirf, pg, ph, pc)
-        num_slots = max(ksp)
         if self.stream:
             hist_k, cnt_k = self.k2(tabs, num_slots, with_hist)
         else:
             lbits = None
             if bits is not None:
-                lbits = torch.zeros((KL, self.Bmax), dtype=torch.bool,
+                lbits = torch.zeros((KL + 1, self.Bmax), dtype=torch.bool,
                                     device=dev)
                 lbits[fo] = bits
             self.route_rows(chosen, new_id, lfeat, lthr, ldir, lbits)
             with phase(self.timer, "other"):
-                slot_map = torch.full((KL,), -1, dtype=torch.int32,
+                slot_map = torch.full((KL + 1,), -1, dtype=torch.int32,
                                       device=dev)
                 slot_map[torch.where(smaller_is_left, fo, fn)] = \
                     rank.to(torch.int32)
@@ -518,36 +608,31 @@ class _Grower:
             cnt_k = hist3[:, :, 0, :, 2].sum(dim=-1)
         hist_small = None if hist_k is None else hist_k[cls, rank]
         slot_cnt = cnt_k[cls, rank]
-        for c in range(K):
-            self.rounds[c] += ksp[c] > 0
-            self.cur[c] += ksp[c]
         with phase(self.timer, "other"):
             # exact child counts from the routed rows (reference:
             # serial_tree_learner.cpp:798)
             lc_x = torch.where(smaller_is_left, slot_cnt, pc - slot_cnt)
             rc_x = pc - lc_x
-            self.sum_g.view(-1)[fo], self.sum_g.view(-1)[fn] = lg, rg
-            self.sum_h.view(-1)[fo], self.sum_h.view(-1)[fn] = lh, rh
-            self.cnt_leaf.view(-1)[fo] = lc_x
-            self.cnt_leaf.view(-1)[fn] = rc_x
-            d = self.depth.view(-1)[fo] + 1
-            self.depth.view(-1)[fn] = d
-            self.depth.view(-1)[fo] = d
+            fl["sum_g"][fo], fl["sum_g"][fn] = lg, rg
+            fl["sum_h"][fo], fl["sum_h"][fn] = lh, rh
+            fl["cnt_leaf"][fo] = lc_x
+            fl["cnt_leaf"][fn] = rc_x
+            d = fl["depth"][fo] + 1
+            fl["depth"][fn] = d
+            fl["depth"][fo] = d
         if not with_hist:
             return
         with phase(self.timer, "other"):
             smaller = torch.where(smaller_is_left, fo, fn)
             larger = torch.where(smaller_is_left, fn, fo)
-            hf = self.hist.view(KL, G, self.Bmax, 2)
+            hf = self.hist_f
             hf[smaller] = hist_small
             hf[larger] = hist_subtract(parent_hist, hist_small)
             ids2 = torch.cat([fo, fn])
-        res = self.find_splits(hf[ids2], self.sum_g.view(-1)[ids2],
-                               self.sum_h.view(-1)[ids2],
-                               self.cnt_leaf.view(-1)[ids2])
+        res = self.find_splits(hf[ids2], fl["sum_g"][ids2],
+                               fl["sum_h"][ids2], fl["cnt_leaf"][ids2])
         with phase(self.timer, "other"):
             self._store_best(ids2, res)
-        self.count_splittable()
 
     def _cat_bits(self, fo, fnode, feat, thr, dirf, pg, ph, pc):
         """(P, Bmax) left bins of the round's P splits of the leaves at
@@ -556,18 +641,16 @@ class _Grower:
         words K2 reads at the split leaves; the rows of numeric splits are
         never read."""
         with phase(self.timer, "cat_bitset"):
-            G = self.bins_T.shape[0]
-            parent_hist = self.hist.view(-1, G, self.Bmax, 2)[fo]
+            parent_hist = self.hist_f[fo]
             hf = gather_feature_histograms(parent_hist, self.layout, pg, ph)
             hf_feat = hf[torch.arange(feat.shape[0], device=self.dev), feat]
             bits = categorical_left_bitset(
                 hf_feat, thr, dirf, self.layout.valid_mask[feat],
                 self.cat.cat_smooth, self.cat.min_data_per_group,
                 pc / torch.clamp(ph, min=EPS_HESS))
-            self.cat_bitset.view(-1, self.Bmax)[fnode] = bits
-            W = self.cat_words.shape[-1]
-            self.cat_words.view(-1, W)[fo] = cat_words_from_bits(
-                bits[:, :32 * W])
+            self.cat_bitset_f[fnode] = bits
+            W = self.cat_words_f.shape[-1]
+            self.cat_words_f[fo] = cat_words_from_bits(bits[:, :32 * W])
         return bits
 
     def _flat_leaf(self):
@@ -600,9 +683,9 @@ class _Grower:
                 is_cat = (ldir[lid] & DIR_CATEGORICAL) != 0
                 go_left = torch.where(
                     is_cat, lbits.view(-1)[lid * self.Bmax + fb], go_left)
-            self.leaf_id = torch.where((chosen[lid] > 0) & ~go_left,
-                                       new_id[lid], self.leaf_id.to(
-                                           torch.int64)).to(torch.int32)
+            self.leaf_id.copy_(torch.where(
+                (chosen[lid] > 0) & ~go_left, new_id[lid],
+                self.leaf_id.to(torch.int64)))
 
     def can_continue(self) -> bool:
         """Some class can still split."""
@@ -616,32 +699,38 @@ class _Grower:
                    and not self._can_finish(c, sprint)
                    for c in range(self.K))
 
+    def _arrays(self, single_leaf) -> dict:
+        """The grown trees' fields as ``TreeArrays`` keeps them; a class
+        whose ``single_leaf`` entry is set outputs 0.0."""
+        p = self.p
+        lv = leaf_output(self.sum_g, self.sum_h, p.lambda_l1, p.lambda_l2,
+                         p.max_delta_step)
+        # a single-leaf tree adds nothing
+        lv = torch.where(single_leaf[:, None], 0.0, lv)
+        i32 = torch.int32
+        return dict(
+            split_feature=self.split_feature.to(i32),
+            threshold_bin=self.threshold_bin.to(i32),
+            dir_flags=self.dir_flags.to(i32),
+            left_child=self.left_child.to(i32),
+            right_child=self.right_child.to(i32),
+            split_gain=self.split_gain,
+            internal_value=self.internal_value,
+            internal_weight=self.internal_weight,
+            internal_count=self.internal_count,
+            cat_bitset=self.cat_bitset,
+            leaf_value=lv, leaf_weight=self.sum_h,
+            leaf_count=self.cnt_leaf,
+            leaf_parent=self.leaf_parent.to(i32),
+            leaf_depth=self.depth.to(i32))
+
     def result(self) -> GrowResult:
         """The grown trees: one tree's (L,) arrays and (N,) leaf ids, or,
         for K classes, arrays and leaf ids with a leading K axis."""
-        p = self.p
         with phase(self.timer, "other"):
-            lv = leaf_output(self.sum_g, self.sum_h, p.lambda_l1,
-                             p.lambda_l2, p.max_delta_step)
-            for c, nl in enumerate(self.cur):
-                if nl <= 1:
-                    lv[c] = 0.0      # a single-leaf tree adds nothing
-            i32 = torch.int32
-            arrays = dict(
-                split_feature=self.split_feature.to(i32),
-                threshold_bin=self.threshold_bin.to(i32),
-                dir_flags=self.dir_flags.to(i32),
-                left_child=self.left_child.to(i32),
-                right_child=self.right_child.to(i32),
-                split_gain=self.split_gain,
-                internal_value=self.internal_value,
-                internal_weight=self.internal_weight,
-                internal_count=self.internal_count,
-                cat_bitset=self.cat_bitset,
-                leaf_value=lv, leaf_weight=self.sum_h,
-                leaf_count=self.cnt_leaf,
-                leaf_parent=self.leaf_parent.to(i32),
-                leaf_depth=self.depth.to(i32))
+            single = torch.tensor([nl <= 1 for nl in self.cur],
+                                  device=self.dev)
+            arrays = self._arrays(single)
         if self.K == 1:
             return GrowResult(
                 TreeArrays(num_leaves=self.cur[0],
@@ -649,6 +738,138 @@ class _Grower:
                 self.leaf_id[0], self.rounds[0])
         return GrowResult(TreeArrays(num_leaves=tuple(self.cur), **arrays),
                           self.leaf_id, tuple(self.rounds))
+
+
+class _DeviceGrower(_Grower):
+    """The grower of the fused iteration (reference: the ``lax.while_loop``
+    state of ops/grow.py:849): every tensor it holds is allocated once and
+    written in place, so that CUDA graphs captured over its rounds read and
+    write fixed addresses, and the schedule's counts live on the device as
+    (K,) tensors.  A round of budget B at round index r runs K * min(2**r,
+    B) pair slots, class-major: a pair is live where its rank is below
+    ``min(L - cur, B, npos)`` of an active class, and K2 takes min(2**r, B)
+    slots, the most round r can fill (round r splits at most 2**r leaves).
+    A round that no class needs is an exact no-op: every write of its pairs
+    goes to the spare leaf.  No round reads the host: the fixed-point shifts
+    come from ``hist_shifts`` on the device, and the rounds a tree needs
+    are planned by the caller (``grow_device``).  One grower serves every
+    tree of a run at one compaction capacity: ``begin`` resets it."""
+
+    persistent = True
+
+    def __init__(self, bins_T, K: int, layout: FeatureLayout,
+                 routing: RoutingLayout, params: GrowParams, max_bins: int,
+                 col_mask=None, compact_rows: int = 0):
+        if params.hist_backend != "stream":
+            raise ValueError("the device-state grower runs the stream "
+                             "backend")
+        self._alloc(bins_T, K, layout, routing, params, max_bins, None,
+                    col_mask, compact_rows)
+        dev = self.dev
+        self.cur = torch.ones(K, dtype=_I64, device=dev)
+        self.progressed = torch.ones(K, dtype=torch.bool, device=dev)
+        self.npos = torch.zeros(K, dtype=_I64, device=dev)
+        self.rounds = torch.zeros(K, dtype=_I64, device=dev)
+        # full rounds of the loop in which some class split
+        self.loop_splits = torch.zeros((), dtype=_I64, device=dev)
+        if self.fuse:
+            # a record for each round a tree can run: seven budget-64
+            # rounds, at most L - 1 rounds that split, the sprint, and the
+            # no-op rounds of a plan past the tree's need
+            self.rec_max = 2 * self.L + 8
+            self.rec_buf = torch.zeros(
+                (self.rec_max, self.L, len(ROUTE_FIELDS)), dtype=torch.int32,
+                device=dev)
+            self.rec_pos = torch.zeros(1, dtype=_I64, device=dev)
+
+    def begin(self, grad, hess, cnt, gh_scales=None):
+        """A new tree: (K, N) weights and (N,) count weights copied into
+        the grower's buffers, the rows compacted, every per-leaf tensor
+        reset, and the root pass."""
+        for name, (_, fill) in _LEAF_FIELDS.items():
+            self.fl[name].fill_(fill)
+        self.hist_f.zero_()
+        self.cat_bitset_f.zero_()
+        self.cat_words_f.zero_()
+        self.leaf_id.zero_()
+        if self.compact:
+            self.leaf_id_h.zero_()
+        self.cur.fill_(1)
+        self.progressed.fill_(True)
+        self.rounds.zero_()
+        self.loop_splits.zero_()
+        if self.fuse:
+            self.rec_pos.zero_()
+        self._setup_rows(grad, hess, cnt, gh_scales)
+        self.root()
+
+    def _set_shifts(self, m):
+        n = self.bins_T.shape[1]
+        self._put("shift_t", hist_shifts(m, n))
+        self.shifts = tuple(self.shift_t.unbind())
+        self._put("scales", scale_table_dev(self.shift_t))
+
+    def count_splittable(self):
+        self.npos.copy_(self._splittable())
+
+    def _keep_record(self, tab):
+        self.rec_buf.index_copy_(0, self.rec_pos, tab[None])
+        self.rec_pos.add_(1)
+
+    def replay(self, num_records: int):
+        """Every row's leaf from the first ``num_records`` kept route
+        tables (K3), the rounds the host replayed: a no-op round's table
+        routes no row."""
+        if self.fuse:
+            if num_records > self.rec_max:
+                raise ValueError(f"{num_records} rounds past the "
+                                 f"{self.rec_max} route records kept")
+            self.leaf_id.copy_(route_replay(
+                self.bins_T, self.rec_buf[:num_records])[None])
+
+    def _counts(self, budget: int, freeze_sprint: Optional[int]):
+        """(active (K,) bool, k (K,) int64): the classes whose own loop
+        goes on, and the splits each takes in a round of ``budget``."""
+        L, cur = self.L, self.cur
+        active = self.progressed & (cur < L)
+        if freeze_sprint is not None:
+            remaining = L - cur
+            active = active & ~((remaining <= freeze_sprint)
+                                & (remaining <= self.npos))
+        k = torch.clamp(torch.minimum(L - cur, self.npos), max=budget)
+        return active, torch.where(active, k, 0)
+
+    def round_dev(self, r: int, budget: int, with_hist: bool = True,
+                  freeze_sprint: Optional[int] = None, loop: bool = False):
+        """Round ``r`` of the tree (0 after the root) with a budget of
+        ``budget`` splits a class; ``loop``: a full round of the sprint or
+        plain loop, counted in ``loop_splits`` when some class splits."""
+        K, dev = self.K, self.dev
+        active, k = self._counts(budget, freeze_sprint)
+        self.progressed.copy_(self.progressed & ~(active & (k <= 0)))
+        slots = min(2 ** r, budget)
+        j = torch.arange(K * slots, device=dev)
+        cls, rank = j // slots, j % slots
+        live = rank < k[cls]
+        new = self.cur[cls] + rank
+        self._split_pairs(cls, rank, new, live, slots, with_hist)
+        self.rounds.add_(k > 0)
+        self.cur.add_(k)
+        if loop:
+            self.loop_splits.add_((k > 0).any())
+        if with_hist:
+            self.count_splittable()
+
+    def pending(self, budget: int, freeze_sprint: Optional[int]):
+        """(2,) int64: whether a full round of ``budget`` would split some
+        class, and the loop's splitting rounds so far: the one vector the
+        host reads per tree."""
+        _, k = self._counts(budget, freeze_sprint)
+        return torch.stack([(k > 0).any().to(_I64), self.loop_splits])
+
+    def result_arrays(self) -> dict:
+        """The grown trees' fields, (K, L) each, on the device."""
+        return self._arrays(self.cur <= 1)
 
 
 def _pair_index(ksp, cur, dev: torch.device):
@@ -693,6 +914,76 @@ def _grow(gr: _Grower, params: GrowParams) -> GrowResult:
             gr.round(S)
     gr.replay()
     return gr.result()
+
+
+def loop_plan(params: GrowParams) -> int:
+    """Full rounds the loop of ``grow_device`` takes for a tree in which
+    every leaf splits: its first tree's plan."""
+    L = params.num_leaves
+    S = min(params.max_splits_per_round, max(L - 1, 1))
+    cur, rounds = 1, 0
+    if S > 64:
+        for _ in range(7):
+            cur += min(cur, 64, L - cur)
+    sprint = S >= 64 and params.max_depth <= 0
+    S_f = min(2 * S, 255, max(L - 1, 1))
+    # every leaf splittable: the sprint can finish once what remains fits
+    # its budget and the leaves there are
+    while cur < L and not (sprint and L - cur <= min(S_f, cur)):
+        cur += min(cur, S, L - cur)
+        rounds += 1
+    return rounds
+
+
+def grow_device(gr: _DeviceGrower, params: GrowParams, run, read,
+                plan: int):
+    """The round schedule of ``_grow`` over a device-state grower, after
+    its root: the budget-64 prefix, then ``plan`` full rounds, then one
+    host read of ``pending``; while it says a full round would still split,
+    one more round and another read.  ``run(key, fn)`` runs a round
+    (replays its graph); ``read(t)`` reads a device tensor on the host.
+    Returns (rounds run, the sprint's (budget, slots) or None, full rounds
+    in which a class split).  The caller runs the sprint and the replay
+    (``sprint_and_replay``)."""
+    L = params.num_leaves
+    S = min(params.max_splits_per_round, max(L - 1, 1))
+    r = 0
+
+    def round_(budget, freeze, loop):
+        nonlocal r
+        slots = min(2 ** r, budget)
+        run(("round", budget, slots, freeze, loop),
+            lambda rr=r: gr.round_dev(rr, budget, True, freeze, loop))
+        r += 1
+
+    if S > 64:
+        # round r splits at most 2**r leaves: seven budget-64 rounds cover
+        # growth to 128 leaves before the full budget
+        for _ in range(7):
+            round_(64, None, False)
+    sprint = S >= 64 and params.max_depth <= 0
+    freeze = min(2 * S, 255, max(L - 1, 1)) if sprint else None
+    done = 0
+    while True:
+        for _ in range(plan - done):
+            round_(S, freeze, True)
+        done = max(done, plan)
+        more, used = read(gr.pending(S, freeze))
+        if not more:
+            break
+        plan = done + 1
+    return r, ((freeze, min(2 ** r, freeze)) if sprint else None), used
+
+
+def sprint_and_replay(gr: _DeviceGrower, rounds: int, sprint):
+    """The tail of a device-state tree: the route-only sprint round (K2
+    without histograms) where the schedule has one, then every row's leaf
+    through K3 for a fused compacted tree.  Returns the rounds run."""
+    if sprint is not None:
+        gr.round_dev(rounds, sprint[0], with_hist=False)
+        rounds += 1
+    gr.replay(rounds)
+    return rounds
 
 
 def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,

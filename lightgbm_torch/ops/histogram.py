@@ -59,6 +59,29 @@ def hist_shift(max_abs: float, n_rows: int) -> int:
     return max(-MAX_SHIFT, min(MAX_SHIFT, e))
 
 
+def hist_shifts(max_abs: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """``hist_shift`` of each value of a float32 tensor, on its device with
+    no host read: (K,) int64."""
+    _, k = torch.frexp(max_abs)
+    e = 62 - max(int(n_rows), 1).bit_length() - k.to(torch.int64)
+    e = torch.clamp(e, -MAX_SHIFT, MAX_SHIFT)
+    return torch.where((max_abs > 0) & torch.isfinite(max_abs), e, 0)
+
+
+def pow2(shift):
+    """2.0 ** shift, exact: a Python float for an int, else a float32
+    tensor built from its exponent bits (|shift| <= MAX_SHIFT)."""
+    if not isinstance(shift, torch.Tensor):
+        return 2.0 ** shift
+    return ((shift.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def scale_table_dev(shifts: torch.Tensor) -> torch.Tensor:
+    """``scale_table`` of a (K,) int64 device tensor of shifts, computed on
+    its device."""
+    return torch.stack([pow2(shifts), pow2(-shifts)])
+
+
 def scale_table(shifts, device: torch.device) -> torch.Tensor:
     """(2, K) float32 on ``device``: row 0 each class's 2**shift, row 1 its
     2**-shift, the scales K2 and K8 read (exact in float32 for |shift| <=
@@ -71,13 +94,14 @@ def scale_table(shifts, device: torch.device) -> torch.Tensor:
 
 
 def quantize(w: torch.Tensor, shift: int) -> torch.Tensor:
-    """int64 round-half-even(w * 2**shift), the float32 product exact."""
-    return torch.round(w * (2.0 ** shift)).to(torch.int64)
+    """int64 round-half-even(w * 2**shift), the float32 product exact;
+    ``shift`` an int or a 0-d tensor."""
+    return torch.round(w * pow2(shift)).to(torch.int64)
 
 
 def dequantize(acc: torch.Tensor, shift: int) -> torch.Tensor:
     """float32 of an int64 sum (one rounding), times the exact 2**-shift."""
-    return acc.to(torch.float32) * (2.0 ** -shift)
+    return acc.to(torch.float32) * pow2(-shift)
 
 
 def build_histograms_gh(bins_T: torch.Tensor, slot: torch.Tensor,

@@ -20,6 +20,10 @@ integer ops on any device:
   ``jax.random.split`` under the partitionable Threefry (its
   ``_threefry_split_foldlike``).
 
+A key is two Python ints, or two 0-d int64 tensors: the fused iteration
+reads its keys from device buffers, so that a captured CUDA graph draws
+each iteration's numbers and not those of the iteration it was captured in.
+
 torch's uint32 covers few operations, so the words are int64 tensors held
 in [0, 2**32) by masking after every add and shift.
 """
@@ -60,7 +64,15 @@ def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
 
 
 def split(key, num: int = 2):
-    """``num`` new keys, ``jax.random.split(key, num)``."""
+    """``num`` new keys, ``jax.random.split(key, num)``.  A key of two
+    Python ints gives keys of Python ints; a key of two 0-d int64 tensors
+    (a device buffer the caller fills before each replay of a captured
+    iteration) gives keys of 0-d tensors on their device, with no host
+    read."""
+    if isinstance(key[0], torch.Tensor):
+        i = torch.arange(num, dtype=torch.int64, device=key[0].device)
+        b0, b1 = threefry2x32(key, i >> 32, i & _MASK32)
+        return [(b0[j], b1[j]) for j in range(num)]
     i = torch.arange(num, dtype=torch.int64)
     b0, b1 = threefry2x32(key, i >> 32, i & _MASK32)
     return [(int(a), int(b)) for a, b in zip(b0.tolist(), b1.tolist())]

@@ -3,7 +3,8 @@
 A ``PhaseTimer`` handed to the engine times each named phase on the host
 clock, synchronising the device at both ends so a phase owns the device
 work it enqueued, and counts the host reads the loop makes.  Without a
-timer the loop runs unsynchronised and counts nothing.
+timer the loop runs unsynchronised.  ``host_reads()`` counts every read
+``host_int`` and ``host_list`` made in the process, timer or not.
 """
 from __future__ import annotations
 
@@ -40,8 +41,17 @@ def phase(timer, name: str):
     return contextlib.nullcontext() if timer is None else timer(name)
 
 
+_READS = [0]
+
+
+def host_reads() -> int:
+    """Host reads made through ``host_int`` and ``host_list`` so far."""
+    return _READS[0]
+
+
 def host_int(t: torch.Tensor, timer=None) -> int:
     """Read a device scalar on the host (one device sync), counted."""
+    _READS[0] += 1
     if timer is not None:
         timer.host_reads += 1
     return int(t.item())
@@ -50,6 +60,7 @@ def host_int(t: torch.Tensor, timer=None) -> int:
 def host_list(t: torch.Tensor, timer=None) -> list:
     """Read a small device tensor on the host as a list (one device sync),
     counted."""
+    _READS[0] += 1
     if timer is not None:
         timer.host_reads += 1
     return t.tolist()

@@ -170,7 +170,27 @@ Phases, each printing one JSON line:
    A pallas arm (10 iterations: K7's 16-bit form) must grow scatter's text.
    The Dataset and the held-out rows are binned on the card (16-bit),
    every ``bin_rows`` launch held to its plain version and the host.
-17. hist_adversarial: K5, K8 and both forms of K2 launched on synthetic
+17. train_ranking_small: learning to rank on both devices, about 20 000
+   documents in ragged queries of 1 to ~400 (several query buckets, the
+   generic gather path), grades 0-4, a display-position column, 127
+   leaves at a split budget of 64, 5 iterations; arms lambdarank, quantized
+   (64 levels), ``bagging_by_query`` (K3), position-debiased lambdarank and
+   rank_xendcg.  The card's gradients within atol 5e-6 of the CPU's (the
+   CPU tests' tolerance), each arm's first tree the same on both devices,
+   fused and eager text byte-identical on the card where the arm fuses
+   (all but rank_xendcg), every K2 (both forms), K3 and K4 launch replayed
+   bit-equal.
+18. train_ranking: the repo's second north star (bench.py ``run_ranking``)
+   at full width: ``make_mslr_like(2 270 000, 136)`` (copied here), the
+   last 10 % of the queries held out; lambdarank, 255 leaves, learning rate
+   0.1, max_bin 63, quantized gradients at 64 levels, 30 iterations fused,
+   an eager arm of the same trees (byte-identical), a short unquantized arm
+   (K2) and a ``bagging_by_query`` arm (K3); held-out ``predict`` through
+   K1 and NDCG@10 >= 0.75 (bench.py's gate); one tree's launches of each
+   arm replayed bit-equal and timed; the gradients' time and share of a
+   tree, the set-up seconds, one eager iteration phase by phase.  Its
+   numbers go into the kernels line's ``ranking`` entries.
+19. hist_adversarial: K5, K8 and both forms of K2 launched on synthetic
    inputs made from ``--seed`` (outside any main path's launch counts),
    each held bit-equal to its plain version: every row in slot 0 and bin
    0, weights at the fixed-point shift's edge (sums near 2**61) and, for
@@ -192,7 +212,7 @@ Phases, each printing one JSON line:
    and 1525, the top bin, empty slots, and bin-tiled plans at 12 000 and
    40 000 bins).  After the cells, so that they run as they did before it
    existed.
-18. predict_adversarial: K1 on synthetic trees and bins made from
+20. predict_adversarial: K1 on synthetic trees and bins made from
    ``--seed``, each class bit-equal to its plain version: NaN, zero, EFB
    and categorical nodes, early stop, trees of 16 383 leaves (walked from
    global memory) and 40 000 (children past 16 bits), a chain 63 deep with
@@ -200,7 +220,7 @@ Phases, each printing one JSON line:
    ragged N, 3000 groups (bins in global memory), unaligned bins; then
    16-bit bins (thresholds and bins past 32 767, NaN bins past 510, every
    form of the kernel).
-19. bin_adversarial: ``bin_rows`` on rows made from ``--seed``
+21. bin_adversarial: ``bin_rows`` on rows made from ``--seed``
    (``BIN_ADVERSARIAL``): NaN, +-inf, -0.0, every bound and one ulp either
    side under MISSING_NAN, MISSING_ZERO and none; categorical features of
    5000 categories (past 4096 and 256 bins), of 20 and of 256, with
@@ -217,8 +237,9 @@ their kernels' launches credited per replay.  The launch captures of the
 phases above run the fused steps without graphs
 (``utils.graphs.uncaptured``), on the same code and shapes.  Phases train,
 train_sampled, train_quantized, train_categorical, train_multiclass
-(stream) and train_wide each add an eager arm (``fused_iter`` off, the
-same iterations): its model text must equal the fused run's byte for
+(stream), train_wide and train_ranking each add an eager arm
+(``fused_iter`` off, the same iterations): its model text must equal the
+fused run's byte for
 byte, and the line's ``fused_iter`` entry gives both arms' ``s_per_tree``
 (and the fused arm's over the iterations that only replayed graphs), host
 reads, graph replays and kernel launches per tree, and the idle share of
@@ -232,7 +253,9 @@ library time; K5's entry also ``by_max_bin``, its replayed launches'
 times at max_bin 63 and 255; K1's, K2's and K4's also ``categorical``, the
 same numbers on the categorical cell; K1's, K2's, K2 int's, K3's, K5's, K7's
 and K8's also ``wide``, their 16-bit forms' numbers on the Flight Delay
-cell; ``bin_rows``, which replaces no TPU kernel but the JAX package's
+cell; K1's, K2's, K2 int's, K3's and K4's also ``ranking``, their
+numbers on the MSLR-shaped cell; ``bin_rows``, which replaces no TPU
+kernel but the JAX package's
 native host binner, its launches in phase full's ``predict``),
 the card's name and power limit as
 nvidia-smi prints them, and as the last line ``{"ok": true, "device":
@@ -4524,6 +4547,547 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
                          "transpose": bin_time["transpose"]}}, err
 
 
+# --------------------------------------------------------------------------
+# learning to rank
+# --------------------------------------------------------------------------
+
+def make_mslr_like(n_docs, f, docs_per_q=120, seed=11):
+    """bench.py's MSLR-WEB30K-shaped ranking task, copied (the script
+    imports nothing of the JAX package's benchmark): ~120 documents a query,
+    grades 0-4 by a query's top fractions, and MSLR's feature structure (5
+    text streams x 25 retrieval statistics plus 11 web and click features:
+    small integer counts, empty anchor and url streams, zero-inflated
+    heavy-tailed clicks)."""
+    rs = np.random.RandomState(seed)
+    X = np.zeros((n_docs, f), np.float32)
+    qlen = rs.randint(1, 6, n_docs).astype(np.float32)
+    presence = {
+        "body": np.ones(n_docs, bool),
+        "anchor": rs.rand(n_docs) < 0.35,
+        "title": rs.rand(n_docs) < 0.95,
+        "url": rs.rand(n_docs) < 0.60,
+        "whole": np.ones(n_docs, bool),
+    }
+    lengths = {
+        "body": np.maximum(rs.lognormal(6.0, 0.8, n_docs), 30),
+        "anchor": rs.poisson(6, n_docs) + 1.0,
+        "title": rs.randint(3, 13, n_docs).astype(np.float64),
+        "url": rs.randint(5, 21, n_docs).astype(np.float64),
+        "whole": np.maximum(rs.lognormal(6.1, 0.8, n_docs), 35),
+    }
+    quality = rs.randn(n_docs)
+    col = 0
+    bm25 = {}
+    for s in ("body", "anchor", "title", "url", "whole"):
+        p = presence[s]
+        ln = lengths[s]
+        cov = np.minimum(rs.binomial(5, 0.55, n_docs), qlen)
+        tf_sum = rs.poisson(np.where(p, 2 + 0.02 * np.minimum(ln, 200), 0))
+        idf = np.round(rs.gamma(4.0, 1.5, n_docs), 2)
+        bm = np.maximum(
+            2.0 * quality + 0.4 * cov + rs.randn(n_docs), 0) * p
+        bm25[s] = bm
+        tf_max = np.minimum(tf_sum, rs.poisson(2, n_docs) + 1)
+        lmir = np.round(-rs.gamma(3.0, 1.0, n_docs), 3) * p
+        feats = [
+            cov * p,
+            np.round(cov / qlen, 2) * p,
+            np.round(ln) * p,
+            np.round(idf, 1) * p,
+            tf_sum * p,
+            tf_max * p,
+            np.round(tf_sum / np.maximum(ln, 1), 4) * p,
+            np.round(bm, 3),
+            lmir,
+            np.round(lmir * rs.uniform(0.8, 1.2, n_docs), 3),
+        ]
+        take = min(len(feats), f - col)
+        for v in feats[:take]:
+            X[:, col] = v.astype(np.float32)
+            col += 1
+    streams = list(presence)
+    while col < f - 11:
+        s = streams[col % 5]
+        X[:, col] = (np.maximum(
+            quality * rs.uniform(0.5, 1.5) + rs.randn(n_docs), 0)
+            * presence[s]).astype(np.float32)
+        col += 1
+    web = [
+        np.round(rs.pareto(2.5, n_docs) * 40),
+        np.round(rs.pareto(2.5, n_docs) * 15),
+        rs.randint(30, 130, n_docs).astype(np.float64),
+        rs.randint(1, 9, n_docs).astype(np.float64),
+        np.minimum(rs.poisson(0.8, n_docs), 255),
+        np.where(rs.rand(n_docs) < 0.85, 0, rs.poisson(3, n_docs)),
+        np.where(rs.rand(n_docs) < 0.8, 0,
+                 np.round(rs.gamma(2, 20, n_docs))),
+        np.round(np.maximum(quality + rs.randn(n_docs) * 0.7, 0) * 30),
+        rs.randint(0, 256, n_docs).astype(np.float64),
+        rs.randint(0, 256, n_docs).astype(np.float64),
+        np.round(rs.pareto(3.0, n_docs) * 10),
+    ]
+    for v in web[:f - col]:
+        X[:, col] = v.astype(np.float32)
+        col += 1
+    pagerank = web[7]
+    clicks = web[5]
+    rel = (0.9 * bm25["body"] + 0.5 * bm25["title"] + 0.3 * bm25["anchor"]
+           + 0.015 * pagerank + 0.25 * np.minimum(clicks, 4)
+           + 1.8 * rs.randn(n_docs))
+    nq = max(1, n_docs // docs_per_q)
+    sizes = np.full(nq, docs_per_q, np.int64)
+    sizes[-1] += n_docs - sizes.sum()
+    y = np.zeros(n_docs)
+    start = 0
+    for s in sizes:
+        seg = rel[start:start + s]
+        ranks = np.argsort(np.argsort(seg))
+        frac = ranks / max(s - 1, 1)
+        y[start:start + s] = np.select(
+            [frac >= 0.98, frac >= 0.92, frac >= 0.80, frac >= 0.55],
+            [4, 3, 2, 1], default=0)
+        start += s
+    return X, y, sizes
+
+
+def ndcg_at_k(y, score, sizes, k=10):
+    """bench.py's NDCG@k (gains 2^y - 1, ties in score order by argsort),
+    averaged over the queries that have a positive gain: the north star's
+    quality gate."""
+    out = []
+    start = 0
+    gains = 2.0 ** y - 1.0
+    for s in sizes:
+        seg_g = gains[start:start + s]
+        seg_s = score[start:start + s]
+        if seg_g.max() > 0:
+            order = np.argsort(-seg_s)[:k]
+            disc = 1.0 / np.log2(np.arange(2, 2 + len(order)))
+            dcg = float(np.sum(seg_g[order] * disc))
+            ideal = np.sort(seg_g)[::-1][:k]
+            idcg = float(np.sum(ideal * disc[:len(ideal)]))
+            out.append(dcg / idcg)
+        start += s
+    return float(np.mean(out))
+
+
+def make_ranking_small(n, seed):
+    """About ``n`` documents in ragged queries of 1 to ~400 (buckets of 8
+    up to 512 slots; the generic gather path), 8 numeric features (NaN in
+    one), grades 0-4 by a query's top fractions, and each document's
+    display position: its rank within the query under a noisy copy of the
+    relevance."""
+    rs = np.random.RandomState(seed + 31)
+    sizes = []
+    while sum(sizes) < n:
+        u = rs.rand()
+        sizes.append(int(rs.randint(1, 30) if u < 0.6 else
+                         rs.randint(30, 150) if u < 0.9 else
+                         rs.randint(150, 400)))
+    sizes = np.asarray(sizes + [1, 1], np.int64)
+    m = int(sizes.sum())
+    X = rs.randn(m, 8)
+    X[rs.rand(m) < 0.1, 3] = np.nan
+    rel = X[:, 0] * 1.5 + X[:, 1] - 0.5 * X[:, 2] ** 2 + 0.8 * rs.randn(m)
+    noisy = rel + rs.randn(m)
+    y = np.zeros(m)
+    pos = np.zeros(m, np.int64)
+    start = 0
+    for s in sizes:
+        seg = slice(start, start + s)
+        frac = np.argsort(np.argsort(rel[seg])) / max(s - 1, 1)
+        y[seg] = np.select([frac >= 0.95, frac >= 0.85, frac >= 0.7,
+                            frac >= 0.45], [4, 3, 2, 1], default=0)
+        pos[seg] = np.argsort(np.argsort(-noisy[seg]))
+        start += s
+    # one query whose documents all have one grade
+    y[:sizes[0]] = 2
+    return X, y, sizes, np.minimum(pos, 40)
+
+
+RANK_SMALL_ARMS = {
+    "lambdarank": {},
+    "quantized": {"use_quantized_grad": True, "num_grad_quant_bins": 64},
+    "bagging_by_query": {"bagging_by_query": True, "bagging_fraction": 0.5,
+                         "bagging_freq": 1},
+    "position_bias": {"position": True,
+                      "lambdarank_position_bias_regularization": 0.1},
+    "rank_xendcg": {"objective": "rank_xendcg"},
+}
+
+
+# position-debiased lambdarank after its first step: two devices' biases
+# differ in their last bits, which shift every score, and lambdarank_norm's
+# 1 / (0.01 + |s_i - s_j|) weighs a near-tied pair's shift by up to 100
+# (measured: 1.0e-5 of the scale, the JAX package against the port on the
+# CPU, 20 000 documents)
+POS_BIAS_STEP_RTOL = 2.5e-5
+
+
+def ranking_gradients_card_vs_cpu(y, sizes, pos, seed):
+    """Lambdarank, lambdarank without norm at truncation 1, and XE-NDCG
+    gradients on the card against the port's on the CPU, on the same
+    scores (ties included), and position-debiased lambdarank over three
+    steps on scores without ties (an ulp in a bias reorders two tied
+    documents): within the CPU tests' rule, |card - cpu| <= 4e-6 * max(1,
+    max |cpu|) (the devices' float32 sigmoid and exp round apart),
+    position bias after its first step within ``POS_BIAS_STEP_RTOL`` of
+    the scale, the biases within atol 1e-6.  Returns each objective's (and
+    step's) difference over that scale, and the biases' absolute one."""
+    import torch
+    from lightgbm_torch import device_data, ranking
+    from lightgbm_torch.config import Config
+
+    card = device_data.resolve_device("cuda")
+    qb = np.concatenate([[0], np.cumsum(sizes)])
+    n = len(y)
+    rs = np.random.RandomState(seed + 7)
+    untied = (rs.randn(n) * 2).astype(np.float32)
+    score = np.round(untied, 1)
+    out = {}
+    for name, cls, params, kw, steps in (
+            ("lambdarank", ranking.LambdarankNDCG, {}, {}, 1),
+            ("lambdarank_no_norm_trunc_1", ranking.LambdarankNDCG,
+             {"lambdarank_norm": False, "lambdarank_truncation_level": 1},
+             {}, 1),
+            ("position_bias", ranking.LambdarankNDCG, {},
+             {"position": pos}, 3),
+            ("rank_xendcg", ranking.RankXENDCG, {"objective_seed": 3}, {},
+             2)):
+        objs = {}
+        for dev in ("cpu", "cuda"):
+            o = cls(Config.from_params({"objective": "lambdarank",
+                                        **params}))
+            o.init(y, None, query_boundaries=qb, n=n, **kw)
+            objs[dev] = o
+        s = untied if kw else score
+        for step in range(steps):
+            gc, hc = objs["cpu"].get_gradients(torch.as_tensor(s))
+            gd, hd = objs["cuda"].get_gradients(
+                torch.as_tensor(s, device=card))
+            rel = max(max_abs_diff(a, b) / max(1.0, float(b.abs().max()))
+                      for a, b in ((gd.cpu(), gc), (hd.cpu(), hc)))
+            # after a bias step the biases' last bits shift every score
+            limit = 4e-6 if step == 0 else POS_BIAS_STEP_RTOL
+            if not rel <= limit:
+                raise RuntimeError(f"{name} gradients of step {step} on the "
+                                   f"card differ from the CPU's by {rel} "
+                                   f"of their scale")
+            out[name if step == 0 else f"{name}_step_{step}"] = rel
+        if kw:
+            # the tests' atol on the biases after three steps
+            bias = max_abs_diff(objs["cuda"].pos_biases.cpu(),
+                                objs["cpu"].pos_biases)
+            if not bias <= 1e-6:
+                raise RuntimeError(f"position biases on the card differ "
+                                   f"from the CPU's by {bias}")
+            out["position_biases_abs"] = bias
+    return out
+
+
+def phase_train_ranking_small(seed, n=20_000, iters=5, num_leaves=127):
+    """Learning to rank on both devices: ragged queries of 1 to ~400
+    documents (``make_ranking_small``), 127 leaves at a split budget of 64
+    (the route-only sprint round), ``iters`` iterations, arms lambdarank
+    (float), quantized (64 levels), ``bagging_by_query`` (half the queries,
+    a fresh draw every iteration: compacted, K3), position-debiased
+    lambdarank and rank_xendcg.  The card's gradients must match the CPU's
+    (``ranking_gradients_card_vs_cpu``); each arm's first tree must be the
+    same on both devices; each arm that fuses must give byte-identical text
+    fused and eager on the card; every K2 (both forms), K3 and K4 launch of
+    the card's fused runs is replayed bit-equal through its plain
+    version."""
+    import torch
+    import lightgbm_torch as lt
+
+    X, y, sizes, pos = make_ranking_small(n, seed)
+    grad_err = ranking_gradients_card_vs_cpu(y, sizes, pos, seed)
+    base = {"objective": "lambdarank", "num_leaves": num_leaves,
+            "max_splits_per_round": 64, "max_bin": 63,
+            "min_data_in_leaf": 5, "verbosity": -1}
+    cap = Capture()
+    arms = {}
+    for name, extra in RANK_SMALL_ARMS.items():
+        extra = dict(extra)
+        position = pos if extra.pop("position", False) else None
+        runs = {}
+        for dev, fused in (("cpu", "auto"), ("cuda", "auto"),
+                           ("cuda", "off")):
+            p = {**base, **extra, "device_type": dev, "fused_iter": fused}
+            ds = lt.Dataset(X, label=y, group=sizes, position=position,
+                            params=p)
+            with (cap if (dev, fused) == ("cuda", "auto")
+                  else contextlib.nullcontext()):
+                runs[dev, fused] = lt.train(p, ds, iters)
+        cpu, card, eager = (runs[k] for k in (("cpu", "auto"),
+                                              ("cuda", "auto"),
+                                              ("cuda", "off")))
+        fuses = name != "rank_xendcg"
+        if card.engine._fused != fuses or eager.engine._fused:
+            raise RuntimeError(f"ranking {name}: fused {card.engine._fused}")
+        c_trees, g_trees = cpu.engine.models, card.engine.models
+        if len(g_trees) != iters or \
+                tree_structure(c_trees[0]) != tree_structure(g_trees[0]):
+            raise RuntimeError(f"ranking {name}: the first tree differs "
+                               "between devices")
+        if fuses and model_trees_text(card) != model_trees_text(eager):
+            raise RuntimeError(f"ranking {name}: fused and eager text "
+                               "differ on the card")
+        arms[name] = {
+            "fused": card.engine._fused,
+            "fused_text_equals_eager": True if fuses else None,
+            "trees_differing_cpu_card": sum(
+                tree_structure(a) != tree_structure(b)
+                for a, b in zip(c_trees, g_trees)),
+            "leaves_per_tree": [t.num_leaves for t in g_trees],
+            "compact_rows": card.engine.last_compact_rows}
+    torch.cuda.synchronize()
+    replayed, err = replay_against_plain(cap)
+    if not (replayed["route_and_hist"] and replayed["route_and_hist_int"]
+            and replayed["route_replay"] and replayed["leaf_gather"]):
+        raise RuntimeError(f"ranking small: replayed {replayed}")
+    emit({"phase": "train_ranking_small", "docs": int(len(y)),
+          "queries": int(len(sizes)), "max_query": int(sizes.max()),
+          "iterations": iters, "num_leaves": num_leaves,
+          "gradients_card_vs_cpu_max_abs": grad_err,
+          "first_tree_identical": True, "arms": arms,
+          "replayed_launches": replayed, "replay_max_abs_err": err})
+    return err
+
+
+def phase_train_ranking(seed, smi, docs=2_270_000, iters=30, timed_tree=2,
+                        arm_iters=5):
+    """The ranking cell at full width, the repo's second north star
+    (bench.py ``run_ranking``): ``make_mslr_like(2 270 000, 136)``, the last
+    10 % of the queries held out; lambdarank, 255 leaves, learning rate
+    0.1, max_bin 63, NDCG@10, quantized gradients at 64 levels; ``iters``
+    iterations through ``lightgbm_torch.train`` (fused), the counts read
+    around the call (K2's int form and K4 launched, K2's float form and K3
+    never); an eager arm of the same trees (text byte-identical); a short
+    unquantized arm (K2) and a ``bagging_by_query`` arm (half the queries
+    each iteration: compacted K2 int, K3); held-out ``predict`` through K1
+    with NDCG@10 >= 0.75 (bench.py's gate).  One tree's K2 int and K4
+    launches, one unquantized tree's K2 launches and one bagged tree's K2
+    int and K3 launches are replayed bit-equal and timed beside their bound
+    and library call; K1 against its plain version on the held-out rows and
+    timed.  The gradients' share of a fused iteration is the objective's
+    device time over the fused ``s_per_tree``; one eager iteration is
+    timed phase by phase.
+    Returns each kernel's ``ranking`` entry and the replays' largest
+    differences."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.kernels import leaf_gather as lg
+    from lightgbm_torch.kernels import predict as tpk
+    from lightgbm_torch.kernels import route_replay as rr
+    from lightgbm_torch.utils.timer import host_reads
+
+    t0 = time.perf_counter()
+    X, y, sizes = make_mslr_like(docs, 136, seed=11 + seed)
+    q_split = int(len(sizes) * 0.9)
+    d_split = int(np.sum(sizes[:q_split]))
+    Xs, ys, ss = X[d_split:], y[d_split:], sizes[q_split:]
+    data_s = time.perf_counter() - t0
+    params = {"objective": "lambdarank", "num_leaves": 255,
+              "learning_rate": 0.1, "max_bin": 63, "verbosity": -1,
+              "ndcg_eval_at": [10], "use_quantized_grad": True,
+              "num_grad_quant_bins": 64}
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X[:d_split], label=y[:d_split], group=sizes[:q_split],
+                    params={"max_bin": 63})
+    ds.construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    del X
+
+    kernels.reset_launch_counts()
+    r0 = host_reads()
+    with TimedIters(capture_at=timed_tree) as timed:
+        t0 = time.perf_counter()
+        bst = lt.train(params, ds, iters)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    reads = host_reads() - r0
+    launches = kernels.launch_counts()
+    eng = bst.engine
+    leaves = [t.num_leaves for t in eng.models]
+    if (bst.num_trees() != iters or not eng._fused
+            or launches["route_and_hist_int"] == 0
+            or launches["route_and_hist"] or launches["route_replay"]
+            or launches["leaf_gather"] != iters):
+        raise RuntimeError(f"ranking made {bst.num_trees()} trees (fused "
+                           f"{eng._fused}) with launches {launches}")
+    setup_s = data_s + construct_s
+
+    # held-out prediction through K1, NDCG@10 (the north star's gate)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred = bst.predict(Xs, raw_score=True)
+    predict_s = time.perf_counter() - t0
+    k1_launches = kernels.launch_counts()["predict_stream"]
+    ndcg10 = ndcg_at_k(ys, pred, ss, 10)
+    if not (k1_launches > 0 and pred.shape == (len(ys),)
+            and np.isfinite(pred).all() and ndcg10 >= 0.75):
+        raise RuntimeError(f"ranking predict: {k1_launches} K1 launches, "
+                           f"held-out NDCG@10 {ndcg10}")
+    from lightgbm_torch.config import Config
+    from lightgbm_torch.metrics import NDCGMetric
+    metric = NDCGMetric(Config.from_params(params))
+    metric.init(ys, None, np.concatenate([[0], np.cumsum(ss)]))
+    (_, metric_ndcg10, _), = metric.evaluate(pred, None)
+    use, _, _, _ = bst._resolve_tree_slice(0, None)
+    inp, _, k1_err = check_kernel_against_plain(bst, Xs)
+    nodes, lv, words, depths = inp.classes[0]
+    maxd = int(max(depths))
+    k1_ms = device_ms(lambda: tpk.predict_stream_cuda(inp.bins_T, nodes, lv,
+                                                      words, maxd), reps=5)
+    k1_plain = cuda_ms(lambda: tpk.predict_stream_plain(inp.bins_T, nodes, lv,
+                                                        words, depths),
+                       reps=1, warmup=0)
+    k1_bnd = bound(*k1_work(inp, use, maxd, len(ys)))
+    del inp
+
+    # the gradients alone, on the training score: the device's time (what
+    # a graph replay costs) and, from an idle device, with the host's
+    # enqueue of their kernels (what the eager iteration costs)
+    score = eng.score[:eng.num_data]
+    obj = eng.objective
+    grad_ms = device_ms(lambda: obj.get_gradients(score), reps=5)
+    grad_enqueue_ms = cuda_ms(lambda: obj.get_gradients(score), reps=5)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    obj.get_gradients(score)
+    torch.cuda.synchronize()
+    grad_peak = torch.cuda.max_memory_allocated() - base_mem
+
+    fused = fused_and_eager(bst, timed, launches, reads,
+                            lambda extra, n: lt.train({**params, **extra},
+                                                      ds, n), iters)
+    s_fused = fused["fused"]["s_per_tree"]
+
+    # the unquantized arm: K2's float form
+    kernels.reset_launch_counts()
+    with TimedIters(capture_at=2) as float_t:
+        float_bst = lt.train({**params, "use_quantized_grad": False}, ds,
+                             arm_iters)
+    float_launches = kernels.launch_counts()
+    if (float_bst.num_trees() != arm_iters
+            or float_launches["route_and_hist"] == 0
+            or float_launches["route_and_hist_int"]):
+        raise RuntimeError(f"ranking unquantized arm: {float_launches}")
+    # bagging by query: compacted K2 int and K3
+    kernels.reset_launch_counts()
+    with TimedIters(capture_at=2) as bag_t:
+        bag_bst = lt.train({**params, "bagging_by_query": True,
+                            "bagging_fraction": 0.5, "bagging_freq": 1},
+                           ds, arm_iters)
+    bag_launches = kernels.launch_counts()
+    if (bag_bst.num_trees() != arm_iters or not bag_bst.engine._fused
+            or bag_bst.engine.last_compact_rows <= 0
+            or bag_launches["route_replay"] != arm_iters):
+        raise RuntimeError(f"ranking bagging_by_query arm: compact "
+                           f"{bag_bst.engine.last_compact_rows}, launches "
+                           f"{bag_launches}")
+    bag_ndcg10 = ndcg_at_k(ys, bag_bst.predict(Xs, raw_score=True), ss, 10)
+
+    replayed, err = replay_against_plain(timed.cap)
+    replayed_f, err_f = replay_against_plain(float_t.cap)
+    replayed_b, err_b = replay_against_plain(bag_t.cap)
+    if not (replayed["route_and_hist_int"] and replayed_f["route_and_hist"]
+            and replayed_b["route_replay"] and replayed["leaf_gather"]):
+        raise RuntimeError(f"ranking replays: {replayed}, {replayed_f}, "
+                           f"{replayed_b}")
+    err = {k: max(v, err_f[k], err_b[k]) for k, v in err.items()}
+    err["predict_stream"] = k1_err
+    k2i = time_k2_launches([(a, o) for a, o in timed.cap.k2i if a[9]], True)
+    k2i_route = time_k2_launches([(a, o) for a, o in timed.cap.k2i
+                                  if not a[9]], True)
+    k2i_bag = time_k2_launches([(a, o) for a, o in bag_t.cap.k2i if a[9]],
+                               True)
+    k2f = time_k2_launches([(a, o) for a, o in float_t.cap.k2 if a[10]],
+                           False)
+    (lid, vals), _ = timed.cap.k4[0]
+    k4_ms = device_ms(lambda: lg.leaf_gather_cuda(lid, vals))
+    k4_plain = device_ms(lambda: lg.leaf_gather_plain(lid, vals))
+    k4_lib = device_ms(lambda: torch.index_select(vals, 0, lid))
+    k4_bnd = bound(8.0 * lid.numel() + 4.0 * vals.numel(), lid.numel())
+    (k3_bins, k3_tabs), _ = bag_t.cap.k3[0]
+    k3_ms = device_ms(lambda: rr.route_replay_cuda(k3_bins, k3_tabs))
+    k3_plain = cuda_ms(lambda: rr.route_replay_plain(k3_bins, k3_tabs),
+                       reps=1, warmup=0)
+    k3_bnd = bound(*k3_work(k3_bins, k3_tabs))
+
+    # one eager iteration phase by phase: the gradients' share there
+    eager = lt.train({**params, "fused_iter": "off"}, ds, 2)
+    prof_s, prof_phases, prof_reads = profiled_iteration(eager)
+    total = sum(prof_phases.values())
+    fused_prof_s, fused_phases, _ = profiled_iteration(bst)
+    emit({"phase": "train_ranking", "card": smi, "docs": docs,
+          "train_docs": d_split, "queries": int(q_split),
+          "held_out_docs": int(len(ys)), "held_out_queries": int(len(ss)),
+          "features": 136, "groups": int(eng.dd.bins.shape[1]),
+          "max_bins": int(eng.dd.max_bins), "iterations": iters,
+          "num_leaves": 255, "num_grad_quant_bins": 64,
+          "buckets": [[int(b.idx.shape[0]), int(b.idx.shape[1]),
+                       b.span is not None]
+                      for b in obj._device_buckets(score.device)],
+          "setup_s": setup_s, "data_s": data_s, "construct_s": construct_s,
+          "train_s": train_s, "s_per_tree": statistics.median(
+              timed.seconds[1:]),
+          "tree_s": timed.seconds,
+          "leaves_per_tree": leaves, "launches": launches,
+          "k2_int_launches_per_tree": launches["route_and_hist_int"] / iters,
+          "held_out_ndcg10": ndcg10, "held_out_ndcg10_metric": metric_ndcg10,
+          "predict_s": predict_s, "k1_launches": k1_launches,
+          "gradients_ms": grad_ms, "gradients_enqueue_ms": grad_enqueue_ms,
+          "gradients_share_of_fused_tree": grad_ms * 1e-3 / s_fused,
+          "gradients_peak_bytes": int(grad_peak),
+          "eager_iteration_s": prof_s, "eager_iteration_phases_s":
+          prof_phases, "eager_iteration_phase_share": {
+              k: v / total for k, v in prof_phases.items()} if total else {},
+          "eager_iteration_host_reads": prof_reads,
+          "fused_iteration_s": fused_prof_s,
+          "fused_iteration_phases_s": fused_phases,
+          "unquantized_arm": {"launches": float_launches,
+                              "s_per_tree": statistics.median(
+                                  float_t.seconds[1:])},
+          "bagging_by_query_arm": {
+              "launches": bag_launches, "compact_rows":
+              bag_bst.engine.last_compact_rows,
+              "s_per_tree": statistics.median(bag_t.seconds[1:]),
+              "held_out_ndcg10": bag_ndcg10},
+          "replayed_launches_timed_tree": replayed,
+          "replayed_launches_unquantized_tree": replayed_f,
+          "replayed_launches_bagged_tree": replayed_b,
+          "replay_max_abs_err": err, "k2_int_full_hist": k2i,
+          "k2_int_route_only": k2i_route, "k2_int_compacted": k2i_bag,
+          "k2_full_hist": k2f, "k3_ms": k3_ms, "k3_plain_ms": k3_plain,
+          "k4_ms": k4_ms, "k1_ms": k1_ms, "k1_plain_ms": k1_plain,
+          "fused_iter": fused})
+
+    def entry(launches_n, ms, plain, bnd, lib):
+        return {"cell": "train_ranking", "launches": launches_n, "ms": ms,
+                "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": lib}
+
+    lines = {
+        "route_and_hist_int": entry(
+            launches["route_and_hist_int"], k2i["mean_ms"],
+            k2i["mean_plain_ms"], (k2i["mean_bound_ms"], k2i["bound_by"]),
+            k2i["mean_index_add_ms"]),
+        "route_and_hist": entry(
+            float_launches["route_and_hist"], k2f["mean_ms"],
+            k2f["mean_plain_ms"], (k2f["mean_bound_ms"], k2f["bound_by"]),
+            k2f["mean_index_add_ms"]),
+        "route_replay": entry(bag_launches["route_replay"], k3_ms, k3_plain,
+                              k3_bnd, None),
+        "leaf_gather": entry(launches["leaf_gather"], k4_ms, k4_plain,
+                             k4_bnd, k4_lib),
+        "predict_stream": entry(k1_launches, k1_ms, k1_plain, k1_bnd, None)}
+    return lines, err
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4586,17 +5150,25 @@ def main(argv=None) -> int:
         cat_lines, cat_err = phase_train_categorical(
             args.seed, smi, args.rows, args.rows // 4, args.train_iters)
         wide_lines, wide_err = phase_train_wide(args.seed, smi)
+        rank_small_err = phase_train_ranking_small(args.seed)
+        rank_lines, rank_err = phase_train_ranking(args.seed, smi)
         adv_err = phase_hist_adversarial(args.seed)
         k1_adv_err = phase_predict_adversarial(args.seed)
         bin_adv_err = phase_bin_adversarial(args.seed)
     kernel_lines = [k1, k2, k3, k4] + k567 + k2k_k8 + [k2i, binner]
     errs = (small_err, sampled_small_err, quant_small_err, sampled_err,
             backends_err, quant_err, mc_small_err, mc_err, cat_small_err,
-            cat_err, wide_small_err, wide_err, adv_err, k1_adv_err,
-            bin_adv_err)
+            cat_err, wide_small_err, wide_err, rank_small_err, rank_err,
+            adv_err, k1_adv_err, bin_adv_err)
     for k in kernel_lines:
         if k["name"] in cat_lines:
             k["categorical"] = cat_lines[k["name"]]
+        if k["name"] in rank_lines:
+            # its launches, replays and times on the ranking cell
+            r = rank_lines[k["name"]]
+            r["max_abs_err"] = max(e.get(k["name"], 0.0)
+                                   for e in (rank_small_err, rank_err))
+            k["ranking"] = r
         # K2's int form has one row for both its class counts
         names = ((k["name"], k["name"] + "_k")
                  if k["name"] == "route_and_hist_int" else (k["name"],))

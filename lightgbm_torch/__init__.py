@@ -1,7 +1,8 @@
 """lightgbm_torch — the PyTorch/CUDA port of lightgbm_tpu.
 
-Training (gbdt on numeric and categorical features, binary, L2 and
-multiclass, with bagging, GOSS and feature sampling, quantized gradients,
+Training (gbdt on numeric and categorical features, binary, L2,
+multiclass and learning to rank (lambdarank, rank_xendcg, NDCG / MAP), with
+bagging (also by query), GOSS and feature sampling, quantized gradients,
 validation sets and early stopping) and batch prediction run on an NVIDIA
 Hopper GPU through hand-written CUDA kernels (``kernels/``):
 
@@ -12,6 +13,9 @@ Hopper GPU through hand-written CUDA kernels (``kernels/``):
                     callbacks=[lgb.early_stopping(10)])
     bst.predict(X_new)
 
+Ranking takes the query sizes in row order (``lgb.Dataset(X, label=y,
+group=sizes)``, or ``lgb.LGBMRanker().fit(X, y, group=sizes)``).
+
 A saved model is served with zero boosting rounds on its training data:
 ``lgb.train(params, lgb.Dataset(X, label=y), 0, init_model="model.txt")``.
 Entry points run on ``device_type="cuda"`` unless the caller passes
@@ -21,10 +25,12 @@ from .basic import Booster, Dataset
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
                        record_evaluation)
 from .engine import cv, train
+from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 from .utils.log import LightGBMError
 
 __version__ = "0.1.0"
 
 __all__ = ["Dataset", "Booster", "train", "cv", "early_stopping",
            "log_evaluation", "record_evaluation", "EarlyStopException",
-           "LightGBMError"]
+           "LightGBMError", "LGBMModel", "LGBMRegressor", "LGBMClassifier",
+           "LGBMRanker"]

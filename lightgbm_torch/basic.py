@@ -4,7 +4,8 @@ The port's counterpart of ``lightgbm_tpu/basic.py`` (reference:
 python-package/lightgbm/basic.py, Dataset :1692, Booster :3495), trimmed to
 training, evaluation and batch prediction: a Dataset over a numpy array
 (validation data binned with its training Dataset's mappers through
-``reference=``), and a Booster that trains (``update``, one boosting
+``reference=``; ``group=`` query sizes and ``position=`` display positions
+for ranking), and a Booster that trains (``update``, one boosting
 iteration), evaluates its validation sets, holds a model and predicts.  ``Booster.predict`` on at least
 ``_DEVICE_PREDICT_MIN_ROWS`` rows of a Booster built on a training Dataset
 uploads the raw rows, bins them there with the training mappers
@@ -113,7 +114,8 @@ class Dataset:
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
-                 reference: Optional["Dataset"] = None):
+                 reference: Optional["Dataset"] = None, group=None,
+                 position=None):
         self.params = dict(params or {})
         # validation data is binned with its training Dataset's mappers
         # and groups, on that Dataset's device
@@ -134,6 +136,11 @@ class Dataset:
                        else np.asarray(weight, np.float64).reshape(-1))
         self.init_score = (None if init_score is None
                            else np.asarray(init_score, np.float64))
+        # ranking: the query sizes in row order, and each row's display
+        # position (position-debiased lambdarank); a validation set carries
+        # its own
+        self.set_group(group)
+        self.set_position(position)
         self.binned: Optional[BinnedData] = None
         self.device: Optional[torch.device] = None
         self._device_data: Optional[DeviceData] = None
@@ -250,6 +257,36 @@ class Dataset:
     def get_weight(self) -> Optional[np.ndarray]:
         return self.weight
 
+    def get_group(self) -> Optional[np.ndarray]:
+        return self.group
+
+    def set_group(self, group) -> "Dataset":
+        self.group = (None if group is None
+                      else np.asarray(group, np.int64).reshape(-1))
+        return self
+
+    def get_position(self) -> Optional[np.ndarray]:
+        return self.position
+
+    def set_position(self, position) -> "Dataset":
+        self.position = (None if position is None
+                         else np.asarray(position, np.int32).reshape(-1))
+        return self
+
+    def get_query_boundaries(self) -> Optional[np.ndarray]:
+        """(nq + 1,) cumulative query boundaries, or None without a group.
+        The rows past ``num_data`` that the device pads to belong to no
+        query."""
+        if self.group is None:
+            return None
+        qb = np.concatenate([[0], np.cumsum(self.group)]).astype(np.int64)
+        if qb[-1] != self.num_data_ or (len(self.group)
+                                        and self.group.min() < 0):
+            raise LightGBMError(
+                f"sum of group sizes ({int(qb[-1])}) does not match the "
+                f"number of rows ({self.num_data_})")
+        return qb
+
     def get_init_score_padded(self, n: int, k: int) -> Optional[np.ndarray]:
         if self.init_score is None:
             return None
@@ -305,8 +342,11 @@ class Booster:
             if objective is not None:
                 if train_set.get_label() is None:
                     raise LightGBMError("training requires labels")
-                objective.init(train_set.get_label(), train_set.get_weight(),
-                               n=train_set.num_data())
+                objective.init(
+                    train_set.get_label(), train_set.get_weight(),
+                    query_boundaries=train_set.get_query_boundaries(),
+                    position=train_set.get_position(),
+                    n=train_set.num_data())
             metrics = self._init_metrics(cfg, objective, train_set)
             from .models.gbdt import create_boosting
             self._engine = create_boosting(cfg, train_set, objective,
@@ -331,7 +371,7 @@ class Booster:
         label = data.get_label()
         for m in metrics:
             m.init(label if label is not None else np.zeros(data.num_data()),
-                   data.get_weight())
+                   data.get_weight(), data.get_query_boundaries())
         return metrics
 
     @property

@@ -369,6 +369,14 @@ class Config:
     boost_from_average: bool = True
     is_unbalance: bool = False
     scale_pos_weight: float = 1.0
+    # ranking (ranking.py): the gain of each relevance label (None = 2**l -
+    # 1), the pairs' truncation and normalisation, the position-bias
+    # regularisation, and the seed of rank_xendcg's per-iteration draws
+    objective_seed: int = 5
+    lambdarank_truncation_level: int = 30
+    lambdarank_norm: bool = True
+    label_gain: Any = None
+    lambdarank_position_bias_regularization: float = 0.0
 
     # Learning control
     num_iterations: int = 100
@@ -421,6 +429,8 @@ class Config:
     route_fusion: str = "auto"
     feature_fraction: float = 1.0
     feature_fraction_seed: int = 2
+    # one bagging draw per query, its rows kept or dropped together
+    bagging_by_query: bool = False
 
     # Evaluation and early stopping (metrics.py, callback.py, engine.py)
     metric: Any = ""
@@ -429,11 +439,11 @@ class Config:
     early_stopping_min_delta: float = 0.0
     first_metric_only: bool = False
     multi_error_top_k: int = 1
+    eval_at: Any = None  # the ranking metrics' cutoffs; None = [1, 2, 3, 4, 5]
 
     # Training features that are not ported yet: a value other than the
     # default raises (models/gbdt.GBDT._check_unsupported_params)
     tree_learner: str = "serial"
-    bagging_by_query: bool = False
     feature_fraction_bynode: float = 1.0
     extra_trees: bool = False
     path_smooth: float = 0.0
@@ -486,11 +496,12 @@ class Config:
         resolved = resolve_aliases(params)
         fields = {f.name for f in dataclasses.fields(self)}
         for key, value in resolved.items():
-            if (key == "max_bin_by_feature" and isinstance(value, str)
+            if (key in _VECTOR_FIELDS and isinstance(value, str)
                     and value.strip()):
                 # conf-file vector syntax "1,3,5" (reference:
-                # Config::GetIntVector, config.h)
-                value = [int(tok) for tok in value.split(",") if tok.strip()]
+                # Config::GetIntVector / GetDoubleVector, config.h)
+                elt = _VECTOR_FIELDS[key]
+                value = [elt(tok) for tok in value.split(",") if tok.strip()]
             if key in fields:
                 setattr(self, key, _coerce(getattr(self, key), value))
             else:
@@ -548,6 +559,14 @@ class Config:
                     "GOSS (data_sample_strategy=goss) cannot be combined "
                     "with bagging; set bagging_freq=0 (reference: "
                     "Config::CheckParamConflict)")
+
+
+# vector-valued params that conf files pass as comma-separated strings
+_VECTOR_FIELDS: Dict[str, Any] = {
+    "eval_at": int,
+    "label_gain": float,
+    "max_bin_by_feature": int,
+}
 
 
 def _coerce(current: Any, value: Any) -> Any:

@@ -4,7 +4,9 @@ The port's counterpart of ``lightgbm_tpu/metrics.py`` (reference:
 src/metric/regression_metric.hpp, binary_metric.hpp,
 multiclass_metric.hpp), trimmed to the metrics of the ported objectives:
 ``l1``, ``l2``, ``rmse``, ``binary_logloss``, ``binary_error``, ``auc``,
-``multi_logloss`` and ``multi_error`` (with ``multi_error_top_k``).
+``multi_logloss`` and ``multi_error`` (with ``multi_error_top_k``), and
+the ranking metrics ``ndcg`` and ``map`` at the cutoffs of ``eval_at``
+over the query boundaries a Dataset's ``group`` gives.
 Metrics run off the training hot path: the scores come to the host once
 per evaluation, and each metric is the reference's float64 numpy
 arithmetic, so both packages give the same value on the same scores.  Other metric names raise "not yet
@@ -29,8 +31,10 @@ class Metric:
     def __init__(self, config: Config):
         self.config = config
 
-    def init(self, label: np.ndarray, weight: Optional[np.ndarray]) -> None:
+    def init(self, label: np.ndarray, weight: Optional[np.ndarray],
+             query_boundaries: Optional[np.ndarray] = None) -> None:
         self.label = np.asarray(label, np.float64)
+        self.query_boundaries = query_boundaries
         self.weight = (None if weight is None
                        else np.asarray(weight, np.float64))
         self.sum_weight = (float(len(self.label)) if weight is None
@@ -157,11 +161,121 @@ class MultiErrorMetric(Metric):
         return [(f"multi_error@{k}", self._avg(err), False)]
 
 
+def _compact_queries(qb, *arrays):
+    """The rows of (nq, 2) [start, size] query spans gathered into a
+    contiguous layout: cumulative boundaries and the gathered arrays; 1-D
+    cumulative boundaries pass through."""
+    qb = np.asarray(qb, np.int64)
+    if qb.ndim != 2:
+        return (qb,) + arrays
+    starts, sizes = qb[:, 0], qb[:, 1]
+    if len(starts):
+        idx = np.concatenate([np.arange(s, s + z)
+                              for s, z in zip(starts, sizes)])
+    else:
+        idx = np.zeros(0, np.int64)
+    cum = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    return (cum,) + tuple(a[idx] for a in arrays)
+
+
+class NDCGMetric(Metric):
+    """reference: rank_metric.hpp:20 + dcg_calculator.cpp; NDCG@k for each
+    k of ``eval_at``, averaged over queries (a query without a positive
+    gain counts 1)."""
+    name = "ndcg"
+    higher_better = True
+
+    def init(self, label, weight, query_boundaries=None):
+        super().init(label, weight, query_boundaries)
+        if query_boundaries is None:
+            raise LightGBMError("ndcg metric requires query information")
+        gains = self.config.label_gain
+        max_label = int(self.label.max()) + 1 if len(self.label) else 1
+        if gains is None:
+            gains = (2.0 ** np.arange(max(max_label, 32))) - 1.0
+        self.label_gain = np.asarray(gains, np.float64)
+
+    def evaluate(self, score, convert):
+        ks = self.config.eval_at or [1, 2, 3, 4, 5]
+        qb, s, lab = _compact_queries(self.query_boundaries,
+                                      np.asarray(score, np.float64),
+                                      self.label)
+        nq = len(qb) - 1
+        qid = np.repeat(np.arange(nq), np.diff(qb))
+        lab = lab.astype(np.int64)
+        gain = self.label_gain[np.clip(lab, 0, len(self.label_gain) - 1)]
+        # rank within the query by descending score (stable)
+        order = np.lexsort((-s, qid))
+        rank = np.empty(len(s), np.int64)
+        rank[order] = np.arange(len(s)) - qb[qid[order]]
+        disc = 1.0 / np.log2(rank + 2.0)
+        # the ideal ranking: descending gain within the query
+        iorder = np.lexsort((-gain, qid))
+        irank = np.empty(len(s), np.int64)
+        irank[iorder] = np.arange(len(s)) - qb[qid[iorder]]
+        idisc = 1.0 / np.log2(irank + 2.0)
+        out = []
+        qw = np.ones(nq)
+        for k in ks:
+            m = rank < k
+            im = irank < k
+            dcg = np.bincount(qid, weights=gain * disc * m, minlength=nq)
+            idcg = np.bincount(qid, weights=gain * idisc * im, minlength=nq)
+            ok = idcg > 0
+            nd = np.where(ok, dcg / np.maximum(idcg, 1e-300), 1.0)
+            out.append((f"ndcg@{int(k)}", float(np.average(nd, weights=qw)),
+                        True))
+        return out
+
+
+class MAPMetric(Metric):
+    """reference: map_metric.hpp:21 (MAP@k over binary relevance, label >
+    0); a query without a relevant row counts 1."""
+    name = "map"
+    higher_better = True
+
+    def init(self, label, weight, query_boundaries=None):
+        super().init(label, weight, query_boundaries)
+        if query_boundaries is None:
+            raise LightGBMError("map metric requires query information")
+
+    def evaluate(self, score, convert):
+        ks = self.config.eval_at or [1, 2, 3, 4, 5]
+        qb, s, lab = _compact_queries(self.query_boundaries,
+                                      np.asarray(score, np.float64),
+                                      self.label)
+        nq = len(qb) - 1
+        qid = np.repeat(np.arange(nq), np.diff(qb))
+        rel = (lab > 0).astype(np.float64)
+        order = np.lexsort((-s, qid))
+        rank = np.empty(len(s), np.int64)
+        rank[order] = np.arange(len(s)) - qb[qid[order]]
+        out = []
+        for k in ks:
+            srel = rel[order]
+            sqid = qid[order]
+            srank = rank[order]
+            # the relevant rows at or above each rank of its query
+            cum = np.cumsum(srel) - np.repeat(
+                np.concatenate([[0.0], np.cumsum(np.bincount(
+                    sqid, weights=srel, minlength=nq))[:-1]]), np.diff(qb))
+            prec = cum / (srank + 1.0)
+            m = (srank < k) & (srel > 0)
+            num = np.bincount(sqid, weights=prec * m, minlength=nq)
+            npos = np.bincount(sqid, weights=srel, minlength=nq)
+            denom = np.minimum(npos, k)
+            ok = denom > 0
+            ap = np.where(ok, num / np.maximum(denom, 1e-300), 1.0)
+            out.append((f"map@{int(k)}", float(np.mean(ap)), True))
+        return out
+
+
 _METRIC_CLASSES = {
     "l1": L1Metric, "l2": L2Metric, "rmse": RMSEMetric,
     "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
     "auc": AUCMetric, "multi_logloss": MultiLoglossMetric,
     "multi_error": MultiErrorMetric,
+    "ndcg": NDCGMetric, "map": MAPMetric,
 }
 
 
@@ -169,7 +283,8 @@ def default_metric_for_objective(objective: str) -> str:
     """The metric of ``metric=""`` (reference: the objective's default)."""
     return {"regression": "l2", "binary": "binary_logloss",
             "multiclass": "multi_logloss",
-            "multiclassova": "multi_logloss"}.get(objective, "l2")
+            "multiclassova": "multi_logloss", "lambdarank": "ndcg",
+            "rank_xendcg": "ndcg"}.get(objective, "l2")
 
 
 def create_metrics(config: Config, objective_name: str) -> List[Metric]:

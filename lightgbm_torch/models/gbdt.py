@@ -51,7 +51,8 @@ gradients and does not end training, and a model with non-finite leaves
 does not seed one.
 
 Training covers gbdt on numeric and categorical features with the binary,
-L2 and multiclass objectives (or custom gradients); every other training
+L2, multiclass and ranking objectives (or custom gradients), ranking with
+``bagging_by_query``; every other training
 feature raises "not yet ported" (``_check_unsupported_params``) instead of
 training a different model.
 """
@@ -312,7 +313,8 @@ class GBDT:
         name = ("none" if self.objective is None
                 else canonical_objective(self.objective.name))
         if name not in ("binary", "regression", "multiclass",
-                        "multiclassova", "none"):
+                        "multiclassova", "lambdarank", "rank_xendcg",
+                        "none"):
             raise _not_ported(f"objective {name!r}")
         if c.hist_backend in ("segsum", "onehot"):
             raise _not_ported(f"hist_backend={c.hist_backend!r}")
@@ -325,9 +327,6 @@ class GBDT:
                 "f32/int8)")
         if c.tree_learner != "serial":
             raise _not_ported(f"tree_learner={c.tree_learner!r}")
-        if c.bagging_by_query:
-            # query boundaries come with ranking
-            raise _not_ported("bagging_by_query")
         if c.feature_fraction_bynode < 1.0:
             raise _not_ported("feature_fraction_bynode < 1")
 
@@ -409,8 +408,9 @@ class GBDT:
             if label is not None:
                 label_pad = np.zeros(n_pad, np.float64)
                 label_pad[:len(label)] = label
-            strategy = create_sample_strategy(self.config, n_pad, label_pad,
-                                              self.device)
+            strategy = create_sample_strategy(
+                self.config, n_pad, label_pad, self.device,
+                self.train_data.get_query_boundaries())
             if self.num_tree_per_iteration > 1 and strategy.is_active():
                 # a compacted K-class tree (grow_tree_k's compact_rows)
                 raise _not_ported("multiclass training with bagging or GOSS")
@@ -429,7 +429,10 @@ class GBDT:
         """The fused iteration's gate (reference: gbdt.py:1583-1625):
         objectives whose gradients trace, no leaf renewal (the objective's
         or the quantizer's), multiclass only in lockstep; custom gradients
-        run eager at each update (``train_one_iter``).  The port fuses only
+        run eager at each update (``train_one_iter``).  Lambdarank fuses,
+        with position biases too (they are updated in place in the head
+        graph); rank_xendcg draws on the host each iteration
+        (``jit_safe_gradients`` False) and runs eager.  The port fuses only
         the stream backend: the scatter and pallas rounds size their slot
         maps and block plans from the data.  ``auto`` fuses on a CUDA
         device and not on the CPU, as the reference's auto fuses on its

@@ -3,7 +3,8 @@
 The port's counterpart of ``lightgbm_tpu/objectives.py`` (reference:
 include/LightGBM/objective_function.h:38-120).  Binary logloss, L2
 regression, multiclass softmax and one-vs-all multiclass train
-(``get_gradients``, ``boost_from_score``); any other objective raises.
+(``get_gradients``, ``boost_from_score``), and the ranking objectives
+``lambdarank`` and ``rank_xendcg`` (ranking.py); any other objective raises.
 Gradients and ``convert_output`` work in float32 torch, with the
 reference's operations in the reference's order, so L2 gradients are
 bit-equal to the JAX package's and the others differ only where torch's and
@@ -31,6 +32,10 @@ class ObjectiveFunction:
 
     name = "none"
     num_model_per_iteration = 1
+    is_ranking = False
+    # False when get_gradients does host work each iteration (rank_xendcg's
+    # draw), so the fused iteration cannot capture it
+    jit_safe_gradients = True
 
     def __init__(self, config: Config):
         self.config = config
@@ -39,7 +44,8 @@ class ObjectiveFunction:
         self._on_device = {}
 
     def init(self, label: np.ndarray, weight: Optional[np.ndarray],
-             n: int = 0) -> None:
+             query_boundaries: Optional[np.ndarray] = None,
+             position: Optional[np.ndarray] = None, n: int = 0) -> None:
         self.num_data = n
         self.label = np.asarray(label, np.float32)
         self.weight = None if weight is None else np.asarray(weight, np.float32)
@@ -220,6 +226,10 @@ def create_objective(config: Config) -> Optional[ObjectiveFunction]:
     name = canonical_objective(str(config.objective))
     if name == "none":
         return None
+    if name in ("lambdarank", "rank_xendcg"):
+        from .ranking import LambdarankNDCG, RankXENDCG
+        return (LambdarankNDCG(config) if name == "lambdarank"
+                else RankXENDCG(config))
     cls = _OBJECTIVE_CLASSES.get(name)
     if cls is None:
         raise LightGBMError(f"objective {name!r} is not yet ported to "

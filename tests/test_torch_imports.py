@@ -1,5 +1,6 @@
-"""Import hygiene of the port: it imports neither JAX nor the JAX package,
-and importing it builds no kernel."""
+"""Import hygiene of the port: it imports neither JAX nor the JAX package
+(nor scikit-learn, which its estimators do without), and importing it
+builds no kernel."""
 import ast
 import json
 import subprocess
@@ -41,9 +42,10 @@ def test_import_loads_no_jax_and_builds_nothing():
     code = (
         "import json, sys\n"
         "import lightgbm_torch\n"
+        "from lightgbm_torch import ranking, sklearn\n"
         "from lightgbm_torch.kernels import build\n"
         "print(json.dumps({'mods': sorted(m for m in sys.modules\n"
-        "    if m.split('.')[0] in ('jax', 'jaxlib', 'lightgbm_tpu')),\n"
+        "    if m.split('.')[0] in ('jax', 'jaxlib', 'lightgbm_tpu', 'sklearn')),\n"
         "    'loaded': sorted(build._LOADED),\n"
         "    'counts': lightgbm_torch.kernels.launch_counts()}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

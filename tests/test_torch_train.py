@@ -637,7 +637,7 @@ def test_train_without_device_type_raises_without_gpu(monkeypatch):
 @pytest.mark.parametrize("extra", [
     {"objective": "multiclass", "num_class": 3, "bagging_fraction": 0.5,
      "bagging_freq": 1},
-    {"bagging_by_query": True, "bagging_fraction": 0.5, "bagging_freq": 1},
+    {"objective": "cross_entropy"},
     {"hist_backend": "onehot"},
     {"boosting": "rf"},
     {"feature_fraction_bynode": 0.5},

@@ -99,6 +99,30 @@ Phases, each printing one JSON line:
    compacted launches; every K2 int launch of one tree replayed bit-equal,
    then timed (full histogram, route-only, compacted) beside its bound and
    one int32 ``index_add_`` call; one more iteration timed phase by phase.
+10a. train_regression_small: the other objectives on both devices, on
+   train_small's rows with labels from its logit, 127 leaves at a split
+   budget of 64, 5 iterations.  regression_l1, quantile at alpha 0.75 and
+   mape on labels whose 1 / max(1, |y|) are powers of two (dyadic
+   gradients, exact histograms, order statistics in the leaf renewal)
+   give byte-identical text on the CPU and the card, also bagged (K3);
+   huber, fair, poisson, tweedie, gamma, cross_entropy and
+   cross_entropy_lambda the same first tree and raw scores within 2e-4 of
+   their scale, fused on the card with text equal to the card's eager
+   run; every K2, K3 and K4 launch of the card's runs replayed bit-equal.
+10b. train_regression: the regression cell, the full phase's held-out
+   1M HIGGS-shaped rows as ``Dataset(..., reference=ds)`` with labels
+   from the generator's logit (a Laplace-noised target, Poisson counts, a
+   gamma target, a probability), the last 250 000 rows held out; 255
+   leaves, learning rate 0.1, split budget 64, ``--train-iters``
+   iterations of each of the ten objectives (regression_l1, quantile at
+   0.9 and mape eager, renewing their leaves on the card; the others
+   fused, each beside an eager arm of byte-identical text), a bagged
+   regression_l1 arm (K3) and a quantized one (K2's int form,
+   ``quant_train_renew_leaf``); each arm's held-out metric after
+   ``predict`` (K1, then ``convert_output``) must beat the constant
+   model's; ``s_per_tree``, host reads, launches and the renewal's device
+   ms per arm; one tree per arm replayed bit-equal; its numbers go into
+   the kernels line's ``regression`` entries.
 11. train_multiclass_small: the train_small rows with a 3-class label, 127
    leaves, split budget 64, 5 iterations (15 trees).  Dyadic multiclass
    custom gradients under ``hist_backend`` stream (K2 over K > 1 classes),
@@ -254,7 +278,8 @@ times at max_bin 63 and 255; K1's, K2's and K4's also ``categorical``, the
 same numbers on the categorical cell; K1's, K2's, K2 int's, K3's, K5's, K7's
 and K8's also ``wide``, their 16-bit forms' numbers on the Flight Delay
 cell; K1's, K2's, K2 int's, K3's and K4's also ``ranking``, their
-numbers on the MSLR-shaped cell; ``bin_rows``, which replaces no TPU
+numbers on the MSLR-shaped cell, and ``regression``, on the regression
+cell; ``bin_rows``, which replaces no TPU
 kernel but the JAX package's
 native host binner, its launches in phase full's ``predict``),
 the card's name and power limit as
@@ -326,12 +351,16 @@ def make_higgs_like(n, f, seed):
     generator of bench.py, copied)."""
     rs = np.random.RandomState(seed)
     X = rs.randn(n, f).astype(np.float32)
-    logit = (2.0 * X[:, 0] - 1.4 * X[:, 1] + 1.2 * X[:, 2] * X[:, 3]
-             + 0.8 * np.sin(3 * X[:, 4]) + 0.7 * X[:, 5] * X[:, 5]
-             - 0.6 * np.abs(X[:, 6]) + 0.5 * X[:, 7])
-    p = 1.0 / (1.0 + np.exp(-1.2 * logit))
+    p = 1.0 / (1.0 + np.exp(-1.2 * higgs_logit(X)))
     y = (rs.rand(n) < p).astype(np.float64)
     return X, y
+
+
+def higgs_logit(X):
+    """make_higgs_like's logit of its rows."""
+    return (2.0 * X[:, 0] - 1.4 * X[:, 1] + 1.2 * X[:, 2] * X[:, 3]
+            + 0.8 * np.sin(3 * X[:, 4]) + 0.7 * X[:, 5] * X[:, 5]
+            - 0.6 * np.abs(X[:, 6]) + 0.5 * X[:, 7])
 
 
 def make_mixed(n, seed):
@@ -1289,10 +1318,15 @@ def make_train_small(n, seed):
     X, _ = make_mixed(n, seed)
     X = X[:, [0, 1, 3, 4, 5, 6]]
     rs = np.random.RandomState(seed + 7)
-    logit = (np.nan_to_num(X[:, 0]) + 0.8 * X[:, 1] + 2.0 * X[:, 2]
-             - 1.5 * X[:, 3] + 0.7 * X[:, 4] * X[:, 5])
-    y = (rs.rand(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float64)
+    y = (rs.rand(n) < 1.0 / (1.0 + np.exp(-train_small_logit(X)))).astype(
+        np.float64)
     return X, y
+
+
+def train_small_logit(X):
+    """make_train_small's logit of its rows."""
+    return (np.nan_to_num(X[:, 0]) + 0.8 * X[:, 1] + 2.0 * X[:, 2]
+            - 1.5 * X[:, 3] + 0.7 * X[:, 4] * X[:, 5])
 
 
 def dyadic_fobj(score, ds):
@@ -1329,7 +1363,9 @@ def owned(args):
 class Capture:
     """Records every K2 (both forms), K3, K4, K5, K6/K7 and K8 call of the
     training loop (inputs and outputs) while active, by wrapping the
-    dispatchers that ops/grow.py, ops/histogram.py and models/gbdt.py call.
+    dispatchers that ops/grow.py, ops/histogram.py and models/gbdt.py call,
+    and the inputs of every percentile renewal (``renew``: the score before
+    the tree, every row's leaf, ``num_leaves`` and the tree's in-bag mask).
     The calls still go through the kernels' wrappers and are counted
     there.  While active, the fused iteration runs its steps without CUDA
     graphs (``utils.graphs.uncaptured``): the same code and shapes its
@@ -1337,7 +1373,7 @@ class Capture:
 
     def __init__(self):
         self.k2, self.k3, self.k4, self.k5, self.k67 = [], [], [], [], []
-        self.k8, self.k2i = [], []
+        self.k8, self.k2i, self.renew = [], [], []
 
     def __enter__(self):
         from lightgbm_torch.kernels import hist_sorted, hist_wide, scatter_hist
@@ -1392,10 +1428,20 @@ class Capture:
             self.k8.append(((bins_T, slot.clone()) + args, out))
             return out
 
+        self._renew_orig = renew_call = gbdt.GBDT._renew_leaves_percentile
+
+        def renew(eng, arrays, leaf_id, mask):
+            n = eng.num_data
+            self.renew.append((eng.score[:n].clone(), leaf_id[:n].clone(),
+                               eng.grow_params.num_leaves,
+                               mask[:n].clone()))
+            return renew_call(eng, arrays, leaf_id, mask)
+
         (grow.route_and_hist, grow.route_replay, gbdt.leaf_gather,
          scatter_hist.scatter_hist, hist_sorted.hist_sorted,
          hist_wide.hist_wide, grow.route_and_hist_int) = (
             k2, k3, k4, k5, k67, k8, k2i)
+        gbdt.GBDT._renew_leaves_percentile = renew
         return self
 
     def __exit__(self, *exc):
@@ -1405,6 +1451,7 @@ class Capture:
         (grow.route_and_hist, grow.route_replay, gbdt.leaf_gather,
          scatter_hist.scatter_hist, hist_sorted.hist_sorted,
          hist_wide.hist_wide, grow.route_and_hist_int) = self._orig
+        gbdt.GBDT._renew_leaves_percentile = self._renew_orig
         self._uncaptured.__exit__(*exc)
 
 
@@ -5088,6 +5135,379 @@ def phase_train_ranking(seed, smi, docs=2_270_000, iters=30, timed_tree=2,
     return lines, err
 
 
+# --------------------------------------------------------------------------
+# the regression family, cross-entropy and leaf renewal
+# --------------------------------------------------------------------------
+
+# objective: (label kind of regression_labels, parameters); the first three
+# renew their leaves (eager), the others fuse under stream on the card
+REGRESSION_OBJECTIVES = {
+    "regression_l1": ("continuous", {}),
+    "quantile": ("continuous", {"alpha": 0.9}),
+    "mape": ("continuous", {}),
+    "huber": ("continuous", {}),
+    "fair": ("continuous", {}),
+    "poisson": ("count", {}),
+    "tweedie": ("count", {"tweedie_variance_power": 1.5}),
+    "gamma": ("gamma", {}),
+    "cross_entropy": ("prob", {}),
+    "cross_entropy_lambda": ("prob", {}),
+}
+RENEWING = ("regression_l1", "quantile", "mape")
+# CPU against card on real gradients after the first tree (equal): raw
+# scores within this share of their scale, max(1, max |score|) (binary's
+# 2e-4 at train_small, scaled)
+SMOOTH_SCORE_RTOL = 2e-4
+
+
+def regression_labels(logit, seed):
+    """Labels of the regression family from a generator's logit, drawn
+    from ``seed`` with numpy: a continuous target with Laplace noise
+    (regression_l1, quantile, huber, fair, mape), Poisson counts at rate
+    exp(0.3 logit - 1) (poisson, tweedie), a gamma target of shape 2 and
+    mean exp(0.3 logit) (gamma), and the probability sigmoid(1.2 logit) as
+    a label in [0, 1] (cross_entropy, cross_entropy_lambda)."""
+    rs = np.random.RandomState(seed)
+    logit = np.asarray(logit, np.float64)
+    n = len(logit)
+    return {"continuous": logit + rs.laplace(scale=1.0, size=n),
+            "count": rs.poisson(np.exp(0.3 * logit - 1.0)).astype(
+                np.float64),
+            "gamma": rs.gamma(2.0, np.exp(0.3 * logit) / 2.0),
+            "prob": 1.0 / (1.0 + np.exp(-1.2 * logit))}
+
+
+def pow2_labels(y):
+    """|y| rounded to a power of two, the sign kept: 1 / max(1, |y|) is a
+    power of two, so MAPE's gradients are dyadic and its weighted CDF
+    exact."""
+    return np.sign(y) * 2.0 ** np.round(np.log2(np.abs(y) + 1e-3))
+
+
+def phase_train_regression_small(seed, n=20_000, iters=5, num_leaves=127):
+    """The other objectives on both devices, on train_small's rows with
+    labels from its logit (``regression_labels``), 127 leaves at a split
+    budget of 64 (the route-only sprint round), ``iters`` iterations.
+    regression_l1, quantile at alpha 0.75 and mape on labels whose
+    1 / max(1, |y|) are powers of two have dyadic gradients and exact
+    histograms, and the renewal picks order statistics (mape: an exact
+    weighted CDF): their text must be byte-identical on the CPU and the
+    card, also bagged (half the rows every iteration: compacted, K3).  The
+    smooth objectives (huber, fair, poisson, tweedie, gamma, cross_entropy,
+    cross_entropy_lambda) must grow the same first tree on both devices
+    with raw scores within ``SMOOTH_SCORE_RTOL`` of their scale, and fuse on
+    the card with text byte-identical to the card's eager run.  Every K2, K3
+    and K4 launch of the card's main runs is replayed bit-equal through its
+    plain version."""
+    import torch
+    import lightgbm_torch as lt
+
+    X, _ = make_train_small(n, seed)
+    labels = regression_labels(train_small_logit(X), seed + 11)
+    base = {"num_leaves": num_leaves, "max_splits_per_round": 64,
+            "max_bin": 63, "verbosity": -1}
+    bagged = {"bagging_fraction": 0.5, "bagging_freq": 1}
+    cap = Capture()
+    arms = {}
+    exact = {"regression_l1": ({}, labels["continuous"]),
+             "quantile": ({"alpha": 0.75}, labels["continuous"]),
+             "mape": ({}, pow2_labels(labels["continuous"]))}
+    for name, (extra, y) in exact.items():
+        for sampled in (False, True):
+            texts = {}
+            for dev in ("cpu", "cuda"):
+                p = {**base, "objective": name, **extra,
+                     **(bagged if sampled else {}), "device_type": dev}
+                with (cap if dev == "cuda" else contextlib.nullcontext()):
+                    bst = lt.train(p, lt.Dataset(X, label=y, params=p),
+                                   iters)
+                if bst.engine._fused or bst.num_trees() != iters:
+                    raise RuntimeError(f"{name}: fused {bst.engine._fused}, "
+                                       f"{bst.num_trees()} trees")
+                texts[dev] = model_trees_text(bst)
+            arm = name + ("_bagged" if sampled else "")
+            if texts["cpu"] != texts["cuda"]:
+                raise RuntimeError(f"{arm}: the CPU's and the card's text "
+                                   "differ")
+            if sampled and bst.engine.last_compact_rows <= 0:
+                raise RuntimeError(f"{arm}: the sampled trees were not "
+                                   "compacted")
+            arms[arm] = {"text_identical": True,
+                         "compact_rows": bst.engine.last_compact_rows,
+                         "leaves_per_tree": [t.num_leaves
+                                             for t in bst.engine.models]}
+    for name, (kind, extra) in REGRESSION_OBJECTIVES.items():
+        if name in RENEWING:
+            continue
+        y = labels[kind]
+        runs = {}
+        for dev, fused in (("cpu", "auto"), ("cuda", "auto"),
+                           ("cuda", "off")):
+            p = {**base, "objective": name, **extra, "device_type": dev,
+                 "fused_iter": fused}
+            with (cap if (dev, fused) == ("cuda", "auto")
+                  else contextlib.nullcontext()):
+                runs[dev, fused] = lt.train(
+                    p, lt.Dataset(X, label=y, params=p), iters)
+        cpu, card, eager = (runs[k] for k in (("cpu", "auto"),
+                                              ("cuda", "auto"),
+                                              ("cuda", "off")))
+        if not card.engine._fused or eager.engine._fused:
+            raise RuntimeError(f"{name}: fused {card.engine._fused} on the "
+                               f"card, {eager.engine._fused} when off")
+        if model_trees_text(card) != model_trees_text(eager):
+            raise RuntimeError(f"{name}: fused and eager text differ on the "
+                               "card")
+        c_trees, g_trees = cpu.engine.models, card.engine.models
+        if len(g_trees) != iters or \
+                tree_structure(c_trees[0]) != tree_structure(g_trees[0]):
+            raise RuntimeError(f"{name}: the first tree differs between "
+                               "devices")
+        s_cpu = cpu.engine.score[:n].numpy()
+        s_card = card.engine.score[:n].cpu().numpy()
+        gap = float(np.abs(s_cpu - s_card).max()) / max(
+            1.0, float(np.abs(s_cpu).max()))
+        if not (gap <= SMOOTH_SCORE_RTOL and np.isfinite(s_card).all()):
+            raise RuntimeError(f"{name}: raw scores differ by {gap} of "
+                               "their scale")
+        arms[name] = {"fused": True, "fused_text_equals_eager": True,
+                      "first_tree_identical": True,
+                      "trees_differing_cpu_card": sum(
+                          tree_structure(a) != tree_structure(b)
+                          for a, b in zip(c_trees, g_trees)),
+                      "max_score_gap_of_scale": gap}
+    torch.cuda.synchronize()
+    replayed, err = replay_against_plain(cap)
+    if not (replayed["route_and_hist"] and replayed["route_replay"]
+            and replayed["leaf_gather"]):
+        raise RuntimeError(f"regression small: replayed {replayed}")
+    emit({"phase": "train_regression_small", "rows": n, "iterations": iters,
+          "num_leaves": num_leaves, "arms": arms,
+          "replayed_launches": replayed, "replay_max_abs_err": err})
+    return err
+
+
+def held_out_metric(bst, name, params, Xh, yh):
+    """The objective's default metric on the held-out rows: the model's,
+    after ``predict`` on the card (K1, then ``convert_output``), and the
+    constant model's (the init score alone); lower is better for every
+    objective here.  Returns (metric name, model, constant, K1 launches)."""
+    from lightgbm_torch import kernels
+    from lightgbm_torch.config import Config
+    from lightgbm_torch.metrics import create_metrics
+
+    kernels.reset_launch_counts()
+    pred = bst.predict(Xh)
+    k1 = kernels.launch_counts()["predict_stream"]
+    (metric,) = create_metrics(Config.from_params(params), name)
+    metric.init(yh, None)
+    obj = bst.engine.objective
+    const = obj.convert_output(np.full(len(yh), bst.engine.init_scores[0],
+                                       np.float32))
+    (mname, model_v, _), = metric.evaluate(pred, lambda s: s)
+    (_, const_v, _), = metric.evaluate(const, lambda s: s)
+    if not (np.isfinite(pred).all() and pred.shape == (len(yh),)
+            and k1 > 0 and model_v < const_v):
+        raise RuntimeError(f"{name}: held-out {mname} {model_v} against the "
+                           f"constant model's {const_v} ({k1} K1 launches)")
+    return mname, model_v, const_v, k1
+
+
+def phase_train_regression(seed, smi, ds, Xs, iters=20, held_out=250_000,
+                           timed_tree=2, arm_iters=10):
+    """The regression cell at full width: the full phase's held-out
+    HIGGS-shaped rows (1M x 28) as ``Dataset(..., reference=ds)`` (its
+    max_bin 63 mappers), the last ``held_out`` rows held out, labels from
+    the generator's logit (``regression_labels``); 255 leaves, learning
+    rate 0.1, split budget 64, ``iters`` iterations of each of the ten
+    objectives through ``lightgbm_torch.train``, the counts read around
+    each call.  regression_l1, quantile (alpha 0.9) and mape renew their
+    leaves and train eager; the others fuse, and an eager arm of the same
+    trees must give byte-identical text.  A bagged regression_l1 arm (half
+    the rows: compacted, K3) and a quantized one (``use_quantized_grad``
+    with ``quant_train_renew_leaf``: K2's int form, both renewals in turn).
+    Every arm's held-out metric, after ``predict`` on the card, must beat
+    the constant model's; the renewing objectives' first 3 trees must
+    repeat byte for byte (mape's weighted sums are exact fixed point).  One tree of each arm is replayed bit-equal; the
+    renewal, and ``torch.sort`` alone, are timed on one tree's leaves; one
+    eager regression_l1 iteration is timed phase by phase.  Returns the
+    kernels line's ``regression`` entries and the replays' largest
+    differences."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.kernels import leaf_gather as lg
+    from lightgbm_torch.kernels import predict as tpk
+    from lightgbm_torch.kernels import route_replay as rr
+    from lightgbm_torch.utils.timer import host_reads
+
+    n_train = len(Xs) - held_out
+    t0 = time.perf_counter()
+    labels = regression_labels(higgs_logit(Xs), seed + 13)
+    datasets = {}
+    for kind, y in labels.items():
+        datasets[kind] = lt.Dataset(Xs[:n_train], label=y[:n_train],
+                                    reference=ds).construct()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    Xh = Xs[n_train:]
+    base = {"num_leaves": 255, "learning_rate": 0.1,
+            "max_splits_per_round": 64, "max_bin": 63, "verbosity": -1}
+    arm_list = [(name, kind, extra, iters)
+                for name, (kind, extra) in REGRESSION_OBJECTIVES.items()]
+    arm_list += [("regression_l1_bagged", "continuous",
+                  {"bagging_fraction": 0.5, "bagging_freq": 1}, arm_iters),
+                 ("regression_l1_quantized", "continuous",
+                  {"use_quantized_grad": True,
+                   "quant_train_renew_leaf": True}, arm_iters)]
+    arms, caps, results = {}, {}, {}
+    errs = []
+    for arm, kind, extra, n_iter in arm_list:
+        name = arm.split("_bagged")[0].split("_quantized")[0]
+        params = {**base, "objective": name, **extra}
+        dsk = datasets[kind]
+        kernels.reset_launch_counts()
+        r0 = host_reads()
+        with TimedIters(capture_at=timed_tree) as timed:
+            t0 = time.perf_counter()
+            bst = lt.train(params, dsk, n_iter)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        reads = host_reads() - r0
+        launches = kernels.launch_counts()
+        fuses = name not in RENEWING
+        int_form = bool(extra.get("use_quantized_grad"))
+        k2_name = "route_and_hist_int" if int_form else "route_and_hist"
+        if (bst.num_trees() != n_iter or bst.engine._fused != fuses
+                or launches[k2_name] == 0
+                or launches["leaf_gather"] != n_iter
+                or (int_form and launches["route_and_hist"])
+                or ("bagging_fraction" in extra
+                    and launches["route_replay"] == 0)):
+            raise RuntimeError(f"{arm}: {bst.num_trees()} trees, fused "
+                               f"{bst.engine._fused}, launches {launches}")
+        metric, model_v, const_v, k1 = held_out_metric(
+            bst, name, params, Xh, labels[kind][n_train:])
+        if name in RENEWING and arm == name:
+            # the renewal is exact fixed point and sorts: it repeats
+            again = lt.train(params, dsk, 3)
+            if model_trees_text(again) != model_trees_text(bst,
+                                                           num_iteration=3):
+                raise RuntimeError(f"{arm}: training does not repeat bit "
+                                   "for bit")
+        replayed, err = replay_against_plain(timed.cap)
+        errs.append(err)
+        entry = {"iterations": n_iter, "train_s": train_s,
+                 "launches": launches,
+                 "k2_launches_per_tree": launches[k2_name] / n_iter,
+                 "k3_launches": launches["route_replay"],
+                 "k4_launches": launches["leaf_gather"],
+                 "held_out_metric": metric, "held_out": model_v,
+                 "constant_model": const_v, "margin": const_v - model_v,
+                 "k1_launches": k1,
+                 "replayed_launches_timed_tree": replayed,
+                 "leaves_per_tree": [t.num_leaves
+                                     for t in bst.engine.models]}
+        if name in RENEWING:
+            # the renewal alone on the timed tree's own inputs (the score
+            # before it, its leaves, its in-bag mask), and the stable sort
+            # it starts with
+            obj = bst.engine.objective
+            (score, lid, n_leaves, in_bag), = timed.cap.renew
+            entry["renew_ms"] = device_ms(
+                lambda: obj.renew_leaf_values(score, lid, n_leaves, in_bag),
+                reps=5)
+            entry["sort_ms"] = device_ms(
+                lambda: torch.sort(score, stable=True), reps=5)
+            entry["renew_in_bag_rows"] = int(in_bag.sum().item())
+        if fuses:
+            entry["fused_iter"] = fused_and_eager(
+                bst, timed, launches, reads,
+                lambda x, k, p=params, d=dsk: lt.train({**p, **x}, d, k),
+                n_iter)
+        else:
+            entry["fused_iter"] = {"eager": arm_numbers(bst, timed,
+                                                        launches, reads)}
+        s_tree = entry["fused_iter"]["eager"]["s_per_tree"]
+        if "renew_ms" in entry:
+            entry["renew_share_of_eager_tree"] = \
+                entry["renew_ms"] * 1e-3 / s_tree
+        arms[arm] = entry
+        caps[arm] = timed.cap
+        results[arm] = bst
+    err = {k: max(e[k] for e in errs) for k in errs[0]}
+
+    # one eager regression_l1 iteration phase by phase (the renewal apart)
+    prof_s, prof_phases, prof_reads = profiled_iteration(
+        results["regression_l1"])
+
+    # the kernels line's regression entries: K2 from regression_l1's timed
+    # tree, K2 int from the quantized arm's, K3 from the bagged arm's, K4,
+    # and K1 on the held-out rows of regression_l1
+    cap = caps["regression_l1"]
+    k2f = time_k2_launches([(a, o) for a, o in cap.k2 if a[10]], False)
+    qcap = caps["regression_l1_quantized"]
+    k2i = time_k2_launches([(a, o) for a, o in qcap.k2i if a[9]], True)
+    (lid, vals), _ = cap.k4[0]
+    k4_ms = device_ms(lambda: lg.leaf_gather_cuda(lid, vals))
+    k4_plain = device_ms(lambda: lg.leaf_gather_plain(lid, vals))
+    k4_lib = device_ms(lambda: torch.index_select(vals, 0, lid))
+    k4_bnd = bound(8.0 * lid.numel() + 4.0 * vals.numel(), lid.numel())
+    (k3_bins, k3_tabs), _ = caps["regression_l1_bagged"].k3[0]
+    k3_ms = device_ms(lambda: rr.route_replay_cuda(k3_bins, k3_tabs))
+    k3_plain = cuda_ms(lambda: rr.route_replay_plain(k3_bins, k3_tabs),
+                       reps=1, warmup=0)
+    k3_bnd = bound(*k3_work(k3_bins, k3_tabs))
+    bst = results["regression_l1"]
+    use, _, _, _ = bst._resolve_tree_slice(0, None)
+    inp, _, k1_err = check_kernel_against_plain(bst, Xh)
+    err["predict_stream"] = k1_err
+    nodes, lv, words, depths = inp.classes[0]
+    maxd = int(max(depths))
+    k1_ms = device_ms(lambda: tpk.predict_stream_cuda(inp.bins_T, nodes, lv,
+                                                      words, maxd), reps=5)
+    k1_plain = cuda_ms(lambda: tpk.predict_stream_plain(inp.bins_T, nodes, lv,
+                                                        words, depths),
+                       reps=1, warmup=0)
+    k1_bnd = bound(*k1_work(inp, use, maxd, len(Xh)))
+    del inp
+    emit({"phase": "train_regression", "card": smi, "rows": int(n_train),
+          "held_out_rows": int(len(Xh)), "features": int(Xs.shape[1]),
+          "num_leaves": 255, "max_bin": 63, "setup_s": setup_s,
+          "arms": arms, "replay_max_abs_err": err,
+          "eager_l1_iteration_s": prof_s,
+          "eager_l1_iteration_phases_s": prof_phases,
+          "eager_l1_iteration_host_reads": prof_reads,
+          "k2_full_hist": k2f, "k2_int_full_hist": k2i, "k3_ms": k3_ms,
+          "k3_plain_ms": k3_plain, "k4_ms": k4_ms, "k1_ms": k1_ms,
+          "k1_plain_ms": k1_plain})
+
+    def entry(launches_n, ms, plain, bnd, lib):
+        return {"cell": "train_regression", "launches": launches_n,
+                "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": lib}
+
+    l1 = arms["regression_l1"]
+    lines = {
+        "route_and_hist": entry(
+            l1["launches"]["route_and_hist"], k2f["mean_ms"],
+            k2f["mean_plain_ms"], (k2f["mean_bound_ms"], k2f["bound_by"]),
+            k2f["mean_index_add_ms"]),
+        "route_and_hist_int": entry(
+            arms["regression_l1_quantized"]["launches"]["route_and_hist_int"],
+            k2i["mean_ms"], k2i["mean_plain_ms"],
+            (k2i["mean_bound_ms"], k2i["bound_by"]),
+            k2i["mean_index_add_ms"]),
+        "route_replay": entry(
+            arms["regression_l1_bagged"]["launches"]["route_replay"], k3_ms,
+            k3_plain, k3_bnd, None),
+        "leaf_gather": entry(l1["launches"]["leaf_gather"], k4_ms, k4_plain,
+                             k4_bnd, k4_lib),
+        "predict_stream": entry(l1["k1_launches"], k1_ms, k1_plain, k1_bnd,
+                                None)}
+    return lines, err
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5142,6 +5562,9 @@ def main(argv=None) -> int:
             args.seed, args.rows, ds, Xs, ys, smi, args.backend_iters)
         k2i, quant_err = phase_train_quantized(ds, Xs, ys, smi,
                                                args.train_iters)
+        reg_small_err = phase_train_regression_small(args.seed)
+        reg_lines, reg_err = phase_train_regression(
+            args.seed, smi, ds, Xs, args.train_iters)
         del ds, Xs, ys
         mc_small_err = phase_train_multiclass_small(args.seed)
         k2k_k8, mc_err = phase_train_multiclass(args.seed, smi)
@@ -5159,7 +5582,7 @@ def main(argv=None) -> int:
     errs = (small_err, sampled_small_err, quant_small_err, sampled_err,
             backends_err, quant_err, mc_small_err, mc_err, cat_small_err,
             cat_err, wide_small_err, wide_err, rank_small_err, rank_err,
-            adv_err, k1_adv_err, bin_adv_err)
+            reg_small_err, reg_err, adv_err, k1_adv_err, bin_adv_err)
     for k in kernel_lines:
         if k["name"] in cat_lines:
             k["categorical"] = cat_lines[k["name"]]
@@ -5169,6 +5592,12 @@ def main(argv=None) -> int:
             r["max_abs_err"] = max(e.get(k["name"], 0.0)
                                    for e in (rank_small_err, rank_err))
             k["ranking"] = r
+        if k["name"] in reg_lines:
+            # its launches, replays and times on the regression cell
+            r = reg_lines[k["name"]]
+            r["max_abs_err"] = max(e.get(k["name"], 0.0)
+                                   for e in (reg_small_err, reg_err))
+            k["regression"] = r
         # K2's int form has one row for both its class counts
         names = ((k["name"], k["name"] + "_k")
                  if k["name"] == "route_and_hist_int" else (k["name"],))

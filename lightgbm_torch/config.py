@@ -369,6 +369,12 @@ class Config:
     boost_from_average: bool = True
     is_unbalance: bool = False
     scale_pos_weight: float = 1.0
+    # the regression family (objectives.py): huber's clip and quantile's
+    # level, fair's c, poisson's hessian offset, tweedie's variance power
+    alpha: float = 0.9
+    fair_c: float = 1.0
+    poisson_max_delta_step: float = 0.7
+    tweedie_variance_power: float = 1.5
     # ranking (ranking.py): the gain of each relevance label (None = 2**l -
     # 1), the pairs' truncation and normalisation, the position-bias
     # regularisation, and the seed of rank_xendcg's per-iteration draws
@@ -454,6 +460,7 @@ class Config:
     cegb_penalty_feature_lazy: Any = None
     cegb_penalty_feature_coupled: Any = None
     linear_tree: bool = False
+    auc_mu_weights: Any = None  # auc_mu's class-pair weights
 
     # Quantized-gradient training: gradients and hessians rounded onto a
     # grid of num_grad_quant_bins levels (stochastically or to nearest);

@@ -1,16 +1,20 @@
-"""Evaluation metrics of the ported objectives, on the host in numpy.
+"""Evaluation metrics, on the host in numpy.
 
 The port's counterpart of ``lightgbm_tpu/metrics.py`` (reference:
-src/metric/regression_metric.hpp, binary_metric.hpp,
-multiclass_metric.hpp), trimmed to the metrics of the ported objectives:
-``l1``, ``l2``, ``rmse``, ``binary_logloss``, ``binary_error``, ``auc``,
-``multi_logloss`` and ``multi_error`` (with ``multi_error_top_k``), and
-the ranking metrics ``ndcg`` and ``map`` at the cutoffs of ``eval_at``
-over the query boundaries a Dataset's ``group`` gives.
+src/metric/regression_metric.hpp, binary_metric.hpp, multiclass_metric.hpp,
+xentropy_metric.hpp, rank_metric.hpp, map_metric.hpp), every metric of the
+reference: the regression metrics ``l1``, ``l2``, ``rmse``, ``r2``,
+``quantile``, ``huber``, ``fair``, ``poisson``, ``mape``, ``gamma``,
+``gamma_deviance`` and ``tweedie``; ``binary_logloss``, ``binary_error``,
+``auc`` and ``average_precision``; ``multi_logloss``, ``multi_error`` (with
+``multi_error_top_k``) and ``auc_mu``; ``cross_entropy``,
+``cross_entropy_lambda`` and ``kldiv``; and the ranking metrics ``ndcg``
+and ``map`` at the cutoffs of ``eval_at`` over the query boundaries a
+Dataset's ``group`` gives.
 Metrics run off the training hot path: the scores come to the host once
 per evaluation, and each metric is the reference's float64 numpy
-arithmetic, so both packages give the same value on the same scores.  Other metric names raise "not yet
-ported"; ``metric="None"`` evaluates nothing.
+arithmetic, so both packages give the same value on the same scores.
+``metric="None"`` evaluates nothing.
 """
 from __future__ import annotations
 
@@ -84,6 +88,92 @@ class L1Metric(_PointwiseMetric):
         return np.abs(p - self.label)
 
 
+class R2Metric(_PointwiseMetric):
+    name = "r2"
+    higher_better = True
+
+    def evaluate(self, score, convert):
+        pred = np.asarray(convert(score), np.float64)
+        w = self.weight if self.weight is not None else np.ones_like(
+            self.label)
+        ybar = np.sum(self.label * w) / np.sum(w)
+        ss_res = np.sum(w * (self.label - pred) ** 2)
+        ss_tot = np.sum(w * (self.label - ybar) ** 2)
+        return [(self.name, float(1.0 - ss_res / max(ss_tot, 1e-300)), True)]
+
+
+class QuantileMetric(_PointwiseMetric):
+    name = "quantile"
+
+    def point_loss(self, p):
+        a = self.config.alpha
+        d = self.label - p
+        return np.where(d >= 0, a * d, (a - 1.0) * d)
+
+
+class HuberMetric(_PointwiseMetric):
+    name = "huber"
+
+    def point_loss(self, p):
+        a = self.config.alpha
+        d = np.abs(p - self.label)
+        return np.where(d <= a, 0.5 * d * d, a * (d - 0.5 * a))
+
+
+class FairMetric(_PointwiseMetric):
+    name = "fair"
+
+    def point_loss(self, p):
+        c = self.config.fair_c
+        d = np.abs(p - self.label)
+        return c * c * (d / c - np.log1p(d / c))
+
+
+class PoissonMetric(_PointwiseMetric):
+    name = "poisson"
+
+    def point_loss(self, p):
+        return p - self.label * np.log(np.maximum(p, 1e-10))
+
+
+class MAPEMetric(_PointwiseMetric):
+    name = "mape"
+
+    def point_loss(self, p):
+        return np.abs((self.label - p) / np.maximum(1.0, np.abs(self.label)))
+
+
+class GammaMetric(_PointwiseMetric):
+    """The negative log-likelihood of a gamma of unit shape (reference:
+    regression_metric.hpp:257)."""
+    name = "gamma"
+
+    def point_loss(self, p):
+        psafe = np.maximum(p, 1e-10)
+        return self.label / psafe + np.log(psafe)
+
+
+class GammaDevianceMetric(_PointwiseMetric):
+    name = "gamma_deviance"
+
+    def point_loss(self, p):
+        eps = 1e-10
+        r = self.label / np.maximum(p, eps)
+        return 2.0 * (np.log(np.maximum(1.0 / np.maximum(r, eps), eps))
+                      + r - 1.0)
+
+
+class TweedieMetric(_PointwiseMetric):
+    name = "tweedie"
+
+    def point_loss(self, p):
+        rho = self.config.tweedie_variance_power
+        psafe = np.maximum(p, 1e-10)
+        a = self.label * np.power(psafe, 1.0 - rho) / (1.0 - rho)
+        b = np.power(psafe, 2.0 - rho) / (2.0 - rho)
+        return -a + b
+
+
 class BinaryLoglossMetric(_PointwiseMetric):
     name = "binary_logloss"
 
@@ -110,6 +200,28 @@ class AUCMetric(Metric):
         y = self.label
         w = self.weight if self.weight is not None else np.ones_like(y)
         return [(self.name, _binary_auc(s, y, w), True)]
+
+
+class AveragePrecisionMetric(Metric):
+    """reference: binary_metric.hpp:271"""
+    name = "average_precision"
+    higher_better = True
+
+    def evaluate(self, score, convert):
+        s = np.asarray(score, np.float64)
+        y = self.label
+        w = self.weight if self.weight is not None else np.ones_like(y)
+        order = np.argsort(-s, kind="stable")
+        y, w = y[order], w[order]
+        pos_w = w * (y > 0)
+        cum_pos = np.cumsum(pos_w)
+        cum_all = np.cumsum(w)
+        total_pos = cum_pos[-1] if len(cum_pos) else 0.0
+        if total_pos <= 0:
+            return [(self.name, 1.0, True)]
+        precision = cum_pos / np.maximum(cum_all, 1e-300)
+        ap = np.sum(precision * pos_w) / total_pos
+        return [(self.name, float(ap), True)]
 
 
 def _binary_auc(s, y, w):
@@ -159,6 +271,69 @@ class MultiErrorMetric(Metric):
         pl = p[np.arange(len(il)), il]
         err = (np.sum(p > pl[:, None], axis=1) >= k).astype(np.float64)
         return [(f"multi_error@{k}", self._avg(err), False)]
+
+
+class AucMuMetric(Metric):
+    """reference: multiclass_metric.hpp:184 — the mean over class pairs of
+    the AUC of the two classes' rows, ranked by the difference of their
+    raw scores, every pair weighted alike (``auc_mu_weights`` is not
+    ported: training with it raises)."""
+    name = "auc_mu"
+    higher_better = True
+
+    def evaluate(self, score, convert):
+        p = np.asarray(score, np.float64)
+        if p.ndim == 1:
+            p = p[:, None]
+        k = p.shape[1]
+        il = self.label.astype(np.int64)
+        w = self.weight if self.weight is not None else np.ones(len(il))
+        aucs = []
+        for a in range(k):
+            for b in range(a + 1, k):
+                mask = (il == a) | (il == b)
+                if not mask.any():
+                    continue
+                s = p[mask, a] - p[mask, b]
+                y = (il[mask] == a).astype(np.float64)
+                aucs.append(_binary_auc(s, y, w[mask]))
+        val = float(np.mean(aucs)) if aucs else 1.0
+        return [(self.name, val, True)]
+
+
+class CrossEntropyMetric(_PointwiseMetric):
+    name = "cross_entropy"
+
+    def point_loss(self, p):
+        eps = 1e-15
+        p = np.clip(p, eps, 1.0 - eps)
+        y = self.label
+        return -(y * np.log(p) + (1.0 - y) * np.log(1.0 - p))
+
+
+class CrossEntropyLambdaMetric(Metric):
+    """Cross-entropy on p = 1 - exp(-z), z = log1p(exp(score)) the
+    objective's output."""
+    name = "cross_entropy_lambda"
+
+    def evaluate(self, score, convert):
+        eps = 1e-15
+        z = np.maximum(np.asarray(convert(score), np.float64), eps)
+        y = self.label
+        p = np.clip(1.0 - np.exp(-z), eps, 1.0 - eps)
+        loss = -(y * np.log(p) + (1.0 - y) * np.log(1.0 - p))
+        return [(self.name, self._avg(loss), False)]
+
+
+class KLDivMetric(_PointwiseMetric):
+    name = "kldiv"
+
+    def point_loss(self, p):
+        eps = 1e-15
+        p = np.clip(p, eps, 1.0 - eps)
+        y = np.clip(self.label, eps, 1.0 - eps)
+        return (y * np.log(y / p)
+                + (1.0 - y) * np.log((1.0 - y) / (1.0 - p)))
 
 
 def _compact_queries(qb, *arrays):
@@ -271,20 +446,31 @@ class MAPMetric(Metric):
 
 
 _METRIC_CLASSES = {
-    "l1": L1Metric, "l2": L2Metric, "rmse": RMSEMetric,
+    "l1": L1Metric, "l2": L2Metric, "rmse": RMSEMetric, "r2": R2Metric,
+    "quantile": QuantileMetric, "huber": HuberMetric, "fair": FairMetric,
+    "poisson": PoissonMetric, "mape": MAPEMetric, "gamma": GammaMetric,
+    "gamma_deviance": GammaDevianceMetric, "tweedie": TweedieMetric,
     "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
-    "auc": AUCMetric, "multi_logloss": MultiLoglossMetric,
-    "multi_error": MultiErrorMetric,
+    "auc": AUCMetric, "average_precision": AveragePrecisionMetric,
+    "multi_logloss": MultiLoglossMetric, "multi_error": MultiErrorMetric,
+    "auc_mu": AucMuMetric,
+    "cross_entropy": CrossEntropyMetric,
+    "cross_entropy_lambda": CrossEntropyLambdaMetric,
+    "kldiv": KLDivMetric,
     "ndcg": NDCGMetric, "map": MAPMetric,
 }
 
 
 def default_metric_for_objective(objective: str) -> str:
     """The metric of ``metric=""`` (reference: the objective's default)."""
-    return {"regression": "l2", "binary": "binary_logloss",
-            "multiclass": "multi_logloss",
-            "multiclassova": "multi_logloss", "lambdarank": "ndcg",
-            "rank_xendcg": "ndcg"}.get(objective, "l2")
+    return {
+        "regression": "l2", "regression_l1": "l1", "huber": "huber",
+        "fair": "fair", "poisson": "poisson", "quantile": "quantile",
+        "mape": "mape", "gamma": "gamma", "tweedie": "tweedie",
+        "binary": "binary_logloss", "multiclass": "multi_logloss",
+        "multiclassova": "multi_logloss", "cross_entropy": "cross_entropy",
+        "cross_entropy_lambda": "cross_entropy_lambda",
+        "lambdarank": "ndcg", "rank_xendcg": "ndcg"}.get(objective, "l2")
 
 
 def create_metrics(config: Config, objective_name: str) -> List[Metric]:
@@ -306,7 +492,6 @@ def create_metrics(config: Config, objective_name: str) -> List[Metric]:
             continue
         cls = _METRIC_CLASSES.get(n)
         if cls is None:
-            raise LightGBMError(f"metric {n!r} is not yet ported to "
-                                "lightgbm_torch")
+            raise LightGBMError(f"Unknown metric {n}")
         out.append(cls(config))
     return out

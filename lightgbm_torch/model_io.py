@@ -42,6 +42,12 @@ def _objective_string(booster) -> str:
             return f"binary sigmoid:{c.sigmoid:g}"
         if name in ("multiclass", "multiclassova"):
             return f"{name} num_class:{c.num_class}"
+        if name in ("quantile", "huber"):
+            return f"{name} alpha:{c.alpha:g}"
+        if name == "fair":
+            return f"fair fair_c:{c.fair_c:g}"
+        if name == "tweedie":
+            return f"tweedie tweedie_variance_power:{c.tweedie_variance_power:g}"
         return name
     if booster._loaded_trees is not None:
         return booster._loaded_trees.objective_string

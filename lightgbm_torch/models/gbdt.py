@@ -50,8 +50,21 @@ an iteration with a non-finite gradient grows a no-op tree from zeroed
 gradients and does not end training, and a model with non-finite leaves
 does not seed one.
 
-Training covers gbdt on numeric and categorical features with the binary,
-L2, multiclass and ranking objectives (or custom gradients), ranking with
+Leaf renewal (the objective's ``need_renew_leaf``: regression_l1,
+quantile, mape; reference: ``_post_grow``, gbdt.py:2600-2613): after the
+quantizer's renewal and before K4, each leaf of the grown tree is set to a
+percentile of its in-bag rows' residuals on the score before the tree
+(``_renew_leaves_percentile``, on the device).  Such an objective trains
+eager, as the reference's fused gate keeps it (gbdt.py:1611-1612); of the
+other objectives, regression, huber, fair, poisson, gamma, tweedie,
+binary, cross_entropy, cross_entropy_lambda, lockstep multiclass and
+multiclassova and lambdarank fuse under ``stream`` on the card, their
+gradients in the head graph (every per-row array they read is moved to the
+device at the head's first, uncaptured run); rank_xendcg draws on the host
+and runs eager.
+
+Training covers gbdt on numeric and categorical features with every
+objective of the reference (or custom gradients), ranking with
 ``bagging_by_query``; every other training
 feature raises "not yet ported" (``_check_unsupported_params``) instead of
 training a different model.
@@ -65,7 +78,7 @@ import numpy as np
 import torch
 
 from ..binning import BIN_CATEGORICAL
-from ..config import Config, canonical_objective
+from ..config import Config
 from ..device_data import DeviceData
 from ..kernels.leaf_gather import leaf_gather
 from ..kernels.predict import tree_max_depth
@@ -310,12 +323,6 @@ class GBDT:
                     "linear_tree (leaf regressions feed on exact "
                     "histogram sums; the requantized wire is "
                     "documented-ulp, not exact)")
-        name = ("none" if self.objective is None
-                else canonical_objective(self.objective.name))
-        if name not in ("binary", "regression", "multiclass",
-                        "multiclassova", "lambdarank", "rank_xendcg",
-                        "none"):
-            raise _not_ported(f"objective {name!r}")
         if c.hist_backend in ("segsum", "onehot"):
             raise _not_ported(f"hist_backend={c.hist_backend!r}")
         if c.hist_precision == "double":
@@ -352,6 +359,10 @@ class GBDT:
                 raise _not_ported(key)
         if c.path_smooth > 0.0:
             raise _not_ported("path_smooth")
+        w = c.auc_mu_weights
+        if w is not None and (w.strip() if isinstance(w, str)
+                              else np.size(w)):
+            raise _not_ported("auc_mu_weights")
 
     def _resolve_hist_backend(self) -> str:
         """The histogram backend (the single-device part of reference
@@ -625,6 +636,10 @@ class GBDT:
             if renew:
                 res = res._replace(arrays=self._renew_leaves_exact(
                     res.arrays, res.leaf_id, grad_raw, hess_raw))
+            if self.objective is not None and self.objective.need_renew_leaf:
+                with phase(self.timer, "renew"):
+                    res = res._replace(arrays=self._renew_leaves_percentile(
+                        res.arrays, res.leaf_id, mask))
             trees = [(res.arrays, res.rounds)]
             with phase(self.timer, "k4"):
                 # score update (reference: ScoreUpdater::AddScore); a
@@ -974,6 +989,25 @@ class GBDT:
         vals = leaf_output(sums[0], sums[1], c.lambda_l1, c.lambda_l2,
                            c.max_delta_step)
         keep = ((torch.arange(L, device=lid.device) < arrays.num_leaves)
+                & (arrays.leaf_count > 0))
+        return arrays._replace(
+            leaf_value=torch.where(keep, vals, arrays.leaf_value))
+
+    def _renew_leaves_percentile(self, arrays: TreeArrays, leaf_id,
+                                 mask) -> TreeArrays:
+        """Leaf values renewed to a percentile of each leaf's in-bag
+        residuals on the training score before this tree (reference:
+        ``_post_grow``, gbdt.py:2600-2613; TreeLearner::RenewTreeOutput,
+        gbdt.cpp:419).  A leaf keeps its value where it holds no in-bag
+        row, past the tree's leaves, or when the tree has one leaf.
+        ``leaf_id``: every row's leaf (K3's replay on a sampled tree);
+        ``mask``: the tree's in-bag mask."""
+        if arrays.num_leaves <= 1:
+            return arrays
+        n, L = self.num_data, self.grow_params.num_leaves
+        vals = self.objective.renew_leaf_values(
+            self.score[:n], leaf_id[:n], L, mask[:n])
+        keep = ((torch.arange(L, device=vals.device) < arrays.num_leaves)
                 & (arrays.leaf_count > 0))
         return arrays._replace(
             leaf_value=torch.where(keep, vals, arrays.leaf_value))

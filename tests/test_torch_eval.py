@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 import lightgbm_tpu as lgb
 from lightgbm_tpu import metrics as jm
@@ -78,8 +80,18 @@ def test_create_metrics_names(objective, metric, want):
 
 
 def test_unported_metric_raises():
-    with pytest.raises(lt.LightGBMError, match="not yet ported"):
-        tm.create_metrics(TConfig.from_params({"metric": "quantile"}),
+    """quantile, which once raised "not yet ported" here, evaluates as the
+    JAX package's; an unknown name raises as there."""
+    rs = np.random.RandomState(5)
+    y, score = rs.randn(300), rs.randn(300).astype(np.float32)
+    params = {"metric": "quantile", "alpha": 0.3}
+    (t,) = tm.create_metrics(TConfig.from_params(params), "binary")
+    (j,) = jm.create_metrics(JConfig.from_params(params), "binary")
+    t.init(y, None)
+    j.init(y, None)
+    assert t.evaluate(score, lambda s: s) == j.evaluate(score, lambda s: s)
+    with pytest.raises(ValueError, match="Unknown metric"):
+        tm.create_metrics(TConfig.from_params({"metric": "bogus"}),
                           "binary")
 
 

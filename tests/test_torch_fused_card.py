@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 import lightgbm_torch as lt
 from lightgbm_torch import kernels

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 import lightgbm_tpu as lgb
 from lightgbm_tpu.pallas import stream_kernel as jsk

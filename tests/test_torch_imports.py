@@ -9,7 +9,9 @@ from pathlib import Path
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 # the package's sources; _build/ holds what is built or unpacked at run time

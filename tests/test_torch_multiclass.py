@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 import jax.numpy as jnp
 
@@ -577,9 +579,22 @@ def test_default_metric_and_auc_mu():
     for obj in ("multiclass", "multiclassova"):
         (m,) = tm.create_metrics(TConfig.from_params({}), obj)
         assert m.name == "multi_logloss"
-    with pytest.raises(lt.LightGBMError, match="not yet ported"):
-        tm.create_metrics(TConfig.from_params({"metric": "auc_mu"}),
-                          "multiclass")
+    # auc_mu, which once raised "not yet ported" here, equals the JAX
+    # package's on the same raw scores (float64 numpy in both)
+    rs = np.random.RandomState(9)
+    y = rs.randint(0, 3, 400).astype(np.float64)
+    score = rs.randn(400, 3).astype(np.float32)
+    for w in (None, rs.rand(400) + 0.5):
+        (t,) = tm.create_metrics(TConfig.from_params({"metric": "auc_mu"}),
+                                 "multiclass")
+        (j,) = jm.create_metrics(JConfig.from_params({"metric": "auc_mu"}),
+                                 "multiclass")
+        t.init(y, w)
+        j.init(y, w)
+        (tn, tv, th), = t.evaluate(score, None)
+        (jn, jv, jh), = j.evaluate(score, None)
+        assert (tn, th) == (jn, jh) == ("auc_mu", True)
+        np.testing.assert_allclose(tv, jv, rtol=1e-12, atol=0)
 
 
 def test_early_stopping_on_multi_logloss_matches_jax(monkeypatch):

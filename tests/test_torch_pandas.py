@@ -19,6 +19,8 @@ import pandas as pd
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 import lightgbm_tpu as lgb
 

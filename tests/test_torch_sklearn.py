@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 import lightgbm_tpu as lgb
 
@@ -178,9 +180,17 @@ def test_params_and_clone():
 
 
 def test_unported_objective_raises():
+    """huber, which once raised "not yet ported" here, fits through
+    ``LGBMRegressor(objective=...)`` and writes the JAX package's model
+    header; an unknown objective raises as there."""
     X, y = _data(200)
-    with pytest.raises(lt.LightGBMError, match="not yet ported"):
-        lt.LGBMRegressor(objective="huber", **CPU).fit(X, y)
+    est = lt.LGBMRegressor(objective="huber", alpha=0.5, n_estimators=3,
+                           **CPU).fit(X, y)
+    assert est.booster_.num_trees() == 3
+    assert "objective=huber alpha:0.5\n" in est.booster_.model_to_string()
+    assert np.isfinite(est.predict(X)).all()
+    with pytest.raises(ValueError, match="Unknown objective"):
+        lt.LGBMRegressor(objective="bogus", **CPU).fit(X, y)
 
 
 def test_custom_objective_trains_through_update():

@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 import jax.numpy as jnp
 
@@ -637,7 +639,7 @@ def test_train_without_device_type_raises_without_gpu(monkeypatch):
 @pytest.mark.parametrize("extra", [
     {"objective": "multiclass", "num_class": 3, "bagging_fraction": 0.5,
      "bagging_freq": 1},
-    {"objective": "cross_entropy"},
+    {"cegb_penalty_feature_lazy": [1, 0, 0, 0, 0]},
     {"hist_backend": "onehot"},
     {"boosting": "rf"},
     {"feature_fraction_bynode": 0.5},
@@ -653,14 +655,28 @@ def test_train_without_device_type_raises_without_gpu(monkeypatch):
     {"tree_learner": "data"},
     {"hist_backend": "segsum"},
     {"boosting": "dart"},
-    {"objective": "huber"},
-    {"objective": "multiclass", "num_class": 3, "metric": "auc_mu"},
+    {"cegb_penalty_feature_coupled": [1, 0, 0, 0, 0]},
+    {"tree_learner": "voting"},
+    {"objective": "multiclass", "num_class": 3, "metric": "auc_mu",
+     "auc_mu_weights": [0, 1, 2, 1, 0, 1, 2, 1, 0]},
+    {"objective": "multiclass", "num_class": 3, "metric": "auc_mu",
+     "auc_mu_weights": "0,1,2,1,0,1,2,1,0"},
 ])
 def test_unported_training_params_raise(extra):
     X, y = _reg_data(300)
     y = (y > 0).astype(float) if extra.get("num_class") else y
     with pytest.raises(lt.LightGBMError, match="not yet ported"):
         lt.train({**_REG, **extra}, lt.Dataset(X, label=y, params=CPU), 2)
+
+
+@pytest.mark.parametrize("weights", [None, [], ""])
+def test_unset_auc_mu_weights_train(weights):
+    """auc_mu_weights left unset or empty, as a stock model's parameter
+    block writes it, trains: only class-pair weights are refused."""
+    X, y = _reg_data(300)
+    bst = lt.train({**_REG, "auc_mu_weights": weights},
+                   lt.Dataset(X, label=y, params=CPU), 2)
+    assert bst.num_trees() == 2
 
 
 def test_unported_inputs_raise():

@@ -2,17 +2,23 @@
 
 The port's counterpart of ``lightgbm_tpu/basic.py`` (reference:
 python-package/lightgbm/basic.py, Dataset :1692, Booster :3495), trimmed to
-training, evaluation and batch prediction: a Dataset over a numpy array
-(validation data binned with its training Dataset's mappers through
-``reference=``; ``group=`` query sizes and ``position=`` display positions
-for ranking), and a Booster that trains (``update``, one boosting
-iteration), evaluates its validation sets, holds a model and predicts.  ``Booster.predict`` on at least
-``_DEVICE_PREDICT_MIN_ROWS`` rows of a Booster built on a training Dataset
-uploads the raw rows, bins them there with the training mappers
+training, evaluation, prediction and the model's methods: a Dataset over
+a numpy array (validation data binned with its training Dataset's mappers
+through ``reference=``; ``group=`` query sizes and ``position=`` display
+positions for ranking), and a Booster that trains (``update``, one boosting
+iteration; ``rollback_one_iter``), evaluates its validation sets, holds a
+model (dump, edit, shuffle, reload) and predicts.  ``Booster.predict`` on
+at least ``_DEVICE_PREDICT_MIN_ROWS`` rows of a Booster built on a training
+Dataset uploads the raw rows, bins them there with the training mappers
 (``kernels/bin_rows.py``) and walks every tree on the device
-(``kernels/predict.py``); smaller batches and Boosters loaded from a model
-file alone take the host float64 walk, as in the reference.  A Dataset on
-a CUDA device is binned on the card the same way.
+(``kernels/predict.py``: raw scores, or with ``pred_leaf`` each row's leaf
+in each tree); smaller batches and Boosters loaded from a model file alone
+take the host float64 walk, as in the reference.  ``pred_contrib`` runs the
+float64 TreeSHAP kernel (``kernels/tree_shap.py``) on the Booster's device
+when the trees are numeric and at most ``kernels.tree_shap.MAX_DEPTH``
+deep, whatever the batch, else the exact host walk (``shap.py``).  SciPy
+sparse rows are predicted in dense slabs.  A Dataset on a CUDA device is
+binned on the card the same way.
 
 Device rule: a Dataset is constructed on ``device_type`` (default
 ``"cuda"``), and with no GPU that raises; ``device_type="cpu"`` runs the
@@ -36,11 +42,25 @@ from .device_data import (DeviceData, build_routing_np, resolve_device,
                           to_device)
 from .kernels.bin_rows import bin_matrix, bin_tables
 from .kernels.layout import bins_to_numpy
-from .kernels.predict import (build_predict_tables, predict_stream,
-                              tables_to_device)
+from .kernels.predict import (build_predict_tables, predict_leaf,
+                              predict_stream, tables_to_device)
 from .metrics import create_metrics
 from .objectives import create_objective
+from .shap import device_depth, predict_contrib, predict_contrib_device
 from .utils.log import LightGBMError, log_warning, set_verbosity
+
+
+# values in one dense slab of a SciPy sparse predict (~256 MB of float64)
+_SPARSE_SLAB_VALUES = 1 << 25
+
+
+def _is_scipy_sparse(data) -> bool:
+    """A SciPy sparse matrix (scipy is imported only if installed)."""
+    try:
+        import scipy.sparse as sp
+    except ImportError:
+        return False
+    return sp.issparse(data)
 
 
 def _to_2d_float(data, align_categories=None
@@ -117,6 +137,9 @@ class Dataset:
                  reference: Optional["Dataset"] = None, group=None,
                  position=None):
         self.params = dict(params or {})
+        if _is_scipy_sparse(data):
+            raise LightGBMError("sparse Dataset input is not yet ported to "
+                                "lightgbm_torch")
         # validation data is binned with its training Dataset's mappers
         # and groups, on that Dataset's device
         self.reference = reference
@@ -329,6 +352,7 @@ class Booster:
         self.best_score: Dict[str, Dict[str, float]] = {}
         self._engine = None
         self._loaded_trees = None
+        self._train_data_name = "training"
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("train_set must be a lightgbm_torch.Dataset")
@@ -399,6 +423,12 @@ class Booster:
                                       np.asarray(hess, np.float32))
         return eng.train_one_iter()
 
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's trees and their scores (reference:
+        Booster.rollback_one_iter, basic.py:4092)."""
+        self.engine.rollback_one_iter()
+        return self
+
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Evaluate ``data`` after every iteration (reference:
         Booster.add_valid, basic.py:3852).  A Dataset not binned yet is
@@ -425,9 +455,10 @@ class Booster:
         """[(dataset name, metric, value, higher is better)] of the training
         data."""
         eng = self.engine
-        return eng.eval_train() + self._run_feval(
-            feval, "training", self.train_set, eng.score_to_host(
-                eng.score, eng.num_data))
+        name = self._train_data_name
+        return [(name, m, v, hb) for _, m, v, hb in eng.eval_train()] + \
+            self._run_feval(feval, name, self.train_set,
+                            eng.score_to_host(eng.score, eng.num_data))
 
     def eval_valid(self, feval=None) -> List:
         eng = self.engine
@@ -437,6 +468,21 @@ class Booster:
             out.extend(self._run_feval(feval, eng.valid_names[vi], vset,
                                        score))
         return out
+
+    def eval(self, data: Dataset, name: str, feval=None) -> List:
+        """[(name, metric, value, higher is better)] of a validation set
+        added with ``add_valid`` (reference: lightgbm_tpu/basic.py:1350)."""
+        eng = self.engine
+        for vi, vset in enumerate(eng.valid_sets):
+            if vset is data:
+                score = eng.score_to_host(eng.valid_scores[vi],
+                                          vset.num_data())
+                conv = eng._convert()
+                out = [(name, mn, v, hb) for m in eng.valid_metrics[vi]
+                       for mn, v, hb in m.evaluate(score, conv)]
+                return out + self._run_feval(feval, name, vset, score)
+        raise LightGBMError("eval() requires the dataset to be added via "
+                            "add_valid")
 
     @staticmethod
     def _run_feval(feval, name, dset, raw_score) -> List:
@@ -471,13 +517,26 @@ class Booster:
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None, raw_score: bool = False,
                 pred_leaf: bool = False, pred_contrib: bool = False,
-                **kwargs) -> np.ndarray:
-        """Predict (reference: Booster.predict, basic.py:4625)."""
+                validate_features: bool = False, **kwargs) -> np.ndarray:
+        """Predict (reference: Booster.predict, basic.py:4625): raw scores
+        or their transform, each row's leaf in each tree (``pred_leaf``,
+        (N, trees) int32), or SHAP contributions (``pred_contrib``, (N, F +
+        1), (N, K (F + 1)) for K classes).  ``validate_features`` is taken
+        and, as in the JAX package, not read."""
         if isinstance(data, Dataset):
             raise LightGBMError("predict() takes raw data, not a Dataset")
-        if pred_leaf or pred_contrib:
-            raise LightGBMError("pred_leaf and pred_contrib are not yet "
-                                "ported to lightgbm_torch")
+        if _is_scipy_sparse(data):
+            # prediction walks real-valued thresholds, so rows are made
+            # dense a bounded slab at a time (~256 MB; reference:
+            # lightgbm_tpu/basic.py:1392-1404)
+            Xr = data.tocsr()
+            chunk = max(1, _SPARSE_SLAB_VALUES // max(1, Xr.shape[1]))
+            starts = range(0, Xr.shape[0], chunk) if Xr.shape[0] else [0]
+            return np.concatenate([self.predict(
+                np.asarray(Xr[s:s + chunk].todense(), np.float64),
+                start_iteration, num_iteration, raw_score, pred_leaf,
+                pred_contrib, validate_features, **kwargs)
+                for s in starts], axis=0)
         X, _, _, _ = _to_2d_float(data, self._pandas_categorical())
         expected = self.num_feature()
         if expected and X.shape[1] != expected:
@@ -485,6 +544,10 @@ class Booster:
                 f"The number of features in data ({X.shape[1]}) is not the same "
                 f"as it was in training data ({expected})")
         use, k, _, _ = self._resolve_tree_slice(start_iteration, num_iteration)
+        if pred_leaf:
+            return self._predict_leaf(X, use, k)
+        if pred_contrib:
+            return self._predict_contrib(X, use, k)
         n = X.shape[0]
         early_stop = bool(kwargs.get("pred_early_stop", False))
         # freq < 1 would never fire (and 0 would crash the modulo); clamp
@@ -592,6 +655,39 @@ class Booster:
             return host[0].astype(np.float64)
         return np.stack(host, axis=1).astype(np.float64)
 
+    def _predict_leaf(self, X, use, k) -> np.ndarray:
+        """(N, trees) int32 leaf indices: K1's leaf form, one launch per
+        class, where the device batch path applies (the bins and tables of
+        ``_device_predict_inputs``); else the host walk of each tree
+        (lightgbm_tpu/basic.py:1414-1418)."""
+        inp = self._device_predict_inputs(X, use, k)
+        if inp is None:
+            out = np.zeros((X.shape[0], len(use)), np.int32)
+            for i, t in enumerate(use):
+                out[:, i] = t.predict_leaf_raw(X)
+            return out
+        out = torch.empty((inp.n, len(use)), dtype=torch.int32,
+                          device=inp.bins_T.device)
+        for c, (nodes, lv, words, depths) in enumerate(inp.classes):
+            predict_leaf(inp.bins_T, nodes, lv, words, depths, out, c, k)
+        return out.cpu().numpy()
+
+    def _predict_contrib(self, X, use, k) -> np.ndarray:
+        """SHAP contributions: the device TreeSHAP on the Booster's device
+        when every tree is numeric and 0 < depth <= tree_shap.MAX_DEPTH,
+        else the exact host walk.  No batch size gates the device path:
+        the JAX package's rows x trees gate kept small batches off its
+        float32 kernel (lightgbm_tpu/shap.py:501-516), and this kernel is
+        float64 and, on the card, faster than the host walk from one row
+        (chip_smoke.py phase predict_surface, its ``gate`` timings).  A
+        kernel that fails to build or launch raises."""
+        depth = device_depth(use)
+        if depth:
+            dev = (self.engine.device if self._engine is not None
+                   else resolve_device(self.config.device_type))
+            return predict_contrib_device(use, X, k, dev, depth)
+        return predict_contrib(use, X, k)
+
     def _pandas_categorical(self):
         """The training frame's category lists, which a predict frame's
         codes are aligned to (reference: basic.py:1663-1669)."""
@@ -631,6 +727,143 @@ class Booster:
         from .model_io import save_model_string
         return save_model_string(self, num_iteration, start_iteration,
                                  importance_type)
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> Dict:
+        """The model as a JSON-ready dict (reference: GBDT::DumpModel)."""
+        from .model_io import dump_model_dict
+        return dump_model_dict(self, num_iteration, start_iteration,
+                               importance_type)
+
+    def model_from_string(self, model_str: str) -> "Booster":
+        """Replace this Booster's model with one parsed from ``model_str``,
+        in place: the engine is dropped and ``best_iteration`` reset
+        (reference: basic.py:4445)."""
+        from .model_io import load_model_string
+        self._loaded_trees = load_model_string(model_str)
+        self._engine = None
+        self.best_iteration = -1
+        return self
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        """The training set's name in ``eval_train`` (reference:
+        basic.py set_train_data_name)."""
+        self._train_data_name = name
+        return self
+
+    def trees_to_dataframe(self):
+        """The parsed model as a pandas DataFrame, one row per node, with
+        the reference's column set (reference: basic.py:3775)."""
+        try:
+            import pandas as pd
+        except ImportError as exc:
+            raise LightGBMError(
+                "trees_to_dataframe requires pandas") from exc
+        if self.num_trees() == 0:
+            raise LightGBMError(
+                "There are no trees in this Booster and thus nothing to parse")
+        model = self.dump_model()
+        feat_names = model["feature_names"]
+        rows: List[Dict[str, Any]] = []
+
+        def node_index(node, ti):
+            if "split_index" in node:
+                return f"{ti}-S{node['split_index']}"
+            return f"{ti}-L{node.get('leaf_index', 0)}"
+
+        def walk(node, ti, depth, parent):
+            idx = node_index(node, ti)
+            if "split_index" in node:
+                f = node["split_feature"]
+                rows.append({
+                    "tree_index": ti, "node_depth": depth, "node_index": idx,
+                    "left_child": node_index(node["left_child"], ti),
+                    "right_child": node_index(node["right_child"], ti),
+                    "parent_index": parent,
+                    "split_feature": (feat_names[f]
+                                      if f < len(feat_names) else str(f)),
+                    "split_gain": node["split_gain"],
+                    "threshold": node["threshold"],
+                    "decision_type": node["decision_type"],
+                    "missing_direction": ("left" if node.get("default_left")
+                                          else "right"),
+                    "missing_type": node.get("missing_type"),
+                    "value": node["internal_value"],
+                    "weight": node["internal_weight"],
+                    "count": node["internal_count"]})
+                walk(node["left_child"], ti, depth + 1, idx)
+                walk(node["right_child"], ti, depth + 1, idx)
+            else:
+                rows.append({
+                    "tree_index": ti, "node_depth": depth, "node_index": idx,
+                    "left_child": None, "right_child": None,
+                    "parent_index": parent, "split_feature": None,
+                    "split_gain": np.nan, "threshold": np.nan,
+                    "decision_type": None, "missing_direction": None,
+                    "missing_type": None,
+                    "value": node["leaf_value"],
+                    "weight": node.get("leaf_weight"),
+                    "count": node.get("leaf_count")})
+
+        for ti, tree in enumerate(model["tree_info"]):
+            walk(tree["tree_structure"], ti, 1, None)
+        return pd.DataFrame(rows)
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        """The value of one leaf (reference: basic.py:4883)."""
+        return float(self._all_trees()[tree_id].leaf_value[leaf_id])
+
+    def set_leaf_output(self, tree_id: int, leaf_id: int,
+                        value: float) -> "Booster":
+        """Overwrite one leaf's value (reference: Tree::SetLeafOutput via
+        LGBM_BoosterSetLeafValue).  Every predict builds its device tables
+        from the trees anew, so the edit reaches the next prediction on
+        every path; under a live engine the training and validation scores
+        keep their history, as in the reference."""
+        t = self._all_trees()[tree_id]
+        lv = np.asarray(t.leaf_value, np.float64).copy()
+        lv[leaf_id] = value
+        t.leaf_value = lv
+        return self
+
+    def lower_bound(self) -> float:
+        """Lower bound of the raw scores: each tree's least leaf value,
+        summed (reference: GBDT::GetLowerBoundValue)."""
+        return float(sum(float(np.min(t.leaf_value))
+                         for t in self._all_trees()) or 0.0)
+
+    def upper_bound(self) -> float:
+        """Upper bound of the raw scores (reference:
+        GBDT::GetUpperBoundValue)."""
+        return float(sum(float(np.max(t.leaf_value))
+                         for t in self._all_trees()) or 0.0)
+
+    def shuffle_models(self, start_iteration: int = 0,
+                       end_iteration: int = -1) -> "Booster":
+        """Permute the iterations in [start, end) (reference:
+        GBDT::ShuffleModels) with a local RandomState seeded from
+        ``data_random_seed``, the JAX package's formula, so both give the
+        same order and the global numpy state is untouched."""
+        trees = self._all_trees()
+        k = self.num_model_per_iteration()
+        n_iter = len(trees) // max(k, 1)
+        end = n_iter if end_iteration <= 0 else min(end_iteration, n_iter)
+        seed = int(self.params.get("data_random_seed", 1) or 1)
+        rng = np.random.RandomState((seed * 65539 + start_iteration * 9973
+                                     + max(end, 0)) % (2 ** 31 - 1))
+        idx = np.arange(start_iteration, end)
+        rng.shuffle(idx)
+        order = list(range(n_iter))
+        order[start_iteration:end] = [int(i) for i in idx]
+        new_trees = []
+        for it in order:
+            new_trees.extend(trees[it * k:(it + 1) * k])
+        trees[:] = new_trees
+        return self
+
+    def free_dataset(self) -> "Booster":
+        return self
 
     def feature_importance(self, importance_type: str = "split",
                            iteration: Optional[int] = None) -> np.ndarray:

@@ -5,6 +5,8 @@ version runs only for CPU tensors.  Importing this package builds nothing:
 
 - ``predict_stream`` (K1, predict.py): batch prediction, every row through
   every tree.
+- ``predict_leaf`` (K1's leaf form, predict.py): every row's leaf in
+  every tree (``pred_leaf``).
 - ``route_and_hist`` (K2, route_hist.py): one growth round of training,
   rows routed through the round's splits and the histograms of their new
   slots built.
@@ -25,6 +27,9 @@ version runs only for CPU tensors.  Importing this package builds nothing:
 - ``bin_rows`` (bin_rows.py, no TPU kernel: the counterpart of the JAX
   package's native host binner): raw float64 rows to group bins, for
   ``Dataset.construct`` and ``Booster.predict`` on the card.
+- ``tree_shap`` (tree_shap.py, no TPU kernel: the JAX package's device
+  TreeSHAP is a jitted ``lax.scan``): float64 TreeSHAP contributions of
+  every row (``pred_contrib``).
 
 Each CUDA wrapper counts its launches in a plain integer attribute
 ``launches``; ``launch_counts`` reads them and ``reset_launch_counts`` sets
@@ -38,7 +43,7 @@ from __future__ import annotations
 from typing import Dict
 
 from . import (bin_rows, hist_sorted, hist_wide, leaf_gather, predict,
-               route_hist, route_replay, scatter_hist)
+               route_hist, route_replay, scatter_hist, tree_shap)
 
 # kernel name -> its CUDA wrapper
 WRAPPERS = {
@@ -52,6 +57,8 @@ WRAPPERS = {
     "hist_nibble": hist_sorted.hist_nibble_cuda,
     "hist_wide": hist_wide.hist_wide_cuda,
     "bin_rows": bin_rows.bin_rows_cuda,
+    "predict_leaf": predict.predict_leaf_cuda,
+    "tree_shap": tree_shap.tree_shap_cuda,
 }
 
 

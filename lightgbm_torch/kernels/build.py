@@ -26,6 +26,9 @@ BUILD_DIR = _HERE.parent / "_build"
 # kernel name -> source, relative to this directory
 SOURCES: Dict[str, str] = {
     "predict_stream": "csrc/predict_stream.cu",
+    # K1's leaf form (pred_leaf): another entry point of the same source,
+    # its own library
+    "predict_leaf": "csrc/predict_stream.cu",
     "route_and_hist": "csrc/route_and_hist.cu",
     # K2's int form (quantized gradients): another entry point of the
     # same source, its own library
@@ -41,6 +44,9 @@ SOURCES: Dict[str, str] = {
     # raw rows to group bins (no TPU kernel: the native host binner's
     # counterpart)
     "bin_rows": "csrc/bin_rows.cu",
+    # TreeSHAP (pred_contrib; no pallas_call: the JAX package's device
+    # TreeSHAP is a jitted lax.scan)
+    "tree_shap": "csrc/tree_shap.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -60,6 +66,10 @@ SIGNATURES = {
                        [_c_ptr, _c_int, _c_i64, _c_int, _c_ptr, _c_ptr,
                         _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_f32,
                         _c_ptr, _c_ptr, _c_ptr]),
+    "predict_leaf": ("lgbt_predict_leaf",
+                     [_c_ptr, _c_int, _c_i64, _c_int, _c_ptr, _c_ptr, _c_ptr,
+                      _c_int, _c_int, _c_int, _c_ptr, _c_i64, _c_int, _c_int,
+                      _c_ptr, _c_ptr]),
     "route_and_hist": ("lgbt_route_and_hist",
                        [_c_ptr, _c_int, _c_i64, _c_int, _c_int, _c_ptr,
                         _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr,
@@ -90,6 +100,10 @@ SIGNATURES = {
                  [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr,
                   _c_ptr, _c_ptr, _c_ptr, _c_int, _c_i64, _c_i64, _c_int,
                   _c_ptr, _c_ptr]),
+    "tree_shap": ("lgbt_tree_shap",
+                  [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+                   _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
+                   _c_int, _c_int, _c_ptr, _c_ptr]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

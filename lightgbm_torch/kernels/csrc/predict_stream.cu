@@ -62,6 +62,13 @@
 //     model cannot hang the card; a row still on an internal node after
 //     max_depth steps (a single-leaf tree) resolves to leaf 0, as the TPU
 //     kernel does.
+//   * The leaf form (`kLeaf`, entry point lgbt_predict_leaf; pred_leaf)
+//     walks the same way and writes each (row, tree) leaf index as int32
+//     into an (N, columns) matrix, tree t of the launch at column
+//     col0 + t * col_step (the class's columns of a multiclass model), with
+//     no sum and no early stop; it replaces the JAX package's host loop
+//     over trees (lightgbm_tpu/basic.py:1414-1418).  The score form is the
+//     same code with kLeaf false.
 //
 // Plain PyTorch version of the same contract:
 // lightgbm_torch/kernels/predict.py::predict_stream_plain.  Both add the
@@ -108,6 +115,15 @@ struct Args {
   float es_margin;
   int rows_per_tile, trees_per_stage, bins_stride;
   int vec_bins;              // bins copied in 16-byte chunks
+};
+
+// The leaf form's output: out[row * stride + col0 + t * col_step] for tree
+// t of the launch.  A kernel parameter of its own, so that the score form's
+// Args (copied to the stack for route_special) stay as they were.
+struct LeafOut {
+  int32_t* out;
+  int64_t stride;
+  int col0, col_step;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -187,10 +203,10 @@ __device__ __noinline__ int route_special(const Args& a, int t, int i,
 // grid: one block per tile of rows, one row a thread.  kTrees: trees
 // staged in shared memory (else read from global memory); kBins: the
 // tile's bins staged in shared memory (else read from global memory); T:
-// the bin type.
-template <bool kTrees, bool kBins, class T>
+// the bin type; kLeaf: write each tree's leaf index instead of summing.
+template <bool kTrees, bool kBins, class T, bool kLeaf>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
-predict_kernel(const Args a) {
+predict_kernel(const Args a, const LeafOut lo) {
   extern __shared__ __align__(16) unsigned char smem[];
   const T* bins_T = static_cast<const T*>(a.bins_T);
   const int L = a.L;
@@ -229,7 +245,8 @@ predict_kernel(const Args a) {
     }
   }
   // stage s: trees [s * ts, min((s + 1) * ts, T)) into buffer s & 1: each
-  // node's (children, group_thr) words side by side, then the leaf values
+  // node's (children, group_thr) words side by side, then the leaf values,
+  // which the leaf form never reads and does not stage
   auto issue = [&](int s) {
     const int t0 = s * ts;
     const int cnt = (min(t0 + ts, a.T) - t0) * L;
@@ -238,7 +255,7 @@ predict_kernel(const Args a) {
     for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
       cp_async4(sw + 2 * k, a.planes + kChildren16 * plane + base + k);
       cp_async4(sw + 2 * k + 1, a.planes + kGroupThr * plane + base + k);
-      cp_async4(sw + 2 * ts * L + k, a.leaf_value + base + k);
+      if (!kLeaf) cp_async4(sw + 2 * ts * L + k, a.leaf_value + base + k);
     }
   };
   const int n_stages = kTrees ? (a.T + ts - 1) / ts : 1;
@@ -294,6 +311,12 @@ predict_kernel(const Args a) {
                     : static_cast<int>(c >> 16);
         }
       }
+      if (kLeaf) {
+        lo.out[(r0 + lr) * lo.stride + lo.col0 +
+               static_cast<int64_t>(t0 + tt) * lo.col_step] =
+            nd >= L ? nd - L : 0;
+        continue;
+      }
       const int leaf = tb + (nd >= L ? nd - L : 0);
       score += kTrees ? lv[leaf] : __ldg(lv + leaf);
       if (a.es_freq > 0 && (t0 + tt + 1) % a.es_freq == 0 &&
@@ -305,7 +328,7 @@ predict_kernel(const Args a) {
     if (!__syncthreads_or(live)) break;
   }
   cp_async_wait<0>();
-  if (lr < R) a.out[r0 + lr] = score;
+  if (!kLeaf && lr < R) a.out[r0 + lr] = score;
 }
 
 bool plan_ok(const int64_t* q, int64_t n, int G, int T, int L,
@@ -327,30 +350,60 @@ bool plan_ok(const int64_t* q, int64_t n, int G, int T, int L,
          q[kSmem] == smem && q[kSmem] <= kMaxSmem;
 }
 
-template <bool kTrees, bool kBins, class T>
-cudaError_t launch(const Args& a, const int64_t* q, cudaStream_t stream) {
+template <bool kTrees, bool kBins, class T, bool kLeaf>
+cudaError_t launch(const Args& a, const LeafOut& lo, const int64_t* q,
+                   cudaStream_t stream) {
   const int smem = static_cast<int>(q[kSmem]);
   cudaError_t err = cudaFuncSetAttribute(
-      predict_kernel<kTrees, kBins, T>,
+      predict_kernel<kTrees, kBins, T, kLeaf>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  predict_kernel<kTrees, kBins, T>
+  predict_kernel<kTrees, kBins, T, kLeaf>
       <<<static_cast<unsigned>(q[kTiles]), static_cast<unsigned>(q[kThreads]),
-         smem, stream>>>(a);
+         smem, stream>>>(a, lo);
   return cudaGetLastError();
 }
 
-template <class T>
-cudaError_t launch_of(const Args& a, const int64_t* q, cudaStream_t stream) {
+template <class T, bool kLeaf>
+cudaError_t launch_of(const Args& a, const LeafOut& lo, const int64_t* q,
+                      cudaStream_t stream) {
   const bool trees = q[kTreesPerStage] > 0, bins = q[kBinsStride] > 0;
-  return trees ? (bins ? launch<true, true, T>(a, q, stream)
-                       : launch<true, false, T>(a, q, stream))
-               : (bins ? launch<false, true, T>(a, q, stream)
-                       : launch<false, false, T>(a, q, stream));
+  return trees ? (bins ? launch<true, true, T, kLeaf>(a, lo, q, stream)
+                       : launch<true, false, T, kLeaf>(a, lo, q, stream))
+               : (bins ? launch<false, true, T, kLeaf>(a, lo, q, stream)
+                       : launch<false, false, T, kLeaf>(a, lo, q, stream));
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The Args of a launch of either form over checked operands, or false.
+bool make_args(Args* a, const void* bins_T, int bin_bytes, int64_t n_rows,
+               int G, const int32_t* nodes, const float* leaf_value,
+               const int32_t* cat_words, int n_trees, int L, int max_depth,
+               const int64_t* plan) {
+  if ((bin_bytes != 1 && bin_bytes != 2) || n_rows < 1 || G < 1 ||
+      n_trees < 1 || L < 1 || max_depth < 1 ||
+      !plan_ok(plan, n_rows, G, n_trees, L, bin_bytes))
+    return false;
+  *a = Args{};
+  a->bins_T = bins_T;
+  a->planes = nodes;
+  a->leaf_value = leaf_value;
+  a->cat_words = reinterpret_cast<const uint32_t*>(cat_words);
+  a->n = n_rows;
+  a->G = G;
+  a->T = n_trees;
+  a->L = L;
+  a->max_depth = max_depth;
+  a->rows_per_tile = static_cast<int>(plan[kRowsPerTile]);
+  a->trees_per_stage = static_cast<int>(plan[kTreesPerStage]);
+  a->bins_stride = static_cast<int>(plan[kBinsStride]);
+  // whole 16-byte chunks: each group's row run and the tile starts
+  // 16-byte aligned (rows_per_tile is a multiple of 16)
+  a->vec_bins = (n_rows * bin_bytes) % 16 == 0 && aligned(bins_T, 16);
+  return true;
 }
 
 }  // namespace
@@ -370,31 +423,40 @@ extern "C" int lgbt_predict_stream(const void* bins_T, int bin_bytes,
                                    int L, int max_depth, int es_freq,
                                    float es_margin, float* out,
                                    const int64_t* plan, cudaStream_t stream) {
-  if ((bin_bytes != 1 && bin_bytes != 2) || n_rows < 1 || G < 1 ||
-      n_trees < 1 || L < 1 || max_depth < 1 ||
-      !plan_ok(plan, n_rows, G, n_trees, L, bin_bytes))
+  Args a;
+  if (!make_args(&a, bins_T, bin_bytes, n_rows, G, nodes, leaf_value,
+                 cat_words, n_trees, L, max_depth, plan))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.bins_T = bins_T;
-  a.planes = nodes;
-  a.leaf_value = leaf_value;
-  a.cat_words = reinterpret_cast<const uint32_t*>(cat_words);
   a.out = out;
-  a.n = n_rows;
-  a.G = G;
-  a.T = n_trees;
-  a.L = L;
-  a.max_depth = max_depth;
   a.es_freq = es_freq;
   a.es_margin = es_margin;
-  a.rows_per_tile = static_cast<int>(plan[kRowsPerTile]);
-  a.trees_per_stage = static_cast<int>(plan[kTreesPerStage]);
-  a.bins_stride = static_cast<int>(plan[kBinsStride]);
-  // whole 16-byte chunks: each group's row run and the tile starts
-  // 16-byte aligned (rows_per_tile is a multiple of 16)
-  a.vec_bins = (n_rows * bin_bytes) % 16 == 0 && aligned(bins_T, 16);
-  const cudaError_t err = bin_bytes == 2
-                              ? launch_of<uint16_t>(a, plan, stream)
-                              : launch_of<uint8_t>(a, plan, stream);
+  const LeafOut none{};
+  const cudaError_t err =
+      bin_bytes == 2 ? launch_of<uint16_t, false>(a, none, plan, stream)
+                     : launch_of<uint8_t, false>(a, none, plan, stream);
+  return static_cast<int>(err);
+}
+
+// The leaf form: leaf_out[row * out_stride + col0 + t * col_step] = the
+// leaf of tree t (of n_trees) that row reaches, int32; the other
+// arguments as lgbt_predict_stream's.  Launches on `stream`, does not
+// synchronise, and returns the first CUDA error.
+extern "C" int lgbt_predict_leaf(const void* bins_T, int bin_bytes,
+                                 int64_t n_rows, int G, const int32_t* nodes,
+                                 const float* leaf_value,
+                                 const int32_t* cat_words, int n_trees,
+                                 int L, int max_depth, int32_t* leaf_out,
+                                 int64_t out_stride, int col0, int col_step,
+                                 const int64_t* plan, cudaStream_t stream) {
+  Args a;
+  if (!make_args(&a, bins_T, bin_bytes, n_rows, G, nodes, leaf_value,
+                 cat_words, n_trees, L, max_depth, plan) ||
+      col0 < 0 || col_step < 1 ||
+      col0 + static_cast<int64_t>(n_trees - 1) * col_step >= out_stride)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const LeafOut lo{leaf_out, out_stride, col0, col_step};
+  const cudaError_t err =
+      bin_bytes == 2 ? launch_of<uint16_t, true>(a, lo, plan, stream)
+                     : launch_of<uint8_t, true>(a, lo, plan, stream);
   return static_cast<int>(err);
 }

@@ -16,9 +16,13 @@ copied into shared memory, under the launch plan ``predict_plan``.  Its sums
 are closer to the host float64 walk than the TPU kernel's, and the two
 packages agree to a tolerance (rtol 1e-4, atol 1e-5), not bit for bit.
 
-``predict_stream`` launches the CUDA kernel for tensors on a CUDA device and
-runs ``predict_stream_plain`` only for tensors on the CPU.  A kernel that
-fails to build or launch raises; nothing falls back to the plain version.
+Its leaf form (``predict_leaf``, pred_leaf) walks the same way and writes
+each (row, tree) leaf index into an (N, trees) int32 matrix instead of
+summing; it replaces the JAX package's host loop over trees.
+``predict_stream`` and ``predict_leaf`` launch the CUDA kernel for tensors
+on a CUDA device and run their plain versions only for tensors on the CPU.
+A kernel that fails to build or launch raises; nothing falls back to the
+plain version.
 """
 from __future__ import annotations
 
@@ -463,6 +467,76 @@ def walk_tree_plain(bins_T: torch.Tensor, tnodes: torch.Tensor,
         nxt = torch.where(go_left, nd[:, F_LEFT], nd[:, F_RIGHT]).long()
         enc = torch.where(at_leaf, enc, nxt)
     return torch.where(enc >= L, enc - L, 0)
+
+
+def predict_leaf(bins_T: torch.Tensor, nodes: torch.Tensor,
+                 leaf_value: torch.Tensor, cat_words: torch.Tensor,
+                 depths: Sequence[int], out: torch.Tensor, col0: int = 0,
+                 col_step: int = 1) -> torch.Tensor:
+    """K1's leaf form: the leaf index of every row in every tree of one
+    class, written as int32 into ``out`` (N, columns), tree t at column
+    ``col0 + t * col_step`` (class c of K at ``c`` and step K); the
+    operands as ``predict_stream``'s.  Returns ``out``."""
+    if bins_T.device.type == "cuda":
+        return predict_leaf_cuda(bins_T, nodes, leaf_value, cat_words,
+                                 int(max(depths, default=1)), out, col0,
+                                 col_step)
+    if bins_T.device.type == "cpu":
+        return predict_leaf_plain(bins_T, nodes, cat_words, depths, out,
+                                  col0, col_step)
+    raise LightGBMError(f"predict_leaf has no kernel for device "
+                        f"{bins_T.device}")
+
+
+def predict_leaf_cuda(bins_T, nodes, leaf_value, cat_words, max_depth: int,
+                      out: torch.Tensor, col0: int = 0,
+                      col_step: int = 1) -> torch.Tensor:
+    """Launch the leaf form of csrc/predict_stream.cu (``lgbt_predict_leaf``)
+    on the current stream under ``predict_plan`` of the shapes."""
+    dev = bins_T.device
+    width = bin_bytes(bins_T)
+    build.check_operands("predict_leaf", dev, (
+        ("bins_T", bins_T, bins_T.dtype), ("nodes", nodes, torch.int32),
+        ("leaf_value", leaf_value, torch.float32),
+        ("cat_words", cat_words, torch.int32), ("out", out, torch.int32)))
+    if (nodes.dim() != 3 or nodes.shape[0] != len(PACKED_WORDS)
+            or tuple(leaf_value.shape) != tuple(nodes.shape[1:])
+            or bins_T.dim() != 2 or cat_words.numel() < 1 or out.dim() != 2
+            or out.shape[0] != bins_T.shape[1]):
+        raise LightGBMError("predict_leaf: table shapes do not agree")
+    _, T, L = nodes.shape
+    G, n = bins_T.shape
+    if col0 < 0 or col_step < 1 or col0 + (T - 1) * col_step >= out.shape[1]:
+        raise LightGBMError("predict_leaf: columns outside the output")
+    if n == 0 or T == 0:
+        return out
+    plan = predict_plan(n, G, L, T, width)
+    fn = build.load("predict_leaf").lgbt_predict_leaf
+    rc = fn(bins_T.data_ptr(), width, n, G, nodes.data_ptr(),
+            leaf_value.data_ptr(), cat_words.data_ptr(), T, L,
+            max(int(max_depth), 1), out.data_ptr(), out.shape[1], col0,
+            col_step, plan_arg(plan),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise LightGBMError(f"predict_leaf kernel launch failed "
+                            f"(cudaError {rc}, plan {tuple(plan)})")
+    build.count_launch(predict_leaf_cuda, width)
+    return out
+
+
+build.init_counts(predict_leaf_cuda)
+
+
+def predict_leaf_plain(bins_T, nodes, cat_words, depths: Sequence[int],
+                       out: torch.Tensor, col0: int = 0,
+                       col_step: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of the leaf form: ``walk_tree_plain`` of each
+    tree, stacked into the tree's column."""
+    nodes = unpack_nodes(nodes)
+    for t in range(nodes.shape[0]):
+        out[:, col0 + t * col_step] = walk_tree_plain(
+            bins_T, nodes[t], cat_words, int(depths[t])).to(torch.int32)
+    return out
 
 
 def predict_stream_plain(bins_T, nodes, leaf_value, cat_words,

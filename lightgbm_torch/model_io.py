@@ -1,6 +1,7 @@
 """Model serialization in the LightGBM text format (read AND write).
 
 The port's copy of ``lightgbm_tpu/model_io.py``: the same reader and writer,
+and the same JSON dump (``dump_model_dict``),
 so a model round-trips to the same bytes through either package.
 
 Reference: src/boosting/gbdt_model_text.cpp:315 (SaveModelToString), src/io/tree.cpp
@@ -422,3 +423,80 @@ def _tree_from_block_checked(block: Dict[str, str], index: int) -> Tree:
         t.threshold_bin = np.where(cat_nodes, thr.astype(np.int64), 0).astype(np.int32)
     return t
 
+
+def dump_model_dict(booster, num_iteration: Optional[int] = None,
+                    start_iteration: int = 0,
+                    importance_type: str = "split") -> Dict[str, Any]:
+    """JSON model dump (reference: GBDT::DumpModel, gbdt_model_text.cpp:25;
+    the port's copy of lightgbm_tpu/model_io.py:437-512)."""
+    trees = booster._all_trees()
+    k = booster.num_model_per_iteration()
+    total_iteration = len(trees) // max(k, 1)
+    start_iteration = max(0, min(start_iteration, total_iteration))
+    end = (min(start_iteration + num_iteration, total_iteration)
+           if num_iteration else total_iteration)
+    use = trees[start_iteration * k:end * k]
+    fnames = booster.feature_name()
+
+    def node_json(t: Tree, node: int):
+        if node < 0:
+            leaf = ~node
+            return {
+                "leaf_index": int(leaf),
+                "leaf_value": float(t.leaf_value[leaf]),
+                "leaf_weight": float(t.leaf_weight[leaf]) if leaf < len(t.leaf_weight) else 0.0,
+                "leaf_count": int(t.leaf_count[leaf]) if leaf < len(t.leaf_count) else 0,
+            }
+        dt = int(t.decision_type[node])
+        is_cat = bool(dt & 1)
+        d = {
+            "split_index": int(node),
+            "split_feature": int(t.split_feature[node]),
+            "split_gain": float(t.split_gain[node]),
+            "threshold": (float(t.threshold[node]) if not is_cat else
+                          _cat_threshold_str(t, node)),
+            "decision_type": "==" if is_cat else "<=",
+            "default_left": bool(dt & 2),
+            "missing_type": ["None", "Zero", "NaN"][min((dt >> 2) & 3, 2)],
+            "internal_value": float(t.internal_value[node]),
+            "internal_weight": float(t.internal_weight[node]),
+            "internal_count": int(t.internal_count[node]),
+            "left_child": node_json(t, int(t.left_child[node])),
+            "right_child": node_json(t, int(t.right_child[node])),
+        }
+        return d
+
+    def _cat_threshold_str(t: Tree, node: int) -> str:
+        kcat = int(t.threshold_bin[node])
+        s, e = t.cat_boundaries[kcat], t.cat_boundaries[kcat + 1]
+        cats = []
+        for w in range(s, e):
+            word = int(t.cat_threshold[w])
+            for b in range(32):
+                if word >> b & 1:
+                    cats.append((w - s) * 32 + b)
+        return "||".join(str(c) for c in cats)
+
+    out = {
+        "name": "tree",
+        "version": _MODEL_VERSION,
+        "num_class": (booster.config.num_class if booster._engine is not None
+                      else booster._loaded_trees.num_class),
+        "num_tree_per_iteration": k,
+        "label_index": 0,
+        "max_feature_idx": booster.num_feature() - 1,
+        "objective": _objective_string(booster),
+        "average_output": booster._average_output(),
+        "feature_names": fnames,
+        "feature_infos": {},
+        "tree_info": [
+            {"tree_index": i, "num_leaves": t.num_leaves, "num_cat": t.num_cat,
+             "shrinkage": t.shrinkage,
+             "tree_structure": node_json(t, 0 if t.num_leaves > 1 else ~0)}
+            for i, t in enumerate(use)
+        ],
+    }
+    imp = booster.feature_importance(importance_type)
+    out["feature_importances"] = {fnames[i]: float(v)
+                                  for i, v in enumerate(imp) if v > 0}
+    return out

@@ -71,7 +71,7 @@ training a different model.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -1170,6 +1170,31 @@ class GBDT:
         score = score.clone()
         score[:, kk] += delta
         return score
+
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's K trees and subtract them from the
+        training and every validation score (reference:
+        GBDT::RollbackOneIter, gbdt.cpp:463; lightgbm_tpu/models/gbdt.py
+        :2658).  The float32 score is restored to rounding, as there.  The
+        fused iteration copies the rolled-back score into its state before
+        its next replay (``_ensure_train_state``)."""
+        if self.iter_ <= 0:
+            return
+        k = self.num_tree_per_iteration
+        models = self.models                    # the lazy trees flushed
+        dropped = models[-k:]
+        del models[-k:]
+        for kk, tree in enumerate(dropped):
+            neg = replace(
+                tree, leaf_value=-np.asarray(tree.leaf_value, np.float64))
+            self.score = self._add_tree_to_score(self.score, neg, self.dd,
+                                                 kk)
+            for vi, vset in enumerate(self.valid_sets):
+                self.valid_scores[vi] = self._add_tree_to_score(
+                    self.valid_scores[vi], neg, vset.device_data(), kk)
+        self.iter_ -= 1
+        # a re-run of the iteration may draw another in-bag count
+        self._sample_count_cache = None
 
     def _trim_trailing_trivial(self) -> None:
         """Drop trailing no-op iterations (every class tree single-leaf with

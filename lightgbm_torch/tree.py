@@ -191,6 +191,16 @@ class Tree:
         categorical node stores its categorical-split ordinal."""
         return int(self.threshold_bin[node_i])
 
+    # -- SHAP-style expected-value helpers ------------------------------
+    def expected_value(self) -> float:
+        if self.num_leaves <= 1:
+            return float(self.leaf_value[0]) if len(self.leaf_value) else 0.0
+        total = self.internal_count[0] if len(self.internal_count) else 0
+        if total <= 0:
+            return 0.0
+        return float(np.sum(self.leaf_value[:self.num_leaves] *
+                            self.leaf_count[:self.num_leaves]) / max(total, 1.0))
+
 
 def finalize_tree(arrays: TreeArrays, bin_mappers,
                   learning_rate: float = 1.0) -> Tree:

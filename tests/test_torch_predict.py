@@ -281,7 +281,8 @@ _CTYPE_OF = {"const uint8_t*": "c_void_p", "const void*": "c_void_p",
              "const int32_t*": "c_void_p",
              "const int8_t*": "c_void_p",
              "const float*": "c_void_p", "float*": "c_void_p",
-             "const double*": "c_void_p", "void*": "c_void_p",
+             "const double*": "c_void_p", "double*": "c_void_p",
+             "void*": "c_void_p",
              "int32_t*": "c_void_p", "int64_t*": "c_void_p",
              "const int64_t*": "c_void_p",
              "cudaStream_t": "c_void_p", "int64_t": "c_int64",

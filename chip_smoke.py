@@ -99,8 +99,11 @@ Phases, each printing one JSON line:
    the kernel within 1e-10 of its plain version on 10 000 rows and within
    1e-9 of the exact host walk on 2 000, contributions summing to the
    float64 host raw score within 1e-9 on every row; the kernel timed
-   beside its bound (about 8 d^2 float64 operations a (row, leaf) of d
-   path slots at the card's float64 rate); ``gate``: the exact host walk
+   beside its bound (the float64 operations its algorithm needs on these
+   rows, ``shap_work``: the extend, the hot slots' unwinding, the cold
+   slots' one sum, at the card's float64 rate; beside it the textbook
+   count of earlier runs, 3 d (d + 1) + 5 d^2 a (row, leaf)) and its plan
+   at 100 000 and 10 000 rows; ``gate``: the exact host walk
    and ``predict(pred_contrib=True)`` on the card timed on 1 and 256 rows
    of the first 2 trees (no batch size gates the device path).
 8. train_sampled: the same Dataset with GOSS at the default rates (0.2 /
@@ -285,9 +288,24 @@ Phases, each printing one JSON line:
    negative, non-integer, unseen and |v| >= 2**63 values; an EFB bundle of
    overlapping sparse features; uint8 and 16-bit output, rows and
    transposed; the predict form's sentinels (widened past 255); N = 1,
-   ragged N; and 30 000 features (rows read from global memory, two
-   upload chunks), each byte-equal to its plain version on the card and to
-   the host (``construct_binned`` or the old sentinel re-bin).
+   ragged N; Flight-Delay-shaped EFB bundles (``BIN_BUNDLES``: 72 one-hot
+   columns, two or three hot in some rows; 72 columns of four non-default
+   bins, a 16-bit bundle) in both layouts and widths, the 16-bit ones in
+   upload chunks (launches at row0 > 0), a ragged last tile; and rows too
+   wide for a block's ring (30 000 and 8000 features, the bundles first,
+   read from global memory), each byte-equal to its plain version on the
+   card and to the host (``construct_binned`` or the old sentinel
+   re-bin); the tables in shared memory and in global memory.
+22. shap_adversarial: the TreeSHAP kernel on synthetic trees made from
+   ``--seed`` (``shap_adversarial_trees``: a single leaf, a stump, two
+   slots, chains of 23 and 24 unique slots, a 24-deep chain over 7
+   features, full trees with leaves of count 0) at K = 1 and K = 3, over
+   1, 31, 33 and 10 000 rows with NaN, +-0.0 and +-1e-36 at nodes of
+   missing type none, zero and nan: within 1e-10 of its plain version,
+   1e-9 of the host walk, additive within 1e-9, the same bytes repeated,
+   under one tree group or several, with or without shared decision
+   words, its accumulators in shared or device memory, and in row
+   chunks.
 
 Training on the card runs the fused iteration by default (``fused_iter``
 auto): each iteration's head, rounds and tail replayed as CUDA graphs,
@@ -320,7 +338,8 @@ native host binner, its launches in phase full's ``predict``; K1's
 ``tree_shap``, which replaces no TPU kernel but the JAX package's jitted
 device TreeSHAP, its launch in that phase's ``pred_contrib`` and, as
 ``plain_ms``, its plain version's time on ``plain_rows`` of the rows,
-beside the kernel's on the same rows, ``ms_plain_rows``),
+beside the kernel's on the same rows, ``ms_plain_rows``; ``bin_rows``'
+and ``tree_shap``'s entries also give their launch plans),
 the card's name and power limit as
 nvidia-smi prints them, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failure raises and exits non-zero; without a CUDA device
@@ -999,8 +1018,8 @@ def bin_rows_work(x, tables):
     from lightgbm_torch.kernels import bin_rows as br
     n = x.shape[0]
     tab_bytes = sum(t.numel() * t.element_size() for t in (
-        tables.feats, tables.group_start, tables.bounds, tables.cats,
-        tables.cat_bins))
+        tables.feats, tables.group_start, tables.col_entry, tables.bounds,
+        tables.cats, tables.cat_bins))
     n_bytes = x.numel() * 8 + n * tables.num_groups * tables.out_bytes \
         + tab_bytes
     levels = sum(int(max(r[br.F_BOUNDS_LEN], r[br.F_CATS_LEN])).bit_length()
@@ -1028,8 +1047,9 @@ def time_bin_rows(cap):
     bnd = bound(*bin_rows_work(x, tables))
     return {"rows": n, "features": int(x.shape[1]),
             "groups": tables.num_groups, "out_bytes": tables.out_bytes,
-            "transpose": bool(transpose), "plan": list(br.bin_plan(
-                n, int(x.shape[1]))), "ms": ms, "plain_ms": plain,
+            "transpose": bool(transpose),
+            "plan": list(br.launch_plan(x, tables)), "ms": ms,
+            "plain_ms": plain,
             "bound_ms": bnd[0], "bound_by": bnd[1]}
 
 
@@ -1119,57 +1139,145 @@ BIN_ADVERSARIAL = (
 )
 
 
+def bin_bundle_data(seed, n, width=72):
+    """Mappers, groups and (n, 1 + 2 width) rows of two Flight-Delay-shaped
+    EFB bundles, from ``seed``: feature 0 numeric with NaN, alone; features
+    1 .. width one-hot 0/1 columns (an airport: one hot a row, a second in
+    10 % of the rows and a third in 2 %, so that two or more features of
+    the bundle are non-default) in one bundle of width + 1 bins; features
+    width + 1 .. 2 width sparse columns of 0 to 4 (four non-default bins
+    each; two or more non-zero in about a third of the rows) in one bundle
+    of 4 width + 1 bins, past 256 (16-bit).  Some zeros are -0.0."""
+    from lightgbm_torch.binning import BinMapper
+
+    rs = np.random.RandomState(seed + 7)
+
+    def rows(k):
+        X = np.zeros((k, 1 + 2 * width))
+        X[:, 0] = rs.randn(k)
+        X[rs.rand(k) < 0.1, 0] = np.nan
+        at = np.arange(k)
+        w = 1.0 / np.arange(1, width + 1)
+        X[at, 1 + rs.choice(width, k, p=w / w.sum())] = 1.0
+        for frac in (0.1, 0.02):
+            pick = at[rs.rand(k) < frac]
+            X[pick, 1 + rs.randint(0, width, len(pick))] = 1.0
+        for frac in (0.6, 0.3, 0.1):
+            pick = at[rs.rand(k) < frac]
+            X[pick, 1 + width + rs.randint(0, width, len(pick))] = \
+                rs.randint(1, 5, len(pick))
+        neg = (X == 0) & (rs.rand(*X.shape) < 0.05)
+        X[neg] = -0.0
+        return X
+
+    sample = rows(40_000)
+    mappers = [BinMapper.find_numerical(sample[:, 0], 63, 3, True, False)]
+    mappers += [BinMapper.find_numerical(sample[:, f], 15, 3, True, False)
+                for f in range(1, 1 + 2 * width)]
+    groups = [[0], list(range(1, 1 + width)),
+              list(range(1 + width, 1 + 2 * width))]
+    return mappers, groups, rows(n)
+
+
+# (label, rows, bundles of bin_bundle_data (1: one-hot, 2: both), transpose,
+# rows a bin_matrix chunk or None for one chunk)
+BIN_BUNDLES = (
+    ("bundle_b8_rows", 100_003, 1, False, None),
+    ("bundle_b8_transposed", 100_003, 1, True, None),
+    ("bundle_b16_rows", 100_003, 2, False, 33_331),
+    ("bundle_b16_transposed", 100_003, 2, True, 33_331),
+)
+
+
+def bin_adversarial_cases(seed):
+    """(label, rows, mappers, groups, sentinel features, transpose, chunk
+    rows) of phase bin_adversarial: ``BIN_ADVERSARIAL``'s cases, the
+    Flight-Delay-shaped bundles of ``BIN_BUNDLES`` (several non-default
+    features a row; 16-bit ones uploaded in chunks, so that a launch has
+    row0 > 0), and rows wider than a block's ring (read from global
+    memory): 30 000 features, both bundles first, transposed; 8000, the
+    one-hot bundle first, as rows."""
+    mappers, groups, X = bin_adversarial_data(seed, 1_000_003)
+    for label, n, feats, sentinel, transpose in BIN_ADVERSARIAL:
+        # the chosen features, renumbered; their groups as they were
+        where = {f: j for j, f in enumerate(feats)}
+        gs = [[where[f] for f in g if f in where] for g in groups]
+        yield (label, np.ascontiguousarray(X[:n, list(feats)]),
+               [mappers[f] for f in feats], [g for g in gs if g],
+               [where[f] for f in sentinel], transpose, None)
+    del X
+    bm, bg, BX = bin_bundle_data(seed, 100_003)
+    width = len(bg[1])
+    for label, n, bundles, transpose, chunk in BIN_BUNDLES:
+        k = 1 + bundles * width
+        yield (label, np.ascontiguousarray(BX[:n, :k]), bm[:k],
+               bg[:1 + bundles], [], transpose, chunk)
+    rs = np.random.RandomState(seed + 1)
+    for label, n, F, k, transpose in (
+            ("wide_rows_unstaged", 2000, 30_000, 1 + 2 * width, True),
+            ("wide_rows_unstaged_b8", 2000, 8000, 1 + width, False)):
+        Xc = rs.randn(n, F)
+        Xc[rs.rand(n, F) < 0.01] = np.nan
+        Xc[:, :k] = BX[:n, :k]
+        gs = [g for g in bg if g[-1] < k] + [[f] for f in range(k, F)]
+        yield (label, Xc, bm[:k] + [mappers[0]] * (F - k), gs, [],
+               transpose, None)
+
+
 def phase_bin_adversarial(seed):
-    """bin_rows on ``BIN_ADVERSARIAL``'s edge cases and on rows wider than
-    a block's shared memory (30 000 features, read from global memory),
-    each output held byte-equal to its plain version on the card and to
-    the host (``construct_binned``, or for the predict form the host's
-    old sentinel re-bin, ``host_predict_bins``).  Outside any main path's
-    launch counts.  Returns the largest difference."""
+    """bin_rows on ``bin_adversarial_cases``: each output held byte-equal
+    to its plain version on the card and to the host
+    (``construct_binned``, or for the predict form the host's old sentinel
+    re-bin, ``host_predict_bins``), both layouts and widths, staged and
+    unstaged, the tables in shared and in global memory, a ragged last
+    tile.  Outside any main path's launch counts.  Returns the largest
+    difference."""
     import torch
     from lightgbm_torch.binning import construct_binned, device_group_order
     from lightgbm_torch.kernels import bin_rows as br
 
     dev = torch.device("cuda")
-    mappers, groups, X = bin_adversarial_data(seed, 1_000_003)
     cases, err = {}, 0.0
-    for i, (label, n, feats, sentinel, transpose) in enumerate(
-            BIN_ADVERSARIAL + (("wide_rows_unstaged", 2000, None, (),
-                                True),)):
-        if feats is None:
-            rs = np.random.RandomState(seed + 1)
-            Xc = rs.randn(n, 30_000)
-            Xc[rs.rand(n, 30_000) < 0.01] = np.nan
-            ms = [mappers[0]] * Xc.shape[1]
-            gs = [[f] for f in range(Xc.shape[1])]
-        else:
-            # the chosen features, renumbered; their groups as they were
-            where = {f: j for j, f in enumerate(feats)}
-            Xc = np.ascontiguousarray(X[:n, list(feats)])
-            ms = [mappers[f] for f in feats]
-            gs = [[where[f] for f in g if f in where] for g in groups]
-            gs = [g for g in gs if g]
-            sentinel = [where[f] for f in sentinel]
+    chunk_bytes = br.CHUNK_BYTES
+    for label, Xc, ms, gs, sentinel, transpose, chunk in \
+            bin_adversarial_cases(seed):
+        n, F = Xc.shape
         gs = device_group_order(gs, ms)
         tables = br.bin_tables(ms, gs, dev, sentinel=sentinel)
-        with BinCapture() as cap, np.errstate(invalid="ignore"):
-            out = br.bin_matrix(Xc, tables, transpose=transpose)
-        torch.cuda.synchronize()
+        if chunk:
+            br.CHUNK_BYTES = chunk * 8 * F
+        try:
+            with BinCapture() as cap, np.errstate(invalid="ignore"):
+                out = br.bin_matrix(Xc, tables, transpose=transpose)
+            torch.cuda.synchronize()
+        finally:
+            br.CHUNK_BYTES = chunk_bytes
         host = (host_predict_bins(Xc, ms, gs, sentinel) if sentinel else
                 construct_binned(Xc, ms, gs).bins)
         launches, diff = replay_bin_rows(cap, host)
         err = max(err, diff)
-        cases[label] = {"rows": n, "features": int(Xc.shape[1]),
-                        "groups": len(gs), "sentinel": list(sentinel),
-                        "transpose": transpose,
+        plan = br.launch_plan(cap.calls[0][0], tables)
+        cases[label] = {"rows": n, "features": F, "groups": len(gs),
+                        "sentinel": list(sentinel), "transpose": transpose,
                         "out_bytes": tables.out_bytes,
-                        "plan": list(br.bin_plan(n, int(Xc.shape[1]))),
+                        "plan": plan._asdict(),
+                        "row0": [c[3] for c in cap.calls],
+                        "ragged_last_tile": bool(
+                            cap.calls[-1][0].shape[0] % plan.tile_rows),
                         "launches": launches, "max_abs_err": diff}
         del out, cap
-    if not (cases["wide_rows_unstaged"]["plan"][3] == 0
-            and cases["b8_rows"]["plan"][3] == 1):
-        raise RuntimeError("bin_rows' cases did not run both staged and "
-                           "unstaged")
+    staged = [c for c in cases.values() if c["plan"]["staged"]]
+    unstaged = [c for c in cases.values() if not c["plan"]["staged"]]
+    seen = {(c["transpose"], c["out_bytes"]) for c in staged}
+    if not (len(seen) == 4
+            and {c["transpose"] for c in unstaged} == {False, True}
+            and {c["out_bytes"] for c in unstaged} == {1, 2}
+            and any(c["plan"]["table_bytes"] for c in staged)
+            and any(not c["plan"]["table_bytes"] for c in staged)
+            and any(c["ragged_last_tile"] for c in staged)
+            and any(max(c["row0"]) > 0 for c in staged)):
+        raise RuntimeError(f"bin_rows' cases missed a form: staged "
+                           f"(layout, width) {sorted(seen)}")
     emit({"phase": "bin_adversarial", "cases": cases,
           "all_byte_equal": True, "max_abs_err": err})
     return {"bin_rows": err}
@@ -1354,7 +1462,8 @@ def phase_full(seed, rows, n_trees, num_leaves, tmp, smi, sub_rows=20_000):
               "max_abs_err": max(bin_err, ds_err),
               "ms": bin_time["ms"], "plain_ms": bin_time["plain_ms"],
               "bound_ms": bin_time["bound_ms"],
-              "bound_by": bin_time["bound_by"], "library_ms": None}
+              "bound_by": bin_time["bound_by"], "library_ms": None,
+              "plan": bin_time["plan"]}
     return kernel, binner, ds, Xs, ys, bst
 
 
@@ -4641,7 +4750,8 @@ def phase_train_wide(seed, smi, rows=500_000, held_out=100_000, iters=20,
                                  (bin_time["bound_ms"],
                                   bin_time["bound_by"]), None),
                          "rows": bin_time["rows"],
-                         "transpose": bin_time["transpose"]}}, err
+                         "transpose": bin_time["transpose"],
+                         "plan": bin_time["plan"]}}, err
 
 
 # --------------------------------------------------------------------------
@@ -5615,17 +5725,40 @@ def check_shap_kernel(X_T, tabs, k):
     return got, float(diff.max()) if diff.size else 0.0
 
 
-def shap_work(host_tabs, rows, X_T, k):
-    """Bytes and float64 operations of one TreeSHAP launch on these rows:
-    about 8 d^2 operations a (row, leaf) of d unique path slots (the
-    extend's d (d + 1) / 2 steps of six and the unwound sums' d^2 of five);
-    the rows read and the (K, F + 1) contributions written once, the tables
-    read once."""
-    d = host_tabs.plen.astype(np.float64)
-    n_ops = rows * float((3.0 * d * (d + 1) + 5.0 * d * d).sum())
-    n_bytes = (X_T.numel() * 8 + rows * k * (X_T.shape[0] + 1) * 8
-               + sum(a.nbytes for a in host_tabs))
-    return n_bytes, n_ops
+def shap_work(tabs, X_T, k, chunk=20_000):
+    """Bytes and float64 operations of one TreeSHAP launch on these rows,
+    counted from their data (an FMA two operations): a (row, leaf) of d
+    slots, h of them hot (every occurrence going the row's way), extends
+    its path polynomial in sum_k k (1 + 2 o_k) operations (a multiply a
+    step, an FMA where slot k is hot), takes the cold slots' common sum in
+    2 d where a slot is cold, unwinds each hot slot in 4 d and gives it 3
+    more (its share of the leaf value, the add), and each cold slot 4; the
+    rows read and the (K, F + 1) contributions written once, the tables
+    read once.  Also the operations of the textbook count the bound was
+    taken from before, 3 d (d + 1) + 5 d^2 a (row, leaf)."""
+    import torch
+    from lightgbm_torch.kernels import tree_shap as kts
+
+    F, n = X_T.shape
+    T, L, D = tabs.feat.shape
+    f64 = torch.float64
+    kk = torch.arange(1, D + 1, device=X_T.device, dtype=f64)
+    n_ops = 0.0
+    for t in range(T):
+        d = tabs.plen[t].to(f64)                                # (L,)
+        valid = kk[None, :] <= d[:, None]                       # (L, D)
+        for s in range(0, n, chunk):
+            hot = kts.hot_slots_plain(X_T[:, s:s + chunk], tabs, t) & valid
+            h = hot.sum(dim=2, dtype=f64)                       # (m, L)
+            ext = (kk * valid).sum(1) + 2 * (kk * hot).sum(2)
+            ops = (ext + torch.where(h < d, 2 * d, 0.0) + h * (4 * d + 3)
+                   + (d - h) * 4)
+            n_ops += float(ops.sum())
+    dd = tabs.plen.to(f64)
+    textbook = n * float((3.0 * dd * (dd + 1) + 5.0 * dd * dd).sum())
+    n_bytes = (X_T.numel() * 8 + n * k * (F + 1) * 8
+               + sum(a.numel() * a.element_size() for a in tabs))
+    return n_bytes, n_ops, textbook
 
 
 def phase_predict_surface_small(seed, n=20_000, iters=5, num_leaves=31):
@@ -5824,6 +5957,7 @@ def phase_predict_surface(smi, full_bst, ds, Xs, leaf_rows=200_000,
     from lightgbm_torch import kernels
     from lightgbm_torch import shap as tshap
     from lightgbm_torch.basic import _host_predict, _to_2d_float
+    from lightgbm_torch.kernels import build
     from lightgbm_torch.kernels import predict as tpk
     from lightgbm_torch.kernels import tree_shap as kts
 
@@ -5948,9 +6082,14 @@ def phase_predict_surface(smi, full_bst, ds, Xs, leaf_rows=200_000,
     np.testing.assert_allclose(contrib.sum(axis=1),
                                bst.predict(Xh, raw_score=True),
                                rtol=RTOL, atol=ATOL)
-    n_bytes, n_ops = shap_work(host_tabs, shap_rows, X_T, 1)
+    n_bytes, n_ops, textbook_ops = shap_work(tabs, X_T, 1)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / FP64_OPS_PER_S * 1e3
+    T, L, D = host_tabs.feat.shape
+    plans = {"rows": list(kts.shap_plan(shap_rows, T, kts.SMS,
+                                        X_T.shape[0], L, D)),
+             "plain_rows": list(kts.shap_plan(plain_rows, T, kts.SMS,
+                                              X_T.shape[0], L, D))}
     shap_entry = {"name": "tree_shap", "route": "cuda",
                   "source": KERNEL_SOURCES["tree_shap"],
                   "replaces": KERNEL_REPLACES["tree_shap"],
@@ -5960,7 +6099,7 @@ def phase_predict_surface(smi, full_bst, ds, Xs, leaf_rows=200_000,
                   "ms_plain_rows": ms_plain_rows,
                   "bound_ms": max(bytes_ms, ops_ms),
                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                  "library_ms": None}
+                  "library_ms": None, "plan": plans}
     emit({"phase": "predict_surface", "card": smi,
           "leaf": {"rows": leaf_rows, "trees": leaf_entry["trees"],
                    "predict_s": leaf_s,
@@ -5983,8 +6122,218 @@ def phase_predict_surface(smi, full_bst, ds, Xs, leaf_rows=200_000,
                       "repeat_byte_identical": True,
                       "ops": n_ops, "bytes": n_bytes,
                       "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+                      "textbook_ops": textbook_ops,
+                      "bound_textbook_ms": textbook_ops / FP64_OPS_PER_S
+                      * 1e3, "plan": plans,
                       "gate": gate}})
     return leaf_entry, shap_entry
+
+
+def shap_tree(rs, left, right, feature, n_feat, leaf_count=None):
+    """A numeric Tree from its child arrays (a child < 0 is leaf ~child):
+    node i splits ``feature[i]`` at a threshold in [-0.6, 0.6] (some exactly
+    0.0), its missing type i % 3 (none, zero, nan), default left at every
+    other node; leaf counts from ``rs`` unless given (a 0 makes a zero
+    fraction of 0), internal counts their sums, leaf values from ``rs``."""
+    from lightgbm_torch.tree import Tree
+
+    left, right = np.asarray(left), np.asarray(right)
+    ni = len(left)
+    nl = ni + 1
+    lc = (rs.randint(1, 60, nl).astype(np.float64) if leaf_count is None
+          else np.asarray(leaf_count, np.float64))
+    ic = np.zeros(ni)
+
+    def count(c):
+        return lc[~c] if c < 0 else ic[c]
+
+    for i in range(ni - 1, -1, -1):   # children come after their parents
+        ic[i] = count(left[i]) + count(right[i])
+    thr = np.round(rs.uniform(-0.6, 0.6, ni), 3)
+    thr[::5] = 0.0
+    dt = np.array([Tree.make_decision_type(False, i % 2 == 0, i % 3)
+                   for i in range(ni)], np.uint8)
+    return Tree(num_leaves=nl, split_feature=np.asarray(feature) % n_feat,
+                threshold_bin=np.zeros(ni, np.int32), threshold=thr,
+                decision_type=dt, left_child=left, right_child=right,
+                split_gain=np.ones(ni), internal_value=np.zeros(ni),
+                internal_weight=ic, internal_count=ic,
+                leaf_value=rs.randn(nl), leaf_weight=lc, leaf_count=lc)
+
+
+def shap_chain(rs, n_int, features, n_feat):
+    """A zigzag chain of ``n_int`` nodes over ``features`` (each node keeps
+    one leaf child): its deepest leaves' paths hold as many unique slots
+    as distinct features among them."""
+    i = np.arange(n_int)
+    left = np.where(i % 2 == 0, ~i, i + 1)
+    right = np.where(i % 2 == 0, i + 1, ~i)
+    left[-1], right[-1] = ~(n_int - 1), ~n_int
+    return shap_tree(rs, left, right, np.asarray(features)[i], n_feat)
+
+
+def shap_balanced(rs, depth, n_feat, zero_leaves=0):
+    """A full tree of ``depth`` levels over random features, nodes in
+    breadth-first order; ``zero_leaves`` of its leaves with count 0 (slots
+    of zero fraction 0, and a node of weight 0 where two meet)."""
+    ni = 2 ** depth - 1
+    left = [2 * i + 1 if 2 * i + 1 < ni else ~(2 * i + 1 - ni)
+            for i in range(ni)]
+    right = [2 * i + 2 if 2 * i + 2 < ni else ~(2 * i + 2 - ni)
+             for i in range(ni)]
+    lc = rs.randint(1, 60, ni + 1).astype(np.float64)
+    lc[:zero_leaves] = 0.0
+    return shap_tree(rs, left, right, rs.randint(0, n_feat, ni), n_feat,
+                     leaf_count=lc)
+
+
+def shap_adversarial_trees(seed, n_feat=24):
+    """Trees for TreeSHAP's edge cases: a single leaf (a path of 1 lane), a
+    stump (2), two slots (3), chains of 23 and 24 unique slots (24 and 25
+    lanes, the kernel's most), a 24-deep chain over 7 features (a feature
+    repeated on one path), full trees of 6 levels with leaves of count 0
+    (zero fractions 0, a node of weight 0)."""
+    from lightgbm_torch.tree import Tree
+
+    rs = np.random.RandomState(seed + 41)
+    single = Tree(num_leaves=1, split_feature=np.zeros(0, np.int32),
+                  threshold_bin=np.zeros(0, np.int32),
+                  threshold=np.zeros(0), decision_type=np.zeros(0, np.uint8),
+                  left_child=np.zeros(0, np.int32),
+                  right_child=np.zeros(0, np.int32), split_gain=np.zeros(0),
+                  internal_value=np.zeros(0), internal_weight=np.zeros(0),
+                  internal_count=np.zeros(0), leaf_value=np.array([0.25]),
+                  leaf_weight=np.ones(1), leaf_count=np.ones(1))
+    return [single,
+            shap_tree(rs, [~0], [~1], [3], n_feat),
+            shap_tree(rs, [1, ~1], [~0, ~2], [5, 6], n_feat),
+            shap_chain(rs, 23, np.arange(23), n_feat),
+            shap_chain(rs, 24, np.arange(24), n_feat),
+            shap_chain(rs, 24, np.arange(24) % 7, n_feat),
+            shap_balanced(rs, 6, n_feat, zero_leaves=2),
+            shap_balanced(rs, 6, n_feat, zero_leaves=5)]
+
+
+def shap_adversarial_rows(seed, n, n_feat=24):
+    """Rows whose values sit where the decisions turn: NaN, +0.0, -0.0,
+    +-1e-36 (missing under zero-as-missing), the thresholds' own values
+    and draws around them."""
+    rs = np.random.RandomState(seed + 43)
+    X = np.round(rs.uniform(-0.7, 0.7, (n, n_feat)), 3)
+    special = np.array([np.nan, 0.0, -0.0, 1e-36, -1e-36, 0.6, -0.6])
+    pick = rs.rand(n, n_feat) < 0.25
+    X[pick] = rs.choice(special, int(pick.sum()))
+    return X
+
+
+def shap_raw(use, X, k):
+    """(N, K) float64 raw scores by TreeSHAP's own decisions
+    (``shap._all_decisions``: NaN at a node of missing type none compares
+    as 0.0, where ``Tree.predict_raw`` sends it right, ROADMAP §3), the
+    sums the contributions must add up to."""
+    from lightgbm_torch import shap as tshap
+
+    n = X.shape[0]
+    out = np.zeros((n, k))
+    at = np.arange(n)
+    for ti, t in enumerate(use):
+        node = np.zeros(n, np.int64)
+        if t.num_leaves > 1:
+            dec = tshap._all_decisions(t, X)
+            left = np.asarray(t.left_child, np.int64)
+            right = np.asarray(t.right_child, np.int64)
+            while (node >= 0).any():
+                inner = node >= 0
+                i = node[inner]
+                node[inner] = np.where(dec[at[inner], i], left[i], right[i])
+        out[:, ti % k] += np.asarray(t.leaf_value)[~node]
+    return out
+
+
+def phase_shap_adversarial(seed, rows=(1, 31, 33, 10_000)):
+    """The TreeSHAP kernel on ``shap_adversarial_trees`` (K = 1, and K = 3
+    with the trees dealt to three classes) over ``rows`` of
+    ``shap_adversarial_rows``: within 1e-10 of each row's scale of its
+    plain version, within 1e-9 of the exact host walk, contributions
+    summing to the float64 raw score (``shap_raw``) within 1e-9, a
+    repeated launch
+    byte-identical; the first rows of the largest launch byte-identical to
+    the smaller launches (plans of many tree groups), and the largest
+    launch the same bytes under one tree group, without shared decision
+    words, with its accumulators in device memory, and in row chunks of
+    4096.  Outside any main path's launch
+    counts.  Returns the largest difference from the plain version."""
+    import torch
+    from lightgbm_torch import shap as tshap
+    from lightgbm_torch.kernels import tree_shap as kts
+
+    dev = torch.device("cuda")
+    trees = shap_adversarial_trees(seed)
+    X = shap_adversarial_rows(seed, max(rows))
+    depth = tshap.device_depth(trees)
+    if depth != kts.MAX_DEPTH:
+        raise RuntimeError(f"adversarial trees {depth} deep")
+    cases, err = [], 0.0
+    for k, use in ((1, trees), (3, trees[1:] + trees[:1])):
+        host_tabs, base = tshap.shap_tables(use, k, depth)
+        T, L, D = host_tabs.feat.shape
+        longest = set(host_tabs.plen.max(axis=1).tolist())
+        if not ({1, 2, 7, 23, 24} <= longest
+                and (host_tabs.zfrac[host_tabs.feat >= 0] == 0).any()):
+            raise RuntimeError(f"adversarial tables: paths of {longest} "
+                               f"slots")
+        whole = None
+        for n in sorted(rows, reverse=True):
+            Xn = X[:n]
+            X_T, tabs, _ = shap_inputs(use, Xn, k, depth, dev)
+            got, e = check_shap_kernel(X_T, tabs, k)
+            err = max(err, e)
+            g = got.cpu().numpy().copy()
+            g[:, :, -1] += base[None, :]
+            exact = tshap.predict_contrib(use, Xn, k).reshape(n, k, -1)
+            scale = row_scale(exact.reshape(n, -1))
+            diff = np.abs(g - exact).reshape(n, -1)
+            raw = shap_raw(use, Xn, k)
+            add = np.abs(g.sum(axis=2) - raw)
+            if not ((diff <= 1e-9 * scale).all() and (
+                    add <= 1e-9 * np.maximum(np.abs(raw), 1.0)).all()):
+                raise RuntimeError(f"TreeSHAP K = {k}, {n} rows: "
+                                   f"{diff.max()} from the host walk, "
+                                   f"additivity {add.max()}")
+            plan = kts.shap_plan(n, T, kts.SMS, X_T.shape[0], L, D)
+            same = {}
+            if whole is None:
+                whole = got
+                for label, attr in (("one_group", "PARTIAL_BYTES"),
+                                    ("no_dec_words", "DEC_BYTES"),
+                                    ("device_acc", "ACC_BYTES")):
+                    old = getattr(kts, attr)
+                    setattr(kts, attr, 0)
+                    try:
+                        other = kts.tree_shap_cuda(X_T, tabs, k)
+                    finally:
+                        setattr(kts, attr, old)
+                    same[label] = bool(torch.equal(other, whole))
+                chunked = tshap.predict_contrib_device(
+                    use, Xn, k, dev, depth,
+                    chunk_bytes=4096 * 8 * (X.shape[1] + k * (X.shape[1]
+                                                              + 1)))
+                same["chunks_4096"] = chunked.tobytes() == (
+                    g.reshape(n, -1) if k > 1 else g[:, 0]).tobytes()
+            else:
+                same["prefix_of_largest"] = bool(torch.equal(got,
+                                                              whole[:n]))
+            if not all(same.values()):
+                raise RuntimeError(f"TreeSHAP K = {k}, {n} rows: bytes "
+                                   f"differ across plans {same}")
+            cases.append({"k": k, "rows": n, "plan": list(plan),
+                          "max_abs_vs_plain": e,
+                          "max_abs_vs_host": float(diff.max()),
+                          "additivity_max_abs": float(add.max()),
+                          "byte_identical": same})
+    emit({"phase": "shap_adversarial", "trees": len(trees),
+          "max_path_slots": 24, "cases": cases, "max_abs_err": err})
+    return {"tree_shap": err}
 
 
 def nvidia_smi_line() -> str:
@@ -6060,13 +6409,14 @@ def main(argv=None) -> int:
         adv_err = phase_hist_adversarial(args.seed)
         k1_adv_err = phase_predict_adversarial(args.seed)
         bin_adv_err = phase_bin_adversarial(args.seed)
+        shap_adv_err = phase_shap_adversarial(args.seed)
     kernel_lines = [k1, k2, k3, k4] + k567 + k2k_k8 + [k2i, binner,
                                                        shap_line]
     errs = (small_err, sampled_small_err, quant_small_err, sampled_err,
             backends_err, quant_err, mc_small_err, mc_err, cat_small_err,
             cat_err, wide_small_err, wide_err, rank_small_err, rank_err,
             reg_small_err, reg_err, adv_err, k1_adv_err, bin_adv_err,
-            surface_small_err)
+            surface_small_err, shap_adv_err)
     for k in kernel_lines:
         if k["name"] in cat_lines:
             k["categorical"] = cat_lines[k["name"]]

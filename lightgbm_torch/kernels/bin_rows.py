@@ -32,21 +32,30 @@ import torch
 from ..binning import BIN_CATEGORICAL, MISSING_NAN, BinMapper, _group_nbins
 from ..utils.log import LightGBMError
 from . import build
+from .hist_wide import SMEM_SM, SMS
 
 # (entries, len(FEAT_FIELDS)) int32 records, one per feature of each group
-# in the group's order; the C side's enum follows this order
+# in the group's order (its group and its position there last); the C
+# side's enum follows this order
 FEAT_FIELDS = ("column", "flags", "num_bins", "default_bin", "bounds_start",
-               "bounds_len", "cats_start", "cats_len", "in_group")
+               "bounds_len", "cats_start", "cats_len", "in_group", "group",
+               "position")
 (F_COLUMN, F_FLAGS, F_NUM_BINS, F_DEFAULT_BIN, F_BOUNDS_START, F_BOUNDS_LEN,
- F_CATS_START, F_CATS_LEN, F_IN_GROUP) = range(len(FEAT_FIELDS))
+ F_CATS_START, F_CATS_LEN, F_IN_GROUP, F_GROUP,
+ F_POSITION) = range(len(FEAT_FIELDS))
 CATEGORICAL, MISSING_NAN_FLAG, SENTINEL, BUNDLED = 1, 2, 4, 8
 
 # the raw rows one upload chunk holds at most (float64 bytes)
 CHUNK_BYTES = 256 << 20
 THREADS = 256
-# shared memory a block stages rows in (two blocks an SM)
-STAGE_BYTES = 96 * 1024
-SMEM_BLOCK = 232448
+# the staged kernel: persistent blocks, four an SM, each within BLOCK_BYTES
+# of shared memory (four blocks and their reserved KB fill an SM's):
+# a ring of two tiles of about STAGE_BYTES of rows each, the tile's
+# (row, group) words and, where they fit, the tables
+BLOCKS_PER_SM = 4
+BLOCK_BYTES = SMEM_SM // BLOCKS_PER_SM - 1024
+STAGE_BYTES = 16 * 1024
+MAX_TILE_ROWS = 1024
 INT64_MIN = -(2 ** 63)
 
 
@@ -57,38 +66,76 @@ class BinTables(NamedTuple):
     bounds: torch.Tensor       # float64 upper bounds of numeric features
     cats: torch.Tensor         # int64 categories, sorted per feature
     cat_bins: torch.Tensor     # int32 bin of each sorted category
+    col_entry: torch.Tensor    # (F,) int32 each column's record, -1: none
     num_features: int
     num_groups: int
     out_bytes: int             # 1: uint8 bins, 2: 16-bit (int16 storage)
+    table_bytes: int           # the tables' bytes in a block's shared memory
     host_feats: np.ndarray     # feats on the host, for the plain version
     host_group_start: np.ndarray
 
 
 class BinPlan(NamedTuple):
-    """One launch, in the field order the C side reads: ``blocks`` blocks
-    of ``threads`` threads, each binning ``rows_per_block`` rows, staged in
-    ``smem`` bytes of shared memory where ``staged``."""
-    rows_per_block: int
+    """One launch, in the field order the C side reads.  Staged: ``blocks``
+    persistent blocks of ``threads`` threads loop over ``tiles`` tiles of
+    ``tile_rows`` rows (tile i in block i % blocks), each tile's raw
+    values in one of two ``stage_bytes`` halves of a ring, its (row,
+    group) words in ``word_bytes``, the tables in ``table_bytes`` (0: read
+    from global memory), ``smem`` bytes in all.  Unstaged: one block a
+    tile of ``tile_rows`` rows, a thread a (row, group) pair, no shared
+    memory."""
+    tile_rows: int
+    tiles: int
     blocks: int
     threads: int
     staged: int
+    stage_bytes: int
+    word_bytes: int
+    table_bytes: int
     smem: int
 
 
 BIN_PLAN_FIELDS = BinPlan._fields
 
 
-def bin_plan(n: int, F: int) -> BinPlan:
-    """The launch plan over n rows of F raw values: as many rows a block as
-    fit in STAGE_BYTES, up to 256; rows wider than a block's shared memory
-    are read from global memory, 256 a block."""
+def _align16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def bin_plan(n: int, F: int, G: int = 1, sm_count: int = SMS,
+             table_bytes: int = 0) -> BinPlan:
+    """The launch plan over n rows of F raw values binned into G groups on
+    a card of ``sm_count`` SMs, with tables of ``table_bytes``: tiles of
+    as many rows as fit in STAGE_BYTES (1 to MAX_TILE_ROWS, fewer where a
+    block's ring and words would pass BLOCK_BYTES), BLOCKS_PER_SM
+    persistent blocks an SM at most, the tables in shared memory where
+    they fit beside the ring; rows too wide for two of them and their words
+    in BLOCK_BYTES are read from global memory, THREADS rows a block."""
     per_row = 8 * F
-    if per_row > SMEM_BLOCK:
-        rows, staged = THREADS, 0
-    else:
-        rows, staged = max(1, min(THREADS, STAGE_BYTES // per_row)), 1
-    return BinPlan(rows, -(-n // rows), THREADS, staged,
-                   rows * per_row if staged else 0)
+    stride = G | 1          # the C side's odd word stride
+
+    def words(rows):
+        return _align16(4 * rows * stride)
+
+    if 2 * per_row + words(1) > BLOCK_BYTES:
+        tiles = -(-n // THREADS)
+        return BinPlan(THREADS, tiles, tiles, THREADS, 0, 0, 0, 0, 0)
+    rows = max(1, min(MAX_TILE_ROWS, STAGE_BYTES // per_row,
+                      BLOCK_BYTES // (2 * per_row + 4 * stride)))
+    while 2 * rows * per_row + words(rows) > BLOCK_BYTES:
+        rows -= 1
+    stage = rows * per_row
+    base = 2 * stage + words(rows)
+    tb = table_bytes if base + table_bytes <= BLOCK_BYTES else 0
+    tiles = -(-n // rows)
+    return BinPlan(rows, tiles, min(tiles, BLOCKS_PER_SM * sm_count),
+                   THREADS, 1, stage, words(rows), tb, base + tb)
+
+
+def launch_plan(x: torch.Tensor, tables: BinTables) -> BinPlan:
+    """The plan ``bin_rows_cuda`` launches these rows under."""
+    n, F = x.shape
+    return bin_plan(n, F, tables.num_groups, SMS, tables.table_bytes)
 
 
 def bin_tables(bin_mappers: Sequence[BinMapper], groups: List[List[int]],
@@ -102,9 +149,11 @@ def bin_tables(bin_mappers: Sequence[BinMapper], groups: List[List[int]],
     sentinel = set(int(f) for f in sentinel)
     feats, starts, bounds, cats, cat_bins = [], [0], [], [], []
     n_bounds = n_cats = 0
-    for g in groups:
+    col_entry = np.full(len(bin_mappers), -1, np.int32)
+    for gi, g in enumerate(groups):
         in_group = 1
-        for f in g:
+        for pos, f in enumerate(g):
+            col_entry[f] = len(feats)
             m = bin_mappers[f]
             flags = BUNDLED if len(g) > 1 else 0
             if m.bin_type == BIN_CATEGORICAL:
@@ -119,7 +168,7 @@ def bin_tables(bin_mappers: Sequence[BinMapper], groups: List[List[int]],
                                             "in its group")
                     flags |= SENTINEL
                 rec = (f, flags, m.num_bins, m.default_bin, 0, 0, n_cats,
-                       len(c), in_group)
+                       len(c), in_group, gi, pos)
                 n_cats += len(c)
             else:
                 b = np.asarray(m.upper_bounds, np.float64)
@@ -129,7 +178,7 @@ def bin_tables(bin_mappers: Sequence[BinMapper], groups: List[List[int]],
                     flags |= MISSING_NAN_FLAG
                 bounds.append(b)
                 rec = (f, flags, m.num_bins, m.default_bin, n_bounds, len(b),
-                       0, 0, in_group)
+                       0, 0, in_group, gi, pos)
                 n_bounds += len(b)
             feats.append(rec)
             in_group += m.num_bins - 1
@@ -147,11 +196,18 @@ def bin_tables(bin_mappers: Sequence[BinMapper], groups: List[List[int]],
         a = a.astype(dtype) if len(a) else np.zeros(1, dtype)
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return BinTables(dev([host_feats.reshape(-1)], np.int32),
-                     torch.from_numpy(host_starts).to(device),
-                     dev(bounds, np.float64), dev(cats, np.int64),
-                     dev(cat_bins, np.int32), len(bin_mappers), len(groups),
-                     out_bytes, host_feats, host_starts)
+    t_feats, t_bounds, t_cats, t_cat_bins = (
+        dev([host_feats.reshape(-1)], np.int32), dev(bounds, np.float64),
+        dev(cats, np.int64), dev(cat_bins, np.int32))
+    # the C side's copy in shared memory: float64 and int64 first
+    table_bytes = _align16(8 * (t_bounds.numel() + t_cats.numel())
+                           + 4 * (t_feats.numel() + len(bin_mappers)
+                                  + t_cat_bins.numel()))
+    return BinTables(t_feats, torch.from_numpy(host_starts).to(device),
+                     t_bounds, t_cats, t_cat_bins,
+                     torch.from_numpy(col_entry).to(device), len(bin_mappers),
+                     len(groups), out_bytes, table_bytes, host_feats,
+                     host_starts)
 
 
 def storage_dtype(out_bytes: int) -> torch.dtype:
@@ -259,26 +315,29 @@ def plan_arg(plan: BinPlan) -> ctypes.Array:
 
 def bin_rows_cuda(x: torch.Tensor, tables: BinTables, out: torch.Tensor,
                   row0: int = 0, transpose: bool = False) -> torch.Tensor:
-    """Launch csrc/bin_rows.cu on the current stream, under ``bin_plan`` of
-    the shapes."""
+    """Launch csrc/bin_rows.cu on the current stream, under
+    ``launch_plan`` of the shapes."""
     dev = x.device
     build.check_operands("bin_rows", dev, (
         ("x", x, torch.float64), ("feats", tables.feats, torch.int32),
         ("group_start", tables.group_start, torch.int32),
+        ("col_entry", tables.col_entry, torch.int32),
         ("bounds", tables.bounds, torch.float64),
         ("cats", tables.cats, torch.int64),
         ("cat_bins", tables.cat_bins, torch.int32),
         ("out", out, storage_dtype(tables.out_bytes))))
     _check_shapes("bin_rows", x, tables, out, row0, transpose)
     n, F = x.shape
-    plan = bin_plan(n, F)
+    plan = launch_plan(x, tables)
     fn = getattr(build.load("bin_rows"), build.SIGNATURES["bin_rows"][0])
     rc = fn(x.data_ptr(), n, F, tables.feats.data_ptr(),
+            tables.feats.numel() // len(FEAT_FIELDS),
             tables.group_start.data_ptr(), tables.num_groups,
-            tables.bounds.data_ptr(), tables.cats.data_ptr(),
-            tables.cat_bins.data_ptr(), out.data_ptr(), tables.out_bytes,
-            out.shape[1] if transpose else out.shape[0], row0,
-            int(transpose), plan_arg(plan),
+            tables.col_entry.data_ptr(), tables.bounds.data_ptr(),
+            tables.bounds.numel(), tables.cats.data_ptr(),
+            tables.cat_bins.data_ptr(), tables.cats.numel(), out.data_ptr(),
+            tables.out_bytes, out.shape[1] if transpose else out.shape[0],
+            row0, int(transpose), plan_arg(plan),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise LightGBMError(f"bin_rows kernel launch failed (cudaError "

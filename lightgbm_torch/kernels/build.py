@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 from ..utils.log import LightGBMError
 
@@ -51,6 +51,13 @@ SOURCES: Dict[str, str] = {
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# kernel name -> flags of its own.  tree_shap's twelve instantiations
+# unroll a body per path length: its optimisations run on every core of
+# the host (chip_smoke.py's build, NVCC 12.9 on an 8-core host: 128 s
+# without, 49 s with; the same registers and stack bytes)
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "tree_shap": ("--split-compile=0", "-Xptxas", "--split-compile=0"),
+}
 
 _c_ptr, _c_int, _c_i64, _c_f32 = (ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_int64, ctypes.c_float)
@@ -97,13 +104,13 @@ SIGNATURES = {
                    _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
                    _c_ptr, _c_ptr]),
     "bin_rows": ("lgbt_bin_rows",
-                 [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr,
-                  _c_ptr, _c_ptr, _c_ptr, _c_int, _c_i64, _c_i64, _c_int,
-                  _c_ptr, _c_ptr]),
+                 [_c_ptr, _c_i64, _c_int, _c_ptr, _c_int, _c_ptr, _c_int,
+                  _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr,
+                  _c_int, _c_i64, _c_i64, _c_int, _c_ptr, _c_ptr]),
     "tree_shap": ("lgbt_tree_shap",
                   [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-                   _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
-                   _c_int, _c_int, _c_ptr, _c_ptr]),
+                   _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,
+                   _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -122,11 +129,11 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the kernel's library is built: named by a hash of its source,
-    every header under csrc/ and the flags."""
+    every header under csrc/ and its flags."""
     h = hashlib.sha256((_HERE / SOURCES[name]).read_bytes())
     for header in sorted((_HERE / "csrc").glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -142,7 +149,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     for n in todo:
         out = library_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_HERE / SOURCES[n])]
+        cmd = [nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(n, ()), "-o", str(tmp),
+               str(_HERE / SOURCES[n])]
         log = open(BUILD_DIR / f"{n}.log", "wb")
         procs[n] = (subprocess.Popen(cmd, stdout=log,
                                      stderr=subprocess.STDOUT), tmp, out, log)

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from .kernels.bin_rows import CHUNK_BYTES
-from .kernels.tree_shap import MAX_DEPTH, ShapTables, tree_shap
+from .kernels.tree_shap import (MAX_DEPTH, ShapTables, reciprocal_zfrac,
+                                tree_shap)
 from .tree import Tree
 
 
@@ -356,8 +357,9 @@ def shap_tables(trees: List[Tree], num_class: int, max_depth: int):
     Each tree with more than one leaf gets: its nodes' split feature,
     float64 threshold and decision type; its leaves' values and the packed
     paths of ``_leaf_paths`` (the unique feature and merged zero fraction
-    of each slot, the unique path length, and each raw path occurrence
-    packed as node << 6 | slot << 1 | went left, -1 past the path).  A
+    of each slot and its reciprocal (0 where it is 0), the unique path
+    length, and each raw path occurrence packed as node << 6 | slot << 1 |
+    went left, -1 past the path).  A
     single-leaf tree adds only its value to its class's expected value."""
     k = max(num_class, 1)
     base = np.zeros(k)
@@ -395,7 +397,8 @@ def shap_tables(trees: List[Tree], num_class: int, max_depth: int):
                                          (on_ << 6) | (os_ << 1) | ol_, -1)
         plen[i, :t.num_leaves] = pl_
     return ShapTables(split_feature, threshold, decision_type, leaf_value,
-                      tree_class, feat, zfrac, occ, plen), base
+                      tree_class, feat, zfrac, reciprocal_zfrac(zfrac), occ,
+                      plen), base
 
 
 def predict_contrib_device(trees: List[Tree], X: np.ndarray, num_class: int,

@@ -45,10 +45,11 @@ from lightgbm_torch.binning import BinMapper, construct_binned, \
     device_group_order
 from lightgbm_torch.device_data import to_device
 from lightgbm_torch.kernels import bin_rows as kbr
+from lightgbm_torch.kernels import hist_wide as khw
 from lightgbm_torch.kernels.layout import bins_to_numpy, bins_to_torch
 
-from chip_smoke import (BIN_ADVERSARIAL, bin_adversarial_data,
-                        host_predict_bins)
+from chip_smoke import (BIN_ADVERSARIAL, BIN_BUNDLES, bin_adversarial_data,
+                        bin_bundle_data, host_predict_bins)
 
 CPU = torch.device("cpu")
 SRC = Path(kbr.__file__).parent / "csrc" / "bin_rows.cu"
@@ -338,19 +339,138 @@ def test_dataset_bins_through_bin_rows(monkeypatch):
 
 
 def test_plan_pinned_and_within_limits():
-    """256 threads; as many rows a block as STAGE_BYTES holds, up to 256
-    (the full phase's 28 features: 256 rows, 57 344 bytes; the Flight Delay
-    cell's 674: 18 rows); rows wider than a block's shared memory are read
-    from global memory."""
-    assert kbr.bin_plan(1_000_000, 28) == kbr.BinPlan(
-        rows_per_block=256, blocks=3907, threads=256, staged=1, smem=57344)
-    assert kbr.bin_plan(100_000, 674) == kbr.BinPlan(
-        rows_per_block=18, blocks=5556, threads=256, staged=1, smem=97056)
-    assert kbr.bin_plan(2000, 30_000) == kbr.BinPlan(
-        rows_per_block=256, blocks=8, threads=256, staged=0, smem=0)
-    for n, F in [(0, 1), (1, 1), (7, 29056), (5, 29057), (10 ** 6, 3)]:
-        p = kbr.bin_plan(n, F)
-        assert p.blocks * p.rows_per_block >= n and p.smem <= kbr.SMEM_BLOCK
+    """256 threads; staged tiles of as many rows as STAGE_BYTES holds, two
+    in a ring, persistent blocks four an SM (the full phase's predict of 1M
+    x 28 rows: 73 rows a tile, the tables in shared memory; a Flight Delay
+    chunk of 49 784 x 674 rows in 8 groups: 3 rows a tile, its 47 200
+    bytes of tables read from global memory); rows too wide for a block's
+    ring are read from global memory, 256 a block."""
+    assert kbr.bin_plan(1_000_000, 28, 28, 132, 15472) == kbr.BinPlan(
+        tile_rows=73, tiles=13699, blocks=528, threads=256, staged=1,
+        stage_bytes=16352, word_bytes=8480, table_bytes=15472, smem=56656)
+    assert kbr.bin_plan(49_784, 674, 8, 132, 47200) == kbr.BinPlan(
+        tile_rows=3, tiles=16595, blocks=528, threads=256, staged=1,
+        stage_bytes=16176, word_bytes=112, table_bytes=0, smem=32464)
+    assert kbr.bin_plan(2000, 30_000, 30_000) == kbr.BinPlan(
+        tile_rows=256, tiles=8, blocks=8, threads=256, staged=0,
+        stage_bytes=0, word_bytes=0, table_bytes=0, smem=0)
+    for n, F, G in [(0, 1, 1), (1, 1, 1), (7, 7000, 7000), (5, 7300, 1),
+                    (10 ** 6, 3, 2)]:
+        p = kbr.bin_plan(n, F, G)
+        assert p.tiles * p.tile_rows >= n and p.smem <= khw.SMEM_BLOCK
+        assert p.smem <= kbr.BLOCK_BYTES
+
+
+@settings(max_examples=300, deadline=None)
+@given(n=st.integers(0, 3_000_000), F=st.integers(1, 40_000),
+       G=st.integers(1, 5000), sm=st.integers(1, 200),
+       table_bytes=st.integers(0, 200_000))
+def test_plan_covers_every_row_once(n, F, G, sm, table_bytes):
+    """Every row in exactly one tile and every tile in exactly one
+    persistent block (tile i in block i % blocks); a staged block within
+    BLOCK_BYTES (two stages of a tile, its odd-strided words, the tables
+    where they fit); rows too wide for that read from global memory, a
+    block a tile of THREADS rows."""
+    G = min(G, F)
+    p = kbr.bin_plan(n, F, G, sm, table_bytes)
+    assert p.threads == kbr.THREADS and p.tile_rows >= 1
+    assert p.tiles == -(-n // p.tile_rows)
+    starts = [t * p.tile_rows for t in range(p.tiles)]
+    assert starts == sorted(set(starts)) and (not starts or (
+        starts[-1] < n <= starts[-1] + p.tile_rows))
+    if p.staged:
+        visited = sorted(t for b in range(p.blocks)
+                         for t in range(b, p.tiles, p.blocks))
+        assert visited == list(range(p.tiles))
+        assert p.blocks == min(p.tiles, kbr.BLOCKS_PER_SM * sm)
+        assert p.stage_bytes == 8 * F * p.tile_rows
+        assert p.word_bytes == -(-4 * p.tile_rows * (G | 1) // 16) * 16
+        assert p.table_bytes in (0, table_bytes)
+        assert p.smem == 2 * p.stage_bytes + p.word_bytes + p.table_bytes
+        assert p.smem <= kbr.BLOCK_BYTES <= khw.SMEM_BLOCK
+        assert p.stage_bytes <= max(kbr.STAGE_BYTES, 8 * F)
+        if p.table_bytes == 0:
+            assert p.smem + table_bytes > kbr.BLOCK_BYTES or \
+                table_bytes == 0
+    else:
+        assert 16 * F + -(-4 * (G | 1) // 16) * 16 > kbr.BLOCK_BYTES
+        assert (p.tile_rows, p.blocks, p.smem) == (kbr.THREADS, p.tiles, 0)
+
+
+def _bundle_case(label, n):
+    """A BIN_BUNDLES case at n rows: rows, mappers and groups."""
+    _, _, bundles, transpose, _ = [c for c in BIN_BUNDLES
+                                   if c[0] == label][0]
+    mappers, groups, X = _BUNDLES
+    k = 1 + bundles * len(groups[1])
+    return (np.ascontiguousarray(X[:n, :k]), mappers[:k],
+            groups[:1 + bundles], transpose)
+
+
+_BUNDLES = bin_bundle_data(0, 3001)
+
+
+@pytest.mark.parametrize("label", [c[0] for c in BIN_BUNDLES])
+def test_bundles_plain_equals_port_and_jax_construct_binned(label,
+                                                          monkeypatch):
+    """Flight-Delay-shaped bundles (72 one-hot columns, two or three hot in
+    some rows; 72 columns of four non-default bins, past 256 bins): the
+    plain version equals both packages' construct_binned, in upload chunks
+    of 997 rows."""
+    X, ms, gs, transpose = _bundle_case(label, 3001)
+    with np.errstate(invalid="ignore"):
+        port = construct_binned(X, ms, gs).bins
+        jax = jbin.construct_binned(X, _jax_mappers(ms), gs).bins
+    monkeypatch.setattr(kbr, "CHUNK_BYTES", 8 * X.shape[1] * 997)
+    got = _plain(X, ms, gs, transpose=transpose)
+    assert got.dtype == port.dtype == (np.uint16 if "b16" in label
+                                       else np.uint8)
+    np.testing.assert_array_equal(got, port)
+    np.testing.assert_array_equal(got, jax)
+
+
+@pytest.mark.parametrize("label", ["bundle_b8_rows", "bundle_b16_rows"])
+def test_bundle_max_assembly_equals_construct_binned(label):
+    """The kernel's bundle assembly: each feature's value, in any order,
+    takes the max of its (row, group) word and (its position in the group
+    << 16 | its bin in the group) where its bin is not its default; a
+    group of one feature stores its bin; a word never set is 0.  The low
+    16 bits equal construct_binned's bins on rows where two and three
+    features of a bundle are non-default, whatever the order."""
+    X, ms, gs, _ = _bundle_case(label, 3001)
+    gs = device_group_order(gs, ms)
+    tabs = kbr.bin_tables(ms, gs, CPU)
+    n = X.shape[0]
+    words = np.zeros((n, len(gs)), np.uint32)
+    nondefault = np.zeros((n, len(gs)), np.int64)
+    order = np.random.RandomState(1).permutation(len(tabs.host_feats))
+    for rec in tabs.host_feats[order]:
+        b = kbr._feature_bins(torch.from_numpy(X[:, rec[kbr.F_COLUMN]]),
+                              tabs, rec).numpy()
+        g = rec[kbr.F_GROUP]
+        if not rec[kbr.F_FLAGS] & kbr.BUNDLED:
+            words[:, g] = b
+            continue
+        d = rec[kbr.F_DEFAULT_BIN]
+        val = (rec[kbr.F_POSITION] << 16) | (rec[kbr.F_IN_GROUP]
+                                             + np.where(b > d, b - 1, b))
+        words[:, g] = np.where(b != d, np.maximum(words[:, g], val),
+                               words[:, g])
+        nondefault[:, g] += b != d
+    assert (nondefault >= 2).any() and (nondefault >= 3).any()
+    with np.errstate(invalid="ignore"):
+        want = construct_binned(X, ms, gs).bins
+    np.testing.assert_array_equal(words & 0xFFFF, want)
+    for gi, g in enumerate(gs):
+        recs = tabs.host_feats[tabs.host_group_start[gi]:
+                               tabs.host_group_start[gi + 1]]
+        assert list(recs[:, kbr.F_GROUP]) == [gi] * len(g)
+        assert list(recs[:, kbr.F_POSITION]) == list(range(len(g)))
+        assert list(recs[:, kbr.F_COLUMN]) == list(g)
+    col = tabs.col_entry.numpy()
+    assert sorted(col[col >= 0]) == list(range(len(tabs.host_feats)))
+    assert all(tabs.host_feats[col[f], kbr.F_COLUMN] == f
+               for f in range(len(col)) if col[f] >= 0)
 
 
 def _c_enum(first):
@@ -365,7 +485,7 @@ def test_fields_follow_the_c_enums():
     assert _c_enum("kColumn") == camel + ["kFeatFields"]
     plan = ["k" + "".join(w.title() for w in f.split("_"))
             for f in kbr.BIN_PLAN_FIELDS]
-    assert [n.replace("kPlan", "k") for n in _c_enum("kRowsPerBlock")] == \
+    assert [n.replace("kPlan", "k") for n in _c_enum("kTileRows")] == \
         plan
     flags = dict(re.findall(r"constexpr int (k\w+) = (\d+);", SRC.read_text()))
     assert (int(flags["kCategorical"]), int(flags["kMissingNan"]),

@@ -251,6 +251,39 @@ Phases, each printing one JSON line:
    arm replayed bit-equal and timed; the gradients' time and share of a
    tree, the set-up seconds, one eager iteration phase by phase.  Its
    numbers go into the kernels line's ``ranking`` entries.
+18a. train_sparse_small: SciPy sparse input on both devices.  bin_csr
+   on ``csr_adversarial_cases`` (explicit zeros and -0.0, unsorted rows,
+   duplicate (row, column) entries, NaN, +-inf, categories past 2**63,
+   overlapping EFB bundles, 8- and 16-bit output, both layouts, float32
+   and int64 data, empty rows and columns, N = 1, uploads in chunks):
+   every launch byte-equal to its plain version on the card and to the
+   host (``construct_binned_sparse``; the predict form to ``bin_rows`` on
+   the dense rows).  On ``make_sparse_small`` (20 000 rows, 336 columns:
+   NaN / inf columns, a sparse categorical column, one-hot blocks bundled
+   in 8 and 16 bits): dyadic custom-gradient text byte-identical from the
+   CSR Dataset on the CPU and the card, from the dense and the CSC input,
+   with ``zero_as_missing`` off and on; ``reset_parameter`` (a
+   learning-rate list, num_leaves / lambda_l2 / min_data_in_leaf changed
+   at iteration 3) fused equal to eager on the card (two graph runners,
+   each capturing and replaying) and the card equal to the CPU on dyadic
+   gradients; ``save_binary`` -> ``Dataset(path)`` -> the same text;
+   ``subset`` equal to the parent's bins of its rows; ``cv`` over 3 folds
+   and 5 rounds, each fold's text equal to ``train`` on its subset.
+18b. train_sparse: the Allstate insurance-claim data of LightGBM's
+   experiments in shape (``make_allstate_like``: 4 228 one-hot columns of
+   30 seeded categorical sources, about 28.5 entries a row), 1M rows
+   trained from a CSR Dataset (bin_csr, counted) and 250 000 held out
+   through ``create_valid`` with AUC; 255 leaves, learning rate 0.1,
+   split budget 64, 20 iterations fused beside an eager arm; held-out
+   AUC > 0.70 beside the generator's own; ``predict`` on the held-out CSR
+   with the counts read around it (one bin_csr launch, K1's 16-bit form,
+   no host walk), within rtol 1e-4 / atol 1e-5 of the host walk; the old
+   path (dense slabs, host walk) and the new timed on 20 000 rows;
+   ``construct_s`` split (mappers, EFB, bins) beside the host
+   ``construct_binned_sparse``; bin_csr on a 100 000-row chunk equal to
+   its plain version and timed beside its bound; ``cv`` over 5 stratified
+   folds, 10 rounds, early stopping after 3, fused and eager.  Its bin_csr
+   numbers are the kernels line's ``bin_csr`` entry.
 19. hist_adversarial: K5, K8 and both forms of K2 launched on synthetic
    inputs made from ``--seed`` (outside any main path's launch counts),
    each held bit-equal to its plain version: every row in slot 0 and bin
@@ -339,7 +372,10 @@ native host binner, its launches in phase full's ``predict``; K1's
 device TreeSHAP, its launch in that phase's ``pred_contrib`` and, as
 ``plain_ms``, its plain version's time on ``plain_rows`` of the rows,
 beside the kernel's on the same rows, ``ms_plain_rows``; ``bin_rows``'
-and ``tree_shap``'s entries also give their launch plans),
+and ``tree_shap``'s entries also give their launch plans; ``bin_csr``, which
+replaces no TPU kernel but the JAX package's host
+``construct_binned_sparse``, its launches on the Allstate-shaped cell's
+Dataset, validation set and ``predict``),
 the card's name and power limit as
 nvidia-smi prints them, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failure raises and exits non-zero; without a CUDA device
@@ -370,6 +406,9 @@ CORE_OPS_PER_S = 67e12
 FP64_OPS_PER_S = 34e12
 
 RTOL, ATOL = 1e-4, 1e-5
+# the device the sparse phases put their own tensors on (a CPU rehearsal of
+# them sets "cpu")
+CARD = "cuda"
 KERNEL_SOURCES = {
     "predict_stream": "lightgbm_torch/kernels/csrc/predict_stream.cu",
     "route_and_hist": "lightgbm_torch/kernels/csrc/route_and_hist.cu",
@@ -384,7 +423,8 @@ KERNEL_SOURCES = {
     "bin_rows": "lightgbm_torch/kernels/csrc/bin_rows.cu",
     # K1's leaf form: another entry point of K1's source
     "predict_leaf": "lightgbm_torch/kernels/csrc/predict_stream.cu",
-    "tree_shap": "lightgbm_torch/kernels/csrc/tree_shap.cu"}
+    "tree_shap": "lightgbm_torch/kernels/csrc/tree_shap.cu",
+    "bin_csr": "lightgbm_torch/kernels/csrc/bin_csr.cu"}
 KERNEL_REPLACES = {
     "predict_stream": "lightgbm_tpu/pallas/predict_kernel.py:176",
     "route_and_hist": "lightgbm_tpu/pallas/stream_kernel.py:580",
@@ -402,7 +442,10 @@ KERNEL_REPLACES = {
     # there (lightgbm_tpu/basic.py:1414-1418)
     "predict_leaf": "lightgbm_tpu/pallas/predict_kernel.py:176",
     # no pallas_call: the JAX package's device TreeSHAP, a jitted lax.scan
-    "tree_shap": "lightgbm_tpu/shap.py:337"}
+    "tree_shap": "lightgbm_tpu/shap.py:337",
+    # no pallas_call: the JAX package fills a sparse Dataset's bins on the
+    # host, construct_binned_sparse
+    "bin_csr": "lightgbm_tpu/binning.py:988"}
 # the histogram kernels of the non-stream backends
 HIST_KERNELS = ("scatter_hist", "hist_direct", "hist_nibble")
 
@@ -6226,36 +6269,12 @@ def shap_adversarial_rows(seed, n, n_feat=24):
     return X
 
 
-def shap_raw(use, X, k):
-    """(N, K) float64 raw scores by TreeSHAP's own decisions
-    (``shap._all_decisions``: NaN at a node of missing type none compares
-    as 0.0, where ``Tree.predict_raw`` sends it right, ROADMAP §3), the
-    sums the contributions must add up to."""
-    from lightgbm_torch import shap as tshap
-
-    n = X.shape[0]
-    out = np.zeros((n, k))
-    at = np.arange(n)
-    for ti, t in enumerate(use):
-        node = np.zeros(n, np.int64)
-        if t.num_leaves > 1:
-            dec = tshap._all_decisions(t, X)
-            left = np.asarray(t.left_child, np.int64)
-            right = np.asarray(t.right_child, np.int64)
-            while (node >= 0).any():
-                inner = node >= 0
-                i = node[inner]
-                node[inner] = np.where(dec[at[inner], i], left[i], right[i])
-        out[:, ti % k] += np.asarray(t.leaf_value)[~node]
-    return out
-
-
 def phase_shap_adversarial(seed, rows=(1, 31, 33, 10_000)):
     """The TreeSHAP kernel on ``shap_adversarial_trees`` (K = 1, and K = 3
     with the trees dealt to three classes) over ``rows`` of
     ``shap_adversarial_rows``: within 1e-10 of each row's scale of its
     plain version, within 1e-9 of the exact host walk, contributions
-    summing to the float64 raw score (``shap_raw``) within 1e-9, a
+    summing to the float64 raw score of the host walk within 1e-9, a
     repeated launch
     byte-identical; the first rows of the largest launch byte-identical to
     the smaller launches (plans of many tree groups), and the largest
@@ -6265,6 +6284,7 @@ def phase_shap_adversarial(seed, rows=(1, 31, 33, 10_000)):
     counts.  Returns the largest difference from the plain version."""
     import torch
     from lightgbm_torch import shap as tshap
+    from lightgbm_torch.basic import _host_predict
     from lightgbm_torch.kernels import tree_shap as kts
 
     dev = torch.device("cuda")
@@ -6293,7 +6313,7 @@ def phase_shap_adversarial(seed, rows=(1, 31, 33, 10_000)):
             exact = tshap.predict_contrib(use, Xn, k).reshape(n, k, -1)
             scale = row_scale(exact.reshape(n, -1))
             diff = np.abs(g - exact).reshape(n, -1)
-            raw = shap_raw(use, Xn, k)
+            raw = _host_predict(Xn, use, k, False, 10, 10.0).reshape(n, k)
             add = np.abs(g.sum(axis=2) - raw)
             if not ((diff <= 1e-9 * scale).all() and (
                     add <= 1e-9 * np.maximum(np.abs(raw), 1.0)).all()):
@@ -6334,6 +6354,747 @@ def phase_shap_adversarial(seed, rows=(1, 31, 33, 10_000)):
     emit({"phase": "shap_adversarial", "trees": len(trees),
           "max_path_slots": 24, "cases": cases, "max_abs_err": err})
     return {"tree_shap": err}
+
+
+# --------------------------------------------------------------------------
+# SciPy sparse data: bin_csr, the Dataset surface, cv and reset_parameter
+# --------------------------------------------------------------------------
+
+def csr_entries(X, rs, explicit_zeros=0.0, dups=0.0, shuffled=0.0):
+    """A SciPy CSR matrix of the dense rows X, stored adversarially from
+    ``rs``: each zero stored explicitly (half of them as -0.0) with
+    probability ``explicit_zeros``; before a ``dups`` share of the stored
+    entries, an earlier entry of the same (row, column) with another value,
+    and after another such share an explicit 0.0; the entries of a
+    ``shuffled`` share of the rows in a random order.  Without ``dups`` its
+    dense rows are X (``csr.toarray()``; NaN kept)."""
+    import scipy.sparse as sp
+
+    n, F = X.shape
+    keep = (X != 0) | np.isnan(X) | (rs.rand(n, F) < explicit_zeros)
+    rows, cols = np.nonzero(keep)
+    vals = X[rows, cols].copy()
+    zero = vals == 0
+    vals[zero] = np.where(rs.rand(int(zero.sum())) < 0.5, 0.0, -0.0)
+    # the order of the entries within a row: as stored by np.nonzero, or
+    # at random in a shuffled row; a duplicate goes half a step before or
+    # after its entry
+    key = np.arange(len(rows), dtype=np.float64)
+    mixed = (rs.rand(n) < shuffled)[rows]
+    key[mixed] = rs.rand(int(mixed.sum())) * len(rows)
+    parts = [(rows, cols, vals, key)]
+    for shift, pick in ((-0.5, rs.rand(len(rows)) < dups),
+                        (0.5, rs.rand(len(rows)) < dups / 2)):
+        if not pick.any():
+            continue
+        other = (np.zeros(int(pick.sum())) if shift > 0
+                 else np.round(rs.randn(int(pick.sum())) * 4.0, 1) + 0.5)
+        parts.append((rows[pick], cols[pick], other, key[pick] + shift))
+    r, c, v, k = (np.concatenate(p) for p in zip(*parts))
+    order = np.lexsort((k, r))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=n))])
+    return sp.csr_matrix((v[order], c[order].astype(np.int32), indptr),
+                         shape=(n, F))
+
+
+# (label, source, rows, features of the source, sentinel features,
+# transpose, upload chunk bytes or None, duplicates, data dtype)
+CSR_ADVERSARIAL = (
+    ("adv_b16_rows", "adv", 250_001, (0, 1, 2, 3, 4, 5, 6, 7, 8), (),
+     False, None, True, np.float64),
+    ("adv_b16_transposed_chunks", "adv", 100_003,
+     (0, 1, 2, 3, 4, 5, 6, 7, 8), (), True, 1 << 20, True, np.float64),
+    ("adv_b8_rows_chunks", "adv", 200_003, (0, 1, 2, 4, 6, 7, 8), (), False,
+     1 << 20, True, np.float64),
+    ("adv_b8_float32", "adv", 50_001, (0, 1, 2, 4, 6, 7, 8), (), False, None,
+     True, np.float32),
+    ("predict_b16", "adv", 100_003, (0, 1, 2, 3, 4, 5, 6, 7, 8), (3, 4, 5),
+     True, None, False, np.float64),
+    ("predict_b8_chunks", "adv", 100_003, (0, 1, 2, 4, 6, 7, 8), (4,), True,
+     1 << 20, False, np.float64),
+    ("bundle_b8_rows", "bundle", 100_003, 1, (), False, None, True,
+     np.float64),
+    ("bundle_b16_rows_chunks", "bundle", 100_003, 2, (), False, 1 << 20,
+     True, np.float64),
+    ("bundle_b16_transposed", "bundle", 100_003, 2, (), True, None, True,
+     np.float64),
+    ("bundle_b8_int", "bundle", 20_001, 1, (), False, None, False, np.int64),
+    ("empty_rows_and_column", "adv", 20_001, (0, 1, 2, 4, 6, 7, 8), (),
+     False, None, True, np.float64),
+    ("n1", "adv", 1, (0, 1, 2, 3, 4, 5, 6, 7, 8), (3,), True, None, False,
+     np.float64),
+)
+
+
+def csr_adversarial_cases(seed, scale=1.0):
+    """(label, CSR rows, dense rows or None, mappers, groups, sentinel
+    features, transpose, chunk bytes) of ``CSR_ADVERSARIAL``: the rows of
+    ``bin_adversarial_data`` (NaN, +-inf, -0.0, bounds +- one ulp,
+    categories unseen, negative and past 2**63, an EFB bundle of
+    overlapping features; 5000 categories make 16-bit bins) and of
+    ``bin_bundle_data`` (Flight-Delay-shaped bundles, several features of
+    a bundle non-default in a row; 16-bit), stored by ``csr_entries`` with
+    explicit zeros and -0.0, unsorted rows and, where the case says so,
+    duplicate (row, column) entries (then no dense rows); one case with
+    empty rows and a column with no entry; ``scale`` cuts the rows."""
+    rs = np.random.RandomState(seed + 19)
+    most = max(max(int(c[2] * scale), 1) for c in CSR_ADVERSARIAL)
+    am, ag, AX = bin_adversarial_data(seed, most)
+    bm, bg, BX = bin_bundle_data(seed, most)
+    width = len(bg[1])
+    for (label, source, n, feats, sentinel, transpose, chunk, dups,
+         dtype) in CSR_ADVERSARIAL:
+        n = max(int(n * scale), 1)
+        if source == "adv":
+            where = {f: j for j, f in enumerate(feats)}
+            X = np.ascontiguousarray(AX[:n, list(feats)])
+            ms = [am[f] for f in feats]
+            gs = [g for g in ([where[f] for f in g if f in where]
+                              for g in ag) if g]
+            sentinel = [where[f] for f in sentinel]
+        else:
+            k = 1 + feats * width
+            X, ms, gs = np.ascontiguousarray(BX[:n, :k]), bm[:k], \
+                bg[:1 + feats]
+        if label.startswith("empty"):
+            X[::7] = 0.0
+            X[:, 2] = 0.0
+        if dtype != np.float64:
+            X = np.nan_to_num(X, nan=0.0, posinf=0.0, neginf=0.0)
+            X = np.clip(X, -1e30, 1e30).astype(dtype).astype(np.float64)
+        csr = csr_entries(X, rs, explicit_zeros=0.05,
+                          dups=0.05 if dups else 0.0, shuffled=0.1)
+        csr.data = csr.data.astype(dtype)
+        yield (label, csr, None if dups else X, ms, gs, list(sentinel),
+               transpose, chunk)
+
+
+class CsrCapture:
+    """Records every ``bin_csr`` call (its chunk of CSR rows, tables, zero
+    bins, output and first row) while active, by wrapping the dispatcher
+    that ``bin_csr_matrix`` calls.  The calls still go through the kernel's
+    wrapper and are counted there."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from lightgbm_torch.kernels import bin_csr as bc
+        self._orig = orig = bc.bin_csr
+
+        def call(indptr, indices, data, tables, zeros, out, row0=0,
+                 transpose=False):
+            res = orig(indptr, indices, data, tables, zeros, out, row0,
+                       transpose)
+            self.calls.append((indptr, indices, data, tables, zeros, out,
+                               row0, transpose))
+            return res
+
+        bc.bin_csr = call
+        return self
+
+    def __exit__(self, *exc):
+        from lightgbm_torch.kernels import bin_csr as bc
+        bc.bin_csr = self._orig
+
+
+def replay_bin_csr(cap, host=None):
+    """Every captured bin_csr launch through its plain version on the card
+    (the same chunk and tables, a fresh output); raises unless the bins are
+    equal byte for byte, and, where ``host`` bins ((N, G), or (G, N) for
+    the transposed form) are given, unless the captured output of the last
+    call equals them too.  Returns the launches replayed and the largest
+    difference of bin values."""
+    import torch
+    from lightgbm_torch.kernels import bin_csr as bc
+    from lightgbm_torch.kernels.layout import bin_values, bins_to_numpy
+
+    outs = {}
+    for indptr, indices, data, tables, zeros, out, row0, transpose in \
+            cap.calls:
+        want = outs.setdefault(id(out), (out, torch.zeros_like(out)))[1]
+        bc.bin_csr_plain(indptr, indices, data, tables, zeros, want, row0,
+                         transpose)
+    err = 0.0
+    for out, want in outs.values():
+        err = max(err, max_abs_diff(bin_values(out), bin_values(want)))
+        if not torch.equal(out, want):
+            raise RuntimeError(f"bin_csr differs from its plain version "
+                               f"(max abs {err})")
+    if host is not None:
+        got = bins_to_numpy(cap.calls[-1][5])
+        if got.dtype != host.dtype or not np.array_equal(got, host):
+            raise RuntimeError(f"bin_csr differs from the host bins "
+                               f"({got.dtype} {got.shape} against "
+                               f"{host.dtype} {host.shape})")
+    return len(cap.calls), err
+
+
+def bin_csr_work(indptr, indices, tables, transpose=False):
+    """Bytes and operations one bin_csr launch needs: the row pointers,
+    each stored entry's column and value read once, each (row, group) bin
+    written once; per entry a binary search (one compare a level, two more
+    for the NaN test and the assembly)."""
+    from lightgbm_torch.kernels import bin_rows as br
+    n = indptr.shape[0] - 1
+    nnz = indices.shape[0]
+    n_bytes = 8 * (n + 1) + 12 * nnz + n * tables.num_groups * \
+        tables.out_bytes
+    per_col = np.zeros(tables.num_features, np.int64)
+    for r in tables.host_feats:
+        per_col[int(r[br.F_COLUMN])] = int(max(r[br.F_BOUNDS_LEN],
+                                               r[br.F_CATS_LEN])
+                                           ).bit_length() + 2
+    counts = np.bincount(indices.cpu().numpy(),
+                         minlength=tables.num_features)
+    return n_bytes, int((counts * per_col).sum())
+
+
+def time_bin_csr(call):
+    """One captured bin_csr launch timed: the kernel (``device_ms``, into a
+    scratch output), its plain version (CUDA events, one call) and its
+    bound."""
+    import torch
+    from lightgbm_torch.kernels import bin_csr as bc
+
+    indptr, indices, data, tables, zeros, out, _, transpose = call
+    n = indptr.shape[0] - 1
+    scratch = torch.empty((tables.num_groups, n) if transpose
+                          else (n, tables.num_groups), dtype=out.dtype,
+                          device=out.device)
+    ms = device_ms(lambda: bc.bin_csr_cuda(indptr, indices, data, tables,
+                                           zeros, scratch, 0, transpose),
+                   reps=10)
+    plain = cuda_ms(lambda: bc.bin_csr_plain(indptr, indices, data, tables,
+                                             zeros, scratch, 0, transpose),
+                    reps=1, warmup=0)
+    bnd = bound(*bin_csr_work(indptr, indices, tables, transpose))
+    return {"rows": n, "entries": int(indices.shape[0]),
+            "groups": tables.num_groups, "out_bytes": tables.out_bytes,
+            "transpose": bool(transpose), "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def check_bin_csr_adversarial(seed, scale=1.0):
+    """bin_csr on ``csr_adversarial_cases``: every launch byte-equal to its
+    plain version on the card, the output to the host
+    (``construct_binned_sparse``; for the predict form ``bin_rows`` on the
+    dense rows, launched on the card, and ``host_predict_bins``), both
+    layouts and widths, in one upload or in chunks (launches at row0 > 0).
+    Outside any main path's launch counts.  Returns the cases and the
+    largest difference."""
+    import torch
+    from lightgbm_torch.binning import (construct_binned_sparse,
+                                        device_group_order)
+    from lightgbm_torch.kernels import bin_csr as bc
+    from lightgbm_torch.kernels import bin_rows as br
+    from lightgbm_torch.kernels.layout import bins_to_numpy
+
+    dev = torch.device(CARD)
+    cases, err = {}, 0.0
+    for label, csr, X, ms, gs, sentinel, transpose, chunk in \
+            csr_adversarial_cases(seed, scale):
+        gs = device_group_order(gs, ms)
+        tables = br.bin_tables(ms, gs, dev, sentinel=sentinel)
+        with CsrCapture() as cap, np.errstate(invalid="ignore"):
+            bc.bin_csr_matrix(csr, tables, transpose=transpose,
+                              chunk_bytes=chunk or bc.CHUNK_BYTES)
+        torch.cuda.synchronize()
+        if sentinel:
+            with np.errstate(invalid="ignore"):
+                host = host_predict_bins(X, ms, gs, sentinel)
+                dense = bins_to_numpy(br.bin_matrix(X, tables,
+                                                    transpose=True)).T
+            if not np.array_equal(dense, host):
+                raise RuntimeError(f"{label}: bin_rows differs from the "
+                                   "host")
+        else:
+            with np.errstate(invalid="ignore"):
+                host = construct_binned_sparse(csr, ms, gs).bins
+        launches, diff = replay_bin_csr(cap, host.T if transpose else host)
+        err = max(err, diff)
+        cases[label] = {"rows": csr.shape[0], "entries": int(csr.nnz),
+                        "groups": len(gs), "sentinel": sentinel,
+                        "transpose": transpose,
+                        "out_bytes": tables.out_bytes,
+                        "duplicates": X is None,
+                        "data_dtype": str(csr.data.dtype),
+                        "row0": [c[6] for c in cap.calls],
+                        "launches": launches, "max_abs_err": diff}
+    seen = {(c["transpose"], c["out_bytes"]) for c in cases.values()}
+    if len(seen) != 4 or not any(max(c["row0"]) > 0
+                                 for c in cases.values()):
+        raise RuntimeError(f"bin_csr's cases missed a form: {sorted(seen)}")
+    return cases, err
+
+
+SPARSE_SMALL_ONEHOT = (30, 300)
+
+
+def make_sparse_small(n, seed):
+    """About ``n`` rows of adversarial sparse data, canonical CSR (no
+    duplicate entries): four numeric columns (NaN, +-inf, -0.0 stored,
+    half the rows zero), a categorical column of 25 categories stored
+    sparsely (category 0 implicit; NaN and negative values), a column of
+    zeros, and one-hot blocks of ``SPARSE_SMALL_ONEHOT`` columns (one hot a
+    row in 90 % of the rows; EFB bundles them, the second past 256 bins:
+    16-bit), some rows empty; a label from the numeric columns and the hot
+    columns.  Returns (CSR, dense rows, label, the categorical column)."""
+    rs = np.random.RandomState(seed + 23)
+    blocks = SPARSE_SMALL_ONEHOT
+    F = 6 + sum(blocks)
+    X = np.zeros((n, F))
+    num = rs.randn(n, 4) * np.array([1.0, 3.0, 0.5, 10.0])
+    num[rs.rand(n, 4) < 0.5] = 0.0
+    num[rs.rand(n, 4) < 0.05] = np.nan
+    num[rs.rand(n, 4) < 0.01] = np.inf
+    num[rs.rand(n, 4) < 0.01] = -np.inf
+    X[:, :4] = num
+    cat = zipf_choice(rs, 25, 1.2, n).astype(np.float64)
+    cat[rs.rand(n) < 0.05] = np.nan
+    cat[rs.rand(n) < 0.03] = -2.0
+    X[:, 4] = cat
+    off, hot = 6, []
+    for k in blocks:
+        pick = zipf_choice(rs, k, 1.05, n)
+        on = rs.rand(n) < 0.9
+        X[np.arange(n)[on], off + pick[on]] = 1.0
+        hot.append(np.where(on, pick, -1))
+        off += k
+    X[rs.rand(n) < 0.02] = 0.0
+    logit = (np.nan_to_num(np.clip(X[:, 0], -3, 3)) - 0.5
+             * np.nan_to_num(np.clip(X[:, 1], -9, 9)) / 3
+             + np.isin(cat, [1, 3, 5]) + (hot[0] % 3 == 0)
+             - 0.7 * (hot[1] % 4 == 1))
+    y = (rs.rand(n) < 1 / (1 + np.exp(-logit))).astype(np.float64)
+    csr = csr_entries(X, rs, explicit_zeros=0.02, shuffled=0.05)
+    return csr, X, y, 4
+
+
+def graph_runs(eng_runs):
+    """A callback recording, after every iteration, the engine's graph
+    runner and its captures, replays and eager runs (``eng_runs``: a list
+    it appends (id, captures, replays, eager runs) to)."""
+    def _callback(env):
+        g = env.model.engine._graphs
+        eng_runs.append((id(g), g.captures, g.replays, g.eager_runs))
+    _callback.order = 50
+    return _callback
+
+
+def phase_train_sparse_small(seed, n=20_000, iters=5, num_leaves=63,
+                             adversarial_scale=1.0):
+    """SciPy sparse input on both devices: bin_csr on
+    ``csr_adversarial_cases``; over ``make_sparse_small`` (CSR and CSC,
+    zero_as_missing off and on): dyadic custom-gradient training from the
+    CSR Dataset byte-identical on the CPU and the card and to the dense
+    Dataset of the same rows; ``reset_parameter`` (a learning-rate list,
+    num_leaves / lambda_l2 / min_data_in_leaf changed at iteration 3)
+    fused (graphs captured, replayed, dropped and captured again) equal to
+    eager on the card, and on dyadic gradients the card equal to the CPU;
+    ``save_binary`` then ``Dataset(path)`` training to the same text;
+    ``subset`` on the card equal to the parent's bins of those rows;
+    ``cv`` over 3 folds and 5 rounds, each fold's model equal to ``train``
+    on that fold's subset.  Every Dataset's and validation set's bin_csr
+    launches replayed through the plain version."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.binning import construct_binned_sparse
+    from lightgbm_torch.engine import _make_n_folds
+
+    t_start = time.perf_counter()
+    adv_cases, adv_err = check_bin_csr_adversarial(seed, adversarial_scale)
+    csr, X, y, cat_col = make_sparse_small(n, seed)
+    base = {"objective": "binary", "num_leaves": num_leaves,
+            "max_splits_per_round": 16, "min_data_in_leaf": 5,
+            "learning_rate": 0.5, "verbosity": -1}
+    ds_kw = {"categorical_feature": [cat_col]}
+    err = 0.0
+    replays = 0
+
+    def dataset(data, dev, extra, **kw):
+        p = {**extra, "device_type": dev}
+        return lt.Dataset(data, label=y, params=p, **ds_kw, **kw)
+
+    def dyadic(data, dev, extra):
+        p = {**base, **extra, "device_type": dev}
+        bst = lt.Booster(p, dataset(data, dev, extra))
+        for _ in range(iters):
+            bst.update(fobj=dyadic_fobj)
+        return model_trees_text(bst), bst
+
+    texts = {}
+    counts = {}
+    for zam in (False, True):
+        extra = {"zero_as_missing": zam}
+        kernels.reset_launch_counts()
+        with CsrCapture() as cap:
+            card, bst = dyadic(csr, "cuda", extra)
+        torch.cuda.synchronize()
+        host = construct_binned_sparse(
+            csr, bst.train_set.binned.bin_mappers,
+            bst.train_set.binned.group_features).bins
+        n_rep, diff = replay_bin_csr(cap, host)
+        replays += n_rep
+        err = max(err, diff)
+        counts[f"zero_as_missing_{zam}"] = kernels.launch_counts()
+        if kernels.launch_counts()["bin_csr"] == 0:
+            raise RuntimeError("the CSR Dataset launched no bin_csr")
+        widths = {int(b) for b in bst.train_set.binned.group_bin_counts}
+        if max(widths) <= 256 or not any(len(g) > 1 and b <= 256 for g, b in
+                                         zip(bst.train_set.binned
+                                             .group_features,
+                                             bst.train_set.binned
+                                             .group_bin_counts)):
+            raise RuntimeError(f"sparse small: group widths {widths} miss "
+                               "an 8- or 16-bit bundle")
+        cpu, _ = dyadic(csr, "cpu", extra)
+        dense, _ = dyadic(X, "cuda", extra)
+        csc, _ = dyadic(csr.tocsc(), "cuda", extra)
+        if not (card == cpu == dense == csc):
+            raise RuntimeError(f"sparse small (zero_as_missing={zam}): "
+                               "CSR card, CSR CPU, dense and CSC texts "
+                               "differ")
+        texts[zam] = card
+
+    # reset_parameter at iteration 3: the learning rate every iteration and
+    # the tree shape once
+    n_reset = iters + 1
+    lrs = [0.5, 0.25, 0.125, 0.5, 0.25, 0.125][:n_reset]
+
+    def shape(i):
+        return 15 if i < 3 else 31
+
+    def resets():
+        return [lt.reset_parameter(
+            learning_rate=lrs, num_leaves=shape,
+            lambda_l2=lambda i: 0.0 if i < 3 else 2.0,
+            min_data_in_leaf=lambda i: 5 if i < 3 else 40)]
+
+    reset_texts, runs = {}, {}
+    ds_reset = dataset(csr, "cuda", {})
+    for fused in ("auto", "off"):
+        log = []
+        bst = lt.train({**base, "fused_iter": fused}, ds_reset, n_reset,
+                       callbacks=resets() + [graph_runs(log)])
+        reset_texts[fused] = model_trees_text(bst)
+        runs[fused] = log
+    if reset_texts["auto"] != reset_texts["off"]:
+        raise RuntimeError("reset_parameter: fused and eager differ")
+    runners = {}
+    for gid, cap_n, rep_n, eager_n in runs["auto"]:
+        runners[gid] = (cap_n, rep_n, eager_n)
+    if len(runners) != 2 or any(c == 0 or r == 0
+                                for c, r, _ in runners.values()):
+        raise RuntimeError(f"reset_parameter: graph runners {runners}: "
+                           "expected two, each capturing and replaying")
+    reset_dyadic = {}
+    for dev in ("cuda", "cpu"):
+        p = {**base, "device_type": dev}
+        bst = lt.Booster(p, dataset(csr, dev, {}))
+        for i in range(n_reset):
+            bst.reset_parameter({"learning_rate": lrs[i],
+                                 "num_leaves": shape(i)})
+            bst.update(fobj=dyadic_fobj)
+        reset_dyadic[dev] = model_trees_text(bst)
+    if reset_dyadic["cuda"] != reset_dyadic["cpu"]:
+        raise RuntimeError("reset_parameter on dyadic gradients: the card "
+                           "and the CPU differ")
+
+    # save_binary -> Dataset(path) -> train
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "sparse.bin")
+        ds_bin = dataset(csr, "cuda", {})
+        ds_bin.save_binary(path)
+        loaded = lt.Dataset(path, params={"device_type": "cuda"})
+        t_orig = model_trees_text(lt.train(base, ds_bin, iters))
+        t_load = model_trees_text(lt.train(base, loaded, iters))
+    if t_orig != t_load:
+        raise RuntimeError("a save_binary file trains another model")
+
+    # subset: the parent's bins of those rows
+    parent = dataset(csr, "cuda", {}).construct()
+    idx = np.sort(np.random.RandomState(seed).choice(n, n // 3,
+                                                     replace=False))
+    kernels.reset_launch_counts()
+    with CsrCapture() as cap:
+        sub = parent.subset(idx).construct()
+    torch.cuda.synchronize()
+    n_rep, diff = replay_bin_csr(cap, parent.binned.bins[idx])
+    replays += n_rep
+    err = max(err, diff)
+    if not np.array_equal(sub.binned.bins, parent.binned.bins[idx]):
+        raise RuntimeError("subset's bins differ from the parent's rows")
+
+    # cv: 3 folds x 5 rounds, each fold's model as train on its subset
+    t0 = time.perf_counter()
+    res = lt.cv(base, dataset(csr, "cuda", {}), iters, nfold=3,
+                return_cvbooster=True)
+    cv_s = time.perf_counter() - t0
+    folds = _make_n_folds(parent, None, 3, base, 0, True, True)
+    for b, (tr, _) in zip(res["cvbooster"].boosters, folds):
+        solo = lt.train(base, dataset(csr, "cuda", {}).construct()
+                        .subset(tr), iters)
+        if model_trees_text(b) != model_trees_text(solo):
+            raise RuntimeError("a cv fold's model differs from train on "
+                               "its subset")
+    emit({"phase": "train_sparse_small", "rows": n,
+          "features": int(csr.shape[1]), "entries": int(csr.nnz),
+          "bin_csr_adversarial": adv_cases,
+          "dyadic_text_identical": {"cpu_card_dense_csc": True,
+                                    "zero_as_missing": [False, True]},
+          "launches": counts,
+          "reset_parameter": {"fused_equals_eager": True,
+                              "card_equals_cpu_dyadic": True,
+                              "graph_runners": list(runners.values())},
+          "save_binary_same_text": True, "subset_equals_parent_rows": True,
+          "cv": {"folds": 3, "rounds": iters, "seconds": cv_s,
+                 "fold_text_equals_train": True,
+                 "valid_logloss_mean": res["valid binary_logloss-mean"]},
+          "bin_csr_replayed": replays,
+          "max_abs_err": max(err, adv_err),
+          "seconds": time.perf_counter() - t_start})
+    return {"bin_csr": max(err, adv_err)}
+
+
+def allstate_levels(columns=30, features=4228, big=(700, 520, 380, 300)):
+    """The level counts of the Allstate-shaped generator's categorical
+    source columns: ``big`` (past 255 levels), then geometrically spaced
+    counts from 2 up, the last adjusted so that all sum to ``features``."""
+    small = np.round(np.geomspace(2, 190, columns - len(big))).astype(int)
+    small[-1] += features - sum(big) - int(small.sum())
+    return list(big) + [int(k) for k in small]
+
+
+def make_allstate_like(n, seed, features=4228, columns=30):
+    """Rows shaped after the Allstate insurance-claim data of LightGBM's
+    experiments (docs/Experiments.rst: 13 184 290 rows, 4 228 one-hot
+    features, binary, AUC): ``columns`` categorical source columns with
+    ``allstate_levels`` levels (4 228 in all, four past 255), each level
+    drawn Zipf-like (exponent 1.1) and left out (no level) in 5 % of the
+    rows, one-hot into a canonical 0/1 CSR matrix of about 28.5 entries a
+    row; the label a seeded logistic model of the active levels.  Returns
+    (CSR, label, the logistic model's scores)."""
+    import scipy.sparse as sp
+
+    rs = np.random.RandomState(seed + 31)
+    levels = allstate_levels(columns, features)
+    offsets = np.concatenate([[0], np.cumsum(levels)])
+    cols = np.empty((n, columns), np.int64)
+    on = rs.rand(n, columns) >= 0.05
+    for j, k in enumerate(levels):
+        p = 1.0 / np.arange(1, k + 1) ** 1.1
+        cols[:, j] = offsets[j] + np.searchsorted(np.cumsum(p / p.sum()),
+                                                  rs.rand(n))
+    cols = np.minimum(cols, offsets[1:] - 1)
+    w = rs.randn(features) * 0.45
+    score = np.where(on, w[cols], 0.0).sum(axis=1) - 0.3
+    y = (rs.rand(n) < 1 / (1 + np.exp(-score))).astype(np.float64)
+    counts = on.sum(axis=1)
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    indices = cols[on].astype(np.int32)
+    csr = sp.csr_matrix((np.ones(len(indices)), indices, indptr),
+                        shape=(n, features))
+    return csr, y, score
+
+
+def phase_train_sparse(seed, smi, rows=1_000_000, held_out=250_000, iters=20,
+                       cv_folds=5, cv_rounds=10, chunk_rows=100_000,
+                       host_rows=20_000):
+    """The Allstate-shaped cell (``make_allstate_like``): ``rows`` trained
+    from a CSR Dataset (mappers and EFB on the host, bins by bin_csr on the
+    card, the kernel counts read around it), ``held_out`` rows as a
+    ``create_valid`` validation set with AUC; binary, 255 leaves, learning
+    rate 0.1, split budget 64, ``iters`` iterations fused beside an eager
+    arm (byte-identical text); held-out AUC > 0.70 beside the generator's
+    own scores'; ``predict`` on the held-out CSR with the counts read
+    around it (one bin_csr predict launch, K1's 16-bit form, no host walk),
+    within rtol 1e-4 / atol 1e-5 of the host walk on ``host_rows``;
+    ``predict_s`` of those rows on the old path (dense slabs on the host
+    walk) and through bin_csr and K1; ``construct_s``
+    split into mappers, EFB and the card fill, the host
+    ``construct_binned_sparse`` beside it; bin_csr on a ``chunk_rows``-row
+    chunk equal to its plain version, timed beside its bound and the plain
+    version; ``cv`` over ``cv_folds`` stratified folds, ``cv_rounds``
+    rounds, early stopping after 3, fused beside eager.  Returns the
+    kernels line's bin_csr entry and the largest difference."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import basic as tbasic
+    from lightgbm_torch import kernels
+    from lightgbm_torch.binning import construct_binned_sparse
+    from lightgbm_torch.kernels import bin_csr as bc
+    from lightgbm_torch.kernels import bin_rows as br
+    from lightgbm_torch.utils.timer import host_reads
+
+    t0 = time.perf_counter()
+    X, y, score = make_allstate_like(rows + held_out, seed)
+    Xh, yh, sh = X[rows:], y[rows:], score[rows:]
+    X, y = X[:rows], y[:rows]
+    data_s = time.perf_counter() - t0
+    params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+              "max_splits_per_round": 64, "metric": "auc", "verbosity": -1}
+    kernels.reset_launch_counts()
+    with CsrCapture() as ds_cap:
+        t0 = time.perf_counter()
+        ds = lt.Dataset(X, label=y).construct()
+        construct_s = time.perf_counter() - t0
+        valid = ds.create_valid(Xh, label=yh).construct()
+    torch.cuda.synchronize()
+    construct_launches = kernels.launch_counts()["bin_csr"]
+    b = ds.binned
+    group_bins = [int(v) for v in b.group_bin_counts]
+    if max(group_bins) <= 256:
+        raise RuntimeError("the Allstate-shaped Dataset has no 16-bit group")
+    t0 = time.perf_counter()
+    host = construct_binned_sparse(X, b.bin_mappers, b.group_features).bins
+    host_fill_s = time.perf_counter() - t0
+    if not np.array_equal(b.bins, host):
+        raise RuntimeError("the card's CSR bins differ from the host's")
+    n_rep, err = replay_bin_csr(ds_cap)
+    del host
+
+    def run(extra):
+        kernels.reset_launch_counts()
+        r0 = host_reads()
+        with TimedIters() as timed:
+            t1 = time.perf_counter()
+            bst = lt.train({**params, **extra}, ds, iters,
+                           valid_sets=[valid], valid_names=["held_out"])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t1
+        return (bst, timed, train_s, kernels.launch_counts(),
+                host_reads() - r0)
+
+    bst, timed, train_s, launches, reads = run({})
+    fused = fused_and_eager(bst, timed, launches, reads,
+                            lambda extra, n_iter: lt.train(
+                                {**params, **extra}, ds, n_iter), iters)
+    valid_auc = bst.best_score["held_out"]["auc"]
+
+    # held-out predict: bin_csr's predict form and K1's 16-bit form
+    walks = []
+    real_walk = tbasic._host_predict
+
+    def counted_walk(*a, **kw):
+        walks.append(a[0].shape[0])
+        return real_walk(*a, **kw)
+
+    tbasic._host_predict = counted_walk
+    try:
+        kernels.reset_launch_counts()
+        with CsrCapture() as p_cap:
+            t0 = time.perf_counter()
+            raw = bst.predict(Xh, raw_score=True)
+            predict_s = time.perf_counter() - t0
+        p_launches = kernels.launch_counts()
+        p_wide = kernels.wide_launch_counts()
+    finally:
+        tbasic._host_predict = real_walk
+    if (walks or p_launches["bin_csr"] != 1
+            or p_launches["predict_stream"] != 1
+            or p_wide["predict_stream"] != 1):
+        raise RuntimeError(f"sparse predict: host walks {walks}, launches "
+                           f"{p_launches}, 16-bit {p_wide}")
+    p_rep, p_err = replay_bin_csr(p_cap)
+    err = max(err, p_err)
+    held_auc = auc(yh, raw)
+    gen_auc = auc(yh, sh)
+    if held_auc <= 0.70:
+        raise RuntimeError(f"Allstate-shaped held-out AUC {held_auc}")
+    # predict_s before (dense slabs on the host walk) and after, on the
+    # same rows; the host walk is the scores' reference
+    sub = Xh[:host_rows]
+    min_rows = lt.Booster._DEVICE_PREDICT_MIN_ROWS
+    lt.Booster._DEVICE_PREDICT_MIN_ROWS = 10 ** 12
+    try:
+        t0 = time.perf_counter()
+        old = bst.predict(sub, raw_score=True)
+        before_s = time.perf_counter() - t0
+    finally:
+        lt.Booster._DEVICE_PREDICT_MIN_ROWS = min_rows
+    t0 = time.perf_counter()
+    new = bst.predict(sub, raw_score=True)
+    after_s = time.perf_counter() - t0
+    if not (np.allclose(new, old, rtol=RTOL, atol=ATOL)
+            and np.allclose(raw[:host_rows], old, rtol=RTOL, atol=ATOL)):
+        raise RuntimeError("sparse predict differs from the host walk")
+
+    # bin_csr alone on one chunk of the Dataset's rows
+    tables = br.bin_tables(b.bin_mappers, b.group_features, ds.device)
+    zeros = torch.from_numpy(bc.zero_bins(tables)).to(ds.device)
+    part = X[:chunk_rows]
+    ptr = torch.from_numpy(np.asarray(part.indptr, np.int64)).to(CARD)
+    ind = torch.from_numpy(part.indices.astype(np.int32)).to(CARD)
+    val = torch.from_numpy(part.data.astype(np.float64)).to(CARD)
+    out = torch.empty((chunk_rows, tables.num_groups),
+                      dtype=br.storage_dtype(tables.out_bytes), device=CARD)
+    call = (ptr, ind, val, tables, zeros, out, 0, False)
+    bc.bin_csr_cuda(*call)
+    want_bins = torch.zeros_like(out)
+    bc.bin_csr_plain(ptr, ind, val, tables, zeros, want_bins)
+    if not torch.equal(out, want_bins):
+        raise RuntimeError("bin_csr differs from its plain version on the "
+                           "Allstate-shaped chunk")
+    chunk_time = time_bin_csr(call)
+    stages = {}
+    bc.bin_csr_matrix(X, tables, times=stages)
+
+    # cv: stratified folds, early stopping on the fold mean, fused and eager
+    cv_out = {}
+    for fused_iter in ("auto", "off"):
+        t0 = time.perf_counter()
+        res = lt.cv({**params, "fused_iter": fused_iter,
+                     "early_stopping_round": 3}, ds,
+                    cv_rounds, nfold=cv_folds, stratified=True,
+                    return_cvbooster=True)
+        torch.cuda.synchronize()
+        cvb = res.pop("cvbooster")
+        cv_out[fused_iter] = {
+            "seconds": time.perf_counter() - t0,
+            "best_iteration": cvb.best_iteration,
+            "auc_mean": res["valid auc-mean"],
+            "fold_auc": [dict((m, v) for _, m, v, _ in b.eval_valid())["auc"]
+                         for b in cvb.boosters],
+            "texts": [model_trees_text(b) for b in cvb.boosters]}
+    if cv_out["auto"]["texts"] != cv_out["off"]["texts"]:
+        raise RuntimeError("cv: fused and eager folds differ")
+    for v in cv_out.values():
+        del v["texts"]
+    emit({"phase": "train_sparse", "card": smi, "rows": rows,
+          "held_out_rows": held_out, "features": int(X.shape[1]),
+          "entries_per_row": X.nnz / rows,
+          "source_levels": allstate_levels(), "data_s": data_s,
+          "groups": len(group_bins), "group_bins": group_bins,
+          "groups_past_256_bins": sum(v > 256 for v in group_bins),
+          "construct_s": construct_s,
+          "construct_split_s": dict(ds.construct_times),
+          "host_construct_binned_sparse_s": host_fill_s,
+          "fill_stages_s": stages, "construct_launches": construct_launches,
+          "construct_launches_replayed": n_rep,
+          "iterations": iters, "train_s": train_s,
+          "s_per_tree": statistics.median(timed.seconds[1:]),
+          "launches": launches, "fused_iter": fused,
+          "held_out_auc": held_auc, "valid_auc": valid_auc,
+          "generator_auc": gen_auc,
+          "predict_s": predict_s, "predict_launches": p_launches,
+          "predict_wide_launches": p_wide, "predict_host_walks": 0,
+          "predict_launches_replayed": p_rep,
+          "predict_before_after": {"rows": host_rows,
+                                   "host_slabs_s": before_s,
+                                   "bin_csr_k1_s": after_s},
+          "bin_csr_chunk": chunk_time, "cv": cv_out, "max_abs_err": err})
+    return {"name": "bin_csr", "route": "cuda",
+            "source": "lightgbm_torch/kernels/csrc/bin_csr.cu",
+            "replaces": KERNEL_REPLACES["bin_csr"],
+            "launches": construct_launches + p_launches["bin_csr"],
+            "max_abs_err": err, "ms": chunk_time["ms"],
+            "plain_ms": chunk_time["plain_ms"],
+            "bound_ms": chunk_time["bound_ms"],
+            "bound_by": chunk_time["bound_by"], "library_ms": None,
+            "cell": "train_sparse", "rows": chunk_time["rows"],
+            "entries": chunk_time["entries"]}, {"bin_csr": err}
 
 
 def nvidia_smi_line() -> str:
@@ -6406,17 +7167,19 @@ def main(argv=None) -> int:
         wide_lines, wide_err = phase_train_wide(args.seed, smi)
         rank_small_err = phase_train_ranking_small(args.seed)
         rank_lines, rank_err = phase_train_ranking(args.seed, smi)
+        sparse_small_err = phase_train_sparse_small(args.seed)
+        csr_line, sparse_err = phase_train_sparse(args.seed, smi)
         adv_err = phase_hist_adversarial(args.seed)
         k1_adv_err = phase_predict_adversarial(args.seed)
         bin_adv_err = phase_bin_adversarial(args.seed)
         shap_adv_err = phase_shap_adversarial(args.seed)
     kernel_lines = [k1, k2, k3, k4] + k567 + k2k_k8 + [k2i, binner,
-                                                       shap_line]
+                                                       shap_line, csr_line]
     errs = (small_err, sampled_small_err, quant_small_err, sampled_err,
             backends_err, quant_err, mc_small_err, mc_err, cat_small_err,
             cat_err, wide_small_err, wide_err, rank_small_err, rank_err,
             reg_small_err, reg_err, adv_err, k1_adv_err, bin_adv_err,
-            surface_small_err, shap_adv_err)
+            surface_small_err, shap_adv_err, sparse_small_err, sparse_err)
     for k in kernel_lines:
         if k["name"] in cat_lines:
             k["categorical"] = cat_lines[k["name"]]

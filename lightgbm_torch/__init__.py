@@ -1,7 +1,8 @@
 """lightgbm_torch — the PyTorch/CUDA port of lightgbm_tpu.
 
 Training (gbdt on numeric and categorical features, binary, L2,
-multiclass and learning to rank (lambdarank, rank_xendcg, NDCG / MAP), with
+multiclass, the other regression objectives and learning to rank
+(lambdarank, rank_xendcg, NDCG / MAP), with
 bagging (also by query), GOSS and feature sampling, quantized gradients,
 validation sets and early stopping) and batch prediction run on an NVIDIA
 Hopper GPU through hand-written CUDA kernels (``kernels/``):
@@ -13,6 +14,11 @@ Hopper GPU through hand-written CUDA kernels (``kernels/``):
                     callbacks=[lgb.early_stopping(10)])
     bst.predict(X_new)
 
+A SciPy sparse matrix is a Dataset as it is (its bins are filled on the
+device from its stored entries) and is predicted on the device from 20 000
+rows up; ``lgb.cv`` cross-validates on ``Dataset.subset`` folds, and
+``lgb.reset_parameter`` changes parameters between iterations.
+
 Ranking takes the query sizes in row order (``lgb.Dataset(X, label=y,
 group=sizes)``, or ``lgb.LGBMRanker().fit(X, y, group=sizes)``).
 
@@ -23,14 +29,15 @@ Entry points run on ``device_type="cuda"`` unless the caller passes
 """
 from .basic import Booster, Dataset
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
-                       record_evaluation)
-from .engine import cv, train
+                       record_evaluation, reset_parameter)
+from .engine import CVBooster, cv, train
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 from .utils.log import LightGBMError
 
 __version__ = "0.1.0"
 
-__all__ = ["Dataset", "Booster", "train", "cv", "early_stopping",
-           "log_evaluation", "record_evaluation", "EarlyStopException",
+__all__ = ["Dataset", "Booster", "train", "cv", "CVBooster",
+           "early_stopping", "log_evaluation", "record_evaluation",
+           "reset_parameter", "EarlyStopException",
            "LightGBMError", "LGBMModel", "LGBMRegressor", "LGBMClassifier",
            "LGBMRanker"]

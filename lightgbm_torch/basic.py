@@ -2,23 +2,29 @@
 
 The port's counterpart of ``lightgbm_tpu/basic.py`` (reference:
 python-package/lightgbm/basic.py, Dataset :1692, Booster :3495), trimmed to
-training, evaluation, prediction and the model's methods: a Dataset over
-a numpy array (validation data binned with its training Dataset's mappers
-through ``reference=``; ``group=`` query sizes and ``position=`` display
-positions for ranking), and a Booster that trains (``update``, one boosting
-iteration; ``rollback_one_iter``), evaluates its validation sets, holds a
-model (dump, edit, shuffle, reload) and predicts.  ``Booster.predict`` on
-at least ``_DEVICE_PREDICT_MIN_ROWS`` rows of a Booster built on a training
-Dataset uploads the raw rows, bins them there with the training mappers
-(``kernels/bin_rows.py``) and walks every tree on the device
-(``kernels/predict.py``: raw scores, or with ``pred_leaf`` each row's leaf
-in each tree); smaller batches and Boosters loaded from a model file alone
-take the host float64 walk, as in the reference.  ``pred_contrib`` runs the
-float64 TreeSHAP kernel (``kernels/tree_shap.py``) on the Booster's device
-when the trees are numeric and at most ``kernels.tree_shap.MAX_DEPTH``
-deep, whatever the batch, else the exact host walk (``shap.py``).  SciPy
-sparse rows are predicted in dense slabs.  A Dataset on a CUDA device is
-binned on the card the same way.
+in-memory data, training, evaluation, prediction and the model's methods.
+A Dataset holds a numpy array, a pandas DataFrame or a SciPy sparse matrix
+(kept as CSR: its mappers and EFB groups from its sampled stored values,
+its bins filled on the device by ``kernels/bin_csr.py``), or loads a
+``save_binary`` file of either package; validation data is binned with
+its training Dataset's mappers (``reference=``, ``create_valid``), and
+``subset`` takes rows (``cv``'s folds).  ``group=`` query sizes and
+``position=`` display positions serve ranking.  The Booster trains
+(``update``, one boosting iteration; ``rollback_one_iter``;
+``reset_parameter`` between iterations), evaluates its validation sets,
+holds a model (dump, edit, shuffle, reload) and predicts.
+``Booster.predict`` on at least ``_DEVICE_PREDICT_MIN_ROWS`` rows of a
+Booster built on a training Dataset uploads the raw rows, bins them there
+with the training mappers (``kernels/bin_rows.py``, or ``bin_csr.py`` for
+SciPy rows) and walks every tree on the device (``kernels/predict.py``:
+raw scores, or with ``pred_leaf`` each row's leaf in each tree); smaller
+batches and Boosters loaded from a model file alone take the host float64
+walk, as in the reference (SciPy rows in dense slabs).  ``pred_contrib``
+runs the float64 TreeSHAP kernel (``kernels/tree_shap.py``) on the
+Booster's device when the trees are numeric and at most
+``kernels.tree_shap.MAX_DEPTH`` deep, whatever the batch, else the exact
+host walk (``shap.py``); SciPy rows go to it in dense slabs.  A text data
+file (CSV, LibSVM) is not ported yet and raises.
 
 Device rule: a Dataset is constructed on ``device_type`` (default
 ``"cuda"``), and with no GPU that raises; ``device_type="cpu"`` runs the
@@ -26,7 +32,9 @@ device path's plain PyTorch version on the CPU.
 """
 from __future__ import annotations
 
+import json
 import os
+import struct
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -34,24 +42,31 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .binning import (BinnedData, construct_binned, device_group_order,
-                      find_bin_mappers, find_feature_groups,
-                      load_forced_bins)
+from .binning import (BinMapper, BinnedData, construct_binned,
+                      construct_binned_sparse, device_group_order,
+                      find_bin_mappers, find_bin_mappers_sparse,
+                      find_feature_groups, load_forced_bins,
+                      sample_sparse_csc, sparse_nz_masks)
 from .config import Config, resolve_aliases
 from .device_data import (DeviceData, build_routing_np, resolve_device,
                           to_device)
+from .kernels.bin_csr import bin_csr_matrix
 from .kernels.bin_rows import bin_matrix, bin_tables
 from .kernels.layout import bins_to_numpy
 from .kernels.predict import (build_predict_tables, predict_leaf,
                               predict_stream, tables_to_device)
 from .metrics import create_metrics
 from .objectives import create_objective
+from .robustness.checkpoint import atomic_open
 from .shap import device_depth, predict_contrib, predict_contrib_device
 from .utils.log import LightGBMError, log_warning, set_verbosity
 
 
-# values in one dense slab of a SciPy sparse predict (~256 MB of float64)
+# values in one dense slab of a SciPy sparse predict on the host walk
+# (~256 MB of float64)
 _SPARSE_SLAB_VALUES = 1 << 25
+# the per-row fields of a Dataset (get_field / set_field, binary files)
+_LABEL_FIELDS = ("label", "weight", "group", "init_score", "position")
 
 
 def _is_scipy_sparse(data) -> bool:
@@ -128,56 +143,104 @@ def _to_2d_float(data, align_categories=None
 
 
 class Dataset:
-    """Training dataset with lazy binning (reference: basic.py:1692)."""
+    """Training dataset with lazy binning (reference: basic.py:1692).
+
+    ``data`` is a numpy array, a pandas DataFrame, a SciPy sparse matrix
+    (kept as CSR: mappers and EFB groups from its sampled stored values on
+    the host, its bins filled on the device by ``kernels/bin_csr.py``), or
+    the path of a file written by ``save_binary`` (either package's
+    format); a text data file (CSV, LibSVM) is not ported yet and raises.
+    ``free_raw_data=True`` drops the raw rows once the bins exist."""
 
     def __init__(self, data, label=None, weight=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
                  reference: Optional["Dataset"] = None, group=None,
-                 position=None):
+                 position=None, free_raw_data: Optional[bool] = None):
         self.params = dict(params or {})
-        if _is_scipy_sparse(data):
-            raise LightGBMError("sparse Dataset input is not yet ported to "
-                                "lightgbm_torch")
-        # validation data is binned with its training Dataset's mappers
-        # and groups, on that Dataset's device
         self.reference = reference
+        self.free_raw_data = free_raw_data
         self._feature_name_arg = feature_name
         self._categorical_feature_arg = categorical_feature
-        # a DataFrame's category columns are categorical features, coded
-        # through the reference's category lists (reference: basic.py
-        # :350-354)
-        align = (reference.pandas_categorical if reference is not None
-                 else None)
-        (self.raw_data, self._pandas_names, self._pandas_cat_idx,
-         self.pandas_categorical) = _to_2d_float(data, align)
-        self.num_data_, self.num_feature_ = self.raw_data.shape
-        self.label = (None if label is None
-                      else np.asarray(label, np.float64).reshape(-1))
-        self.weight = (None if weight is None
-                       else np.asarray(weight, np.float64).reshape(-1))
-        self.init_score = (None if init_score is None
-                           else np.asarray(init_score, np.float64))
-        # ranking: the query sizes in row order, and each row's display
-        # position (position-debiased lambdarank); a validation set carries
-        # its own
-        self.set_group(group)
-        self.set_position(position)
+        self._resolved_feature_names: Optional[List[str]] = None
         self.binned: Optional[BinnedData] = None
         self.device: Optional[torch.device] = None
         self._device_data: Optional[DeviceData] = None
         # the (N, G) bins made on the device, until to_device takes them
         self._device_bins: Optional[torch.Tensor] = None
+        # the seconds of the last construct's stages (mappers, groups, bins)
+        self.construct_times: Dict[str, float] = {}
+        # the user's DataFrame (get_data, set_reference's realignment)
+        self._raw_container = None
+        self.raw_data: Optional[np.ndarray] = None
+        self.raw_sparse = None
+        self._pandas_names: Optional[List[str]] = None
+        self._pandas_cat_idx: List[int] = []
+        self.pandas_categorical = None
+        if isinstance(data, (str, Path)):
+            if not self._is_binary_file(data):
+                raise LightGBMError(
+                    f"loading a data file ({data}) is not yet ported to "
+                    "lightgbm_torch: pass an array, a DataFrame, a SciPy "
+                    "sparse matrix or a save_binary file")
+            if reference is not None:
+                raise LightGBMError(
+                    "a binary dataset file carries its own bin mappers; "
+                    "reference= cannot be combined with it")
+            self._load_binary(str(data))
+            # explicit arguments override the stored metadata
+            for field, value in (("label", label), ("weight", weight),
+                                 ("init_score", init_score),
+                                 ("group", group), ("position", position)):
+                if value is not None:
+                    self.set_field(field, value)
+            if isinstance(feature_name, list):
+                self._resolved_feature_names = [str(x) for x in feature_name]
+            return
+        if _is_scipy_sparse(data):
+            self.raw_sparse = data.tocsr()
+            self.num_data_, self.num_feature_ = self.raw_sparse.shape
+        else:
+            # a DataFrame's category columns are categorical features,
+            # coded through the reference's category lists (reference:
+            # basic.py:350-354)
+            align = (reference.pandas_categorical if reference is not None
+                     else None)
+            (self.raw_data, self._pandas_names, self._pandas_cat_idx,
+             self.pandas_categorical) = _to_2d_float(data, align)
+            if self._pandas_names is not None:
+                self._raw_container = data
+            self.num_data_, self.num_feature_ = self.raw_data.shape
+        self.set_label(label)
+        self.set_weight(weight)
+        self.set_init_score(init_score)
+        # ranking: the query sizes in row order, and each row's display
+        # position (position-debiased lambdarank); a validation set carries
+        # its own
+        self.set_group(group)
+        self.set_position(position)
+
+    _BINARY_MAGIC = b"LGBTPU.BIN.v2\n"
+    _BINARY_MAGIC_V1 = b"LGBTPU.BIN.v1\n"
+
+    @classmethod
+    def _is_binary_file(cls, path) -> bool:
+        try:
+            with open(path, "rb") as f:
+                magic = f.read(len(cls._BINARY_MAGIC))
+                return magic in (cls._BINARY_MAGIC, cls._BINARY_MAGIC_V1)
+        except OSError:
+            return False
 
     def _resolve_categorical(self) -> List[int]:
         """The frame's category columns, then those the argument names
         (reference: basic.py:456-470)."""
         arg = self._categorical_feature_arg
+        names = self.feature_name()
         cats = list(self._pandas_cat_idx)
         if arg == "auto" or arg is None or arg == "":
             return cats
-        names = self.feature_name()
         for c in (arg if isinstance(arg, (list, tuple)) else [arg]):
             if isinstance(c, str):
                 if c in names:
@@ -190,18 +253,85 @@ class Dataset:
         return sorted(set(cats))
 
     def feature_name(self) -> List[str]:
-        if isinstance(self._feature_name_arg, list):
-            return [str(x) for x in self._feature_name_arg]
-        if self._pandas_names is not None:
-            return list(self._pandas_names)
-        return [f"Column_{i}" for i in range(self.num_feature_)]
+        if self._resolved_feature_names is not None:
+            return self._resolved_feature_names
+        arg = self._feature_name_arg
+        if isinstance(arg, list):
+            names = [str(x) for x in arg]
+        elif self._pandas_names is not None:
+            names = list(self._pandas_names)
+        else:
+            names = [f"Column_{i}" for i in range(self.num_feature_)]
+        self._resolved_feature_names = names
+        return names
+
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        """Bin this Dataset with ``reference``'s mappers, adopting its
+        feature names and categorical spec; a DataFrame's category codes
+        are made again through the reference's category lists (reference:
+        lightgbm_tpu/basic.py:489-516).  Before ``construct`` only."""
+        if self.binned is not None and reference is not self.reference:
+            raise LightGBMError(
+                "Cannot set reference after the Dataset has been "
+                "constructed; build a new Dataset instead")
+        self.reference = reference
+        self._feature_name_arg = "auto"
+        self._resolved_feature_names = None
+        if reference._resolved_feature_names is not None or \
+                isinstance(reference._feature_name_arg, list):
+            self._resolved_feature_names = list(reference.feature_name())
+        self._categorical_feature_arg = reference._categorical_feature_arg
+        if self._raw_container is not None and reference.pandas_categorical:
+            (self.raw_data, self._pandas_names, self._pandas_cat_idx,
+             self.pandas_categorical) = _to_2d_float(
+                self._raw_container, reference.pandas_categorical)
+        return self
+
+    def get_data(self):
+        """The data this Dataset was made from: the user's DataFrame, the
+        array or the CSR matrix; raises once freed or for a binary file."""
+        for v in (self._raw_container, self.raw_data, self.raw_sparse):
+            if v is not None:
+                return v
+        raise LightGBMError(
+            "Cannot access raw data: it was freed (free_raw_data=True) or "
+            "the Dataset was loaded from a binary file")
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """Replace the categorical spec (before ``construct`` only)."""
+        if self.binned is not None and \
+                categorical_feature != self._categorical_feature_arg:
+            raise LightGBMError(
+                "Cannot change categorical_feature after the Dataset has "
+                "been constructed; build a new Dataset instead")
+        self._categorical_feature_arg = categorical_feature
+        return self
+
+    def get_ref_chain(self, ref_limit: int = 100):
+        """The set of Datasets reachable through ``reference`` from this
+        one."""
+        head, chain = self, set()
+        while head is not None and len(chain) < ref_limit:
+            if head in chain:
+                break
+            chain.add(head)
+            head = head.reference
+        return chain
+
+    def _should_free_raw(self) -> bool:
+        return bool(self.free_raw_data)
 
     def construct(self) -> "Dataset":
-        """Resolve the device, then bin on it through
-        ``kernels/bin_rows.py``, the bins copied back once for the host
-        copy (reference: the dense in-memory path of
-        basic.Dataset.construct)."""
+        """Resolve the device, then bin on it: dense rows through
+        ``kernels/bin_rows.py``, CSR rows through ``kernels/bin_csr.py``,
+        the bins copied back once for the host copy (reference: the
+        in-memory dense and sparse paths of lightgbm_tpu/basic.py
+        :651-708).  A Dataset loaded from a binary file only resolves its
+        device."""
         if self.binned is not None:
+            if self.device is None:
+                self.device = resolve_device(
+                    Config.from_params(self.params).device_type)
             return self
         if self.num_data_ == 0:
             raise LightGBMError("Cannot construct Dataset: it has no rows")
@@ -214,47 +344,82 @@ class Dataset:
                     f"({ref.num_feature()})")
             self.device = ref.device
             self._bin(ref.binned.bin_mappers, ref.binned.group_features)
-            return self
-        cfg = Config.from_params(self.params)
+        else:
+            self._construct_own(Config.from_params(self.params))
+        if self._should_free_raw():
+            self.raw_data = self.raw_sparse = self._raw_container = None
+        return self
+
+    def _construct_own(self, cfg: Config) -> None:
+        """Mappers and EFB groups from this Dataset's own rows, on the
+        host, then its bins."""
         self.device = resolve_device(cfg.device_type)
         cats = self._resolve_categorical()
-        mappers = find_bin_mappers(
-            self.raw_data, max_bin=cfg.max_bin,
-            min_data_in_bin=cfg.min_data_in_bin, categorical_features=cats,
-            use_missing=cfg.use_missing, zero_as_missing=cfg.zero_as_missing,
+        t0 = time.perf_counter()
+        mapper_kw = dict(
+            max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
+            categorical_features=cats, use_missing=cfg.use_missing,
+            zero_as_missing=cfg.zero_as_missing,
             sample_cnt=cfg.bin_construct_sample_cnt,
             seed=cfg.data_random_seed,
             max_bin_by_feature=cfg.max_bin_by_feature,
             forced_bins=load_forced_bins(cfg.forcedbins_filename,
                                          self.num_feature_, cats))
         groups = None
-        if cfg.enable_bundle:
-            sample_n = min(self.num_data_, cfg.bin_construct_sample_cnt)
-            rng = np.random.RandomState(cfg.data_random_seed)
-            idx = (np.arange(self.num_data_)
-                   if self.num_data_ <= sample_n else
-                   np.sort(rng.choice(self.num_data_, sample_n,
-                                      replace=False)))
-            sample_bins = [mappers[f].transform(self.raw_data[idx, f])
-                           for f in range(self.num_feature_)]
-            groups = find_feature_groups(sample_bins, mappers,
-                                         enable_bundle=True)
-            del sample_bins
+        if self.raw_sparse is not None:
+            # the sample rows of the dense path (same seed and draw), so
+            # that the bundles, and the model, are those of the dense rows
+            sample = sample_sparse_csc(self.raw_sparse,
+                                       cfg.bin_construct_sample_cnt,
+                                       cfg.data_random_seed)
+            mappers = find_bin_mappers_sparse(self.raw_sparse, **mapper_kw,
+                                              sample=sample)
+            t1 = time.perf_counter()
+            if cfg.enable_bundle:
+                masks = sparse_nz_masks(*sample, mappers)
+                groups = find_feature_groups(None, mappers,
+                                             enable_bundle=True,
+                                             nz_masks=masks)
+                del masks
+            del sample
+        else:
+            mappers = find_bin_mappers(self.raw_data, **mapper_kw)
+            t1 = time.perf_counter()
+            if cfg.enable_bundle:
+                sample_n = min(self.num_data_, cfg.bin_construct_sample_cnt)
+                rng = np.random.RandomState(cfg.data_random_seed)
+                idx = (np.arange(self.num_data_)
+                       if self.num_data_ <= sample_n else
+                       np.sort(rng.choice(self.num_data_, sample_n,
+                                          replace=False)))
+                sample_bins = [mappers[f].transform(self.raw_data[idx, f])
+                               for f in range(self.num_feature_)]
+                groups = find_feature_groups(sample_bins, mappers,
+                                             enable_bundle=True)
+                del sample_bins
+        t2 = time.perf_counter()
         self._bin(mappers, groups)
-        return self
+        self.construct_times.update(mappers=t1 - t0, groups=t2 - t1)
 
     def _bin(self, mappers, groups) -> None:
-        """The rows' bins under ``mappers`` and ``groups``, made by
-        ``bin_rows`` on the Dataset's device and kept there for
-        ``device_data``."""
+        """The rows' bins under ``mappers`` and ``groups``, made on the
+        Dataset's device (``bin_rows``, or ``bin_csr`` for CSR rows) and
+        kept there for ``device_data``."""
+        t0 = time.perf_counter()
         if groups is None:
             groups = [[f] for f in range(self.num_feature_)]
         groups = device_group_order(groups, mappers)
-        bins = bin_matrix(self.raw_data,
-                          bin_tables(mappers, groups, self.device))
-        self.binned = construct_binned(self.raw_data, mappers, groups,
-                                       bins=bins_to_numpy(bins))
+        tables = bin_tables(mappers, groups, self.device)
+        if self.raw_sparse is not None:
+            bins = bin_csr_matrix(self.raw_sparse, tables)
+            self.binned = construct_binned_sparse(
+                self.raw_sparse, mappers, groups, bins=bins_to_numpy(bins))
+        else:
+            bins = bin_matrix(self.raw_data, tables)
+            self.binned = construct_binned(self.raw_data, mappers, groups,
+                                           bins=bins_to_numpy(bins))
         self._device_bins = bins
+        self.construct_times["bins"] = time.perf_counter() - t0
 
     def device_data(self) -> DeviceData:
         if self._device_data is None:
@@ -280,21 +445,49 @@ class Dataset:
     def get_weight(self) -> Optional[np.ndarray]:
         return self.weight
 
+    def get_init_score(self) -> Optional[np.ndarray]:
+        return self.init_score
+
     def get_group(self) -> Optional[np.ndarray]:
         return self.group
+
+    def get_position(self) -> Optional[np.ndarray]:
+        return self.position
+
+    def set_label(self, label) -> "Dataset":
+        self.label = (None if label is None
+                      else np.asarray(label, np.float64).reshape(-1))
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = (None if weight is None
+                       else np.asarray(weight, np.float64).reshape(-1))
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = (None if init_score is None
+                           else np.asarray(init_score, np.float64))
+        return self
 
     def set_group(self, group) -> "Dataset":
         self.group = (None if group is None
                       else np.asarray(group, np.int64).reshape(-1))
         return self
 
-    def get_position(self) -> Optional[np.ndarray]:
-        return self.position
-
     def set_position(self, position) -> "Dataset":
         self.position = (None if position is None
                          else np.asarray(position, np.int32).reshape(-1))
         return self
+
+    def get_field(self, field_name: str):
+        if field_name not in _LABEL_FIELDS:
+            raise LightGBMError(f"Unknown field {field_name}")
+        return getattr(self, field_name)
+
+    def set_field(self, field_name: str, data) -> "Dataset":
+        if field_name not in _LABEL_FIELDS:
+            raise LightGBMError(f"Unknown field {field_name}")
+        return getattr(self, f"set_{field_name}")(data)
 
     def get_query_boundaries(self) -> Optional[np.ndarray]:
         """(nq + 1,) cumulative query boundaries, or None without a group.
@@ -310,6 +503,13 @@ class Dataset:
                 f"number of rows ({self.num_data_})")
         return qb
 
+    def get_label_padded(self, n: int) -> Optional[np.ndarray]:
+        if self.label is None:
+            return None
+        out = np.zeros(n, np.float64)
+        out[:len(self.label)] = self.label
+        return out
+
     def get_init_score_padded(self, n: int, k: int) -> Optional[np.ndarray]:
         if self.init_score is None:
             return None
@@ -323,6 +523,164 @@ class Dataset:
             out = np.zeros((n, k), np.float32)
             out[:s2.shape[0]] = s2
         return out
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None,
+                     position=None) -> "Dataset":
+        """A validation Dataset binned with this one's mappers."""
+        return Dataset(data, label=label, weight=weight,
+                       init_score=init_score, params=params or self.params,
+                       reference=self, group=group, position=position)
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """A Dataset of the rows ``used_indices`` (dense or CSR), binned
+        with this Dataset's mappers (reference: lightgbm_tpu/basic.py
+        :1033-1063).  Indices that take whole queries, in increasing order,
+        keep those queries' sizes."""
+        if self.raw_data is None and self.raw_sparse is None:
+            raise LightGBMError("cannot subset after raw data was freed")
+        idx = np.asarray(used_indices, np.int64)
+        group_sub = None
+        if self.group is not None and len(idx) and np.all(np.diff(idx) > 0):
+            bounds = np.concatenate([[0], np.cumsum(self.group)]) \
+                .astype(np.int64)
+            q_of = np.searchsorted(bounds, idx, side="right") - 1
+            sel_q, counts = np.unique(q_of, return_counts=True)
+            if np.array_equal(counts, bounds[sel_q + 1] - bounds[sel_q]):
+                group_sub = counts
+
+        def rows(a):
+            if a is None:
+                return None
+            return a[idx] if a.ndim == 1 else a[idx, :]
+
+        return Dataset(
+            (self.raw_data if self.raw_data is not None
+             else self.raw_sparse)[idx],
+            label=rows(self.label), weight=rows(self.weight),
+            init_score=rows(self.init_score),
+            feature_name=self._feature_name_arg,
+            categorical_feature=self._categorical_feature_arg,
+            params=params or self.params,
+            reference=(self if self.binned is not None
+                       else self.reference or self),
+            group=group_sub)
+
+    def save_binary(self, filename) -> "Dataset":
+        """Write the binned Dataset: the JAX package's ``LGBTPU.BIN.v2``
+        format, a JSON header and an npz archive of plain arrays
+        (lightgbm_tpu/basic.py:1068-1118), so either package loads the
+        other's files.  Load it by passing the path to ``Dataset``."""
+        self.construct()
+        b = self.binned
+        mappers = b.bin_mappers
+        arrays = {
+            "bins": b.bins,
+            "group_offsets": np.asarray(b.group_offsets, np.int64),
+            "group_bin_counts": np.asarray(b.group_bin_counts, np.int64),
+            "feature_offsets": np.asarray(b.feature_offsets, np.int64),
+            "feature_num_bins": np.asarray(b.feature_num_bins, np.int64),
+            "mapper_ub": (np.concatenate(
+                [np.asarray(m.upper_bounds, np.float64).reshape(-1)
+                 for m in mappers]) if mappers else np.zeros(0)),
+            "mapper_ub_len": np.asarray(
+                [np.asarray(m.upper_bounds).size for m in mappers], np.int64),
+            "mapper_cats": (np.concatenate(
+                [np.asarray(m.categories, np.int64).reshape(-1)
+                 for m in mappers]) if mappers else np.zeros(0, np.int64)),
+            "mapper_cats_len": np.asarray(
+                [np.asarray(m.categories).size for m in mappers], np.int64),
+        }
+        for field in _LABEL_FIELDS:
+            v = getattr(self, field)
+            if v is not None:
+                arrays[field] = np.asarray(v)
+        meta = {
+            "num_data": int(self.num_data_),
+            "num_feature": int(self.num_feature_),
+            "feature_names": self.feature_name(),
+            "group_features": [list(map(int, g)) for g in b.group_features],
+            "mappers": [[int(m.bin_type), int(m.missing_type),
+                         int(m.num_bins), int(m.default_bin),
+                         int(m.most_freq_bin), float(m.min_val),
+                         float(m.max_val)] for m in mappers],
+        }
+        meta_b = json.dumps(meta).encode()
+        with atomic_open(str(filename), "wb") as f:
+            f.write(self._BINARY_MAGIC)
+            f.write(struct.pack("<Q", len(meta_b)))
+            f.write(meta_b)
+            np.savez(f, **arrays)
+        return self
+
+    def _load_binary(self, path: str) -> None:
+        """Restore a ``save_binary`` file; the raw rows are not in it
+        (lightgbm_tpu/basic.py:1120-1179).  The v1 pickle format is
+        refused."""
+        try:
+            file_size = os.path.getsize(path)
+            with open(path, "rb") as f:
+                magic = f.read(len(self._BINARY_MAGIC))
+                if magic == self._BINARY_MAGIC_V1:
+                    raise LightGBMError(
+                        "this binary dataset uses the deprecated v1 pickle "
+                        "format, which is unsafe to load; re-save it with "
+                        "Dataset.save_binary() from this release")
+                header = f.read(8)
+                if len(header) != 8:
+                    raise LightGBMError(f"truncated binary dataset: {path}")
+                (meta_len,) = struct.unpack("<Q", header)
+                if meta_len > file_size:
+                    raise LightGBMError(f"corrupt binary dataset: {path}")
+                meta = json.loads(f.read(meta_len).decode())
+                blob = np.load(f, allow_pickle=False)
+                blob = {k: blob[k] for k in blob.files}
+        except LightGBMError:
+            raise
+        except Exception as exc:  # struct, json and zipfile errors
+            raise LightGBMError(
+                f"failed to load binary dataset {path}: {exc}") from exc
+        mappers = []
+        ub_off = cat_off = 0
+        for i, ms in enumerate(meta["mappers"]):
+            bt, mt, nb, db, mfb = ms[:5]
+            mn, mx = (ms[5], ms[6]) if len(ms) > 6 else (0.0, 0.0)
+            ub_n = int(blob["mapper_ub_len"][i])
+            cat_n = int(blob["mapper_cats_len"][i])
+            mappers.append(BinMapper(
+                upper_bounds=blob["mapper_ub"][ub_off:ub_off + ub_n],
+                bin_type=bt, missing_type=mt,
+                categories=blob["mapper_cats"][cat_off:cat_off + cat_n],
+                num_bins=nb, default_bin=db, most_freq_bin=mfb,
+                min_val=mn, max_val=mx))
+            ub_off += ub_n
+            cat_off += cat_n
+        self.binned = BinnedData(
+            bins=blob["bins"],
+            group_features=meta["group_features"],
+            group_offsets=blob["group_offsets"],
+            group_bin_counts=blob["group_bin_counts"],
+            feature_offsets=blob["feature_offsets"],
+            feature_num_bins=blob["feature_num_bins"],
+            bin_mappers=mappers,
+            num_data=meta["num_data"], num_features=meta["num_feature"])
+        for field in _LABEL_FIELDS:
+            setattr(self, field, blob.get(field))
+        self.num_data_ = meta["num_data"]
+        self.num_feature_ = meta["num_feature"]
+        self._resolved_feature_names = meta["feature_names"]
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append ``other``'s columns to this Dataset's (dense raw rows on
+        both); the next ``construct`` bins anew."""
+        if self.raw_data is None or other.raw_data is None:
+            raise LightGBMError("add_features_from requires raw data")
+        self.raw_data = np.hstack([self.raw_data, other.raw_data])
+        self.num_feature_ = self.raw_data.shape[1]
+        self.binned = None
+        self._device_data = self._device_bins = None
+        self._resolved_feature_names = None
+        return self
 
 
 class DevicePredictInputs:
@@ -422,6 +780,15 @@ class Booster:
             return eng.train_one_iter(np.asarray(grad, np.float32),
                                       np.asarray(hess, np.float32))
         return eng.train_one_iter()
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """New parameters from the next iteration on (reference:
+        Booster.reset_parameter; lightgbm_tpu/basic.py:1917-1934).  A
+        parameter the port does not train raises, as at construction."""
+        resolved = resolve_aliases(params)
+        self.engine.reset_config(resolved)
+        self.params.update(resolved)
+        return self
 
     def rollback_one_iter(self) -> "Booster":
         """Drop the last iteration's trees and their scores (reference:
@@ -525,37 +892,40 @@ class Booster:
         and, as in the JAX package, not read."""
         if isinstance(data, Dataset):
             raise LightGBMError("predict() takes raw data, not a Dataset")
+        use, k, _, _ = self._resolve_tree_slice(start_iteration, num_iteration)
+        early_stop = bool(kwargs.get("pred_early_stop", False))
+        # freq < 1 would never fire (and 0 would crash the modulo); clamp
+        es_freq = max(int(kwargs.get("pred_early_stop_freq", 10)), 1)
+        es_margin = float(kwargs.get("pred_early_stop_margin", 10.0))
+        es = (es_freq, es_margin) if early_stop else None
         if _is_scipy_sparse(data):
-            # prediction walks real-valued thresholds, so rows are made
-            # dense a bounded slab at a time (~256 MB; reference:
-            # lightgbm_tpu/basic.py:1392-1404)
-            Xr = data.tocsr()
-            chunk = max(1, _SPARSE_SLAB_VALUES // max(1, Xr.shape[1]))
-            starts = range(0, Xr.shape[0], chunk) if Xr.shape[0] else [0]
-            return np.concatenate([self.predict(
-                np.asarray(Xr[s:s + chunk].todense(), np.float64),
-                start_iteration, num_iteration, raw_score, pred_leaf,
-                pred_contrib, validate_features, **kwargs)
-                for s in starts], axis=0)
-        X, _, _, _ = _to_2d_float(data, self._pandas_categorical())
+            X = data.tocsr()
+            if (pred_contrib or self._device_cat_features(
+                    X.shape[0], use, k, None if pred_leaf else es) is None):
+                # the host walk and TreeSHAP read real values: rows are
+                # made dense a bounded slab at a time (~256 MB; reference:
+                # lightgbm_tpu/basic.py:1392-1404)
+                chunk = max(1, _SPARSE_SLAB_VALUES // max(1, X.shape[1]))
+                starts = range(0, X.shape[0], chunk) if X.shape[0] else [0]
+                return np.concatenate([self.predict(
+                    np.asarray(X[s:s + chunk].todense(), np.float64),
+                    start_iteration, num_iteration, raw_score, pred_leaf,
+                    pred_contrib, validate_features, **kwargs)
+                    for s in starts], axis=0)
+            # the whole batch is binned on the device by bin_csr
+        else:
+            X, _, _, _ = _to_2d_float(data, self._pandas_categorical())
         expected = self.num_feature()
         if expected and X.shape[1] != expected:
             raise LightGBMError(
                 f"The number of features in data ({X.shape[1]}) is not the same "
                 f"as it was in training data ({expected})")
-        use, k, _, _ = self._resolve_tree_slice(start_iteration, num_iteration)
         if pred_leaf:
             return self._predict_leaf(X, use, k)
         if pred_contrib:
             return self._predict_contrib(X, use, k)
-        n = X.shape[0]
-        early_stop = bool(kwargs.get("pred_early_stop", False))
-        # freq < 1 would never fire (and 0 would crash the modulo); clamp
-        es_freq = max(int(kwargs.get("pred_early_stop_freq", 10)), 1)
-        es_margin = float(kwargs.get("pred_early_stop_margin", 10.0))
         # init scores are folded into tree 0 at training time (AddBias), so a
         # plain sum over trees is the complete raw score
-        es = (es_freq, es_margin) if early_stop else None
         score = self._try_device_predict(X, use, k, es=es)
         if score is None:
             score = _host_predict(X, use, k, early_stop, es_freq, es_margin)
@@ -579,26 +949,16 @@ class Booster:
         end = min(start_iteration + num_iteration, n_total)
         return trees[start_iteration * k:end * k], k, start_iteration, end
 
-    def _device_predict_inputs(self, X, use, k, es=None, times=None):
-        """Upload the raw matrix, bin it on the device with the training
-        mappers (``kernels/bin_rows.py``, the predict form) and build the
-        device tensors of a batch walk, or None when the device path does
-        not apply (small batch, no engine, linear trees, early stop with
-        k > 1, a bundled categorical feature, which EFB never makes).  Bins
-        wider than uint8 (groups wider than 256 bins, or a categorical
-        sentinel bin past 255) go to K1 as 16-bit bins.
-        The reference's VMEM-size gates (basic.py:1569-1576, :1633) do not
-        apply: on the GPU the tables sit in device memory and L2.  A dict
-        passed as ``times`` receives the seconds of its stages: ``tables``
-        (the binning and walk tables built and copied to the device),
-        ``upload`` (the raw rows copied to the device) and ``binning`` (the
-        binning kernel)."""
-        if (self._engine is None or not use
-                or X.shape[0] < self._DEVICE_PREDICT_MIN_ROWS):
+    def _device_cat_features(self, n, use, k, es=None):
+        """The categorical features the trees split on, or None when the
+        device batch path does not apply to n rows: a small batch, no
+        engine, linear trees, early stop with k > 1, a bundled categorical
+        feature (which EFB never makes)."""
+        if self._engine is None or not use \
+                or n < self._DEVICE_PREDICT_MIN_ROWS:
             return None
         if es is not None and k != 1:
             return None
-        L = max(max(t.num_leaves for t in use), 2)
         cat_feats = set()
         for t in use:
             if t.is_linear:
@@ -608,16 +968,37 @@ class Booster:
                 dt = np.asarray(t.decision_type[:ni]).astype(np.int64)
                 for f in np.asarray(t.split_feature[:ni])[(dt & 1) > 0]:
                     cat_feats.add(int(f))
-        eng = self.engine
-        tb = eng.train_data.binned
-        routing_np, _ = build_routing_np(tb)
-        for f in sorted(cat_feats):
+        routing_np, _ = build_routing_np(self.engine.train_data.binned)
+        for f in cat_feats:
             # the NaN/unseen sentinel bin below needs the cat feature alone
             # in its group.  Not reached: EFB never bundles a categorical
             # feature (binning.py), but a bundle's span could not hold the
             # sentinel, so such a model would walk on the host
             if routing_np["bundled"][f]:
                 return None
+        return cat_feats
+
+    def _device_predict_inputs(self, X, use, k, es=None, times=None):
+        """Upload the raw rows, bin them on the device with the training
+        mappers (the predict forms of ``kernels/bin_rows.py`` for a dense
+        matrix and of ``kernels/bin_csr.py`` for a SciPy CSR one) and build
+        the device tensors of a batch walk, or None when the device path
+        does not apply (``_device_cat_features``).  Bins wider than uint8
+        (groups wider than 256 bins, or a categorical sentinel bin past
+        255) go to K1 as 16-bit bins.
+        The reference's VMEM-size gates (basic.py:1569-1576, :1633) do not
+        apply: on the GPU the tables sit in device memory and L2.  A dict
+        passed as ``times`` receives the seconds of its stages: ``tables``
+        (the binning and walk tables built and copied to the device),
+        ``upload`` (the raw rows copied to the device) and ``binning`` (the
+        binning kernel)."""
+        cat_feats = self._device_cat_features(X.shape[0], use, k, es)
+        if cat_feats is None:
+            return None
+        L = max(max(t.num_leaves for t in use), 2)
+        eng = self.engine
+        tb = eng.train_data.binned
+        routing_np, _ = build_routing_np(tb)
         t0 = time.perf_counter()
         dev = eng.device
         # the host walk routes NaN / unseen / negative categories RIGHT
@@ -633,7 +1014,8 @@ class Booster:
         classes = [(*tables_to_device(t, dev), t.depths) for t in host_tables]
         t1 = time.perf_counter()
         stages = {} if times is not None else None
-        bins_T = bin_matrix(X, bin_tabs, transpose=True, times=stages)
+        binner = bin_csr_matrix if _is_scipy_sparse(X) else bin_matrix
+        bins_T = binner(X, bin_tabs, transpose=True, times=stages)
         if times is not None:
             times.update(tables=t1 - t0, **stages)
         es_freq, es_margin = (int(es[0]), float(es[1])) if es else (0, 0.0)

@@ -2,8 +2,9 @@
 
 The port's counterpart of ``lightgbm_tpu/callback.py:17-75, :133-220``
 (reference: python-package/lightgbm/callback.py, CallbackEnv :65,
-log_evaluation :109, record_evaluation :183, early_stopping :278/:462).
-``reset_parameter`` and ``log_telemetry`` are not ported and raise.
+log_evaluation :109, record_evaluation :183, early_stopping :278/:462,
+reset_parameter; lightgbm_tpu/callback.py:111-131).  ``log_telemetry``
+is not ported and raises.
 """
 from __future__ import annotations
 
@@ -65,7 +66,29 @@ def record_evaluation(eval_result: Dict[str, Dict[str, List[float]]]
 
 
 def reset_parameter(**kwargs) -> Callable:
-    raise LightGBMError("reset_parameter is not yet ported to lightgbm_torch")
+    """Reset parameters before each iteration (reference: callback.py
+    reset_parameter; lightgbm_tpu/callback.py:111-131): a value is a list
+    of one value an iteration (the length of ``num_boost_round``) or a
+    function of the iteration."""
+    def _callback(env: CallbackEnv) -> None:
+        new_params = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError(f"Length of list {key!r} must match "
+                                     "num_boost_round")
+                new_params[key] = value[env.iteration - env.begin_iteration]
+            elif callable(value):
+                new_params[key] = value(env.iteration - env.begin_iteration)
+            else:
+                raise ValueError("reset_parameter values must be list or "
+                                 "callable")
+        if new_params:
+            env.model.reset_parameter(new_params)
+            env.params.update(new_params)
+    _callback.before_iteration = True  # type: ignore
+    _callback.order = 10  # type: ignore
+    return _callback
 
 
 def log_telemetry(period: int = 10) -> Callable:
@@ -131,8 +154,9 @@ class _EarlyStoppingCallback:
             self._init(env)
         if not self.enabled:
             return
-        for i, (name, metric, score, _) in enumerate(
-                env.evaluation_result_list):
+        # cv's aggregated entries carry a fifth item, the spread
+        for i, item in enumerate(env.evaluation_result_list):
+            name, metric, score = item[0], item[1], item[2]
             if (self.best_score_list[i] is None
                     or self.cmp_op[i](score, self.best_score[i])):
                 self.best_score[i] = score

@@ -27,6 +27,9 @@ version runs only for CPU tensors.  Importing this package builds nothing:
 - ``bin_rows`` (bin_rows.py, no TPU kernel: the counterpart of the JAX
   package's native host binner): raw float64 rows to group bins, for
   ``Dataset.construct`` and ``Booster.predict`` on the card.
+- ``bin_csr`` (bin_csr.py, no TPU kernel: the counterpart of the JAX
+  package's host ``construct_binned_sparse``): SciPy CSR rows to group
+  bins, for a sparse ``Dataset`` and ``Booster.predict`` on SciPy rows.
 - ``tree_shap`` (tree_shap.py, no TPU kernel: the JAX package's device
   TreeSHAP is a jitted ``lax.scan``): float64 TreeSHAP contributions of
   every row (``pred_contrib``).
@@ -42,7 +45,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import (bin_rows, hist_sorted, hist_wide, leaf_gather, predict,
+from . import (bin_csr, bin_rows, hist_sorted, hist_wide, leaf_gather, predict,
                route_hist, route_replay, scatter_hist, tree_shap)
 
 # kernel name -> its CUDA wrapper
@@ -59,6 +62,7 @@ WRAPPERS = {
     "bin_rows": bin_rows.bin_rows_cuda,
     "predict_leaf": predict.predict_leaf_cuda,
     "tree_shap": tree_shap.tree_shap_cuda,
+    "bin_csr": bin_csr.bin_csr_cuda,
 }
 
 

@@ -44,6 +44,9 @@ SOURCES: Dict[str, str] = {
     # raw rows to group bins (no TPU kernel: the native host binner's
     # counterpart)
     "bin_rows": "csrc/bin_rows.cu",
+    # SciPy CSR rows to group bins (no TPU kernel: the counterpart of the
+    # JAX package's host construct_binned_sparse)
+    "bin_csr": "csrc/bin_csr.cu",
     # TreeSHAP (pred_contrib; no pallas_call: the JAX package's device
     # TreeSHAP is a jitted lax.scan)
     "tree_shap": "csrc/tree_shap.cu",
@@ -107,6 +110,11 @@ SIGNATURES = {
                  [_c_ptr, _c_i64, _c_int, _c_ptr, _c_int, _c_ptr, _c_int,
                   _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr,
                   _c_int, _c_i64, _c_i64, _c_int, _c_ptr, _c_ptr]),
+    "bin_csr": ("lgbt_bin_csr",
+                [_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_int, _c_ptr, _c_int,
+                 _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int,
+                 _c_ptr, _c_ptr, _c_int, _c_i64, _c_i64, _c_int, _c_int,
+                 _c_ptr]),
     "tree_shap": ("lgbt_tree_shap",
                   [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
                    _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,

@@ -71,8 +71,9 @@ training a different model.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, replace
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -430,11 +431,43 @@ class GBDT:
             # K2, K5 and K8 read the (G, N) layout K1 reads, K6/K7 the
             # (N, G) rows of DeviceData.bins
             self._bins_T = self.dd.bins.t().contiguous()
-            self._fused = self._can_fuse_iteration()
-            # the batched flag poll's cadence (reference: gbdt.py:398-410)
-            eff = int(self.config.eval_fetch_freq or 0)
-            self._finished_check_every = (eff if eff > 0
-                                          else 16 if self._fused else 1)
+            self._set_fused_gate()
+
+    def reset_config(self, params: Dict[str, Any]) -> None:
+        """New parameters from the next iteration on (reference:
+        GBDT::ResetConfig; lightgbm_tpu/basic.py:1917-1934): the config is
+        updated and checked again, as at the first iteration.  Where a
+        field other than ``learning_rate`` changed, the grow parameters are
+        rebuilt and every captured CUDA graph and every device-state grower
+        is dropped: the steps read tree-shape parameters (num_leaves,
+        min_data_in_leaf, lambda_l2, min_gain_to_split, the split budget)
+        as Python numbers, which a replay would keep.  The next fused
+        iteration then runs each step eagerly and captures it again.
+        ``learning_rate`` reaches the fused tail through its input buffer,
+        filled every iteration, so a rate schedule keeps the graphs."""
+        before = _config_values(self.config)
+        self.config.update(params)
+        self._check_unsupported_params()
+        changed = {k for k, v in _config_values(self.config).items()
+                   if v != before[k]}
+        if self.grow_params is None or changed <= {"learning_rate"}:
+            # no iteration yet (_ensure_training builds what follows), or
+            # only the rate, which no step holds
+            return
+        self.grow_params = self._make_grow_params()
+        self._set_fused_gate()
+        self._graphs = GraphRunner(self.device)
+        self._fused_growers = {}
+        self._loop_rounds = []
+        self._tree_out = self._bits_out = None
+
+    def _set_fused_gate(self) -> None:
+        """Whether iterations fuse, and the batched flag poll's cadence
+        (reference: gbdt.py:398-410)."""
+        self._fused = self._can_fuse_iteration()
+        eff = int(self.config.eval_fetch_freq or 0)
+        self._finished_check_every = (eff if eff > 0
+                                      else 16 if self._fused else 1)
 
     def _can_fuse_iteration(self) -> bool:
         """The fused iteration's gate (reference: gbdt.py:1583-1625):
@@ -1291,6 +1324,13 @@ def _tree_to_device(tree: Tree, num_leaves_budget: int, max_bins: int,
               t(pad1(tree.right_child, L, np.int32)),
               t(cat_bits))
     return fields, t(pad1(tree.leaf_value, L, np.float32))
+
+
+def _config_values(config: Config) -> Dict[str, str]:
+    """Each field of the config by its repr, to see which a reset
+    changed."""
+    return {f.name: repr(getattr(config, f.name))
+            for f in dataclasses.fields(config)}
 
 
 def create_boosting(config: Config, train_data, objective,

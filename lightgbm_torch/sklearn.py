@@ -11,8 +11,10 @@ objective trains through ``Booster.update(fobj=...)``.  Estimator
 arguments are LightGBM parameter aliases (``n_estimators`` aside), and any
 other keyword argument is passed through as a parameter, ``device_type``
 included: like every entry point of the port, the estimators train on the
-GPU unless ``device_type="cpu"`` is given.  An objective the port does not
-train raises "not yet ported" at ``fit``.
+GPU unless ``device_type="cpu"`` is given.  ``X`` may be a numpy array, a
+pandas DataFrame or a SciPy sparse matrix (a sparse ``Dataset``; sparse
+rows to ``predict`` are binned on the device).  An objective the port does
+not train raises "not yet ported" at ``fit``.
 """
 from __future__ import annotations
 

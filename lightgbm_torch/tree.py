@@ -128,8 +128,13 @@ class Tree:
             missing_type = (dt >> 2) & 3
             nan_mask = np.isnan(v)
             zero_missing = missing_type == 1
-            miss = np.where(zero_missing, nan_mask | (np.abs(v) < 1e-35), nan_mask)
-            go_left = v <= self.threshold[idx]
+            nan_missing = missing_type == 2
+            miss = (zero_missing & (nan_mask | (np.abs(v) < 1e-35))) \
+                | (nan_missing & nan_mask)
+            # NumericalDecision: a NaN at a node whose missing type is not
+            # NaN is compared as 0.0
+            go_left = np.where(nan_mask & ~nan_missing, 0.0, v) \
+                <= self.threshold[idx]
             # categorical: membership in bitset
             if is_cat.any():
                 ci = idx[is_cat]

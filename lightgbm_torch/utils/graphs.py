@@ -8,10 +8,14 @@ fn)`` runs one step.  On the CPU it calls ``fn``.  On a CUDA device the first
 run of a key calls ``fn`` eagerly, which also warms every lazy load on its
 path (a kernel library, a device copy of the labels); the second captures
 ``fn`` into a CUDA graph and replays it; every later run replays the graph.
-All graphs share one memory pool: every tensor that outlives a step is
-allocated before any capture and written in place, so the pool holds only
-the temporaries of the step that runs.  A failed capture or replay raises:
-nothing falls back to the eager path.
+All graphs of a device, those of every engine in the process, share one
+memory pool: every tensor that outlives a step is allocated before any
+capture and written in place, and the steps run one at a time on the
+current stream, so the pool holds only the temporaries of the step that
+runs.  Engines trained side by side (``cv``'s folds, a reset's new
+runner) thus share the largest step's temporaries instead of holding
+one pool each.  A failed capture or replay raises: nothing falls back to
+the eager path.
 
 The kernel wrappers count a launch where their Python code launches the
 kernel, which a capture runs once and a replay not at all.  So a capture's
@@ -31,6 +35,8 @@ from typing import Callable, Dict, Hashable
 import torch
 
 _UNCAPTURED = [0]
+# device -> the graph memory pool every runner on it captures into
+_POOLS: Dict[torch.device, tuple] = {}
 
 
 @contextlib.contextmanager
@@ -89,7 +95,10 @@ class GraphRunner:
 
     def _capture(self, fn):
         if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
+            self.pool = _POOLS.get(self.device)
+            if self.pool is None:
+                self.pool = _POOLS[self.device] = \
+                    torch.cuda.graph_pool_handle()
         before, wide_before = _counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool):

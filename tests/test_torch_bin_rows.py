@@ -53,6 +53,8 @@ from chip_smoke import (BIN_ADVERSARIAL, BIN_BUNDLES, bin_adversarial_data,
 
 CPU = torch.device("cpu")
 SRC = Path(kbr.__file__).parent / "csrc" / "bin_rows.cu"
+# the feature record fields and flags, shared with csrc/bin_csr.cu
+HEADER = SRC.with_name("bin_value.cuh")
 
 
 def _jax_mappers(mappers):
@@ -474,7 +476,7 @@ def test_bundle_max_assembly_equals_construct_binned(label):
 
 
 def _c_enum(first):
-    src = SRC.read_text()
+    src = SRC.read_text() + HEADER.read_text()
     body = [b for b in re.findall(r"enum \{([^}]*)\}", src) if first in b][0]
     return [w.strip() for w in body.split(",") if w.strip()]
 
@@ -487,7 +489,8 @@ def test_fields_follow_the_c_enums():
             for f in kbr.BIN_PLAN_FIELDS]
     assert [n.replace("kPlan", "k") for n in _c_enum("kTileRows")] == \
         plan
-    flags = dict(re.findall(r"constexpr int (k\w+) = (\d+);", SRC.read_text()))
+    flags = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
+                            HEADER.read_text()))
     assert (int(flags["kCategorical"]), int(flags["kMissingNan"]),
             int(flags["kSentinel"]), int(flags["kBundled"])) == (
         kbr.CATEGORICAL, kbr.MISSING_NAN_FLAG, kbr.SENTINEL, kbr.BUNDLED)

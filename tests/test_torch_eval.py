@@ -226,7 +226,12 @@ def test_valid_set_binned_with_training_mappers():
 
 
 def test_unported_callbacks_raise():
-    for fn in (lambda: lt.callback.reset_parameter(learning_rate=[0.1]),
-               lambda: lt.callback.log_telemetry(5)):
-        with pytest.raises(lt.LightGBMError, match="not yet ported"):
-            fn()
+    """log_telemetry is not ported and raises; reset_parameter is ported
+    (tests/test_torch_cv.py): a callback that runs before each iteration,
+    order 10, as the JAX package's."""
+    with pytest.raises(lt.LightGBMError, match="not yet ported"):
+        lt.callback.log_telemetry(5)
+    cb = lt.callback.reset_parameter(learning_rate=[0.1])
+    want = lgb.callback.reset_parameter(learning_rate=[0.1])
+    assert (cb.before_iteration, cb.order) == (want.before_iteration,
+                                               want.order) == (True, 10)

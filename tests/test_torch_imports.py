@@ -61,4 +61,4 @@ def test_import_loads_no_jax_and_builds_nothing():
                               "scatter_hist": 0, "hist_direct": 0,
                               "hist_nibble": 0, "hist_wide": 0,
                               "bin_rows": 0, "predict_leaf": 0,
-                              "tree_shap": 0}}
+                              "tree_shap": 0, "bin_csr": 0}}

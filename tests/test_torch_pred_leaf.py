@@ -189,12 +189,14 @@ def test_sparse_predict_equals_dense(models, monkeypatch, fmt, name):
 
 
 def test_sparse_predict_in_slabs(models, monkeypatch):
-    """Rows past one dense slab (``_SPARSE_SLAB_VALUES`` // F rows) are
-    predicted slab by slab and concatenated."""
+    """Rows that take the host walk (a batch under the device path's
+    minimum, or ``pred_contrib``) are made dense a slab at a time
+    (``_SPARSE_SLAB_VALUES`` // F rows), predicted slab by slab and
+    concatenated."""
     bst, _, Xt = models["binary_nan"]
     Xd = np.nan_to_num(Xt)
     monkeypatch.setattr(tbasic, "_SPARSE_SLAB_VALUES", 64)
-    monkeypatch.setattr(TBooster, "_DEVICE_PREDICT_MIN_ROWS", 5)
+    monkeypatch.setattr(TBooster, "_DEVICE_PREDICT_MIN_ROWS", len(Xd) + 1)
     calls = []
     real = TBooster.predict
 
@@ -203,15 +205,49 @@ def test_sparse_predict_in_slabs(models, monkeypatch):
         return real(self, data, *args, **kwargs)
 
     monkeypatch.setattr(TBooster, "predict", count)
-    for kw in ({"pred_leaf": True}, {"raw_score": True}):
+    for kw in ({"pred_leaf": True}, {"raw_score": True},
+               {"pred_contrib": True}):
         calls.clear()
         got = bst.predict(sp.csr_matrix(Xd), **kw)
         assert calls[0] == len(Xd) and set(calls[1:-1]) == {64 // 6}
         np.testing.assert_array_equal(got, real(bst, Xd, **kw))
 
 
+def test_sparse_predict_through_bin_csr(models, monkeypatch):
+    """From the device path's minimum up, a SciPy batch is binned whole on
+    the device (``kernels/bin_csr.py``'s predict form, its plain version
+    here) and walked by K1: one call, no slab, no host walk; the same bytes
+    as the dense rows."""
+    binned, calls = [], []
+    real_binner, real = tbasic.bin_csr_matrix, TBooster.predict
+    monkeypatch.setattr(TBooster, "_DEVICE_PREDICT_MIN_ROWS", 5)
+    monkeypatch.setattr(tbasic, "bin_csr_matrix", lambda *a, **k: (
+        binned.append(a[0].shape), real_binner(*a, **k))[1])
+    monkeypatch.setattr(tbasic, "_host_predict", None)
+    monkeypatch.setattr(TBooster, "predict", lambda self, data, *a, **k: (
+        calls.append(data.shape[0]), real(self, data, *a, **k))[1])
+    for name in ("binary_nan", "categorical", "multiclass", "wide_bins"):
+        bst, _, Xt = models[name]
+        Xd = np.nan_to_num(Xt)
+        for kw in ({"pred_leaf": True}, {"raw_score": True}):
+            binned.clear()
+            calls.clear()
+            got = bst.predict(sp.csr_matrix(Xd), **kw)
+            assert calls == [len(Xd)] and binned == [Xd.shape], name
+            want = real(bst, Xd, **kw)
+            assert got.tobytes() == want.tobytes(), name
+
+
 def test_sparse_dataset_raises():
+    """A SciPy sparse Dataset no longer raises: its mappers, groups and
+    bins are the JAX package's (tests/test_torch_sparse.py holds them on
+    adversarial matrices).  A text data file still raises: loading one is
+    not ported."""
     X = sp.random(50, 4, density=0.3, format="csr", random_state=0)
-    with pytest.raises(LightGBMError,
-                       match="sparse Dataset input is not yet ported"):
-        lt.Dataset(X, label=np.zeros(50), params=CPU)
+    y = (np.arange(50) % 2).astype(float)
+    t = lt.Dataset(X, label=y, params=CPU).construct()
+    j = lgb.Dataset(X, label=y).construct()
+    assert t.binned.group_features == j.binned.group_features
+    assert t.binned.bins.tobytes() == np.asarray(j.binned.bins).tobytes()
+    with pytest.raises(LightGBMError, match="not yet ported"):
+        lt.Dataset("train.csv", label=y, params=CPU)

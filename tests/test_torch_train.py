@@ -684,7 +684,8 @@ def test_unported_inputs_raise():
     ds = lt.Dataset(X, label=y, params=CPU)
     with pytest.raises(lt.LightGBMError, match="not yet ported"):
         lt.train(_REG, ds, 2, resume_from="x")
-    with pytest.raises(lt.LightGBMError, match="not yet ported"):
-        lt.cv(_REG, ds, 2)
+    # cv is ported (tests/test_torch_cv.py): two rounds of five folds
+    res = lt.cv(_REG, ds, 2)
+    assert len(res["valid l2-mean"]) == len(res["valid l2-stdv"]) == 2
     with pytest.raises(lt.LightGBMError, match="hist_precision=double"):
         lt.train({**_REG, "hist_precision": "double"}, ds, 2)

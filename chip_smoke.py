@@ -255,7 +255,10 @@ Phases, each printing one JSON line:
    on ``csr_adversarial_cases`` (explicit zeros and -0.0, unsorted rows,
    duplicate (row, column) entries, NaN, +-inf, categories past 2**63,
    overlapping EFB bundles, 8- and 16-bit output, both layouts, float32
-   and int64 data, empty rows and columns, N = 1, uploads in chunks):
+   and int64 data, empty rows and columns, N = 1, uploads in chunks; a
+   row several tiles long with duplicates along it, 600 lone groups in
+   the plan's wide form (group ranges) in both layouts, tile cuts inside
+   runs of empty rows; it raises unless those forms ran):
    every launch byte-equal to its plain version on the card and to the
    host (``construct_binned_sparse``; the predict form to ``bin_rows`` on
    the dense rows).  On ``make_sparse_small`` (20 000 rows, 336 columns:
@@ -281,7 +284,9 @@ Phases, each printing one JSON line:
    path (dense slabs, host walk) and the new timed on 20 000 rows;
    ``construct_s`` split (mappers, EFB, bins) beside the host
    ``construct_binned_sparse``; bin_csr on a 100 000-row chunk equal to
-   its plain version and timed beside its bound; ``cv`` over 5 stratified
+   its plain version and timed beside its bound, and its predict form
+   (the held-out ``predict``'s launch) timed too, each with its launch
+   plan and its tiles' rows and entries; ``cv`` over 5 stratified
    folds, 10 rounds, early stopping after 3, fused and eager.  Its bin_csr
    numbers are the kernels line's ``bin_csr`` entry.
 19. hist_adversarial: K5, K8 and both forms of K2 launched on synthetic
@@ -375,7 +380,8 @@ beside the kernel's on the same rows, ``ms_plain_rows``; ``bin_rows``'
 and ``tree_shap``'s entries also give their launch plans; ``bin_csr``, which
 replaces no TPU kernel but the JAX package's host
 ``construct_binned_sparse``, its launches on the Allstate-shaped cell's
-Dataset, validation set and ``predict``),
+Dataset, validation set and ``predict``; its plan, and its predict form's
+times as a ``predict`` entry),
 the card's name and power limit as
 nvidia-smi prints them, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failure raises and exits non-zero; without a CUDA device
@@ -450,7 +456,14 @@ KERNEL_REPLACES = {
 HIST_KERNELS = ("scatter_hist", "hist_direct", "hist_nibble")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since the
+    script started (``wall_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "wall_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -6423,7 +6436,66 @@ CSR_ADVERSARIAL = (
      False, None, True, np.float64),
     ("n1", "adv", 1, (0, 1, 2, 3, 4, 5, 6, 7, 8), (3,), True, None, False,
      np.float64),
+    # one row of CSR_LONG_ROW entries (duplicates along it), several tiles'
+    # worth; in chunks, that row is a chunk of its own
+    ("long_row_b16_rows", "adv", 20_001, (0, 1, 2, 3, 4, 5, 6, 7, 8), (),
+     False, None, True, np.float64),
+    ("long_row_b8_transposed_chunks", "adv", 20_001, (0, 1, 2, 4, 6, 7, 8),
+     (), True, 1 << 18, True, np.float64),
+    # CSR_WIDE_COLUMNS columns, each alone in its group: bin_csr's wide
+    # form (group ranges), both layouts
+    ("wide_g_b16_rows", "wide", 10_001, (0, 1, 2, 3, 4, 5, 6, 7, 8), (),
+     False, None, True, np.float64),
+    ("wide_g_b8_transposed_chunks", "wide", 10_001, (0, 1, 2, 4, 6, 7, 8),
+     (), True, 1 << 22, False, np.float64),
+    # runs of empty rows (CSR_EMPTY_RUNS) longer than a tile: tile cuts
+    # inside them
+    ("tile_cuts_in_empty_runs_b8_rows_chunks", "adv", 60_001,
+     (0, 1, 2, 4, 6, 7, 8), (), False, 1 << 20, True, np.float64),
+    ("tile_cuts_in_empty_runs_b16_transposed", "adv", 60_001,
+     (0, 1, 2, 3, 4, 5, 6, 7, 8), (), True, None, False, np.float64),
 )
+# the long row's entries (at least CSR_LONG_ROW_MIN when the rows are cut)
+CSR_LONG_ROW = 40_000
+CSR_LONG_ROW_MIN = 3_000
+CSR_WIDE_COLUMNS = 600
+# row ranges, as shares of the rows, that store no entry
+CSR_EMPTY_RUNS = ((0.10, 0.30), (0.45, 0.46), (0.60, 0.95))
+
+
+def with_long_row(csr, X, rs, length):
+    """``csr`` with its middle row replaced by ``length`` entries of random
+    columns (each column stored many times), values drawn from X's column
+    (NaN, +-inf, -0.0 and bounds included) and explicit zeros."""
+    import scipy.sparse as sp
+
+    n, F = csr.shape
+    k = n // 2
+    cols = rs.randint(0, F, length)
+    vals = X[rs.randint(0, n, length), cols]
+    vals[rs.rand(length) < 0.05] = 0.0
+    ip = csr.indptr.astype(np.int64)
+    a, b = ip[k], ip[k + 1]
+    indptr = ip.copy()
+    indptr[k + 1:] += length - (b - a)
+    return sp.csr_matrix((np.concatenate([csr.data[:a], vals, csr.data[b:]]),
+                          np.concatenate([csr.indices[:a],
+                                          cols.astype(np.int32),
+                                          csr.indices[b:]]), indptr),
+                         shape=(n, F))
+
+
+def without_rows(csr, empty):
+    """``csr`` with the entries of the rows marked in ``empty`` left out."""
+    import scipy.sparse as sp
+
+    n, F = csr.shape
+    row_of = np.repeat(np.arange(n), np.diff(csr.indptr))
+    keep = ~empty[row_of]
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(row_of[keep],
+                                                        minlength=n))])
+    return sp.csr_matrix((csr.data[keep], csr.indices[keep], indptr),
+                         shape=(n, F))
 
 
 def csr_adversarial_cases(seed, scale=1.0):
@@ -6436,7 +6508,11 @@ def csr_adversarial_cases(seed, scale=1.0):
     a bundle non-default in a row; 16-bit), stored by ``csr_entries`` with
     explicit zeros and -0.0, unsorted rows and, where the case says so,
     duplicate (row, column) entries (then no dense rows); one case with
-    empty rows and a column with no entry; ``scale`` cuts the rows."""
+    empty rows and a column with no entry; one long row with duplicates
+    along it (``with_long_row``); CSR_WIDE_COLUMNS columns of the
+    adversarial features (rows drawn anew for each, nine in ten zero),
+    each alone in its group; long runs of empty rows (``CSR_EMPTY_RUNS``);
+    ``scale`` cuts the rows."""
     rs = np.random.RandomState(seed + 19)
     most = max(max(int(c[2] * scale), 1) for c in CSR_ADVERSARIAL)
     am, ag, AX = bin_adversarial_data(seed, most)
@@ -6452,6 +6528,12 @@ def csr_adversarial_cases(seed, scale=1.0):
             gs = [g for g in ([where[f] for f in g if f in where]
                               for g in ag) if g]
             sentinel = [where[f] for f in sentinel]
+        elif source == "wide":
+            base = [feats[j % len(feats)] for j in range(CSR_WIDE_COLUMNS)]
+            X = np.stack([AX[rs.randint(0, most, n), f] for f in base], 1)
+            X[rs.rand(*X.shape) < 0.9] = 0.0
+            ms = [am[f] for f in base]
+            gs = [[j] for j in range(len(base))]
         else:
             k = 1 + feats * width
             X, ms, gs = np.ascontiguousarray(BX[:n, :k]), bm[:k], \
@@ -6462,8 +6544,18 @@ def csr_adversarial_cases(seed, scale=1.0):
         if dtype != np.float64:
             X = np.nan_to_num(X, nan=0.0, posinf=0.0, neginf=0.0)
             X = np.clip(X, -1e30, 1e30).astype(dtype).astype(np.float64)
+        if label.startswith("tile_cuts_in_empty_runs"):
+            empty = np.zeros(n, bool)
+            for a, b in CSR_EMPTY_RUNS:
+                empty[int(a * n):int(b * n)] = True
+            X[empty] = 0.0
         csr = csr_entries(X, rs, explicit_zeros=0.05,
                           dups=0.05 if dups else 0.0, shuffled=0.1)
+        if label.startswith("tile_cuts_in_empty_runs"):
+            csr = without_rows(csr, empty)
+        if label.startswith("long_row"):
+            csr = with_long_row(csr, X, rs, max(int(CSR_LONG_ROW * scale),
+                                                CSR_LONG_ROW_MIN))
         csr.data = csr.data.astype(dtype)
         yield (label, csr, None if dups else X, ms, gs, list(sentinel),
                transpose, chunk)
@@ -6471,9 +6563,9 @@ def csr_adversarial_cases(seed, scale=1.0):
 
 class CsrCapture:
     """Records every ``bin_csr`` call (its chunk of CSR rows, tables, zero
-    bins, output and first row) while active, by wrapping the dispatcher
-    that ``bin_csr_matrix`` calls.  The calls still go through the kernel's
-    wrapper and are counted there."""
+    bins, output, first row, layout and launch plan) while active, by
+    wrapping the dispatcher that ``bin_csr_matrix`` calls.  The calls still
+    go through the kernel's wrapper and are counted there."""
 
     def __init__(self):
         self.calls = []
@@ -6483,11 +6575,11 @@ class CsrCapture:
         self._orig = orig = bc.bin_csr
 
         def call(indptr, indices, data, tables, zeros, out, row0=0,
-                 transpose=False):
+                 transpose=False, plan=None):
             res = orig(indptr, indices, data, tables, zeros, out, row0,
-                       transpose)
+                       transpose, plan)
             self.calls.append((indptr, indices, data, tables, zeros, out,
-                               row0, transpose))
+                               row0, transpose, plan))
             return res
 
         bc.bin_csr = call
@@ -6510,7 +6602,7 @@ def replay_bin_csr(cap, host=None):
     from lightgbm_torch.kernels.layout import bin_values, bins_to_numpy
 
     outs = {}
-    for indptr, indices, data, tables, zeros, out, row0, transpose in \
+    for indptr, indices, data, tables, zeros, out, row0, transpose, _ in \
             cap.calls:
         want = outs.setdefault(id(out), (out, torch.zeros_like(out)))[1]
         bc.bin_csr_plain(indptr, indices, data, tables, zeros, want, row0,
@@ -6550,21 +6642,43 @@ def bin_csr_work(indptr, indices, tables, transpose=False):
     return n_bytes, int((counts * per_col).sum())
 
 
+def csr_plan_stats(indptr, plan):
+    """A bin_csr launch plan as the kernels line reports it: its fields,
+    and its tiles' rows and entries (least, mean, most)."""
+    fields, starts = plan
+    ptr = indptr.cpu().numpy()
+    st = starts.cpu().numpy().astype(np.int64)
+    rows, ents = np.diff(st), np.diff(ptr[st])
+    out = {"plan": list(fields)}
+    for key, v in (("tile_rows", rows), ("tile_entries", ents)):
+        out[key] = ([int(v.min()), float(v.mean()), int(v.max())]
+                    if len(v) else [])
+    return out
+
+
 def time_bin_csr(call):
-    """One captured bin_csr launch timed: the kernel (``device_ms``, into a
-    scratch output), its plain version (CUDA events, one call) and its
-    bound."""
+    """One captured bin_csr launch timed: the kernel under the call's plan
+    (``device_ms``, into a scratch output, byte-equal to the call's), its
+    plain version (CUDA events, one call) and its bound."""
     import torch
     from lightgbm_torch.kernels import bin_csr as bc
 
-    indptr, indices, data, tables, zeros, out, _, transpose = call
+    indptr, indices, data, tables, zeros, out, row0, transpose, plan = call
     n = indptr.shape[0] - 1
+    if plan is None:
+        plan = bc.launch_plan(indptr.cpu().numpy(), tables, indices.device)
     scratch = torch.empty((tables.num_groups, n) if transpose
                           else (n, tables.num_groups), dtype=out.dtype,
                           device=out.device)
+    bc.bin_csr_cuda(indptr, indices, data, tables, zeros, scratch, 0,
+                    transpose, plan)
+    rows = out[:, row0:row0 + n] if transpose else out[row0:row0 + n]
+    if not torch.equal(scratch, rows):
+        raise RuntimeError("bin_csr: the timed launch differs from the "
+                           "captured one")
     ms = device_ms(lambda: bc.bin_csr_cuda(indptr, indices, data, tables,
-                                           zeros, scratch, 0, transpose),
-                   reps=10)
+                                           zeros, scratch, 0, transpose,
+                                           plan), reps=10)
     plain = cuda_ms(lambda: bc.bin_csr_plain(indptr, indices, data, tables,
                                              zeros, scratch, 0, transpose),
                     reps=1, warmup=0)
@@ -6572,7 +6686,8 @@ def time_bin_csr(call):
     return {"rows": n, "entries": int(indices.shape[0]),
             "groups": tables.num_groups, "out_bytes": tables.out_bytes,
             "transpose": bool(transpose), "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd[0], "bound_by": bnd[1]}
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            **csr_plan_stats(indptr, plan)}
 
 
 def check_bin_csr_adversarial(seed, scale=1.0):
@@ -6613,7 +6728,23 @@ def check_bin_csr_adversarial(seed, scale=1.0):
                 host = construct_binned_sparse(csr, ms, gs).bins
         launches, diff = replay_bin_csr(cap, host.T if transpose else host)
         err = max(err, diff)
+        lens = np.diff(csr.indptr)
+        plans = [(c[8][0], c[0].cpu().numpy(), c[8][1].cpu().numpy())
+                 for c in cap.calls]
         cases[label] = {"rows": csr.shape[0], "entries": int(csr.nnz),
+                        "longest_row": int(lens.max()),
+                        "plans": [list(p) for p, _, _ in plans],
+                        # tiles of more than twice the chunk's mean
+                        # entries a tile (a row several tiles long)
+                        "long_row_tiles": sum(
+                            int((np.diff(ptr[s]) > 2 * max(
+                                1, ptr[-1] // max(1, p.tiles))).sum())
+                            for p, ptr, s in plans),
+                        # cuts between two empty rows of the chunk
+                        "cuts_in_empty_runs": sum(
+                            int(((np.diff(ptr)[s[1:-1] - 1] == 0)
+                                 & (np.diff(ptr)[s[1:-1]] == 0)).sum())
+                            for _, ptr, s in plans),
                         "groups": len(gs), "sentinel": sentinel,
                         "transpose": transpose,
                         "out_bytes": tables.out_bytes,
@@ -6622,9 +6753,15 @@ def check_bin_csr_adversarial(seed, scale=1.0):
                         "row0": [c[6] for c in cap.calls],
                         "launches": launches, "max_abs_err": diff}
     seen = {(c["transpose"], c["out_bytes"]) for c in cases.values()}
-    if len(seen) != 4 or not any(max(c["row0"]) > 0
-                                 for c in cases.values()):
-        raise RuntimeError(f"bin_csr's cases missed a form: {sorted(seen)}")
+    wide = {c["transpose"] for c in cases.values()
+            if any(p[1] > 1 for p in c["plans"])}
+    if (len(seen) != 4 or not any(max(c["row0"]) > 0
+                                  for c in cases.values())
+            or wide != {False, True}
+            or not any(c["long_row_tiles"] for c in cases.values())
+            or not any(c["cuts_in_empty_runs"] for c in cases.values())):
+        raise RuntimeError(f"bin_csr's cases missed a form: {sorted(seen)}, "
+                           f"wide form in layouts {sorted(wide)}")
     return cases, err
 
 
@@ -7030,7 +7167,8 @@ def phase_train_sparse(seed, smi, rows=1_000_000, held_out=250_000, iters=20,
     val = torch.from_numpy(part.data.astype(np.float64)).to(CARD)
     out = torch.empty((chunk_rows, tables.num_groups),
                       dtype=br.storage_dtype(tables.out_bytes), device=CARD)
-    call = (ptr, ind, val, tables, zeros, out, 0, False)
+    call = (ptr, ind, val, tables, zeros, out, 0, False,
+            bc.launch_plan(part.indptr, tables, ptr.device))
     bc.bin_csr_cuda(*call)
     want_bins = torch.zeros_like(out)
     bc.bin_csr_plain(ptr, ind, val, tables, zeros, want_bins)
@@ -7038,6 +7176,8 @@ def phase_train_sparse(seed, smi, rows=1_000_000, held_out=250_000, iters=20,
         raise RuntimeError("bin_csr differs from its plain version on the "
                            "Allstate-shaped chunk")
     chunk_time = time_bin_csr(call)
+    # its predict form: the held-out predict's launch
+    predict_time = time_bin_csr(p_cap.calls[0])
     stages = {}
     bc.bin_csr_matrix(X, tables, times=stages)
 
@@ -7084,7 +7224,8 @@ def phase_train_sparse(seed, smi, rows=1_000_000, held_out=250_000, iters=20,
           "predict_before_after": {"rows": host_rows,
                                    "host_slabs_s": before_s,
                                    "bin_csr_k1_s": after_s},
-          "bin_csr_chunk": chunk_time, "cv": cv_out, "max_abs_err": err})
+          "bin_csr_chunk": chunk_time, "bin_csr_predict": predict_time,
+          "cv": cv_out, "max_abs_err": err})
     return {"name": "bin_csr", "route": "cuda",
             "source": "lightgbm_torch/kernels/csrc/bin_csr.cu",
             "replaces": KERNEL_REPLACES["bin_csr"],
@@ -7094,7 +7235,13 @@ def phase_train_sparse(seed, smi, rows=1_000_000, held_out=250_000, iters=20,
             "bound_ms": chunk_time["bound_ms"],
             "bound_by": chunk_time["bound_by"], "library_ms": None,
             "cell": "train_sparse", "rows": chunk_time["rows"],
-            "entries": chunk_time["entries"]}, {"bin_csr": err}
+            "entries": chunk_time["entries"], "plan": chunk_time["plan"],
+            "tile_rows": chunk_time["tile_rows"],
+            "tile_entries": chunk_time["tile_entries"],
+            "predict": {k: predict_time[k] for k in (
+                "rows", "entries", "groups", "out_bytes", "ms", "plain_ms",
+                "bound_ms", "bound_by", "plan", "tile_rows",
+                "tile_entries")}}, {"bin_csr": err}
 
 
 def nvidia_smi_line() -> str:

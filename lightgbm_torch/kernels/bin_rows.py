@@ -44,6 +44,16 @@ FEAT_FIELDS = ("column", "flags", "num_bins", "default_bin", "bounds_start",
  F_CATS_START, F_CATS_LEN, F_IN_GROUP, F_GROUP,
  F_POSITION) = range(len(FEAT_FIELDS))
 CATEGORICAL, MISSING_NAN_FLAG, SENTINEL, BUNDLED = 1, 2, 4, 8
+# bin_csr's compact record of each column, (F, len(CSR_RECORD_FIELDS))
+# int32 (two int4 a column), the fields its kernel reads: the table
+# (bounds or categories) of its feature's kind; group -1 where the column
+# has no feature.  A numeric feature of at most two bounds is flagged
+# CSR_INLINE and holds its first bound's float64 bits in (start, len), low
+# word first (+inf for one bound): its bin is (bound < value).  The C
+# side's enum follows this order
+CSR_RECORD_FIELDS = ("group", "flags", "position", "in_group", "num_bins",
+                     "default_bin", "start", "len")
+CSR_INLINE = 16
 
 # the raw rows one upload chunk holds at most (float64 bytes)
 CHUNK_BYTES = 256 << 20
@@ -73,6 +83,7 @@ class BinTables(NamedTuple):
     table_bytes: int           # the tables' bytes in a block's shared memory
     host_feats: np.ndarray     # feats on the host, for the plain version
     host_group_start: np.ndarray
+    csr_records: torch.Tensor  # (F, 8) int32 csr_records, for bin_csr
 
 
 class BinPlan(NamedTuple):
@@ -207,7 +218,37 @@ def bin_tables(bin_mappers: Sequence[BinMapper], groups: List[List[int]],
                      t_bounds, t_cats, t_cat_bins,
                      torch.from_numpy(col_entry).to(device), len(bin_mappers),
                      len(groups), out_bytes, table_bytes, host_feats,
-                     host_starts)
+                     host_starts, torch.from_numpy(csr_records(
+                         host_feats, len(bin_mappers),
+                         np.concatenate(bounds) if bounds else np.zeros(0)
+                         )).to(device))
+
+
+def csr_records(host_feats: np.ndarray, num_features: int,
+                bounds: np.ndarray, inline: bool = True) -> np.ndarray:
+    """(F, len(CSR_RECORD_FIELDS)) int32: each column's feature record in
+    bin_csr's compact form (group -1: no feature), ``bounds`` the tables'
+    float64 upper bounds; ``inline``: numeric features of at most two
+    bounds hold their first (CSR_INLINE)."""
+    out = np.zeros((num_features, len(CSR_RECORD_FIELDS)), np.int32)
+    out[:, 0] = -1
+    if len(host_feats):
+        f = host_feats
+        cat = (f[:, F_FLAGS] & CATEGORICAL) != 0
+        start = np.where(cat, f[:, F_CATS_START], f[:, F_BOUNDS_START])
+        size = np.where(cat, f[:, F_CATS_LEN], f[:, F_BOUNDS_LEN])
+        flags = f[:, F_FLAGS].copy()
+        if inline:
+            short = ~cat & (size <= 2)
+            first = np.where(size[short] == 2,
+                             bounds[start[short]], np.inf).astype("<f8")
+            words = first.view("<i4").reshape(-1, 2)
+            flags[short] |= CSR_INLINE
+            start[short], size[short] = words[:, 0], words[:, 1]
+        out[f[:, F_COLUMN]] = np.stack([
+            f[:, F_GROUP], flags, f[:, F_POSITION], f[:, F_IN_GROUP],
+            f[:, F_NUM_BINS], f[:, F_DEFAULT_BIN], start, size], axis=1)
+    return out
 
 
 def storage_dtype(out_bytes: int) -> torch.dtype:

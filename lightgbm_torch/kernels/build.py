@@ -113,8 +113,8 @@ SIGNATURES = {
     "bin_csr": ("lgbt_bin_csr",
                 [_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_int, _c_ptr, _c_int,
                  _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int,
-                 _c_ptr, _c_ptr, _c_int, _c_i64, _c_i64, _c_int, _c_int,
-                 _c_ptr]),
+                 _c_ptr, _c_ptr, _c_ptr, _c_int, _c_i64, _c_i64, _c_int,
+                 _c_ptr, _c_ptr, _c_ptr]),
     "tree_shap": ("lgbt_tree_shap",
                   [_c_ptr, _c_i64, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
                    _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int,

@@ -1867,6 +1867,38 @@ def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
     if not all(replayed_nb[k] for k in HIST_KERNELS):
         raise RuntimeError(f"the backends' runs replayed {replayed_nb}")
     err = {k: max(v, err_255[k], err_nb[k]) for k, v in err.items()}
+    # the growth constraints on dyadic gradients: the CPU's stream text
+    # equal to the card's under stream, scatter and pallas (split budget
+    # 8: one schedule for the three), and at budget 64 (the sprint) under
+    # stream; every card launch replayed
+    cap_c = Capture()
+    constrained = {}
+    for name, extra in CONSTRAINT_ARMS.items():
+        runs = [("cpu", "stream"), ("cuda", "stream")]
+        if name != "all_sprint":
+            runs += [("cuda", "scatter"), ("cuda", "pallas")]
+        c_texts = []
+        for dev, hb in runs:
+            p = {**base, "num_leaves": 31, "max_splits_per_round": 8,
+                 **extra, "objective": "none", "hist_backend": hb,
+                 "device_type": dev}
+            bst = lt.Booster(p, lt.Dataset(X, label=y, params=p))
+            with (cap_c if dev == "cuda" else contextlib.nullcontext()):
+                for _ in range(3):
+                    bst.update(fobj=dyadic_fobj)
+            c_texts.append(model_trees_text(bst))
+        if any(t != c_texts[0] for t in c_texts):
+            raise RuntimeError(f"constrained training ({name}) differs "
+                               f"{[t == c_texts[0] for t in c_texts]}")
+        constrained[name] = {"runs": [f"{d} {hb}" for d, hb in runs],
+                             "leaves_per_tree": [t.num_leaves for t in
+                                                 bst.engine.models]}
+    torch.cuda.synchronize()
+    replayed_c, err_c = replay_against_plain(cap_c)
+    if not all(replayed_c[k] for k in ("route_and_hist", "leaf_gather",
+                                       "scatter_hist", "hist_direct")):
+        raise RuntimeError(f"the constrained runs replayed {replayed_c}")
+    err = {k: max(v, err_c[k]) for k, v in err.items()}
     # the fused iteration on the card against the eager one on the CPU
     fused_cpu = {name: fused_against_cpu(X, y, {**base, **extra}, iters)
                  for name, extra in (("l2", {}),
@@ -1880,9 +1912,33 @@ def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
           "backends_text_identical": True,
           "backends_leaves_per_tree": nb_leaves,
           "replayed_launches_backends": replayed_nb,
+          "constrained": constrained,
+          "constrained_text_identical_cpu_card_backends": True,
+          "replayed_launches_constrained": replayed_c,
           "replay_max_abs_err": err,
           "fused_card_text_equals_eager_cpu": fused_cpu})
     return err
+
+
+# make_train_small's growth constraints, one arm each and all together
+# (at split budget 8), and all together at budget 64 (127 leaves: the full
+# rounds and the sprint): the monotone signs of its logit's additive terms,
+# monotone_penalty, interaction groups that keep the x4 * x5 term together
+# and list every feature, path_smooth
+_SMALL_MONO = [1, 1, 1, -1, 0, 0]
+_SMALL_GROUPS = [[0, 1, 2, 3], [4, 5]]
+_SMALL_EVERY = {"monotone_constraints": _SMALL_MONO, "monotone_penalty": 0.5,
+                "interaction_constraints": _SMALL_GROUPS, "path_smooth": 1.0}
+CONSTRAINT_ARMS = {
+    "monotone": {"monotone_constraints": _SMALL_MONO},
+    "monotone_penalty": {"monotone_constraints": _SMALL_MONO,
+                         "monotone_penalty": 1.5},
+    "interaction": {"interaction_constraints": _SMALL_GROUPS},
+    "path_smooth": {"path_smooth": 2.0},
+    "all": _SMALL_EVERY,
+    "all_sprint": {**_SMALL_EVERY, "num_leaves": 127,
+                   "max_splits_per_round": 64},
+}
 
 
 def k2_work(args, out, int_form=False):
@@ -2057,6 +2113,8 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
                                                       ds, n), iters)
     # one more iteration, its phases timed (synchronised at every boundary)
     profiled_s, phases_s, prof_reads = profiled_iteration(bst)
+    constrained = constrained_arm(params, ds, Xs, ys, iters, held_auc,
+                                  timed_tree)
 
     after_first = tree_s[1:] or tree_s
     emit({"phase": "train", "card": smi, "rows": int(ds.num_data()),
@@ -2074,7 +2132,7 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
           "profiled_iteration_s": profiled_s,
           "profiled_iteration_phases_s": phases_s,
           "profiled_iteration_host_reads": prof_reads,
-          "fused_iter": fused})
+          "fused_iter": fused, "constrained": constrained})
     k2 = {"name": "route_and_hist", "route": "cuda",
           "source": KERNEL_SOURCES["route_and_hist"],
           "replaces": KERNEL_REPLACES["route_and_hist"],
@@ -2091,6 +2149,97 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
           "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bnd[0],
           "bound_by": k4_bnd[1], "library_ms": k4_lib}
     return [k2, k4]
+
+
+# monotone signs of higgs_logit's additive terms (x0, -x1, x7), and
+# interaction groups that keep its x2 * x3 term together and list every
+# feature
+HIGGS_MONOTONE = {0: 1, 1: -1, 7: 1}
+HIGGS_GROUPS = [[2, 3], [0, 1] + list(range(4, 28))]
+
+
+def leaf_paths(tree):
+    """Each leaf's root-to-leaf split features of a host tree."""
+    out = []
+
+    def walk(node, feats):
+        if node < 0:
+            out.append(feats)
+            return
+        feats = feats | {int(tree.split_feature[node])}
+        walk(int(tree.left_child[node]), feats)
+        walk(int(tree.right_child[node]), feats)
+
+    if tree.num_leaves > 1:
+        walk(0, frozenset())
+    return out
+
+
+def constrained_arm(params, ds, Xs, ys, iters, plain_auc, timed_tree,
+                    sweep_rows=1_000, points=64):
+    """phase train's constrained arm on its 1M-row Dataset: monotone
+    constraints (``HIGGS_MONOTONE``), interaction constraints
+    (``HIGGS_GROUPS``) and ``path_smooth`` 1.0, ``iters`` fused trees
+    (constrained single trees fuse; no route fusion applies unsampled).
+    Held-out AUC > 0.75 beside the unconstrained run's; K1's predictions
+    monotone along a ``points``-point sweep of each constrained feature on
+    ``sweep_rows`` held-out rows; every leaf's path features inside one
+    group; one tree's launches replayed bit-equal."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+
+    F = ds.num_feature()
+    mono = [HIGGS_MONOTONE.get(f, 0) for f in range(F)]
+    p = {**params, "monotone_constraints": mono,
+         "interaction_constraints": HIGGS_GROUPS, "path_smooth": 1.0}
+    kernels.reset_launch_counts()
+    with TimedIters(capture_at=timed_tree) as timed:
+        t0 = time.perf_counter()
+        bst = lt.train(p, ds, iters)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if bst.num_trees() != iters or launches["route_and_hist"] == 0:
+        raise RuntimeError(f"constrained training: {bst.num_trees()} trees "
+                           f"with launches {launches}")
+    pred = bst.predict(Xs)
+    c_auc = auc(ys, pred)
+    if not (np.isfinite(pred).all() and c_auc > 0.75):
+        raise RuntimeError(f"constrained held-out AUC {c_auc}")
+    groups = [set(g) for g in HIGGS_GROUPS]
+    for tree in bst.engine.models:
+        for path in leaf_paths(tree):
+            if not any(path <= g for g in groups):
+                raise RuntimeError(f"a leaf's path {sorted(path)} crosses "
+                                   f"the interaction groups")
+    grid = np.linspace(-3.0, 3.0, points, dtype=np.float32)
+    sweeps = {}
+    for f, sign in HIGGS_MONOTONE.items():
+        Xw = np.repeat(Xs[:sweep_rows], points, axis=0)
+        Xw[:, f] = np.tile(grid, sweep_rows)
+        kernels.reset_launch_counts()
+        raw = bst.predict(Xw, raw_score=True).reshape(sweep_rows, points)
+        k1 = kernels.launch_counts()["predict_stream"]
+        steps = np.diff(raw.astype(np.float64), axis=1) * sign
+        if k1 != 1 or steps.min() < 0:
+            raise RuntimeError(f"feature {f}: K1 launches {k1}, a step "
+                               f"against its sign {steps.min()}")
+        sweeps[f] = {"sign": sign, "rows_moved": int((steps.max(axis=1)
+                                                      > 0).sum()),
+                     "largest_step": float(steps.max())}
+    replayed, err = replay_against_plain(timed.cap)
+    if not (replayed["route_and_hist"] and replayed["leaf_gather"]):
+        raise RuntimeError(f"constrained training replayed {replayed}")
+    return {"iterations": iters, "fused": bool(bst.engine._fused),
+            "train_s": train_s, "tree_s": timed.seconds,
+            "s_per_tree": statistics.median(timed.seconds[1:]),
+            "launches": launches, "held_out_auc": c_auc,
+            "unconstrained_held_out_auc": plain_auc,
+            "leaves_per_tree": [t.num_leaves for t in bst.engine.models],
+            "paths_inside_one_group": True, "monotone_sweeps": sweeps,
+            "replayed_launches_timed_tree": replayed,
+            "replay_max_abs_err": err}
 
 
 # --------------------------------------------------------------------------
@@ -3466,13 +3615,20 @@ def dyadic_mc_fobj(score, ds):
     return g.astype(np.float32), h.astype(np.float32)
 
 
-def phase_train_multiclass_small(seed, n=20_000, iters=5, num_leaves=127):
+def phase_train_multiclass_small(seed, n=20_000, iters=5, num_leaves=127,
+                                 sampled_iters=3):
     """Multiclass training (K = 3) on both devices: dyadic custom gradients
     under stream, scatter and pallas must give byte-identical text on the
     CPU and the card; on the card the lockstep and per-class paths must
     give identical text on real softmax gradients under each backend; every
     K2 (K > 1) and K8 launch of the card's lockstep runs is
-    replayed bit-equal through its plain version."""
+    replayed bit-equal through its plain version.  Under bagging and GOSS
+    (``sampled_iters`` iterations, learning rate 1: GOSS samples from the
+    second): dyadic text equal on the CPU and the card under stream and
+    scatter (compaction auto, pad, off) and pallas, lockstep equal to
+    per-class and fused equal to eager on the card's real gradients, a
+    quantized bagged arm CPU == card; every card launch of the compacted
+    K-class rows (K2 both forms, route-only passes, K8) replayed."""
     import torch
     import lightgbm_torch as lt
 
@@ -3522,13 +3678,109 @@ def phase_train_multiclass_small(seed, n=20_000, iters=5, num_leaves=127):
     replayed, err = replay_against_plain(cap)
     if not (replayed["route_and_hist_k"] and replayed["hist_wide"]):
         raise RuntimeError(f"the multiclass runs replayed {replayed}")
+    sampled, s_replayed, s_err = multiclass_sampled_small(
+        X, y, base, sampled_iters)
+    err = {k: max(v, s_err[k]) for k, v in err.items()}
     emit({"phase": "train_multiclass_small", "rows": n, "classes": 3,
           "iterations": iters, "num_leaves": num_leaves, "runs": out,
           "dyadic_text_identical_cpu_card": True,
           "lockstep_per_class_identical": True,
           "fused_eager_identical_card": True,
-          "replayed_launches": replayed, "replay_max_abs_err": err})
+          "replayed_launches": replayed, "sampled": sampled,
+          "sampled_iterations": sampled_iters,
+          "replayed_launches_sampled": s_replayed,
+          "replay_max_abs_err": err})
     return err
+
+
+def multiclass_sampled_small(X, y, base, iters):
+    """phase_train_multiclass_small's sampled arms (see there): (per-arm
+    results, launches replayed, largest differences)."""
+    import torch
+    import lightgbm_torch as lt
+
+    cap = Capture()
+    out = {}
+    pad, off = {"row_compaction": "pad"}, {"row_compaction": "off"}
+    for kind in ("bagging", "goss"):
+        sp = {**sampled_params(kind), "learning_rate": 1.0}
+        res = {}
+        for sched, runs in (
+                ("stream", [("cpu", "stream", {}), ("cuda", "stream", {}),
+                            ("cuda", "stream", pad),
+                            ("cuda", "stream", off)]),
+                ("plain", [("cpu", "scatter", {}), ("cuda", "scatter", {}),
+                           ("cuda", "scatter", pad),
+                           ("cuda", "scatter", off),
+                           ("cuda", "pallas", {})])):
+            texts, compact = [], []
+            for dev, hb, extra in runs:
+                p = {**base, **sp, **extra, "hist_backend": hb,
+                     "device_type": dev}
+                bst = lt.Booster(p, lt.Dataset(X, label=y, params=p))
+                with (cap if dev == "cuda" and not extra
+                      else contextlib.nullcontext()):
+                    for _ in range(iters):
+                        bst.update(fobj=dyadic_mc_fobj)
+                texts.append(model_trees_text(bst))
+                compact.append(bst.engine.last_compact_rows)
+            if any(t != texts[0] for t in texts):
+                raise RuntimeError(f"{kind} {sched}: sampled multiclass "
+                                   f"training differs "
+                                   f"{[t == texts[0] for t in texts]}")
+            # auto compacts on both devices, off and pallas do not
+            if not (compact[0] > 0 and compact[1] > 0 and compact[3] == 0
+                    and compact[-1] == 0):
+                raise RuntimeError(f"{kind} {sched}: compaction {compact}")
+            res[sched] = {"runs": [f"{d} {hb} {e}" for d, hb, e in runs],
+                          "compact_rows": compact,
+                          "leaves_per_tree": [t.num_leaves
+                                              for t in bst.engine.models]}
+        # real softmax gradients on the card: lockstep == per-class, the
+        # fused iteration (graphs replayed) == eager
+        real = {}
+        for name, extra in (("lockstep", {}),
+                            ("per_class", {"multiclass_batched": False}),
+                            ("eager", {"fused_iter": "off"})):
+            p = {**base, **sp, **extra, "device_type": "cuda"}
+            with (cap if name == "lockstep" else contextlib.nullcontext()):
+                real[name] = lt.train(p, lt.Dataset(X, label=y, params=p),
+                                      iters)
+        lock = model_trees_text(real["lockstep"])
+        if not (real["lockstep"].engine._fused
+                and not real["per_class"].engine._fused
+                and not real["eager"].engine._fused):
+            raise RuntimeError(f"{kind}: the real-gradient arms' fusion")
+        if any(model_trees_text(b) != lock for b in real.values()):
+            raise RuntimeError(f"{kind}: lockstep, per-class and eager "
+                               f"sampled multiclass training differ")
+        res["real_lockstep_per_class_fused_eager_identical"] = True
+        res["real_compact_rows"] = real["lockstep"].engine.last_compact_rows
+        out[kind] = res
+    # quantized K = 3 bagged, power-of-two-scaled dyadic gradients: CPU ==
+    # card through K2's int form over the compacted rows
+    q_texts = []
+    for dev in ("cpu", "cuda"):
+        p = {**base, **sampled_params("bagging"), "learning_rate": 0.5,
+             "use_quantized_grad": True, "device_type": dev}
+        bst = lt.Booster(p, lt.Dataset(X, label=y, params=p))
+        with (cap if dev == "cuda" else contextlib.nullcontext()):
+            for _ in range(iters):
+                bst.update(fobj=pow2_mc_fobj)
+        q_texts.append(model_trees_text(bst))
+    if q_texts[0] != q_texts[1] or not bst.engine.last_compact_rows:
+        raise RuntimeError("quantized bagged multiclass: CPU and card "
+                           "differ, or no compaction")
+    out["quantized_bagging"] = {"text_identical_cpu_card": True,
+                                "compact_rows": bst.engine.last_compact_rows}
+    torch.cuda.synchronize()
+    replayed, err = replay_against_plain(cap)
+    if not all(replayed[k] for k in ("route_and_hist_k",
+                                     "route_and_hist_int_k", "hist_wide",
+                                     "leaf_gather")):
+        raise RuntimeError(f"the sampled multiclass runs replayed "
+                           f"{replayed}")
+    return out, replayed, err
 
 
 def k2k_index_add_inputs(args):
@@ -3564,7 +3816,7 @@ def k2k_index_add_inputs(args):
 
 def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
                            held_out=100_000, per_class_iters=5,
-                           timed_iter=2, quant_iters=5):
+                           timed_iter=2, quant_iters=5, sampled_iters=10):
     """The multiclass cell at full width (bench.py's make_multiclass_like,
     28 features, K = 10): 255 leaves, max_bin 63, learning rate 0.1, split
     budget 64, ``iters`` iterations under stream (K2 over K > 1 classes),
@@ -3574,9 +3826,14 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
     replayed bit-equal and timed; a quantized arm (``use_quantized_grad``,
     ``quant_iters`` lockstep iterations through K2's int form over the K
     classes, held-out accuracy > 0.3, one iteration's launches replayed
-    and timed, one more iteration timed phase by phase).  Returns the K2
-    (K > 1) and K8 entries of the kernels line and the replays' largest
-    differences."""
+    and timed, one more iteration timed phase by phase); a bagged arm
+    (fraction 0.8 every iteration) and a GOSS arm (rates 0.2 / 0.1,
+    learning rate 0.5: sampled from the third iteration), each
+    ``sampled_iters`` fused iterations on one compacted view of the K
+    classes (``multiclass_sampled_arm``); the K-class route-only passes
+    (the unsampled sprint, the sampled trees' every round, float and int
+    forms) timed beside their bounds.  Returns the K2 (K > 1) and K8
+    entries of the kernels line and the replays' largest differences."""
     import torch
     import lightgbm_torch as lt
     from lightgbm_torch import kernels
@@ -3673,6 +3930,8 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
         runs[hb]["replayed_launches_timed_iter"] = replayed
     k2k = time_k2_launches([(a, o) for a, o in caps["stream"].k2 if a[10]],
                            False)
+    k2k_route = time_k2_launches(
+        [(a, o) for a, o in caps["stream"].k2 if not a[10]], False)
     k8 = time_hist_launches("hist_wide", caps["scatter"].k8)
     caps.clear()
     # the int form's class axis: the lockstep iteration with quantized
@@ -3697,9 +3956,21 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
         raise RuntimeError(f"quantized multiclass replayed {q_replayed}")
     err["route_and_hist_int_k"] = q_err["route_and_hist_int_k"]
     q_full = time_k2_launches([(a, o) for a, o in qt.cap.k2i if a[9]], True)
+    q_route = time_k2_launches([(a, o) for a, o in qt.cap.k2i if not a[9]],
+                               True)
     qt_seconds = qt.seconds
     del qt
     q_prof_s, q_prof_phases, q_prof_reads = profiled_iteration(qbst)
+    del qbst
+    sampled = {}
+    for kind, extra in (("bagging", {"bagging_fraction": 0.8,
+                                     "bagging_freq": 1}),
+                        ("goss", {"data_sample_strategy": "goss",
+                                  "learning_rate": 0.5})):
+        sampled[kind], e = multiclass_sampled_arm(
+            {**base, **extra}, ds, Xte, yte, sampled_iters, timed_iter + 2)
+        err["route_and_hist_k"] = max(err["route_and_hist_k"],
+                                      e["route_and_hist_k"])
     emit({"phase": "train_multiclass", "card": smi, "rows": rows - held_out,
           "held_out_rows": held_out, "features": 28, "classes": K,
           "iterations": iters, "num_leaves": 255, "binning_s": binning_s,
@@ -3716,7 +3987,8 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
           "profiled_iteration_phases_s": prof_phases,
           "profiled_iteration_host_reads": prof_reads,
           "replay_max_abs_err": err,
-          "k2k_full_hist": k2k, "k8": k8,
+          "k2k_full_hist": k2k, "k2k_route_only": k2k_route, "k8": k8,
+          "sampled": sampled,
           "quantized": {"iterations": quant_iters, "iter_s": qt_seconds,
                         "s_per_iter": statistics.median(qt_seconds[1:]),
                         "launches": q_counts,
@@ -3725,6 +3997,7 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
                         "held_out_top1_accuracy": q_acc,
                         "replayed_launches_timed_iter": q_replayed,
                         "k2_int_k_full_hist": q_full,
+                        "k2_int_k_route_only": q_route,
                         "profiled_iteration_s": q_prof_s,
                         "profiled_iteration_phases_s": q_prof_phases,
                         "profiled_iteration_host_reads": q_prof_reads}})
@@ -3736,7 +4009,22 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
          "max_abs_err": err["route_and_hist_k"],
          "ms": k2k["mean_ms"], "plain_ms": k2k["mean_plain_ms"],
          "bound_ms": k2k["mean_bound_ms"], "bound_by": k2k["bound_by"],
-         "library_ms": k2k["mean_index_add_ms"]},
+         "library_ms": k2k["mean_index_add_ms"],
+         "route_only": {"ms": k2k_route["mean_ms"],
+                        "bound_ms": k2k_route["mean_bound_ms"],
+                        "plain_ms": k2k_route["mean_plain_ms"],
+                        "int_ms": q_route["mean_ms"],
+                        "int_bound_ms": q_route["mean_bound_ms"]},
+         "sampled": {kind: {"launches": a["launches"]["route_and_hist"],
+                            "compact_rows": a["compact_rows"],
+                            "hist_ms": a["k2k_hist"]["mean_ms"],
+                            "hist_bound_ms": a["k2k_hist"]["mean_bound_ms"],
+                            "route_only_ms": (a["k2k_route_only"] or {}).get(
+                                "mean_ms"),
+                            "route_only_bound_ms": (
+                                a["k2k_route_only"] or {}).get(
+                                    "mean_bound_ms")}
+                     for kind, a in sampled.items()}},
         {"name": "hist_wide", "route": "cuda",
          "source": KERNEL_SOURCES["hist_wide"],
          "replaces": KERNEL_REPLACES["hist_wide"],
@@ -3747,6 +4035,70 @@ def phase_train_multiclass(seed, smi, rows=1_000_000, iters=10,
          "bound_ms": k8["mean_bound_ms"], "bound_by": k8["bound_by"],
          "library_ms": k8["mean_index_add_ms"]}]
     return lines, err
+
+
+def multiclass_sampled_arm(params, ds, Xte, yte, iters, timed_iter):
+    """One sampled arm of the multiclass cell: ``iters`` fused iterations,
+    held-out top-1 accuracy > 0.5, the fused text equal to the eager one,
+    and iteration ``timed_iter``'s launches replayed bit-equal and timed.
+    Where the in-bag share saves 25 % of the rows (GOSS; not bagging at
+    0.8, which grows on masked weights over all rows, as in the
+    reference) the K trees grow on one compacted view of the in-bag rows
+    and every round adds a K-class route-only pass over all rows: those
+    launches are timed apart."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.utils.timer import host_reads
+
+    K = params["num_class"]
+    kernels.reset_launch_counts()
+    r0 = host_reads()
+    with TimedIters(capture_at=timed_iter) as timed:
+        bst = lt.train(params, ds, iters)
+        torch.cuda.synchronize()
+    reads = host_reads() - r0
+    counts = kernels.launch_counts()
+    compacts = "data_sample_strategy" in params
+    if (bst.num_trees() != iters * K or counts["route_and_hist"] == 0
+            or counts["route_replay"] != 0
+            or counts["leaf_gather"] != iters
+            or (bst.engine.last_compact_rows > 0) != compacts):
+        raise RuntimeError(f"sampled multiclass: {bst.num_trees()} trees, "
+                           f"launches {counts}, compaction "
+                           f"{bst.engine.last_compact_rows}")
+    prob = bst.predict(Xte)
+    acc = float(np.mean(np.argmax(prob, axis=1) == yte))
+    if not (np.isfinite(prob).all() and acc > 0.5):
+        raise RuntimeError(f"sampled multiclass accuracy {acc}")
+    fused = fused_and_eager(bst, timed, counts, reads,
+                            lambda extra, n: lt.train({**params, **extra},
+                                                      ds, n), iters)
+    replayed, err = replay_against_plain(timed.cap)
+    n_rows = ds.device_data().bins.shape[0]
+    hist = [(a, o) for a, o in timed.cap.k2 if a[10]]
+    # the route-only passes over all rows: a compacted tree's every round
+    # (its sprint also routes the compacted rows), an uncompacted tree's
+    # sprint
+    route = [(a, o) for a, o in timed.cap.k2
+             if not a[10] and a[0].shape[1] == n_rows]
+    if not (replayed["route_and_hist_k"] and hist
+            and (route or not compacts)
+            and all((a[0].shape[1] < n_rows) == compacts for a, _ in hist)):
+        raise RuntimeError(f"sampled multiclass replayed {replayed}, "
+                           f"{len(hist)} passes with histograms, "
+                           f"{len(route)} route-only")
+    out = {"iterations": iters, "launches": counts,
+           "k2_launches_per_iter": counts["route_and_hist"] / iters,
+           "compact_rows": bst.engine.last_compact_rows,
+           "sampled_rows": bst.engine.last_sampled_rows,
+           "held_out_top1_accuracy": acc, "iter_s": timed.seconds,
+           "s_per_iter": statistics.median(timed.seconds[1:]),
+           "fused_iter": fused, "replayed_launches_timed_iter": replayed,
+           "k2k_hist": time_k2_launches(hist, False),
+           "k2k_route_only": (time_k2_launches(route, False) if route
+                              else None)}
+    return out, err
 
 
 # --------------------------------------------------------------------------
@@ -7037,7 +7389,7 @@ def make_allstate_like(n, seed, features=4228, columns=30):
 
 
 def phase_train_sparse(seed, smi, rows=1_000_000, held_out=250_000, iters=20,
-                       cv_folds=5, cv_rounds=10, chunk_rows=100_000,
+                       cv_folds=5, cv_rounds=5, chunk_rows=100_000,
                        host_rows=20_000):
     """The Allstate-shaped cell (``make_allstate_like``): ``rows`` trained
     from a CSR Dataset (mappers and EFB on the host, bins by bin_csr on the
@@ -7244,6 +7596,13 @@ def phase_train_sparse(seed, smi, rows=1_000_000, held_out=250_000, iters=20,
                 "tile_entries")}}, {"bin_csr": err}
 
 
+def ptxas_lines(build, names):
+    """The register and spill lines of each named kernel's build log."""
+    return {n: [ln.strip() for ln in
+                (build.BUILD_DIR / f"{n}.log").read_text().splitlines()
+                if "registers" in ln or "spill" in ln] for n in names}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -7276,13 +7635,12 @@ def main(argv=None) -> int:
           "python": sys.version.split()[0],
           "package": lightgbm_torch.__version__})
     t0 = time.perf_counter()
-    built = build.build()
+    # tree_shap, the longest build, compiles while the first phases run;
+    # its first launch (phase predict_surface_small) waits for it
+    shap_build = build.build(["tree_shap"], wait=False)
+    built = build.build([n for n in build.SOURCES if n != "tree_shap"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_kernel_s": built,
-          "ptxas": {n: [ln.strip() for ln in
-                        (build.BUILD_DIR / f"{n}.log").read_text().splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for n in built}})
+          "per_kernel_s": built, "ptxas": ptxas_lines(build, built)})
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         phase_small(args.seed, tmp)
         small_err = phase_train_small(args.seed)
@@ -7291,6 +7649,11 @@ def main(argv=None) -> int:
         k1, binner, ds, Xs, ys, full_bst = phase_full(
             args.seed, args.rows, args.trees, args.leaves, tmp, smi)
         k2, k4 = phase_train(ds, Xs, ys, args.train_iters, smi)
+        t0 = time.perf_counter()
+        shap_built = shap_build()
+        emit({"phase": "build_tree_shap", "waited_s": time.perf_counter() - t0,
+              "per_kernel_s": shap_built,
+              "ptxas": ptxas_lines(build, shap_built)})
         surface_small_err = phase_predict_surface_small(args.seed)
         k1["leaf"], shap_line = phase_predict_surface(
             smi, full_bst, ds, Xs, iters=args.train_iters)

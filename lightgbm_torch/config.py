@@ -447,14 +447,20 @@ class Config:
     multi_error_top_k: int = 1
     eval_at: Any = None  # the ranking metrics' cutoffs; None = [1, 2, 3, 4, 5]
 
+    # Growth constraints (ops/grow.py, ops/split.py): basic monotone
+    # constraints with their split penalty (the intermediate and advanced
+    # methods raise), interaction constraints, path smoothing
+    monotone_constraints: Any = None
+    monotone_constraints_method: str = "basic"
+    monotone_penalty: float = 0.0
+    interaction_constraints: Any = None
+    path_smooth: float = 0.0
+
     # Training features that are not ported yet: a value other than the
     # default raises (models/gbdt.GBDT._check_unsupported_params)
     tree_learner: str = "serial"
     feature_fraction_bynode: float = 1.0
     extra_trees: bool = False
-    path_smooth: float = 0.0
-    monotone_constraints: Any = None
-    interaction_constraints: Any = None
     forcedsplits_filename: str = ""
     cegb_penalty_split: float = 0.0
     cegb_penalty_feature_lazy: Any = None
@@ -572,6 +578,7 @@ class Config:
 _VECTOR_FIELDS: Dict[str, Any] = {
     "eval_at": int,
     "label_gain": float,
+    "monotone_constraints": int,
     "max_bin_by_feature": int,
 }
 

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 from ..utils.log import LightGBMError
 
@@ -122,6 +122,8 @@ SIGNATURES = {
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# kernel name -> the wait of its build started with ``wait=False``
+_PENDING: Dict[str, Callable[[], Dict[str, float]]] = {}
 
 
 def nvcc() -> str:
@@ -145,13 +147,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+def build(names: Optional[Iterable[str]] = None, wait: bool = True):
     """Compile every named kernel not built yet, all nvcc processes started
     together.  Returns seconds per kernel built (the compiler's ``-Xptxas
-    -v`` report goes to ``_build/<name>.log``).  Raises on a failed build."""
+    -v`` report goes to ``_build/<name>.log``); raises on a failed build.
+    ``wait=False`` returns at once a function that waits for the builds and
+    returns the same; ``load`` waits for a kernel's pending build."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = [n for n in names
+            if not library_path(n).exists() and n not in _PENDING]
     procs = {}
     t0 = time.perf_counter()
     for n in todo:
@@ -162,21 +167,32 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         log = open(BUILD_DIR / f"{n}.log", "wb")
         procs[n] = (subprocess.Popen(cmd, stdout=log,
                                      stderr=subprocess.STDOUT), tmp, out, log)
-    seconds = {}
-    failed = []
-    for n, (proc, tmp, out, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        seconds[n] = time.perf_counter() - t0
-        if rc != 0:
-            failed.append(n)
-            continue
-        os.replace(tmp, out)
-    if failed:
-        logs = "\n".join((BUILD_DIR / f"{n}.log").read_text(errors="replace")
-                         for n in failed)
-        raise LightGBMError(f"nvcc failed for {failed}:\n{logs}")
-    return seconds
+    seconds: Dict[str, float] = {}
+
+    def finish() -> Dict[str, float]:
+        failed = []
+        for n, (proc, tmp, out, log) in procs.items():
+            if n in seconds:
+                continue
+            rc = proc.wait()
+            log.close()
+            _PENDING.pop(n, None)
+            seconds[n] = time.perf_counter() - t0
+            if rc != 0:
+                failed.append(n)
+                continue
+            os.replace(tmp, out)
+        if failed:
+            logs = "\n".join((BUILD_DIR / f"{n}.log").read_text(
+                errors="replace") for n in failed)
+            raise LightGBMError(f"nvcc failed for {failed}:\n{logs}")
+        return dict(seconds)
+
+    if wait:
+        return finish()
+    for n in procs:
+        _PENDING[n] = finish
+    return finish
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -185,6 +201,8 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is None:
         path = library_path(name)
+        if name in _PENDING:
+            _PENDING[name]()
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))

@@ -21,9 +21,17 @@ training score with the bin-space tree walk (gbdt.py:2542).
 
 A multiclass iteration (``multiclass`` and ``multiclassova``, K = num_class)
 grows K class trees from the (N, K) gradients: in lockstep through
-``grow_tree_k`` (``multiclass_batched``, the default) or one ``grow_tree``
-per class, the same trees either way, and adds all K to the (N, K) score
-with one K4 launch over the flattened (K * L) leaf values.
+``grow_tree_k`` (``multiclass_batched``, the default, with plain growth) or
+one ``grow_tree`` per class, the same trees either way, and adds all K to
+the (N, K) score with one K4 launch over the flattened (K * L) leaf values.
+Under bagging or GOSS the K trees grow on one compacted view of the in-bag
+rows (reference: gbdt.py:1538-1578).
+
+Growth constraints (reference: gbdt.py:1090-1140): ``monotone_constraints``
+(the basic method) with ``monotone_penalty``, ``interaction_constraints``
+and ``path_smooth`` reach the grower as (F,) signs, (C, F) feature groups
+and a parameter; under them K class trees grow one at a time, as in the
+reference (gbdt.py:1478), and a single tree may fuse.
 
 Quantized gradients (``use_quantized_grad``, reference: gbdt.py:56-77,
 :2192-2208, :2517-2540): after sampling and pad masking, ``quantize_gh``
@@ -65,7 +73,7 @@ and runs eager.
 
 Training covers gbdt on numeric and categorical features with every
 objective of the reference (or custom gradients), ranking with
-``bagging_by_query``; every other training
+``bagging_by_query``, the basic growth constraints; every other training
 feature raises "not yet ported" (``_check_unsupported_params``) instead of
 training a different model.
 """
@@ -107,6 +115,16 @@ _COMPACT_UNIT = 256
 # accepted hist_backend values (reference: gbdt.py:44); segsum and onehot
 # are not ported
 HIST_BACKENDS = ("auto", "segsum", "onehot", "pallas", "stream", "scatter")
+
+
+def _nonzero(v) -> bool:
+    """A vector parameter (a list, or a comma-separated string) that holds a
+    value other than 0."""
+    if v is None or (isinstance(v, str) and not v.strip()):
+        return False
+    if isinstance(v, str):
+        v = [x for x in v.replace(" ", "").split(",") if x]
+    return bool(np.any(np.asarray(v, dtype=float) != 0))
 
 
 def _not_ported(what: str) -> LightGBMError:
@@ -337,20 +355,15 @@ class GBDT:
             raise _not_ported(f"tree_learner={c.tree_learner!r}")
         if c.feature_fraction_bynode < 1.0:
             raise _not_ported("feature_fraction_bynode < 1")
-
-        def nonzero(v):
-            if v is None or (isinstance(v, str) and not v.strip()):
-                return False
-            if isinstance(v, str):
-                v = [x for x in v.replace(" ", "").split(",") if x]
-            return bool(np.any(np.asarray(v, dtype=float) != 0))
-
-        for key in ("monotone_constraints", "cegb_penalty_feature_lazy",
+        if (_nonzero(c.monotone_constraints)
+                and c.monotone_constraints_method in ("intermediate",
+                                                      "advanced")):
+            raise _not_ported("monotone_constraints_method="
+                              f"{c.monotone_constraints_method!r}")
+        for key in ("cegb_penalty_feature_lazy",
                     "cegb_penalty_feature_coupled"):
-            if nonzero(getattr(c, key)):
+            if _nonzero(getattr(c, key)):
                 raise _not_ported(key)
-        if c.interaction_constraints:
-            raise _not_ported("interaction_constraints")
         if c.cegb_penalty_split > 0.0:
             raise _not_ported("cegb_penalty_split")
         if c.forcedsplits_filename:
@@ -358,8 +371,6 @@ class GBDT:
         for key in ("linear_tree", "extra_trees"):
             if getattr(c, key):
                 raise _not_ported(key)
-        if c.path_smooth > 0.0:
-            raise _not_ported("path_smooth")
         w = c.auc_mu_weights
         if w is not None and (w.strip() if isinstance(w, str)
                               else np.size(w)):
@@ -373,6 +384,61 @@ class GBDT:
         does not have."""
         b = self.config.hist_backend
         return "stream" if b == "auto" else b
+
+    def _monotone_array(self) -> Optional[torch.Tensor]:
+        """(F,) int64 in {-1, 0, 1} on the device, or None (reference:
+        gbdt.py:1090-1111; monotone_constraints.hpp basic method)."""
+        mc = self.config.monotone_constraints
+        if mc is None or (hasattr(mc, "__len__") and len(mc) == 0):
+            return None
+        arr = np.asarray(mc, np.int32)
+        F = self.dd.num_features
+        if arr.shape[0] != F:
+            raise LightGBMError(
+                f"monotone_constraints has {arr.shape[0]} entries but the "
+                f"dataset has {F} features")
+        if not np.any(arr):
+            return None
+        if self.config.monotone_constraints_method not in (
+                "basic", "intermediate", "advanced"):
+            log_warning(
+                f"monotone_constraints_method="
+                f"{self.config.monotone_constraints_method!r} is not "
+                "implemented; falling back to 'basic'")
+        return torch.as_tensor(arr.astype(np.int64), device=self.device)
+
+    def _interaction_group_masks(self) -> Optional[torch.Tensor]:
+        """(C, F) bool allowed-feature groups on the device, or None
+        (reference: gbdt.py:1117-1140; col_sampler.hpp; config.cpp
+        ParseInteractionConstraints)."""
+        ic = self.config.interaction_constraints
+        if not ic:
+            return None
+        if isinstance(ic, str):
+            import json
+            s = ic.strip()
+            if not s.startswith("[["):
+                s = "[" + s + "]"    # "[0,1],[2,3]" -> "[[0,1],[2,3]]"
+            ic = json.loads(s)
+        if ic and not isinstance(ic[0], (list, tuple)):
+            ic = [ic]
+        F = self.dd.num_features
+        masks = np.zeros((len(ic), F), bool)
+        for i, group in enumerate(ic):
+            for f in group:
+                if not 0 <= int(f) < F:
+                    raise LightGBMError(
+                        f"interaction_constraints feature index {f} out of "
+                        "range")
+                masks[i, int(f)] = True
+        return torch.as_tensor(masks, device=self.device)
+
+    def _use_batched_multiclass(self) -> bool:
+        """K class trees in lockstep (reference: gbdt.py:1460-1499):
+        ``multiclass_batched`` and plain growth; under a growth constraint
+        they grow one at a time."""
+        return (self.config.multiclass_batched
+                and self.grow_params.plain_growth)
 
     def _make_grow_params(self) -> GrowParams:
         c = self.config
@@ -393,6 +459,10 @@ class GBDT:
                            c.max_cat_to_onehot, c.min_data_per_group)
                  if cat_bins else None),
             cat_bins=max(cat_bins, default=0),
+            has_monotone=self._monotone_array() is not None,
+            monotone_penalty=c.monotone_penalty,
+            path_smooth=c.path_smooth,
+            has_interaction=self._interaction_group_masks() is not None,
             # auto resolves on: the replay gives the same leaves as the
             # per-round route-only passes, and the grower applies the
             # reference's gate
@@ -420,13 +490,10 @@ class GBDT:
             if label is not None:
                 label_pad = np.zeros(n_pad, np.float64)
                 label_pad[:len(label)] = label
-            strategy = create_sample_strategy(
+            self.sample_strategy = create_sample_strategy(
                 self.config, n_pad, label_pad, self.device,
                 self.train_data.get_query_boundaries())
-            if self.num_tree_per_iteration > 1 and strategy.is_active():
-                # a compacted K-class tree (grow_tree_k's compact_rows)
-                raise _not_ported("multiclass training with bagging or GOSS")
-            self.sample_strategy = strategy
+            self._set_constraints()
             self.grow_params = self._make_grow_params()
             # K2, K5 and K8 read the (G, N) layout K1 reads, K6/K7 the
             # (N, G) rows of DeviceData.bins
@@ -454,12 +521,18 @@ class GBDT:
             # no iteration yet (_ensure_training builds what follows), or
             # only the rate, which no step holds
             return
+        self._set_constraints()
         self.grow_params = self._make_grow_params()
         self._set_fused_gate()
         self._graphs = GraphRunner(self.device)
         self._fused_growers = {}
         self._loop_rounds = []
         self._tree_out = self._bits_out = None
+
+    def _set_constraints(self) -> None:
+        """The growth constraints' device tensors, from the config."""
+        self._monotone = self._monotone_array()
+        self._groups = self._interaction_group_masks()
 
     def _set_fused_gate(self) -> None:
         """Whether iterations fuse, and the batched flag poll's cadence
@@ -481,7 +554,9 @@ class GBDT:
         maps and block plans from the data.  ``auto`` fuses on a CUDA
         device and not on the CPU, as the reference's auto fuses on its
         accelerator; ``on`` on the CPU runs the same device-state grower
-        without graphs."""
+        without graphs.  Growth constraints fuse for one class tree (as in
+        the reference); K constrained class trees grow one at a time and
+        run eager."""
         c = self.config
         mode = str(c.fused_iter).strip().lower()
         if mode == "off":
@@ -491,7 +566,7 @@ class GBDT:
                 or getattr(obj, "need_renew_leaf", False)
                 or (c.use_quantized_grad and c.quant_train_renew_leaf)
                 or (self.num_tree_per_iteration > 1
-                    and not c.multiclass_batched)):
+                    and not self._use_batched_multiclass())):
             return False
         backend = self.grow_params.hist_backend
         if backend != "stream":
@@ -523,10 +598,11 @@ class GBDT:
     def _row_compaction_capacity(self, mask: torch.Tensor) -> int:
         """Row capacity of this iteration's compacted view, 0 for none
         (reference: gbdt.py:498-590).  The in-bag count is read once per
-        distinct mask (``mask_key``) and rounded up to a ~3 % quantum of
-        256-row units; compaction stays off when it would save under 25 %
-        of the rows.  ``pad`` partitions at the full row count.  The
-        capacity is sticky while it still covers the count, as in the
+        distinct mask (``mask_key``; K class trees share the mask) and
+        rounded up to a ~3 % quantum of 256-row units; compaction stays
+        off when it would save under 25 % of the rows.  ``pad`` partitions
+        at the full row count.  The capacity is sticky while it still
+        covers the count, as in the
         reference (whose jitted grower recompiles at each new capacity);
         out-of-bag rows in the view weigh zero, so the capacity never
         changes the tree.  Only ``stream`` and ``scatter`` compact
@@ -600,7 +676,8 @@ class GBDT:
                 or gp.hist_backend != "stream"):
             # the other backends route every row with torch ops
             return 0
-        if fusion_applies(gp, self.last_compact_rows):
+        if fusion_applies(gp, self.last_compact_rows,
+                          self.num_tree_per_iteration):
             return 1
         L = gp.num_leaves
         S = min(gp.max_splits_per_round, max(L - 1, 1))
@@ -665,7 +742,9 @@ class GBDT:
                             self.dd.routing, self.grow_params,
                             self.dd.max_bins, timer=self.timer,
                             col_mask=col_mask, compact_rows=compact,
-                            bins=self.dd.bins, gh_scales=gh_scales)
+                            bins=self.dd.bins, gh_scales=gh_scales,
+                            monotone=self._monotone,
+                            interaction_groups=self._groups)
             if renew:
                 res = res._replace(arrays=self._renew_leaves_exact(
                     res.arrays, res.leaf_id, grad_raw, hess_raw))
@@ -681,7 +760,7 @@ class GBDT:
                 self.score = self.score + delta
         else:
             trees, leaf_k, values = self._grow_classes(
-                grad, hess, mask, col_mask, gh_scales,
+                grad, hess, mask, col_mask, compact, gh_scales,
                 (grad_raw, hess_raw) if renew else None)
             with phase(self.timer, "k4"):
                 # every class's leaf values added to its score column in
@@ -822,7 +901,8 @@ class GBDT:
             gr = self._fused_growers[compact] = _DeviceGrower(
                 self._bins_T, self.num_tree_per_iteration, self.dd.layout,
                 self.dd.routing, self.grow_params, self.dd.max_bins,
-                col_mask=self._fused_in.col_mask, compact_rows=compact)
+                col_mask=self._fused_in.col_mask, compact_rows=compact,
+                monotone=self._monotone, interaction_groups=self._groups)
         return gr
 
     def _fused_head(self, st: TrainState, gr: _DeviceGrower,
@@ -834,7 +914,8 @@ class GBDT:
         grad, hess = self.objective.get_gradients(st.score[:self.num_data])
         grad, hess = self._pad(grad), self._pad(hess)
         if sample_mode == "mask_arg":
-            mask, grad, hess = inp.mask, grad * inp.mask, hess * inp.mask
+            m = inp.mask if k == 1 else inp.mask[:, None]
+            mask, grad, hess = inp.mask, grad * m, hess * m
         elif sample_mode == "traced":
             mask, grad, hess = self.sample_strategy.sample_keyed(
                 (inp.skey[0], inp.skey[1]), grad, hess)
@@ -1045,21 +1126,22 @@ class GBDT:
         return arrays._replace(
             leaf_value=torch.where(keep, vals, arrays.leaf_value))
 
-    def _grow_classes(self, grad, hess, mask, col_mask, gh_scales=None,
-                      raw=None):
+    def _grow_classes(self, grad, hess, mask, col_mask, compact: int,
+                      gh_scales=None, raw=None):
         """The K class trees of an iteration from the (n_pad, K) gradients
-        (reference: ``_grow_classes``, gbdt.py:1538-1570): in lockstep
-        (``multiclass_batched``) or one ``grow_tree`` per class.  gh_scales:
-        the (2, K) quantized scales, or None; raw: the (n_pad, K) raw
-        (grad, hess) when leaves are renewed, which grows one class at a
-        time as the reference does (gbdt.py:2204-2208).  Returns each
-        class's (arrays, rounds), the (K, n_pad) leaf ids and the (K, L)
-        leaf values."""
+        (reference: ``_grow_classes``, gbdt.py:1538-1578): in lockstep
+        (``_use_batched_multiclass``) or one ``grow_tree`` per class, each
+        on the compacted view of ``compact`` rows (0: none).  gh_scales: the
+        (2, K) quantized scales, or None; raw: the (n_pad, K) raw (grad,
+        hess) when leaves are renewed, which grows one class at a time as
+        the reference does (gbdt.py:2204-2208).  Returns each class's
+        (arrays, rounds), the (K, n_pad) leaf ids and the (K, L) leaf
+        values."""
         k = self.num_tree_per_iteration
         gT, hT = grad.t().contiguous(), hess.t().contiguous()
         scales = None if gh_scales is None else gh_scales.t().contiguous()
-        kw = dict(timer=self.timer, col_mask=col_mask)
-        if self.config.multiclass_batched and raw is None:
+        kw = dict(timer=self.timer, col_mask=col_mask, compact_rows=compact)
+        if self._use_batched_multiclass() and raw is None:
             res = grow_tree_k(self._bins_T, gT, hT, mask, self.dd.layout,
                               self.dd.routing, self.grow_params,
                               self.dd.max_bins, gh_scales=scales, **kw)
@@ -1075,7 +1157,9 @@ class GBDT:
                              self.grow_params, self.dd.max_bins,
                              bins=self.dd.bins,
                              gh_scales=None if scales is None else scales[kk],
-                             **kw) for kk in range(k)]
+                             monotone=self._monotone,
+                             interaction_groups=self._groups, **kw)
+                   for kk in range(k)]
         if raw is not None:
             results = [r._replace(arrays=self._renew_leaves_exact(
                 r.arrays, r.leaf_id, raw[0][:, kk], raw[1][:, kk]))

@@ -3,7 +3,9 @@
 The port's counterpart of ``lightgbm_tpu/models/sample_strategy.py``
 (reference: src/boosting/sample_strategy.cpp, bagging.hpp:15, goss.hpp:19).
 A strategy returns each iteration a {0, 1} float32 in-bag mask over the
-padded rows and the gradients it scales; the engine multiplies the mask
+padded rows and the gradients it scales, (N,) or, for K class trees, (N, K)
+with every class of a row scaled alike (reference:
+sample_strategy.py:140-146, :210-234); the engine multiplies the mask
 into the count channel and hands the grower a compaction capacity
 (models/gbdt.py, ops/compact.py).  The masks are drawn with
 ``utils.random.uniform``, which equals the reference's ``jax.random.uniform``
@@ -109,7 +111,8 @@ class BaggingSampleStrategy(SampleStrategy):
         if not self.active:
             return super().sample(iteration, grad, hess)
         m = self.epoch_mask(iteration)
-        return m, grad * m, hess * m
+        mg = m if grad.dim() == 1 else m[:, None]
+        return m, grad * mg, hess * mg
 
     def epoch_mask(self, iteration: int) -> torch.Tensor:
         """The (cached) in-bag mask of this iteration's bagging epoch."""
@@ -137,8 +140,10 @@ class BaggingSampleStrategy(SampleStrategy):
 
 class GOSSStrategy(SampleStrategy):
     """Gradient-based one-side sampling (reference: goss.hpp:19): keep the
-    ``top_rate`` share of rows by |grad * hess|, draw ``other_rate`` of the
-    rest and amplify their gradients by (1 - top_rate) / other_rate."""
+    ``top_rate`` share of rows by |grad * hess| (for K classes by the sum
+    over the classes of |grad_k * hess_k|), draw ``other_rate`` of the rest
+    and amplify their gradients, every class's alike, by (1 - top_rate) /
+    other_rate."""
 
     def is_active(self) -> bool:
         return True
@@ -177,6 +182,8 @@ class GOSSStrategy(SampleStrategy):
         c = self.config
         n = self.num_data
         mag = torch.abs(grad * hess)
+        if mag.dim() == 2:
+            mag = mag.sum(dim=1)
         k_top = max(1, int(c.top_rate * n))
         thresh = torch.sort(mag).values[n - k_top]
         is_top = mag >= thresh
@@ -186,6 +193,8 @@ class GOSSStrategy(SampleStrategy):
         mask = (is_top | keep_rest).to(torch.float32)
         # amp rounds to float32 before it scales, as in the reference
         scale = torch.where(keep_rest, amp, 1.0) * mask
+        if grad.dim() == 2:
+            scale = scale[:, None]
         return mask, grad * scale, hess * scale
 
 

@@ -52,18 +52,22 @@ def check_compact_supported(hist_backend: str) -> None:
 def compact_row_views(bins_T: torch.Tensor, grad: torch.Tensor,
                       hess: torch.Tensor, cnt: torch.Tensor, capacity: int):
     """The compacted natural-order views the ``scatter`` backend reads:
-    (bins_c (G, capacity), grad_c, hess_c, cnt_c, perm); the caller gathers
-    each round's slots through ``perm``."""
+    (bins_c (G, capacity), grad_c, hess_c, cnt_c, perm); grad and hess are
+    (N,) or (K, N), gathered on their last axis (reference:
+    lightgbm_tpu/ops/grow.py:1878-1890); the caller gathers each round's
+    slots through ``perm``."""
     perm = plan_sample_rows(cnt, capacity).perm
     return compact_transposed_view(bins_T, perm, grad, hess, cnt) + (perm,)
 
 
 def compact_transposed_view(bins_T: torch.Tensor, perm: torch.Tensor,
                             *rows: torch.Tensor):
-    """The (G, capacity) contiguous bins of the plan's rows and each (N,)
-    per-row tensor of ``rows`` gathered the same way."""
+    """The (G, capacity) contiguous bins of the plan's rows and each
+    per-row tensor of ``rows``, (N,) or (K, N), gathered the same way on its
+    last axis: one partition serves every class (reference:
+    lightgbm_tpu/ops/grow.py:1805-1813)."""
     bins_h = bins_T.index_select(1, perm).contiguous()
-    return (bins_h,) + tuple(r.index_select(0, perm).contiguous()
+    return (bins_h,) + tuple(r.index_select(r.dim() - 1, perm).contiguous()
                              for r in rows)
 
 

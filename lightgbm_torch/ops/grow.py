@@ -21,11 +21,14 @@ rows and builds the histograms together.  The schedule is the reference's:
 A sampled tree (bagging or GOSS, ``compact_rows > 0``) grows on a compacted
 view: one stable partition per tree (ops/compact.py) puts the in-bag rows
 first, and every K2 pass with histograms (root, rounds, sprint) reads the
-(G, compact_rows) view and its own leaf ids.  Every row of the full set
-still needs its leaf for the score update.  Unfused, each round adds a
-route-only K2 pass over all N rows (reference: ops/grow.py:1023-1032).
-Fused (``route_fusion``, under the reference's gate :626-633: S >= 64, no
-depth limit, at most 256 leaves), each round's (L, 16) route records are
+(G, compact_rows) view and its own leaf ids; K class trees share the one
+partition, their (K, compact_rows) weights gathered together (reference:
+:1805-1813).  Every row of the full set still needs its leaf for the
+score update.  Unfused, each round adds a route-only K2 pass over all N
+rows, for K classes one class-axis pass (reference: :1023-1032,
+:2120-2126).  Fused (``route_fusion``, one class tree only, under the
+reference's gate :626-633: S >= 64, no depth limit, at most 256 leaves,
+plain growth), each round's (L, 16) route records are
 kept, and after growth one K3 launch (kernels/route_replay.py) replays them
 over all rows from leaf 0 (:1562-1585).  The histograms are exact fixed
 point and the shift is chosen from the full row count, so compaction and
@@ -69,6 +72,18 @@ minus child).  No fixed-point shift is chosen then.  The other backends, and
 ``stream`` outside the gate, sum the grid-valued floats as any float
 weights.
 
+Growth constraints (reference: :1360-1385, :466-475, :1563-1569), one
+class tree at a time as in the reference (``grow_tree_k`` grows plain
+trees only): with basic monotone constraints or ``path_smooth`` every leaf
+keeps output bounds ``out_lo`` / ``out_hi`` and its output ``leaf_out``.
+A split sets its children's outputs from their sums under the parent's
+bounds (smoothed toward the parent's output), and under a monotone
+feature (numeric splits only) the midpoint of the two outputs bounds each
+child on its side; the split scan gains at the constrained outputs
+(ops/split.py) and the grown leaves keep those outputs.  Interaction
+constraints keep each leaf's (F,) path features, and a leaf's scan sees
+only the features of the groups that hold its whole path.
+
 Categorical splits (reference: ops/grow.py:936-951, :2017-2031): each
 chosen categorical split's left bins are recomputed from the split leaf's
 cached histogram (``categorical_left_bitset``), kept in the node arrays'
@@ -87,8 +102,8 @@ of :1530-1560) keeps those counts on the device, gives every round a static
 shape (K * min(2**r, B) pair slots, K2 at min(2**r, B) slots) and reads the
 host once per tree, after the rounds its caller planned: the same trees, bit
 for bit, since a round no class needs changes nothing.  Not ported:
-forced splits, monotone and interaction constraints, CEGB, by-node feature
-sampling, extra trees, path smoothing and meshes.
+forced splits, the intermediate and advanced monotone methods, CEGB,
+by-node feature sampling, extra trees and meshes.
 """
 from __future__ import annotations
 
@@ -110,7 +125,8 @@ from .histogram import (build_histograms, build_histograms_k, hist_shift,
                         scale_table_dev)
 from .predict import feature_local_bin
 from .split import (EPS_HESS, NEG_INF, CatParams, categorical_left_bitset,
-                    find_best_splits, gather_feature_histograms, leaf_output)
+                    constrained_child_outputs, find_best_splits,
+                    gather_feature_histograms, leaf_output, penalty_table)
 
 
 class GrowParams(NamedTuple):
@@ -136,6 +152,19 @@ class GrowParams(NamedTuple):
     # the most bins of a categorical feature, which sizes the bitset words
     # a round routes by (0: not given, Bmax)
     cat_bins: int = 0
+    # growth constraints (reference: ops/grow.py:57-89); the monotone signs
+    # and the interaction groups themselves go to the grower as tensors
+    has_monotone: bool = False
+    monotone_penalty: float = 0.0
+    path_smooth: float = 0.0
+    has_interaction: bool = False
+
+    @property
+    def plain_growth(self) -> bool:
+        """No growth constraint is on (reference: :116-123): the gate of
+        route fusion and of K class trees in lockstep."""
+        return not (self.has_monotone or self.has_interaction
+                    or self.path_smooth > 0.0)
 
 
 class GrowResult(NamedTuple):
@@ -146,17 +175,20 @@ class GrowResult(NamedTuple):
     rounds: int               # splitting rounds run: bounds the tree's depth
 
 
-def fusion_applies(params: GrowParams, compact_rows: int) -> bool:
-    """The reference's gate for route fusion (ops/grow.py:626-633): a
-    compacted stream tree grown in the sprint schedule (S >= 64, no depth
-    limit) with at most 256 leaves, on data without a categorical feature
-    (K3's route records carry no bitsets).  Forced splits and CEGB, which
-    the gate also excludes, do not train in the port."""
+def fusion_applies(params: GrowParams, compact_rows: int,
+                   num_class: int = 1) -> bool:
+    """The reference's gate for route fusion (ops/grow.py:626-633): one
+    compacted stream tree (``grow_tree_k`` has no replay) grown in the
+    sprint schedule (S >= 64, no depth limit) with at most 256 leaves and
+    plain growth, on data without a categorical feature (K3's route records
+    carry no bitsets).  Forced splits and CEGB, which the gate also
+    excludes, do not train in the port."""
     L = params.num_leaves
     S = min(params.max_splits_per_round, max(L - 1, 1))
     return (params.route_fusion and params.hist_backend == "stream"
-            and compact_rows > 0 and S >= 64 and params.max_depth <= 0
-            and L <= 256 and params.cat is None)
+            and num_class == 1 and compact_rows > 0 and S >= 64
+            and params.max_depth <= 0 and L <= 256 and params.cat is None
+            and params.plain_growth)
 
 
 # per-leaf fields of the growing trees: (dtype, initial value); each is a
@@ -164,6 +196,8 @@ def fusion_applies(params: GrowParams, compact_rows: int) -> bool:
 # writes of a dead pair (a device-state round's split slot that no class
 # fills) and of a link from a leaf without a parent
 _I64, _F32 = torch.int64, torch.float32
+# the output bound of an unconstrained leaf (reference: BIG, :421)
+BIG = 1e30
 _LEAF_FIELDS = {
     "split_feature": (_I64, 0), "threshold_bin": (_I64, 0),
     "dir_flags": (_I64, 0), "left_child": (_I64, 0),
@@ -174,7 +208,8 @@ _LEAF_FIELDS = {
     "best_gain": (_F32, NEG_INF), "best_feat": (_I64, 0),
     "best_thr": (_I64, 0), "best_dir": (_I64, 0),
     "best_left_g": (_F32, 0), "best_left_h": (_F32, 0),
-    "best_left_c": (_F32, 0)}
+    "best_left_c": (_F32, 0), "out_lo": (_F32, -BIG), "out_hi": (_F32, BIG),
+    "leaf_out": (_F32, 0)}
 
 
 class _Grower:
@@ -188,7 +223,9 @@ class _Grower:
     K.  ``gh_scales``: (K, 2) each class's quantized (grad, hess) scales,
     or None; with ``params.int_hist`` the ``*_h`` weights are then the int8
     grid values K2's int form reads (``wg``, ``wh``: the weights K2 reads,
-    the int8 grid values or the float ``*_h`` rows).
+    the int8 grid values or the float ``*_h`` rows).  ``monotone``: (F,)
+    int64 signs under ``params.has_monotone``; ``interaction_groups``: (C,
+    F) bool groups under ``params.has_interaction``.
 
     The per-leaf tensors are (K, L) views of flat (K * L + 1) tensors
     (``self.fl``) whose last entry is a spare leaf; a round writes the node
@@ -204,9 +241,11 @@ class _Grower:
     def __init__(self, bins_T, grad, hess, cnt, layout: FeatureLayout,
                  routing: RoutingLayout, params: GrowParams, max_bins: int,
                  timer=None, col_mask=None, compact_rows: int = 0,
-                 bins=None, gh_scales=None):
+                 bins=None, gh_scales=None, monotone=None,
+                 interaction_groups=None):
         self._alloc(bins_T, grad.shape[0], layout, routing, params, max_bins,
-                    timer, col_mask, compact_rows)
+                    timer, col_mask, compact_rows, monotone,
+                    interaction_groups)
         self.records = []          # the rounds' route tables, when fused
         # per class on the host: leaves so far, whether the last round
         # split, splittable leaves, rounds that split
@@ -217,7 +256,7 @@ class _Grower:
         self._setup_rows(grad, hess, cnt, gh_scales, bins)
 
     def _alloc(self, bins_T, K, layout, routing, params, max_bins, timer,
-               col_mask, compact_rows):
+               col_mask, compact_rows, monotone=None, interaction_groups=None):
         """The per-leaf tensors, zeroed, and what does not change over a
         run."""
         self.bins_T = bins_T
@@ -229,9 +268,7 @@ class _Grower:
         self.col_mask = col_mask
         self.compact_rows = compact_rows
         self.compact = compact_rows > 0
-        if self.compact and K > 1:
-            raise ValueError("a compacted view grows one class tree")
-        self.fuse = fusion_applies(params, compact_rows)
+        self.fuse = fusion_applies(params, compact_rows, K)
         dev = self.dev = bins_T.device
         L = self.L = params.num_leaves
         G, n = bins_T.shape
@@ -240,6 +277,19 @@ class _Grower:
                    for name, (dtype, fill) in _LEAF_FIELDS.items()}
         for name, t in self.fl.items():
             setattr(self, name, t[:KL].view(K, L))
+        self.monotone = monotone if params.has_monotone else None
+        self.groups = interaction_groups if params.has_interaction else None
+        # outputs fixed at split time (reference: use_output, :427)
+        self.use_output = (self.monotone is not None
+                           or params.path_smooth > 0.0)
+        self.pen_table = (penalty_table(params.monotone_penalty, dev)
+                          if self.monotone is not None
+                          and params.monotone_penalty > 0.0 else None)
+        if self.groups is not None:
+            # each leaf's path features
+            self.used_feat_f = torch.zeros(
+                (KL + 1, layout.num_bins.shape[0]), dtype=torch.bool,
+                device=dev)
         self.hist_f = torch.zeros((KL + 1, G, max_bins, 2), dtype=_F32,
                                   device=dev)
         self.hist = self.hist_f[:KL].view(K, L, G, max_bins, 2)
@@ -261,7 +311,7 @@ class _Grower:
         self.leaf_id = torch.zeros((K, n), dtype=torch.int32, device=dev)
         if self.compact and self.stream:
             # the compacted rows' leaves
-            self.leaf_id_h = torch.zeros((1, compact_rows),
+            self.leaf_id_h = torch.zeros((K, compact_rows),
                                          dtype=torch.int32, device=dev)
         # offset of class k's leaves in the flattened (K * L) leaf axis
         self.class_base = torch.arange(K, device=dev)[:, None] * L
@@ -290,10 +340,9 @@ class _Grower:
             if self.compact:
                 check_compact_supported(p.hist_backend)
                 with phase(timer, "compact"):
-                    (self.bins_h, g, h, self.cnt_h,
+                    (self.bins_h, self.grad_h, self.hess_h, self.cnt_h,
                      self.c_perm) = compact_row_views(
-                         bins_T, grad[0], hess[0], cnt, self.compact_rows)
-                self.grad_h, self.hess_h = g[None], h[None]
+                         bins_T, grad, hess, cnt, self.compact_rows)
             else:
                 # K6/K7 read the (N, G) rows; K5 and K8 the (G, N) layout
                 self.bins_h = (bins if p.hist_backend == "pallas"
@@ -303,11 +352,11 @@ class _Grower:
             with phase(timer, "compact"):
                 plan = plan_sample_rows(cnt, self.compact_rows)
                 bins_h, g, h, cnt_h = compact_transposed_view(
-                    bins_T, plan.perm, grad[0], hess[0], cnt)
+                    bins_T, plan.perm, grad, hess, cnt)
             self._put("bins_h", bins_h)
             self._put("cnt_h", cnt_h)
-            self._put("grad_h", g[None])
-            self._put("hess_h", h[None])
+            self._put("grad_h", g)
+            self._put("hess_h", h)
         else:
             self.bins_h, self.grad_h, self.hess_h, self.cnt_h = \
                 bins_T, grad, hess, cnt
@@ -341,14 +390,42 @@ class _Grower:
                             for v in host_list(m, self.timer))
         self.scales = scale_table(self.shifts, self.dev)
 
-    def find_splits(self, hist, g, h, c):
+    def find_splits(self, hist, g, h, c, ids):
+        """Best splits of the leaves at flat (K * L) positions ``ids``, whose
+        (R, G, Bmax, 2) histograms and (R,) sums are given, under their
+        constraints."""
         p = self.p
         with phase(self.timer, "split_scan"):
+            col_mask, kw = self.col_mask, {}
+            if self.groups is not None:
+                col_mask = self._node_col_mask(self.used_feat_f[ids])
+            if self.use_output:
+                fl = self.fl
+                kw = dict(out_lo=fl["out_lo"][ids], out_hi=fl["out_hi"][ids],
+                          parent_out=fl["leaf_out"][ids],
+                          path_smooth=p.path_smooth)
+                if self.monotone is not None:
+                    kw["monotone"] = self.monotone
+                if self.pen_table is not None:
+                    kw["slot_penalty"] = self.pen_table[torch.clamp(
+                        fl["depth"][ids], max=self.pen_table.shape[0] - 1)]
             return find_best_splits(
                 hist, g, h, c, self.layout, p.lambda_l1, p.lambda_l2,
                 max(p.min_data_in_leaf, 1), p.min_sum_hessian_in_leaf,
-                p.min_gain_to_split, p.max_delta_step, self.col_mask,
-                self.cat)
+                p.min_gain_to_split, p.max_delta_step, col_mask,
+                self.cat, **kw)
+
+    def _node_col_mask(self, used):
+        """(R, F) the features each leaf may split on: the tree's feature
+        sample and the union of the interaction groups that hold every
+        feature of its (R, F) path ``used`` (reference: node_col_mask,
+        :466-475)."""
+        g = self.groups
+        contains = ~(used[:, None, :] & ~g[None]).any(dim=-1)      # (R, C)
+        allowed = (contains[:, :, None] & g[None]).any(dim=1)      # (R, F)
+        if self.col_mask is not None:
+            allowed = allowed & self.col_mask[None, :]
+        return allowed
 
     def _k2(self, bins_T, leaf_id, tabs, grad, hess, cnt, num_slots,
             with_hist):
@@ -451,7 +528,12 @@ class _Grower:
         g = torch.stack([x.double().sum().float() for x in self.grad])
         h = torch.stack([x.double().sum().float() for x in self.hess])
         c = self.cnt.double().sum().float().expand(K)
-        res = self.find_splits(root_hist.reshape(K, G, self.Bmax, 2), g, h, c)
+        if self.use_output:
+            p = self.p
+            self.leaf_out[:, 0] = leaf_output(g, h, p.lambda_l1, p.lambda_l2,
+                                              p.max_delta_step)
+        res = self.find_splits(root_hist.reshape(K, G, self.Bmax, 2), g, h, c,
+                               self.class_base[:, 0])
         self.hist[:, 0] = root_hist
         self.sum_g[:, 0], self.sum_h[:, 0], self.cnt_leaf[:, 0] = g, h, c
         self._store_best(self.class_base[:, 0], res)
@@ -620,6 +702,15 @@ class _Grower:
             d = fl["depth"][fo] + 1
             fl["depth"][fn] = d
             fl["depth"][fo] = d
+            if self.use_output:
+                self._bound_children(fo, fn, feat, dirf, lg, lh, lc, rg, rh,
+                                     rc)
+            if self.groups is not None:
+                F = self.used_feat_f.shape[1]
+                used = self.used_feat_f[fo] | (
+                    torch.arange(F, device=dev)[None, :] == feat[:, None])
+                self.used_feat_f[fo] = used
+                self.used_feat_f[fn] = used
         if not with_hist:
             return
         with phase(self.timer, "other"):
@@ -630,9 +721,32 @@ class _Grower:
             hf[larger] = hist_subtract(parent_hist, hist_small)
             ids2 = torch.cat([fo, fn])
         res = self.find_splits(hf[ids2], fl["sum_g"][ids2],
-                               fl["sum_h"][ids2], fl["cnt_leaf"][ids2])
+                               fl["sum_h"][ids2], fl["cnt_leaf"][ids2], ids2)
         with phase(self.timer, "other"):
             self._store_best(ids2, res)
+
+    def _bound_children(self, fo, fn, feat, dirf, lg, lh, lc, rg, rh, rc):
+        """The children's outputs under the split leaf's bounds, and their
+        own bounds: under a monotone numeric split the midpoint of the two
+        outputs caps the side that must stay lower and floors the other
+        (reference: BasicLeafConstraints::Update, :1360-1385)."""
+        p, fl = self.p, self.fl
+        lo_p, hi_p, po = fl["out_lo"][fo], fl["out_hi"][fo], fl["leaf_out"][fo]
+        ol, orr = constrained_child_outputs(
+            lg, lh, lc, rg, rh, rc, p.lambda_l1, p.lambda_l2, lo_p, hi_p,
+            p.path_smooth, po, p.max_delta_step)
+        mid = (ol + orr) / 2.0
+        if self.monotone is not None:
+            mt = torch.where((dirf & DIR_CATEGORICAL) != 0, 0,
+                             self.monotone[feat])
+        else:
+            mt = torch.zeros_like(feat)
+        fl["out_lo"][fo] = torch.where(mt < 0, torch.maximum(lo_p, mid), lo_p)
+        fl["out_hi"][fo] = torch.where(mt > 0, torch.minimum(hi_p, mid), hi_p)
+        fl["out_lo"][fn] = torch.where(mt > 0, torch.maximum(lo_p, mid), lo_p)
+        fl["out_hi"][fn] = torch.where(mt < 0, torch.minimum(hi_p, mid), hi_p)
+        fl["leaf_out"][fo] = ol
+        fl["leaf_out"][fn] = orr
 
     def _cat_bits(self, fo, fnode, feat, thr, dirf, pg, ph, pc):
         """(P, Bmax) left bins of the round's P splits of the leaves at
@@ -703,8 +817,14 @@ class _Grower:
         """The grown trees' fields as ``TreeArrays`` keeps them; a class
         whose ``single_leaf`` entry is set outputs 0.0."""
         p = self.p
-        lv = leaf_output(self.sum_g, self.sum_h, p.lambda_l1, p.lambda_l2,
-                         p.max_delta_step)
+        if self.use_output:
+            # the outputs fixed at split time (reference: :1587-1592)
+            lv = self.leaf_out
+            if p.max_delta_step > 0.0:
+                lv = torch.clamp(lv, -p.max_delta_step, p.max_delta_step)
+        else:
+            lv = leaf_output(self.sum_g, self.sum_h, p.lambda_l1,
+                             p.lambda_l2, p.max_delta_step)
         # a single-leaf tree adds nothing
         lv = torch.where(single_leaf[:, None], 0.0, lv)
         i32 = torch.int32
@@ -759,12 +879,13 @@ class _DeviceGrower(_Grower):
 
     def __init__(self, bins_T, K: int, layout: FeatureLayout,
                  routing: RoutingLayout, params: GrowParams, max_bins: int,
-                 col_mask=None, compact_rows: int = 0):
+                 col_mask=None, compact_rows: int = 0, monotone=None,
+                 interaction_groups=None):
         if params.hist_backend != "stream":
             raise ValueError("the device-state grower runs the stream "
                              "backend")
         self._alloc(bins_T, K, layout, routing, params, max_bins, None,
-                    col_mask, compact_rows)
+                    col_mask, compact_rows, monotone, interaction_groups)
         dev = self.dev
         self.cur = torch.ones(K, dtype=_I64, device=dev)
         self.progressed = torch.ones(K, dtype=torch.bool, device=dev)
@@ -791,6 +912,8 @@ class _DeviceGrower(_Grower):
         self.hist_f.zero_()
         self.cat_bitset_f.zero_()
         self.cat_words_f.zero_()
+        if self.groups is not None:
+            self.used_feat_f.zero_()
         self.leaf_id.zero_()
         if self.compact:
             self.leaf_id_h.zero_()
@@ -992,17 +1115,24 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               timer=None, col_mask: Optional[torch.Tensor] = None,
               compact_rows: int = 0,
               bins: Optional[torch.Tensor] = None,
-              gh_scales: Optional[torch.Tensor] = None) -> GrowResult:
+              gh_scales: Optional[torch.Tensor] = None,
+              monotone: Optional[torch.Tensor] = None,
+              interaction_groups: Optional[torch.Tensor] = None
+              ) -> GrowResult:
     """Grow one tree.  bins_T: (G, N) uint8; bins: the same (N, G)
     row-major, which ``hist_backend="pallas"`` reads; grad, hess, cnt: (N,)
     float32, zero on pad and out-of-bag rows (cnt is the in-bag mask);
     col_mask: (F,) bool feature sample, or None; compact_rows: the row
     capacity of a sampled tree's compacted view (covering every in-bag
     row), 0 for none; gh_scales: the (2,) float32 (grad, hess) scales of
-    quantized gradients (grad and hess then hold grid values), or None."""
+    quantized gradients (grad and hess then hold grid values), or None;
+    monotone: (F,) int64 signs in {-1, 0, 1} (``params.has_monotone``);
+    interaction_groups: (C, F) bool allowed-feature groups
+    (``params.has_interaction``)."""
     gr = _Grower(bins_T, grad[None], hess[None], cnt, layout, routing,
                  params, max_bins, timer, col_mask, compact_rows, bins,
-                 None if gh_scales is None else gh_scales[None])
+                 None if gh_scales is None else gh_scales[None], monotone,
+                 interaction_groups)
     return _grow(gr, params)
 
 
@@ -1011,13 +1141,19 @@ def grow_tree_k(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                 routing: RoutingLayout, params: GrowParams, max_bins: int,
                 timer=None,
                 col_mask: Optional[torch.Tensor] = None,
-                gh_scales: Optional[torch.Tensor] = None) -> GrowResult:
+                gh_scales: Optional[torch.Tensor] = None,
+                compact_rows: int = 0) -> GrowResult:
     """Grow K class trees in lockstep (reference: ops/grow.py grow_tree_k).
     grad, hess: (K, N) float32, class k's gradients in row k, zero on pad
-    rows; gh_scales: (K, 2) class k's quantized (grad, hess) scales, or
-    None; the other arguments as ``grow_tree``'s, the feature sample shared
-    by the classes.  Class k's tree is ``grow_tree``'s on grad[k], hess[k],
-    bit for bit."""
+    and out-of-bag rows; gh_scales: (K, 2) class k's quantized (grad,
+    hess) scales, or None; compact_rows: the capacity of the one compacted
+    view every class reads, 0 for none; the other arguments as
+    ``grow_tree``'s, the feature sample shared by the classes.  Class k's
+    tree is ``grow_tree``'s on grad[k], hess[k], bit for bit.  Plain growth
+    only, as the reference's (:1689-1694)."""
+    if not params.plain_growth:
+        raise ValueError("grow_tree_k supports the plain feature set only; "
+                         "use the per-class grow_tree scan path")
     gr = _Grower(bins_T, grad, hess, cnt, layout, routing, params, max_bins,
-                 timer, col_mask, gh_scales=gh_scales)
+                 timer, col_mask, compact_rows, gh_scales=gh_scales)
     return _grow(gr, params)

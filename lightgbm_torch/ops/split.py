@@ -11,9 +11,14 @@ scans, then argmax reductions with the reference's tie-breaks.  Ported: L1/L2,
 categorical features: one category against the rest, or a prefix of the
 categories sorted by g / (h + ``cat_smooth``) taken from either end, with
 ``cat_l2``, ``max_cat_threshold``, ``max_cat_to_onehot`` and
-``min_data_per_group``.  Monotone, path-smoothing, extra-trees and CEGB
-branches are not ported (models/gbdt.py refuses the parameters that need
-them).
+``min_data_per_group``; and, on numeric features only, the basic method's
+monotone constraints with ``monotone_penalty`` and path smoothing
+(``path_smooth``): candidate outputs smoothed toward the leaf's own output
+and clipped to its [out_lo, out_hi] bounds, gains at those outputs, a
+split that breaks its feature's order rejected, and a constrained
+feature's gain scaled down at shallow depths (reference: :82-117,
+:280-354, :435-440).  The extra-trees and CEGB branches are not ported
+(models/gbdt.py refuses the parameters that need them).
 
 Arithmetic is float32 in the reference's operation order, with one
 deliberate difference: the prefix sums along the bin axis (of the bins and
@@ -27,6 +32,7 @@ decide which go left.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -77,6 +83,51 @@ def leaf_gain_given_output(sum_g, sum_h, l1, l2, output):
     """GetLeafGainGivenOutput: the gain of a leaf held at ``output``."""
     t = _threshold_l1(sum_g, l1)
     return -(2.0 * t * output + (sum_h + l2) * output * output)
+
+
+def smooth_output(raw, count, parent_output, path_smooth):
+    """Path smoothing (reference: feature_histogram.hpp path_smooth):
+    raw * n / (n + a) + parent * a / (n + a)."""
+    return (raw * count / (count + path_smooth)
+            + parent_output * path_smooth / (count + path_smooth))
+
+
+def monotone_penalty_factor(depth, penalty):
+    """ComputeMonotoneSplitGainPenalty (reference: monotone_constraints.hpp)
+    of each (S,) slot depth, float32."""
+    eps = 1e-10
+    d = depth.to(torch.float32)
+    f_small = 1.0 - penalty / torch.exp2(d) + eps
+    f_big = 1.0 - torch.exp2(penalty - 1.0 - d) + eps
+    out = f_small if penalty <= 1.0 else f_big
+    return torch.where(penalty >= d + 1.0, eps, out)
+
+
+def penalty_table(penalty: float, device: torch.device) -> torch.Tensor:
+    """``monotone_penalty_factor`` of the depths 0 .. ceil(penalty) + 40,
+    computed on the CPU and copied to ``device``: the card's exp2 rounds
+    apart from the CPU's, and the CPU's is the reference's.  Past the last
+    depth the factor is 1.0 in float32, the table's last entry."""
+    depth = torch.arange(int(math.ceil(penalty)) + 41)
+    return monotone_penalty_factor(depth, penalty).to(device)
+
+
+def constrained_child_outputs(lg, lh, lc, rg, rh, rc, l1, l2, lo, hi,
+                              path_smooth=0.0, parent_out=None,
+                              max_delta_step=0.0):
+    """Child outputs under the bounds [lo, hi] and optional path smoothing,
+    in CalculateSplittedLeafOutput's order (feature_histogram.hpp): ridge
+    output, max_delta_step clamp, smoothing, then the monotone clip."""
+    ol = -_threshold_l1(lg, l1) / (lh + l2 + EPS_HESS)
+    orr = -_threshold_l1(rg, l1) / (rh + l2 + EPS_HESS)
+    if max_delta_step > 0.0:
+        ol = torch.clamp(ol, -max_delta_step, max_delta_step)
+        orr = torch.clamp(orr, -max_delta_step, max_delta_step)
+    if path_smooth > 0.0 and parent_out is not None:
+        ol = smooth_output(ol, lc, parent_out, path_smooth)
+        orr = smooth_output(orr, rc, parent_out, path_smooth)
+    return (torch.minimum(torch.maximum(ol, lo), hi),
+            torch.minimum(torch.maximum(orr, lo), hi))
 
 
 def round_int(x):
@@ -130,10 +181,39 @@ class _Scan(NamedTuple):
     min_hess: float
 
 
-def _pair_gain(sc: _Scan, lg, lh, lc, rg, rh, rc):
+class _Constraints(NamedTuple):
+    """A numeric scan's output constraints, each slot's as (S, 1, 1):
+    its output bounds, its own output (the smoothing's parent output) and,
+    with monotone constraints, the (1, F, 1) feature signs."""
+    lo: torch.Tensor
+    hi: torch.Tensor
+    parent_out: torch.Tensor
+    path_smooth: float
+    mono: Optional[torch.Tensor]
+
+
+def _constrained_gain(sc: _Scan, out: _Constraints, lg, lh, lc, rg, rh, rc):
+    """The output-based gain of a candidate (reference: split_gain under
+    use_output_gain), NEG_INF where its outputs break the feature's order."""
+    ol, orr = constrained_child_outputs(
+        lg, lh, lc, rg, rh, rc, sc.l1, sc.l2, out.lo, out.hi,
+        out.path_smooth, out.parent_out, sc.max_delta_step)
+    gain = (leaf_gain_given_output(lg, lh, sc.l1, sc.l2, ol)
+            + leaf_gain_given_output(rg, rh, sc.l1, sc.l2, orr))
+    if out.mono is not None:
+        viol = ((out.mono > 0) & (ol > orr)) | ((out.mono < 0) & (ol < orr))
+        gain = torch.where((out.mono != 0) & viol, NEG_INF, gain)
+    return gain
+
+
+def _pair_gain(sc: _Scan, lg, lh, lc, rg, rh, rc,
+               out: Optional[_Constraints] = None):
     """Gain of the two children of a candidate, NEG_INF where a child has
-    too few rows or too little hessian."""
-    if sc.max_delta_step > 0.0:
+    too few rows or too little hessian; ``out``: the numeric scan's output
+    constraints, or None."""
+    if out is not None:
+        gain = _constrained_gain(sc, out, lg, lh, lc, rg, rh, rc)
+    elif sc.max_delta_step > 0.0:
         ol = leaf_output(lg, lh, sc.l1, sc.l2, sc.max_delta_step)
         orr = leaf_output(rg, rh, sc.l1, sc.l2, sc.max_delta_step)
         gain = (leaf_gain_given_output(lg, lh, sc.l1, sc.l2, ol)
@@ -252,14 +332,26 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
                      min_gain_to_split: float,
                      max_delta_step: float = 0.0,
                      col_mask: Optional[torch.Tensor] = None,
-                     cat: Optional[CatParams] = None) -> SplitResult:
+                     cat: Optional[CatParams] = None,
+                     monotone: Optional[torch.Tensor] = None,
+                     out_lo: Optional[torch.Tensor] = None,
+                     out_hi: Optional[torch.Tensor] = None,
+                     slot_penalty: Optional[torch.Tensor] = None,
+                     path_smooth: float = 0.0,
+                     parent_out: Optional[torch.Tensor] = None
+                     ) -> SplitResult:
     """Best split of each of the S histogram slots (reference:
-    find_best_splits).  ``col_mask`` (F,) bool is the tree's feature
-    sample: a feature outside it never wins.  ``cat``: the categorical
-    parameters, under which a categorical feature (``layout.is_cat``) takes
-    its categorical split, never its numeric scan; None (a layout without
+    find_best_splits).  ``col_mask`` (F,) or, per slot, (S, F) bool: a
+    feature outside it never wins.  ``cat``: the categorical parameters,
+    under which a categorical feature (``layout.is_cat``) takes its
+    categorical split, never its numeric scan; None (a layout without
     categorical features) runs the numeric scan alone, as the reference's
-    ``enable_categorical=False``."""
+    ``enable_categorical=False``.  ``monotone`` (F,) int signs, ``out_lo``,
+    ``out_hi`` and ``parent_out`` (S,) each slot's output bounds and own
+    output: the basic method's constraints and ``path_smooth`` on the
+    numeric scan, which then gains at the constrained outputs (categorical
+    splits stay unconstrained); ``slot_penalty`` (S,) the monotone penalty
+    factor of each slot's depth (``penalty_table``), or None."""
     S = hist.shape[0]
     Bmax = hist.shape[2]
     dev = hist.device
@@ -296,8 +388,15 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
     (miss_g, z_g), (miss_h, z_h), (_, z_c) = miss
     has_miss = has_nan | has_mz
 
+    out = None
+    if monotone is not None or path_smooth > 0.0:
+        out = _Constraints(
+            lo=out_lo[:, None, None], hi=out_hi[:, None, None],
+            parent_out=parent_out[:, None, None], path_smooth=path_smooth,
+            mono=None if monotone is None else monotone[None, :, None])
+
     def split_gain(lg, lh, lc, rc):
-        return _pair_gain(sc, lg, lh, lc, pg - lg, ph - lh, rc)
+        return _pair_gain(sc, lg, lh, lc, pg - lg, ph - lh, rc, out)
 
     # the reverse scan (missing left) is the only scan of a feature without
     # missing values; the forward scan (missing right) also runs for missing
@@ -329,6 +428,11 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
     parent_term = _parent_term(sc, parent_g, parent_h)
     rel_rev = _relative(gain_rev, parent_term)
     rel_fwd = _relative(gain_fwd, parent_term)
+    if out is not None and out.mono is not None and slot_penalty is not None:
+        # a constrained feature's gain scaled down by its slot's depth
+        pen = slot_penalty[:, None, None]
+        rel_rev, rel_fwd = (torch.where((out.mono != 0) & (r > 0), r * pen, r)
+                            for r in (rel_rev, rel_fwd))
     # reverse keeps the highest of tied thresholds, forward the lowest, and
     # reverse wins a tie between the scans
     t_rev = (Bmax - 1) - torch.argmax(torch.flip(rel_rev, [-1]), dim=-1)
@@ -344,7 +448,8 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
         best_gain_f = torch.where(layout.is_cat[None, :], cb.gain,
                                   best_gain_f)
     if col_mask is not None:
-        best_gain_f = torch.where(col_mask[None, :], best_gain_f, NEG_INF)
+        cm = col_mask if col_mask.dim() == 2 else col_mask[None, :]
+        best_gain_f = torch.where(cm, best_gain_f, NEG_INF)
 
     best_f = torch.argmax(best_gain_f, dim=-1)                 # (S,)
     ar = torch.arange(S, device=dev)

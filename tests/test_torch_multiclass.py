@@ -633,16 +633,6 @@ def test_early_stopping_on_multi_logloss_matches_jax(monkeypatch):
 
 # ------------------------------------------------------------- refusals
 
-@pytest.mark.parametrize("extra", [
-    {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"data_sample_strategy": "goss"}])
-def test_multiclass_sampling_raises(extra):
-    X, y = _mc_data(300, 2)
-    with pytest.raises(lt.LightGBMError, match="bagging or GOSS"):
-        lt.train({**_MC, **extra, **CPU}, lt.Dataset(X, label=y, params=CPU),
-                 2)
-
-
 def test_custom_gradients_of_the_wrong_shape_raise():
     X, y = _mc_data(300, 2)
     b = lt.Booster({**_MC, **CPU}, lt.Dataset(X, label=y, params=CPU))

@@ -637,21 +637,18 @@ def test_train_without_device_type_raises_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    {"objective": "multiclass", "num_class": 3, "bagging_fraction": 0.5,
-     "bagging_freq": 1},
     {"cegb_penalty_feature_lazy": [1, 0, 0, 0, 0]},
     {"hist_backend": "onehot"},
     {"boosting": "rf"},
     {"feature_fraction_bynode": 0.5},
-    {"monotone_constraints": [1, 0, 0, 0, 0]},
-    {"interaction_constraints": [[0, 1]]},
+    {"monotone_constraints": [1, 0, 0, 0, 0],
+     "monotone_constraints_method": "intermediate"},
+    {"monotone_constraints": [1, 0, 0, 0, 0],
+     "monotone_constraints_method": "advanced"},
     {"cegb_penalty_split": 0.1},
     {"forcedsplits_filename": "splits.json"},
     {"linear_tree": True},
-    {"objective": "multiclass", "num_class": 3,
-     "data_sample_strategy": "goss"},
     {"extra_trees": True},
-    {"path_smooth": 1.0},
     {"tree_learner": "data"},
     {"hist_backend": "segsum"},
     {"boosting": "dart"},

@@ -28,6 +28,10 @@ Phases, each printing one JSON line:
    must be bit-equal.  Dyadic runs with ``hist_backend`` scatter and pallas
    at max_bin 63 and 255 must give one text per max_bin on the CPU and the
    card, every card launch of K5, K6 and K7 bit-equal to its plain version.
+   The growth constraints (``CONSTRAINT_ARMS``) and the monotone methods
+   and per-node draws (``METHOD_ARMS``: K = 1 and K = 3, the three
+   backends, fused against the CPU, max_bin 255 and quantized) must give
+   CPU == card text, every card launch replayed bit-equal.
 4. train_sampled_small: the train_small data on dyadic custom gradients
    with bagging (half the rows every iteration) and with GOSS (rates 0.5 /
    0.25, learning rate 0.5): byte-identical model text on the CPU and the
@@ -68,7 +72,11 @@ Phases, each printing one JSON line:
    first 3 trees are trained again and must repeat byte for byte; every K2
    and K4 launch of one tree is replayed through its plain version on the
    card (bit-equal) and then timed one by one beside its plain version and
-   bound; one more iteration is timed phase by phase.
+   bound; one more iteration is timed phase by phase.  Its arms: the
+   constrained one, and the intermediate and advanced monotone methods and
+   by-node sampling with extra trees (``higgs_method_arms``), each fused
+   and eager, its AUC gate, K1's monotone sweeps, one tree's K2 and K4
+   launches replayed.
 7a. predict_surface_small: models trained on the card over 20 000 rows
    (train_small's rows binary, zero-as-missing and K = 3;
    train_categorical_small's; train_wide_small's 16-bit bins), each
@@ -786,9 +794,12 @@ def idle_share(bst):
         bst.update()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    cuda = torch.autograd.DeviceType.CUDA
+    # the raw trace: parsing it into the profiler's event tree takes
+    # seconds an iteration of ~10^5 kernels
+    spans = sorted((e.start_ns() * 1e-3, e.end_ns() * 1e-3)
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda)
     busy, end = 0.0, None
     for a, b in spans:
         if end is None or a > end:
@@ -826,13 +837,21 @@ def arm_numbers(bst, timed, launches, reads):
             "idle_share": share, "idle_share_iteration_s": share_s}
 
 
+# the eager arm of a fused run: its first trees, their median after the
+# first its s per tree
+EAGER_ITERS = 4
+
+
 def fused_and_eager(fused_bst, fused_timed, fused_launches, fused_reads,
                     train, iters):
     """The fused main run against the same training with ``fused_iter``
-    off (``train(extra, iters)``): byte-identical model text on the card,
-    and both arms' numbers.  Raises unless the main run fused."""
+    off (``train(extra, n)``, n the first ``EAGER_ITERS`` of ``iters``):
+    byte-identical model text on the card for those trees, and both arms'
+    numbers.  Raises unless the main run fused."""
     from lightgbm_torch import kernels
     from lightgbm_torch.utils.timer import host_reads
+
+    iters = min(iters, EAGER_ITERS)
 
     if not fused_bst.engine._fused or fused_bst.engine._graphs.replays == 0:
         raise RuntimeError("the main run did not replay fused graphs")
@@ -1899,6 +1918,12 @@ def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
                                        "scatter_hist", "hist_direct")):
         raise RuntimeError(f"the constrained runs replayed {replayed_c}")
     err = {k: max(v, err_c[k]) for k, v in err.items()}
+    # the monotone methods and the per-node draws, K = 1 and K = 3, eager
+    # and fused, every card launch replayed
+    t0 = time.perf_counter()
+    methods, replayed_m, err_m = method_arms_small(X, y, base)
+    methods_wall_s = time.perf_counter() - t0
+    err = {k: max(v, err_m[k]) for k, v in err.items()}
     # the fused iteration on the card against the eager one on the CPU
     fused_cpu = {name: fused_against_cpu(X, y, {**base, **extra}, iters)
                  for name, extra in (("l2", {}),
@@ -1915,6 +1940,8 @@ def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
           "constrained": constrained,
           "constrained_text_identical_cpu_card_backends": True,
           "replayed_launches_constrained": replayed_c,
+          "methods": methods, "methods_wall_s": methods_wall_s,
+          "replayed_launches_methods": replayed_m,
           "replay_max_abs_err": err,
           "fused_card_text_equals_eager_cpu": fused_cpu})
     return err
@@ -1941,6 +1968,95 @@ CONSTRAINT_ARMS = {
 }
 
 
+# the intermediate and advanced monotone methods, by-node sampling and
+# extra trees, one arm each and all together with the interaction groups
+# and path_smooth
+METHOD_ARMS = {
+    "intermediate": {"monotone_constraints": _SMALL_MONO,
+                     "monotone_constraints_method": "intermediate"},
+    "advanced": {"monotone_constraints": _SMALL_MONO,
+                 "monotone_constraints_method": "advanced"},
+    "bynode": {"feature_fraction_bynode": 0.5},
+    "extra_trees": {"extra_trees": True},
+    "every": {**_SMALL_EVERY, "monotone_constraints_method": "advanced",
+              "feature_fraction_bynode": 0.5, "extra_trees": True},
+}
+
+
+def method_arms_small(X, y, base, iters=2, num_leaves=31):
+    """phase_train_small's arms of ``METHOD_ARMS`` on dyadic gradients
+    (split budget 8; the monotone methods split one leaf a round, on 15
+    leaves): for
+    each, the CPU's stream text equal to the card's under stream, scatter
+    and pallas, one class (``iters`` trees) and K = 3 (one iteration, the
+    class trees grown one at a time), and the fused one-class iteration on
+    the card (its graphs replayed) equal to the eager CPU on L2 regression;
+    then every mode at max_bin 255 under pallas (K7) and quantized under
+    stream (K2's int form), CPU == card.  Every card launch of K2 (both
+    forms), K4, K5, K6 and K7 is replayed through its plain version.
+    Returns (per-arm results, launches replayed, largest differences)."""
+    import torch
+    import lightgbm_torch as lt
+
+    rs = np.random.RandomState(3)
+    logits = np.stack([np.nan_to_num(X[:, 0]) + 0.8 * X[:, 1],
+                       2.0 * X[:, 2] - 1.5 * X[:, 3], X[:, 4] * X[:, 5]], 1)
+    y3 = np.argmax(logits + rs.randn(len(y), 3), axis=1).astype(np.float64)
+    runs = [("cpu", "stream"), ("cuda", "stream"), ("cuda", "scatter"),
+            ("cuda", "pallas")]
+    cap, out = Capture(), {}
+
+    def texts_of(data, label, extra, fobj, n_iter, runs):
+        texts = []
+        for dev, hb in runs:
+            p = {**base, "num_leaves": num_leaves, "max_splits_per_round": 8,
+                 **extra, "hist_backend": hb, "device_type": dev}
+            bst = lt.Booster(p, lt.Dataset(data, label=label, params=p))
+            with (cap if dev == "cuda" else contextlib.nullcontext()):
+                for _ in range(n_iter):
+                    bst.update(fobj=fobj)
+            texts.append(model_trees_text(bst))
+        if any(t != texts[0] for t in texts):
+            raise RuntimeError(f"{extra}: CPU and card text differ "
+                               f"{[t == texts[0] for t in texts]}")
+        return [t.num_leaves for t in bst.engine.models]
+
+    for name, extra in METHOD_ARMS.items():
+        t0 = time.perf_counter()
+        if "monotone_constraints_method" in extra:
+            # one split a round: 15 leaves keep the CPU runs short
+            extra = {**extra, "num_leaves": 15}
+        k1 = texts_of(X, y, {**extra, "objective": "none"}, dyadic_fobj,
+                      iters, runs)
+        k3 = texts_of(X, y3, {**extra, "objective": "multiclass",
+                              "num_class": 3}, dyadic_mc_fobj, 1, runs)
+        fused = fused_against_cpu(X, y, {**base, "num_leaves": num_leaves,
+                                         "max_splits_per_round": 8, **extra},
+                                  iters)
+        out[name] = {"leaves_per_tree": k1, "k3_leaves_per_tree": k3,
+                     "fused_card_text_equals_eager_cpu": fused,
+                     "seconds": time.perf_counter() - t0}
+    # max_bin 255 under pallas (K7) without the EFB pair, whose bundle
+    # would need 16-bit bins; quantized under stream (K2's int form)
+    every = {**METHOD_ARMS["every"], "objective": "none", "num_leaves": 15}
+    Xw = X[:, [0, 1, 2, 4, 5]]
+    out["every_max_bin_255"] = texts_of(
+        Xw, y, {**every, "max_bin": 255,
+                "monotone_constraints": [1, 1, 1, 0, 0],
+                "interaction_constraints": [[0, 1, 2], [3, 4]]},
+        dyadic_fobj, 2, [("cpu", "stream"), ("cuda", "pallas")])
+    out["every_quantized"] = texts_of(
+        X, y, {**every, "use_quantized_grad": True}, pow2_fobj, iters,
+        [("cpu", "stream"), ("cuda", "stream")])
+    torch.cuda.synchronize()
+    replayed, err = replay_against_plain(cap)
+    if not all(replayed[k] for k in ("route_and_hist", "route_and_hist_int",
+                                     "leaf_gather", "scatter_hist",
+                                     "hist_direct", "hist_nibble")):
+        raise RuntimeError(f"the method arms replayed {replayed}")
+    return out, replayed, err
+
+
 def k2_work(args, out, int_form=False):
     """Bytes and operations one K2 launch needs on these inputs, counted
     from what the rows need, over every class of the launch (``int_form``:
@@ -1960,6 +2076,7 @@ def k2_work(args, out, int_form=False):
     (word address, shift, mask); per weighted row in a slot two
     quantizations (2; none in the int form) and one add per group and
     channel (2G)."""
+    import torch
     from lightgbm_torch.kernels import layout as tl
 
     bins_T, leaf_id, tabs, words, _, _, cnt, num_slots, max_bins = args[:9]
@@ -1967,39 +2084,48 @@ def k2_work(args, out, int_form=False):
     w_bytes, quant_ops = (2, 0) if int_form else (8, 2)
     new_leaf, _, counts = out
     G, n = bins_T.shape
-    weighted = cnt.cpu().numpy() > 0
-    per_class, any_slot = [], np.zeros(n, bool)
+    # the row counts below, on the card, read in one transfer
+    weighted = cnt > 0
+    any_slot = torch.zeros(n, dtype=torch.bool, device=cnt.device)
+    per_class, sums = [], []
     for k in range(leaf_id.shape[0]):
-        lid = leaf_id[k].cpu().numpy()
-        rec = tabs[k].cpu().numpy()[lid]
+        lid = leaf_id[k]
+        rec = tabs[k][lid.long()]
         chosen = rec[:, tl.R_CHOSEN] > 0
-        went_left = new_leaf[k].cpu().numpy() == lid
-        slot = np.where(chosen, np.where(went_left, rec[:, tl.R_SLOT_L],
-                                         rec[:, tl.R_SLOT_R]),
-                        rec[:, tl.R_SLOT_KEEP])
+        went_left = new_leaf[k] == lid
+        slot = torch.where(chosen, torch.where(
+            went_left, rec[:, tl.R_SLOT_L], rec[:, tl.R_SLOT_R]),
+            rec[:, tl.R_SLOT_KEEP])
         in_slot_rows = (slot >= 0) & weighted
-        if float(in_slot_rows.sum()) != float(counts[k].sum().item()):
-            raise RuntimeError("k2_work: rows in slots disagree with the "
-                               "counts")
         any_slot |= in_slot_rows
-        per_class.append((rec, chosen, float(in_slot_rows.sum())))
-    ops, n_bytes = 0.0, 4.0 * float(any_slot.sum())
-    if any((rec[:, tl.R_ISCAT] > 0).any() for rec, _, _ in per_class):
+        sums.append(torch.stack([
+            in_slot_rows.sum(), counts[k].sum().to(torch.int64),
+            chosen.sum(), (chosen & (rec[:, tl.R_BUNDLED] > 0)).sum(),
+            (chosen & (rec[:, tl.R_NANBIN] >= 0)).sum(),
+            (chosen & (rec[:, tl.R_MZBIN] >= 0)).sum(),
+            (chosen & (rec[:, tl.R_ISCAT] > 0)).sum(),
+            (rec[:, tl.R_ISCAT] > 0).sum()]))
+        per_class.append(chosen)
+    reads = [(c & ~any_slot if with_hist else c).sum() for c in per_class]
+    sums = torch.stack(sums).cpu().numpy().astype(np.float64)
+    reads = torch.stack(reads).cpu().numpy().astype(np.float64)
+    n_any = float(any_slot.sum().item())
+    if (sums[:, 0] != sums[:, 1]).any():
+        raise RuntimeError("k2_work: rows in slots disagree with the "
+                           "counts")
+    ops, n_bytes = 0.0, 4.0 * n_any
+    if (sums[:, 7] > 0).any():
         n_bytes += 4.0 * words.numel()
-    for rec, chosen, in_slot in per_class:
-        bin_read = chosen & ~any_slot if with_hist else chosen
-        ops += (n + 4 * float(chosen.sum())
-                + 3 * float((chosen & (rec[:, tl.R_BUNDLED] > 0)).sum())
-                + float((chosen & (rec[:, tl.R_NANBIN] >= 0)).sum())
-                + float((chosen & (rec[:, tl.R_MZBIN] >= 0)).sum())
-                + 3 * float((chosen & (rec[:, tl.R_ISCAT] > 0)).sum()))
-        n_bytes += (8.0 * n + float(bin_read.sum()) * bins_T.element_size()
+    for (in_slot, _, n_chosen, n_bund, n_nan, n_mz, n_cat, _), bin_read in \
+            zip(sums, reads):
+        ops += (n + 4 * n_chosen + 3 * n_bund + n_nan + n_mz + 3 * n_cat)
+        n_bytes += (8.0 * n + bin_read * bins_T.element_size()
                     + 4 * num_slots)
         if with_hist:
             ops += in_slot * (quant_ops + 2 * G)
             n_bytes += in_slot * w_bytes + num_slots * G * max_bins * 2 * 4
     if with_hist:
-        n_bytes += float(any_slot.sum()) * G * bins_T.element_size()
+        n_bytes += n_any * G * bins_T.element_size()
     return n_bytes, ops
 
 
@@ -2115,6 +2241,16 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
     profiled_s, phases_s, prof_reads = profiled_iteration(bst)
     constrained = constrained_arm(params, ds, Xs, ys, iters, held_auc,
                                   timed_tree)
+    methods = {}
+    for name, (extra, gate, sweep) in higgs_method_arms(
+            ds.num_feature()).items():
+        t0 = time.perf_counter()
+        # an eager tree of the monotone methods takes seconds: one, and the
+        # phase-timed one after it
+        methods[name] = method_arm(extra, gate, sweep, params, ds, Xs, ys,
+                                   iters, timed_tree,
+                                   eager_iters=1 if sweep else 2)
+        methods[name]["wall_s"] = time.perf_counter() - t0
 
     after_first = tree_s[1:] or tree_s
     emit({"phase": "train", "card": smi, "rows": int(ds.num_data()),
@@ -2132,7 +2268,8 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
           "profiled_iteration_s": profiled_s,
           "profiled_iteration_phases_s": phases_s,
           "profiled_iteration_host_reads": prof_reads,
-          "fused_iter": fused, "constrained": constrained})
+          "fused_iter": fused, "constrained": constrained,
+          "methods": methods})
     k2 = {"name": "route_and_hist", "route": "cuda",
           "source": KERNEL_SOURCES["route_and_hist"],
           "replaces": KERNEL_REPLACES["route_and_hist"],
@@ -2175,6 +2312,30 @@ def leaf_paths(tree):
     return out
 
 
+def monotone_sweeps(bst, Xs, sweep_rows, points):
+    """K1's raw predictions along a ``points``-point sweep of each feature
+    of ``HIGGS_MONOTONE`` on ``sweep_rows`` held-out rows, one launch a
+    sweep; raises unless each steps only with its feature's sign."""
+    from lightgbm_torch import kernels
+
+    grid = np.linspace(-3.0, 3.0, points, dtype=np.float32)
+    sweeps = {}
+    for f, sign in HIGGS_MONOTONE.items():
+        Xw = np.repeat(Xs[:sweep_rows], points, axis=0)
+        Xw[:, f] = np.tile(grid, sweep_rows)
+        kernels.reset_launch_counts()
+        raw = bst.predict(Xw, raw_score=True).reshape(sweep_rows, points)
+        k1 = kernels.launch_counts()["predict_stream"]
+        steps = np.diff(raw.astype(np.float64), axis=1) * sign
+        if k1 != 1 or steps.min() < 0:
+            raise RuntimeError(f"feature {f}: K1 launches {k1}, a step "
+                               f"against its sign {steps.min()}")
+        sweeps[f] = {"sign": sign, "rows_moved": int((steps.max(axis=1)
+                                                      > 0).sum()),
+                     "largest_step": float(steps.max())}
+    return sweeps
+
+
 def constrained_arm(params, ds, Xs, ys, iters, plain_auc, timed_tree,
                     sweep_rows=1_000, points=64):
     """phase train's constrained arm on its 1M-row Dataset: monotone
@@ -2213,21 +2374,7 @@ def constrained_arm(params, ds, Xs, ys, iters, plain_auc, timed_tree,
             if not any(path <= g for g in groups):
                 raise RuntimeError(f"a leaf's path {sorted(path)} crosses "
                                    f"the interaction groups")
-    grid = np.linspace(-3.0, 3.0, points, dtype=np.float32)
-    sweeps = {}
-    for f, sign in HIGGS_MONOTONE.items():
-        Xw = np.repeat(Xs[:sweep_rows], points, axis=0)
-        Xw[:, f] = np.tile(grid, sweep_rows)
-        kernels.reset_launch_counts()
-        raw = bst.predict(Xw, raw_score=True).reshape(sweep_rows, points)
-        k1 = kernels.launch_counts()["predict_stream"]
-        steps = np.diff(raw.astype(np.float64), axis=1) * sign
-        if k1 != 1 or steps.min() < 0:
-            raise RuntimeError(f"feature {f}: K1 launches {k1}, a step "
-                               f"against its sign {steps.min()}")
-        sweeps[f] = {"sign": sign, "rows_moved": int((steps.max(axis=1)
-                                                      > 0).sum()),
-                     "largest_step": float(steps.max())}
+    sweeps = monotone_sweeps(bst, Xs, sweep_rows, points)
     replayed, err = replay_against_plain(timed.cap)
     if not (replayed["route_and_hist"] and replayed["leaf_gather"]):
         raise RuntimeError(f"constrained training replayed {replayed}")
@@ -2240,6 +2387,90 @@ def constrained_arm(params, ds, Xs, ys, iters, plain_auc, timed_tree,
             "paths_inside_one_group": True, "monotone_sweeps": sweeps,
             "replayed_launches_timed_tree": replayed,
             "replay_max_abs_err": err}
+
+
+def higgs_method_arms(F):
+    """phase train's arms of the monotone methods and the per-node draws:
+    (a) ``HIGGS_MONOTONE`` under the intermediate method, (b) under the
+    advanced one, (c) by-node sampling at 0.5 with extra trees; each with
+    its held-out AUC gate and whether K1's sweeps must be monotone."""
+    mono = [HIGGS_MONOTONE.get(f, 0) for f in range(F)]
+    return {
+        "intermediate": ({"monotone_constraints": mono,
+                          "monotone_constraints_method": "intermediate"},
+                         0.75, True),
+        "advanced": ({"monotone_constraints": mono,
+                      "monotone_constraints_method": "advanced"}, 0.75, True),
+        "bynode_extra_trees": ({"feature_fraction_bynode": 0.5,
+                                "extra_trees": True}, 0.80, False)}
+
+
+def method_arm(extra, gate, sweep, params, ds, Xs, ys, iters, timed_tree,
+               eager_iters=2, sweep_rows=1_000, points=64):
+    """One of ``higgs_method_arms`` on phase train's 1M-row Dataset:
+    ``iters`` fused trees (the counts read around them), the held-out AUC
+    above ``gate``, K1's sweeps monotone (``sweep``), one tree's K2 and K4
+    launches replayed bit-equal, the fused numbers (``arm_numbers``: s per
+    tree, the idle share of one more iteration); then ``eager_iters`` trees
+    with ``fused_iter`` off, their text equal to the fused trees', their
+    numbers, and one more eager tree timed by phase (``mono_pairs``: the
+    serial per-pair update, ``mono_slabs``: the slab refresh)."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.utils.timer import host_reads
+
+    p = {**params, **extra}
+    kernels.reset_launch_counts()
+    r0 = host_reads()
+    with TimedIters(capture_at=timed_tree) as timed:
+        t0 = time.perf_counter()
+        bst = lt.train(p, ds, iters)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    reads = host_reads() - r0
+    launches = kernels.launch_counts()
+    eng = bst.engine
+    if (bst.num_trees() != iters or launches["route_and_hist"] == 0
+            or launches["leaf_gather"] != iters or not eng._fused
+            or eng._graphs.replays == 0):
+        raise RuntimeError(f"{extra}: {bst.num_trees()} trees, fused "
+                           f"{eng._fused}, launches {launches}")
+    pred = bst.predict(Xs)
+    held_auc = auc(ys, pred)
+    if not (np.isfinite(pred).all() and held_auc > gate):
+        raise RuntimeError(f"{extra}: held-out AUC {held_auc}")
+    sweeps = monotone_sweeps(bst, Xs, sweep_rows, points) if sweep else None
+    replayed, err = replay_against_plain(timed.cap)
+    if not (replayed["route_and_hist"] and replayed["leaf_gather"]):
+        raise RuntimeError(f"{extra}: replayed {replayed}")
+    leaves = [t.num_leaves for t in eng.models]
+    fused = arm_numbers(bst, timed, launches, reads)
+    kernels.reset_launch_counts()
+    r0 = host_reads()
+    with TimedIters() as e_timed:
+        eager = lt.train({**p, "fused_iter": "off"}, ds, eager_iters)
+    e_reads = host_reads() - r0
+    e_launches = kernels.launch_counts()
+    if eager.engine._fused or model_trees_text(eager) != model_trees_text(
+            bst, num_iteration=eager_iters):
+        raise RuntimeError(f"{extra}: fused and eager trees differ")
+    eager_numbers = arm_numbers(eager, e_timed, e_launches, e_reads)
+    prof_s, phases_s, prof_reads = profiled_iteration(eager)
+    return {"iterations": iters, "train_s": train_s,
+            "tree_s": timed.seconds,
+            "k2_launches_per_tree": launches["route_and_hist"] / iters,
+            "launches": launches, "held_out_auc": held_auc,
+            "leaves_per_tree": leaves, "monotone_sweeps": sweeps,
+            "replayed_launches_timed_tree": replayed,
+            "replay_max_abs_err": err, "fused": fused,
+            "eager": eager_numbers, "eager_iterations": eager_iters,
+            "fused_eager_text_identical": True,
+            "profiled_eager_iteration_s": prof_s,
+            "profiled_eager_iteration_phases_s": phases_s,
+            "profiled_eager_iteration_host_reads": prof_reads,
+            "mono_pairs_s_per_tree": phases_s.get("mono_pairs"),
+            "mono_slabs_s_per_tree": phases_s.get("mono_slabs")}
 
 
 # --------------------------------------------------------------------------
@@ -7389,7 +7620,7 @@ def make_allstate_like(n, seed, features=4228, columns=30):
 
 
 def phase_train_sparse(seed, smi, rows=1_000_000, held_out=250_000, iters=20,
-                       cv_folds=5, cv_rounds=5, chunk_rows=100_000,
+                       cv_folds=3, cv_rounds=5, chunk_rows=100_000,
                        host_rows=20_000):
     """The Allstate-shaped cell (``make_allstate_like``): ``rows`` trained
     from a CSR Dataset (mappers and EFB on the host, bins by bin_csr on the

@@ -447,20 +447,22 @@ class Config:
     multi_error_top_k: int = 1
     eval_at: Any = None  # the ranking metrics' cutoffs; None = [1, 2, 3, 4, 5]
 
-    # Growth constraints (ops/grow.py, ops/split.py): basic monotone
-    # constraints with their split penalty (the intermediate and advanced
-    # methods raise), interaction constraints, path smoothing
+    # Growth constraints (ops/grow.py, ops/split.py): monotone constraints
+    # (the basic, intermediate and advanced methods) with their split
+    # penalty, interaction constraints, path smoothing; per-node feature
+    # sampling and random thresholds, drawn from a key seeded by extra_seed
     monotone_constraints: Any = None
     monotone_constraints_method: str = "basic"
     monotone_penalty: float = 0.0
     interaction_constraints: Any = None
     path_smooth: float = 0.0
+    feature_fraction_bynode: float = 1.0
+    extra_trees: bool = False
+    extra_seed: int = 6
 
     # Training features that are not ported yet: a value other than the
     # default raises (models/gbdt.GBDT._check_unsupported_params)
     tree_learner: str = "serial"
-    feature_fraction_bynode: float = 1.0
-    extra_trees: bool = False
     forcedsplits_filename: str = ""
     cegb_penalty_split: float = 0.0
     cegb_penalty_feature_lazy: Any = None

@@ -28,10 +28,15 @@ Under bagging or GOSS the K trees grow on one compacted view of the in-bag
 rows (reference: gbdt.py:1538-1578).
 
 Growth constraints (reference: gbdt.py:1090-1140): ``monotone_constraints``
-(the basic method) with ``monotone_penalty``, ``interaction_constraints``
-and ``path_smooth`` reach the grower as (F,) signs, (C, F) feature groups
-and a parameter; under them K class trees grow one at a time, as in the
-reference (gbdt.py:1478), and a single tree may fuse.
+(the basic, intermediate and advanced methods; the last two split one leaf
+a round, gbdt.py:840-855) with ``monotone_penalty``,
+``interaction_constraints`` and ``path_smooth`` reach the grower as (F,)
+signs, (C, F) feature groups and parameters; ``feature_fraction_bynode``
+and ``extra_trees`` as parameters and a key for each class tree,
+``prng_key((extra_seed or 3) * 1000003 + iter * (K + 1) + k)``
+(gbdt.py:2246-2249), in a device buffer when fused.  Under any of them K
+class trees grow one at a time, as in the reference (gbdt.py:1478), and a
+single tree may fuse.
 
 Quantized gradients (``use_quantized_grad``, reference: gbdt.py:56-77,
 :2192-2208, :2517-2540): after sampling and pad masking, ``quantize_gh``
@@ -73,8 +78,9 @@ and runs eager.
 
 Training covers gbdt on numeric and categorical features with every
 objective of the reference (or custom gradients), ranking with
-``bagging_by_query``, the basic growth constraints; every other training
-feature raises "not yet ported" (``_check_unsupported_params``) instead of
+``bagging_by_query``, the growth constraints, by-node sampling and extra
+trees; every other training feature (CEGB, forced splits, linear trees)
+raises "not yet ported" (``_check_unsupported_params``) instead of
 training a different model.
 """
 from __future__ import annotations
@@ -178,12 +184,13 @@ class TrainState:
 class FusedInputs:
     """What changes from one fused iteration to the next, in device buffers
     the host fills before the replays (a Python value would be baked into a
-    graph at capture): the bagging epoch's mask, the quantizer's and GOSS's
-    key words (``prng_key``: (0, seed & 0xFFFFFFFF)), the learning rate and
-    the feature sample."""
+    graph at capture): the bagging epoch's mask, the quantizer's, GOSS's
+    and the grower's key words (``prng_key``: (0, seed & 0xFFFFFFFF)), the
+    learning rate and the feature sample."""
     mask: torch.Tensor       # (N,) float32
     qkey: torch.Tensor       # (2,) int64
     skey: torch.Tensor       # (2,) int64
+    gkey: torch.Tensor       # (2,) int64 the per-node draws' key
     rate: torch.Tensor       # () float32
     col_mask: Optional[torch.Tensor]   # (F,) bool, or None
 
@@ -353,13 +360,6 @@ class GBDT:
                 "f32/int8)")
         if c.tree_learner != "serial":
             raise _not_ported(f"tree_learner={c.tree_learner!r}")
-        if c.feature_fraction_bynode < 1.0:
-            raise _not_ported("feature_fraction_bynode < 1")
-        if (_nonzero(c.monotone_constraints)
-                and c.monotone_constraints_method in ("intermediate",
-                                                      "advanced")):
-            raise _not_ported("monotone_constraints_method="
-                              f"{c.monotone_constraints_method!r}")
         for key in ("cegb_penalty_feature_lazy",
                     "cegb_penalty_feature_coupled"):
             if _nonzero(getattr(c, key)):
@@ -368,9 +368,8 @@ class GBDT:
             raise _not_ported("cegb_penalty_split")
         if c.forcedsplits_filename:
             raise _not_ported("forced splits")
-        for key in ("linear_tree", "extra_trees"):
-            if getattr(c, key):
-                raise _not_ported(key)
+        if c.linear_tree:
+            raise _not_ported("linear_tree")
         w = c.auc_mu_weights
         if w is not None and (w.strip() if isinstance(w, str)
                               else np.size(w)):
@@ -436,19 +435,25 @@ class GBDT:
     def _use_batched_multiclass(self) -> bool:
         """K class trees in lockstep (reference: gbdt.py:1460-1499):
         ``multiclass_batched`` and plain growth; under a growth constraint
-        they grow one at a time."""
+        or a per-node draw they grow one at a time."""
         return (self.config.multiclass_batched
                 and self.grow_params.plain_growth)
 
     def _make_grow_params(self) -> GrowParams:
         c = self.config
+        has_mono = self._monotone_array() is not None
+        method = c.monotone_constraints_method
         cat_bins = [int(m.num_bins) for m in self.train_data.bin_mappers()
                     if m.bin_type == BIN_CATEGORICAL]
+        imono = has_mono and method in ("intermediate", "advanced")
         return GrowParams(
             num_leaves=max(c.num_leaves, 2), max_depth=c.max_depth,
             # auto (0) is 64, as the reference resolves it for its stream
-            # backend on every device
-            max_splits_per_round=(c.max_splits_per_round
+            # backend on every device; the intermediate and advanced
+            # monotone methods split one leaf a round (reference:
+            # gbdt.py:840-855), since each split tightens other leaves'
+            # bounds before the next is chosen
+            max_splits_per_round=(1 if imono else c.max_splits_per_round
                                   if c.max_splits_per_round > 0 else 64),
             lambda_l1=c.lambda_l1, lambda_l2=c.lambda_l2,
             min_data_in_leaf=c.min_data_in_leaf,
@@ -459,10 +464,16 @@ class GBDT:
                            c.max_cat_to_onehot, c.min_data_per_group)
                  if cat_bins else None),
             cat_bins=max(cat_bins, default=0),
-            has_monotone=self._monotone_array() is not None,
+            has_monotone=has_mono,
             monotone_penalty=c.monotone_penalty,
+            # the reference's gate (gbdt.py:941-944, :1112-1115): advanced
+            # implies intermediate
+            monotone_intermediate=imono,
+            monotone_advanced=has_mono and method == "advanced",
             path_smooth=c.path_smooth,
             has_interaction=self._interaction_group_masks() is not None,
+            extra_trees=c.extra_trees,
+            bynode_fraction=c.feature_fraction_bynode,
             # auto resolves on: the replay gives the same leaves as the
             # per-round route-only passes, and the grower applies the
             # reference's gate
@@ -744,7 +755,8 @@ class GBDT:
                             col_mask=col_mask, compact_rows=compact,
                             bins=self.dd.bins, gh_scales=gh_scales,
                             monotone=self._monotone,
-                            interaction_groups=self._groups)
+                            interaction_groups=self._groups,
+                            key=self._grow_key())
             if renew:
                 res = res._replace(arrays=self._renew_leaves_exact(
                     res.arrays, res.leaf_id, grad_raw, hess_raw))
@@ -787,6 +799,17 @@ class GBDT:
             self._trim_trailing_trivial()
             return True
         return False
+
+    def _grow_key(self, kk: int = 0):
+        """The key of class kk's per-node draws this iteration, or None
+        when no draw is needed (reference: gbdt.py:2246-2249, :1571-1572;
+        one class: ``iter * 2``, its fused form :1879)."""
+        gp = self.grow_params
+        if not (gp.extra_trees or gp.bynode_fraction < 1.0):
+            return None
+        k = self.num_tree_per_iteration
+        return prng_key((self.config.extra_seed or 3) * 1000003
+                        + self.iter_ * (k + 1) + kk)
 
     def _quant_seed(self) -> int:
         """The seed of this iteration's quantizer key (reference:
@@ -867,6 +890,7 @@ class GBDT:
                 mask=torch.ones(n, dtype=torch.float32, device=dev),
                 qkey=torch.zeros(2, dtype=torch.int64, device=dev),
                 skey=torch.zeros(2, dtype=torch.int64, device=dev),
+                gkey=torch.zeros(2, dtype=torch.int64, device=dev),
                 rate=scalar(torch.float32),
                 col_mask=(torch.ones(ncol, dtype=torch.bool, device=dev)
                           if self.config.feature_fraction < 1.0 else None))
@@ -887,6 +911,9 @@ class GBDT:
             inp.skey[1].fill_(strategy.key_seed(self.iter_) & mask32)
         if self.config.use_quantized_grad:
             inp.qkey[1].fill_(self._quant_seed() & mask32)
+        gkey = self._grow_key()
+        if gkey is not None:
+            inp.gkey[1].fill_(gkey[1])
         inp.rate.fill_(self.config.learning_rate)
         col = self._feature_mask_host()
         if col is not None:
@@ -902,7 +929,9 @@ class GBDT:
                 self._bins_T, self.num_tree_per_iteration, self.dd.layout,
                 self.dd.routing, self.grow_params, self.dd.max_bins,
                 col_mask=self._fused_in.col_mask, compact_rows=compact,
-                monotone=self._monotone, interaction_groups=self._groups)
+                monotone=self._monotone, interaction_groups=self._groups,
+                key=(None if self._grow_key() is None
+                     else tuple(self._fused_in.gkey.unbind())))
         return gr
 
     def _fused_head(self, st: TrainState, gr: _DeviceGrower,
@@ -1158,7 +1187,8 @@ class GBDT:
                              bins=self.dd.bins,
                              gh_scales=None if scales is None else scales[kk],
                              monotone=self._monotone,
-                             interaction_groups=self._groups, **kw)
+                             interaction_groups=self._groups,
+                             key=self._grow_key(kk), **kw)
                    for kk in range(k)]
         if raw is not None:
             results = [r._replace(arrays=self._renew_leaves_exact(

@@ -84,6 +84,24 @@ child on its side; the split scan gains at the constrained outputs
 constraints keep each leaf's (F,) path features, and a leaf's scan sees
 only the features of the groups that hold its whole path.
 
+The intermediate and advanced monotone methods (reference: :1109-1359,
+:1425-1511) split one leaf a round.  Each split's children take the
+split leaf's bounds tightened with their actual outputs, and the leaves
+across the split leaf's monotone ancestors that its plane touches take
+the children's outputs as bounds (``_mono_pairs``, ``_walk``); the tree
+keeps each leaf's ancestry (leaf x node, left and right), each node's
+monotone sign and depth, and each leaf's bin rectangle.  Every leaf then
+rescans, and the children and the leaves whose bounds changed take their
+results.  The advanced method bounds each threshold instead, from per-leaf
+(F, Bmax) constraint slabs: the children clone the split leaf's and clamp
+them, and the leaves the walk flags recompute theirs
+(``advanced_constraint_slabs``).  By-node feature sampling and extra trees
+(reference: :466-487; ops/split.py:442-447) draw from the tree's key:
+uniform numbers over each scanned leaf's allowed features and a random
+threshold a feature, each leaf in its row of the reference's (R, F) draw
+for the round.  None of these is plain growth: K class trees grow one at
+a time.
+
 Categorical splits (reference: ops/grow.py:936-951, :2017-2031): each
 chosen categorical split's left bins are recomputed from the split leaf's
 cached histogram (``categorical_left_bitset``), kept in the node arrays'
@@ -102,8 +120,7 @@ of :1530-1560) keeps those counts on the device, gives every round a static
 shape (K * min(2**r, B) pair slots, K2 at min(2**r, B) slots) and reads the
 host once per tree, after the rounds its caller planned: the same trees, bit
 for bit, since a round no class needs changes nothing.  Not ported:
-forced splits, the intermediate and advanced monotone methods, CEGB,
-by-node feature sampling, extra trees and meshes.
+forced splits, CEGB and meshes.
 """
 from __future__ import annotations
 
@@ -117,6 +134,7 @@ from ..kernels.layout import (ROUTE_FIELDS, build_route_tables,
 from ..kernels.route_hist import route_and_hist, route_and_hist_int
 from ..kernels.route_replay import route_replay
 from ..tree import DIR_CATEGORICAL, DIR_DEFAULT_LEFT, TreeArrays
+from ..utils.random import fold_in, uniform_rows
 from ..utils.timer import host_list, phase
 from .compact import (check_compact_supported, compact_row_views,
                       compact_transposed_view, plan_sample_rows)
@@ -125,8 +143,9 @@ from .histogram import (build_histograms, build_histograms_k, hist_shift,
                         scale_table_dev)
 from .predict import feature_local_bin
 from .split import (EPS_HESS, NEG_INF, CatParams, categorical_left_bitset,
-                    constrained_child_outputs, find_best_splits,
-                    gather_feature_histograms, leaf_output, penalty_table)
+                    child_output, constrained_child_outputs,
+                    find_best_splits, gather_feature_histograms, leaf_output,
+                    penalty_table)
 
 
 class GrowParams(NamedTuple):
@@ -156,15 +175,26 @@ class GrowParams(NamedTuple):
     # and the interaction groups themselves go to the grower as tensors
     has_monotone: bool = False
     monotone_penalty: float = 0.0
+    # the intermediate method (each leaf's bounds tightened with the actual
+    # outputs of the leaves across its monotone ancestors) and the advanced
+    # one, which implies it (bounds per threshold from constraint slabs)
+    monotone_intermediate: bool = False
+    monotone_advanced: bool = False
     path_smooth: float = 0.0
     has_interaction: bool = False
+    # per-node feature sampling and random thresholds, drawn from the key
+    # the grower is given
+    extra_trees: bool = False
+    bynode_fraction: float = 1.0
 
     @property
     def plain_growth(self) -> bool:
-        """No growth constraint is on (reference: :116-123): the gate of
-        route fusion and of K class trees in lockstep."""
+        """No growth constraint or per-node draw is on (reference:
+        :116-123): the gate of route fusion and of K class trees in
+        lockstep."""
         return not (self.has_monotone or self.has_interaction
-                    or self.path_smooth > 0.0)
+                    or self.path_smooth > 0.0 or self.extra_trees
+                    or self.bynode_fraction < 1.0)
 
 
 class GrowResult(NamedTuple):
@@ -212,6 +242,122 @@ _LEAF_FIELDS = {
     "leaf_out": (_F32, 0)}
 
 
+# the open end of a leaf's bin rectangle (reference: :817)
+_RECT_OPEN = 2 ** 30
+# elements of the largest temporary of one chunk of the slab computation
+_SLAB_CHUNK_ELEMS = 1 << 25
+
+
+def intermediate_monotone_bounds(anc_left, anc_right, node_mono, leaf_out,
+                                 big: float = BIG):
+    """Each leaf's (lo, hi) output bounds from its monotone ancestors and
+    the actual outputs of the leaves on their other side (reference:
+    intermediate_monotone_bounds, ops/grow.py:201-226): the dense form over
+    every leaf.  The grower applies the method through the serial walk of
+    each split (``_Grower._mono_pairs``), over the leaves each split can
+    reach; on one feature, where every two leaves are comparable, a grown
+    tree's outputs lie inside these bounds.  anc_left, anc_right: (L, L)
+    bool, leaf row in the left or right subtree of node column; node_mono:
+    (L,) int; leaf_out: (L,) float32."""
+    out = leaf_out[:, None]
+    lmax = torch.where(anc_left, out, -big).amax(dim=0)
+    lmin = torch.where(anc_left, out, big).amin(dim=0)
+    rmax = torch.where(anc_right, out, -big).amax(dim=0)
+    rmin = torch.where(anc_right, out, big).amin(dim=0)
+    inc = (node_mono > 0)[None, :]
+    dec = (node_mono < 0)[None, :]
+    hi = torch.minimum(torch.where(anc_left & inc, rmin[None, :], big),
+                       torch.where(anc_right & dec, lmin[None, :], big)
+                       ).amin(dim=1)
+    lo = torch.maximum(torch.where(anc_right & inc, lmax[None, :], -big),
+                       torch.where(anc_left & dec, rmax[None, :], -big)
+                       ).amax(dim=1)
+    return lo, hi
+
+
+def advanced_constraint_slabs(anc_l, anc_r, node_mono, node_depth, node_feat,
+                              node_thr, node_num, rect_lo, rect_hi, leaf_out,
+                              bmax: int, big: float = BIG,
+                              rows: Optional[torch.Tensor] = None):
+    """The advanced method's (P, F, bmax) constraint slabs (reference:
+    advanced_constraint_slabs, ops/grow.py:229-343): v_min[P, f, b] the
+    largest output of the leaves that bound leaf P from below and whose
+    interval on f covers bin b (-big where none), v_max the smallest of
+    those bounding it from above (big where none).  A leaf Q bounds P
+    through their lowest common ancestor, when it is a monotone numeric
+    node recorded on P's path (no deeper node of P's path splits on its
+    feature from the same side), Q lies across it and Q's rectangle meets
+    every recorded plane of P's path below it.  anc_l, anc_r: (L, L) bool
+    leaf row in the left or right subtree of node column; node_*: (L,) per
+    node; rect_lo, rect_hi: (L, F) each leaf's bin rectangle [lo, hi);
+    leaf_out: (L,) float32.  ``rows``: the leaves P to compute (all L by
+    default).  The (P, Q, node) masks and the (P, Q, F, bmax) selections
+    run in chunks of P, each at most ``_SLAB_CHUNK_ELEMS`` elements."""
+    L, F = rect_lo.shape
+    dev = anc_l.device
+    if rows is None:
+        rows = torch.arange(L, device=dev)
+    anc = anc_l | anc_r
+    same_feat = node_feat[:, None] == node_feat[None, :]       # (B', B)
+    deeper = node_depth[:, None] > node_depth[None, :]         # (B', B)
+    base = same_feat & deeper & node_num[:, None]              # (B', B)
+    okR = rect_hi[:, node_feat] > (node_thr[None, :] + 1)      # (Q, B)
+    okL = rect_lo[:, node_feat] <= node_thr[None, :]
+    bb = torch.arange(bmax, device=dev)
+    f_iota = torch.arange(F, device=dev)
+    arQ = torch.arange(L, device=dev)
+    out = leaf_out[None, :, None, None]
+    chunk = max(1, _SLAB_CHUNK_ELEMS // max(L * max(L, F * bmax), 1))
+    v_min, v_max = [], []
+    for c0 in range(0, rows.shape[0], chunk):
+        P = rows[c0:c0 + chunk]
+        aP, arP = anc[P], anc_r[P]                             # (p, B)
+        sides_eq = arP[:, :, None] == arP[:, None, :]          # (p, B', B)
+        blocked = (aP[:, :, None] & base[None] & sides_eq).any(dim=1)
+        recorded = aP & node_num[None, :] & ~blocked           # (p, B)
+        common = aP[:, None, :] & anc[None, :, :]              # (p, Q, B)
+        d_masked = torch.where(common, node_depth[None, None, :], -1)
+        lca = d_masked.argmax(dim=2)                           # (p, Q)
+        has_common = d_masked.amax(dim=2) >= 0
+        lca_depth = node_depth[lca]
+        rec_at = torch.gather(recorded, 1, lca)
+        mono_at = node_mono[lca]
+        sideP = torch.gather(arP, 1, lca)
+        sideQ = anc_r[arQ[None, :], lca]
+        opposite = sideP != sideQ
+        upd_min = torch.where(mono_at > 0, sideP, ~sideP)
+        ok2 = torch.where(arP[:, None, :], okR[None], okL[None])  # (p, Q, B)
+        bad = (recorded[:, None, :]
+               & (node_depth[None, None, :] > lca_depth[:, :, None])
+               & ~ok2).any(dim=2)
+        C = has_common & rec_at & (mono_at != 0) & opposite & ~bad
+        # Q's slice of P's threshold axis on each feature: P's interval
+        # widened one bin down, meeting Q's, whose bound facing the lowest
+        # common ancestor's plane is dropped where that node splits on f
+        thrA, featA, numA = node_thr[lca], node_feat[lca], node_num[lca]
+        q_right = sideQ
+        facing = ((f_iota[None, None, :] == featA[..., None])
+                  & numA[..., None])                            # (p, Q, F)
+        qlo = torch.where(facing & q_right[..., None]
+                          & (rect_lo[None] == (thrA + 1)[..., None]),
+                          -_RECT_OPEN, rect_lo[None])
+        qhi = torch.where(facing & ~q_right[..., None]
+                          & (rect_hi[None] == (thrA + 1)[..., None]),
+                          _RECT_OPEN, rect_hi[None])
+        lo_s = torch.maximum(rect_lo[P][:, None, :] - 1, qlo)
+        hi_s = torch.minimum(rect_hi[P][:, None, :], qhi)
+        inside = ((bb >= lo_s[..., None])
+                  & (bb < hi_s[..., None]))                     # (p, Q, F, b)
+        for sel, fill, acc, red in (
+                (C & upd_min, -big, v_min, torch.amax),
+                (C & ~upd_min, big, v_max, torch.amin)):
+            vals = torch.where(sel[..., None, None] & inside, out,
+                               torch.full((), fill, dtype=leaf_out.dtype,
+                                          device=dev))
+            acc.append(red(vals, dim=1))
+    return torch.cat(v_min), torch.cat(v_max)
+
+
 class _Grower:
     """The state of K class trees while they grow (K = 1: one tree):
     per-leaf sums, cached best splits and histograms, node arrays, and
@@ -242,10 +388,10 @@ class _Grower:
                  routing: RoutingLayout, params: GrowParams, max_bins: int,
                  timer=None, col_mask=None, compact_rows: int = 0,
                  bins=None, gh_scales=None, monotone=None,
-                 interaction_groups=None):
+                 interaction_groups=None, key=None):
         self._alloc(bins_T, grad.shape[0], layout, routing, params, max_bins,
                     timer, col_mask, compact_rows, monotone,
-                    interaction_groups)
+                    interaction_groups, key)
         self.records = []          # the rounds' route tables, when fused
         # per class on the host: leaves so far, whether the last round
         # split, splittable leaves, rounds that split
@@ -253,10 +399,14 @@ class _Grower:
         self.progressed = [True] * self.K
         self.npos = [0] * self.K
         self.rounds = [0] * self.K
+        # rounds run so far, which index the per-node draws (reference:
+        # round_idx, :184)
+        self.round_idx = 0
         self._setup_rows(grad, hess, cnt, gh_scales, bins)
 
     def _alloc(self, bins_T, K, layout, routing, params, max_bins, timer,
-               col_mask, compact_rows, monotone=None, interaction_groups=None):
+               col_mask, compact_rows, monotone=None, interaction_groups=None,
+               key=None):
         """The per-leaf tensors, zeroed, and what does not change over a
         run."""
         self.bins_T = bins_T
@@ -285,11 +435,44 @@ class _Grower:
         self.pen_table = (penalty_table(params.monotone_penalty, dev)
                           if self.monotone is not None
                           and params.monotone_penalty > 0.0 else None)
+        F = layout.num_bins.shape[0]
         if self.groups is not None:
             # each leaf's path features
-            self.used_feat_f = torch.zeros(
-                (KL + 1, layout.num_bins.shape[0]), dtype=torch.bool,
-                device=dev)
+            self.used_feat_f = torch.zeros((KL + 1, F), dtype=torch.bool,
+                                           device=dev)
+        # the key of the per-node draws: two Python ints, or two 0-d device
+        # tensors a fused iteration fills
+        self.key = key
+        self.bynode = params.bynode_fraction < 1.0 and key is not None
+        # float32, as the reference's weakly typed product takes it
+        self.bynode_frac = torch.full((), params.bynode_fraction,
+                                      dtype=_F32, device=dev)
+        self.extra = params.extra_trees and key is not None
+        self.imono = (self.monotone is not None
+                      and params.monotone_intermediate)
+        self.amono = self.imono and params.monotone_advanced
+        if self.imono:
+            if K != 1:
+                raise ValueError("the intermediate and advanced monotone "
+                                 "methods grow one class tree at a time")
+            # leaf rows x node columns (reference: :164-182, :816-826)
+            n1 = KL + 1
+            self.anc_l = torch.zeros((n1, n1), dtype=torch.bool, device=dev)
+            self.anc_r = torch.zeros_like(self.anc_l)
+            self.node_mono = torch.zeros(n1, dtype=_I64, device=dev)
+            self.node_depth = torch.zeros(n1, dtype=_I64, device=dev)
+            self.rect_lo = torch.zeros((n1, F), dtype=_I64, device=dev)
+            self.rect_hi = torch.full((n1, F), _RECT_OPEN, dtype=_I64,
+                                      device=dev)
+            self.in_mono = torch.zeros(n1, dtype=torch.bool, device=dev)
+            self._true = torch.ones(1, dtype=torch.bool, device=dev)
+            if self.amono:
+                self.adv_vmin = torch.full((n1, F, max_bins), -BIG,
+                                           dtype=_F32, device=dev)
+                self.adv_vmax = torch.full((n1, F, max_bins), BIG,
+                                           dtype=_F32, device=dev)
+                self.adv_ok = torch.ones((n1, F), dtype=torch.bool,
+                                         device=dev)
         self.hist_f = torch.zeros((KL + 1, G, max_bins, 2), dtype=_F32,
                                   device=dev)
         self.hist = self.hist_f[:KL].view(K, L, G, max_bins, 2)
@@ -390,18 +573,37 @@ class _Grower:
                             for v in host_list(m, self.timer))
         self.scales = scale_table(self.shifts, self.dev)
 
-    def find_splits(self, hist, g, h, c, ids):
+    def _round_key(self, offset: int):
+        """The key of this round's draws, ``fold_in(key, offset +
+        round_idx)`` (reference: :1462, :1482)."""
+        return fold_in(self.key, offset + self.round_idx)
+
+    def find_splits(self, hist, g, h, c, ids, rows=None, root=False):
         """Best splits of the leaves at flat (K * L) positions ``ids``, whose
         (R, G, Bmax, 2) histograms and (R,) sums are given, under their
-        constraints."""
+        constraints.  ``rows``: (R,) each leaf's row in the reference's
+        draws of the round (the per-node draws); ``root``: the root's scan,
+        whose draws take their own keys (reference: :767-796)."""
         p = self.p
         with phase(self.timer, "split_scan"):
             col_mask, kw = self.col_mask, {}
-            if self.groups is not None:
-                col_mask = self._node_col_mask(self.used_feat_f[ids])
+            if self.groups is not None or self.bynode:
+                bkey = None
+                if self.bynode:
+                    bkey = (fold_in(self.key, 0) if root
+                            else self._round_key(2))
+                col_mask = self._node_col_mask(ids, rows, bkey)
+            if self.extra:
+                kw.update(extra_key=(fold_in(self.key, 1) if root
+                                     else self._round_key(100000)),
+                          draw_rows=rows)
+            if self.amono:
+                kw["adv_bounds"] = (self.adv_vmin[ids], self.adv_vmax[ids])
+                if not root:
+                    kw["splittable"] = self.adv_ok[ids]
             if self.use_output:
                 fl = self.fl
-                kw = dict(out_lo=fl["out_lo"][ids], out_hi=fl["out_hi"][ids],
+                kw.update(out_lo=fl["out_lo"][ids], out_hi=fl["out_hi"][ids],
                           parent_out=fl["leaf_out"][ids],
                           path_smooth=p.path_smooth)
                 if self.monotone is not None:
@@ -415,17 +617,32 @@ class _Grower:
                 p.min_gain_to_split, p.max_delta_step, col_mask,
                 self.cat, **kw)
 
-    def _node_col_mask(self, used):
-        """(R, F) the features each leaf may split on: the tree's feature
-        sample and the union of the interaction groups that hold every
-        feature of its (R, F) path ``used`` (reference: node_col_mask,
-        :466-475)."""
-        g = self.groups
-        contains = ~(used[:, None, :] & ~g[None]).any(dim=-1)      # (R, C)
-        allowed = (contains[:, :, None] & g[None]).any(dim=1)      # (R, F)
+    def _node_col_mask(self, ids, rows, bkey):
+        """(R, F) the features each leaf at flat positions ``ids`` may split
+        on (reference: node_col_mask, :466-487): the tree's feature sample,
+        the union of the interaction groups that hold every feature of the
+        leaf's path, and by-node sampling: of the features left,
+        ceil(fraction * count), at least one, those of the largest
+        ``uniform(bkey)`` draws in row ``rows[i]`` of the reference's (R,
+        F) draw, taken by a stable double argsort."""
+        F = self.layout.num_bins.shape[0]
+        m = torch.ones((ids.shape[0], F), dtype=torch.bool, device=self.dev)
         if self.col_mask is not None:
-            allowed = allowed & self.col_mask[None, :]
-        return allowed
+            m = m & self.col_mask[None, :]
+        if self.groups is not None:
+            g = self.groups
+            used = self.used_feat_f[ids]
+            contains = ~(used[:, None, :] & ~g[None]).any(dim=-1)  # (R, C)
+            m = m & (contains[:, :, None] & g[None]).any(dim=1)    # (R, F)
+        if self.bynode:
+            u = torch.where(m, uniform_rows(bkey, rows, F), -1.0)
+            avail = m.sum(dim=1, keepdim=True).to(_F32)
+            kcnt = torch.clamp(torch.ceil(self.bynode_frac * avail),
+                               min=1.0).to(_I64)
+            order = torch.argsort(-u, dim=1, stable=True)
+            rank = torch.argsort(order, dim=1)
+            m = m & (rank < kcnt)
+        return m
 
     def _k2(self, bins_T, leaf_id, tabs, grad, hess, cnt, num_slots,
             with_hist):
@@ -532,11 +749,14 @@ class _Grower:
             p = self.p
             self.leaf_out[:, 0] = leaf_output(g, h, p.lambda_l1, p.lambda_l2,
                                               p.max_delta_step)
+        ids = self.class_base[:, 0]
         res = self.find_splits(root_hist.reshape(K, G, self.Bmax, 2), g, h, c,
-                               self.class_base[:, 0])
+                               ids, torch.zeros_like(ids), root=True)
         self.hist[:, 0] = root_hist
         self.sum_g[:, 0], self.sum_h[:, 0], self.cnt_leaf[:, 0] = g, h, c
-        self._store_best(self.class_base[:, 0], res)
+        self._store_best(ids, res)
+        if self.amono:
+            self.adv_ok[0] = res.feat_ok[0]
         self.count_splittable()
 
     def _store_best(self, ids, res):
@@ -573,10 +793,16 @@ class _Grower:
                 self.progressed[c] = False
             ksp.append(k)
         if sum(ksp) == 0:
+            self.round_idx += 1
             return
         with phase(self.timer, "other"):
             cls, rank, new = _pair_index(ksp, self.cur, self.dev)
-        self._split_pairs(cls, rank, new, None, max(ksp), with_hist)
+        # the leaves after the round: what the rescan and the slab refresh
+        # of the monotone methods read (one class tree)
+        span = self.cur[0] + ksp[0] if self.imono else None
+        self._split_pairs(cls, rank, new, None, max(ksp), with_hist, budget,
+                          span)
+        self.round_idx += 1
         for c in range(K):
             self.rounds[c] += ksp[c] > 0
             self.cur[c] += ksp[c]
@@ -584,14 +810,23 @@ class _Grower:
             self.count_splittable()
 
     def _split_pairs(self, cls, rank, new, live, num_slots: int,
-                     with_hist: bool):
+                     with_hist: bool, budget: int,
+                     span: Optional[int] = None):
         """The splits of one round, class-major pairs: pair i splits the
         rank[i]-th leaf by cached gain of class cls[i] into it and leaf
         new[i].  ``live``: None (every pair splits), or (P,) bool, and a
         dead pair's writes all go to the spare leaf.  Routes every row,
         builds the histograms of the smaller children in slot rank[i] of
         their class (``num_slots`` slots a class), subtracts the larger
-        siblings' and scans the children for their best splits."""
+        siblings' and scans the children for their best splits; under the
+        intermediate monotone method, every leaf, the children and the
+        leaves whose bounds the round tightened taking their results.
+        ``budget``: the round's split budget, which places the children in
+        the rows of the reference's per-node draws (pair i's split leaf in
+        row i, its new leaf in row ``budget + i``; under the intermediate
+        method leaf j in row j).  ``span``: under the intermediate method,
+        a bound on the leaves after the round (every leaf by default); the
+        rescan and the slab refresh read those only."""
         p, L, dev, K = self.p, self.L, self.dev, self.K
         G = self.bins_T.shape[0]
         KL = self.KL
@@ -702,7 +937,7 @@ class _Grower:
             d = fl["depth"][fo] + 1
             fl["depth"][fn] = d
             fl["depth"][fo] = d
-            if self.use_output:
+            if self.use_output and not self.imono:
                 self._bound_children(fo, fn, feat, dirf, lg, lh, lc, rg, rh,
                                      rc)
             if self.groups is not None:
@@ -711,6 +946,10 @@ class _Grower:
                     torch.arange(F, device=dev)[None, :] == feat[:, None])
                 self.used_feat_f[fo] = used
                 self.used_feat_f[fn] = used
+        span = KL if span is None else span
+        if self.imono:
+            self._mono_pairs(fo, fn, fnode, live, feat, thr, dirf, lg, lh, lc,
+                             rg, rh, rc, d - 1, with_hist, span)
         if not with_hist:
             return
         with phase(self.timer, "other"):
@@ -719,11 +958,240 @@ class _Grower:
             hf = self.hist_f
             hf[smaller] = hist_small
             hf[larger] = hist_subtract(parent_hist, hist_small)
-            ids2 = torch.cat([fo, fn])
+            if self.imono:
+                # every leaf rescans; the children and the leaves whose
+                # bounds tightened take the results (reference: :1425-1511)
+                ids2 = rows = torch.arange(span, device=dev)
+                if self.amono:
+                    # fresh children inherit the parent's feature flags
+                    self.adv_ok[fn] = self.adv_ok[fo]
+                child = torch.zeros(KL + 1, dtype=torch.bool, device=dev)
+                child.index_fill_(0, fo, True)
+                child.index_fill_(0, fn, True)
+                valid2 = (child | self.mono_changed)[:span]
+            else:
+                ids2 = torch.cat([fo, fn])
+                ar = torch.arange(fo.shape[0], device=dev)
+                rows = torch.cat([ar, ar + budget])
         res = self.find_splits(hf[ids2], fl["sum_g"][ids2],
-                               fl["sum_h"][ids2], fl["cnt_leaf"][ids2], ids2)
+                               fl["sum_h"][ids2], fl["cnt_leaf"][ids2], ids2,
+                               rows)
         with phase(self.timer, "other"):
-            self._store_best(ids2, res)
+            if self.imono:
+                self._store_best(torch.where(valid2, ids2, KL), res)
+                if self.amono:
+                    # the flags refresh where a leaf rescanned
+                    self.adv_ok[:span] = torch.where(valid2[:, None],
+                                                     res.feat_ok,
+                                                     self.adv_ok[:span])
+            else:
+                self._store_best(ids2, res)
+
+    def _mono_pairs(self, fo, fn, fnode, live, feat, thr, dirf, lg, lh, lc,
+                    rg, rh, rc, depth_o, with_hist: bool, span: int):
+        """The intermediate (and advanced) method's update of a round's
+        splits, one pair after another in the round's best-gain order, as
+        the reference applies them (``_one_split``, ops/grow.py:1109-1340):
+        each pair's constrained child outputs, its children's bound entries
+        tightened with the actual outputs, the leaves across its monotone
+        ancestors whose bounds those outputs tighten, the ancestry and
+        bin-rectangle writes and, under the advanced method, the children's
+        slabs cloned and clamped; then the advanced method's slabs of the
+        flagged leaves recomputed, min before max (:1344-1359).  Sets
+        ``mono_changed`` (KL + 1,) the leaves whose bounds changed.  A dead
+        pair (``live``) writes the spare leaf only."""
+        p, fl, dev = self.p, self.fl, self.dev
+        lo_v, hi_v, lov = fl["out_lo"], fl["out_hi"], fl["leaf_out"]
+        n1 = lo_v.shape[0]
+        is_num = (dirf & DIR_CATEGORICAL) == 0
+        m_split = torch.where(is_num, self.monotone[feat], 0)
+        node_num = (fl["dir_flags"] & DIR_CATEGORICAL) == 0
+        # the walk reads the bests cached before the round
+        splittable = fl["best_gain"] > NEG_INF / 2
+        chg_min = torch.zeros(n1, dtype=torch.bool, device=dev)
+        chg_max = torch.zeros_like(chg_min)
+        with phase(self.timer, "mono_pairs"):
+            if self.amono:
+                adv_out = self._adv_child_outputs(fo, feat, thr, dirf, lg,
+                                                  lh, lc, rg, rh, rc)
+            for i in range(fo.shape[0]):
+                sl = slice(i, i + 1)
+                o, nw, nd = fo[sl], fn[sl], fnode[sl]
+                sf, stb, isn, ms = feat[sl], thr[sl], is_num[sl], m_split[sl]
+                lo_o, hi_o = lo_v[o], hi_v[o]
+                if self.amono:
+                    ol, orr = adv_out[0][sl], adv_out[1][sl]
+                else:
+                    ol, orr = constrained_child_outputs(
+                        lg[sl], lh[sl], lc[sl], rg[sl], rh[sl], rc[sl],
+                        p.lambda_l1, p.lambda_l2, lo_o, hi_o, p.path_smooth,
+                        lov[o], p.max_delta_step)
+                lov[o] = ol
+                lov[nw] = orr
+                anc_o_l, anc_o_r = self.anc_l[o][0], self.anc_r[o][0]
+                flag = (ms != 0) | self.in_mono[o]
+                inc = flag & isn & (ms > 0)
+                dec = flag & isn & (ms < 0)
+                lo_v[o] = torch.where(dec, torch.maximum(lo_o, orr), lo_o)
+                hi_v[o] = torch.where(inc, torch.minimum(hi_o, orr), hi_o)
+                lo_v[nw] = torch.where(inc, torch.maximum(lo_o, ol), lo_o)
+                hi_v[nw] = torch.where(dec, torch.minimum(hi_o, ol), hi_o)
+                self._walk(anc_o_l, anc_o_r, flag if live is None
+                           else flag & live[sl], sf, stb, isn, ol, orr,
+                           node_num, splittable, chg_min, chg_max)
+                # ancestry, node and rectangle bookkeeping
+                self.anc_l[nw] = anc_o_l[None]
+                self.anc_r[nw] = anc_o_r[None]
+                self.anc_l.index_put_((o, nd), self._true)
+                self.anc_r.index_put_((nw, nd), self._true)
+                self.node_mono[nd] = ms
+                self.node_depth[nd] = depth_o[sl]
+                self.rect_lo[nw] = self.rect_lo[o]
+                self.rect_hi[nw] = self.rect_hi[o]
+                r_hi, r_lo = self.rect_hi[o, sf], self.rect_lo[o, sf]
+                self.rect_hi.index_put_((o, sf), torch.where(
+                    isn, torch.minimum(r_hi, stb + 1), r_hi))
+                self.rect_lo.index_put_((nw, sf), torch.where(
+                    isn, torch.maximum(r_lo, stb + 1), r_lo))
+                self.in_mono[o] = flag
+                self.in_mono[nw] = flag
+                if self.amono:
+                    # the new leaf clones the split leaf's slabs, then both
+                    # take the split's clamp on every (feature, bin)
+                    vn, vx = self.adv_vmin, self.adv_vmax
+                    vn[nw] = vn[o]
+                    vx[nw] = vx[o]
+                    i3, d3 = inc[:, None, None], dec[:, None, None]
+                    ol3, or3 = ol[:, None, None], orr[:, None, None]
+                    vx[o] = torch.where(i3, torch.minimum(vx[o], or3), vx[o])
+                    vn[o] = torch.where(d3, torch.maximum(vn[o], or3), vn[o])
+                    vn[nw] = torch.where(i3, torch.maximum(vn[nw], ol3),
+                                         vn[nw])
+                    vx[nw] = torch.where(d3, torch.minimum(vx[nw], ol3),
+                                         vx[nw])
+        if self.amono and with_hist:
+            with phase(self.timer, "mono_slabs"):
+                self._refresh_slabs(chg_min, chg_max & ~chg_min, node_num,
+                                    span)
+        self.mono_changed = chg_min | chg_max
+
+    def _adv_child_outputs(self, fo, feat, thr, dirf, lg, lh, lc, rg, rh,
+                           rc):
+        """(P,) each pair's child outputs under the bounds its winning scan
+        used, from the split leaf's slabs on the split feature before the
+        round (reference: :1129-1168): the reverse scan's running and
+        suffix extrema at the threshold; the forward scan's bin 0 on the
+        left and the whole slab on the right; none for a categorical
+        split."""
+        p = self.p
+        vmn, vmx = self.adv_vmin[fo, feat], self.adv_vmax[fo, feat]  # (P, B)
+        left = (torch.arange(self.Bmax, device=self.dev)[None, :]
+                <= thr[:, None])
+        rev = (dirf & DIR_DEFAULT_LEFT) != 0
+        cat = (dirf & DIR_CATEGORICAL) != 0
+        lo_l = torch.where(rev, torch.where(left, vmn, -BIG).amax(dim=1),
+                           vmn[:, 0])
+        hi_l = torch.where(rev, torch.where(left, vmx, BIG).amin(dim=1),
+                           vmx[:, 0])
+        lo_r = torch.where(rev, torch.where(~left, vmn, -BIG).amax(dim=1),
+                           vmn.amax(dim=1))
+        hi_r = torch.where(rev, torch.where(~left, vmx, BIG).amin(dim=1),
+                           vmx.amin(dim=1))
+        lo_l, lo_r = (torch.where(cat, -BIG, x) for x in (lo_l, lo_r))
+        hi_l, hi_r = (torch.where(cat, BIG, x) for x in (hi_l, hi_r))
+        po = self.fl["leaf_out"][fo]
+        return (child_output(lg, lh, lc, p.lambda_l1, p.lambda_l2, lo_l, hi_l,
+                             p.path_smooth, po, p.max_delta_step),
+                child_output(rg, rh, rc, p.lambda_l1, p.lambda_l2, lo_r, hi_r,
+                             p.path_smooth, po, p.max_delta_step))
+
+    def _walk(self, anc_o_l, anc_o_r, doup_gate, sf, stb, isn, ol, orr,
+              node_num, splittable, chg_min, chg_max):
+        """The up-walk of one split (reference: ``_walk``, :1197-1285) over
+        the split leaf's ancestors at once.  A leaf Q lies across exactly
+        one ancestor A of the split leaf (their lowest common ancestor).  A
+        is recorded where it is numeric and no deeper ancestor splits on
+        its feature from the same side; Q's bound moves where A is recorded
+        and monotone (``doup_gate``: the pair is live and under a monotone
+        split), Q has a cached split, Q's rectangle meets the plane of every
+        recorded ancestor deeper than A on the split leaf's side, and Q
+        touches the split's plane: toward the children's outputs (its max
+        where A's order puts it above the split leaf, its min below).  The
+        advanced method clamps Q's whole slabs on that side and flags it
+        (``chg_min`` / ``chg_max``); the intermediate one flags Q where its
+        bounds changed."""
+        fl = self.fl
+        nf, nt = fl["split_feature"], fl["threshold_bin"]
+        nd_, nm = self.node_depth, self.node_mono
+        isanc = anc_o_l | anc_o_r
+        side_r = anc_o_r
+        cand = isanc & node_num
+        blocked = (cand[:, None] & (nf[:, None] == nf[None, :])
+                   & (side_r[:, None] == side_r[None, :])
+                   & (nd_[:, None] > nd_[None, :])).any(dim=0)
+        recorded = cand & ~blocked
+        doup = recorded & (nm != 0) & doup_gate
+        # Q across ancestor B: on B's other side than the split leaf
+        across = torch.where(side_r[None, :], self.anc_l,
+                             self.anc_r) & isanc[None, :]       # (Q, B)
+        lca_depth = torch.where(across, nd_[None, :], -1).amax(dim=1)
+        moves = (across & doup[None, :]).any(dim=1)
+        up_max = (across & torch.where(nm < 0, ~side_r, side_r)[None, :]
+                  ).any(dim=1)
+        ok = torch.where(side_r[None, :],
+                         self.rect_hi[:, nf] > (nt + 1)[None, :],
+                         self.rect_lo[:, nf] <= nt[None, :])    # (Q, B)
+        bad = (recorded[None, :] & ~ok
+               & (nd_[None, :] > lca_depth[:, None])).any(dim=1)
+        use_l = (self.rect_lo[:, sf] <= stb)[:, 0] | ~isn
+        use_r = (self.rect_hi[:, sf] > stb + 1)[:, 0] | ~isn
+        target = moves & splittable & ~bad & (use_l | use_r)
+        both = use_l & use_r
+        one = torch.where(use_l, ol, orr)
+        vmax = torch.where(both, torch.maximum(ol, orr), one)
+        vmin = torch.where(both, torch.minimum(ol, orr), one)
+        t_max, t_min = target & up_max, target & ~up_max
+        lo, hi = fl["out_lo"], fl["out_hi"]
+        hi_n = torch.where(t_max, torch.minimum(hi, vmin), hi)
+        lo_n = torch.where(t_min, torch.maximum(lo, vmax), lo)
+        if self.amono:
+            chg_min |= t_min
+            chg_max |= t_max
+            vn, vx = self.adv_vmin, self.adv_vmax
+            vn.copy_(torch.where(t_min[:, None, None],
+                                 torch.maximum(vn, vmax[:, None, None]), vn))
+            vx.copy_(torch.where(t_max[:, None, None],
+                                 torch.minimum(vx, vmin[:, None, None]), vx))
+        else:
+            chg_min |= (hi_n < hi) | (lo_n > lo)
+        hi.copy_(hi_n)
+        lo.copy_(lo_n)
+
+    def _refresh_slabs(self, fm_min, fm_max, node_num, span: int):
+        """Fresh slabs of the leaves the round's walks flagged, the min
+        slab where the min side was flagged, else the max slab (reference:
+        :1344-1359), over the first ``span`` leaves and nodes, past which
+        none exists.  The device-state grower computes all of their slabs;
+        the eager one reads the flagged leaves first."""
+        L, fl = span, self.fl
+        rows = None
+        if not self.persistent:
+            with phase(self.timer, "host_sync"):
+                idx = host_list(torch.nonzero((fm_min | fm_max)[:L])[:, 0],
+                                self.timer)
+            if not idx:
+                return
+            rows = torch.tensor(idx, dtype=_I64, device=self.dev)
+        v_mn, v_mx = advanced_constraint_slabs(
+            self.anc_l[:L, :L], self.anc_r[:L, :L], self.node_mono[:L],
+            self.node_depth[:L], fl["split_feature"][:L],
+            fl["threshold_bin"][:L], node_num[:L], self.rect_lo[:L],
+            self.rect_hi[:L], fl["leaf_out"][:L], self.Bmax, rows=rows)
+        if rows is None:
+            rows = torch.arange(L, device=self.dev)
+        for slab, v, fm in ((self.adv_vmin, v_mn, fm_min),
+                            (self.adv_vmax, v_mx, fm_max)):
+            slab[rows] = torch.where(fm[rows][:, None, None], v, slab[rows])
 
     def _bound_children(self, fo, fn, feat, dirf, lg, lh, lc, rg, rh, rc):
         """The children's outputs under the split leaf's bounds, and their
@@ -880,13 +1348,15 @@ class _DeviceGrower(_Grower):
     def __init__(self, bins_T, K: int, layout: FeatureLayout,
                  routing: RoutingLayout, params: GrowParams, max_bins: int,
                  col_mask=None, compact_rows: int = 0, monotone=None,
-                 interaction_groups=None):
+                 interaction_groups=None, key=None):
         if params.hist_backend != "stream":
             raise ValueError("the device-state grower runs the stream "
                              "backend")
         self._alloc(bins_T, K, layout, routing, params, max_bins, None,
-                    col_mask, compact_rows, monotone, interaction_groups)
+                    col_mask, compact_rows, monotone, interaction_groups,
+                    key)
         dev = self.dev
+        self.round_idx = torch.zeros((), dtype=_I64, device=dev)
         self.cur = torch.ones(K, dtype=_I64, device=dev)
         self.progressed = torch.ones(K, dtype=torch.bool, device=dev)
         self.npos = torch.zeros(K, dtype=_I64, device=dev)
@@ -914,6 +1384,16 @@ class _DeviceGrower(_Grower):
         self.cat_words_f.zero_()
         if self.groups is not None:
             self.used_feat_f.zero_()
+        if self.imono:
+            for t in (self.anc_l, self.anc_r, self.node_mono,
+                      self.node_depth, self.rect_lo, self.in_mono):
+                t.zero_()
+            self.rect_hi.fill_(_RECT_OPEN)
+            if self.amono:
+                self.adv_vmin.fill_(-BIG)
+                self.adv_vmax.fill_(BIG)
+                self.adv_ok.fill_(True)
+        self.round_idx.zero_()
         self.leaf_id.zero_()
         if self.compact:
             self.leaf_id_h.zero_()
@@ -962,11 +1442,21 @@ class _DeviceGrower(_Grower):
         k = torch.clamp(torch.minimum(L - cur, self.npos), max=budget)
         return active, torch.where(active, k, 0)
 
+    def span(self, r: int, budget: int) -> Optional[int]:
+        """The leaves that can exist after round ``r`` of one split (the
+        monotone methods' rounds: r + 2), rounded up to a multiple of 32,
+        which keys a graph of its own; None (every leaf) otherwise."""
+        if not self.imono or budget != 1:
+            return None
+        return min(self.KL, -(-(r + 2) // 32) * 32)
+
     def round_dev(self, r: int, budget: int, with_hist: bool = True,
-                  freeze_sprint: Optional[int] = None, loop: bool = False):
+                  freeze_sprint: Optional[int] = None, loop: bool = False,
+                  span: Optional[int] = None):
         """Round ``r`` of the tree (0 after the root) with a budget of
         ``budget`` splits a class; ``loop``: a full round of the sprint or
-        plain loop, counted in ``loop_splits`` when some class splits."""
+        plain loop, counted in ``loop_splits`` when some class splits;
+        ``span``: ``span(r, budget)``."""
         K, dev = self.K, self.dev
         active, k = self._counts(budget, freeze_sprint)
         self.progressed.copy_(self.progressed & ~(active & (k <= 0)))
@@ -975,7 +1465,9 @@ class _DeviceGrower(_Grower):
         cls, rank = j // slots, j % slots
         live = rank < k[cls]
         new = self.cur[cls] + rank
-        self._split_pairs(cls, rank, new, live, slots, with_hist)
+        self._split_pairs(cls, rank, new, live, slots, with_hist, budget,
+                          span)
+        self.round_idx.add_(1)
         self.rounds.add_(k > 0)
         self.cur.add_(k)
         if loop:
@@ -1075,8 +1567,9 @@ def grow_device(gr: _DeviceGrower, params: GrowParams, run, read,
     def round_(budget, freeze, loop):
         nonlocal r
         slots = min(2 ** r, budget)
-        run(("round", budget, slots, freeze, loop),
-            lambda rr=r: gr.round_dev(rr, budget, True, freeze, loop))
+        span = gr.span(r, budget)
+        run(("round", budget, slots, freeze, loop, span),
+            lambda rr=r: gr.round_dev(rr, budget, True, freeze, loop, span))
         r += 1
 
     if S > 64:
@@ -1117,8 +1610,8 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               bins: Optional[torch.Tensor] = None,
               gh_scales: Optional[torch.Tensor] = None,
               monotone: Optional[torch.Tensor] = None,
-              interaction_groups: Optional[torch.Tensor] = None
-              ) -> GrowResult:
+              interaction_groups: Optional[torch.Tensor] = None,
+              key=None) -> GrowResult:
     """Grow one tree.  bins_T: (G, N) uint8; bins: the same (N, G)
     row-major, which ``hist_backend="pallas"`` reads; grad, hess, cnt: (N,)
     float32, zero on pad and out-of-bag rows (cnt is the in-bag mask);
@@ -1128,11 +1621,13 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     quantized gradients (grad and hess then hold grid values), or None;
     monotone: (F,) int64 signs in {-1, 0, 1} (``params.has_monotone``);
     interaction_groups: (C, F) bool allowed-feature groups
-    (``params.has_interaction``)."""
+    (``params.has_interaction``); key: the ``utils.random`` key of the
+    per-node draws (``params.bynode_fraction`` < 1, ``params.extra_trees``;
+    reference: models/gbdt.py:2246-2249)."""
     gr = _Grower(bins_T, grad[None], hess[None], cnt, layout, routing,
                  params, max_bins, timer, col_mask, compact_rows, bins,
                  None if gh_scales is None else gh_scales[None], monotone,
-                 interaction_groups)
+                 interaction_groups, key)
     return _grow(gr, params)
 
 

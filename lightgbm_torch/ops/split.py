@@ -11,14 +11,18 @@ scans, then argmax reductions with the reference's tie-breaks.  Ported: L1/L2,
 categorical features: one category against the rest, or a prefix of the
 categories sorted by g / (h + ``cat_smooth``) taken from either end, with
 ``cat_l2``, ``max_cat_threshold``, ``max_cat_to_onehot`` and
-``min_data_per_group``; and, on numeric features only, the basic method's
-monotone constraints with ``monotone_penalty`` and path smoothing
-(``path_smooth``): candidate outputs smoothed toward the leaf's own output
-and clipped to its [out_lo, out_hi] bounds, gains at those outputs, a
-split that breaks its feature's order rejected, and a constrained
-feature's gain scaled down at shallow depths (reference: :82-117,
-:280-354, :435-440).  The extra-trees and CEGB branches are not ported
-(models/gbdt.py refuses the parameters that need them).
+``min_data_per_group``; and, on numeric features only, monotone
+constraints with ``monotone_penalty`` and path smoothing (``path_smooth``):
+candidate outputs smoothed toward the leaf's own output and clipped to its
+[out_lo, out_hi] bounds, gains at those outputs, a split that breaks its
+feature's order rejected, and a constrained feature's gain scaled down at
+shallow depths (reference: :82-117, :280-354, :435-440).  Under the
+advanced method the bounds are per threshold and side instead, from the
+leaf's constraint slabs (``adv_bounds``, :256-297), a feature whose last
+scan found nothing stays out (``splittable``) and the scan reports which
+features found a candidate (``feat_ok``, :450-469).  Extra trees keep one
+random threshold of each (slot, numeric feature) (:442-447).  The CEGB
+branch is not ported (models/gbdt.py refuses the parameters that need it).
 
 Arithmetic is float32 in the reference's operation order, with one
 deliberate difference: the prefix sums along the bin axis (of the bins and
@@ -38,6 +42,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device_data import FeatureLayout
+from ..utils.random import randint_rows
 
 NEG_INF = -1e30
 EPS_HESS = 1e-15
@@ -58,6 +63,7 @@ class SplitResult(NamedTuple):
     left_sum_g: torch.Tensor   # (S,) f32
     left_sum_h: torch.Tensor
     left_count: torch.Tensor
+    feat_ok: Optional[torch.Tensor] = None  # (S, F) bool; advanced only
 
 
 def _threshold_l1(s, l1):
@@ -112,22 +118,45 @@ def penalty_table(penalty: float, device: torch.device) -> torch.Tensor:
     return monotone_penalty_factor(depth, penalty).to(device)
 
 
+def child_output(g, h, c, l1, l2, lo, hi, path_smooth=0.0, parent_out=None,
+                 max_delta_step=0.0):
+    """One child's output under the bounds [lo, hi] and optional path
+    smoothing, in CalculateSplittedLeafOutput's order (feature_histogram.hpp):
+    ridge output, max_delta_step clamp, smoothing, then the monotone clip."""
+    o = -_threshold_l1(g, l1) / (h + l2 + EPS_HESS)
+    if max_delta_step > 0.0:
+        o = torch.clamp(o, -max_delta_step, max_delta_step)
+    if path_smooth > 0.0 and parent_out is not None:
+        o = smooth_output(o, c, parent_out, path_smooth)
+    return torch.minimum(torch.maximum(o, lo), hi)
+
+
 def constrained_child_outputs(lg, lh, lc, rg, rh, rc, l1, l2, lo, hi,
                               path_smooth=0.0, parent_out=None,
                               max_delta_step=0.0):
-    """Child outputs under the bounds [lo, hi] and optional path smoothing,
-    in CalculateSplittedLeafOutput's order (feature_histogram.hpp): ridge
-    output, max_delta_step clamp, smoothing, then the monotone clip."""
-    ol = -_threshold_l1(lg, l1) / (lh + l2 + EPS_HESS)
-    orr = -_threshold_l1(rg, l1) / (rh + l2 + EPS_HESS)
-    if max_delta_step > 0.0:
-        ol = torch.clamp(ol, -max_delta_step, max_delta_step)
-        orr = torch.clamp(orr, -max_delta_step, max_delta_step)
-    if path_smooth > 0.0 and parent_out is not None:
-        ol = smooth_output(ol, lc, parent_out, path_smooth)
-        orr = smooth_output(orr, rc, parent_out, path_smooth)
-    return (torch.minimum(torch.maximum(ol, lo), hi),
-            torch.minimum(torch.maximum(orr, lo), hi))
+    """Both children's outputs (``child_output``) under the same bounds."""
+    return (child_output(lg, lh, lc, l1, l2, lo, hi, path_smooth, parent_out,
+                         max_delta_step),
+            child_output(rg, rh, rc, l1, l2, lo, hi, path_smooth, parent_out,
+                         max_delta_step))
+
+
+def adv_child_bounds(v_min, v_max, big: float = -NEG_INF):
+    """Per-threshold child bounds from constraint slabs (..., Bmax): the
+    left child at threshold t spans bins [.., t], so its bounds are the
+    running extrema up to t; the right child's are the suffix extrema from
+    t + 1, the last threshold's unbounded (reference: adv_child_bounds,
+    ops/split.py:256-270).  Returns (lo_l, hi_l, lo_r, hi_r)."""
+    lo_l = torch.cummax(v_min, dim=-1).values
+    hi_l = torch.cummin(v_max, dim=-1).values
+    sfx_max = torch.flip(torch.cummax(torch.flip(v_min, [-1]), dim=-1).values,
+                         [-1])
+    sfx_min = torch.flip(torch.cummin(torch.flip(v_max, [-1]), dim=-1).values,
+                         [-1])
+    edge = v_min[..., :1]
+    lo_r = torch.cat([sfx_max[..., 1:], torch.full_like(edge, -big)], dim=-1)
+    hi_r = torch.cat([sfx_min[..., 1:], torch.full_like(edge, big)], dim=-1)
+    return lo_l, hi_l, lo_r, hi_r
 
 
 def round_int(x):
@@ -182,11 +211,15 @@ class _Scan(NamedTuple):
 
 
 class _Constraints(NamedTuple):
-    """A numeric scan's output constraints, each slot's as (S, 1, 1):
-    its output bounds, its own output (the smoothing's parent output) and,
-    with monotone constraints, the (1, F, 1) feature signs."""
-    lo: torch.Tensor
-    hi: torch.Tensor
+    """A numeric scan's output constraints: each child's output bounds,
+    (S, 1, 1) a slot's (the basic and intermediate methods) or (S, F, B)
+    per threshold (the advanced method's slabs), each slot's own output
+    (the smoothing's parent output) as (S, 1, 1) and, with monotone
+    constraints, the (1, F, 1) feature signs."""
+    lo_l: torch.Tensor
+    hi_l: torch.Tensor
+    lo_r: torch.Tensor
+    hi_r: torch.Tensor
     parent_out: torch.Tensor
     path_smooth: float
     mono: Optional[torch.Tensor]
@@ -195,9 +228,10 @@ class _Constraints(NamedTuple):
 def _constrained_gain(sc: _Scan, out: _Constraints, lg, lh, lc, rg, rh, rc):
     """The output-based gain of a candidate (reference: split_gain under
     use_output_gain), NEG_INF where its outputs break the feature's order."""
-    ol, orr = constrained_child_outputs(
-        lg, lh, lc, rg, rh, rc, sc.l1, sc.l2, out.lo, out.hi,
-        out.path_smooth, out.parent_out, sc.max_delta_step)
+    ol = child_output(lg, lh, lc, sc.l1, sc.l2, out.lo_l, out.hi_l,
+                      out.path_smooth, out.parent_out, sc.max_delta_step)
+    orr = child_output(rg, rh, rc, sc.l1, sc.l2, out.lo_r, out.hi_r,
+                       out.path_smooth, out.parent_out, sc.max_delta_step)
     gain = (leaf_gain_given_output(lg, lh, sc.l1, sc.l2, ol)
             + leaf_gain_given_output(rg, rh, sc.l1, sc.l2, orr))
     if out.mono is not None:
@@ -338,8 +372,11 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
                      out_hi: Optional[torch.Tensor] = None,
                      slot_penalty: Optional[torch.Tensor] = None,
                      path_smooth: float = 0.0,
-                     parent_out: Optional[torch.Tensor] = None
-                     ) -> SplitResult:
+                     parent_out: Optional[torch.Tensor] = None,
+                     adv_bounds=None,
+                     splittable: Optional[torch.Tensor] = None,
+                     extra_key=None,
+                     draw_rows: Optional[torch.Tensor] = None):
     """Best split of each of the S histogram slots (reference:
     find_best_splits).  ``col_mask`` (F,) or, per slot, (S, F) bool: a
     feature outside it never wins.  ``cat``: the categorical parameters,
@@ -351,7 +388,21 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
     output: the basic method's constraints and ``path_smooth`` on the
     numeric scan, which then gains at the constrained outputs (categorical
     splits stay unconstrained); ``slot_penalty`` (S,) the monotone penalty
-    factor of each slot's depth (``penalty_table``), or None."""
+    factor of each slot's depth (``penalty_table``), or None.
+
+    The advanced monotone method: ``adv_bounds`` (v_min, v_max), each slot's
+    (S, F, Bmax) constraint slabs, bound the children per threshold in
+    place of ``out_lo`` / ``out_hi``: the reverse scan by the running and
+    suffix extrema, the forward scan by bin 0's values on the left and the
+    whole slab's on the right (the reference's cumulative constraint, whose
+    forward indices never move); ``splittable`` (S, F) bool keeps the
+    features whose last scan of the slot found a candidate; the result's
+    ``feat_ok`` (S, F) bool holds the features with a numeric candidate
+    above ``min_gain_to_split`` (every categorical feature), else None.
+    ``extra_key`` (a ``utils.random`` key): extra trees, each (slot,
+    feature) keeps the one threshold ``randint(key, (R, F), 0, 2**30) %
+    max(bins - 1, 1)`` of row ``draw_rows[slot]`` of the reference's (R,
+    F) draw, on both scans; categorical features keep theirs."""
     S = hist.shape[0]
     Bmax = hist.shape[2]
     dev = hist.device
@@ -388,14 +439,24 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
     (miss_g, z_g), (miss_h, z_h), (_, z_c) = miss
     has_miss = has_nan | has_mz
 
-    out = None
-    if monotone is not None or path_smooth > 0.0:
-        out = _Constraints(
-            lo=out_lo[:, None, None], hi=out_hi[:, None, None],
-            parent_out=parent_out[:, None, None], path_smooth=path_smooth,
-            mono=None if monotone is None else monotone[None, :, None])
+    out_rev = out_fwd = None
+    if monotone is not None or path_smooth > 0.0 or adv_bounds is not None:
+        mono = None if monotone is None else monotone[None, :, None]
+        po = parent_out[:, None, None]
+        if adv_bounds is not None:
+            v_min, v_max = adv_bounds
+            out_rev = _Constraints(*adv_child_bounds(v_min, v_max), po,
+                                   path_smooth, mono)
+            out_fwd = _Constraints(v_min[..., :1], v_max[..., :1],
+                                   v_min.amax(dim=-1, keepdim=True),
+                                   v_max.amin(dim=-1, keepdim=True), po,
+                                   path_smooth, mono)
+        else:
+            lo, hi = out_lo[:, None, None], out_hi[:, None, None]
+            out_rev = out_fwd = _Constraints(lo, hi, lo, hi, po,
+                                             path_smooth, mono)
 
-    def split_gain(lg, lh, lc, rc):
+    def split_gain(lg, lh, lc, rc, out):
         return _pair_gain(sc, lg, lh, lc, pg - lg, ph - lh, rc, out)
 
     # the reverse scan (missing left) is the only scan of a feature without
@@ -414,9 +475,10 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
     lc_fwd = cc_eff
     rc_fwd = pc - cc_eff
     lg_rev, lh_rev = cg_eff + miss_g, ch_eff + miss_h
-    gain_rev = split_gain(lg_rev, lh_rev, lc_rev, rc_rev)
+    gain_rev = split_gain(lg_rev, lh_rev, lc_rev, rc_rev, out_rev)
     gain_fwd = torch.where(has_miss,
-                           split_gain(cg_eff, ch_eff, lc_fwd, rc_fwd),
+                           split_gain(cg_eff, ch_eff, lc_fwd, rc_fwd,
+                                      out_fwd),
                            NEG_INF)
     rev_skip = has_mz & (bin_iota == mzb - 1)
     fwd_skip = has_mz & (bin_iota == mzb)
@@ -428,11 +490,29 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
     parent_term = _parent_term(sc, parent_g, parent_h)
     rel_rev = _relative(gain_rev, parent_term)
     rel_fwd = _relative(gain_fwd, parent_term)
-    if out is not None and out.mono is not None and slot_penalty is not None:
+    if monotone is not None and slot_penalty is not None:
         # a constrained feature's gain scaled down by its slot's depth
         pen = slot_penalty[:, None, None]
-        rel_rev, rel_fwd = (torch.where((out.mono != 0) & (r > 0), r * pen, r)
+        m = monotone[None, :, None] != 0
+        rel_rev, rel_fwd = (torch.where(m & (r > 0), r * pen, r)
                             for r in (rel_rev, rel_fwd))
+    if extra_key is not None:
+        # one random threshold of each (slot, feature)
+        rand_t = randint_rows(extra_key, draw_rows, layout.num_bins.shape[0],
+                              0, 1 << 30) % torch.clamp(
+                                  layout.num_bins - 1, min=1)[None, :]
+        keep = bin_iota == rand_t[..., None]
+        rel_rev, rel_fwd = (torch.where(keep, r, NEG_INF)
+                            for r in (rel_rev, rel_fwd))
+    if splittable is not None:
+        # features whose last scan of the slot found nothing stay out
+        rel_rev, rel_fwd = (torch.where(splittable[..., None], r, NEG_INF)
+                            for r in (rel_rev, rel_fwd))
+    feat_ok = None
+    if adv_bounds is not None:
+        feat_ok = ((rel_rev > min_gain_to_split).any(dim=-1)
+                   | (rel_fwd > min_gain_to_split).any(dim=-1)
+                   | layout.is_cat[None, :])
     # reverse keeps the highest of tied thresholds, forward the lowest, and
     # reverse wins a tie between the scans
     t_rev = (Bmax - 1) - torch.argmax(torch.flip(rel_rev, [-1]), dim=-1)
@@ -475,7 +555,7 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
                       pick(lc, cb.left_c))
     return SplitResult(gain=gain, feature=best_f, threshold=t,
                        dir_flags=dir_flags, left_sum_g=lg, left_sum_h=lh,
-                       left_count=lc)
+                       left_count=lc, feat_ok=feat_ok)
 
 
 def categorical_left_bitset(hist_f: torch.Tensor, threshold: torch.Tensor,

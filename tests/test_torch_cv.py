@@ -238,4 +238,4 @@ def test_reset_to_an_unported_parameter_raises():
     with pytest.raises(lt.LightGBMError, match="not yet ported"):
         bst.reset_parameter({"linear_tree": True})
     with pytest.raises(lt.LightGBMError, match="not yet ported"):
-        bst.reset_parameter({"extra_trees": True})
+        bst.reset_parameter({"cegb_penalty_split": 0.1})

@@ -640,15 +640,9 @@ def test_train_without_device_type_raises_without_gpu(monkeypatch):
     {"cegb_penalty_feature_lazy": [1, 0, 0, 0, 0]},
     {"hist_backend": "onehot"},
     {"boosting": "rf"},
-    {"feature_fraction_bynode": 0.5},
-    {"monotone_constraints": [1, 0, 0, 0, 0],
-     "monotone_constraints_method": "intermediate"},
-    {"monotone_constraints": [1, 0, 0, 0, 0],
-     "monotone_constraints_method": "advanced"},
     {"cegb_penalty_split": 0.1},
     {"forcedsplits_filename": "splits.json"},
     {"linear_tree": True},
-    {"extra_trees": True},
     {"tree_learner": "data"},
     {"hist_backend": "segsum"},
     {"boosting": "dart"},

@@ -31,7 +31,10 @@ Phases, each printing one JSON line:
    The growth constraints (``CONSTRAINT_ARMS``) and the monotone methods
    and per-node draws (``METHOD_ARMS``: K = 1 and K = 3, the three
    backends, fused against the CPU, max_bin 255 and quantized) must give
-   CPU == card text, every card launch replayed bit-equal.
+   CPU == card text, every card launch replayed bit-equal; so must the
+   growth extras (``EXTRA_ARMS``: CEGB, forced splits, linear trees and
+   all three together; K = 1 and K = 3, the three backends, the forced
+   tree fused against the CPU, max_bin 255 and quantized).
 4. train_sampled_small: the train_small data on dyadic custom gradients
    with bagging (half the rows every iteration) and with GOSS (rates 0.5 /
    0.25, learning rate 0.5): byte-identical model text on the CPU and the
@@ -76,7 +79,14 @@ Phases, each printing one JSON line:
    constrained one, and the intermediate and advanced monotone methods and
    by-node sampling with extra trees (``higgs_method_arms``), each fused
    and eager, its AUC gate, K1's monotone sweeps, one tree's K2 and K4
-   launches replayed.
+   launches replayed; and the growth extras: CEGB (eager; split counts on
+   the penalised features below the plain arm's, AUC > 0.75, the lazy
+   bitset's bytes), forced splits (fused and eager, every tree's top three
+   nodes the forced ones, the fused text equal to the eager text, AUC >
+   0.80) and linear trees (5 eager trees, the host fit's seconds and share
+   of a tree, coefficients in every tree after the first, the held-out
+   rows through the host walk, AUC > 0.80), one tree's K2 and K4 launches
+   replayed in each.
 7a. predict_surface_small: models trained on the card over 20 000 rows
    (train_small's rows binary, zero-as-missing and K = 3;
    train_categorical_small's; train_wide_small's 16-bit bins), each
@@ -1924,6 +1934,11 @@ def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
     methods, replayed_m, err_m = method_arms_small(X, y, base)
     methods_wall_s = time.perf_counter() - t0
     err = {k: max(v, err_m[k]) for k, v in err.items()}
+    # CEGB, forced splits and linear trees, the same runs
+    t0 = time.perf_counter()
+    extras, replayed_x, err_x = extra_arms_small(X, y, base)
+    extras_wall_s = time.perf_counter() - t0
+    err = {k: max(v, err_x[k]) for k, v in err.items()}
     # the fused iteration on the card against the eager one on the CPU
     fused_cpu = {name: fused_against_cpu(X, y, {**base, **extra}, iters)
                  for name, extra in (("l2", {}),
@@ -1942,6 +1957,8 @@ def phase_train_small(seed, n=20_000, iters=5, num_leaves=127):
           "replayed_launches_constrained": replayed_c,
           "methods": methods, "methods_wall_s": methods_wall_s,
           "replayed_launches_methods": replayed_m,
+          "extras": extras, "extras_wall_s": extras_wall_s,
+          "replayed_launches_extras": replayed_x,
           "replay_max_abs_err": err,
           "fused_card_text_equals_eager_cpu": fused_cpu})
     return err
@@ -2054,6 +2071,109 @@ def method_arms_small(X, y, base, iters=2, num_leaves=31):
                                      "leaf_gather", "scatter_hist",
                                      "hist_direct", "hist_nibble")):
         raise RuntimeError(f"the method arms replayed {replayed}")
+    return out, replayed, err
+
+
+# the growth extras on make_train_small: CEGB (a split cost, coupled costs
+# on two signal columns, lazy costs on the NaN column and a dense one,
+# tradeoff 1/2; dyadic, so every cost is exact), a forced tree of two
+# levels (NaN column and zero-heavy column, both default sides), linear
+# trees, and all three together
+_SMALL_CEGB = {"cegb_penalty_split": 2.0 ** -10, "cegb_tradeoff": 0.5,
+               "cegb_penalty_feature_coupled": [0.0, 0.0, 4.0, 0.0, 0.0, 8.0],
+               "cegb_penalty_feature_lazy": [2.0 ** -8, 0.0, 0.0, 0.0,
+                                             2.0 ** -9, 0.0]}
+_SMALL_FORCED = {"feature": 2, "threshold": 0.0, "default_left": True,
+                 "left": {"feature": 0, "threshold": 0.0},
+                 "right": {"feature": 1, "threshold": 0.5,
+                           "default_left": True}}
+EXTRA_ARMS = {
+    "cegb": _SMALL_CEGB,
+    "forced": {"forcedsplits_filename": _SMALL_FORCED},
+    "linear": {"linear_tree": True},
+    "every": {**_SMALL_CEGB, "forcedsplits_filename": _SMALL_FORCED,
+              "linear_tree": True, "linear_lambda": 0.5},
+}
+
+
+def extra_arms_small(X, y, base, iters=2, num_leaves=31):
+    """phase_train_small's arms of ``EXTRA_ARMS`` on dyadic gradients
+    (split budget 8), as ``method_arms_small`` runs its arms: for each, the
+    CPU's stream text equal to the card's under stream, scatter and pallas,
+    one class (``iters`` trees) and K = 3 (one iteration, the class trees
+    grown one at a time); the forced tree fused on the card (its forced
+    levels captured rounds) equal to the eager CPU; every mode together at
+    max_bin 255 under pallas (K7) and quantized under stream (K2's int
+    form), CPU == card.  Every card launch of K2 (both forms), K4, K5, K6
+    and K7 is replayed through its plain version.  Returns (per-arm
+    results, launches replayed, largest differences)."""
+    import torch
+    import lightgbm_torch as lt
+
+    rs = np.random.RandomState(5)
+    logits = np.stack([np.nan_to_num(X[:, 0]) + 0.8 * X[:, 1],
+                       2.0 * X[:, 2] - 1.5 * X[:, 3], X[:, 4] * X[:, 5]], 1)
+    y3 = np.argmax(logits + rs.randn(len(y), 3), axis=1).astype(np.float64)
+    runs = [("cpu", "stream"), ("cuda", "stream"), ("cuda", "scatter"),
+            ("cuda", "pallas")]
+    cap, out = Capture(), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = Path(tmp) / "forced.json"
+        spec.write_text(json.dumps(_SMALL_FORCED))
+
+        def resolve(extra):
+            if "forcedsplits_filename" in extra:
+                extra = {**extra, "forcedsplits_filename": str(spec)}
+            return extra
+
+        def texts_of(data, label, extra, fobj, n_iter, runs):
+            texts = []
+            for dev, hb in runs:
+                p = {**base, "num_leaves": num_leaves,
+                     "max_splits_per_round": 8, **resolve(extra),
+                     "hist_backend": hb, "device_type": dev}
+                bst = lt.Booster(p, lt.Dataset(data, label=label, params=p))
+                with (cap if dev == "cuda" else contextlib.nullcontext()):
+                    for _ in range(n_iter):
+                        bst.update(fobj=fobj)
+                texts.append(model_trees_text(bst))
+            if any(t != texts[0] for t in texts):
+                raise RuntimeError(f"{extra}: CPU and card text differ "
+                                   f"{[t == texts[0] for t in texts]}")
+            return [t.num_leaves for t in bst.engine.models]
+
+        for name, extra in EXTRA_ARMS.items():
+            t0 = time.perf_counter()
+            k1 = texts_of(X, y, {**extra, "objective": "none"}, dyadic_fobj,
+                          iters, runs)
+            k3 = texts_of(X, y3, {**extra, "objective": "multiclass",
+                                  "num_class": 3}, dyadic_mc_fobj, 1,
+                          runs[:3])
+            out[name] = {"leaves_per_tree": k1, "k3_leaves_per_tree": k3,
+                         "seconds": time.perf_counter() - t0}
+        out["forced"]["fused_card_text_equals_eager_cpu"] = \
+            fused_against_cpu(X, y, {**base, "num_leaves": num_leaves,
+                                     "max_splits_per_round": 8,
+                                     **resolve(EXTRA_ARMS["forced"])}, iters)
+        # max_bin 255 under pallas (K7) without the EFB pair, whose bundle
+        # would need 16-bit bins; quantized under stream (K2's int form)
+        every = {**EXTRA_ARMS["every"], "objective": "none"}
+        Xw = X[:, [0, 1, 2, 4, 5]]
+        out["every_max_bin_255"] = texts_of(
+            Xw, y, {**every, "max_bin": 255,
+                    "cegb_penalty_feature_coupled": [0.0, 0.0, 4.0, 0.0, 8.0],
+                    "cegb_penalty_feature_lazy": [2.0 ** -8, 0.0, 0.0,
+                                                  2.0 ** -9, 0.0]},
+            dyadic_fobj, 2, [("cpu", "stream"), ("cuda", "pallas")])
+        out["every_quantized"] = texts_of(
+            X, y, {**every, "use_quantized_grad": True}, pow2_fobj, iters,
+            [("cpu", "stream"), ("cuda", "stream")])
+    torch.cuda.synchronize()
+    replayed, err = replay_against_plain(cap)
+    if not all(replayed[k] for k in ("route_and_hist", "route_and_hist_int",
+                                     "leaf_gather", "scatter_hist",
+                                     "hist_direct", "hist_nibble")):
+        raise RuntimeError(f"the extra arms replayed {replayed}")
     return out, replayed, err
 
 
@@ -2251,6 +2371,13 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
                                    iters, timed_tree,
                                    eager_iters=1 if sweep else 2)
         methods[name]["wall_s"] = time.perf_counter() - t0
+    extras = {}
+    for name, arm in (("cegb", cegb_arm), ("forced", forced_arm),
+                      ("linear", linear_arm)):
+        t0 = time.perf_counter()
+        extras[name] = arm(params, ds, Xs, ys, iters, timed_tree,
+                           bst.engine.models[:iters], held_auc)
+        extras[name]["wall_s"] = time.perf_counter() - t0
 
     after_first = tree_s[1:] or tree_s
     emit({"phase": "train", "card": smi, "rows": int(ds.num_data()),
@@ -2269,7 +2396,7 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
           "profiled_iteration_phases_s": phases_s,
           "profiled_iteration_host_reads": prof_reads,
           "fused_iter": fused, "constrained": constrained,
-          "methods": methods})
+          "methods": methods, "extras": extras})
     k2 = {"name": "route_and_hist", "route": "cuda",
           "source": KERNEL_SOURCES["route_and_hist"],
           "replaces": KERNEL_REPLACES["route_and_hist"],
@@ -2471,6 +2598,219 @@ def method_arm(extra, gate, sweep, params, ds, Xs, ys, iters, timed_tree,
             "profiled_eager_iteration_host_reads": prof_reads,
             "mono_pairs_s_per_tree": phases_s.get("mono_pairs"),
             "mono_slabs_s_per_tree": phases_s.get("mono_slabs")}
+
+
+# phase train's CEGB arm: a split cost of 5e-3 a row of the leaf, a coupled
+# cost of 2000 on two of higgs_logit's signal features (its x2 * x3 term)
+# and a lazy cost of 0.02 a row on two others (-0.6 |x6|, 0.5 x7); sized
+# on 100 000 rows on the CPU (the costs and the gains both scale with the
+# rows, the coupled cost taken 10x) so that each moves the model
+HIGGS_CEGB_SPLIT = 5e-3
+HIGGS_CEGB_COUPLED = {2: 2000.0, 3: 2000.0}
+HIGGS_CEGB_LAZY = {6: 0.02, 7: 0.02}
+# phase train's forced tree: x0 at 0, its children x1 and x2 at 0
+HIGGS_FORCED = {"feature": 0, "threshold": 0.0,
+                "left": {"feature": 1, "threshold": 0.0},
+                "right": {"feature": 2, "threshold": 0.0}}
+
+
+def split_counts(trees, F):
+    """(F,) the splits on each feature over host trees."""
+    counts = np.zeros(F, np.int64)
+    for t in trees:
+        np.add.at(counts, np.asarray(t.split_feature[:t.num_leaves - 1],
+                                     np.int64), 1)
+    return counts
+
+
+def timed_train(p, ds, iters, timed_tree):
+    """``iters`` iterations of ``lightgbm_torch.train`` timed (TimedIters,
+    one tree's launches captured), the kernel counts and host reads read
+    around them: (booster, timed, launches, reads, seconds)."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.utils.timer import host_reads
+
+    kernels.reset_launch_counts()
+    r0 = host_reads()
+    with TimedIters(capture_at=timed_tree) as timed:
+        t0 = time.perf_counter()
+        bst = lt.train(p, ds, iters)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    return (bst, timed, kernels.launch_counts(), host_reads() - r0,
+            train_s)
+
+
+def extra_arm_checks(name, bst, timed, launches, iters, Xs, ys, gate,
+                     k4=True):
+    """An extra arm's common gates: ``iters`` trees with K2 launched (and
+    K4 once a tree unless ``k4`` is off: linear trees add a host delta),
+    the held-out AUC above ``gate``, one tree's K2 (and K4) launches
+    replayed bit-equal.  Returns (AUC, predict seconds, replayed, err)."""
+    if (bst.num_trees() != iters or launches["route_and_hist"] == 0
+            or (k4 and launches["leaf_gather"] != iters)):
+        raise RuntimeError(f"{name}: {bst.num_trees()} trees with launches "
+                           f"{launches}")
+    t0 = time.perf_counter()
+    pred = bst.predict(Xs)
+    predict_s = time.perf_counter() - t0
+    held_auc = auc(ys, pred)
+    if not (np.isfinite(pred).all() and held_auc > gate):
+        raise RuntimeError(f"{name}: held-out AUC {held_auc}")
+    replayed, err = replay_against_plain(timed.cap)
+    if not (replayed["route_and_hist"]
+            and (replayed["leaf_gather"] or not k4)):
+        raise RuntimeError(f"{name}: replayed {replayed}")
+    return held_auc, predict_s, replayed, err
+
+
+def cegb_arm(params, ds, Xs, ys, iters, timed_tree, plain_trees, plain_auc):
+    """CEGB on phase train's 1M-row Dataset, eager (the reference gates it
+    out of fusion): ``iters`` trees under ``HIGGS_CEGB_*``, every penalised
+    feature split fewer times than in the plain arm's trees, the held-out
+    AUC > 0.75, the lazy bitset's bytes, one tree's launches replayed, the
+    arm's numbers (s per tree, the idle share of one more iteration) and
+    one more iteration timed by phase (``split_scan`` holds the lazy
+    counts)."""
+    F = ds.num_feature()
+    coupled, lazy = [0.0] * F, [0.0] * F
+    for f, v in HIGGS_CEGB_COUPLED.items():
+        coupled[f] = v
+    for f, v in HIGGS_CEGB_LAZY.items():
+        lazy[f] = v
+    p = {**params, "cegb_penalty_split": HIGGS_CEGB_SPLIT,
+         "cegb_penalty_feature_coupled": coupled,
+         "cegb_penalty_feature_lazy": lazy}
+    bst, timed, launches, reads, train_s = timed_train(p, ds, iters,
+                                                       timed_tree)
+    eng = bst.engine
+    if eng._fused:
+        raise RuntimeError("CEGB fused")
+    held_auc, predict_s, replayed, err = extra_arm_checks(
+        "cegb", bst, timed, launches, iters, Xs, ys, 0.75)
+    got = split_counts(eng.models[:iters], F)
+    plain = split_counts(plain_trees, F)
+    penalised = sorted(HIGGS_CEGB_COUPLED) + sorted(HIGGS_CEGB_LAZY)
+    if not all(got[f] < plain[f] for f in penalised):
+        raise RuntimeError(f"CEGB: splits on {penalised} {got[penalised]} "
+                           f"against the plain arm's {plain[penalised]}")
+    lazy_t = eng._cegb.lazy
+    numbers = arm_numbers(bst, timed, launches, reads)
+    prof_s, phases_s, prof_reads = profiled_iteration(bst)
+    return {"iterations": iters, "train_s": train_s,
+            "tree_s": timed.seconds, "s_per_tree": numbers["s_per_tree"],
+            "k2_launches_per_tree": launches["route_and_hist"] / iters,
+            "launches": launches, "held_out_auc": held_auc,
+            "plain_held_out_auc": plain_auc, "predict_s": predict_s,
+            "penalised_features": penalised,
+            "splits_on_penalised": got[penalised].tolist(),
+            "plain_splits_on_penalised": plain[penalised].tolist(),
+            "leaves_per_tree": [t.num_leaves for t in eng.models[:iters]],
+            "lazy_bitset_bytes": lazy_t.numel() * lazy_t.element_size(),
+            "rows_charged_per_feature": lazy_t.sum(dim=0).tolist(),
+            "replayed_launches_timed_tree": replayed,
+            "replay_max_abs_err": err, "eager": numbers,
+            "profiled_iteration_s": prof_s,
+            "profiled_iteration_phases_s": phases_s,
+            "profiled_iteration_host_reads": prof_reads}
+
+
+def forced_arm(params, ds, Xs, ys, iters, timed_tree, plain_trees,
+               plain_auc):
+    """Forced splits on phase train's 1M-row Dataset (``HIGGS_FORCED``):
+    ``iters`` fused trees (each forced level a captured round), every
+    tree's top three nodes the forced ones, the held-out AUC > 0.80, one
+    tree's launches replayed, the fused numbers; then ``EAGER_ITERS`` trees
+    with ``fused_iter`` off, their text equal to the fused trees', their
+    numbers."""
+    import lightgbm_torch as lt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = Path(tmp) / "forced.json"
+        spec.write_text(json.dumps(HIGGS_FORCED))
+        p = {**params, "forcedsplits_filename": str(spec)}
+        bst, timed, launches, reads, train_s = timed_train(p, ds, iters,
+                                                           timed_tree)
+        eng = bst.engine
+        if not eng._fused or eng._graphs.replays == 0:
+            raise RuntimeError("forced splits did not fuse")
+        held_auc, predict_s, replayed, err = extra_arm_checks(
+            "forced", bst, timed, launches, iters, Xs, ys, 0.80)
+        for t in eng.models[:iters]:
+            lc, rc = int(t.left_child[0]), int(t.right_child[0])
+            if not (int(t.split_feature[0]) == 0 and lc >= 0 and rc >= 0
+                    and int(t.split_feature[lc]) == 1
+                    and int(t.split_feature[rc]) == 2):
+                raise RuntimeError("a tree's top nodes are not the forced "
+                                   "ones")
+        fused = fused_and_eager(bst, timed, launches, reads,
+                                lambda extra, n: lt.train({**p, **extra},
+                                                          ds, n), iters)
+    return {"iterations": iters, "train_s": train_s,
+            "tree_s": timed.seconds,
+            "s_per_tree": fused["fused"]["s_per_tree"],
+            "k2_launches_per_tree": launches["route_and_hist"] / iters,
+            "launches": launches, "held_out_auc": held_auc,
+            "plain_held_out_auc": plain_auc, "predict_s": predict_s,
+            "top_nodes_forced": True,
+            "leaves_per_tree": [t.num_leaves for t in eng.models[:iters]],
+            "replayed_launches_timed_tree": replayed,
+            "replay_max_abs_err": err, "fused_iter": fused}
+
+
+def linear_arm(params, ds, Xs, ys, iters, timed_tree, plain_trees,
+               plain_auc, linear_iters=5, held_out=250_000):
+    """Linear trees on phase train's 1M-row Dataset: ``linear_iters``
+    eager trees (each leaf's ridge fit on the host), the fit's seconds (the
+    device synchronised before each) and their share of a tree, every tree
+    after the first with coefficients, ``held_out`` of the held-out rows
+    through the host walk (AUC > 0.80; ~9 s on 1M rows), one tree's K2
+    launches replayed, the arm's numbers."""
+    import torch
+    from lightgbm_torch.models.gbdt import GBDT
+
+    fit = GBDT._fit_linear_tree
+    fit_s = []
+
+    def timed_fit(eng, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit(eng, *a)
+        fit_s.append(time.perf_counter() - t0)
+        return out
+
+    GBDT._fit_linear_tree = timed_fit
+    try:
+        p = {**params, "linear_tree": True}
+        bst, timed, launches, reads, train_s = timed_train(
+            p, ds, linear_iters, min(timed_tree, linear_iters - 1))
+        trees = list(bst.engine.models)
+        if not all(t.is_linear for t in trees) or not all(
+                any(len(c) for c in t.leaf_coeff) for t in trees[1:]):
+            raise RuntimeError("linear trees without coefficients")
+        held_auc, predict_s, replayed, err = extra_arm_checks(
+            "linear", bst, timed, launches, linear_iters, Xs[:held_out],
+            ys[:held_out], 0.80, k4=False)
+        fits = list(fit_s)
+        numbers = arm_numbers(bst, timed, launches, reads)
+    finally:
+        GBDT._fit_linear_tree = fit
+    shares = [f / t for f, t in zip(fits, timed.seconds)]
+    return {"iterations": linear_iters, "train_s": train_s,
+            "tree_s": timed.seconds, "s_per_tree": numbers["s_per_tree"],
+            "fit_s": fits, "fit_share_of_tree": shares,
+            "fit_share_median": statistics.median(shares[1:] or shares),
+            "k2_launches_per_tree": launches["route_and_hist"]
+            / linear_iters, "launches": launches,
+            "held_out_auc": held_auc, "plain_held_out_auc": plain_auc,
+            "host_predict_s": predict_s,
+            "held_out_rows": min(held_out, len(ys)),
+            "coefficients_per_tree": [sum(len(c) for c in t.leaf_coeff)
+                                      for t in trees],
+            "replayed_launches_timed_tree": replayed,
+            "replay_max_abs_err": err, "eager": numbers}
 
 
 # --------------------------------------------------------------------------

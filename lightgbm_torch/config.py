@@ -460,14 +460,25 @@ class Config:
     extra_trees: bool = False
     extra_seed: int = 6
 
-    # Training features that are not ported yet: a value other than the
-    # default raises (models/gbdt.GBDT._check_unsupported_params)
-    tree_learner: str = "serial"
-    forcedsplits_filename: str = ""
+    # Cost-effective gradient boosting: a split's gain less tradeoff times
+    # a per-split cost, a coupled cost per feature the model does not use
+    # yet, and a lazy cost per row of the leaf not yet charged for the
+    # feature (ops/grow.py, ops/split.py)
+    cegb_tradeoff: float = 1.0
     cegb_penalty_split: float = 0.0
     cegb_penalty_feature_lazy: Any = None
     cegb_penalty_feature_coupled: Any = None
+    # forced splits: a JSON tree of (feature, threshold) splits that every
+    # tree takes first (models/gbdt.GBDT._parse_forced_splits)
+    forcedsplits_filename: str = ""
+    # linear trees: a ridge fit of each leaf on its path's numerical
+    # features (models/gbdt.GBDT._fit_linear_tree)
     linear_tree: bool = False
+    linear_lambda: float = 0.0
+
+    # Training features that are not ported yet: a value other than the
+    # default raises (models/gbdt.GBDT._check_unsupported_params)
+    tree_learner: str = "serial"
     auc_mu_weights: Any = None  # auc_mu's class-pair weights
 
     # Quantized-gradient training: gradients and hessians rounded onto a
@@ -581,6 +592,8 @@ _VECTOR_FIELDS: Dict[str, Any] = {
     "eval_at": int,
     "label_gain": float,
     "monotone_constraints": int,
+    "cegb_penalty_feature_lazy": float,
+    "cegb_penalty_feature_coupled": float,
     "max_bin_by_feature": int,
 }
 

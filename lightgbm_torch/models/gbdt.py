@@ -76,12 +76,26 @@ gradients in the head graph (every per-row array they read is moved to the
 device at the head's first, uncaptured run); rank_xendcg draws on the host
 and runs eager.
 
+CEGB (reference: gbdt.py:341-347, :2259-2275): the engine keeps the
+features the model splits on and the (N, F) bitset of rows charged for
+each feature on the device for the whole run (``CegbState``); K class
+trees grow one at a time, each seeing the previous class's updates, and
+never fuse.  Forced splits (``forcedsplits_filename``, gbdt.py:1031-1086):
+the JSON tree is parsed into static levels that every tree splits first;
+a single forced tree fuses, its levels captured rounds of their own.
+Linear trees (``linear_tree``, gbdt.py:2292-2300, :2435-2498): after each
+class tree the host reads its arrays, leaf ids and raw gradients once and
+fits each leaf's ridge on its path's numerical features in NumPy float64;
+the training score takes the host delta and each validation set the
+host walk of its raw rows.  Linear trees run eager.
+
 Training covers gbdt on numeric and categorical features with every
 objective of the reference (or custom gradients), ranking with
-``bagging_by_query``, the growth constraints, by-node sampling and extra
-trees; every other training feature (CEGB, forced splits, linear trees)
-raises "not yet ported" (``_check_unsupported_params``) instead of
-training a different model.
+``bagging_by_query``, the growth constraints, by-node sampling, extra
+trees, CEGB, forced splits and linear trees; what is still refused
+(``_check_unsupported_params``: another tree learner, ``auc_mu_weights``,
+the segsum and onehot backends; dart and rf in ``create_boosting``) raises
+"not yet ported" instead of training a different model.
 """
 from __future__ import annotations
 
@@ -99,9 +113,9 @@ from ..kernels.leaf_gather import leaf_gather
 from ..kernels.predict import tree_max_depth
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction
-from ..ops.grow import (GrowParams, _DeviceGrower, fusion_applies,
-                        grow_device, grow_tree, grow_tree_k, loop_plan,
-                        sprint_and_replay)
+from ..ops.grow import (CegbState, GrowParams, _DeviceGrower,
+                        fusion_applies, grow_device, grow_tree, grow_tree_k,
+                        loop_plan, sprint_and_replay)
 from ..ops.histogram import dequantize, hist_shift, quantize
 from ..ops.predict import _walk_one_tree
 from ..ops.split import CatParams, leaf_output
@@ -123,14 +137,9 @@ _COMPACT_UNIT = 256
 HIST_BACKENDS = ("auto", "segsum", "onehot", "pallas", "stream", "scatter")
 
 
-def _nonzero(v) -> bool:
-    """A vector parameter (a list, or a comma-separated string) that holds a
-    value other than 0."""
-    if v is None or (isinstance(v, str) and not v.strip()):
-        return False
-    if isinstance(v, str):
-        v = [x for x in v.replace(" ", "").split(",") if x]
-    return bool(np.any(np.asarray(v, dtype=float) != 0))
+def _nonempty(v) -> bool:
+    """A vector parameter that holds a value (reference: gbdt.py:1181)."""
+    return v is not None and len(np.atleast_1d(v)) > 0
 
 
 def _not_ported(what: str) -> LightGBMError:
@@ -360,16 +369,19 @@ class GBDT:
                 "f32/int8)")
         if c.tree_learner != "serial":
             raise _not_ported(f"tree_learner={c.tree_learner!r}")
+        # the CEGB vectors and linear_tree (reference: gbdt.py:1184-1203;
+        # its boosting check is in create_boosting)
         for key in ("cegb_penalty_feature_lazy",
                     "cegb_penalty_feature_coupled"):
-            if _nonzero(getattr(c, key)):
-                raise _not_ported(key)
-        if c.cegb_penalty_split > 0.0:
-            raise _not_ported("cegb_penalty_split")
-        if c.forcedsplits_filename:
-            raise _not_ported("forced splits")
-        if c.linear_tree:
-            raise _not_ported("linear_tree")
+            v = getattr(c, key)
+            if _nonempty(v) and \
+                    len(np.atleast_1d(v)) != self.dd.num_features:
+                raise LightGBMError(f"{key} should be the same size as the "
+                                    "feature count")
+        if c.linear_tree and self.train_data.raw_data is None:
+            raise LightGBMError(
+                "linear_tree needs the raw feature matrix; construct the "
+                "Dataset with free_raw_data=False")
         w = c.auc_mu_weights
         if w is not None and (w.strip() if isinstance(w, str)
                               else np.size(w)):
@@ -433,11 +445,80 @@ class GBDT:
         return torch.as_tensor(masks, device=self.device)
 
     def _use_batched_multiclass(self) -> bool:
-        """K class trees in lockstep (reference: gbdt.py:1460-1499):
-        ``multiclass_batched`` and plain growth; under a growth constraint
-        or a per-node draw they grow one at a time."""
-        return (self.config.multiclass_batched
-                and self.grow_params.plain_growth)
+        """K class trees in lockstep (reference: gbdt.py:1460-1499, :2205):
+        ``multiclass_batched``, plain growth, no forced splits and no
+        linear trees; under a growth constraint, a per-node draw, CEGB,
+        forced splits or linear trees they grow one at a time."""
+        gp = self.grow_params
+        return (self.config.multiclass_batched and gp.plain_growth
+                and not gp.forced and not self.config.linear_tree)
+
+    def _cegb_vector(self, key: str) -> Optional[torch.Tensor]:
+        """A CEGB cost vector as (F,) float32 on the device, or None
+        (reference: gbdt.py:1018-1029)."""
+        v = getattr(self.config, key)
+        if not _nonempty(v):
+            return None
+        return torch.as_tensor(np.asarray(np.atleast_1d(v), np.float32),
+                               device=self.device)
+
+    def _parse_forced_splits(self) -> tuple:
+        """The ``forcedsplits_filename`` JSON as static levels, each a
+        (leaves, features, threshold bins, default lefts) tuple of tuples,
+        () for none (reference: gbdt.py:1031-1086; numeric splits only, the
+        threshold's bin by ``searchsorted(upper_bounds, threshold,
+        side="left")``)."""
+        fn = self.config.forcedsplits_filename
+        if not fn:
+            return ()
+        import json
+        try:
+            with open(fn) as fh:
+                spec = json.load(fh)
+        except FileNotFoundError:
+            raise LightGBMError(f"forcedsplits_filename {fn!r} not found")
+        except json.JSONDecodeError as e:
+            raise LightGBMError(
+                f"forcedsplits_filename {fn!r} is not valid JSON: {e}")
+        if not spec:
+            return ()
+        mappers = self.train_data.bin_mappers()
+        L = max(self.config.num_leaves, 2)
+        levels = []
+        frontier = [(spec, 0)]
+        cur_count = 1
+        while frontier:
+            start = cur_count
+            leaves, feats, thrs, dls = [], [], [], []
+            nxt = []
+            for idx, (node, leaf) in enumerate(frontier):
+                f = int(node["feature"])
+                if not 0 <= f < len(mappers):
+                    raise LightGBMError(
+                        f"forced split feature {f} out of range")
+                if mappers[f].bin_type == BIN_CATEGORICAL:
+                    raise LightGBMError(
+                        "categorical forced splits are not supported")
+                tb = int(np.searchsorted(mappers[f].upper_bounds,
+                                         float(node["threshold"]),
+                                         side="left"))
+                leaves.append(int(leaf))
+                feats.append(f)
+                thrs.append(tb)
+                dls.append(bool(node.get("default_left", False)))
+                if node.get("left"):
+                    nxt.append((node["left"], leaf))
+                if node.get("right"):
+                    nxt.append((node["right"], start + idx))
+            cur_count = start + len(frontier)
+            if cur_count > L:
+                raise LightGBMError(
+                    f"forced splits need {cur_count} leaves but num_leaves="
+                    f"{L}")
+            levels.append((tuple(leaves), tuple(feats), tuple(thrs),
+                           tuple(dls)))
+            frontier = nxt
+        return tuple(levels)
 
     def _make_grow_params(self) -> GrowParams:
         c = self.config
@@ -474,6 +555,14 @@ class GBDT:
             has_interaction=self._interaction_group_masks() is not None,
             extra_trees=c.extra_trees,
             bynode_fraction=c.feature_fraction_bynode,
+            # the reference's gate (gbdt.py:957-965): a split cost, or a
+            # cost vector given
+            has_cegb=(c.cegb_penalty_split > 0.0
+                      or _nonempty(c.cegb_penalty_feature_coupled)
+                      or _nonempty(c.cegb_penalty_feature_lazy)),
+            cegb_tradeoff=c.cegb_tradeoff,
+            cegb_penalty_split=c.cegb_penalty_split,
+            forced=self._parse_forced_splits(),
             # auto resolves on: the replay gives the same leaves as the
             # per-round route-only passes, and the grower applies the
             # reference's gate
@@ -541,9 +630,31 @@ class GBDT:
         self._tree_out = self._bits_out = None
 
     def _set_constraints(self) -> None:
-        """The growth constraints' device tensors, from the config."""
+        """The growth constraints' device tensors and CEGB's run state,
+        from the config.  CEGB's used features and charged rows persist
+        over the run (reference: gbdt.py:341-347): a reset keeps them
+        while CEGB stays on, starts them empty when it turns on, and drops
+        them when it turns off."""
         self._monotone = self._monotone_array()
         self._groups = self._interaction_group_masks()
+        c = self.config
+        old = getattr(self, "_cegb", None)
+        if not (c.cegb_penalty_split > 0.0
+                or _nonempty(c.cegb_penalty_feature_coupled)
+                or _nonempty(c.cegb_penalty_feature_lazy)):
+            self._cegb = None
+            return
+        F = self.dd.num_features
+        used = (old.used if old is not None
+                else torch.zeros(F, dtype=torch.bool, device=self.device))
+        lazy_pen = self._cegb_vector("cegb_penalty_feature_lazy")
+        lazy = None
+        if lazy_pen is not None:
+            lazy = (old.lazy if old is not None and old.lazy is not None
+                    else torch.zeros((self._score_shape[0], F),
+                                     dtype=torch.bool, device=self.device))
+        self._cegb = CegbState(used, self._cegb_vector(
+            "cegb_penalty_feature_coupled"), lazy_pen, lazy)
 
     def _set_fused_gate(self) -> None:
         """Whether iterations fuse, and the batched flag poll's cadence
@@ -573,7 +684,10 @@ class GBDT:
         if mode == "off":
             return False
         obj = self.objective
-        if (obj is None or not getattr(obj, "jit_safe_gradients", True)
+        # linear trees and CEGB run eager even under "on", as in the
+        # reference (gbdt.py:1603-1605)
+        if (c.linear_tree or self.grow_params.has_cegb
+                or obj is None or not getattr(obj, "jit_safe_gradients", True)
                 or getattr(obj, "need_renew_leaf", False)
                 or (c.use_quantized_grad and c.quant_train_renew_leaf)
                 or (self.num_tree_per_iteration > 1
@@ -756,7 +870,8 @@ class GBDT:
                             bins=self.dd.bins, gh_scales=gh_scales,
                             monotone=self._monotone,
                             interaction_groups=self._groups,
-                            key=self._grow_key())
+                            key=self._grow_key(), cegb=self._cegb)
+            self._cegb_note(res.arrays)
             if renew:
                 res = res._replace(arrays=self._renew_leaves_exact(
                     res.arrays, res.leaf_id, grad_raw, hess_raw))
@@ -765,24 +880,39 @@ class GBDT:
                     res = res._replace(arrays=self._renew_leaves_percentile(
                         res.arrays, res.leaf_id, mask))
             trees = [(res.arrays, res.rounds)]
-            with phase(self.timer, "k4"):
-                # score update (reference: ScoreUpdater::AddScore); a
-                # single-leaf tree has leaf value 0
-                delta = leaf_gather(res.leaf_id, res.arrays.leaf_value * rate)
-                self.score = self.score + delta
+            if c.linear_tree:
+                linear = [self._linear_step(res.arrays, res.leaf_id,
+                                            grad_raw, hess_raw, 0)]
+            else:
+                with phase(self.timer, "k4"):
+                    # score update (reference: ScoreUpdater::AddScore); a
+                    # single-leaf tree has leaf value 0
+                    delta = leaf_gather(res.leaf_id,
+                                        res.arrays.leaf_value * rate)
+                    self.score = self.score + delta
         else:
             trees, leaf_k, values = self._grow_classes(
                 grad, hess, mask, col_mask, compact, gh_scales,
                 (grad_raw, hess_raw) if renew else None)
-            with phase(self.timer, "k4"):
-                # every class's leaf values added to its score column in
-                # one launch (reference: score_add_k, gbdt.py:2218-2241)
-                L = values.shape[1]
-                off = torch.arange(k, dtype=torch.int32, device=dev) * L
-                delta = leaf_gather((leaf_k + off[:, None]).reshape(-1),
-                                    (values * rate).reshape(-1))
-                self.score = self.score + delta.view(k, -1).t()
-        self._add_trees(trees, rate)
+            if c.linear_tree:
+                linear = [self._linear_step(arrays, leaf_k[kk],
+                                            grad_raw[:, kk], hess_raw[:, kk],
+                                            kk)
+                          for kk, (arrays, _) in enumerate(trees)]
+            else:
+                with phase(self.timer, "k4"):
+                    # every class's leaf values added to its score column
+                    # in one launch (reference: score_add_k,
+                    # gbdt.py:2218-2241)
+                    L = values.shape[1]
+                    off = torch.arange(k, dtype=torch.int32, device=dev) * L
+                    delta = leaf_gather((leaf_k + off[:, None]).reshape(-1),
+                                        (values * rate).reshape(-1))
+                    self.score = self.score + delta.view(k, -1).t()
+        if c.linear_tree:
+            self._add_linear_trees(linear)
+        else:
+            self._add_trees(trees, rate)
         # a trivial iteration ends training unless the guard tripped: a
         # skipped iteration grows no-op trees by design (reference:
         # gbdt.py:2383-2390); the flag is read only then
@@ -799,6 +929,148 @@ class GBDT:
             self._trim_trailing_trivial()
             return True
         return False
+
+    def _cegb_note(self, arrays: TreeArrays) -> None:
+        """A grown tree's split features marked used in CEGB's state
+        (reference: gbdt.py:2268-2275)."""
+        if self._cegb is None or arrays.num_leaves <= 1:
+            return
+        ni = arrays.num_leaves - 1
+        self._cegb.used.index_fill_(
+            0, arrays.split_feature[:ni].to(torch.int64), True)
+
+    def _linear_step(self, arrays: TreeArrays, leaf_id, grad_raw, hess_raw,
+                     kk: int) -> Tree:
+        """Class kk's grown tree made linear and added to the training
+        score (reference: gbdt.py:2292-2300): the fit, the host delta into
+        the score's column, then the init bias folded into the tree."""
+        with phase(self.timer, "linear_fit"):
+            delta_np, tree = self._fit_linear_tree(arrays, leaf_id, grad_raw,
+                                                   hess_raw)
+        bias = self.init_scores[kk] if self.iter_ == 0 else 0.0
+        if bias:
+            tree.add_bias(bias)
+        delta = torch.zeros(self._score_shape[0], dtype=torch.float32)
+        delta[:self.num_data] = torch.from_numpy(
+            np.asarray(delta_np, np.float32))
+        delta = delta.to(self.device)
+        if self.num_tree_per_iteration == 1:
+            self.score = self.score + delta
+        else:
+            self.score = self.score.clone()
+            self.score[:, kk] += delta
+        return tree
+
+    def _fit_linear_tree(self, arrays: TreeArrays, leaf_id, grad_raw,
+                         hess_raw):
+        """Each leaf's linear model on the raw features (reference:
+        ``_fit_linear_tree``, gbdt.py:2435-2519; linear_tree_learner.cpp
+        CalculateLinear, Eq 3 of arXiv 1802.05640): the tree at learning
+        rate 1.0, each leaf's numerical path features, a weighted ridge
+        solved per leaf in NumPy float64 in the reference's operation
+        order (its ``solve``, ``pinv`` where singular, rows with a NaN
+        dropped, coefficients of at most 1e-35 cut, the first tree kept
+        constant), then shrunk.  One host read of the tree's arrays, leaf
+        ids and raw gradients.  Returns (the training score's delta over
+        the unpadded rows, the host Tree)."""
+        nd = self.num_data
+        arrays_h = _arrays_to_host([arrays])[0]
+        leaf_h, g_h, h_h = (t[:nd].cpu().numpy()
+                            for t in (leaf_id, grad_raw, hess_raw))
+        X = self.train_data.raw_data
+        mappers = self.train_data.bin_mappers()
+        tree = finalize_tree(arrays_h, mappers, learning_rate=1.0)
+        c = self.config
+        L = tree.num_leaves
+        ni = max(L - 1, 0)
+
+        # branch (path) features per leaf, numerical only
+        parent = np.full(ni, -1, np.int64)
+        leaf_parent = np.full(L, -1, np.int64)
+        for i in range(ni):
+            for ch in (int(tree.left_child[i]), int(tree.right_child[i])):
+                if ch >= 0:
+                    parent[ch] = i
+                else:
+                    leaf_parent[~ch] = i
+        leaf_feats: List[List[int]] = []
+        for ln in range(L):
+            feats = set()
+            node = leaf_parent[ln]
+            while node >= 0:
+                f = int(tree.split_feature[node])
+                if mappers[f].bin_type != BIN_CATEGORICAL:
+                    feats.add(f)
+                node = parent[node]
+            leaf_feats.append(sorted(feats))
+
+        tree.is_linear = True
+        tree.leaf_const = np.asarray(tree.leaf_value, np.float64).copy()
+        tree.leaf_features = [[] for _ in range(L)]
+        tree.leaf_coeff = [[] for _ in range(L)]
+        if self.iter_ > 0:   # reference: the first tree stays constant
+            lam = float(c.linear_lambda)
+            for ln in range(L):
+                feats = leaf_feats[ln]
+                d = len(feats)
+                rows = np.flatnonzero(leaf_h == ln)
+                if d == 0 or len(rows) == 0:
+                    continue
+                A = np.column_stack([X[np.ix_(rows, feats)],
+                                     np.ones(len(rows))])
+                ok = ~np.isnan(A).any(axis=1)
+                if int(ok.sum()) < d + 1:
+                    continue
+                A = A[ok]
+                g = g_h[rows][ok]
+                h = h_h[rows][ok]
+                M = (A * h[:, None]).T @ A
+                M[np.arange(d), np.arange(d)] += lam
+                v = A.T @ g
+                try:
+                    coef = -np.linalg.solve(M, v)
+                except np.linalg.LinAlgError:
+                    coef = -np.linalg.pinv(M) @ v
+                keep = np.abs(coef[:d]) > 1e-35
+                tree.leaf_features[ln] = [f for f, kp in zip(feats, keep)
+                                          if kp]
+                tree.leaf_coeff[ln] = [float(cf) for cf, kp
+                                       in zip(coef[:d], keep) if kp]
+                tree.leaf_const[ln] = float(coef[d])
+        rate = self.config.learning_rate
+        if rate != 1.0:
+            tree.shrink(rate)
+        return tree._linear_output(X, leaf_h), tree
+
+    def _add_linear_trees(self, trees: List[Tree]) -> None:
+        """An iteration's linear trees: each validation set's score takes
+        the host walk of its raw rows, less the init bias folded into a
+        first tree (reference: gbdt.py:2350-2370), and the trees go to the
+        host model list."""
+        k = self.num_tree_per_iteration
+        with phase(self.timer, "valid"):
+            for vi, vset in enumerate(self.valid_sets):
+                if vset.raw_data is None:
+                    raise LightGBMError(
+                        "linear_tree validation needs the raw feature "
+                        "matrix; construct the valid Dataset with "
+                        "free_raw_data=False")
+                score = self.valid_scores[vi]
+                for kk, tree in enumerate(trees):
+                    dv = np.asarray(tree.predict_raw(vset.raw_data))
+                    if self.iter_ == 0 and self.init_scores[kk] != 0.0:
+                        dv = dv - self.init_scores[kk]
+                    pad = torch.zeros(score.shape[0], dtype=torch.float32)
+                    pad[:len(dv)] = torch.from_numpy(dv.astype(np.float32))
+                    pad = pad.to(self.device)
+                    if k == 1:
+                        score = score + pad
+                    else:
+                        score = score.clone()
+                        score[:, kk] += pad
+                self.valid_scores[vi] = score
+        self._flush_models()
+        self._models_list.extend(trees)
 
     def _grow_key(self, kk: int = 0):
         """The key of class kk's per-node draws this iteration, or None
@@ -1163,9 +1435,10 @@ class GBDT:
         on the compacted view of ``compact`` rows (0: none).  gh_scales: the
         (2, K) quantized scales, or None; raw: the (n_pad, K) raw (grad,
         hess) when leaves are renewed, which grows one class at a time as
-        the reference does (gbdt.py:2204-2208).  Returns each class's
-        (arrays, rounds), the (K, n_pad) leaf ids and the (K, L) leaf
-        values."""
+        the reference does (gbdt.py:2204-2208).  One at a time, each class
+        tree grows after the previous one has updated CEGB's state.
+        Returns each class's (arrays, rounds), the (K, n_pad) leaf ids and
+        the (K, L) leaf values."""
         k = self.num_tree_per_iteration
         gT, hT = grad.t().contiguous(), hess.t().contiguous()
         scales = None if gh_scales is None else gh_scales.t().contiguous()
@@ -1181,15 +1454,16 @@ class GBDT:
                                     if f != "num_leaves"}),
                       res.rounds[kk]) for kk in range(k)]
             return trees, res.leaf_id, a.leaf_value
-        results = [grow_tree(self._bins_T, gT[kk], hT[kk], mask,
-                             self.dd.layout, self.dd.routing,
-                             self.grow_params, self.dd.max_bins,
-                             bins=self.dd.bins,
-                             gh_scales=None if scales is None else scales[kk],
-                             monotone=self._monotone,
-                             interaction_groups=self._groups,
-                             key=self._grow_key(kk), **kw)
-                   for kk in range(k)]
+        results = []
+        for kk in range(k):
+            results.append(grow_tree(
+                self._bins_T, gT[kk], hT[kk], mask, self.dd.layout,
+                self.dd.routing, self.grow_params, self.dd.max_bins,
+                bins=self.dd.bins,
+                gh_scales=None if scales is None else scales[kk],
+                monotone=self._monotone, interaction_groups=self._groups,
+                key=self._grow_key(kk), cegb=self._cegb, **kw))
+            self._cegb_note(results[-1].arrays)
         if raw is not None:
             results = [r._replace(arrays=self._renew_leaves_exact(
                 r.arrays, r.leaf_id, raw[0][:, kk], raw[1][:, kk]))
@@ -1450,8 +1724,13 @@ def _config_values(config: Config) -> Dict[str, str]:
 def create_boosting(config: Config, train_data, objective,
                     metrics: Sequence[Metric] = ()) -> GBDT:
     """reference: Boosting::CreateBoosting (boosting.cpp:42); gbdt only
-    (``goss`` is gbdt with the GOSS strategy)."""
+    (``goss`` is gbdt with the GOSS strategy).  ``linear_tree`` under dart
+    or rf raises the reference's error (gbdt.py:1196-1199)."""
     t = config.boosting
     if t in ("gbdt", "gbrt", "goss"):
         return GBDT(config, train_data, objective, metrics)
+    if config.linear_tree and t in ("dart", "rf", "random_forest"):
+        raise LightGBMError(
+            "linear_tree is not supported with boosting="
+            f"{'dart' if t == 'dart' else 'rf'}")
     raise LightGBMError(f"boosting={t!r} is not yet ported to lightgbm_torch")

@@ -102,6 +102,25 @@ threshold a feature, each leaf in its row of the reference's (R, F) draw
 for the round.  None of these is plain growth: K class trees grow one at
 a time.
 
+Cost-effective gradient boosting (CEGB; reference: :444-464, :765-777,
+:1391-1405, :1485-1494; cost_effective_gradient_boosting.hpp) takes a
+cost off each (leaf, feature) best gain in the split scan: tradeoff times
+``cegb_penalty_split`` per row of the leaf, plus the feature's coupled cost
+while no tree of the model splits on it, plus its lazy cost per row of the
+leaf not yet charged for it.  ``CegbState`` carries the model's used
+features and the (N, F) bitset of charged rows from tree to tree; each
+round marks its split features used and charges every row of its split
+leaves, before their rows move, and the lazy counts read every row's
+current leaf (out-of-bag and pad rows too, as the reference's
+``segment_sum`` over all N does).  Forced splits (``GrowParams.forced``;
+reference: :866-891, :1516-1520) run first, one round a level of the
+forced tree: pair i splits leaf ``f_leaves[i]`` at its forced bin, the
+left sums from the leaf's cached histogram (the NaN bin on the default
+side), the left count estimated as ``round(lh * pc / ph)``, gain 0; the
+rest of the round is the shared code.  A tree with forced splits never
+sprints.  Neither is plain growth (CEGB) or fuses its route (either): K
+class trees grow one at a time.
+
 Categorical splits (reference: ops/grow.py:936-951, :2017-2031): each
 chosen categorical split's left bins are recomputed from the split leaf's
 cached histogram (``categorical_left_bitset``), kept in the node arrays'
@@ -120,7 +139,7 @@ of :1530-1560) keeps those counts on the device, gives every round a static
 shape (K * min(2**r, B) pair slots, K2 at min(2**r, B) slots) and reads the
 host once per tree, after the rounds its caller planned: the same trees, bit
 for bit, since a round no class needs changes nothing.  Not ported:
-forced splits, CEGB and meshes.
+meshes.
 """
 from __future__ import annotations
 
@@ -145,7 +164,7 @@ from .predict import feature_local_bin
 from .split import (EPS_HESS, NEG_INF, CatParams, categorical_left_bitset,
                     child_output, constrained_child_outputs,
                     find_best_splits, gather_feature_histograms, leaf_output,
-                    penalty_table)
+                    penalty_table, round_int)
 
 
 class GrowParams(NamedTuple):
@@ -186,15 +205,34 @@ class GrowParams(NamedTuple):
     # the grower is given
     extra_trees: bool = False
     bynode_fraction: float = 1.0
+    # CEGB (reference: :87-89); its per-feature costs and the run's state
+    # go to the grower as a CegbState
+    has_cegb: bool = False
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
+    # forced splits, one level of the forced tree each: (leaves, features,
+    # threshold bins, default lefts) tuples (reference: forced, :369)
+    forced: tuple = ()
 
     @property
     def plain_growth(self) -> bool:
-        """No growth constraint or per-node draw is on (reference:
+        """No growth constraint, per-node draw or CEGB is on (reference:
         :116-123): the gate of route fusion and of K class trees in
-        lockstep."""
+        lockstep.  Forced splits have gates of their own."""
         return not (self.has_monotone or self.has_interaction
                     or self.path_smooth > 0.0 or self.extra_trees
-                    or self.bynode_fraction < 1.0)
+                    or self.bynode_fraction < 1.0 or self.has_cegb)
+
+
+class CegbState(NamedTuple):
+    """CEGB's state across the trees of a run (reference:
+    models/gbdt.py:341-347, :2259-2275): the features some tree of the
+    model splits on, the per-feature costs, and which features each row
+    has been charged for.  The grower marks ``lazy`` in place."""
+    used: torch.Tensor                  # (F,) bool
+    coupled: Optional[torch.Tensor]     # (F,) float32 coupled costs, or None
+    lazy_pen: Optional[torch.Tensor]    # (F,) float32 lazy costs, or None
+    lazy: Optional[torch.Tensor]        # (N, F) bool charged rows, or None
 
 
 class GrowResult(NamedTuple):
@@ -209,16 +247,16 @@ def fusion_applies(params: GrowParams, compact_rows: int,
                    num_class: int = 1) -> bool:
     """The reference's gate for route fusion (ops/grow.py:626-633): one
     compacted stream tree (``grow_tree_k`` has no replay) grown in the
-    sprint schedule (S >= 64, no depth limit) with at most 256 leaves and
-    plain growth, on data without a categorical feature (K3's route records
-    carry no bitsets).  Forced splits and CEGB, which the gate also
-    excludes, do not train in the port."""
+    sprint schedule (S >= 64, no depth limit, no forced splits) with at
+    most 256 leaves and plain growth (no CEGB, whose lazy counts read every
+    row's leaf mid-growth), on data without a categorical feature (K3's
+    route records carry no bitsets)."""
     L = params.num_leaves
     S = min(params.max_splits_per_round, max(L - 1, 1))
     return (params.route_fusion and params.hist_backend == "stream"
             and num_class == 1 and compact_rows > 0 and S >= 64
             and params.max_depth <= 0 and L <= 256 and params.cat is None
-            and params.plain_growth)
+            and params.plain_growth and not params.forced)
 
 
 # per-leaf fields of the growing trees: (dtype, initial value); each is a
@@ -371,7 +409,8 @@ class _Grower:
     grid values K2's int form reads (``wg``, ``wh``: the weights K2 reads,
     the int8 grid values or the float ``*_h`` rows).  ``monotone``: (F,)
     int64 signs under ``params.has_monotone``; ``interaction_groups``: (C,
-    F) bool groups under ``params.has_interaction``.
+    F) bool groups under ``params.has_interaction``; ``cegb``: the run's
+    ``CegbState`` under ``params.has_cegb``.
 
     The per-leaf tensors are (K, L) views of flat (K * L + 1) tensors
     (``self.fl``) whose last entry is a spare leaf; a round writes the node
@@ -388,10 +427,10 @@ class _Grower:
                  routing: RoutingLayout, params: GrowParams, max_bins: int,
                  timer=None, col_mask=None, compact_rows: int = 0,
                  bins=None, gh_scales=None, monotone=None,
-                 interaction_groups=None, key=None):
+                 interaction_groups=None, key=None, cegb=None):
         self._alloc(bins_T, grad.shape[0], layout, routing, params, max_bins,
                     timer, col_mask, compact_rows, monotone,
-                    interaction_groups, key)
+                    interaction_groups, key, cegb)
         self.records = []          # the rounds' route tables, when fused
         # per class on the host: leaves so far, whether the last round
         # split, splittable leaves, rounds that split
@@ -406,7 +445,7 @@ class _Grower:
 
     def _alloc(self, bins_T, K, layout, routing, params, max_bins, timer,
                col_mask, compact_rows, monotone=None, interaction_groups=None,
-               key=None):
+               key=None, cegb=None):
         """The per-leaf tensors, zeroed, and what does not change over a
         run."""
         self.bins_T = bins_T
@@ -473,6 +512,24 @@ class _Grower:
                                            dtype=_F32, device=dev)
                 self.adv_ok = torch.ones((n1, F), dtype=torch.bool,
                                          device=dev)
+        self.cegb = cegb if params.has_cegb else None
+        if K != 1 and (self.cegb is not None or params.forced):
+            raise ValueError("CEGB and forced splits grow one class tree "
+                             "at a time")
+        if self.cegb is not None:
+            # the features used so far, this tree's splits included
+            self.cegb_used = self.cegb.used.clone()
+        # each forced level's (leaves, features, threshold bins, direction
+        # flags, classes, ranks), made once: a tensor made from Python
+        # values inside a captured round would be a host copy
+        self.forced = []
+        for leaves, feats, thrs, dls in params.forced:
+            t = [torch.tensor(v, dtype=_I64, device=dev) for v in (
+                leaves, feats, thrs,
+                [DIR_DEFAULT_LEFT if d else 0 for d in dls])]
+            nf = len(leaves)
+            self.forced.append((*t, torch.zeros(nf, dtype=_I64, device=dev),
+                                torch.arange(nf, device=dev)))
         self.hist_f = torch.zeros((KL + 1, G, max_bins, 2), dtype=_F32,
                                   device=dev)
         self.hist = self.hist_f[:KL].view(K, L, G, max_bins, 2)
@@ -601,6 +658,8 @@ class _Grower:
                 kw["adv_bounds"] = (self.adv_vmin[ids], self.adv_vmax[ids])
                 if not root:
                     kw["splittable"] = self.adv_ok[ids]
+            if self.cegb is not None:
+                kw["cegb_penalty"] = self._cegb_penalty(c, ids)
             if self.use_output:
                 fl = self.fl
                 kw.update(out_lo=fl["out_lo"][ids], out_hi=fl["out_hi"][ids],
@@ -616,6 +675,66 @@ class _Grower:
                 max(p.min_data_in_leaf, 1), p.min_sum_hessian_in_leaf,
                 p.min_gain_to_split, p.max_delta_step, col_mask,
                 self.cat, **kw)
+
+    def _cegb_penalty(self, c, ids):
+        """(R, F) CEGB's cost of splitting each leaf at flat positions
+        ``ids`` on each feature, the leaves' (R,) counts ``c`` (reference:
+        cegb_pen, :444-455): tradeoff * (penalty_split * count + coupled[f]
+        while f is unused + lazy[f] * the leaf's rows not yet charged for
+        f), in the reference's operation order."""
+        p, cg = self.p, self.cegb
+        F = self.cegb_used.shape[0]
+        pen = (p.cegb_tradeoff * p.cegb_penalty_split) * c[:, None]
+        if cg.coupled is not None:
+            pen = pen + p.cegb_tradeoff * cg.coupled[None, :] * \
+                (~self.cegb_used)[None, :]
+        if cg.lazy is not None:
+            pen = pen + p.cegb_tradeoff * cg.lazy_pen[None, :] * \
+                self._lazy_unused(ids)
+        return pen.expand(ids.shape[0], F)
+
+    def _lazy_unused(self, ids):
+        """(R, F) float32: the rows of each leaf at flat positions ``ids``
+        not yet charged for each feature (reference: lazy_unused_counts,
+        :457-464), over every row's current leaf: exact integer counts."""
+        R = ids.shape[0]
+        slot_of = torch.full((self.KL + 1,), R, dtype=_I64, device=self.dev)
+        slot_of[ids] = torch.arange(R, device=self.dev)
+        slot = slot_of[self._flat_leaf()[0]]
+        lazy = self.cegb.lazy
+        counts = torch.zeros((R + 1, lazy.shape[1]), dtype=torch.int32,
+                             device=self.dev)
+        counts.index_add_(0, slot, (~lazy).to(torch.int32))
+        return counts[:R].to(_F32)
+
+    def _cegb_mark(self, feat, chosen, lfeat):
+        """A round's splits in CEGB's state, before any row moves
+        (reference: :1391-1405): their features used, and every row of a
+        split leaf charged for its split feature."""
+        self.cegb_used.index_fill_(0, feat, True)
+        lazy = self.cegb.lazy
+        if lazy is not None:
+            lid = self._flat_leaf()[0]
+            f_iota = torch.arange(lazy.shape[1], device=self.dev)
+            lazy |= ((f_iota[None, :] == lfeat[lid][:, None])
+                     & (chosen[lid] > 0)[:, None])
+
+    def _forced_left(self, fo, feat, thr, dirf, pg, ph, pc):
+        """(lg, lh, lc) of forced splits (reference: :885-902): the left
+        sums from each split leaf's cached histogram, the bins up to the
+        threshold and, on the default-left side, the NaN bin, added in
+        float64 and rounded once; the count estimated from them."""
+        hf = gather_feature_histograms(self.hist_f[fo], self.layout, pg, ph)
+        hsel = hf[torch.arange(fo.shape[0], device=self.dev), feat]
+        b = torch.arange(self.Bmax, device=self.dev)[None, :]
+        nanb = self.routing.nan_bin[feat].to(_I64)[:, None]
+        at_nan = (nanb >= 0) & (b == nanb)
+        take = (((b <= thr[:, None]) & ~at_nan)
+                | (at_nan & (dirf[:, None] == DIR_DEFAULT_LEFT)))
+        lg, lh = (torch.where(take, hsel[..., i], 0.0).double().sum(dim=1)
+                  .to(_F32) for i in (0, 1))
+        lc = round_int(lh * pc / torch.clamp(ph, min=EPS_HESS))
+        return lg, lh, lc
 
     def _node_col_mask(self, ids, rows, bkey):
         """(R, F) the features each leaf at flat positions ``ids`` may split
@@ -809,9 +928,24 @@ class _Grower:
         if with_hist:
             self.count_splittable()
 
+    def forced_round(self, level):
+        """One forced level: its pairs split their static leaves at their
+        forced bins (reference: make_body's forced branch, :866-902), a
+        round of as many K2 slots as the level has splits."""
+        nf = level[0].shape[0]
+        with phase(self.timer, "other"):
+            cls, rank, new = _pair_index([nf], self.cur, self.dev)
+        span = self.cur[0] + nf if self.imono else None
+        self._split_pairs(cls, rank, new, None, nf, True, nf, span,
+                          forced=level[:4])
+        self.round_idx += 1
+        self.rounds[0] += 1
+        self.cur[0] += nf
+        self.count_splittable()
+
     def _split_pairs(self, cls, rank, new, live, num_slots: int,
                      with_hist: bool, budget: int,
-                     span: Optional[int] = None):
+                     span: Optional[int] = None, forced=None):
         """The splits of one round, class-major pairs: pair i splits the
         rank[i]-th leaf by cached gain of class cls[i] into it and leaf
         new[i].  ``live``: None (every pair splits), or (P,) bool, and a
@@ -826,30 +960,45 @@ class _Grower:
         row i, its new leaf in row ``budget + i``; under the intermediate
         method leaf j in row j).  ``span``: under the intermediate method,
         a bound on the leaves after the round (every leaf by default); the
-        rescan and the slab refresh read those only."""
+        rescan and the slab refresh read those only.  ``forced``: a forced
+        level's (leaves, features, threshold bins, direction flags), which
+        pair i splits in place of the rank[i]-th leaf by cached gain."""
         p, L, dev, K = self.p, self.L, self.dev, self.K
         G = self.bins_T.shape[0]
         KL = self.KL
         fl = self.fl
         with phase(self.timer, "other"):
-            cand = torch.where(self.best_gain > 0, self.best_gain, NEG_INF)
-            if p.max_depth > 0:
-                cand = torch.where(self.depth < p.max_depth, cand, NEG_INF)
-            order = torch.argsort(-cand, dim=1, stable=True)
-            # split i of class c takes its rank-th leaf and makes leaf
-            # cur[c] + rank
-            old = order[cls, rank]
+            if forced is None:
+                cand = torch.where(self.best_gain > 0, self.best_gain,
+                                   NEG_INF)
+                if p.max_depth > 0:
+                    cand = torch.where(self.depth < p.max_depth, cand,
+                                       NEG_INF)
+                order = torch.argsort(-cand, dim=1, stable=True)
+                # split i of class c takes its rank-th leaf and makes leaf
+                # cur[c] + rank
+                old = order[cls, rank]
+            else:
+                old = forced[0]
             base = cls * L
             node = new - 1
             fo, fn, fnode = base + old, base + new, base + node
             if live is not None:
                 fo, fn, fnode = (torch.where(live, x, KL)
                                  for x in (fo, fn, fnode))
-            (feat, thr, dirf, gain, pg, ph, pc, lg, lh, lc) = (
-                fl[name][fo] for name in (
-                    "best_feat", "best_thr", "best_dir", "best_gain",
-                    "sum_g", "sum_h", "cnt_leaf", "best_left_g",
-                    "best_left_h", "best_left_c"))
+            if forced is None:
+                (feat, thr, dirf, gain, pg, ph, pc, lg, lh, lc) = (
+                    fl[name][fo] for name in (
+                        "best_feat", "best_thr", "best_dir", "best_gain",
+                        "sum_g", "sum_h", "cnt_leaf", "best_left_g",
+                        "best_left_h", "best_left_c"))
+            else:
+                feat, thr, dirf = forced[1:4]
+                pg, ph, pc = (fl[name][fo]
+                              for name in ("sum_g", "sum_h", "cnt_leaf"))
+                lg, lh, lc = self._forced_left(fo, feat, thr, dirf, pg, ph,
+                                               pc)
+                gain = torch.zeros_like(pg)
             rg, rh, rc = pg - lg, ph - lh, pc - lc
             parent_hist = self.hist_f[fo] if with_hist else None
 
@@ -887,6 +1036,8 @@ class _Grower:
             lfeat[fo] = feat
             lthr[fo] = thr
             ldir[fo] = dirf
+            if self.cegb is not None:
+                self._cegb_mark(feat, chosen, lfeat)
             if self.stream:
                 slot_l = torch.full((KL + 1,), -1, dtype=torch.int64,
                                     device=dev)
@@ -1352,6 +1503,9 @@ class _DeviceGrower(_Grower):
         if params.hist_backend != "stream":
             raise ValueError("the device-state grower runs the stream "
                              "backend")
+        if params.has_cegb:
+            raise ValueError("CEGB grows eager (reference: "
+                             "models/gbdt.py:1605)")
         self._alloc(bins_T, K, layout, routing, params, max_bins, None,
                     col_mask, compact_rows, monotone, interaction_groups,
                     key)
@@ -1450,6 +1604,18 @@ class _DeviceGrower(_Grower):
             return None
         return min(self.KL, -(-(r + 2) // 32) * 32)
 
+    def forced_dev(self, i: int):
+        """Forced level i as a round of the device-state grower, from the
+        level's tensors made at allocation."""
+        fo, feat, thr, dirf, cls, rank = self.forced[i]
+        nf = fo.shape[0]
+        self._split_pairs(cls, rank, self.cur[cls] + rank, None, nf, True,
+                          nf, None, forced=(fo, feat, thr, dirf))
+        self.round_idx.add_(1)
+        self.rounds.add_(1)
+        self.cur.add_(nf)
+        self.count_splittable()
+
     def round_dev(self, r: int, budget: int, with_hist: bool = True,
                   freeze_sprint: Optional[int] = None, loop: bool = False,
                   span: Optional[int] = None):
@@ -1507,6 +1673,9 @@ def _grow(gr: _Grower, params: GrowParams) -> GrowResult:
     L = params.num_leaves
     S = min(params.max_splits_per_round, max(L - 1, 1))
     gr.root()
+    # forced splits first, a round a level
+    for level in gr.forced:
+        gr.forced_round(level)
     # the budget-64 prefix and the sprint are the stream schedule's; the
     # other backends run plain rounds of S, each with histograms
     stream = params.hist_backend == "stream"
@@ -1516,7 +1685,7 @@ def _grow(gr: _Grower, params: GrowParams) -> GrowResult:
         for _ in range(7):
             if gr.can_continue():
                 gr.round(64)
-    if stream and S >= 64 and params.max_depth <= 0:
+    if stream and S >= 64 and params.max_depth <= 0 and not params.forced:
         S_f = min(2 * S, 255, max(L - 1, 1))
         # full rounds while a class still needs one; a class that one
         # route-only round can finish waits for the others, frozen
@@ -1536,11 +1705,12 @@ def loop_plan(params: GrowParams) -> int:
     every leaf splits: its first tree's plan."""
     L = params.num_leaves
     S = min(params.max_splits_per_round, max(L - 1, 1))
-    cur, rounds = 1, 0
+    cur = 1 + sum(len(level[0]) for level in params.forced)
+    rounds = 0
     if S > 64:
         for _ in range(7):
             cur += min(cur, 64, L - cur)
-    sprint = S >= 64 and params.max_depth <= 0
+    sprint = S >= 64 and params.max_depth <= 0 and not params.forced
     S_f = min(2 * S, 255, max(L - 1, 1))
     # every leaf splittable: the sprint can finish once what remains fits
     # its budget and the leaves there are
@@ -1553,8 +1723,8 @@ def loop_plan(params: GrowParams) -> int:
 def grow_device(gr: _DeviceGrower, params: GrowParams, run, read,
                 plan: int):
     """The round schedule of ``_grow`` over a device-state grower, after
-    its root: the budget-64 prefix, then ``plan`` full rounds, then one
-    host read of ``pending``; while it says a full round would still split,
+    its root: the forced levels, the budget-64 prefix, then ``plan`` full
+    rounds, then one host read of ``pending``; while it says a full round would still split,
     one more round and another read.  ``run(key, fn)`` runs a round
     (replays its graph); ``read(t)`` reads a device tensor on the host.
     Returns (rounds run, the sprint's (budget, slots) or None, full rounds
@@ -1572,12 +1742,15 @@ def grow_device(gr: _DeviceGrower, params: GrowParams, run, read,
             lambda rr=r: gr.round_dev(rr, budget, True, freeze, loop, span))
         r += 1
 
+    for i in range(len(gr.forced)):
+        run(("forced", i), lambda i=i: gr.forced_dev(i))
+        r += 1
     if S > 64:
         # round r splits at most 2**r leaves: seven budget-64 rounds cover
         # growth to 128 leaves before the full budget
         for _ in range(7):
             round_(64, None, False)
-    sprint = S >= 64 and params.max_depth <= 0
+    sprint = S >= 64 and params.max_depth <= 0 and not params.forced
     freeze = min(2 * S, 255, max(L - 1, 1)) if sprint else None
     done = 0
     while True:
@@ -1611,7 +1784,7 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               gh_scales: Optional[torch.Tensor] = None,
               monotone: Optional[torch.Tensor] = None,
               interaction_groups: Optional[torch.Tensor] = None,
-              key=None) -> GrowResult:
+              key=None, cegb: Optional[CegbState] = None) -> GrowResult:
     """Grow one tree.  bins_T: (G, N) uint8; bins: the same (N, G)
     row-major, which ``hist_backend="pallas"`` reads; grad, hess, cnt: (N,)
     float32, zero on pad and out-of-bag rows (cnt is the in-bag mask);
@@ -1623,11 +1796,12 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     interaction_groups: (C, F) bool allowed-feature groups
     (``params.has_interaction``); key: the ``utils.random`` key of the
     per-node draws (``params.bynode_fraction`` < 1, ``params.extra_trees``;
-    reference: models/gbdt.py:2246-2249)."""
+    reference: models/gbdt.py:2246-2249); cegb: the run's ``CegbState``
+    (``params.has_cegb``), whose lazy bitset the tree marks in place."""
     gr = _Grower(bins_T, grad[None], hess[None], cnt, layout, routing,
                  params, max_bins, timer, col_mask, compact_rows, bins,
                  None if gh_scales is None else gh_scales[None], monotone,
-                 interaction_groups, key)
+                 interaction_groups, key, cegb)
     return _grow(gr, params)
 
 
@@ -1645,8 +1819,8 @@ def grow_tree_k(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     view every class reads, 0 for none; the other arguments as
     ``grow_tree``'s, the feature sample shared by the classes.  Class k's
     tree is ``grow_tree``'s on grad[k], hess[k], bit for bit.  Plain growth
-    only, as the reference's (:1689-1694)."""
-    if not params.plain_growth:
+    without forced splits only, as the reference's (:1689-1694)."""
+    if not params.plain_growth or params.forced:
         raise ValueError("grow_tree_k supports the plain feature set only; "
                          "use the per-class grow_tree scan path")
     gr = _Grower(bins_T, grad, hess, cnt, layout, routing, params, max_bins,

@@ -376,7 +376,8 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
                      adv_bounds=None,
                      splittable: Optional[torch.Tensor] = None,
                      extra_key=None,
-                     draw_rows: Optional[torch.Tensor] = None):
+                     draw_rows: Optional[torch.Tensor] = None,
+                     cegb_penalty: Optional[torch.Tensor] = None):
     """Best split of each of the S histogram slots (reference:
     find_best_splits).  ``col_mask`` (F,) or, per slot, (S, F) bool: a
     feature outside it never wins.  ``cat``: the categorical parameters,
@@ -402,7 +403,11 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
     ``extra_key`` (a ``utils.random`` key): extra trees, each (slot,
     feature) keeps the one threshold ``randint(key, (R, F), 0, 2**30) %
     max(bins - 1, 1)`` of row ``draw_rows[slot]`` of the reference's (R,
-    F) draw, on both scans; categorical features keep theirs."""
+    F) draw, on both scans; categorical features keep theirs.
+    ``cegb_penalty`` (S, F) float32: CEGB's cost of each (slot, feature),
+    taken off the feature's best gain after its numeric or categorical
+    pick and before the feature mask (reference: ops/split.py:486-491,
+    :591-593); ``feat_ok`` is set before it."""
     S = hist.shape[0]
     Bmax = hist.shape[2]
     dev = hist.device
@@ -527,6 +532,9 @@ def find_best_splits(hist: torch.Tensor, parent_g: torch.Tensor,
                                layout, sc, cat)
         best_gain_f = torch.where(layout.is_cat[None, :], cb.gain,
                                   best_gain_f)
+    if cegb_penalty is not None:
+        best_gain_f = torch.where(best_gain_f > NEG_INF / 2,
+                                  best_gain_f - cegb_penalty, NEG_INF)
     if col_mask is not None:
         cm = col_mask if col_mask.dim() == 2 else col_mask[None, :]
         best_gain_f = torch.where(cm, best_gain_f, NEG_INF)

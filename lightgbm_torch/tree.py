@@ -90,16 +90,22 @@ class Tree:
         return d
 
     def shrink(self, rate: float) -> None:
-        """Scale the outputs by the learning rate (reference: Tree::Shrinkage)."""
+        """Scale the outputs by the learning rate (reference: Tree::Shrinkage);
+        a linear tree's constants and coefficients too."""
         self.leaf_value = self.leaf_value * rate
         self.internal_value = self.internal_value * rate
         self.shrinkage *= rate
+        if self.is_linear and self.leaf_const is not None:
+            self.leaf_const = self.leaf_const * rate
+            self.leaf_coeff = [[c * rate for c in cs] for cs in self.leaf_coeff]
 
     def add_bias(self, bias: float) -> None:
         """Fold a constant into the tree (reference: Tree::AddBias, used by
         boost_from_average so saved models are self-contained)."""
         self.leaf_value = self.leaf_value + bias
         self.internal_value = self.internal_value + bias
+        if self.is_linear and self.leaf_const is not None:
+            self.leaf_const = self.leaf_const + bias
 
     @property
     def num_cat(self) -> int:

@@ -236,6 +236,6 @@ def test_reset_to_an_unported_parameter_raises():
     X, y, _ = _data(300)
     bst = lt.train({**_RESET, **CPU}, lt.Dataset(X, label=y, params=CPU), 1)
     with pytest.raises(lt.LightGBMError, match="not yet ported"):
-        bst.reset_parameter({"linear_tree": True})
+        bst.reset_parameter({"tree_learner": "data"})
     with pytest.raises(lt.LightGBMError, match="not yet ported"):
-        bst.reset_parameter({"cegb_penalty_split": 0.1})
+        bst.reset_parameter({"hist_backend": "segsum"})

@@ -637,16 +637,11 @@ def test_train_without_device_type_raises_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    {"cegb_penalty_feature_lazy": [1, 0, 0, 0, 0]},
     {"hist_backend": "onehot"},
     {"boosting": "rf"},
-    {"cegb_penalty_split": 0.1},
-    {"forcedsplits_filename": "splits.json"},
-    {"linear_tree": True},
     {"tree_learner": "data"},
     {"hist_backend": "segsum"},
     {"boosting": "dart"},
-    {"cegb_penalty_feature_coupled": [1, 0, 0, 0, 0]},
     {"tree_learner": "voting"},
     {"objective": "multiclass", "num_class": 3, "metric": "auc_mu",
      "auc_mu_weights": [0, 1, 2, 1, 0, 1, 2, 1, 0]},

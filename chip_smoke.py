@@ -86,7 +86,19 @@ Phases, each printing one JSON line:
    0.80) and linear trees (5 eager trees, the host fit's seconds and share
    of a tree, coefficients in every tree after the first, the held-out
    rows through the host walk, AUC > 0.80), one tree's K2 and K4 launches
-   replayed in each.
+   replayed in each.  Then checkpoints (``CHECKPOINT_ARMS``, fused: 10
+   iterations with a snapshot every 5, the run resumed from the first
+   snapshot byte-identical to the uninterrupted one, plain and with
+   bagging 0.8 and feature_fraction 0.8; the seconds to write and to
+   resume), DART (drop_rate 0.1, skip_drop 0.5, fused) and RF (bagging
+   0.7, eager), ``--train-iters`` trees each (s a tree, held-out AUC on
+   250 000 rows, K2 / K4 launches, one tree's launches replayed; DART's
+   dropped trees an iteration and the share spent walking them), and the
+   refit of the plain model on 1M fresh rows through K3 (one launch a
+   tree, each bit-equal to ``route_replay_plain``, the refitted text equal
+   to the plain version's; K3 timed; the share of the refit the host's
+   sums take).  The last line before the kernels line gives each phase's
+   seconds.
 7a. predict_surface_small: models trained on the card over 20 000 rows
    (train_small's rows binary, zero-as-missing and K = 3;
    train_categorical_small's; train_wide_small's 16-bit bins), each
@@ -477,12 +489,26 @@ HIST_KERNELS = ("scatter_hist", "hist_direct", "hist_nibble")
 _T0 = time.perf_counter()
 
 
+_PHASE_WALL = []
+
+
 def emit(obj) -> None:
     """One JSON line; a phase's line also gets the seconds since the
     script started (``wall_s``)."""
     if "phase" in obj:
         obj = {**obj, "wall_s": time.perf_counter() - _T0}
+        _PHASE_WALL.append((obj["phase"], obj["wall_s"]))
     print(json.dumps(obj), flush=True)
+
+
+def phase_seconds():
+    """Each emitted phase's seconds: its ``wall_s`` less the phase's
+    before it."""
+    out, last = {}, 0.0
+    for name, wall in _PHASE_WALL:
+        out[name] = out.get(name, 0.0) + wall - last
+        last = wall
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -823,16 +849,17 @@ def idle_share(bst):
     return max(0.0, 1.0 - busy * 1e-6 / wall), wall
 
 
-def arm_numbers(bst, timed, launches, reads):
+def arm_numbers(bst, timed, launches, reads, trace=True):
     """An arm's per-tree numbers: ``s_per_tree`` (median after the first
     iteration; fused, also the median of the iterations that only replayed
     graphs), host reads, graph replays and kernel launches per iteration,
-    and the idle share of one more iteration (``idle_share``)."""
+    and, with ``trace``, the idle share of one more iteration
+    (``idle_share``; None without)."""
     eng = bst.engine
     iters = max(len(timed.seconds), 1)
     replayed = [t for t, r in zip(timed.seconds, timed.replayed) if r]
     graph_replays, captures = eng._graphs.replays, eng._graphs.captures
-    share, share_s = idle_share(bst)
+    share, share_s = idle_share(bst) if trace else (None, None)
     return {"fused": bool(eng._fused),
             "s_per_tree": statistics.median(timed.seconds[1:]
                                             or timed.seconds),
@@ -2301,8 +2328,10 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
     """The full phase's 1M-row Dataset trained for ``iters`` iterations
     through ``lightgbm_torch.train`` at the north-star shape (binary, 255
     leaves, max_bin 63, split budget 64); the model then predicts the
-    held-out rows through K1.  Returns the K2 and K4 entries of the kernels
-    line."""
+    held-out rows through K1.  Its last arms: checkpoints and resume
+    (``checkpoint_arm``), DART and RF (``boosting_arm``) and the refit of
+    this model on fresh rows (``refit_arm``).  Returns the K2 and K4
+    entries of the kernels line, and K3's ``refit`` entry."""
     import torch
     import lightgbm_torch as lt
     from lightgbm_torch import kernels
@@ -2366,10 +2395,13 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
             ds.num_feature()).items():
         t0 = time.perf_counter()
         # an eager tree of the monotone methods takes seconds: one, and the
-        # phase-timed one after it
+        # phase-timed one after it, no traced one; their fused trees take
+        # 0.27-0.74 s: half the iterations
         methods[name] = method_arm(extra, gate, sweep, params, ds, Xs, ys,
-                                   iters, timed_tree,
-                                   eager_iters=1 if sweep else 2)
+                                   min(iters, 10) if sweep else iters,
+                                   timed_tree,
+                                   eager_iters=1 if sweep else 2,
+                                   trace_eager=not sweep)
         methods[name]["wall_s"] = time.perf_counter() - t0
     extras = {}
     for name, arm in (("cegb", cegb_arm), ("forced", forced_arm),
@@ -2378,6 +2410,19 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
         extras[name] = arm(params, ds, Xs, ys, iters, timed_tree,
                            bst.engine.models[:iters], held_auc)
         extras[name]["wall_s"] = time.perf_counter() - t0
+    # checkpoints and resume, DART, RF, and the refit of this model
+    boosting, boost_err = {}, {}
+    t0 = time.perf_counter()
+    boosting["checkpoint"] = checkpoint_arm(params, ds)
+    boosting["checkpoint"]["wall_s"] = time.perf_counter() - t0
+    for kind, gate in (("dart", 0.80), ("rf", 0.75)):
+        t0 = time.perf_counter()
+        boosting[kind], boost_err[kind] = boosting_arm(
+            kind, params, ds, Xs, ys, iters, timed_tree, gate)
+        boosting[kind]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    boosting["refit"], k3_refit = refit_arm(bst, ds, iters)
+    boosting["refit"]["wall_s"] = time.perf_counter() - t0
 
     after_first = tree_s[1:] or tree_s
     emit({"phase": "train", "card": smi, "rows": int(ds.num_data()),
@@ -2396,7 +2441,10 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
           "profiled_iteration_phases_s": phases_s,
           "profiled_iteration_host_reads": prof_reads,
           "fused_iter": fused, "constrained": constrained,
-          "methods": methods, "extras": extras})
+          "methods": methods, "extras": extras, **boosting})
+    for e in boost_err.values():
+        for name in err:
+            err[name] = max(err[name], e[name])
     k2 = {"name": "route_and_hist", "route": "cuda",
           "source": KERNEL_SOURCES["route_and_hist"],
           "replaces": KERNEL_REPLACES["route_and_hist"],
@@ -2412,7 +2460,7 @@ def phase_train(ds, Xs, ys, iters, smi, timed_tree=2):
           "max_abs_err": err["leaf_gather"],
           "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bnd[0],
           "bound_by": k4_bnd[1], "library_ms": k4_lib}
-    return [k2, k4]
+    return [k2, k4], k3_refit
 
 
 # monotone signs of higgs_logit's additive terms (x0, -x1, x7), and
@@ -2533,15 +2581,16 @@ def higgs_method_arms(F):
 
 
 def method_arm(extra, gate, sweep, params, ds, Xs, ys, iters, timed_tree,
-               eager_iters=2, sweep_rows=1_000, points=64):
+               eager_iters=2, sweep_rows=1_000, points=64, trace_eager=True):
     """One of ``higgs_method_arms`` on phase train's 1M-row Dataset:
     ``iters`` fused trees (the counts read around them), the held-out AUC
     above ``gate``, K1's sweeps monotone (``sweep``), one tree's K2 and K4
     launches replayed bit-equal, the fused numbers (``arm_numbers``: s per
     tree, the idle share of one more iteration); then ``eager_iters`` trees
     with ``fused_iter`` off, their text equal to the fused trees', their
-    numbers, and one more eager tree timed by phase (``mono_pairs``: the
-    serial per-pair update, ``mono_slabs``: the slab refresh)."""
+    numbers (the idle share's traced iteration only with ``trace_eager``),
+    and one more eager tree timed by phase (``mono_pairs``: the serial
+    per-pair update, ``mono_slabs``: the slab refresh)."""
     import torch
     import lightgbm_torch as lt
     from lightgbm_torch import kernels
@@ -2582,7 +2631,8 @@ def method_arm(extra, gate, sweep, params, ds, Xs, ys, iters, timed_tree,
     if eager.engine._fused or model_trees_text(eager) != model_trees_text(
             bst, num_iteration=eager_iters):
         raise RuntimeError(f"{extra}: fused and eager trees differ")
-    eager_numbers = arm_numbers(eager, e_timed, e_launches, e_reads)
+    eager_numbers = arm_numbers(eager, e_timed, e_launches, e_reads,
+                                trace=trace_eager)
     prof_s, phases_s, prof_reads = profiled_iteration(eager)
     return {"iterations": iters, "train_s": train_s,
             "tree_s": timed.seconds,
@@ -2811,6 +2861,291 @@ def linear_arm(params, ds, Xs, ys, iters, timed_tree, plain_trees,
                                       for t in trees],
             "replayed_launches_timed_tree": replayed,
             "replay_max_abs_err": err, "eager": numbers}
+
+
+# --------------------------------------------------------------------------
+# checkpoints, DART, RF and refit (phase train's last arms)
+# --------------------------------------------------------------------------
+
+class OuterIters:
+    """Times each whole iteration of a boosting class (its own
+    ``train_one_iter``: DART's drops, walks and rescales, RF's averaging,
+    around the gbdt iteration ``TimedIters`` times), the device
+    synchronised at its end.  For DART it also records each iteration's
+    dropped trees and the seconds spent walking trees into the score
+    (``DART._walk_trees``, synchronised)."""
+
+    def __init__(self, cls):
+        self.cls, self.seconds, self.drops, self.walk_s = cls, [], [], []
+
+    def __enter__(self):
+        import torch
+        self._orig = orig = self.cls.train_one_iter
+        self._walk = walk = getattr(self.cls, "_walk_trees", None)
+
+        def timed(eng, *a, **kw):
+            self.walk_s.append(0.0)
+            t0 = time.perf_counter()
+            out = orig(eng, *a, **kw)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            self.drops.append(len(getattr(eng, "last_drop", ())))
+            return out
+
+        def timed_walk(eng, pairs, scale=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            walk(eng, pairs, scale)
+            torch.cuda.synchronize()
+            self.walk_s[-1] += time.perf_counter() - t0
+
+        self.cls.train_one_iter = timed
+        if walk is not None:
+            self.cls._walk_trees = timed_walk
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_one_iter = self._orig
+        if self._walk is not None:
+            self.cls._walk_trees = self._walk
+
+
+class Timed:
+    """Seconds of every call of ``owner.name`` while active (the device
+    synchronised before and after each)."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.seconds = owner, name, []
+
+    def __enter__(self):
+        import torch
+        self._orig = orig = getattr(self.owner, self.name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self._orig)
+
+
+# the checkpoint arm's second run: its bagging keys and feature-fraction
+# draws must carry across the resume
+CHECKPOINT_ARMS = {"plain": {},
+                   "bagged": {"bagging_fraction": 0.8, "bagging_freq": 1,
+                              "feature_fraction": 0.8}}
+
+
+def checkpoint_arm(params, ds, iters=10, freq=5):
+    """Checkpoint and resume on phase train's 1M-row Dataset, fused under
+    ``stream``: for each of ``CHECKPOINT_ARMS``, ``iters`` iterations with a
+    snapshot every ``freq``, then a run resumed from the first snapshot
+    whose model text must equal the uninterrupted run's byte for byte on
+    the card; the seconds to write a checkpoint, and to resume from one
+    (validate and load, the trees loaded without the score walk, the state
+    restored)."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import basic
+    from lightgbm_torch.models.gbdt import GBDT
+    from lightgbm_torch.robustness import checkpoint as ck
+
+    out = {}
+    for name, extra in CHECKPOINT_ARMS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            p = {**params, **extra, "snapshot_freq": freq,
+                 "output_model": str(Path(tmp) / "model.txt")}
+            with Timed(basic.Booster, "checkpoint") as write:
+                t0 = time.perf_counter()
+                full = lt.train(p, ds, iters)
+                torch.cuda.synchronize()
+                full_s = time.perf_counter() - t0
+            snap = ck.snapshot_path(p["output_model"], freq)
+            with Timed(ck, "load_checkpoint") as load, \
+                    Timed(GBDT, "load_init_model") as seed, \
+                    Timed(ck, "restore_state") as restore:
+                t0 = time.perf_counter()
+                resumed = lt.train(p, ds, iters, resume_from=snap)
+                torch.cuda.synchronize()
+                resumed_s = time.perf_counter() - t0
+            state_bytes = Path(snap + ck.STATE_SUFFIX).stat().st_size
+            model_bytes = Path(snap).stat().st_size
+        if not (full.engine._fused and resumed.engine._fused
+                and full.num_trees() == iters):
+            raise RuntimeError(f"checkpoint {name}: fused "
+                               f"{full.engine._fused} / "
+                               f"{resumed.engine._fused}, "
+                               f"{full.num_trees()} trees")
+        if resumed.model_to_string() != full.model_to_string():
+            raise RuntimeError(f"checkpoint {name}: the resumed model "
+                               "differs from the uninterrupted one")
+        out[name] = {
+            "iterations": iters, "snapshot_freq": freq,
+            "resumed_from_iteration": freq, "text_identical": True,
+            "train_s": full_s, "resumed_train_s": resumed_s,
+            "checkpoint_write_s": write.seconds,
+            "resume_s": load.seconds[0] + seed.seconds[0]
+            + restore.seconds[0],
+            "resume_breakdown_s": {"validate_and_load": load.seconds[0],
+                                   "load_trees": seed.seconds[0],
+                                   "restore_state": restore.seconds[0]},
+            "state_bytes": state_bytes, "model_bytes": model_bytes}
+    return out
+
+
+def boosting_arm(kind, params, ds, Xs, ys, iters, timed_tree, gate,
+                 held_out=250_000):
+    """DART (``drop_rate`` 0.1, ``skip_drop`` 0.5) or RF (bagging 0.7
+    every iteration) on phase train's 1M-row Dataset: ``iters`` trees with
+    the kernel counts read around them (K2 launched, K4 once a tree), the
+    held-out AUC on ``held_out`` rows above ``gate``, one tree's K2, K3 and
+    K4 launches replayed bit-equal, s a tree (whole iterations: DART's
+    drops and rescales, RF's averaging); DART's dropped trees an iteration
+    and the share of the iteration spent walking them."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels
+    from lightgbm_torch.models.gbdt import DART, RF
+    from lightgbm_torch.utils.timer import host_reads
+
+    cls, extra = {"dart": (DART, {"boosting": "dart", "drop_rate": 0.1,
+                                  "skip_drop": 0.5}),
+                  "rf": (RF, {"boosting": "rf", "bagging_fraction": 0.7,
+                              "bagging_freq": 1})}[kind]
+    p = {**params, **extra}
+    kernels.reset_launch_counts()
+    r0 = host_reads()
+    with OuterIters(cls) as outer, \
+            TimedIters(capture_at=timed_tree) as timed:
+        t0 = time.perf_counter()
+        bst = lt.train(p, ds, iters)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    reads = host_reads() - r0
+    launches = kernels.launch_counts()
+    eng = bst.engine
+    if not isinstance(eng, cls) or eng._fused != (kind == "dart"):
+        raise RuntimeError(f"{kind}: engine {type(eng).__name__}, fused "
+                           f"{eng._fused}")
+    held_auc, predict_s, replayed, err = extra_arm_checks(
+        kind, bst, timed, launches, iters, Xs[:held_out], ys[:held_out],
+        gate)
+    after_first = outer.seconds[1:] or outer.seconds
+    line = {"iterations": iters, "train_s": train_s,
+            "tree_s": outer.seconds,
+            "s_per_tree": statistics.median(after_first),
+            "k2_launches": launches["route_and_hist"],
+            "k4_launches": launches["leaf_gather"],
+            "k3_launches": launches["route_replay"],
+            "k2_launches_per_tree": launches["route_and_hist"] / iters,
+            "launches": launches, "host_reads_per_tree": reads / iters,
+            "held_out_auc": held_auc, "held_out_rows": min(held_out,
+                                                           len(ys)),
+            "predict_s": predict_s,
+            "leaves_per_tree": [t.num_leaves for t in eng.models],
+            "replayed_launches_timed_tree": replayed,
+            "replay_max_abs_err": err}
+    if kind == "dart":
+        shares = [w / t for w, t in zip(outer.walk_s, outer.seconds)]
+        line.update({"dropped_trees_per_iteration": outer.drops,
+                     "dropped_trees_mean": statistics.mean(outer.drops),
+                     "walk_s": outer.walk_s, "walk_share": shares,
+                     "walk_share_median": statistics.median(
+                         shares[1:] or shares),
+                     "shrinkage_per_tree": [t.shrinkage
+                                            for t in eng.models]})
+    return line, err
+
+
+def refit_arm(bst, ds, iters, seed=7, rows=1_000_000):
+    """``refit_leaf_values`` of phase train's model (its first ``iters``
+    iterations) on ``rows`` fresh rows
+    (binned on the card with ``reference=`` the training Dataset): one K3
+    launch a numeric tree, counted around the refit; every launch held
+    against ``route_replay_plain`` bit for bit; the refitted model text
+    equal to the refit run with the plain version; K3 timed on the deepest
+    tree's launch beside its plain version and bound; the refit's seconds
+    and the share of them outside the leaf assignment (the host's
+    gradients and float64 sums).  Returns the line and K3's ``refit``
+    entry for the kernels line."""
+    import torch
+    import lightgbm_torch as lt
+    from lightgbm_torch import kernels, refit
+    from lightgbm_torch.kernels import route_replay as rr
+
+    Xf, yf = make_higgs_like(rows, 28, seed + 101)
+    t0 = time.perf_counter()
+    fresh = lt.Dataset(Xf, label=yf, reference=ds).construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    text = bst.model_to_string(num_iteration=iters)
+    calls = []
+    route = refit.route_replay
+
+    def recorded(bins_T, tabs):
+        out = route(bins_T, tabs)
+        calls.append((bins_T, tabs.clone(), out.clone()))
+        return out
+
+    card = lt.Booster(model_str=text)
+    kernels.reset_launch_counts()
+    refit.route_replay = recorded
+    try:
+        with Timed(refit, "device_leaf_ids") as ids:
+            t0 = time.perf_counter()
+            report = refit.refit_leaf_values(card, fresh, decay_rate=0.9)
+            refit_s = time.perf_counter() - t0
+    finally:
+        refit.route_replay = route
+    launches = kernels.launch_counts()
+    n_trees = len(card._all_trees())
+    if not (launches["route_replay"] == report["route_replay_passes"]
+            == len(calls) == n_trees):
+        raise RuntimeError(f"refit: {report} with launches {launches}")
+    err = 0.0
+    for bins_T, tabs, out in calls:
+        want = rr.route_replay_plain(bins_T, tabs)
+        diff = max_abs_diff(out, want)
+        err = max(err, diff)
+        if not torch.equal(out, want):
+            raise RuntimeError(f"refit: route_replay differs from its plain "
+                               f"version (max abs {diff})")
+    plain = lt.Booster(model_str=text)
+    refit.route_replay = rr.route_replay_plain
+    try:
+        refit.refit_leaf_values(plain, fresh, decay_rate=0.9)
+    finally:
+        refit.route_replay = route
+    refitted = card.model_to_string()
+    if plain.model_to_string() != refitted or refitted == text:
+        raise RuntimeError("refit: the card's refitted model differs from "
+                           "the plain version's, or nothing changed")
+    bins_T, tabs, _ = max(calls, key=lambda c: c[1].shape[0])
+    k3_ms = device_ms(lambda: rr.route_replay_cuda(bins_T, tabs))
+    k3_plain = cuda_ms(lambda: rr.route_replay_plain(bins_T, tabs), reps=1,
+                       warmup=0)
+    k3_bnd = bound(*k3_work(bins_T, tabs))
+    leaf_s = ids.seconds[0]
+    line = {"rows": rows, "trees": n_trees, "construct_s": construct_s,
+            "refit_s": refit_s, "leaf_assignment_s": leaf_s,
+            "host_sums_share": (refit_s - leaf_s) / refit_s,
+            "report": report, "k3_launches": launches["route_replay"],
+            "k3_rounds_timed": int(tabs.shape[0]),
+            "k3_leaves_padded": int(tabs.shape[1]),
+            "k3_ms": k3_ms, "k3_plain_ms": k3_plain,
+            "k3_bound_ms": k3_bnd[0], "plain_text_identical": True}
+    entry = {"launches": launches["route_replay"], "max_abs_err": err,
+             "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bnd[0],
+             "bound_by": k3_bnd[1], "library_ms": None,
+             "rows": rows, "rounds": int(tabs.shape[0])}
+    return line, entry
 
 
 # --------------------------------------------------------------------------
@@ -8219,7 +8554,7 @@ def main(argv=None) -> int:
         quant_small_err = phase_train_quantized_small(args.seed)
         k1, binner, ds, Xs, ys, full_bst = phase_full(
             args.seed, args.rows, args.trees, args.leaves, tmp, smi)
-        k2, k4 = phase_train(ds, Xs, ys, args.train_iters, smi)
+        (k2, k4), k3_refit = phase_train(ds, Xs, ys, args.train_iters, smi)
         t0 = time.perf_counter()
         shap_built = shap_build()
         emit({"phase": "build_tree_shap", "waited_s": time.perf_counter() - t0,
@@ -8231,6 +8566,8 @@ def main(argv=None) -> int:
         del full_bst
         k3, sampled_err = phase_train_sampled(ds, Xs, ys, smi,
                                               args.sampled_iters)
+        # K3's second caller: the refit of phase train's model
+        k3["refit"] = k3_refit
         k567, backends_err = phase_train_backends(
             args.seed, args.rows, ds, Xs, ys, smi, args.backend_iters)
         k2i, quant_err = phase_train_quantized(ds, Xs, ys, smi,
@@ -8292,6 +8629,7 @@ def main(argv=None) -> int:
                 + [e.get(k["name"] + "_wide", 0.0)
                    for e in (adv_err, k1_adv_err)])
             k["wide"] = w
+    emit({"phase": "seconds", "per_phase_s": phase_seconds()})
     emit({"kernels": kernel_lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1110,6 +1110,33 @@ class Booster:
         return save_model_string(self, num_iteration, start_iteration,
                                  importance_type)
 
+    def checkpoint(self, output_model: str, iteration: Optional[int] = None,
+                   keep: int = -1) -> str:
+        """Write a crash-consistent checkpoint that ``train(...,
+        resume_from=...)`` resumes: the model text, the engine state (the
+        score, the RNG streams, the objective's state) and a sealed JSON
+        manifest, each through a tmp file and ``os.replace``, pruned to the
+        ``keep`` newest (reference: lightgbm_tpu/basic.py:1718-1733).  A
+        snapshot that ``serve_fleet_dir``'s promotion pointer names is
+        never pruned.  Returns the snapshot path."""
+        from .robustness.checkpoint import write_checkpoint
+        it = (int(iteration) if iteration is not None
+              else self.current_iteration())
+        fleet_dir = str(self.params.get("serve_fleet_dir", "") or "")
+        return write_checkpoint(self, str(output_model), it, keep=keep,
+                                fleet_dir=fleet_dir)
+
+    def refit(self, data, label, decay_rate: float = 0.9,
+              **kwargs) -> "Booster":
+        """A new Booster with this model's trees and leaf values refitted
+        on ``data`` and ``label``: each leaf becomes ``decay_rate`` times
+        its value plus ``1 - decay_rate`` times the Newton step of the new
+        rows that reach it (reference: Booster.refit; lightgbm_tpu/basic.py
+        :1966-1968).  The host path: ``refit.refit_leaf_values`` does the
+        same on a Dataset through K3."""
+        from .model_io import refit_model
+        return refit_model(self, data, label, decay_rate, **kwargs)
+
     def dump_model(self, num_iteration: Optional[int] = None,
                    start_iteration: int = 0,
                    importance_type: str = "split") -> Dict:

@@ -395,6 +395,28 @@ class Config:
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
 
+    # DART (models/gbdt.DART): the share of the trees dropped an iteration
+    # (each with that chance under uniform_drop, else that many drawn), at
+    # most max_drop of them, none with chance skip_drop, the xgboost
+    # normalisation, and the seed of the drop draws
+    drop_rate: float = 0.1
+    max_drop: int = 50
+    skip_drop: float = 0.5
+    xgboost_dart_mode: bool = False
+    uniform_drop: bool = False
+    drop_seed: int = 4
+
+    # Leaf refit (refit.py, Booster.refit): a refitted leaf is decay times
+    # its old value plus (1 - decay) times the new data's
+    refit_decay_rate: float = 0.9
+
+    # Checkpoints (robustness/checkpoint.py): one every snapshot_freq
+    # iterations beside output_model, the snapshot_keep newest kept (-1:
+    # all), and the snapshot a run resumes from
+    snapshot_freq: int = -1
+    snapshot_keep: int = -1
+    resume_from: str = ""
+
     # Categorical splits (ops/split.py): a category bin takes part only
     # with min_data_per_group rows; features of at most max_cat_to_onehot
     # bins split one category against the rest, wider ones a subset of at
@@ -585,6 +607,14 @@ class Config:
                     "GOSS (data_sample_strategy=goss) cannot be combined "
                     "with bagging; set bagging_freq=0 (reference: "
                     "Config::CheckParamConflict)")
+        if self.boosting == "rf":
+            if not (self.bagging_freq > 0
+                    and 0.0 < self.bagging_fraction < 1.0):
+                # rf requires bagging (reference: config.cpp
+                # CheckParamConflict; lightgbm_tpu/config.py:1033-1038)
+                self.bagging_freq = max(self.bagging_freq, 1)
+                if not (0.0 < self.bagging_fraction < 1.0):
+                    self.bagging_fraction = 0.9
 
 
 # vector-valued params that conf files pass as comma-separated strings

@@ -10,9 +10,11 @@ After each iteration the validation sets are evaluated (their metrics and
 ``feval``) and the callbacks run; early stopping (``early_stopping_round``
 or the ``early_stopping`` callback) ends the loop and sets
 ``best_iteration`` and ``best_score``.  A loop that runs to its end drops
-trailing no-op trees, as the reference does.  ``cv`` trains a Booster a
-fold on ``Dataset.subset`` of the rows (``CVBooster``).  Checkpoint resume
-(``resume_from``) is not ported yet and raises.
+trailing no-op trees, as the reference does.  With ``snapshot_freq`` a
+checkpoint (robustness/checkpoint.py) is written beside ``output_model``
+every that many iterations, and ``resume_from`` continues a run from one,
+byte-identically to a run that was never interrupted.  ``cv`` trains a
+Booster a fold on ``Dataset.subset`` of the rows (``CVBooster``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from .basic import Booster, Dataset
 from .callback import CallbackEnv, EarlyStopException
 from .config import resolve_aliases
 from .robustness.checkpoint import atomic_write_text
-from .utils.log import LightGBMError, log_info
+from .utils.log import LightGBMError, log_info, log_warning
 
 
 def train(params: Dict[str, Any], train_set: Dataset,
@@ -39,11 +41,21 @@ def train(params: Dict[str, Any], train_set: Dataset,
           init_model: Optional[Union[str, Path, Booster]] = None,
           keep_training_booster: bool = False, callbacks=None,
           resume_from: Optional[str] = None) -> Booster:
-    """Train a booster (reference: engine.py:109)."""
+    """Train a booster (reference: engine.py:109; lightgbm_tpu/engine.py:
+    28-160).
+
+    ``resume_from`` (or the param ``resume_from`` / ``resume``) names a
+    checkpoint written under ``snapshot_freq``: its manifest is validated
+    (checksums, the params' identity, the process count), its trees become
+    the init model without the score walk, the engine state (score, RNG
+    streams, objective state) is restored, and the loop continues from the
+    snapshot's iteration.  Callback state is not checkpointed: an early
+    stopping window restarts at the resume point."""
     params = resolve_aliases(dict(params or {}))
-    if resume_from or params.pop("resume_from", None):
-        raise LightGBMError("resume_from is not yet ported to lightgbm_torch "
-                            "(checkpoints come later)")
+    # popped so the resumed booster's params (and its saved parameter
+    # block) equal the uninterrupted run's
+    resume_from = resume_from or params.pop("resume_from", None) or None
+    params.pop("resume_from", None)
     if "num_iterations" in params:
         num_boost_round = int(params["num_iterations"])
     params["num_iterations"] = num_boost_round
@@ -52,15 +64,40 @@ def train(params: Dict[str, Any], train_set: Dataset,
     first_metric_only = bool(params.get("first_metric_only", False))
     if isinstance(init_model, (str, Path)):
         init_model = Booster(model_file=init_model)
+
+    start_iteration = 0
+    resume_state = None
+    if resume_from:
+        if init_model is not None:
+            raise LightGBMError(
+                "pass either init_model or resume_from, not both (a "
+                "checkpoint already carries its model)")
+        from .robustness.checkpoint import load_checkpoint
+        model_str, manifest, resume_state = load_checkpoint(
+            str(resume_from), params=params)
+        init_model = Booster(model_str=model_str)
+        start_iteration = int(manifest["iteration"])
+        if start_iteration >= num_boost_round:
+            log_warning(
+                f"resume_from checkpoint is at iteration {start_iteration} "
+                f">= num_boost_round={num_boost_round}; nothing to train")
+        log_info(f"resuming from {resume_from} at iteration "
+                 f"{start_iteration}/{num_boost_round}")
+
     booster = Booster(params=params, train_set=train_set)
     if init_model is not None:
-        # trees are deep-copied so the new booster never mutates the caller's
+        # trees are deep-copied so the new booster (DART's rescaling too)
+        # never mutates the caller's
         if init_model._engine is not None:
             trees = copy.deepcopy(list(init_model.engine.models))
         else:
             trees = copy.deepcopy(list(init_model._loaded_trees.trees))
-        booster.engine.load_init_model(trees,
-                                       init_model.num_model_per_iteration())
+        booster.engine.load_init_model(
+            trees, init_model.num_model_per_iteration(),
+            skip_score_rebuild=resume_state is not None)
+    if resume_state is not None:
+        from .robustness.checkpoint import restore_state
+        restore_state(booster, resume_state)
     if valid_sets:
         if valid_names is not None and len(valid_names) != len(valid_sets):
             raise LightGBMError(
@@ -87,13 +124,21 @@ def train(params: Dict[str, Any], train_set: Dataset,
          if not getattr(cb, "before_iteration", False)),
         key=lambda cb: getattr(cb, "order", 0))
 
+    snapshot_freq = int(params.get("snapshot_freq", -1) or -1)
+    snapshot_keep = int(params.get("snapshot_keep", -1) or -1)
+    output_model = str(params.get("output_model", "LightGBM_model.txt"))
+
     evaluation_result_list: List = []
-    for i in range(num_boost_round):
+    for i in range(start_iteration, num_boost_round):
         for cb in callbacks_before:
             cb(CallbackEnv(model=booster, params=params, iteration=i,
                            begin_iteration=0, end_iteration=num_boost_round,
                            evaluation_result_list=[]))
         finished = booster.update()
+        if snapshot_freq > 0 and (i + 1) % snapshot_freq == 0:
+            # a crash-consistent checkpoint, resumable through resume_from
+            # (reference: gbdt.cpp:259-263 Train snapshots)
+            booster.checkpoint(output_model, i + 1, keep=snapshot_keep)
         evaluation_result_list = []
         if booster.engine.valid_sets:
             evaluation_result_list.extend(booster.eval_valid(feval))

@@ -500,3 +500,56 @@ def dump_model_dict(booster, num_iteration: Optional[int] = None,
     out["feature_importances"] = {fnames[i]: float(v)
                                   for i, v in enumerate(imp) if v > 0}
     return out
+
+
+def refit_model(booster, data, label, decay_rate: float = 0.9, **kwargs):
+    """Refit leaf values on new data (reference: GBDT::RefitTree,
+    gbdt.cpp; lightgbm_tpu/model_io.py:514-570), on the host: each tree in
+    turn, every row's leaf by the host walk (``Tree.predict_leaf_raw``),
+    the objective's gradients at the score of the trees refitted so far
+    (the port's objectives on CPU tensors), per-leaf sums in float64 row
+    order (``np.bincount``), and new = decay * old + (1 - decay) *
+    (-sum_g / (sum_h + lambda_l2)) * shrinkage where a leaf holds rows.
+    Returns a new Booster; this one is unchanged."""
+    import copy as _copy
+
+    import torch
+
+    from .basic import Booster
+    from .config import Config
+    from .objectives import create_objective
+    X = np.asarray(data, np.float64)
+    y = np.asarray(label, np.float64)
+    k = booster.num_model_per_iteration()
+    out = Booster(model_str=booster.model_to_string())
+    lt = out._loaded_trees
+    n = X.shape[0]
+    score = np.zeros((n, k), np.float64)
+    cfg = booster.config if booster._engine is not None else Config()
+    obj_name = _objective_string(booster).split(" ")[0]
+    cfg2 = _copy.copy(cfg)
+    cfg2.objective = obj_name if obj_name else "regression"
+    try:
+        obj = create_objective(cfg2)
+        obj.init(y, None, n=n)
+    except Exception:
+        obj = None
+    for i, t in enumerate(lt.trees):
+        kk = i % k
+        leaf = t.predict_leaf_raw(X)
+        if obj is not None:
+            g, h = obj.get_gradients(torch.from_numpy(
+                (score if k > 1 else score[:, 0]).astype(np.float32)))
+            g, h = g.numpy(), h.numpy()
+            if k > 1:
+                g, h = g[:, kk], h[:, kk]
+            sum_g = np.bincount(leaf, weights=g, minlength=t.num_leaves)
+            sum_h = np.bincount(leaf, weights=h, minlength=t.num_leaves)
+            new_vals = (-sum_g / (sum_h + cfg2.lambda_l2 + 1e-15)
+                        * t.shrinkage)
+            has_data = np.bincount(leaf, minlength=t.num_leaves) > 0
+            t.leaf_value = np.where(
+                has_data, decay_rate * t.leaf_value
+                + (1 - decay_rate) * new_vals, t.leaf_value)
+        score[:, kk] += t.leaf_value[leaf]
+    return out

@@ -83,6 +83,17 @@ class ObjectiveFunction:
         raise LightGBMError(f"objective {self.name!r} does not train in "
                             "lightgbm_torch yet")
 
+    def state_attrs(self) -> Tuple[str, ...]:
+        """Attributes that change from one iteration to the next and that a
+        checkpoint carries (reference: objectives.py:85); none here."""
+        return ()
+
+    def set_state_attr(self, name: str, value: np.ndarray,
+                       device: torch.device) -> None:
+        """A checkpoint's value of the state attribute ``name``, on
+        ``device``."""
+        setattr(self, name, torch.as_tensor(value).to(device))
+
     def boost_from_score(self) -> float:
         return 0.0
 

@@ -371,6 +371,17 @@ class LambdarankNDCG(_RankingObjective):
                                           dtype=torch.float32, device=device)
         return self._on_device[key]
 
+    def state_attrs(self):
+        """The position biases, updated every iteration (reference:
+        ranking.py:272-273)."""
+        return ("pos_biases",) if self._positions is not None else ()
+
+    def set_state_attr(self, name, value, device):
+        """Restored biases written into the tensor the fused head graph
+        updates in place, allocated first if no iteration ran yet."""
+        self._position_tensors(device)
+        getattr(self, name).copy_(torch.as_tensor(value))
+
     def get_gradients(self, score):
         c = self.config
         n = score.shape[0]

@@ -638,10 +638,8 @@ def test_train_without_device_type_raises_without_gpu(monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     {"hist_backend": "onehot"},
-    {"boosting": "rf"},
     {"tree_learner": "data"},
     {"hist_backend": "segsum"},
-    {"boosting": "dart"},
     {"tree_learner": "voting"},
     {"objective": "multiclass", "num_class": 3, "metric": "auc_mu",
      "auc_mu_weights": [0, 1, 2, 1, 0, 1, 2, 1, 0]},
@@ -668,8 +666,6 @@ def test_unset_auc_mu_weights_train(weights):
 def test_unported_inputs_raise():
     X, y = _reg_data(300)
     ds = lt.Dataset(X, label=y, params=CPU)
-    with pytest.raises(lt.LightGBMError, match="not yet ported"):
-        lt.train(_REG, ds, 2, resume_from="x")
     # cv is ported (tests/test_torch_cv.py): two rounds of five folds
     res = lt.cv(_REG, ds, 2)
     assert len(res["valid l2-mean"]) == len(res["valid l2-stdv"]) == 2
